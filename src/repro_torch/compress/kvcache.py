@@ -1,0 +1,227 @@
+"""Paged KV-cache memory model: the host-side block pool, row release and
+the cache report.
+
+Layout (see ``models/transformer.py``): arena content leaves are
+(L, n_blocks, block_size, ...), one pool of blocks shared by every batch
+row; ``block_tables`` (B, W) int32 names each row's physical blocks, with
+the out-of-range sentinel ``n_blocks`` in unassigned entries (writes
+through it are dropped, reads through it clamp and are masked).  The
+:class:`BlockPool` is host state; block ids reach the device only inside
+``block_tables``.
+
+Caches are plain dicts, so the leaf name is the tag: content leaves
+(K/V, posit patterns or floats) are listed in ``CONTENT_LEAVES`` and
+bookkeeping in ``META_LEAVES``; unknown leaves raise instead of being
+guessed from their dtype.
+"""
+from __future__ import annotations
+
+import torch
+
+# Time-axis / row-state content, and bookkeeping (the reference's schema).
+_TIME_LEAVES = frozenset(
+    {"k", "v", "c_kv", "k_rope", "k_swa", "v_swa", "k_glb", "v_glb"})
+CONTENT_LEAVES = _TIME_LEAVES | frozenset(
+    {"ssm", "ck", "cv", "wkv", "tm_x", "cm_x"})
+META_LEAVES = frozenset(
+    {"len", "lens", "max_len", "length", "block_tables"})
+
+
+def _leaf_bytes(key, x):
+    """(actual bytes, f32-equivalent bytes) of one cache leaf."""
+    if key not in CONTENT_LEAVES and key not in META_LEAVES:
+        raise ValueError(
+            f"unknown cache leaf {key!r}: register it in "
+            "kvcache.CONTENT_LEAVES or kvcache.META_LEAVES")
+    if not isinstance(x, torch.Tensor):          # a Python int scalar
+        return 4, 4
+    actual = x.numel() * x.element_size()
+    return actual, (x.numel() * 4 if key in CONTENT_LEAVES else actual)
+
+
+def cache_report(cache, pool=None) -> dict:
+    """Actual vs f32-equivalent bytes and the compression ratio; with a
+    ``pool``, also the physical/logical block counts and their peaks.
+    Content leaves count 4 bytes per element in the f32 baseline,
+    bookkeeping counts as stored (a Python-int ``max_len`` as int32)."""
+    actual = f32 = 0
+    for key, x in cache.items():
+        a, f = _leaf_bytes(key, x)
+        actual += a
+        f32 += f
+    out = {"bytes": actual, "f32_bytes": f32, "ratio": f32 / max(actual, 1)}
+    if pool is not None:
+        out.update(
+            physical_blocks=pool.in_use,
+            logical_blocks=pool.logical_in_use,
+            peak_physical_blocks=pool.peak_in_use,
+            peak_logical_blocks=pool.peak_logical)
+    return out
+
+
+def is_paged(cache) -> bool:
+    return isinstance(cache, dict) and "block_tables" in cache
+
+
+class BlockSanitizerError(ValueError):
+    """Arena-sanitizer violation: double free, use-after-free, a write
+    into a shared (refcount > 1) block that skipped copy-on-write, or a
+    wild block id."""
+
+
+class BlockPool:
+    """Host-side refcounted allocator over ``n_blocks`` arena block ids.
+
+    ``alloc(n)`` hands out ``n`` physically free blocks at refcount 1
+    (lowest ids first); ``share(ids)`` increments refcounts;
+    ``free(ids)``/``release(ids)`` decrement and reclaim at zero, and
+    dropping a reference that is not held raises.  ``in_use`` counts
+    physical blocks, ``logical_in_use`` references; ``peak_*`` are their
+    high-water marks.
+
+    ``sanitize=True`` diagnoses misuse of freed ids as
+    :class:`BlockSanitizerError` (use-after-free vs double free) and
+    arms the ``check_write``/``check_read`` gates.
+    """
+
+    def __init__(self, n_blocks: int, *, sanitize: bool = False):
+        if n_blocks < 1:
+            raise ValueError(f"n_blocks must be >= 1, got {n_blocks}")
+        self.n_blocks = int(n_blocks)
+        self._free = list(range(self.n_blocks - 1, -1, -1))  # pop() -> asc
+        self._ref: dict = {}            # block id -> refcount (>= 1)
+        self.peak_in_use = 0
+        self.peak_logical = 0
+        self.sanitize = bool(sanitize)
+        self._freed: set = set()        # freed and not yet reallocated
+        self.n_sanitizer_checks = 0
+
+    @property
+    def n_free(self) -> int:
+        return len(self._free)
+
+    @property
+    def in_use(self) -> int:
+        return len(self._ref)
+
+    @property
+    def logical_in_use(self) -> int:
+        return sum(self._ref.values())
+
+    def refcount(self, block_id: int) -> int:
+        return self._ref.get(int(block_id), 0)
+
+    def _note_peaks(self):
+        self.peak_in_use = max(self.peak_in_use, self.in_use)
+        self.peak_logical = max(self.peak_logical, self.logical_in_use)
+
+    def alloc(self, n: int) -> list:
+        """Take ``n`` physically free blocks, refcount 1 each."""
+        if n < 0:
+            raise ValueError(f"cannot allocate {n} blocks")
+        if n > len(self._free):
+            raise MemoryError(
+                f"BlockPool exhausted: {n} blocks requested, "
+                f"{len(self._free)} free of {self.n_blocks}")
+        ids = [self._free.pop() for _ in range(n)]
+        for i in ids:
+            self._ref[i] = 1
+            self._freed.discard(i)
+        self._note_peaks()
+        return ids
+
+    def share(self, ids) -> None:
+        """Increment refcounts: borrow already-resident blocks."""
+        ids = [int(i) for i in ids]
+        for i in ids:
+            if i not in self._ref:
+                if self.sanitize and i in self._freed:
+                    raise BlockSanitizerError(
+                        f"use-after-free: BlockPool.share of block {i}, "
+                        "which is not allocated (freed earlier and not "
+                        "reallocated)")
+                raise ValueError(
+                    f"BlockPool.share: block {i} is not allocated; only "
+                    "resident blocks can be shared")
+        for i in ids:
+            self._ref[i] += 1
+        self._note_peaks()
+
+    def free(self, ids) -> list:
+        """Drop one reference per id; returns the ids physically
+        reclaimed by this call (refcount reached zero)."""
+        ids = [int(i) for i in ids]
+        for i in ids:
+            if i not in self._ref:
+                if self.sanitize and i in self._freed:
+                    raise BlockSanitizerError(
+                        f"double free: block {i} is not allocated "
+                        "(already freed and not reallocated)")
+                raise ValueError(
+                    f"BlockPool.free: block {i} is not allocated "
+                    "(double free or foreign id)")
+        reclaimed = []
+        for i in ids:
+            self._ref[i] -= 1
+            if self._ref[i] == 0:
+                del self._ref[i]
+                self._free.append(i)
+                self._freed.add(i)
+                reclaimed.append(i)
+        return reclaimed
+
+    release = free
+
+    def allocated_ids(self) -> list:
+        return sorted(self._ref)
+
+    def check_write(self, ids) -> None:
+        """Sanitizer gate for an imminent arena write into ``ids``:
+        raises on an unallocated block or one with refcount > 1."""
+        self.n_sanitizer_checks += 1
+        for i in (int(i) for i in ids):
+            rc = self._ref.get(i)
+            if rc is None:
+                kind = ("use-after-free" if i in self._freed
+                        else "unallocated (wild)")
+                raise BlockSanitizerError(
+                    f"{kind} write: block {i} is not allocated")
+            if rc > 1:
+                raise BlockSanitizerError(
+                    f"COW violation: write into block {i} with refcount "
+                    f"{rc} — shared blocks must be copied "
+                    "(copy-on-write) before the first write")
+
+    def check_read(self, ids) -> None:
+        """Sanitizer gate for reads: every id must be resident."""
+        self.n_sanitizer_checks += 1
+        for i in (int(i) for i in ids):
+            if i not in self._ref:
+                kind = ("use-after-free" if i in self._freed
+                        else "unallocated (wild)")
+                raise BlockSanitizerError(
+                    f"{kind} read: block {i} is not allocated")
+
+
+def paged_release_rows(cache, rows):
+    """Retire paged rows: ``lens -> 0`` and their table rows reset to the
+    sentinel.  Arena content is not wiped (freed blocks are overwritten on
+    reuse and masked until then); the caller frees the blocks on the
+    host."""
+    if not is_paged(cache):
+        raise ValueError("paged_release_rows: cache is not paged")
+    tables = cache["block_tables"]
+    rows = torch.as_tensor(rows, device=tables.device).to(torch.bool)
+    sentinel = torch.full_like(tables, _paged_sentinel(cache))
+    return dict(
+        cache,
+        block_tables=torch.where(rows[:, None], sentinel, tables),
+        lens=torch.where(rows, 0, cache["lens"]).to(torch.int32))
+
+
+def _paged_sentinel(cache) -> int:
+    """The invalid block id (== n_blocks, from any arena leaf's shape)."""
+    for key in _TIME_LEAVES:
+        if key in cache:
+            return int(cache[key].shape[1])
+    raise ValueError("paged cache has no arena content leaves")

@@ -1,0 +1,106 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``csrc/*.cu`` source compiles with ``nvcc`` into its own shared
+library with a plain C interface (``build/<name>-<hash>.so`` at the repo
+root), loaded through ``ctypes``.  The build runs at first use, from the
+checkout's sources only; all sources compile in parallel, one ``nvcc``
+each.  The file name carries a hash of the sources and flags, so an
+edited source rebuilds and an unchanged one is reused.  A failed build
+raises with the compiler's output.
+
+Nothing here runs at import: the CPU tests import every module of the
+port on hosts without ``nvcc``.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parents[1] / "build"
+SOURCES = ("posit_codec", "paged_attn")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+_libs: dict = {}
+
+
+def nvcc_path() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if cand and (Path(cand) / "bin" / "nvcc").exists():
+            return str(Path(cand) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (looked in $CUDA_HOME/bin, "
+                           "/usr/local/cuda/bin and PATH)")
+    return found
+
+
+def _lib_path(name: str) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC.glob("*.cu*")):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build_all() -> dict:
+    """Compile every source that has no current library; returns
+    ``{name: path}``.  Raises ``RuntimeError`` if any ``nvcc`` fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    paths = {n: _lib_path(n) for n in SOURCES}
+    todo = [n for n in SOURCES if not paths[n].exists()]
+    if todo:
+        nvcc = nvcc_path()
+        procs = {}
+        for n in todo:
+            tmp = paths[n].with_suffix(f".{os.getpid()}.tmp")
+            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+                   str(CSRC / f"{n}.cu")]
+            procs[n] = (tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True))
+        failed = []
+        for n, (tmp, proc) in procs.items():
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"nvcc {n}.cu failed ({proc.returncode}):\n{out}")
+            else:
+                os.replace(tmp, paths[n])
+        if failed:
+            raise RuntimeError("\n".join(failed))
+    return paths
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of source ``name`` (builds all on first use)."""
+    if name not in _libs:
+        paths = build_all()
+        lib = ctypes.CDLL(str(paths[name]))
+        _declare(name, lib)
+        _libs[name] = lib
+    return _libs[name]
+
+
+def _declare(name: str, lib: ctypes.CDLL) -> None:
+    P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    if name == "posit_codec":
+        for fn in (lib.posit_quantize, lib.posit_dequantize):
+            fn.argtypes = [I, P, P, LL, P]
+            fn.restype = I
+    elif name == "paged_attn":
+        lib.paged_decode_attention.argtypes = [I] + [P] * 7 + [I] * 9 + [P]
+        lib.paged_decode_attention.restype = I
+        lib.paged_attn_smem_bytes.argtypes = [I, I, I, I]
+        lib.paged_attn_smem_bytes.restype = LL
+
+
+def check(rc: int, what: str) -> None:
+    """Raise when a launch returned a CUDA error code."""
+    if rc != 0:
+        raise RuntimeError(f"{what}: launch returned cudaError_t {rc}")

@@ -1,0 +1,174 @@
+"""Fused paged-decode attention (CUDA), posit K/V decoded in-kernel.
+
+Replaces ``repro/kernels/posit_paged_attn.py`` ``paged_decode_attention``
+(the Pallas TPU kernel ``_paged_attn_kernel``) on the dense/GQA and
+sliding-window lanes.  The TPU kernel walks each row's block table as a
+sequential grid axis with the online-softmax state in VMEM; the CUDA
+kernel (``csrc/paged_attn.cu``) runs one CTA per (row, KV head) and
+walks the table in a loop, skipping sentinel blocks without loading
+them, decoding each live block's posit patterns into shared memory and
+folding it into running ``m``/``l``/``acc`` held in f32.
+
+Bound on the H100: memory -- the K/V patterns of each row's live
+blocks, read once (:func:`paged_decode_kv_bytes` per layer).  This
+version is the simple one: fp32 FMAs, no tensor cores, one CTA per
+(row, KV head).
+
+Masking contract (shared with ``models/layers.py::paged_apos``): a slot
+counts iff ``0 <= apos < lens + 1``, it is inside the window when one is
+set, and its table entry is not the sentinel ``nb``.  Invalid slots get
+``p = 0``, so a row with no valid slot returns exact zeros.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.core.convert import posit_to_f32
+from repro_torch.core.types import PositConfig, index_rows
+
+from . import _build
+
+_NEG = -1e30
+
+launches = {"paged_decode_attention": 0}
+
+_KV_KIND = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _decode_block(x: torch.Tensor, pcfg: Optional[PositConfig]):
+    if pcfg is None:
+        return x.to(torch.float32)
+    return posit_to_f32(x, pcfg)
+
+
+def paged_decode_attention_plain(q, k_arena, v_arena, tables, apos, lens, *,
+                                 pcfg: Optional[PositConfig] = None,
+                                 window: int = 0) -> torch.Tensor:
+    """Plain PyTorch version of the kernel: the same table walk and
+    online softmax, vectorized over rows."""
+    b, g, r, d = q.shape
+    nb, bs = k_arena.shape[0], k_arena.shape[1]
+    w = tables.shape[1]
+    dv = v_arena.shape[-1]
+    q = q.to(torch.float32)
+    m = torch.full((b, g, r), _NEG, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, g, r), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, g, r, dv), dtype=torch.float32, device=q.device)
+    cl = (lens.to(torch.int64) + 1)[:, None]
+    apos = apos.reshape(b, w, bs).to(torch.int64)
+    for wi in range(w):
+        tab = tables[:, wi].to(torch.int64)
+        blk = tab.clamp(0, nb - 1)
+        k = _decode_block(index_rows(k_arena, blk), pcfg)   # (B, bs, G, D)
+        v = _decode_block(index_rows(v_arena, blk), pcfg)   # (B, bs, G, Dv)
+        s = torch.einsum("bgrd,btgd->bgrt", q, k)
+        a = apos[:, wi]
+        valid = (a >= 0) & (a < cl)
+        if window:
+            valid &= a >= cl - window
+        valid &= (tab < nb)[:, None]
+        valid = valid[:, None, None, :]
+        s = torch.where(valid, s, _NEG)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.where(valid, torch.exp(s - m_new[..., None]), 0.0)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum("bgrt,btgv->bgrv", p, v)
+        m = m_new
+    return acc / torch.clamp(l, min=1e-30)[..., None]
+
+
+def paged_decode_attention(q, k_arena, v_arena, tables, apos, lens, *,
+                           pcfg: Optional[PositConfig] = None,
+                           window: int = 0) -> torch.Tensor:
+    """Fused paged decode attention.
+
+    q: (B, G, R, D) f32 pre-scaled by ``D**-0.5``; arenas (nb, bs, G, D)
+    and (nb, bs, G, Dv), posit patterns when ``pcfg`` is set, else f32 or
+    bf16; tables (B, W) int32 (sentinel ``nb``); apos (B, W*bs) int32
+    (``-1`` = dead slot); lens (B,) int32.  Returns (B, G, R, Dv) f32.
+    """
+    if q.device.type == "cpu":
+        return paged_decode_attention_plain(
+            q, k_arena, v_arena, tables, apos, lens, pcfg=pcfg, window=window)
+    b, g, r, d = q.shape
+    nb, bs = k_arena.shape[0], k_arena.shape[1]
+    w = tables.shape[1]
+    dv = v_arena.shape[-1]
+    if pcfg is None:
+        kind = _KV_KIND.get(k_arena.dtype)
+    elif (pcfg.nbits, pcfg.es) in ((16, 2), (8, 2)):
+        kind = 2 if pcfg.nbits == 16 else 3
+        if k_arena.dtype != pcfg.storage_dtype:
+            kind = None
+    else:
+        kind = None
+    if kind is None:
+        raise ValueError(f"paged_decode_attention: unsupported KV storage "
+                         f"{k_arena.dtype} for pcfg={pcfg}")
+    expect = {
+        "q": (q, (b, g, r, d), torch.float32),
+        "k_arena": (k_arena, (nb, bs, g, d), k_arena.dtype),
+        "v_arena": (v_arena, (nb, bs, g, dv), k_arena.dtype),
+        "tables": (tables, (b, w), torch.int32),
+        "apos": (apos, (b, w * bs), torch.int32),
+        "lens": (lens, (b,), torch.int32),
+    }
+    for name, (t, shape, dtype) in expect.items():
+        if t.device != q.device or tuple(t.shape) != shape \
+                or t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(
+                f"paged_decode_attention: {name} must be a contiguous "
+                f"{dtype} tensor of shape {shape} on {q.device}, got "
+                f"{t.dtype} {tuple(t.shape)} on {t.device} "
+                f"(contiguous={t.is_contiguous()})")
+    lib = _build.load("paged_attn")
+    smem = lib.paged_attn_smem_bytes(r, d, dv, bs)
+    if smem > 48 * 1024:
+        raise ValueError(f"paged_decode_attention: R={r} D={d} Dv={dv} "
+                         f"bs={bs} needs {smem} B of shared memory > 48 KiB")
+    out = torch.empty((b, g, r, dv), dtype=torch.float32, device=q.device)
+    rc = lib.paged_decode_attention(
+        kind, q.data_ptr(), k_arena.data_ptr(), v_arena.data_ptr(),
+        tables.data_ptr(), apos.data_ptr(), lens.data_ptr(), out.data_ptr(),
+        b, g, r, d, dv, nb, bs, w, int(window),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(rc, "paged_decode_attention")
+    launches["paged_decode_attention"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Analytic decode-bytes ledger
+# ---------------------------------------------------------------------------
+
+_KV_ITEMSIZE = {None: 4, "posit16": 2, "posit8": 1}
+
+
+def paged_decode_kv_bytes(cfg, table_width: int, block_size: int,
+                          kernel: str = "fused") -> int:
+    """Device-memory bytes of KV traffic one decode step moves per batch
+    row, summed over layers.  The fused kernel reads each row's arena
+    blocks once, as stored patterns; the gather path reads the arena,
+    writes and reads the gathered copy, and for posit KV writes and
+    reads the dequantized compute-dtype cache on top.  q/out and the
+    scores are excluded from both sides."""
+    itemsize = _KV_ITEMSIZE[cfg.kv_posit]
+    slots = table_width * block_size
+    if cfg.mla:
+        kv_elems = slots * (cfg.kv_lora_rank + cfg.qk_rope_dim)
+    else:
+        kv_elems = slots * cfg.n_kv_heads * 2 * cfg.head_dim
+    pattern_bytes = kv_elems * itemsize
+    if kernel == "fused":
+        per_layer = pattern_bytes
+    elif kernel == "gather":
+        per_layer = 3 * pattern_bytes
+        if cfg.kv_posit is not None:
+            cbytes = 2 if cfg.compute_dtype == "bfloat16" else 4
+            per_layer += 2 * kv_elems * cbytes
+    else:
+        raise ValueError(f"unknown paged decode kernel {kernel!r}")
+    return per_layer * cfg.n_layers

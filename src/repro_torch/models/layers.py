@@ -1,0 +1,383 @@
+"""Shared neural layers on torch tensors (the serving path's subset).
+
+Conventions follow ``repro/models/layers.py``: params are plain dicts of
+tensors; activations run in ``cfg.compute_dtype`` and every weight is
+cast to the activation dtype at use; attention is the chunked online-
+softmax ``flash_attention`` with its fixed ``attn_chunk_kv`` KV grouping
+(the chunked-prefill identity depends on it).
+
+Paged KV primitives (block arenas + per-row block tables, sentinel
+``n_blocks``, row-local addressing, the sliding-window block ring) keep
+the reference's layout contract.  Where the reference scatters with
+``mode="drop"``, the port computes which writes land first and scatters
+only those; reads through sentinel entries clamp into block ``nb - 1``
+and are masked by ``paged_apos``.  Arena writes are in place.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.types import POSIT8, POSIT16, index_rows, signed_view
+from repro_torch.kernels import posit_codec
+from .config import ModelConfig
+
+_PCFGS = {"posit16": POSIT16, "posit8": POSIT8}
+_NEG = -1e30
+
+
+def pcfg(name: str):
+    return _PCFGS[name]
+
+
+def cdtype(cfg: ModelConfig) -> torch.dtype:
+    return torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
+
+
+def dense(p, x, cfg: ModelConfig):
+    y = x @ p["w"].to(x.dtype)
+    if "b" in p:
+        y = y + p["b"].to(x.dtype)
+    return y
+
+
+def init_dense(gen: torch.Generator, d_in: int, d_out: int, *,
+               dtype=torch.float32, scale=None):
+    scale = (d_in ** -0.5) if scale is None else scale
+    w = torch.randn((d_in, d_out), generator=gen, device=gen.device,
+                    dtype=torch.float32) * scale
+    return {"w": w.to(dtype)}
+
+
+def rms_norm(p, x, cfg: ModelConfig):
+    dt = x.dtype
+    x = x.to(torch.float32)
+    var = torch.mean(x * x, dim=-1, keepdim=True)
+    x = x * torch.rsqrt(var + cfg.norm_eps)
+    w = p["scale"].to(torch.float32)
+    if cfg.norm_plus_one:
+        w = 1.0 + w
+    return (x * w).to(dt)
+
+
+def init_rms_norm(d: int, cfg: ModelConfig, device):
+    init = torch.zeros if cfg.norm_plus_one else torch.ones
+    return {"scale": init((d,), dtype=torch.float32, device=device)}
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope_frequencies(dim: int, theta: float, device=None):
+    exps = torch.arange(0, dim, 2, dtype=torch.float32, device=device) / dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x, positions, theta: float):
+    """x: (..., S, H, D) with D even; positions: (..., S)."""
+    d = x.shape[-1]
+    freqs = rope_frequencies(d, theta, x.device)
+    angles = positions[..., None].to(torch.float32) * freqs
+    cos = torch.cos(angles)[..., None, :]
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x.to(torch.float32).chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Chunked flash attention (online softmax over fixed KV blocks)
+# ---------------------------------------------------------------------------
+
+def _pick_chunk(n: int, target: int) -> int:
+    """Largest divisor of n that is <= target."""
+    c = min(target, n)
+    while n % c:
+        c -= 1
+    return c
+
+
+def flash_attention(q, k, v, *, cfg: ModelConfig, kv_mask, q_positions,
+                    window: int = 0):
+    """Causal attention, q: (B,S,H,D); k,v: (B,T,G,D[v]) grouped-query;
+    returns (B,S,H,Dv).
+
+    ``kv_mask`` (B, T) bool excludes keys per row; ``q_positions`` (B, S)
+    gives each query its absolute position (chunked prefill: every row
+    sits at its own frontier).  KV is padded to a multiple of
+    ``cfg.attn_chunk_kv`` so KV block ``i`` always covers positions
+    ``[i*kc, (i+1)*kc)``: a whole-prompt prefill and a chunked one reduce
+    in the same groups.
+    """
+    b, s_len, h, d = q.shape
+    t_len, g = k.shape[1], k.shape[2]
+    dv = v.shape[-1]
+    r = h // g
+    scale = d ** -0.5
+    qc = _pick_chunk(s_len, cfg.attn_chunk_q)
+    kc = int(cfg.attn_chunk_kv)
+    t_pad = -(-t_len // kc) * kc
+    if t_pad != t_len:
+        pad = t_pad - t_len
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+        kv_mask = F.pad(kv_mask, (0, pad))
+    n_q, n_k = s_len // qc, t_pad // kc
+
+    qg = q.reshape(b, n_q, qc, g, r, d).permute(1, 0, 3, 4, 2, 5) * scale
+    kg = k.reshape(b, n_k, kc, g, d).permute(1, 0, 3, 2, 4)
+    vg = v.reshape(b, n_k, kc, g, dv).permute(1, 0, 3, 2, 4)
+    km = kv_mask.reshape(b, n_k, kc).permute(1, 0, 2)          # (nk,B,kc)
+    q_pos = q_positions.to(torch.int64).reshape(b, n_q, qc).permute(1, 0, 2)
+    k_pos = torch.arange(t_pad, device=q.device).reshape(n_k, kc)
+
+    outs = []
+    for qi in range(n_q):
+        qblk, qp = qg[qi], q_pos[qi]                       # qp: (B, qc)
+        m = torch.full((b, g, r, qc), _NEG, dtype=torch.float32, device=q.device)
+        l = torch.zeros((b, g, r, qc), dtype=torch.float32, device=q.device)
+        acc = torch.zeros((b, g, r, qc, dv), dtype=torch.float32, device=q.device)
+        for ki in range(n_k):
+            kblk, vblk, kp = kg[ki], vg[ki], k_pos[ki]
+            bias = torch.where(qp[:, :, None] >= kp, 0.0, _NEG)     # causal
+            if window:
+                bias = bias + torch.where(qp[:, :, None] - kp < window, 0.0, _NEG)
+            sblk = torch.einsum("bgrqd,bgkd->bgrqk", qblk, kblk).to(torch.float32)
+            sblk = sblk + bias[:, None, None]                # (B,1,1,qc,kc)
+            sblk = torch.where(km[ki][:, None, None, None, :], sblk, _NEG)
+            m_new = torch.maximum(m, sblk.amax(-1))
+            p = torch.exp(sblk - m_new[..., None])
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bgrqk,bgkv->bgrqv", p.to(vblk.dtype), vblk).to(torch.float32)
+            m = m_new
+        outs.append(acc / torch.clamp(l, min=1e-30)[..., None])
+    out = torch.stack(outs)                                 # (nq,B,G,R,qc,Dv)
+    out = out.permute(1, 0, 4, 2, 3, 5).reshape(b, s_len, h, dv)
+    return out.to(q.dtype)
+
+
+def decode_attention(q, k_cache, v_cache, cache_len, *, cfg: ModelConfig,
+                     kv_posit: Optional[str] = None, window: int = 0, apos):
+    """Single-token decode over a gathered cache: q (B,1,H,D); caches
+    (B,T,G,D) possibly posit patterns; ``apos`` (B,T) absolute position
+    of every slot (``-1`` dead); ``cache_len`` (B,) visible length."""
+    b, _, h, d = q.shape
+    g = k_cache.shape[2]
+    r = h // g
+    scale = d ** -0.5
+    ks, vs = k_cache, v_cache
+    if kv_posit is not None:
+        ks = posit_codec.dequantize(ks.contiguous(), pcfg(kv_posit))
+        vs = posit_codec.dequantize(vs.contiguous(), pcfg(kv_posit))
+    ks = ks.to(cdtype(cfg))
+    vs = vs.to(cdtype(cfg))
+
+    qg = (q.reshape(b, g, r, d) * scale).to(cdtype(cfg))
+    # products of compute-dtype operands, accumulated in f32
+    scores = torch.einsum("bgrd,btgd->bgrt", qg.to(torch.float32),
+                          ks.to(torch.float32))
+    cl = cache_len.to(torch.int64)[:, None]
+    apos = apos.to(torch.int64)
+    valid = (apos < cl) & (apos >= 0)
+    if window:
+        valid &= apos >= cl - window
+    valid = valid[:, None, None, :]
+    scores = torch.where(valid, scores, _NEG)
+    m = scores.amax(-1, keepdim=True)
+    # all-masked guard: invalid slots get p = 0, so a row with no valid
+    # slot finalizes to exact zeros instead of a uniform average
+    p = torch.where(valid, torch.exp(scores - m), 0.0)
+    l = p.sum(-1)
+    out = torch.einsum("bgrt,btgv->bgrv", p.to(cdtype(cfg)).to(torch.float32),
+                       vs.to(torch.float32))
+    out = out / torch.clamp(l, min=1e-30)[..., None]
+    return out.reshape(b, 1, h, -1).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Paged KV cache primitives (block arenas + per-row block tables)
+#
+# Arena leaves are (n_blocks, block_size, ...) per layer, (L, n_blocks,
+# block_size, ...) stacked; ``block_tables`` is (B, W) int32 with the
+# sentinel ``n_blocks`` in unassigned entries.  Row b's token p lives in
+# logical block ``p // block_size`` at offset ``p % block_size``.  The
+# dense lane maps logical block i to table slot i; the sliding-window
+# lane maps logical block q to slot ``q % W`` with
+# ``W = ceil(window / block_size) + 1``.
+# ---------------------------------------------------------------------------
+
+def paged_window_blocks(window: int, block_size: int) -> int:
+    """Table width of the sliding-window block ring."""
+    return -(-window // block_size) + 1
+
+
+def paged_is_window_lane(window: int, block_size: int,
+                         table_width: int) -> bool:
+    """A paged cache runs the block ring iff its table width is the
+    window ring's."""
+    return bool(window) and table_width == paged_window_blocks(
+        window, block_size)
+
+
+def paged_positions(frontier, table_width: int, block_size: int, *,
+                    window: int = 0):
+    """(B,) frontier (last-written position) -> (B, W*bs) int32 absolute
+    position of every virtual slot (window lane: slot s holds logical
+    block ``pb - fmod(pb - s, W)``)."""
+    w, bs = table_width, block_size
+    frontier = torch.as_tensor(frontier).to(torch.int32)
+    b = frontier.shape[0]
+    dev = frontier.device
+    offs = torch.arange(bs, dtype=torch.int32, device=dev)
+    if paged_is_window_lane(window, bs, w):
+        pb = torch.div(frontier[:, None], bs, rounding_mode="floor")
+        sblk = torch.arange(w, dtype=torch.int32, device=dev)[None, :]
+        lb = pb - torch.fmod(pb - sblk, w)
+        apos = lb[:, :, None] * bs + offs[None, None, :]
+    else:
+        blk = torch.arange(w, dtype=torch.int32, device=dev)
+        apos = (blk[:, None] * bs + offs[None, :])[None].expand(b, w, bs)
+    return apos.reshape(b, w * bs)
+
+
+def paged_gather(arena, tables):
+    """arena (nb, bs, ...) + tables (B, W) -> (B, W*bs, ...); sentinel
+    entries clamp into block ``nb - 1`` (masked by the caller)."""
+    nb, bs = arena.shape[0], arena.shape[1]
+    b, w = tables.shape
+    g = index_rows(arena, tables.to(torch.int64).clamp(0, nb - 1))
+    return g.reshape((b, w * bs) + tuple(arena.shape[2:]))
+
+
+def paged_apos(tables, lens, block_size: int, n_blocks: int, *,
+               window: int = 0):
+    """Per-slot absolute positions with sentinel-backed slots ``-1``: the
+    one masking contract both paged decode paths consume."""
+    w = tables.shape[1]
+    apos = paged_positions(lens, w, block_size, window=window)
+    live = (tables < n_blocks).repeat_interleave(block_size, dim=1)
+    return torch.where(live, apos, -1).to(torch.int32)
+
+
+def decode_attention_paged(q, k_arena, v_arena, tables, lens, *,
+                           cfg: ModelConfig, kv_posit: Optional[str] = None,
+                           window: int = 0, kernel: str = "gather"):
+    """Paged decode attention off the block tables.
+
+    q: (B, 1, H, D); arenas (n_blocks, bs, G, D[v]); tables (B, W) int32;
+    lens (B,) int32 frontiers (the step's token is already written at
+    ``lens[b]``).  ``kernel="fused"`` runs the CUDA table walk
+    (``kernels/posit_paged_attn.py``; its plain version on the CPU);
+    ``kernel="gather"`` is ``paged_gather`` + :func:`decode_attention`.
+    """
+    from repro_torch.kernels import posit_paged_attn as K
+
+    b, _, h, d = q.shape
+    nb, bs, g = k_arena.shape[0], k_arena.shape[1], k_arena.shape[2]
+    apos = paged_apos(tables, lens, bs, nb, window=window)
+    if kernel == "fused":
+        qg = (q.reshape(b, g, h // g, d) * d ** -0.5).to(torch.float32)
+        out = K.paged_decode_attention(
+            qg.contiguous(), k_arena, v_arena, tables.to(torch.int32).contiguous(),
+            apos.contiguous(), lens.to(torch.int32).contiguous(),
+            pcfg=pcfg(kv_posit) if kv_posit else None, window=window)
+        return out.reshape(b, 1, h, -1).to(q.dtype)
+    if kernel != "gather":
+        raise ValueError(f"unknown paged decode kernel {kernel!r}")
+    return decode_attention(
+        q, paged_gather(k_arena, tables), paged_gather(v_arena, tables),
+        lens + 1, cfg=cfg, kv_posit=kv_posit, window=window, apos=apos)
+
+
+def paged_write_index(tables, pos, ok, *, n_blocks: int, block_size: int,
+                      window: int = 0):
+    """Where each row's one-token write lands: ``(rows, blocks, offsets)``
+    of the writes that are kept.  Rows with ``ok`` False and writes
+    through sentinel entries are dropped, never clamped (one host sync).
+    Shared by every layer and by K and V within a decode step."""
+    w = tables.shape[1]
+    pos = pos.to(torch.int64)
+    blk = torch.div(pos, block_size, rounding_mode="floor")
+    if paged_is_window_lane(window, block_size, w):
+        slot = torch.fmod(blk, w)
+    else:
+        slot = blk
+        ok = ok & (blk < w)
+    phys = tables.to(torch.int64).gather(1, slot.clamp(0, w - 1)[:, None])[:, 0]
+    rows = torch.nonzero(ok & (phys < n_blocks))[:, 0]
+    return rows, phys[rows], torch.fmod(pos, block_size)[rows]
+
+
+def paged_write(arena, upd, index):
+    """Apply a :func:`paged_write_index` to one layer's arena, in place:
+    ``arena[blocks, offsets] = upd[rows]``."""
+    rows, blocks, offs = index
+    signed_view(arena)[blocks, offs] = signed_view(upd)[rows]
+    return arena
+
+
+def paged_cache_update(arena, upd, tables, pos, ok, *, window: int = 0):
+    """Write one new KV vector per row into its block, in place: row b
+    writes ``upd[b]`` at logical position ``pos[b]``; rows with
+    ``ok=False`` and writes through sentinel entries are dropped."""
+    index = paged_write_index(tables, pos, ok, n_blocks=arena.shape[0],
+                              block_size=arena.shape[1], window=window)
+    return paged_write(arena, upd, index)
+
+
+def paged_pack_range(arena, kvs, tables, start, lens, *, window: int = 0):
+    """Write positions ``[start, lens)`` of suffix KV into arena blocks,
+    in place, leaving every other slot untouched.
+
+    arena (L, nb, bs, ...); ``kvs`` (L, B, S, ...) with time index ``t``
+    at absolute position ``start + t``.  On the window lane only the
+    latest ring epoch of each slot is written (the positions the
+    frontier ``lens - 1`` still maps); sentinel entries drop.
+    """
+    nb, bs = arena.shape[1], arena.shape[2]
+    s = kvs.shape[2]
+    w = tables.shape[1]
+    dev = kvs.device
+    lens = lens.to(torch.int64)
+    start = torch.as_tensor(start, device=dev).to(torch.int64)
+    start = start.expand(lens.shape[0]) if start.ndim == 0 else start
+    pos = start[:, None] + torch.arange(s, device=dev)[None, :]   # (B, S)
+    live = pos < lens[:, None]
+    blk = torch.div(pos, bs, rounding_mode="floor")
+    if paged_is_window_lane(window, bs, w):
+        pb = torch.div((lens - 1).clamp(min=0), bs, rounding_mode="floor")
+        live &= blk >= (pb - w + 1)[:, None]
+        slot = torch.fmod(blk, w)
+    else:
+        live &= blk < w
+        slot = blk
+    phys = tables.to(torch.int64).gather(1, slot.clamp(0, w - 1))
+    live &= phys < nb
+    rows, cols = torch.nonzero(live, as_tuple=True)
+    signed_view(arena)[:, phys[rows, cols], torch.fmod(pos[rows, cols], bs)] = \
+        signed_view(kvs)[:, rows, cols]
+    return arena
+
+
+# ---------------------------------------------------------------------------
+# Feed-forward (SwiGLU / GeGLU)
+# ---------------------------------------------------------------------------
+
+def init_mlp(gen: torch.Generator, cfg: ModelConfig, *, dtype=torch.float32):
+    d, f = cfg.d_model, cfg.d_ff
+    return {
+        "wi": init_dense(gen, d, f, dtype=dtype),
+        "wg": init_dense(gen, d, f, dtype=dtype),
+        "wo": init_dense(gen, f, d, dtype=dtype),
+    }
+
+
+def mlp(p, x, cfg: ModelConfig):
+    gate = dense(p["wg"], x, cfg)
+    act = F.gelu(gate, approximate="tanh") if cfg.act == "gelu" else F.silu(gate)
+    return dense(p["wo"], act * dense(p["wi"], x, cfg), cfg)

@@ -1,0 +1,347 @@
+"""Decoder-only transformer LM: the paged serving lane (dense GQA and
+sliding-window attention).
+
+The port of ``repro/models/transformer.py``'s paged entry points:
+``init_params``, ``init_paged_cache``, ``prefill_chunk`` (chunked
+prefill through the paged cache) and ``decode_step`` on a paged cache.
+Layers run in a Python loop over a list of per-layer parameter dicts
+(the reference scans stacked parameters).  Arena leaves stay stacked
+(L, n_blocks, block_size, G, D) and are updated in place; each function
+returns the cache dict with the new ``lens``.  MLA (``cfg.mla``) is not
+ported yet and raises.
+
+KV writes quantize through the CUDA posit codec (``_maybe_quant_kv``)
+and the chunked-prefill arena read dequantizes through it; decode
+attention runs the fused paged kernel or the gather path
+(``cfg.paged_attn_kernel``).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import types as PT
+from repro_torch.device import resolve_device
+from repro_torch.kernels import posit_codec
+from . import layers as L
+from .config import ModelConfig
+
+
+def _require_dense(cfg: ModelConfig):
+    if cfg.mla:
+        raise NotImplementedError(
+            "MLA attention is not ported yet (the dense GQA and "
+            "sliding-window lanes are)")
+    if cfg.is_moe:
+        raise NotImplementedError("MoE feed-forward is not ported yet")
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda"):
+    """Random parameters from a seeded ``torch.Generator`` on ``device``.
+
+    Every 2-D weight and the embedding are stored in the compute dtype
+    (the forward casts them to it anyway); norm scales stay f32.
+    ``params["layers"]`` is a list of per-layer dicts.
+    """
+    _require_dense(cfg)
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(seed))
+    dt = L.cdtype(cfg)
+    d = cfg.d_model
+    layers = []
+    for _ in range(cfg.n_layers):
+        layers.append({
+            "ln1": L.init_rms_norm(d, cfg, dev),
+            "attn": {
+                "wq": L.init_dense(gen, d, cfg.n_heads * cfg.head_dim, dtype=dt),
+                "wk": L.init_dense(gen, d, cfg.n_kv_heads * cfg.head_dim, dtype=dt),
+                "wv": L.init_dense(gen, d, cfg.n_kv_heads * cfg.head_dim, dtype=dt),
+                "wo": L.init_dense(gen, cfg.n_heads * cfg.head_dim, d, dtype=dt),
+            },
+            "ln2": L.init_rms_norm(d, cfg, dev),
+            "mlp": L.init_mlp(gen, cfg, dtype=dt),
+        })
+    embed = torch.randn((cfg.vocab, d), generator=gen, device=dev,
+                        dtype=torch.float32) * 0.02
+    params = {
+        "tok_embed": embed.to(dt),
+        "layers": layers,
+        "final_norm": L.init_rms_norm(d, cfg, dev),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = L.init_dense(gen, d, cfg.vocab, dtype=dt)
+    return params
+
+
+def _embed(params, tokens, cfg: ModelConfig):
+    x = params["tok_embed"][tokens].to(L.cdtype(cfg))
+    if cfg.scale_embed:
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
+    return x
+
+
+def _unembed_weight(params, cfg: ModelConfig):
+    if cfg.tie_embeddings:
+        return params["tok_embed"].T
+    return params["lm_head"]["w"]
+
+
+def _block_mlp(lp, h, cfg: ModelConfig):
+    return h + L.mlp(lp["mlp"], L.rms_norm(lp["ln2"], h, cfg), cfg)
+
+
+# ---------------------------------------------------------------------------
+# Paged cache: block arena + per-row block tables (row-local addressing)
+# ---------------------------------------------------------------------------
+
+def _cache_dtype(cfg: ModelConfig):
+    if cfg.kv_posit:
+        return L.pcfg(cfg.kv_posit).storage_dtype
+    return L.cdtype(cfg)
+
+
+def _maybe_quant_kv(x, cfg: ModelConfig):
+    """KV storage form: posit patterns through the CUDA codec, or the
+    compute dtype."""
+    if cfg.kv_posit:
+        return posit_codec.quantize(x.to(torch.float32).contiguous(),
+                                    L.pcfg(cfg.kv_posit))
+    return x.to(L.cdtype(cfg))
+
+
+def paged_table_width(cfg: ModelConfig, block_size: int,
+                      max_len: int) -> int:
+    """Block-table width W: the window ring's ``ceil(window/bs)+1`` when
+    a sliding window is active and narrower than the dense
+    ``ceil(max_len/bs)``; the dense width otherwise."""
+    dense = -(-int(max_len) // int(block_size))
+    if cfg.sliding_window and not cfg.mla:
+        ring = L.paged_window_blocks(cfg.sliding_window, block_size)
+        if ring < dense:
+            return ring
+    return dense
+
+
+def _paged_window(cfg: ModelConfig) -> int:
+    return 0 if cfg.mla else (cfg.sliding_window or 0)
+
+
+def init_paged_cache(cfg: ModelConfig, batch: int, max_len: int,
+                     block_size: int, n_blocks: int, *, device="cuda"):
+    """Empty paged pool cache: zeroed arenas, sentinel block tables,
+    ``lens`` all zero; ``max_len`` is a Python int."""
+    _require_dense(cfg)
+    dev = resolve_device(device)
+    w = paged_table_width(cfg, block_size, max_len)
+    shape = (cfg.n_layers, n_blocks, block_size, cfg.n_kv_heads,
+             cfg.head_dim)
+    dt = _cache_dtype(cfg)
+    return {
+        "k": PT.zeros(shape, dt, dev),
+        "v": PT.zeros(shape, dt, dev),
+        "block_tables": torch.full((batch, w), n_blocks, dtype=torch.int32,
+                                   device=dev),
+        "lens": torch.zeros((batch,), dtype=torch.int32, device=dev),
+        "max_len": int(max_len),
+    }
+
+
+def _zero_invalid(x, mask):
+    """Zero time-axis slots whose (B, T) mask is False (gathered arena
+    garbage stays out of the downstream matmuls)."""
+    m = mask.reshape(tuple(mask.shape) + (1,) * (x.ndim - 2))
+    return torch.where(m, x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def _chunk_virtual_tables(tables, lens, bs: int, window: int,
+                          virtual_width: int, n_blocks: int):
+    """Position-ordered virtual block tables for the chunked-prefill
+    gather, and the first position the gather covers.
+
+    Dense tables are already position-ordered (sentinel-padded to the
+    virtual width).  On the window ring only logical blocks
+    ``lb_max-W+1 .. lb_max`` (``lb_max = (lens-1)//bs``) hold their
+    latest content; they map through the ring, the rest is the
+    sentinel."""
+    b, w = tables.shape
+    vw = int(virtual_width)
+    if L.paged_is_window_lane(window, bs, w):
+        lens = lens.to(torch.int64)
+        lb_max = torch.div(lens - 1, bs, rounding_mode="floor")
+        lb_min = (lb_max - w + 1).clamp(min=0)
+        vb = torch.arange(vw, device=tables.device)[None, :]
+        slot = torch.fmod(vb, w).expand(b, vw)
+        phys = tables.to(torch.int64).gather(1, slot)
+        resident = (vb >= lb_min[:, None]) & (vb <= lb_max[:, None])
+        vtables = torch.where(resident, phys, n_blocks).to(torch.int32)
+        return vtables, lb_min * bs
+    if vw < w:
+        raise ValueError(
+            f"chunked prefill virtual width {vw} < table width {w}")
+    if vw > w:
+        tables = torch.cat(
+            [tables, torch.full((b, vw - w), n_blocks, dtype=tables.dtype,
+                                device=tables.device)], dim=1)
+    return tables, torch.zeros((b,), dtype=torch.int64, device=tables.device)
+
+
+def prefill_chunk(params, cache, tokens, cfg: ModelConfig, n_valid, *,
+                  virtual_width: int):
+    """Append ``C`` prompt tokens per row to the paged cache.
+
+    ``tokens`` (B, C): row b's next prompt tokens for positions
+    ``lens[b] ..``, of which the first ``n_valid[b]`` are real; rows with
+    ``n_valid == 0`` are no-ops.  ``virtual_width`` is
+    ``ceil(max_len / block_size)``, the position-ordered virtual cache
+    every lane gathers.  Returns ``(cache, logits (B, V) f32)``
+    with the logits at each row's last valid chunk position; the arenas
+    are updated in place.
+
+    Fresh chunk KV is inserted into the gathered virtual buffer before
+    attention (read pre-codec, as a whole-prompt prefill reads it) and
+    KV blocks keep the fixed ``attn_chunk_kv`` grouping, so every split
+    of a prompt reduces in the same groups.
+    """
+    _require_dense(cfg)
+    b, c = tokens.shape
+    dev = tokens.device
+    tables = cache["block_tables"]
+    nb, bs = cache["k"].shape[1], cache["k"].shape[2]
+    window = _paged_window(cfg)
+    lens = cache["lens"].to(torch.int64)
+    n_valid = torch.as_tensor(n_valid, device=dev).to(torch.int64)
+    lens_after = lens + n_valid
+    hi = int(lens_after.max()) if b else 0
+    if hi > int(cache["max_len"]):
+        raise ValueError(f"prefill_chunk: row frontier {hi} would exceed "
+                         f"max_len {int(cache['max_len'])}")
+
+    positions = lens[:, None] + torch.arange(c, device=dev)[None, :]
+    vtables, low_pos = _chunk_virtual_tables(
+        tables, lens, bs, window, virtual_width, nb)
+    t_len = int(virtual_width) * bs
+    apos = torch.arange(t_len, device=dev)[None, :]
+    resident = (apos < lens[:, None]) & (apos >= low_pos[:, None])
+    kv_mask = (apos < lens_after[:, None]) & (apos >= low_pos[:, None])
+    bidx = torch.arange(b, device=dev)[:, None]
+
+    def load(arena):
+        g = L.paged_gather(arena, vtables)                   # (B, T, G, D)
+        if cfg.kv_posit:
+            g = posit_codec.dequantize(g, L.pcfg(cfg.kv_posit))
+        return _zero_invalid(g.to(L.cdtype(cfg)), resident)
+
+    def insert(ctx, fresh):
+        # row b's fresh chunk lands at virtual slots lens[b]+j; slots past
+        # the buffer fall into C spare slots that are then cut off
+        ext = torch.cat([ctx, ctx.new_zeros((b, c) + tuple(ctx.shape[2:]))], 1)
+        ext[bidx, positions] = fresh.to(ext.dtype)
+        return ext[:, :t_len]
+
+    x = _embed(params, tokens, cfg)
+    ks, vs = [], []
+    for li, lp in enumerate(params["layers"]):
+        hn = L.rms_norm(lp["ln1"], x, cfg)
+        at = lp["attn"]
+        q = L.dense(at["wq"], hn, cfg).reshape(b, c, cfg.n_heads, cfg.head_dim)
+        k_suf = L.dense(at["wk"], hn, cfg).reshape(b, c, cfg.n_kv_heads,
+                                                   cfg.head_dim)
+        v_suf = L.dense(at["wv"], hn, cfg).reshape(b, c, cfg.n_kv_heads,
+                                                   cfg.head_dim)
+        q = L.apply_rope(q, positions, cfg.rope_theta)
+        k_suf = L.apply_rope(k_suf, positions, cfg.rope_theta)
+        k = insert(load(cache["k"][li]), k_suf)
+        v = insert(load(cache["v"][li]), v_suf)
+        out = L.flash_attention(q, k, v, cfg=cfg, kv_mask=kv_mask,
+                                q_positions=positions,
+                                window=cfg.sliding_window)
+        out = out.reshape(b, c, cfg.n_heads * cfg.head_dim)
+        x = x + L.dense(at["wo"], out, cfg)
+        x = _block_mlp(lp, x, cfg)
+        ks.append(_maybe_quant_kv(k_suf, cfg))
+        vs.append(_maybe_quant_kv(v_suf, cfg))
+
+    for key, kv in (("k", ks), ("v", vs)):
+        stacked = torch.stack([PT.signed_view(t) for t in kv]).view(kv[0].dtype)
+        L.paged_pack_range(cache[key], stacked, tables, lens, lens_after,
+                           window=window)
+    new_cache = dict(cache, lens=lens_after.to(torch.int32))
+
+    x = L.rms_norm(params["final_norm"], x, cfg)
+    last_idx = (n_valid - 1).clamp(0, c - 1)
+    last = x[torch.arange(b, device=dev), last_idx]          # (B, D)
+    logits = last @ _unembed_weight(params, cfg).to(x.dtype)
+    return new_cache, logits.to(torch.float32)
+
+
+def _decode_attn_dense_paged(p, x, k_arena, v_arena, tables, lens,
+                             write_index, cfg: ModelConfig):
+    """One layer of paged dense/GQA decode: write the row's new K/V at
+    ``lens[b]`` (``write_index`` from ``layers.paged_write_index``), then
+    attend straight off the block tables."""
+    b = x.shape[0]
+    window = _paged_window(cfg)
+    q = L.dense(p["wq"], x, cfg).reshape(b, 1, cfg.n_heads, cfg.head_dim)
+    k = L.dense(p["wk"], x, cfg).reshape(b, 1, cfg.n_kv_heads, cfg.head_dim)
+    v = L.dense(p["wv"], x, cfg).reshape(b, 1, cfg.n_kv_heads, cfg.head_dim)
+    q = L.apply_rope(q, lens[:, None], cfg.rope_theta)
+    k = L.apply_rope(k, lens[:, None], cfg.rope_theta)
+
+    L.paged_write(k_arena, _maybe_quant_kv(k, cfg)[:, 0], write_index)
+    L.paged_write(v_arena, _maybe_quant_kv(v, cfg)[:, 0], write_index)
+    out = L.decode_attention_paged(
+        q, k_arena, v_arena, tables, lens, cfg=cfg, kv_posit=cfg.kv_posit,
+        window=window, kernel=cfg.paged_attn_kernel)
+    out = out.reshape(b, 1, cfg.n_heads * cfg.head_dim)
+    return L.dense(p["wo"], out, cfg)
+
+
+def _decode_step_paged(params, cache, token, cfg: ModelConfig, active):
+    """Paged decode: every row writes at its own position ``lens[b]``;
+    inactive rows' writes are dropped and their ``lens`` frozen, and so
+    are writes past ``max_len``."""
+    b = token.shape[0]
+    dev = token.device
+    lens = cache["lens"].to(torch.int32)
+    tables = cache["block_tables"]
+    adv = torch.ones((b,), dtype=torch.int32, device=dev) if active is None \
+        else torch.as_tensor(active, device=dev).to(torch.int32)
+    ok = (adv > 0) & (lens < int(cache["max_len"]))
+    nb, bs = cache["k"].shape[1], cache["k"].shape[2]
+    index = L.paged_write_index(tables, lens, ok, n_blocks=nb, block_size=bs,
+                                window=_paged_window(cfg))
+    x = _embed(params, token[:, None], cfg)
+    for li, lp in enumerate(params["layers"]):
+        x = x + _decode_attn_dense_paged(
+            lp["attn"], L.rms_norm(lp["ln1"], x, cfg), cache["k"][li],
+            cache["v"][li], tables, lens, index, cfg)
+        x = _block_mlp(lp, x, cfg)
+    new_cache = dict(cache, lens=lens + adv)
+    x = L.rms_norm(params["final_norm"], x, cfg)
+    logits = x[:, 0, :] @ _unembed_weight(params, cfg).to(x.dtype)
+    return logits.to(torch.float32), new_cache
+
+
+def decode_step(params, cache, token, cfg: ModelConfig, active=None):
+    """token (B,) -> (logits (B, V) f32, cache) on a paged cache.
+
+    ``active`` (B,) bool marks rows holding a live request; inactive rows
+    still produce (discarded) logits.  Raises when a live row's frontier
+    is already at ``max_len``."""
+    _require_dense(cfg)
+    if "block_tables" not in cache:
+        raise NotImplementedError(
+            "the port serves paged caches only (no block_tables leaf)")
+    live = torch.ones_like(cache["lens"], dtype=torch.bool) if active is None \
+        else torch.as_tensor(active, device=cache["lens"].device).to(torch.bool)
+    if bool(live.any()):
+        top = int(cache["lens"][live].max())
+        if top >= int(cache["max_len"]):
+            raise ValueError(
+                f"decode_step past paged KV cache capacity: position {top} "
+                f">= {int(cache['max_len'])}")
+    return _decode_step_paged(params, cache, token, cfg, active)

@@ -1,5 +1,5 @@
-"""Paged KV-cache memory model: the host-side block pool, row release and
-the cache report.
+"""Paged KV-cache memory model: the host-side block pool, the prefix
+index, row release and the cache report.
 
 Layout (see ``models/transformer.py``): arena content leaves are
 (L, n_blocks, block_size, ...), one pool of blocks shared by every batch
@@ -15,6 +15,8 @@ bookkeeping in ``META_LEAVES``; unknown leaves raise instead of being
 guessed from their dtype.
 """
 from __future__ import annotations
+
+from collections import OrderedDict
 
 import torch
 
@@ -61,6 +63,12 @@ def cache_report(cache, pool=None) -> dict:
 
 def is_paged(cache) -> bool:
     return isinstance(cache, dict) and "block_tables" in cache
+
+
+def arena_leaves(cache) -> list:
+    """Names of a paged cache's arena content leaves (K/V or the MLA
+    latents), in the cache's own order."""
+    return [key for key in cache if key in _TIME_LEAVES]
 
 
 class BlockSanitizerError(ValueError):
@@ -203,6 +211,73 @@ class BlockPool:
                     f"{kind} read: block {i} is not allocated")
 
 
+def prefix_block_hashes(tokens, block_size: int) -> list:
+    """Rolling content hash of each full block of a token sequence.
+
+    ``out[i]`` identifies the (i+1)-block prefix ``tokens[:(i+1)*bs]``:
+    each hash chains the previous one, so two sequences share ``out[i]``
+    iff they agree on every token up to and including block ``i``.  A
+    partial trailing block gets no hash (its content can still grow).
+    """
+    bs = int(block_size)
+    toks = [int(t) for t in tokens]
+    out = []
+    h = None
+    for i in range(len(toks) // bs):
+        h = hash((h,) + tuple(toks[i * bs:(i + 1) * bs]))
+        out.append(h)
+    return out
+
+
+class PrefixIndex:
+    """Content-addressed map: rolling block hash -> resident arena block.
+
+    The scheduler registers every fully written prompt block here and
+    holds one pool reference per registered block, so cached prefixes
+    stay resident after their owner retires.  Entries are kept in LRU
+    order; a block whose only reference is the index's is evictable.
+    First writer wins: registering a hash already mapped is a no-op.
+    """
+
+    def __init__(self):
+        self._by_hash: OrderedDict = OrderedDict()   # hash -> block id
+        self._by_block: dict = {}                    # block id -> hash
+
+    def __len__(self) -> int:
+        return len(self._by_hash)
+
+    def get(self, h):
+        """Resident block id for hash ``h`` (None = miss); bumps LRU."""
+        if h in self._by_hash:
+            self._by_hash.move_to_end(h)
+            return self._by_hash[h]
+        return None
+
+    def put(self, h, block_id: int) -> bool:
+        """Register ``block_id`` under ``h``; False if already mapped."""
+        if h in self._by_hash:
+            return False
+        block_id = int(block_id)
+        if block_id in self._by_block:
+            raise ValueError(
+                f"PrefixIndex.put: block {block_id} already registered "
+                "under another hash")
+        self._by_hash[h] = block_id
+        self._by_block[block_id] = h
+        return True
+
+    def pop_block(self, block_id: int):
+        """Drop the entry for ``block_id`` (eviction)."""
+        h = self._by_block.pop(int(block_id), None)
+        if h is not None:
+            del self._by_hash[h]
+        return h
+
+    def blocks_lru(self) -> list:
+        """Registered block ids, least recently matched first."""
+        return list(self._by_hash.values())
+
+
 def paged_release_rows(cache, rows):
     """Retire paged rows: ``lens -> 0`` and their table rows reset to the
     sentinel.  Arena content is not wiped (freed blocks are overwritten on
@@ -221,7 +296,7 @@ def paged_release_rows(cache, rows):
 
 def _paged_sentinel(cache) -> int:
     """The invalid block id (== n_blocks, from any arena leaf's shape)."""
-    for key in _TIME_LEAVES:
-        if key in cache:
-            return int(cache[key].shape[1])
-    raise ValueError("paged cache has no arena content leaves")
+    keys = arena_leaves(cache)
+    if not keys:
+        raise ValueError("paged cache has no arena content leaves")
+    return int(cache[keys[0]].shape[1])

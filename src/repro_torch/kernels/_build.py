@@ -23,7 +23,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parents[1] / "build"
-SOURCES = ("posit_codec", "paged_attn")
+SOURCES = ("posit_codec", "paged_attn", "paged_attn_mla")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -88,7 +88,8 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def _declare(name: str, lib: ctypes.CDLL) -> None:
-    P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    P, I, LL, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+        ctypes.c_float
     if name == "posit_codec":
         for fn in (lib.posit_quantize, lib.posit_dequantize):
             fn.argtypes = [I, P, P, LL, P]
@@ -98,6 +99,12 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.paged_decode_attention.restype = I
         lib.paged_attn_smem_bytes.argtypes = [I, I, I, I]
         lib.paged_attn_smem_bytes.restype = LL
+    elif name == "paged_attn_mla":
+        lib.paged_decode_attention_mla.argtypes = \
+            [I] + [P] * 8 + [I] * 7 + [F, P]
+        lib.paged_decode_attention_mla.restype = I
+        lib.paged_attn_mla_smem_bytes.argtypes = [I, I, I]
+        lib.paged_attn_mla_smem_bytes.restype = LL
 
 
 def check(rc: int, what: str) -> None:

@@ -1,18 +1,24 @@
 """Fused paged-decode attention (CUDA), posit K/V decoded in-kernel.
 
-Replaces ``repro/kernels/posit_paged_attn.py`` ``paged_decode_attention``
-(the Pallas TPU kernel ``_paged_attn_kernel``) on the dense/GQA and
-sliding-window lanes.  The TPU kernel walks each row's block table as a
-sequential grid axis with the online-softmax state in VMEM; the CUDA
-kernel (``csrc/paged_attn.cu``) runs one CTA per (row, KV head) and
-walks the table in a loop, skipping sentinel blocks without loading
-them, decoding each live block's posit patterns into shared memory and
-folding it into running ``m``/``l``/``acc`` held in f32.
+Replaces ``repro/kernels/posit_paged_attn.py``'s two Pallas TPU kernels:
+``paged_decode_attention`` (``_paged_attn_kernel``, the dense/GQA and
+sliding-window lanes) and ``paged_decode_attention_mla``
+(``_paged_attn_mla_kernel``, the MLA lane).  The TPU kernels walk each
+row's block table as a sequential grid axis with the online-softmax
+state in VMEM.  The CUDA kernels walk the table in a loop inside a CTA,
+skipping sentinel blocks without loading them, decoding each live
+block's posit patterns into shared memory and folding it into running
+``m``/``l``/``acc`` held in f32:
 
-Bound on the H100: memory -- the K/V patterns of each row's live
-blocks, read once (:func:`paged_decode_kv_bytes` per layer).  This
-version is the simple one: fp32 FMAs, no tensor cores, one CTA per
-(row, KV head).
+- ``csrc/paged_attn.cu``: one CTA per (row, KV head).  Bound on the
+  H100: memory -- the K/V patterns of each row's live blocks, read once
+  (:func:`paged_decode_kv_bytes` per layer).
+- ``csrc/paged_attn_mla.cu``: one CTA per (row, tile of 8 query heads);
+  all heads share the row's latent blocks, so a block is decoded once
+  per tile.  Bound on the H100: fp32 operations (some 75 flops per
+  latent byte at minicpm3-4b's widths).
+
+Both are the simple versions: fp32 FMAs, no tensor cores.
 
 Masking contract (shared with ``models/layers.py::paged_apos``): a slot
 counts iff ``0 <= apos < lens + 1``, it is inside the window when one is
@@ -32,7 +38,7 @@ from . import _build
 
 _NEG = -1e30
 
-launches = {"paged_decode_attention": 0}
+launches = {"paged_decode_attention": 0, "paged_decode_attention_mla": 0}
 
 _KV_KIND = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -41,6 +47,35 @@ def _decode_block(x: torch.Tensor, pcfg: Optional[PositConfig]):
     if pcfg is None:
         return x.to(torch.float32)
     return posit_to_f32(x, pcfg)
+
+
+def _kv_kind(dtype: torch.dtype, pcfg: Optional[PositConfig], who: str) -> int:
+    """The kernels' ``kv_kind`` code for an arena dtype (0 f32, 1 bf16,
+    2 posit16, 3 posit8); raises on storage they do not take."""
+    if pcfg is None:
+        kind = _KV_KIND.get(dtype)
+    elif (pcfg.nbits, pcfg.es) in ((16, 2), (8, 2)) \
+            and dtype == pcfg.storage_dtype:
+        kind = 2 if pcfg.nbits == 16 else 3
+    else:
+        kind = None
+    if kind is None:
+        raise ValueError(f"{who}: unsupported KV storage {dtype} for "
+                         f"pcfg={pcfg}")
+    return kind
+
+
+def _check_args(who: str, device, expect: dict) -> None:
+    """Raise unless every ``name: (tensor, shape, dtype)`` is a
+    contiguous tensor of that shape and dtype on ``device``."""
+    for name, (t, shape, dtype) in expect.items():
+        if t.device != device or tuple(t.shape) != shape \
+                or t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(
+                f"{who}: {name} must be a contiguous {dtype} tensor of "
+                f"shape {shape} on {device}, got {t.dtype} "
+                f"{tuple(t.shape)} on {t.device} "
+                f"(contiguous={t.is_contiguous()})")
 
 
 def paged_decode_attention_plain(q, k_arena, v_arena, tables, apos, lens, *,
@@ -97,17 +132,7 @@ def paged_decode_attention(q, k_arena, v_arena, tables, apos, lens, *,
     nb, bs = k_arena.shape[0], k_arena.shape[1]
     w = tables.shape[1]
     dv = v_arena.shape[-1]
-    if pcfg is None:
-        kind = _KV_KIND.get(k_arena.dtype)
-    elif (pcfg.nbits, pcfg.es) in ((16, 2), (8, 2)):
-        kind = 2 if pcfg.nbits == 16 else 3
-        if k_arena.dtype != pcfg.storage_dtype:
-            kind = None
-    else:
-        kind = None
-    if kind is None:
-        raise ValueError(f"paged_decode_attention: unsupported KV storage "
-                         f"{k_arena.dtype} for pcfg={pcfg}")
+    kind = _kv_kind(k_arena.dtype, pcfg, "paged_decode_attention")
     expect = {
         "q": (q, (b, g, r, d), torch.float32),
         "k_arena": (k_arena, (nb, bs, g, d), k_arena.dtype),
@@ -116,14 +141,7 @@ def paged_decode_attention(q, k_arena, v_arena, tables, apos, lens, *,
         "apos": (apos, (b, w * bs), torch.int32),
         "lens": (lens, (b,), torch.int32),
     }
-    for name, (t, shape, dtype) in expect.items():
-        if t.device != q.device or tuple(t.shape) != shape \
-                or t.dtype != dtype or not t.is_contiguous():
-            raise ValueError(
-                f"paged_decode_attention: {name} must be a contiguous "
-                f"{dtype} tensor of shape {shape} on {q.device}, got "
-                f"{t.dtype} {tuple(t.shape)} on {t.device} "
-                f"(contiguous={t.is_contiguous()})")
+    _check_args("paged_decode_attention", q.device, expect)
     lib = _build.load("paged_attn")
     smem = lib.paged_attn_smem_bytes(r, d, dv, bs)
     if smem > 48 * 1024:
@@ -137,6 +155,90 @@ def paged_decode_attention(q, k_arena, v_arena, tables, apos, lens, *,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "paged_decode_attention")
     launches["paged_decode_attention"] += 1
+    return out
+
+
+def paged_decode_attention_mla_plain(q_lat, q_rope, c_arena, r_arena, tables,
+                                     apos, lens, *,
+                                     pcfg: Optional[PositConfig] = None,
+                                     scale: float = 1.0) -> torch.Tensor:
+    """Plain PyTorch version of the MLA kernel: the same table walk and
+    online softmax in latent space, vectorized over rows and heads."""
+    b, h, rank = q_lat.shape
+    nb, bs = c_arena.shape[0], c_arena.shape[1]
+    w = tables.shape[1]
+    q_lat = q_lat.to(torch.float32)
+    q_rope = q_rope.to(torch.float32)
+    m = torch.full((b, h), _NEG, dtype=torch.float32, device=q_lat.device)
+    l = torch.zeros((b, h), dtype=torch.float32, device=q_lat.device)
+    acc = torch.zeros((b, h, rank), dtype=torch.float32, device=q_lat.device)
+    cl = (lens.to(torch.int64) + 1)[:, None]
+    apos = apos.reshape(b, w, bs).to(torch.int64)
+    for wi in range(w):
+        tab = tables[:, wi].to(torch.int64)
+        blk = tab.clamp(0, nb - 1)
+        c = _decode_block(index_rows(c_arena, blk), pcfg)   # (B, bs, rank)
+        r = _decode_block(index_rows(r_arena, blk), pcfg)   # (B, bs, rope)
+        s = (torch.einsum("bhr,btr->bht", q_lat, c) +
+             torch.einsum("bhd,btd->bht", q_rope, r)) * scale
+        a = apos[:, wi]
+        valid = (a >= 0) & (a < cl) & (tab < nb)[:, None]
+        valid = valid[:, None, :]
+        s = torch.where(valid, s, _NEG)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.where(valid, torch.exp(s - m_new[..., None]), 0.0)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum("bht,btr->bhr", p, c)
+        m = m_new
+    return acc / torch.clamp(l, min=1e-30)[..., None]
+
+
+def paged_decode_attention_mla(q_lat, q_rope, c_arena, r_arena, tables, apos,
+                               lens, *, pcfg: Optional[PositConfig] = None,
+                               scale: float = 1.0) -> torch.Tensor:
+    """Fused paged MLA decode: latent-space scores and context straight
+    off the block tables.
+
+    q_lat: (B, H, rank) f32 absorbed query; q_rope: (B, H, rope) f32;
+    arenas (nb, bs, rank) and (nb, bs, rope), posit patterns when
+    ``pcfg`` is set, else f32 or bf16; tables (B, W) int32 (sentinel
+    ``nb``); apos (B, W*bs) int32 (``-1`` = dead slot); lens (B,) int32.
+    ``scale`` multiplies the summed scores.  Returns the latent context
+    (B, H, rank) f32; the caller applies ``wuv``.
+    """
+    if q_lat.device.type == "cpu":
+        return paged_decode_attention_mla_plain(
+            q_lat, q_rope, c_arena, r_arena, tables, apos, lens, pcfg=pcfg,
+            scale=scale)
+    b, h, rank = q_lat.shape
+    rope = q_rope.shape[-1]
+    nb, bs = c_arena.shape[0], c_arena.shape[1]
+    w = tables.shape[1]
+    kind = _kv_kind(c_arena.dtype, pcfg, "paged_decode_attention_mla")
+    _check_args("paged_decode_attention_mla", q_lat.device, {
+        "q_lat": (q_lat, (b, h, rank), torch.float32),
+        "q_rope": (q_rope, (b, h, rope), torch.float32),
+        "c_arena": (c_arena, (nb, bs, rank), c_arena.dtype),
+        "r_arena": (r_arena, (nb, bs, rope), c_arena.dtype),
+        "tables": (tables, (b, w), torch.int32),
+        "apos": (apos, (b, w * bs), torch.int32),
+        "lens": (lens, (b,), torch.int32),
+    })
+    lib = _build.load("paged_attn_mla")
+    smem = lib.paged_attn_mla_smem_bytes(rank, rope, bs)
+    if smem > 48 * 1024:
+        raise ValueError(f"paged_decode_attention_mla: rank={rank} "
+                         f"rope={rope} bs={bs} needs {smem} B of shared "
+                         "memory > 48 KiB")
+    out = torch.empty((b, h, rank), dtype=torch.float32, device=q_lat.device)
+    rc = lib.paged_decode_attention_mla(
+        kind, q_lat.data_ptr(), q_rope.data_ptr(), c_arena.data_ptr(),
+        r_arena.data_ptr(), tables.data_ptr(), apos.data_ptr(),
+        lens.data_ptr(), out.data_ptr(), b, h, rank, rope, nb, bs, w,
+        float(scale), torch.cuda.current_stream(q_lat.device).cuda_stream)
+    _build.check(rc, "paged_decode_attention_mla")
+    launches["paged_decode_attention_mla"] += 1
     return out
 
 

@@ -15,6 +15,24 @@ times and the dispatch count.
       --chunk-size 16 --block-size 16 --kv-posit posit16 \\
       --decode-kernel fused --device cuda
 
+``--prefix-cache`` shares prompt prefixes through copy-on-write block
+tables; ``--prefix-share`` draws the matching trace, whose prompts open
+with one common system prefix of that fraction of ``--prompt-len``.
+``--deadline-ms`` gives requests a completion deadline, converted to
+the decode-step clock at ``MS_PER_STEP``: admission turns
+earliest-deadline-first and a request that cannot get blocks preempts
+the row with the latest deadline.  ``--deadline-share`` gives the
+deadline to that seeded fraction of the requests only and leaves the
+rest best-effort (interactive and batch traffic on one pool; with a
+deadline on every request arrival order is deadline order, so nothing
+is ever preempted):
+
+  python -m repro_torch.launch.serve --arch minicpm3-4b --batch 8 \\
+      --n-requests 16 --prompt-len 512 --gen 32 --max-len 1024 \\
+      --chunk-size 16 --block-size 16 --kv-posit posit16 \\
+      --decode-kernel fused --prefix-cache --prefix-share 0.5 \\
+      --deadline-ms 5000 --deadline-share 0.25 --n-blocks 200 --device cuda
+
 ``--n-layers`` cuts depth only (every width stays the architecture's);
 ``--reduced`` swaps in the tiny same-family config for CPU runs
 (``--device cpu``).
@@ -33,6 +51,11 @@ from repro_torch.models import transformer as T
 from repro_torch.runtime.engine import Engine
 from repro_torch.runtime.scheduler import Scheduler
 
+# assumed wall time of one decode step, used only to convert
+# --deadline-ms into the decode-step simulation clock (the schedule is
+# simulated, so only the ratio deadline / step matters)
+MS_PER_STEP = 10.0
+
 
 def poisson_trace(rng, n_requests, rate, vocab, prompt_len, gen):
     """Ragged request trace: Poisson arrivals (``rate`` expected requests
@@ -47,17 +70,42 @@ def poisson_trace(rng, n_requests, rate, vocab, prompt_len, gen):
     return out
 
 
-def drive_trace(sched: Scheduler, trace):
+def shared_prefix_trace(rng, n_requests, rate, vocab, prompt_len, gen,
+                        share: float = 0.75):
+    """Request trace whose prompts all open with the same system prefix
+    of ``share * prompt_len`` tokens, drawn once, and a per-request tail;
+    arrivals and generation lengths follow :func:`poisson_trace`."""
+    arrivals = np.cumsum(rng.exponential(1.0 / max(rate, 1e-9),
+                                         size=n_requests))
+    n_shared = max(1, int(prompt_len * share))
+    prefix = rng.integers(1, vocab, n_shared).tolist()
+    out = []
+    for t in arrivals:
+        tail = int(rng.integers(2, max(3, prompt_len - n_shared + 1)))
+        g = int(rng.integers(max(2, gen // 4), gen + 1))
+        out.append((float(t),
+                    prefix + rng.integers(1, vocab, tail).tolist(), g))
+    return out
+
+
+def drive_trace(sched: Scheduler, trace, deadline_steps=None):
     """Feed an (arrival_step, prompt, gen) trace through a scheduler,
     advancing the simulation clock through idle gaps; returns
-    ``({rid: Completion}, {rid: trace index})``."""
+    ``({rid: Completion}, {rid: trace index})``.  ``deadline_steps``,
+    one entry per trace entry, gives that request the absolute deadline
+    ``arrival + deadline_steps[i]``; ``None`` (for the whole trace or one
+    entry) leaves it best-effort."""
     pending = list(trace)
     done = {}
     order = {}
     while pending or sched.has_work:
         while pending and pending[0][0] <= sched.steps_run:
-            _, prompt, gen = pending.pop(0)
-            order[sched.submit(prompt, gen)] = len(order)
+            t, prompt, gen = pending.pop(0)
+            d = None if deadline_steps is None else deadline_steps[len(order)]
+            rid = sched.submit(
+                prompt, gen,
+                deadline=None if d is None else int(np.ceil(t)) + int(d))
+            order[rid] = len(order)
         if not sched.has_work:
             # idle: jump the decode-step clock to the next arrival
             sched.steps_run = max(sched.steps_run,
@@ -73,6 +121,7 @@ class ServeResult:
     done: dict            # rid -> Completion
     sched: Scheduler
     seconds: float        # wall time of the whole trace
+    deadlines_met: tuple = None   # (met, requests with a deadline)
 
 
 def run_continuous(args, cfg, params) -> ServeResult:
@@ -84,11 +133,23 @@ def run_continuous(args, cfg, params) -> ServeResult:
                     block_size=args.block_size, n_blocks=args.n_blocks,
                     decode_kernel=args.decode_kernel, device=args.device)
     sched = Scheduler(engine, n_slots=args.batch, chunk_size=args.chunk_size,
-                      chunked_prefill=True)
-    trace = poisson_trace(rng, args.n_requests, args.arrival_rate,
-                          cfg.vocab, args.prompt_len, args.gen)
+                      prefix_cache=args.prefix_cache, chunked_prefill=True)
+    if args.prefix_share > 0:
+        trace = shared_prefix_trace(rng, args.n_requests, args.arrival_rate,
+                                    cfg.vocab, args.prompt_len, args.gen,
+                                    share=args.prefix_share)
+    else:
+        trace = poisson_trace(rng, args.n_requests, args.arrival_rate,
+                              cfg.vocab, args.prompt_len, args.gen)
+    deadlines, met_of = None, None
+    if args.deadline_ms > 0:
+        steps = max(1, int(np.ceil(args.deadline_ms / MS_PER_STEP)))
+        deadlines = [steps] * len(trace)
+        if args.deadline_share < 1.0:
+            deadlines = [steps if u < args.deadline_share else None
+                         for u in rng.random(len(trace))]
     t0 = time.perf_counter()
-    done, _ = drive_trace(sched, trace)
+    done, order = drive_trace(sched, trace, deadline_steps=deadlines)
     dt = time.perf_counter() - t0
     rep = cache_report(sched.cache, sched.pool)
 
@@ -117,7 +178,24 @@ def run_continuous(args, cfg, params) -> ServeResult:
           f"through the decode lane in {args.chunk_size}-token chunks; "
           f"{engine.n_compiles} dispatch shapes (flat across prompt "
           f"lengths)")
-    return ServeResult(done=done, sched=sched, seconds=dt)
+    if deadlines is not None:
+        timed = [(c, deadlines[order[r]]) for r, c in done.items()
+                 if deadlines[order[r]] is not None]
+        met = sum(1 for c, d in timed if c.finished_step <= c.arrival_step + d)
+        met_of = (met, len(timed))
+        print(f"  deadlines: {args.deadline_ms:.0f} ms ({steps} steps at "
+              f"{MS_PER_STEP:.0f} ms/step) on {len(timed)}/{len(done)} "
+              f"requests; {met}/{len(timed)} met, {sched.n_preempted} "
+              f"preemptions")
+    if args.prefix_cache:
+        print(f"  prefix cache: {sched.prefix_hits}/{sched.n_admitted} "
+              f"admissions hit, {sched.prefix_matched_tokens} prompt tokens "
+              f"served from cache ({sched.prefill_tokens} prefilled), "
+              f"{sched.n_cow} COW copies, {sched.n_evicted} evictions; peak "
+              f"committed physical {sched.peak_committed} vs logical "
+              f"{sched.peak_logical} blocks")
+    return ServeResult(done=done, sched=sched, seconds=dt,
+                       deadlines_met=met_of)
 
 
 def build_parser():
@@ -154,6 +232,21 @@ def build_parser():
                     default="fused",
                     help="paged decode attention: the fused CUDA table "
                          "walk or the plain gather path")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="share prompt prefixes through copy-on-write "
+                         "block tables; greedy token streams are "
+                         "unchanged")
+    ap.add_argument("--prefix-share", type=float, default=0.0,
+                    help="fraction of each prompt drawn from one shared "
+                         "system prefix (0 = independent Poisson prompts)")
+    ap.add_argument("--deadline-ms", type=float, default=0.0,
+                    help="per-request completion deadline in ms, at "
+                         "MS_PER_STEP ms per decode step; drives EDF "
+                         "admission and preemption by block release "
+                         "(0 = best-effort FIFO)")
+    ap.add_argument("--deadline-share", type=float, default=1.0,
+                    help="fraction of requests, drawn from the seed, that "
+                         "carry --deadline-ms; the rest are best-effort")
     ap.add_argument("--temperature", type=float, default=0.0,
                     help="0 = greedy; > 0 = softmax sampling")
     ap.add_argument("--seed", type=int, default=0,

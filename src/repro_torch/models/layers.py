@@ -294,6 +294,55 @@ def decode_attention_paged(q, k_arena, v_arena, tables, lens, *,
         lens + 1, cfg=cfg, kv_posit=kv_posit, window=window, apos=apos)
 
 
+def decode_attention_paged_mla(q_lat_eff, q_rope, c_arena, r_arena, tables,
+                               lens, *, cfg: ModelConfig,
+                               kv_posit: Optional[str] = None,
+                               kernel: str = "gather"):
+    """Absorbed-matrix MLA paged decode: latent-space attention off the
+    block tables; returns the latent context (B, H, rank) f32 (the
+    caller applies ``wuv``).
+
+    q_lat_eff (B, H, rank) and q_rope (B, H, rope); arenas
+    (n_blocks, bs, rank) and (n_blocks, bs, rope); tables (B, W) int32;
+    lens (B,) int32 frontiers (the step's latent is already written).
+    ``kernel="fused"`` runs the CUDA latent table walk
+    (``kernels/posit_paged_attn.py``; its plain version on the CPU);
+    ``kernel="gather"`` is ``paged_gather``, dequantize and a masked
+    softmax whose all-masked rows are exact zeros.  MLA has no window.
+    """
+    from repro_torch.kernels import posit_paged_attn as K
+
+    nb, bs = c_arena.shape[0], c_arena.shape[1]
+    scale = (cfg.qk_nope_dim + cfg.qk_rope_dim) ** -0.5
+    apos = paged_apos(tables, lens, bs, nb)
+    if kernel == "fused":
+        return K.paged_decode_attention_mla(
+            q_lat_eff.to(torch.float32).contiguous(),
+            q_rope.to(torch.float32).contiguous(), c_arena, r_arena,
+            tables.to(torch.int32).contiguous(), apos.contiguous(),
+            lens.to(torch.int32).contiguous(),
+            pcfg=pcfg(kv_posit) if kv_posit else None, scale=scale)
+    if kernel != "gather":
+        raise ValueError(f"unknown paged decode kernel {kernel!r}")
+    c = paged_gather(c_arena, tables)                 # (B, W*bs, rank)
+    r = paged_gather(r_arena, tables)
+    if kv_posit:
+        c = posit_codec.dequantize(c.contiguous(), pcfg(kv_posit))
+        r = posit_codec.dequantize(r.contiguous(), pcfg(kv_posit))
+    c = c.to(torch.float32)
+    r = r.to(torch.float32)
+    scores = torch.einsum("bhr,btr->bht", q_lat_eff.to(torch.float32), c)
+    scores = scores + torch.einsum("bhd,btd->bht",
+                                   q_rope.to(torch.float32), r)
+    valid = (apos >= 0) & (apos <= lens.to(apos.dtype)[:, None])
+    valid = valid[:, None, :]
+    scores = torch.where(valid, scores * scale, _NEG)
+    m = scores.amax(-1, keepdim=True)
+    p = torch.where(valid, torch.exp(scores - m), 0.0)
+    probs = p / torch.clamp(p.sum(-1, keepdim=True), min=1e-30)
+    return torch.einsum("bht,btr->bhr", probs, c)
+
+
 def paged_write_index(tables, pos, ok, *, n_blocks: int, block_size: int,
                       window: int = 0):
     """Where each row's one-token write lands: ``(rows, blocks, offsets)``
@@ -361,6 +410,44 @@ def paged_pack_range(arena, kvs, tables, start, lens, *, window: int = 0):
     rows, cols = torch.nonzero(live, as_tuple=True)
     signed_view(arena)[:, phys[rows, cols], torch.fmod(pos[rows, cols], bs)] = \
         signed_view(kvs)[:, rows, cols]
+    return arena
+
+
+def paged_copy_blocks(arena, src_ids, dst_ids):
+    """Copy whole arena blocks in place, across every layer:
+    ``arena[:, dst_ids[i]] = arena[:, src_ids[i]]``.
+
+    The device half of copy-on-write: posit patterns move verbatim.
+    ``src_ids``/``dst_ids`` are host lists; a sentinel (out-of-range)
+    destination drops its copy, as the reference's ``mode="drop"``
+    scatter does, and a sentinel source clamps."""
+    nb = arena.shape[1]
+    pairs = [(min(max(int(s), 0), nb - 1), int(d))
+             for s, d in zip(src_ids, dst_ids) if 0 <= int(d) < nb]
+    if not pairs:
+        return arena
+    idx = torch.tensor(pairs, dtype=torch.int64, device=arena.device)
+    view = signed_view(arena)
+    view[:, idx[:, 1]] = view[:, idx[:, 0]]
+    return arena
+
+
+def paged_poison_blocks(arena, block_ids):
+    """Overwrite whole arena blocks in place with a loud but finite
+    poison, across every layer: the posit maxpos pattern for pattern
+    leaves, ``-1e30`` for float leaves (NaN would leak through the
+    ``0 * poison`` of properly masked slots).  The sanitizer's device
+    half: a stale table entry naming a reclaimed block corrupts logits
+    visibly.  Sentinel ids drop."""
+    nb = arena.shape[1]
+    ids = [int(i) for i in block_ids if 0 <= int(i) < nb]
+    if not ids:
+        return arena
+    if arena.dtype in (torch.uint8, torch.uint16, torch.uint32):
+        poison = (1 << (8 * arena.element_size() - 1)) - 1      # maxpos
+    else:
+        poison = -1e30
+    signed_view(arena)[:, torch.tensor(ids, device=arena.device)] = poison
     return arena
 
 

@@ -1,19 +1,20 @@
-"""Decoder-only transformer LM: the paged serving lane (dense GQA and
-sliding-window attention).
+"""Decoder-only transformer LM: the paged serving lane (dense GQA,
+sliding-window and MLA attention).
 
 The port of ``repro/models/transformer.py``'s paged entry points:
 ``init_params``, ``init_paged_cache``, ``prefill_chunk`` (chunked
 prefill through the paged cache) and ``decode_step`` on a paged cache.
 Layers run in a Python loop over a list of per-layer parameter dicts
-(the reference scans stacked parameters).  Arena leaves stay stacked
-(L, n_blocks, block_size, G, D) and are updated in place; each function
-returns the cache dict with the new ``lens``.  MLA (``cfg.mla``) is not
-ported yet and raises.
+(the reference scans stacked parameters).  Arena leaves stay stacked,
+(L, n_blocks, block_size, G, D) for K/V and (L, n_blocks, block_size,
+rank | rope) for the MLA latents ``c_kv``/``k_rope``, and are updated in
+place; each function returns the cache dict with the new ``lens``.  MoE
+feed-forward is not ported yet and raises.
 
 KV writes quantize through the CUDA posit codec (``_maybe_quant_kv``)
 and the chunked-prefill arena read dequantizes through it; decode
-attention runs the fused paged kernel or the gather path
-(``cfg.paged_attn_kernel``).
+attention runs the fused paged kernel (dense/window or MLA latent) or
+the gather path (``cfg.paged_attn_kernel``).
 """
 from __future__ import annotations
 
@@ -27,10 +28,8 @@ from .config import ModelConfig
 
 
 def _require_dense(cfg: ModelConfig):
-    if cfg.mla:
-        raise NotImplementedError(
-            "MLA attention is not ported yet (the dense GQA and "
-            "sliding-window lanes are)")
+    """Raise for a mixture-of-experts feed-forward (every attention lane
+    is ported; the FFN must be dense)."""
     if cfg.is_moe:
         raise NotImplementedError("MoE feed-forward is not ported yet")
 
@@ -38,6 +37,33 @@ def _require_dense(cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
+
+def _init_attention(gen, cfg: ModelConfig, dt, dev):
+    d = cfg.d_model
+    if cfg.mla:
+        qh = cfg.qk_nope_dim + cfg.qk_rope_dim
+        return {
+            "wdq": L.init_dense(gen, d, cfg.q_lora_rank, dtype=dt),
+            "q_norm": L.init_rms_norm(cfg.q_lora_rank, cfg, dev),
+            "wuq": L.init_dense(gen, cfg.q_lora_rank, cfg.n_heads * qh,
+                                dtype=dt),
+            "wdkv": L.init_dense(gen, d, cfg.kv_lora_rank + cfg.qk_rope_dim,
+                                 dtype=dt),
+            "kv_norm": L.init_rms_norm(cfg.kv_lora_rank, cfg, dev),
+            "wuk": L.init_dense(gen, cfg.kv_lora_rank,
+                                cfg.n_heads * cfg.qk_nope_dim, dtype=dt),
+            "wuv": L.init_dense(gen, cfg.kv_lora_rank,
+                                cfg.n_heads * cfg.v_head_dim, dtype=dt),
+            "wo": L.init_dense(gen, cfg.n_heads * cfg.v_head_dim, d,
+                               dtype=dt),
+        }
+    return {
+        "wq": L.init_dense(gen, d, cfg.n_heads * cfg.head_dim, dtype=dt),
+        "wk": L.init_dense(gen, d, cfg.n_kv_heads * cfg.head_dim, dtype=dt),
+        "wv": L.init_dense(gen, d, cfg.n_kv_heads * cfg.head_dim, dtype=dt),
+        "wo": L.init_dense(gen, cfg.n_heads * cfg.head_dim, d, dtype=dt),
+    }
+
 
 def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda"):
     """Random parameters from a seeded ``torch.Generator`` on ``device``.
@@ -56,12 +82,7 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda"):
     for _ in range(cfg.n_layers):
         layers.append({
             "ln1": L.init_rms_norm(d, cfg, dev),
-            "attn": {
-                "wq": L.init_dense(gen, d, cfg.n_heads * cfg.head_dim, dtype=dt),
-                "wk": L.init_dense(gen, d, cfg.n_kv_heads * cfg.head_dim, dtype=dt),
-                "wv": L.init_dense(gen, d, cfg.n_kv_heads * cfg.head_dim, dtype=dt),
-                "wo": L.init_dense(gen, cfg.n_heads * cfg.head_dim, d, dtype=dt),
-            },
+            "attn": _init_attention(gen, cfg, dt, dev),
             "ln2": L.init_rms_norm(d, cfg, dev),
             "mlp": L.init_mlp(gen, cfg, dtype=dt),
         })
@@ -130,6 +151,12 @@ def _paged_window(cfg: ModelConfig) -> int:
     return 0 if cfg.mla else (cfg.sliding_window or 0)
 
 
+def arena_keys(cfg: ModelConfig) -> tuple:
+    """The lane's two arena leaves: the MLA latent ``c_kv`` and its
+    decoupled-RoPE key ``k_rope``, or K and V."""
+    return ("c_kv", "k_rope") if cfg.mla else ("k", "v")
+
+
 def init_paged_cache(cfg: ModelConfig, batch: int, max_len: int,
                      block_size: int, n_blocks: int, *, device="cuda"):
     """Empty paged pool cache: zeroed arenas, sentinel block tables,
@@ -137,12 +164,16 @@ def init_paged_cache(cfg: ModelConfig, batch: int, max_len: int,
     _require_dense(cfg)
     dev = resolve_device(device)
     w = paged_table_width(cfg, block_size, max_len)
-    shape = (cfg.n_layers, n_blocks, block_size, cfg.n_kv_heads,
-             cfg.head_dim)
+    lead = (cfg.n_layers, n_blocks, block_size)
+    if cfg.mla:
+        shapes = (lead + (cfg.kv_lora_rank,), lead + (cfg.qk_rope_dim,))
+    else:
+        shapes = (lead + (cfg.n_kv_heads, cfg.head_dim),) * 2
     dt = _cache_dtype(cfg)
+    arenas = {key: PT.zeros(shape, dt, dev)
+              for key, shape in zip(arena_keys(cfg), shapes)}
     return {
-        "k": PT.zeros(shape, dt, dev),
-        "v": PT.zeros(shape, dt, dev),
+        **arenas,
         "block_tables": torch.full((batch, w), n_blocks, dtype=torch.int32,
                                    device=dev),
         "lens": torch.zeros((batch,), dtype=torch.int32, device=dev),
@@ -190,27 +221,31 @@ def _chunk_virtual_tables(tables, lens, bs: int, window: int,
 
 
 def prefill_chunk(params, cache, tokens, cfg: ModelConfig, n_valid, *,
-                  virtual_width: int):
+                  virtual_width: int, write_tables=None):
     """Append ``C`` prompt tokens per row to the paged cache.
 
     ``tokens`` (B, C): row b's next prompt tokens for positions
     ``lens[b] ..``, of which the first ``n_valid[b]`` are real; rows with
     ``n_valid == 0`` are no-ops.  ``virtual_width`` is
     ``ceil(max_len / block_size)``, the position-ordered virtual cache
-    every lane gathers.  Returns ``(cache, logits (B, V) f32)``
-    with the logits at each row's last valid chunk position; the arenas
-    are updated in place.
+    every lane gathers.  ``write_tables`` (B, W), when given, replaces
+    the block tables for the arena write only: the prefix-sharing
+    scheduler passes a copy with borrowed entries set to the sentinel,
+    so a shared block never takes a write.  Returns ``(cache, logits
+    (B, V) f32)`` with the logits at each row's last valid chunk
+    position; the arenas are updated in place.
 
-    Fresh chunk KV is inserted into the gathered virtual buffer before
-    attention (read pre-codec, as a whole-prompt prefill reads it) and
-    KV blocks keep the fixed ``attn_chunk_kv`` grouping, so every split
-    of a prompt reduces in the same groups.
+    Fresh chunk KV (MLA: latents) is inserted into the gathered virtual
+    buffer before attention (read pre-codec, as a whole-prompt prefill
+    reads it) and KV blocks keep the fixed ``attn_chunk_kv`` grouping,
+    so every split of a prompt reduces in the same groups.
     """
     _require_dense(cfg)
     b, c = tokens.shape
     dev = tokens.device
     tables = cache["block_tables"]
-    nb, bs = cache["k"].shape[1], cache["k"].shape[2]
+    keys = arena_keys(cfg)
+    nb, bs = cache[keys[0]].shape[1], cache[keys[0]].shape[2]
     window = _paged_window(cfg)
     lens = cache["lens"].to(torch.int64)
     n_valid = torch.as_tensor(n_valid, device=dev).to(torch.int64)
@@ -230,7 +265,7 @@ def prefill_chunk(params, cache, tokens, cfg: ModelConfig, n_valid, *,
     bidx = torch.arange(b, device=dev)[:, None]
 
     def load(arena):
-        g = L.paged_gather(arena, vtables)                   # (B, T, G, D)
+        g = L.paged_gather(arena, vtables)                   # (B, T, ...)
         if cfg.kv_posit:
             g = posit_codec.dequantize(g, L.pcfg(cfg.kv_posit))
         return _zero_invalid(g.to(L.cdtype(cfg)), resident)
@@ -242,11 +277,30 @@ def prefill_chunk(params, cache, tokens, cfg: ModelConfig, n_valid, *,
         ext[bidx, positions] = fresh.to(ext.dtype)
         return ext[:, :t_len]
 
-    x = _embed(params, tokens, cfg)
-    ks, vs = [], []
-    for li, lp in enumerate(params["layers"]):
-        hn = L.rms_norm(lp["ln1"], x, cfg)
-        at = lp["attn"]
+    def attend_mla(at, hn, li):
+        h, nope, rope = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
+        q_lat = L.rms_norm(at["q_norm"], L.dense(at["wdq"], hn, cfg), cfg)
+        q = L.dense(at["wuq"], q_lat, cfg).reshape(b, c, h, nope + rope)
+        q_nope, q_rope = q.split([nope, rope], dim=-1)
+        q = torch.cat([q_nope, L.apply_rope(q_rope, positions,
+                                            cfg.rope_theta)], -1)
+        c_suf, r_suf = L.dense(at["wdkv"], hn, cfg).split(
+            [cfg.kv_lora_rank, rope], dim=-1)
+        c_suf = L.rms_norm(at["kv_norm"], c_suf, cfg)
+        r_suf = L.apply_rope(r_suf[:, :, None, :], positions,
+                             cfg.rope_theta)[:, :, 0, :]
+        c_all = insert(load(cache["c_kv"][li]), c_suf)       # (B, T, rank)
+        r_all = insert(load(cache["k_rope"][li]), r_suf)
+        k_nope = L.dense(at["wuk"], c_all, cfg).reshape(b, t_len, h, nope)
+        v = L.dense(at["wuv"], c_all, cfg).reshape(b, t_len, h,
+                                                   cfg.v_head_dim)
+        k = torch.cat([k_nope, r_all[:, :, None, :].expand(
+            b, t_len, h, rope)], -1)
+        out = L.flash_attention(q, k, v, cfg=cfg, kv_mask=kv_mask,
+                                q_positions=positions)
+        return out.reshape(b, c, h * cfg.v_head_dim), (c_suf, r_suf)
+
+    def attend_dense(at, hn, li):
         q = L.dense(at["wq"], hn, cfg).reshape(b, c, cfg.n_heads, cfg.head_dim)
         k_suf = L.dense(at["wk"], hn, cfg).reshape(b, c, cfg.n_kv_heads,
                                                    cfg.head_dim)
@@ -259,15 +313,23 @@ def prefill_chunk(params, cache, tokens, cfg: ModelConfig, n_valid, *,
         out = L.flash_attention(q, k, v, cfg=cfg, kv_mask=kv_mask,
                                 q_positions=positions,
                                 window=cfg.sliding_window)
-        out = out.reshape(b, c, cfg.n_heads * cfg.head_dim)
-        x = x + L.dense(at["wo"], out, cfg)
-        x = _block_mlp(lp, x, cfg)
-        ks.append(_maybe_quant_kv(k_suf, cfg))
-        vs.append(_maybe_quant_kv(v_suf, cfg))
+        return out.reshape(b, c, cfg.n_heads * cfg.head_dim), (k_suf, v_suf)
 
-    for key, kv in (("k", ks), ("v", vs)):
+    attend = attend_mla if cfg.mla else attend_dense
+    x = _embed(params, tokens, cfg)
+    fresh = ([], [])
+    for li, lp in enumerate(params["layers"]):
+        out, new = attend(lp["attn"], L.rms_norm(lp["ln1"], x, cfg), li)
+        x = x + L.dense(lp["attn"]["wo"], out, cfg)
+        x = _block_mlp(lp, x, cfg)
+        for acc, t in zip(fresh, new):
+            acc.append(_maybe_quant_kv(t, cfg))
+
+    wt = tables if write_tables is None else torch.as_tensor(
+        write_tables, dtype=torch.int32, device=dev)
+    for key, kv in zip(keys, fresh):
         stacked = torch.stack([PT.signed_view(t) for t in kv]).view(kv[0].dtype)
-        L.paged_pack_range(cache[key], stacked, tables, lens, lens_after,
+        L.paged_pack_range(cache[key], stacked, wt, lens, lens_after,
                            window=window)
     new_cache = dict(cache, lens=lens_after.to(torch.int32))
 
@@ -300,10 +362,43 @@ def _decode_attn_dense_paged(p, x, k_arena, v_arena, tables, lens,
     return L.dense(p["wo"], out, cfg)
 
 
+def _decode_attn_mla_paged(p, x, c_arena, r_arena, tables, lens,
+                           write_index, cfg: ModelConfig):
+    """One layer of paged absorbed-matrix MLA decode: write the row's new
+    latent and RoPE key at ``lens[b]``, absorb ``q_nope`` through ``wuk``
+    into latent space, attend off the block tables, then apply ``wuv``.
+    Both absorptions run in f32, as the reference's do."""
+    b = x.shape[0]
+    h, nope, rope = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
+    rank = cfg.kv_lora_rank
+    q_lat = L.rms_norm(p["q_norm"], L.dense(p["wdq"], x, cfg), cfg)
+    q = L.dense(p["wuq"], q_lat, cfg).reshape(b, h, nope + rope)
+    q_nope, q_rope = q.split([nope, rope], dim=-1)
+    q_rope = L.apply_rope(q_rope[:, None], lens[:, None], cfg.rope_theta)[:, 0]
+
+    c_new, r_new = L.dense(p["wdkv"], x, cfg).split([rank, rope], dim=-1)
+    c_new = L.rms_norm(p["kv_norm"], c_new, cfg)
+    r_new = L.apply_rope(r_new[:, :, None, :], lens[:, None],
+                         cfg.rope_theta)[:, :, 0, :]
+    L.paged_write(c_arena, _maybe_quant_kv(c_new, cfg)[:, 0], write_index)
+    L.paged_write(r_arena, _maybe_quant_kv(r_new, cfg)[:, 0], write_index)
+
+    wuk = p["wuk"]["w"].to(torch.float32).reshape(rank, h, nope)
+    q_lat_eff = torch.einsum("bhd,rhd->bhr", q_nope.to(torch.float32), wuk)
+    ctx = L.decode_attention_paged_mla(
+        q_lat_eff, q_rope, c_arena, r_arena, tables, lens, cfg=cfg,
+        kv_posit=cfg.kv_posit, kernel=cfg.paged_attn_kernel)
+    wuv = p["wuv"]["w"].to(torch.float32).reshape(rank, h, cfg.v_head_dim)
+    out = torch.einsum("bhr,rhv->bhv", ctx, wuv)
+    out = out.reshape(b, 1, h * cfg.v_head_dim).to(x.dtype)
+    return L.dense(p["wo"], out, cfg)
+
+
 def _decode_step_paged(params, cache, token, cfg: ModelConfig, active):
     """Paged decode: every row writes at its own position ``lens[b]``;
     inactive rows' writes are dropped and their ``lens`` frozen, and so
-    are writes past ``max_len``."""
+    are writes past ``max_len``.  One write index serves every layer and
+    both arena leaves."""
     b = token.shape[0]
     dev = token.device
     lens = cache["lens"].to(torch.int32)
@@ -311,14 +406,15 @@ def _decode_step_paged(params, cache, token, cfg: ModelConfig, active):
     adv = torch.ones((b,), dtype=torch.int32, device=dev) if active is None \
         else torch.as_tensor(active, device=dev).to(torch.int32)
     ok = (adv > 0) & (lens < int(cache["max_len"]))
-    nb, bs = cache["k"].shape[1], cache["k"].shape[2]
+    k1, k2 = arena_keys(cfg)
+    nb, bs = cache[k1].shape[1], cache[k1].shape[2]
     index = L.paged_write_index(tables, lens, ok, n_blocks=nb, block_size=bs,
                                 window=_paged_window(cfg))
+    attend = _decode_attn_mla_paged if cfg.mla else _decode_attn_dense_paged
     x = _embed(params, token[:, None], cfg)
     for li, lp in enumerate(params["layers"]):
-        x = x + _decode_attn_dense_paged(
-            lp["attn"], L.rms_norm(lp["ln1"], x, cfg), cache["k"][li],
-            cache["v"][li], tables, lens, index, cfg)
+        x = x + attend(lp["attn"], L.rms_norm(lp["ln1"], x, cfg),
+                       cache[k1][li], cache[k2][li], tables, lens, index, cfg)
         x = _block_mlp(lp, x, cfg)
     new_cache = dict(cache, lens=lens + adv)
     x = L.rms_norm(params["final_norm"], x, cfg)

@@ -45,12 +45,17 @@ class Engine:
     def __init__(self, cfg: ModelConfig, params, *, max_len: int,
                  temperature: float = 0.0, seed: int = 0, pad_id: int = 0,
                  block_size: int = 16, n_blocks: int = 0,
-                 decode_kernel: str = None, device="cuda"):
+                 sanitize: bool = False, decode_kernel: str = None,
+                 device="cuda"):
         """``n_blocks`` sizes the shared arena (0 = one full table per
-        row).  ``decode_kernel`` picks the paged decode attention:
-        ``'gather'`` (plain torch) or ``'fused'`` (the CUDA table-walk
-        kernel); it threads through ``cfg.paged_attn_kernel``.
-        ``params`` must already live on ``device``."""
+        row).  ``sanitize=True`` arms the arena sanitizer: the
+        scheduler's pool checks double frees, use-after-free and writes
+        into shared blocks, and reclaimed blocks are poisoned on the
+        device (:meth:`poison_blocks`).  ``decode_kernel`` picks the
+        paged decode attention: ``'gather'`` (plain torch) or ``'fused'``
+        (the CUDA table-walk kernels); it threads through
+        ``cfg.paged_attn_kernel``.  ``params`` must already live on
+        ``device``."""
         self.device = resolve_device(device)
         if decode_kernel is not None:
             if decode_kernel not in ("gather", "fused"):
@@ -76,6 +81,7 @@ class Engine:
         self.pad_id = int(pad_id)
         self.block_size = int(block_size)
         self.n_blocks = int(n_blocks)
+        self.sanitize = bool(sanitize)
         self.table_width = T.paged_table_width(cfg, self.block_size,
                                                self.max_len)
         self.window_lane = L.paged_is_window_lane(
@@ -86,9 +92,10 @@ class Engine:
 
     @property
     def n_compiles(self) -> int:
-        """Distinct dispatch keys served (``("mixed", C, n_steps)``): the
-        port's counterpart of the reference's compiled-program count,
-        flat across prompt lengths in chunked mode."""
+        """Distinct dispatch keys served (``("mixed", C, n_steps)``, and
+        ``("copy", n)``/``("poison", n)`` per block count): the port's
+        counterpart of the reference's compiled-program count, flat
+        across prompt lengths in chunked mode."""
         return len(self._dispatch_keys)
 
     def init_cache(self, n_slots: int):
@@ -118,7 +125,7 @@ class Engine:
         return tables, pool
 
     def mixed_step(self, cache, chunk_tokens, n_valid, tokens, n_steps: int,
-                   *, decode_active=None):
+                   *, decode_active=None, write_tables=None):
         """Advance prefilling and decoding rows in one dispatch.
 
         Phase 1 runs ``prefill_chunk``: row ``b`` appends
@@ -127,7 +134,9 @@ class Engine:
         ``decode_active`` set, fed by ``tokens`` (the last sampled token
         per row).  A phase with no participating row is skipped: its
         outputs (the chunk logits, the sampled tokens) would only be read
-        for participating rows.
+        for participating rows.  ``write_tables`` (B, W), when given,
+        replaces the block tables for the prefill chunk's arena write
+        (borrowed prefix entries set to the sentinel).
 
         Returns ``(cache, chunk_logits (B, V), toks (B, n_steps))`` as
         device tensors; ``chunk_logits[b]`` is taken at row ``b``'s last
@@ -161,7 +170,8 @@ class Engine:
         if (nv > 0).any():
             cache, chunk_logits = T.prefill_chunk(
                 self.params, cache, chunk_tokens, self.cfg,
-                torch.as_tensor(nv, device=dev), virtual_width=vw)
+                torch.as_tensor(nv, device=dev), virtual_width=vw,
+                write_tables=write_tables)
         toks = torch.zeros((b, int(n_steps)), dtype=torch.int64, device=dev)
         if act.any():
             tok = torch.as_tensor(np.asarray(tokens), dtype=torch.int64,
@@ -173,3 +183,30 @@ class Engine:
                 tok = sample_token(logits, self.gen, self.temperature)
                 toks[:, i] = tok
         return cache, chunk_logits, toks
+
+    # ------------------------------------------------------------------
+    # prefix sharing: COW block copies and sanitizer poison
+    # ------------------------------------------------------------------
+
+    def copy_blocks(self, cache, src_ids, dst_ids):
+        """Copy-on-write, device half: duplicate arena blocks
+        ``src_ids -> dst_ids`` in place across every arena leaf and
+        layer (posit patterns move verbatim, no dequantize round trip).
+        Returns ``cache``."""
+        self._dispatch_keys.add(("copy", len(src_ids)))
+        for key in kvc.arena_leaves(cache):
+            L.paged_copy_blocks(cache[key], src_ids, dst_ids)
+        return cache
+
+    def poison_blocks(self, cache, ids):
+        """Sanitizer, device half: overwrite reclaimed arena blocks in
+        place with the loud but finite poison of
+        ``layers.paged_poison_blocks`` across every arena leaf and layer,
+        so a stale table entry corrupts logits visibly instead of
+        silently serving freed KV.  Returns ``cache``."""
+        if not ids:
+            return cache
+        self._dispatch_keys.add(("poison", len(ids)))
+        for key in kvc.arena_leaves(cache):
+            L.paged_poison_blocks(cache[key], ids)
+        return cache

@@ -5,9 +5,9 @@ Marked ``cuda``: they need an NVIDIA card, ``nvcc`` and the repo's
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-The codec must be bit-exact; paged attention agrees with its plain
-version within atol/rtol 1e-5 (both accumulate in f32, in different
-orders).
+The codec must be bit-exact; paged attention (dense/window and MLA)
+agrees with its plain version within atol/rtol 1e-5 (both accumulate in
+f32, in different orders).
 """
 import numpy as np
 import pytest
@@ -65,5 +65,35 @@ def test_paged_attention_matches_plain_on_card(dev, kv, window):
     ref = K.paged_decode_attention_plain(*args, pcfg=pcfg, window=window)
     got = K.paged_decode_attention(*(t.to(dev) for t in args), pcfg=pcfg,
                                    window=window).cpu()
+    torch.testing.assert_close(got, ref, atol=1e-5, rtol=1e-5)
+    assert torch.all(got[-1] == 0)
+
+
+@pytest.mark.parametrize("kv", [None, "bf16", "posit16", "posit8"])
+def test_paged_attention_mla_matches_plain_on_card(dev, kv):
+    """H 12 heads (a partial second head tile), rank 256, rope 32, block
+    16; a sentinel tail and an all-masked row."""
+    rng = np.random.default_rng(2)
+    b, h, rank, rope, bs, w = 4, 12, 256, 32, 16, 6
+    nb = b * w
+    tables = torch.arange(nb, dtype=torch.int32).reshape(b, w)
+    tables[-1] = nb                                  # all-masked row
+    tables[0, -2:] = nb                              # sentinel tail
+    lens = torch.tensor([60, 5, 93, 40], dtype=torch.int32)
+    apos = L.paged_apos(tables, lens, bs, nb)
+    c = torch.from_numpy(rng.normal(size=(nb, bs, rank)).astype(np.float32))
+    r = torch.from_numpy(rng.normal(size=(nb, bs, rope)).astype(np.float32))
+    pcfg = L.pcfg(kv) if kv in ("posit16", "posit8") else None
+    if pcfg:
+        c, r = posit_codec.quantize_plain(c, pcfg), posit_codec.quantize_plain(r, pcfg)
+    elif kv == "bf16":
+        c, r = c.to(torch.bfloat16), r.to(torch.bfloat16)
+    q_lat = torch.from_numpy(rng.normal(size=(b, h, rank)).astype(np.float32))
+    q_rope = torch.from_numpy(rng.normal(size=(b, h, rope)).astype(np.float32))
+    args = (q_lat, q_rope, c, r, tables, apos, lens)
+    scale = 96 ** -0.5
+    ref = K.paged_decode_attention_mla_plain(*args, pcfg=pcfg, scale=scale)
+    got = K.paged_decode_attention_mla(*(t.to(dev) for t in args), pcfg=pcfg,
+                                       scale=scale).cpu()
     torch.testing.assert_close(got, ref, atol=1e-5, rtol=1e-5)
     assert torch.all(got[-1] == 0)

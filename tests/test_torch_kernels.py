@@ -4,8 +4,8 @@ On the CPU the wrappers run their plain PyTorch versions; the reference
 kernels run in Pallas interpret mode, as the reference's own tests run
 them.  The codec must be bit-exact; paged attention agrees within
 atol = rtol = 1e-5 (both sides accumulate in f32, in different orders)
-on the dense and sliding-window lanes, with f32, posit16 and posit8 KV,
-sentinel table entries, ring wraparound and an all-masked row, which
+on the dense, sliding-window and MLA lanes, with f32, posit16 and posit8
+KV, sentinel table entries, ring wraparound and an all-masked row, which
 must be exact zeros on both sides.
 """
 import dataclasses
@@ -91,10 +91,61 @@ def test_paged_attention_matches_reference(kv, window, lens):
     assert (got[-1] == 0).all() and (ref[-1] == 0).all()
 
 
+def _mla_case(kv, lens, seed):
+    """MLA latent arenas at a small width: H 6 heads (not a multiple of
+    the kernel's head tile), rank 16, rope 8, block 4, 5 table slots; a
+    sentinel tail on row 0 and an all-sentinel last row."""
+    rng = np.random.default_rng(seed)
+    h, rank, rope, bs, w = 6, 16, 8, 4, 5
+    b = len(lens)
+    nb = b * w
+    tables = np.arange(nb, dtype=np.int32).reshape(b, w)[:, ::-1].copy()
+    tables[0, -2:] = nb
+    tables[-1, :] = nb
+    lens = np.asarray(lens, np.int32)
+    apos = L.paged_apos(torch.from_numpy(tables), torch.from_numpy(lens),
+                        bs, nb).numpy()
+    c = rng.normal(size=(nb, bs, rank)).astype(np.float32)
+    r = rng.normal(size=(nb, bs, rope)).astype(np.float32)
+    q_lat = rng.normal(size=(b, h, rank)).astype(np.float32)
+    q_rope = rng.normal(size=(b, h, rope)).astype(np.float32)
+    if kv:
+        cfg = L.pcfg(kv)
+        c = posit_codec.quantize(torch.from_numpy(c), cfg).numpy()
+        r = posit_codec.quantize(torch.from_numpy(r), cfg).numpy()
+    return q_lat, q_rope, c, r, tables, apos, lens
+
+
 @pytest.mark.parametrize("kv", [None, "posit16", "posit8"])
-def test_paged_decode_kv_bytes_matches_reference(kv):
-    rc = dataclasses.replace(RC.get_config("phi3-medium-14b"), kv_posit=kv)
-    tc = dataclasses.replace(TC.get_config("phi3-medium-14b"), kv_posit=kv)
+def test_paged_attention_mla_matches_reference(kv):
+    """Row 0's 11 positions end before its two sentinel tail blocks; the
+    last row has no live block and must return exact zeros."""
+    args = _mla_case(kv, [10, 3, 19, 0], seed=6)
+    scale = (16 + 8) ** -0.5
+    rpcfg = {"posit16": R16, "posit8": R8}.get(kv)
+    ref = np.asarray(RPA.paged_decode_attention_mla(
+        *(jnp.asarray(a) for a in args), pcfg=rpcfg, scale=scale,
+        interpret=True))
+    got = PA.paged_decode_attention_mla(
+        *(torch.from_numpy(a) for a in args),
+        pcfg=L.pcfg(kv) if kv else None, scale=scale).numpy()
+    np.testing.assert_allclose(got, ref, atol=ATOL, rtol=RTOL)
+    assert (got[-1] == 0).all() and (ref[-1] == 0).all()
+
+
+def _check_kv_bytes(arch, kv):
+    rc = dataclasses.replace(RC.get_config(arch), kv_posit=kv)
+    tc = dataclasses.replace(TC.get_config(arch), kv_posit=kv)
     for kernel in ("fused", "gather"):
         assert PA.paged_decode_kv_bytes(tc, 64, 16, kernel) == \
             RPA.paged_decode_kv_bytes(rc, 64, 16, kernel)
+
+
+@pytest.mark.parametrize("kv", [None, "posit16", "posit8"])
+def test_paged_decode_kv_bytes_matches_reference(kv):
+    _check_kv_bytes("phi3-medium-14b", kv)
+
+
+@pytest.mark.parametrize("kv", [None, "posit16", "posit8"])
+def test_paged_decode_kv_bytes_mla_matches_reference(kv):
+    _check_kv_bytes("minicpm3-4b", kv)

@@ -1,4 +1,5 @@
-"""The port's paged transformer lane against ``repro.models.transformer``.
+"""The port's paged transformer lanes (dense GQA, sliding window, MLA)
+against ``repro.models.transformer``.
 
 Weights come from the reference's ``init_params`` through
 ``weights.params_from_jax``; caches through ``weights.cache_from_jax``.
@@ -41,10 +42,9 @@ def _no_tf32():
 
 
 def _cfgs(lane, kv):
-    rc = RCFG.get_config("phi3-medium-14b").reduced(compute_dtype="float32",
-                                                    kv_posit=kv)
-    tc = TCFG.get_config("phi3-medium-14b").reduced(compute_dtype="float32",
-                                                    kv_posit=kv)
+    arch = "minicpm3-4b" if lane == "mla" else "phi3-medium-14b"
+    rc = RCFG.get_config(arch).reduced(compute_dtype="float32", kv_posit=kv)
+    tc = TCFG.get_config(arch).reduced(compute_dtype="float32", kv_posit=kv)
     if lane == "window":
         rc = dataclasses.replace(rc, sliding_window=8, attn_chunk_kv=8)
         tc = dataclasses.replace(tc, sliding_window=8, attn_chunk_kv=8)
@@ -55,7 +55,7 @@ _PARAMS = {}
 
 
 def _params(rc, tc):
-    key = (rc.sliding_window, rc.attn_chunk_kv)
+    key = (rc.name, rc.sliding_window, rc.attn_chunk_kv)
     if key not in _PARAMS:
         rp = RT.init_params(jax.random.PRNGKey(0), rc)
         _PARAMS[key] = (rp, params_from_jax(jax.tree.map(np.asarray, rp), tc,
@@ -96,7 +96,7 @@ def _chunks(rng, vocab, b, lens_seq):
 
 
 @pytest.mark.parametrize("kv", [None, "posit16"], ids=["f32", "posit16"])
-@pytest.mark.parametrize("lane", ["dense", "window"])
+@pytest.mark.parametrize("lane", ["dense", "window", "mla"])
 def test_prefill_chunk_and_decode_step_match_reference(lane, kv):
     rc, tc = _cfgs(lane, kv)
     rp, tp = _params(rc, tc)
@@ -116,7 +116,7 @@ def test_prefill_chunk_and_decode_step_match_reference(lane, kv):
         np.testing.assert_allclose(tl.numpy()[live], np.asarray(rl)[live],
                                    atol=ATOL, rtol=RTOL)
     np.testing.assert_array_equal(tcache["lens"].numpy(), [11, 8, 4])
-    for key in ("k", "v"):
+    for key in T.arena_keys(tc):
         _check_arena(tcache[key], rcache[key], kv)
 
     active = np.array([True, True, False])
@@ -129,7 +129,7 @@ def test_prefill_chunk_and_decode_step_match_reference(lane, kv):
         np.testing.assert_allclose(tl.numpy()[active], np.asarray(rl)[active],
                                    atol=ATOL, rtol=RTOL)
     np.testing.assert_array_equal(tcache["lens"].numpy(), [14, 11, 4])
-    for key in ("k", "v"):
+    for key in T.arena_keys(tc):
         _check_arena(tcache[key], rcache[key], kv)
 
 
@@ -142,7 +142,7 @@ def test_maybe_quant_kv_bit_exact(kv):
     np.testing.assert_array_equal(got, ref)
 
 
-@pytest.mark.parametrize("lane", ["dense", "window"])
+@pytest.mark.parametrize("lane", ["dense", "window", "mla"])
 def test_chunked_prefill_equals_whole_prompt(lane):
     """At f32 KV, prefilling a 12-token prompt in 4-token chunks gives the
     same last-position logits and arena contents as one 12-token chunk
@@ -166,5 +166,29 @@ def test_chunked_prefill_equals_whole_prompt(lane):
         outs.append((logits, cache))
     (l_whole, c_whole), (l_chunk, c_chunk) = outs
     torch.testing.assert_close(l_chunk, l_whole, atol=0, rtol=0)
-    for key in ("k", "v"):
+    for key in T.arena_keys(tc):
         torch.testing.assert_close(c_chunk[key], c_whole[key], atol=0, rtol=0)
+
+
+def test_params_from_jax_carries_the_mla_tree():
+    """The reference's MLA parameter tree converts leaf for leaf: every
+    weight takes the requested dtype, the ``q_norm``/``kv_norm`` (and
+    block) norm scales stay f32, and the port's own ``init_params``
+    builds the same tree."""
+    rc, tc = _cfgs("mla", None)
+    rp = jax.tree.map(np.asarray, RT.init_params(jax.random.PRNGKey(0), rc))
+    tp = params_from_jax(rp, tc, device="cpu", dtype=torch.bfloat16)
+    own = T.init_params(tc, seed=0, device="cpu")
+    assert len(tp["layers"]) == len(own["layers"]) == tc.n_layers
+    got, mine = tp["layers"][1]["attn"], own["layers"][1]["attn"]
+    assert got.keys() == mine.keys() == {
+        "wdq", "q_norm", "wuq", "wdkv", "kv_norm", "wuk", "wuv", "wo"}
+    for name, leaf in got.items():
+        key = "scale" if "norm" in name else "w"
+        ref = np.array(rp["layers"]["attn"][name][key][1])
+        want = torch.float32 if key == "scale" else torch.bfloat16
+        assert leaf[key].dtype == want
+        assert leaf[key].shape == mine[name][key].shape == ref.shape
+        np.testing.assert_array_equal(
+            leaf[key].float().numpy(),
+            torch.from_numpy(ref).to(want).float().numpy())

@@ -7,7 +7,9 @@ decode path -- the reference's own tests pin fused == gather, and
 Pallas interpret mode is slow).  Greedy token streams must be identical
 per request on the dense and sliding-window lanes, the port's block
 pool must end with every block free, and its dispatch count must stay
-flat across the trace's prompt lengths.
+flat across the trace's prompt lengths.  The MLA lane (reduced
+minicpm3-4b) runs the same trace; its engine takes the dense table
+width, never the window ring.
 """
 import dataclasses
 
@@ -38,17 +40,18 @@ def _no_tf32():
 
 
 def _cfgs(lane):
-    rc = RCFG.get_config("phi3-medium-14b").reduced(compute_dtype="float32",
-                                                    kv_posit="posit16")
-    tc = TCFG.get_config("phi3-medium-14b").reduced(compute_dtype="float32",
-                                                    kv_posit="posit16")
+    arch = "minicpm3-4b" if lane == "mla" else "phi3-medium-14b"
+    rc = RCFG.get_config(arch).reduced(compute_dtype="float32",
+                                       kv_posit="posit16")
+    tc = TCFG.get_config(arch).reduced(compute_dtype="float32",
+                                       kv_posit="posit16")
     if lane == "window":
         rc = dataclasses.replace(rc, sliding_window=8, attn_chunk_kv=8)
         tc = dataclasses.replace(tc, sliding_window=8, attn_chunk_kv=8)
     return rc, tc
 
 
-@pytest.mark.parametrize("lane", ["dense", "window"])
+@pytest.mark.parametrize("lane", ["dense", "window", "mla"])
 def test_scheduler_tokens_match_reference(lane):
     rc, tc = _cfgs(lane)
     rp = get_family(rc).init_params(jax.random.PRNGKey(0), rc)
@@ -95,3 +98,21 @@ def test_engine_block_allocation_matches_reference(lane):
         want, ref_pool = ref._alloc_tables(lens, reserve, nb)
         np.testing.assert_array_equal(got, want)
         assert pool.in_use == ref_pool.in_use
+
+
+def test_mla_engine_takes_the_dense_table_width():
+    """MLA has no window: even with ``sliding_window`` set, the engine's
+    table is the dense ``ceil(max_len / block_size)``, as the
+    reference's is."""
+    rc, tc = _cfgs("mla")
+    rc = dataclasses.replace(rc, sliding_window=8)
+    tc = dataclasses.replace(tc, sliding_window=8)
+    rp = get_family(rc).init_params(jax.random.PRNGKey(0), rc)
+    tp = params_from_jax(jax.tree.map(np.asarray, rp), tc, device="cpu")
+    ref = RefEngine(rc, rp, max_len=MAX_LEN, paged=True, block_size=BS)
+    eng = Engine(tc, tp, max_len=MAX_LEN, block_size=BS, device="cpu")
+    assert (eng.table_width, eng.window_lane) == \
+        (ref.table_width, ref.window_lane) == (MAX_LEN // BS, False)
+    cache = eng.init_cache(2)
+    assert set(cache) >= {"c_kv", "k_rope"} and "k" not in cache
+    assert cache["block_tables"].shape == (2, MAX_LEN // BS)

@@ -1,25 +1,34 @@
 """GPU smoke test of the PyTorch/CUDA port: builds the kernels, holds each
-against its plain PyTorch version on the card, then serves two Poisson
-traces at full width through the port's main path (continuous batching,
-chunked prefill, paged posit16 KV, fused paged decode attention) and
-checks that every kernel of each path ran there:
+against its plain PyTorch version on the card, then drives the port's
+paths at full size and checks that every kernel of each path ran there:
 
-- phi3-medium-14b (dense GQA lane, ``paged_attn.cu``);
-- minicpm3-4b (MLA lane, ``paged_attn_mla.cu``) with prefix caching and
-  deadlines on a shared-prefix trace of interactive and best-effort
-  requests, on an arena small enough that deadlines preempt.
+- serving, two Poisson traces at full width (continuous batching,
+  chunked prefill, paged posit16 KV, fused paged decode attention):
+  phi3-medium-14b (dense GQA lane, ``paged_attn.cu``) and minicpm3-4b
+  (MLA lane, ``paged_attn_mla.cu``) with prefix caching and deadlines
+  on a shared-prefix trace, on an arena small enough that deadlines
+  preempt;
+- the PVU ISA (``posit_ew.cu``, ``posit_dot.cu``, ``posit_qgemm.cu``,
+  ``posit_gemm.cu``): the paper's verification workload
+  (``configs/pvu_resnet_conv.py``, the ResNet-18 first conv on 8 images
+  in posit32, pgemm == dot on every output, the per-op exact-match table
+  against the golden model on the conv data and on every posit8 pair),
+  a posit-exact linear layer at phi3-medium-14b width, and cache
+  maintenance (scale, merge) on the arena the phi3 path served from.
 
     python3 chip_smoke.py          # needs one NVIDIA GPU and nvcc
 
 Prints the card's name and power limit, per-kernel checks and timings,
-the serving reports, a JSON line with every kernel's numbers and, last,
-``{"ok": true, "device": {...}}``.  Any failure exits non-zero before
-that line; without a GPU it exits non-zero at once.
+the serving reports, the accuracy table, a JSON line with every
+kernel's numbers and, last, ``{"ok": true, "device": {...}}``.  Any
+failure exits non-zero before that line; without a GPU it exits
+non-zero at once.
 """
 from __future__ import annotations
 
 import gc
 import json
+import multiprocessing
 import os
 import subprocess
 import sys
@@ -33,7 +42,28 @@ import torch  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 FP32_FLOPS = 67e12             # H100 SXM fp32 outside the tensor cores
+# 32-bit integer operations: the table's rate for 32-bit arithmetic
+# outside the tensor cores (the card's INT32 pipes are no faster), so
+# a bound from it is a least time
+INT_OPS = 67e12
 ATTN_TOL = 1e-5                # atol and rtol, kernel vs plain, both f32
+PAPER_DIV_ACC = 0.9584         # the paper's nr3 division exact-match rate
+# the fewest 32-bit integer operations per element the PVU datapath
+# needs: a decode, an encode, each op's core, and a quire product
+# (32x32 multiply, 128-bit placement, conditional negate, 128-bit add)
+OPS_DECODE, OPS_ENCODE, OPS_QUIRE = 12, 25, 14
+OPS_EW = {("add", "nr3"): 20, ("sub", "nr3"): 20, ("mul", "nr3"): 8,
+          ("div", "nr3"): 40, ("div", "exact"): 132}
+EW_OPS = (("add", "nr3"), ("sub", "nr3"), ("mul", "nr3"), ("div", "nr3"),
+          ("div", "exact"))
+# ISA check and workload sizes: the elementwise check block, the gemm
+# check (phi3-medium-14b's MLP down projection at 128 tokens), the
+# images of the conv workload, the dot lengths, the pgemm shapes
+EW_BLOCK = (1024, 1024)
+GEMM_SHAPE = (128, 5120, 17920)
+CONV_IMAGES = 8
+DOT_LENGTHS = (1, 16, 147, 4095, 4096, 4097, 17920)
+PGEMM_SHAPES = ((5, 37, 7), (33, 129, 19), (16, 4097, 16))
 
 _TRACE = [
     "--batch", "8", "--n-requests", "16", "--arrival-rate", "0.5",
@@ -64,6 +94,23 @@ MAIN_PATHS = {
 def fail(msg):
     print(f"FAIL: {msg}", flush=True)
     sys.exit(1)
+
+
+def _launch_dicts():
+    from repro_torch.kernels import (posit_codec, posit_dot, posit_ew,
+                                     posit_gemm, posit_paged_attn, posit_qgemm)
+    return [m.launches for m in (posit_codec, posit_paged_attn, posit_ew,
+                                 posit_dot, posit_qgemm, posit_gemm)]
+
+
+def reset_counts():
+    for d in _launch_dicts():
+        for name in d:
+            d[name] = 0
+
+
+def read_counts():
+    return {k: v for d in _launch_dicts() for k, v in d.items()}
 
 
 def time_ms(fn, iters=20, warmup=3):
@@ -344,8 +391,6 @@ def serve_main_path(argv):
     """The user entry point at full width; returns the serving result,
     the launch counts of exactly this run, its wall time and the number
     of decode steps it ran."""
-    from repro_torch.kernels import posit_codec as C
-    from repro_torch.kernels import posit_paged_attn as K
     from repro_torch.launch import serve
     from repro_torch.models import transformer as T
 
@@ -356,10 +401,7 @@ def serve_main_path(argv):
         steps[0] += 1
         return decode_step(*a, **kw)
 
-    counters = {**C.launches, **K.launches}
-    for d in (C.launches, K.launches):
-        for name in d:
-            d[name] = 0
+    reset_counts()
     torch.cuda.reset_peak_memory_stats()
     T._decode_step_paged = counted
     try:
@@ -369,9 +411,7 @@ def serve_main_path(argv):
         wall = time.perf_counter() - t0
     finally:
         T._decode_step_paged = decode_step
-    counts = {**C.launches, **K.launches}
-    assert set(counts) == set(counters)
-    return res, counts, wall, steps[0]
+    return res, read_counts(), wall, steps[0]
 
 
 def check_served(res):
@@ -490,9 +530,485 @@ def check_prefix_identity(dev):
         fail("prefix caching changed tokens or did not share on the card")
 
 
+# ---------------------------------------------------------------------------
+# The PVU ISA: kernel checks (P1), the paper's conv workload (P2), a
+# posit-exact linear at phi3 width (P3), cache maintenance (P4), times (P5)
+# ---------------------------------------------------------------------------
+
+def _pats(cfg, shape, seed, dev):
+    """Seeded random patterns (any bits, NaR and zero included)."""
+    from repro_torch.core.types import to_storage
+    rng = np.random.default_rng(seed)
+    x = rng.integers(0, 2 ** cfg.nbits, size=shape, dtype=np.uint64)
+    return to_storage(torch.from_numpy(x.astype(np.int64)), cfg.storage_dtype).to(dev)
+
+
+def _edges(cfg):
+    """Zero, NaR, +-minpos and +-maxpos."""
+    return [0, cfg.nar_pattern, 1, cfg.mask, cfg.maxpos_pattern,
+            (-cfg.maxpos_pattern) & cfg.mask]
+
+
+def _same(got, want):
+    from repro_torch.core.types import signed_view
+    return torch.equal(signed_view(got), signed_view(want))
+
+
+def _host(t):
+    """Pattern tensor -> numpy int64 of its low bits."""
+    from repro_torch.core.types import signed_view
+    bits = 8 * t.element_size()
+    return signed_view(t).cpu().to(torch.int64).numpy() & ((1 << bits) - 1)
+
+
+def _all_pairs8():
+    p = np.arange(256)
+    a, b = np.meshgrid(p, p, indexing="ij")
+    return a.ravel(), b.ravel()
+
+
+def _golden_chunk(job):
+    """Golden-model answers for one chunk of pairs or dot windows (runs in
+    a worker process: pure Python Fraction arithmetic)."""
+    from repro_torch.core import softposit_ref as G
+    from repro_torch.core.types import PositConfig
+    kind, nbits, es, xs, ys = job
+    cfg = PositConfig(nbits, es)
+    if kind == "dot":
+        return [G.dot(x, y, cfg) for x, y in zip(xs, ys)]
+    out = {name: [fn(int(x), int(y), cfg) for x, y in zip(xs, ys)]
+           for name, fn in (("add", G.add), ("sub", G.sub), ("mul", G.mul),
+                            ("div", G.div))}
+    out["dot"] = [G.dot([int(x)], [int(y)], cfg) for x, y in zip(xs, ys)]
+    return out
+
+
+def golden_async(pool, kind, cfg, xs, ys, n_chunks=64):
+    step = -(-len(xs) // n_chunks)
+    jobs = [(kind, cfg.nbits, cfg.es, xs[i:i + step], ys[i:i + step])
+            for i in range(0, len(xs), step)]
+    return pool.map_async(_golden_chunk, jobs)
+
+
+def golden_result(handle, kind):
+    parts = handle.get(timeout=900)
+    if kind == "dot":
+        return np.array([v for p in parts for v in p], np.int64)
+    return {k: np.array([v for p in parts for v in p[k]], np.int64)
+            for k in parts[0]}
+
+
+def check_isa_kernels(dev):
+    """P1: every ISA kernel against its plain version on the card, and the
+    codec at posit32 and the es variants; returns the gemm case's error."""
+    from repro_torch.core.types import CONFIGS, POSIT16, POSIT32, signed_view, to_storage
+    from repro_torch.kernels import posit_codec as C
+    from repro_torch.kernels import posit_dot as D
+    from repro_torch.kernels import posit_ew as E
+    from repro_torch.kernels import posit_gemm as G
+    from repro_torch.kernels import posit_qgemm as Q
+
+    rng = np.random.default_rng(10)
+    bits = rng.integers(0, 2**32, 1 << 20, dtype=np.uint64).astype(np.uint32)
+    specials = np.array([0.0, -0.0, np.inf, -np.inf, np.nan, 1e-45, -1e-45,
+                         1.1754942e-38, 3.4028235e38, 1.0, -1.0, 0.02], np.float32)
+    x = torch.from_numpy(np.concatenate([bits.view(np.float32), specials])).to(dev)
+    for cfg in CONFIGS:
+        if not _same(C.quantize(x, cfg), C.quantize_plain(x, cfg)):
+            fail(f"posit_quantize {cfg.name} not bit-exact")
+        p = np.random.default_rng(11).integers(0, 2**32, 1 << 20) \
+            if cfg.nbits == 32 else np.arange(1 << cfg.nbits)
+        p = to_storage(torch.from_numpy(np.concatenate([p, _edges(cfg)])),
+                       cfg.storage_dtype).to(dev)
+        got, want = C.dequantize(p, cfg), C.dequantize_plain(p, cfg)
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            fail(f"posit_dequantize {cfg.name} not bit-exact")
+    print(f"codec at {', '.join(c.name for c in CONFIGS)}: encode "
+          f"{x.numel()} f32 values and decode 2^20 posit32 patterns (every "
+          f"pattern of the narrower configs) bit-exact")
+
+    for cfg in CONFIGS:
+        if cfg.nbits == 8:
+            a, b = (torch.from_numpy(v).to(dev).to(torch.uint8) for v in _all_pairs8())
+        else:
+            a, b = _pats(cfg, EW_BLOCK, 12, dev), _pats(cfg, EW_BLOCK, 13, dev)
+            e = torch.tensor(_edges(cfg), dtype=torch.int64)
+            ea, eb = torch.meshgrid(e, e, indexing="ij")
+            signed_view(a).view(-1)[:36] = signed_view(to_storage(ea.reshape(-1), cfg.storage_dtype)).to(dev)
+            signed_view(b).view(-1)[:36] = signed_view(to_storage(eb.reshape(-1), cfg.storage_dtype)).to(dev)
+        for op, mode in EW_OPS:
+            if not _same(E.elementwise(a, b, cfg, op, mode),
+                         E.elementwise_plain(a, b, cfg, op, mode)):
+                fail(f"posit_ew {op} {mode} {cfg.name} differs from plain")
+        print(f"posit_ew {cfg.name}: add, sub, mul, div nr3, div exact on "
+              f"{a.numel()} pairs (edge patterns crossed): equal to plain")
+
+    for cfg in (POSIT16, POSIT32):
+        for length in DOT_LENGTHS:
+            a, b = _pats(cfg, (32, length), length, dev), _pats(cfg, (32, length), length + 1, dev)
+            if not _same(D.vpdot_rows(a, b, cfg), D.vpdot_rows_plain(a, b, cfg)):
+                fail(f"posit_dot {cfg.name} L={length} differs from plain")
+        for m, k, n in PGEMM_SHAPES:
+            a, w = _pats(cfg, (m, k), m, dev), _pats(cfg, (k, n), n, dev)
+            if not _same(Q.posit_qgemm(a, w, cfg), Q.posit_qgemm_plain(a, w, cfg)):
+                fail(f"posit_qgemm {cfg.name} {(m, k, n)} differs from plain")
+    print(f"posit_dot posit16/posit32 at L in {DOT_LENGTHS}, posit_qgemm at "
+          f"{PGEMM_SHAPES}: equal to plain")
+
+    # (128, 5120) f32 @ (5120, 17920) posit16: f32 sums in another order
+    # than the plain version's, so each output may differ by the
+    # forward-error bound of both orders, 2 K 2^-24 sum_k |a_ik w_kj|
+    gen = torch.Generator(device=dev).manual_seed(14)
+    m, k, n = GEMM_SHAPE
+    a = torch.randn((m, k), generator=gen, device=dev)
+    w = C.quantize(torch.randn((k, n), generator=gen, device=dev) * k ** -0.5,
+                   POSIT16)
+    got, want = G.posit_gemm(a, w, POSIT16), G.posit_gemm_plain(a, w, POSIT16)
+    wd = C.dequantize(w, POSIT16)
+    bound = 2 * k * 2.0 ** -24 * (a.abs().double() @ wd.abs().double())
+    err = (got.double() - want.double()).abs()
+    print(f"posit_gemm ({m}, {k}) @ ({k}, {n}) posit16: max abs err "
+          f"{float(err.max()):.3e} vs plain, worst share of the f32 "
+          f"order bound 2K*2^-24*sum|a||w|: {float((err / bound).max()):.3f}")
+    if not bool((err <= bound).all()):
+        fail("posit_gemm differs from plain beyond the f32 summation bound")
+    return dict(a=a, w=w, err=float(err.max()))
+
+
+def _im2col(x, k, stride):
+    """(B, C, H, W) -> (B * OH * OW, C * k * k), column order (c, kh, kw)."""
+    cols = x.unfold(2, k, stride).unfold(3, k, stride)      # B,C,OH,OW,k,k
+    return cols.permute(0, 2, 3, 1, 4, 5).reshape(-1, x.shape[1] * k * k)
+
+
+def conv_workload(dev, pool):
+    """P2: the paper's verification workload at its config's full size,
+    8 images, posit32 (``configs/pvu_resnet_conv.py``; the int8-style
+    data recipe of ``benchmarks/bench_accuracy.py``)."""
+    from repro_torch.configs.pvu_resnet_conv import CONFIG as cw
+    from repro_torch.core.types import POSIT32, signed_view
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import posit_ew as E
+    from repro_torch.kernels import posit_qgemm as Q
+
+    cfg, n_img = POSIT32, CONV_IMAGES
+    rng = np.random.default_rng(0)
+    acts = rng.integers(0, 128, (n_img, cw.in_channels, cw.image, cw.image)) * cw.quant_scale
+    wts = rng.integers(-127, 128, (cw.out_channels, cw.in_channels, cw.kernel, cw.kernel)) * 0.005
+    wts[wts == 0] = 0.005
+    bias = rng.integers(-127, 128, cw.out_channels) * 0.005
+    x = torch.from_numpy(acts.astype(np.float32)).to(dev)
+    wf = torch.from_numpy(wts.astype(np.float32)).to(dev)
+    bf = torch.from_numpy(bias.astype(np.float32)).to(dev)
+    kk = cw.in_channels * cw.kernel * cw.kernel
+
+    reset_counts()
+    t0 = time.perf_counter()
+    xq, wq, bq = ops.quantize(x, cfg), ops.quantize(wf, cfg), ops.quantize(bf, cfg)
+    a = _im2col(signed_view(xq), cw.kernel, cw.stride).contiguous().view(cfg.storage_dtype)
+    w = signed_view(wq).reshape(cw.out_channels, kk).T.contiguous().view(cfg.storage_dtype)
+    y = ops.pgemm(a, w, cfg)                                   # (M, 64)
+    yb = ops.vadd(y, bq, cfg)                                  # bias per channel
+    af = _im2col(x, cw.kernel, cw.stride).contiguous()
+    yf = ops.gemm(af, w, cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    m = a.shape[0]
+    print(f"conv workload: {n_img} x {cw.in_channels} x {cw.image}^2 -> "
+          f"{cw.out_channels} channels, {cw.kernel}x{cw.kernel} stride "
+          f"{cw.stride}: im2col ({m}, {kk}) @ ({kk}, {cw.out_channels}) = "
+          f"{m * kk * cw.out_channels:,} quire products in posit32; quantize, "
+          f"pgemm, bias vadd and the f32 gemm took {wall:.3f} s")
+
+    # pgemm == dot on every output, windows in chunks of rows
+    wt = signed_view(w).T.contiguous().view(cfg.storage_dtype)  # (64, K)
+    for i in range(0, m, 8192):
+        d = ops.dot(a[i:i + 8192, None, :], wt[None], cfg)
+        if not _same(d, y[i:i + 8192]):
+            fail(f"pgemm != dot on conv rows {i}..{i + 8192}")
+    print(f"pgemm == dot over the same windows on all {m * cw.out_channels:,} outputs")
+    if not _same(yb, E.elementwise_plain(y, bq, cfg, "add")):
+        fail("conv bias vadd differs from plain")
+    # the f32 path agrees with the posit one within the f32 sums' bound
+    # plus the posit32 rounding of the quire result (the operands are
+    # exact in both)
+    yd = ops.dequantize(y, cfg).double()
+    mag = af.double().abs() @ ops.dequantize(w, cfg).double().abs()
+    tol = kk * 2.0 ** -24 * mag + 2.0 ** -26 * yd.abs()
+    if not bool(((yf.double() - yd).abs() <= tol).all()):
+        fail("f32 gemm conv and posit32 pgemm conv disagree beyond their rounding")
+    print(f"f32 gemm conv vs posit32 pgemm conv: max abs diff "
+          f"{float((yf.double() - yd).abs().max()):.3e} (inside the rounding bound)")
+
+    # the per-op table: 2000 seeded (activation, weight) pairs and 2000
+    # seeded windows of the conv, through the kernels, against the golden
+    srng = np.random.default_rng(42)
+    i = torch.from_numpy(srng.integers(0, m, 2000)).to(dev)
+    k = torch.from_numpy(srng.integers(0, kk, 2000)).to(dev)
+    j = torch.from_numpy(srng.integers(0, cw.out_channels, 2000)).to(dev)
+    pa = signed_view(a)[i, k].view(cfg.storage_dtype)
+    pb = signed_view(w)[k, j].view(cfg.storage_dtype)
+    got = {op if op != "div" else f"div_{mode}":
+           _host(getattr(ops, {"add": "vadd", "sub": "vsub", "mul": "vmul",
+                               "div": "vdiv"}[op])(pa, pb, cfg,
+                                                   **({"mode": mode} if op == "div" else {})))
+           for op, mode in EW_OPS}
+    wi, wj = srng.integers(0, m, 2000), srng.integers(0, cw.out_channels, 2000)
+    win_a = _host(signed_view(a)[torch.from_numpy(wi).to(dev)].view(cfg.storage_dtype))
+    win_b = _host(signed_view(wt)[torch.from_numpy(wj).to(dev)].view(cfg.storage_dtype))
+    got["dot"] = _host(signed_view(y)[torch.from_numpy(wi).to(dev),
+                                      torch.from_numpy(wj).to(dev)].view(cfg.storage_dtype))
+    golden = (golden_async(pool, "ew", cfg, _host(pa).tolist(), _host(pb).tolist()),
+              golden_async(pool, "dot", cfg, win_a.tolist(), win_b.tolist()))
+    counts = read_counts()
+
+    # kernel == plain on the whole conv (chunked lattice), timed once
+    ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    ev0.record()
+    yp = Q.posit_qgemm_plain(a, w, cfg, max_entries=1 << 24)
+    ev1.record()
+    ev1.synchronize()
+    if not _same(y, yp):
+        fail("posit_qgemm differs from its plain version on the conv")
+    print(f"posit_qgemm == plain on all {m * cw.out_channels:,} conv outputs")
+    return dict(counts=counts, a=a, w=w, wt=wt, y=y, af=af, cfg=cfg, golden=golden,
+                got=got, plain_ms=ev0.elapsed_time(ev1))
+
+
+def accuracy_table(conv, golden8, got8):
+    """The paper's per-op exact-match table on the conv data and on every
+    posit8 pair, against the golden model; fails below the paper."""
+    ew, dots = (golden_result(conv["golden"][0], "ew"),
+                golden_result(conv["golden"][1], "dot"))
+    want_conv = {"add": ew["add"], "sub": ew["sub"], "mul": ew["mul"],
+                 "div_nr3": ew["div"], "div_exact": ew["div"], "dot": dots}
+    g8 = golden_result(golden8, "ew")
+    want8 = {"add": g8["add"], "sub": g8["sub"], "mul": g8["mul"],
+             "div_nr3": g8["div"], "div_exact": g8["div"], "dot": g8["dot"]}
+    table = {}
+    for data, got, want in (("conv posit32", conv["got"], want_conv),
+                            ("all posit8 pairs", got8, want8)):
+        for op in ("add", "sub", "mul", "div_nr3", "div_exact", "dot"):
+            rate = float((got[op] == want[op]).mean())
+            table[f"{data} {op}"] = rate
+            print(f"accuracy {data} {op}: {100 * rate:.2f} % exact "
+                  f"({int((got[op] == want[op]).sum())}/{want[op].size})")
+            need = PAPER_DIV_ACC if op == "div_nr3" else 1.0
+            if rate < need:
+                fail(f"{data} {op} exact-match {rate:.4f} below {need}")
+    return table
+
+
+def posit8_through_kernels(dev):
+    """Every posit8 pair through the kernels (the five ops and dot as a
+    length-1 reduction)."""
+    from repro_torch.core.types import POSIT8
+    from repro_torch.kernels import ops
+    a, b = (torch.from_numpy(v).to(dev).to(torch.uint8) for v in _all_pairs8())
+    got = {"add": ops.vadd(a, b, POSIT8), "sub": ops.vsub(a, b, POSIT8),
+           "mul": ops.vmul(a, b, POSIT8),
+           "div_nr3": ops.vdiv(a, b, POSIT8, mode="nr3"),
+           "div_exact": ops.vdiv(a, b, POSIT8, mode="exact"),
+           "dot": ops.dot(a[:, None], b[:, None], POSIT8)}
+    return {k: _host(v) for k, v in got.items()}
+
+
+def posit_exact_linear(dev):
+    """P3: ``layers.dense`` with ``posit_exact_linear`` at phi3-medium-14b
+    width, the MLP down projection on one prefill chunk: 16 tokens x
+    17 920 -> 5 120 in posit16 (K = 4 x 4096 + 1536: five quire tiles, the
+    last ragged), with bias."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.core.types import POSIT16
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import posit_codec as C
+    from repro_torch.kernels import posit_ew as E
+    from repro_torch.kernels import posit_qgemm as Q
+    from repro_torch.models import layers as L
+
+    cfg = dataclasses.replace(configs.get_config("phi3-medium-14b"),
+                              posit_exact_linear=True, weight_posit="posit16",
+                              compute_dtype="float32")
+    d_in, d_out = cfg.d_ff, cfg.d_model
+    gen = torch.Generator(device=dev).manual_seed(7)
+    w = torch.randn((d_in, d_out), generator=gen, device=dev) * d_in ** -0.5
+    b = torch.randn((d_out,), generator=gen, device=dev) * 0.02
+    x = torch.randn((16, d_in), generator=gen, device=dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    y = L.dense({"w": w, "b": b}, x, cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    # the plain chain (quantize, pgemm, vadd, dequantize) on 64 seeded
+    # output columns must give the same f32 bits
+    cols = torch.from_numpy(np.random.default_rng(7).choice(d_out, 64, replace=False)).to(dev)
+    xq = C.quantize_plain(x, POSIT16)
+    yq = Q.posit_qgemm_plain(xq, C.quantize_plain(w[:, cols].contiguous(), POSIT16),
+                             POSIT16, max_entries=1 << 24)
+    yq = E.elementwise_plain(yq, C.quantize_plain(b[cols], POSIT16), POSIT16, "add")
+    ref = C.dequantize_plain(yq, POSIT16)
+    if not torch.equal(y[:, cols].contiguous().view(torch.int32), ref.view(torch.int32)):
+        fail("posit-exact dense differs from the plain chain on the checked columns")
+    wq = ops.quantize(w, POSIT16)
+    xq = ops.quantize(x, POSIT16)
+    ms = time_ms(lambda: ops.pgemm(xq, wq, POSIT16), iters=5, warmup=1)
+    print(f"posit-exact dense 16 x {d_in} -> {d_out} (posit16, phi3-medium-14b "
+          f"MLP down): {wall:.3f} s with quantize and build; equal to the plain "
+          f"chain on 64 seeded columns; pgemm kernel {ms:.3f} ms for "
+          f"{16 * d_in * d_out:,} quire products")
+    return dict(counts=counts, pgemm_ms=ms)
+
+
+def cache_maintenance(cache):
+    """P4: ``scale_cache`` and ``merge_caches`` on the arena the phi3 path
+    served from; block tables and lengths come back unchanged, and the
+    posit_ew output equals the plain version on layer 0 (in chunks).
+    Returns the phase's counts and the ew timing row."""
+    from repro_torch.compress import kvcache as kvc
+    from repro_torch.core.types import POSIT16, signed_view
+    from repro_torch.compress.gradient import scalar_pattern
+    from repro_torch.kernels import posit_ew as E
+
+    keys = kvc.arena_leaves(cache)
+    n = sum(cache[k].numel() for k in keys)
+    tables, lens = cache["block_tables"].clone(), cache["lens"].clone()
+    reset_counts()
+    t0 = time.perf_counter()
+    scaled = kvc.scale_cache(cache, 0.5, "posit16")
+    merged = kvc.merge_caches(cache, scaled, "posit16", weight_a=0.25)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    for out in (scaled, merged):
+        if not (torch.equal(out["block_tables"], tables) and torch.equal(out["lens"], lens)):
+            fail("cache maintenance changed the block tables or lengths")
+    dev = cache[keys[0]].device
+    half = scalar_pattern(0.5, POSIT16, dev)
+    wa, wb = scalar_pattern(0.25, POSIT16, dev), scalar_pattern(0.75, POSIT16, dev)
+    a0, s0, m0 = (signed_view(t[keys[0]][0]).reshape(-1).view(POSIT16.storage_dtype)
+                  for t in (cache, scaled, merged))
+    step = 1 << 21
+    for i in range(0, a0.numel(), step):
+        a, sc = a0[i:i + step], s0[i:i + step]
+        if not _same(sc, E.elementwise_plain(a, half, POSIT16, "mul")):
+            fail(f"scale_cache layer 0 differs from plain at {i}")
+        want = E.elementwise_plain(E.elementwise_plain(a, wa, POSIT16, "mul"),
+                                   E.elementwise_plain(sc, wb, POSIT16, "mul"),
+                                   POSIT16, "add")
+        if not _same(m0[i:i + step], want):
+            fail(f"merge_caches layer 0 differs from plain at {i}")
+    leaf = cache[keys[0]]
+    full_ms = time_ms(lambda: E.elementwise(leaf, half, POSIT16, "mul"), iters=5, warmup=1)
+    print(f"cache maintenance on the served phi3 arena ({len(keys)} leaves, "
+          f"{n:,} posit16 patterns): scale_cache + merge_caches {wall:.3f} s; "
+          f"tables and lens unchanged; layer 0 equal to plain; one vmul over "
+          f"a whole leaf ({leaf.numel():,} patterns) {full_ms:.3f} ms")
+    # the ew timing row: vmul by a scalar on layer 0 of the leaf
+    x0 = leaf[0]
+    nb = x0.numel()
+    row = dict(
+        name="posit_ew", route="cuda", source="src/repro_torch/csrc/posit_ew.cu",
+        replaces="src/repro/kernels/posit_ew.py:81", launches=0, max_abs_err=0.0,
+        ms=time_ms(lambda: E.elementwise(x0, half, POSIT16, "mul")),
+        plain_ms=time_ms(lambda: E.elementwise_plain(x0, half, POSIT16, "mul"), iters=3),
+        **_bound(2 * nb * 2 + 2, nb * (2 * OPS_DECODE + OPS_EW[("mul", "nr3")] + OPS_ENCODE),
+                 INT_OPS),
+        library_ms=None, shape=list(x0.shape), full_leaf_ms=full_ms)
+    return dict(counts=counts, row=row)
+
+
+def _bound(nbytes, ops, rate):
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / rate
+    return dict(bound_ms=max(t_b, t_o) * 1e3,
+                bound_by="bytes" if t_b >= t_o else "operations")
+
+
+def time_isa(dev, p1, conv):
+    """P5: kernel, plain and library times of dot, pgemm and gemm at the
+    conv workload's shapes (gemm also at the P1 check's), with their
+    bounds."""
+    from repro_torch.core.types import POSIT16, signed_view
+    from repro_torch.kernels import posit_codec as C
+    from repro_torch.kernels import posit_dot as D
+    from repro_torch.kernels import posit_gemm as G
+    from repro_torch.kernels import posit_qgemm as Q
+
+    cfg, a, w, wt = conv["cfg"], conv["a"], conv["w"], conv["wt"]
+    m, kk = a.shape
+    n = w.shape[1]
+    rows = []
+    # dot: the cross-check's windows of 1024 conv rows (65 536 dots of 147)
+    r = min(1024, m)
+    sa = signed_view(a[:r, None, :]).expand(r, n, kk).reshape(-1, kk)
+    sb = signed_view(wt[None]).expand(r, n, kk).reshape(-1, kk)
+    da, db = sa.contiguous().view(cfg.storage_dtype), sb.contiguous().view(cfg.storage_dtype)
+    nd = da.shape[0]
+    rows.append(dict(
+        name="posit_dot", route="cuda", source="src/repro_torch/csrc/posit_dot.cu",
+        replaces="src/repro/kernels/posit_dot.py:109", launches=0, max_abs_err=0.0,
+        ms=time_ms(lambda: D.vpdot_rows(da, db, cfg)),
+        plain_ms=time_ms(lambda: D.vpdot_rows_plain(da, db, cfg, max_entries=1 << 24), iters=3),
+        **_bound(nd * kk * 4 * 2 + nd * 4,
+                 nd * kk * (2 * OPS_DECODE + OPS_QUIRE) + nd * OPS_ENCODE, INT_OPS),
+        library_ms=None, shape=[nd, kk]))
+    # pgemm: the whole conv
+    rows.append(dict(
+        name="posit_qgemm", route="cuda", source="src/repro_torch/csrc/posit_qgemm.cu",
+        replaces="src/repro/kernels/posit_qgemm.py:105", launches=0, max_abs_err=0.0,
+        ms=time_ms(lambda: Q.posit_qgemm(a, w, cfg), iters=5, warmup=1),
+        plain_ms=conv["plain_ms"],
+        **_bound((m * kk + kk * n + m * n) * 4,
+                 m * kk * n * OPS_QUIRE + (m * kk + kk * n) * OPS_DECODE + m * n * OPS_ENCODE,
+                 INT_OPS),
+        library_ms=None, shape=[m, kk, n]))
+    # gemm: where the workload ran it (the conv's f32 path, posit32
+    # weights), and at the check's phi3 MLP shape; the library call is
+    # one fp32 matmul on the decoded weights (TF32 off)
+    def gemm_times(ga, gw, gcfg):
+        wd = C.dequantize(gw, gcfg)
+        gm, gk = ga.shape
+        gn = gw.shape[1]
+        return dict(
+            ms=time_ms(lambda: G.posit_gemm(ga, gw, gcfg), iters=10),
+            plain_ms=time_ms(lambda: G.posit_gemm_plain(ga, gw, gcfg), iters=5),
+            **_bound(gm * gk * 4 + gk * gn * gw.element_size() + gm * gn * 4,
+                     2 * gm * gn * gk, FP32_FLOPS),
+            library_ms=time_ms(lambda: torch.matmul(ga, wd), iters=10),
+            shape=[gm, gk, gn])
+
+    af = conv["af"]
+    diff = (G.posit_gemm(af, w, cfg).double() - G.posit_gemm_plain(af, w, cfg).double()).abs()
+    if not bool((diff <= 2 * kk * 2.0 ** -24 * (af.double().abs() @ C.dequantize(
+            w, cfg).double().abs())).all()):
+        fail("posit_gemm differs from plain on the conv beyond the f32 summation bound")
+    err = float(diff.max())
+    mlp = dict(gemm_times(p1["a"], p1["w"], POSIT16), max_abs_err=p1["err"])
+    print(f"posit_gemm at the phi3 MLP shape {mlp['shape']} posit16: "
+          f"{mlp['ms']:.4f} ms (bound {mlp['bound_ms']:.4f} ms by "
+          f"{mlp['bound_by']}, plain {mlp['plain_ms']:.4f} ms, library "
+          f"{mlp['library_ms']:.4f} ms)")
+    rows.append(dict(
+        name="posit_gemm", route="cuda", source="src/repro_torch/csrc/posit_gemm.cu",
+        replaces="src/repro/kernels/posit_gemm.py:53", launches=0, max_abs_err=err,
+        **gemm_times(af, w, cfg), mlp_down=mlp))
+    return rows
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke needs a GPU")
+    # the golden model is pure Python: its answers are computed on the
+    # host's cores, in worker processes, while the card works
+    with multiprocessing.get_context("spawn").Pool(min(8, os.cpu_count() or 1)) as pool:
+        run(pool)
+
+
+def run(pool):
+    from repro_torch.core.types import POSIT8
+    golden8 = golden_async(pool, "ew", POSIT8, *(v.tolist() for v in _all_pairs8()))
     dev = torch.device("cuda")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -517,13 +1033,22 @@ def main():
     rows = time_codec(dev, POSIT16)
     rows.append(check_attention(dev))
     rows.append(check_attention_mla(dev))
-    for row in rows:
-        print(f"{row['name']} at {row['shape']}: {row['ms']:.4f} ms "
-              f"(bound {row['bound_ms']:.4f} ms by {row['bound_by']}, "
-              f"plain {row['plain_ms']:.4f} ms, library "
-              f"{row['library_ms'] if row['library_ms'] is None else round(row['library_ms'], 4)} ms)")
 
-    by_path = {}
+    # the PVU ISA: P1 kernel checks, P2 the paper's conv, P3 the
+    # posit-exact linear at phi3 width
+    t_isa = time.perf_counter()
+    p1 = check_isa_kernels(dev)
+    conv = conv_workload(dev, pool)
+    by_path = {"conv": conv["counts"]}
+    got8 = posit8_through_kernels(dev)
+    rows += time_isa(dev, p1, conv)
+    del p1
+    by_path["dense"] = posit_exact_linear(dev)["counts"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    isa_s = time.perf_counter() - t_isa
+
+    ew_row = None
     for name, (argv, kernels) in MAIN_PATHS.items():
         res, counts, wall, steps = serve_main_path(argv)
         check_served(res)
@@ -542,15 +1067,40 @@ def main():
             fail(f"{attn} ran {counts[attn]} times in {steps} decode steps "
                  f"of {n_layers} layers")
         by_path[name] = counts
+        if name == "phi3-medium-14b":
+            # P4: cache maintenance on the arena this path served from
+            t_p4 = time.perf_counter()
+            p4 = cache_maintenance(res.sched.cache)
+            by_path["cache"] = p4["counts"]
+            ew_row = p4["row"]
+            isa_s += time.perf_counter() - t_p4
         del res
         gc.collect()
         torch.cuda.empty_cache()
+    rows.append(ew_row)
+    for kernel in ("posit_ew", "posit_dot", "posit_qgemm", "posit_gemm"):
+        if not any(c[kernel] > 0 for p, c in by_path.items()
+                   if p in ("conv", "dense", "cache")):
+            fail(f"kernel {kernel} was not launched on the ISA phases")
+    print(f"ISA phase launches: " + json.dumps(
+        {p: {k: v for k, v in by_path[p].items() if v}
+         for p in ("conv", "dense", "cache")}))
     for row in rows:
         row["launches_by_path"] = {p: c[row["name"]] for p, c in by_path.items()}
         row["launches"] = sum(row["launches_by_path"].values())
+    for row in rows:
+        print(f"{row['name']} at {row['shape']}: {row['ms']:.4f} ms "
+              f"(bound {row['bound_ms']:.4f} ms by {row['bound_by']}, "
+              f"plain {row['plain_ms']:.4f} ms, library "
+              f"{row['library_ms'] if row['library_ms'] is None else round(row['library_ms'], 4)} ms)")
 
     check_fused_equals_gather(dev)
     check_prefix_identity(dev)
+
+    t0 = time.perf_counter()
+    accuracy_table(conv, golden8, got8)
+    isa_s += time.perf_counter() - t0
+    print(f"ISA phases (P1-P5 and the accuracy table) took {isa_s:.1f} s")
 
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

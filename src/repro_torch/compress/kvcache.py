@@ -1,5 +1,7 @@
 """Paged KV-cache memory model: the host-side block pool, the prefix
-index, row release and the cache report.
+index, row release and the cache report; and posit-domain cache
+maintenance (``scale_cache``, ``merge_caches``) on the fused elementwise
+kernel.
 
 Layout (see ``models/transformer.py``): arena content leaves are
 (L, n_blocks, block_size, ...), one pool of blocks shared by every batch
@@ -19,6 +21,9 @@ from __future__ import annotations
 from collections import OrderedDict
 
 import torch
+
+from repro_torch.kernels import ops as kops
+from .gradient import pcfg_of, scalar_pattern
 
 # Time-axis / row-state content, and bookkeeping (the reference's schema).
 _TIME_LEAVES = frozenset(
@@ -300,3 +305,72 @@ def _paged_sentinel(cache) -> int:
     if not keys:
         raise ValueError("paged cache has no arena content leaves")
     return int(cache[keys[0]].shape[1])
+
+
+# ---------------------------------------------------------------------------
+# Posit-domain cache maintenance (the fused elementwise kernel)
+# ---------------------------------------------------------------------------
+
+_UNSIGNED = (torch.uint8, torch.uint16, torch.uint32)
+
+
+def _leaf_is_patterns(key, x) -> bool:
+    """Posit-pattern content by the leaf schema: a registered content
+    leaf stored unsigned; bookkeeping never; an unknown unsigned leaf
+    raises rather than being guessed from its dtype."""
+    unsigned = isinstance(x, torch.Tensor) and x.dtype in _UNSIGNED
+    if key in CONTENT_LEAVES:
+        return unsigned
+    if key in META_LEAVES or not unsigned:
+        return False
+    raise ValueError(
+        f"unknown unsigned cache leaf {key!r}: register it in "
+        "kvcache.CONTENT_LEAVES (posit patterns) or kvcache.META_LEAVES "
+        "(bookkeeping); refusing to guess from the dtype")
+
+
+def scale_cache(cache, factor: float, name: str):
+    """Multiply every posit-pattern leaf by ``factor`` in the posit domain
+    (one rounding per element); metadata (lengths, block tables) passes
+    through as the same objects.  Returns a new dict."""
+    cfg = pcfg_of(name)
+    out = {}
+    for key, x in cache.items():
+        if _leaf_is_patterns(key, x):
+            x = kops.vmul(x, scalar_pattern(factor, cfg, x.device), cfg)
+        out[key] = x
+    return out
+
+
+def _same_meta(a, b) -> bool:
+    if isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor):
+        return a.shape == b.shape and a.dtype == b.dtype and \
+            bool(torch.equal(a, b))
+    return type(a) is type(b) and a == b
+
+
+def merge_caches(cache_a, cache_b, name: str, weight_a: float = 0.5):
+    """Blend two posit caches, ``wa * a + (1 - wa) * b``: two vmul and a
+    vadd per element, each rounded once.  The two caches' metadata
+    (lengths, block tables) must agree -- blending K/V of inconsistent
+    caches raises."""
+    cfg = pcfg_of(name)
+    if set(cache_a) != set(cache_b):
+        raise ValueError(f"merge_caches: leaves differ: {sorted(cache_a)} vs "
+                         f"{sorted(cache_b)}")
+    out = {}
+    for key, a in cache_a.items():
+        b = cache_b[key]
+        if _leaf_is_patterns(key, a) and _leaf_is_patterns(key, b):
+            wa = scalar_pattern(weight_a, cfg, a.device)
+            wb = scalar_pattern(1.0 - float(weight_a), cfg, a.device)
+            out[key] = kops.vadd(kops.vmul(a, wa, cfg), kops.vmul(b, wb, cfg),
+                                 cfg)
+        elif _same_meta(a, b):
+            out[key] = a
+        else:
+            raise ValueError(
+                f"merge_caches: non-pattern (metadata) leaf {key!r} differs "
+                "between the caches; refusing to blend K/V contents of "
+                "inconsistent caches")
+    return out

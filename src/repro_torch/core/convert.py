@@ -81,3 +81,8 @@ def posit_to_f32(p, cfg: PositConfig) -> torch.Tensor:
     out = torch.where(pir.is_zero, sign << 31, out)
     out = torch.where(pir.is_nar, 0x7FC00000, out)
     return _bits_f32(out)
+
+
+def quant_dequant(x, cfg: PositConfig) -> torch.Tensor:
+    """Round trip f32 -> posit -> f32: the straight-through quantizer."""
+    return posit_to_f32(f32_to_posit(x, cfg), cfg)

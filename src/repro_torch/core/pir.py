@@ -105,3 +105,12 @@ def encode(sign, exp, sig, sticky, is_zero, is_nar, cfg: PositConfig):
     p = torch.where(sign == 1, (~p + 1) & cfg.mask, p)
     p = torch.where(is_zero, 0, p)
     return torch.where(is_nar, cfg.nar_pattern, p)
+
+
+def encode_pir(pir: PIR, cfg: PositConfig, sticky=None):
+    """``encode`` of a PIR, with the sticky bit an arithmetic op returned
+    beside it (no sticky: the PIR is exact)."""
+    if sticky is None:
+        sticky = torch.zeros_like(pir.sign)
+    return encode(pir.sign, pir.exp, pir.sig, sticky, pir.is_zero,
+                  pir.is_nar, cfg)

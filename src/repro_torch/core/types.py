@@ -3,9 +3,10 @@
 ``PositConfig`` carries the posit width ``nbits``, the exponent field
 width ``es`` and the alignment width of the PVU datapath.  Patterns are
 stored in the narrowest unsigned torch dtype (``storage_dtype``): one
-byte for posit8, two for posit16 -- never widened, since those bytes are
-the point of the format.  Arithmetic on patterns runs in int64 (torch's
-``uint16``/``uint32`` lack shifts, ``+`` and comparisons).
+byte for posit8, two for posit16, four for posit32 -- never widened,
+since those bytes are the point of the format.  Arithmetic on patterns
+runs in int64 (torch's ``uint16``/``uint32`` lack shifts, ``+`` and
+comparisons).
 """
 from __future__ import annotations
 
@@ -42,6 +43,10 @@ class PositConfig:
         return (1 << (self.nbits - 1)) - 1
 
     @property
+    def minpos_pattern(self) -> int:
+        return 1
+
+    @property
     def max_scale(self) -> int:
         """Largest combined binary exponent (maxpos): (n-2) * 2^es."""
         return (self.nbits - 2) << self.es
@@ -64,8 +69,14 @@ class PositConfig:
         return f"posit{self.nbits}e{self.es}"
 
 
+# The Posit Standard's es = 2 at three widths (the paper evaluates
+# posit16 and posit32) and two narrower-exponent variants.
+POSIT32 = PositConfig(32, 2)
 POSIT16 = PositConfig(16, 2)
 POSIT8 = PositConfig(8, 2)
+POSIT16_E1 = PositConfig(16, 1)
+POSIT8_E0 = PositConfig(8, 0)
+CONFIGS = (POSIT32, POSIT16, POSIT8, POSIT16_E1, POSIT8_E0)
 
 
 # torch implements few kernels for uint16/uint32 (no indexing, stacking

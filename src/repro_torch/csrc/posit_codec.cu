@@ -3,8 +3,9 @@
 // Replaces the Pallas TPU kernels ``repro/kernels/posit_codec.py``
 // ``quantize_2d`` / ``dequantize_2d`` (``_quant_kernel`` /
 // ``_dequant_kernel``).  Elementwise over a flat buffer: one thread per
-// element, grid-stride, templated on (nbits, es) for posit16 and posit8
-// with es = 2.  The arithmetic is ``posit.cuh`` -- the same decode, RNE
+// element, grid-stride, templated on (nbits, es) for the five configs of
+// ``core/types.py`` (posit32, posit16, posit8 with es = 2; posit16 es 1;
+// posit8 es 0).  The arithmetic is ``posit.cuh`` -- the same decode, RNE
 // encode and saturation as ``core/convert.py``, on native 32/64-bit
 // integers (``__clz``, one ``uint64_t`` encode stream).
 //
@@ -48,36 +49,42 @@ int grid_for(long long n) {
   return static_cast<int>(blocks < cap ? (blocks > 0 ? blocks : 1) : cap);
 }
 
-}  // namespace
-
-extern "C" int posit_quantize(int nbits, const void* x, void* out, long long n,
-                              void* stream) {
-  if (n <= 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (nbits == 16) {
-    quantize_kernel<16, 2, uint16_t><<<grid_for(n), kThreads, 0, s>>>(
-        static_cast<const float*>(x), static_cast<uint16_t*>(out), n);
-  } else if (nbits == 8) {
-    quantize_kernel<8, 2, uint8_t><<<grid_for(n), kThreads, 0, s>>>(
-        static_cast<const float*>(x), static_cast<uint8_t*>(out), n);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+template <int N, int ES, typename P>
+int quantize(const void* x, void* out, long long n, cudaStream_t s) {
+  quantize_kernel<N, ES, P><<<grid_for(n), kThreads, 0, s>>>(
+      static_cast<const float*>(x), static_cast<P*>(out), n);
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int posit_dequantize(int nbits, const void* p, void* out, long long n,
+template <int N, int ES, typename P>
+int dequantize(const void* p, void* out, long long n, cudaStream_t s) {
+  dequantize_kernel<N, ES, P><<<grid_for(n), kThreads, 0, s>>>(
+      static_cast<const P*>(p), static_cast<float*>(out), n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int posit_quantize(int nbits, int es, const void* x, void* out, long long n,
+                              void* stream) {
+  if (n <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (nbits == 32 && es == 2) return quantize<32, 2, uint32_t>(x, out, n, s);
+  if (nbits == 16 && es == 2) return quantize<16, 2, uint16_t>(x, out, n, s);
+  if (nbits == 16 && es == 1) return quantize<16, 1, uint16_t>(x, out, n, s);
+  if (nbits == 8 && es == 2) return quantize<8, 2, uint8_t>(x, out, n, s);
+  if (nbits == 8 && es == 0) return quantize<8, 0, uint8_t>(x, out, n, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+extern "C" int posit_dequantize(int nbits, int es, const void* p, void* out, long long n,
                                 void* stream) {
   if (n <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (nbits == 16) {
-    dequantize_kernel<16, 2, uint16_t><<<grid_for(n), kThreads, 0, s>>>(
-        static_cast<const uint16_t*>(p), static_cast<float*>(out), n);
-  } else if (nbits == 8) {
-    dequantize_kernel<8, 2, uint8_t><<<grid_for(n), kThreads, 0, s>>>(
-        static_cast<const uint8_t*>(p), static_cast<float*>(out), n);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (nbits == 32 && es == 2) return dequantize<32, 2, uint32_t>(p, out, n, s);
+  if (nbits == 16 && es == 2) return dequantize<16, 2, uint16_t>(p, out, n, s);
+  if (nbits == 16 && es == 1) return dequantize<16, 1, uint16_t>(p, out, n, s);
+  if (nbits == 8 && es == 2) return dequantize<8, 2, uint8_t>(p, out, n, s);
+  if (nbits == 8 && es == 0) return dequantize<8, 0, uint8_t>(p, out, n, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -20,10 +20,13 @@ import shutil
 import subprocess
 from pathlib import Path
 
+from repro_torch.core.types import CONFIGS
+
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parents[1] / "build"
-SOURCES = ("posit_codec", "paged_attn", "paged_attn_mla")
+SOURCES = ("posit_codec", "paged_attn", "paged_attn_mla", "posit_ew",
+           "posit_dot", "posit_qgemm", "posit_gemm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -92,8 +95,18 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         ctypes.c_float
     if name == "posit_codec":
         for fn in (lib.posit_quantize, lib.posit_dequantize):
-            fn.argtypes = [I, P, P, LL, P]
+            fn.argtypes = [I, I, P, P, LL, P]
             fn.restype = I
+    elif name == "posit_ew":
+        lib.posit_elementwise.argtypes = [I, I, I, P, P, P, LL, LL, LL, P]
+        lib.posit_elementwise.restype = I
+    elif name == "posit_dot":
+        lib.posit_dot_rows.argtypes = [I, I, P, P, P, LL, LL, P]
+        lib.posit_dot_rows.restype = I
+    elif name in ("posit_qgemm", "posit_gemm"):
+        fn = getattr(lib, name)
+        fn.argtypes = [I, I, P, P, P, LL, LL, LL, P]
+        fn.restype = I
     elif name == "paged_attn":
         lib.paged_decode_attention.argtypes = [I] + [P] * 7 + [I] * 9 + [P]
         lib.paged_decode_attention.restype = I
@@ -105,6 +118,15 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.paged_decode_attention_mla.restype = I
         lib.paged_attn_mla_smem_bytes.argtypes = [I, I, I]
         lib.paged_attn_mla_smem_bytes.restype = LL
+
+
+def check_cfg(cfg, what: str) -> None:
+    """Raise unless the kernels are instantiated for ``cfg`` (the five
+    configs of ``core/types.py``, at the full alignment width)."""
+    if cfg not in CONFIGS:
+        raise ValueError(f"{what}: the CUDA kernels are built for "
+                         f"{[c.name for c in CONFIGS]} (align_width 63), "
+                         f"got {cfg}")
 
 
 def check(rc: int, what: str) -> None:

@@ -2,7 +2,9 @@
 
 Conventions follow ``repro/models/layers.py``: params are plain dicts of
 tensors; activations run in ``cfg.compute_dtype`` and every weight is
-cast to the activation dtype at use; attention is the chunked online-
+cast to the activation dtype at use (posit-pattern weights decode first,
+``maybe_dequant``; ``cfg.posit_exact_linear`` routes ``dense`` through
+the quire, ``dense_posit_exact``); attention is the chunked online-
 softmax ``flash_attention`` with its fixed ``attn_chunk_kv`` KV grouping
 (the chunked-prefill identity depends on it).
 
@@ -21,7 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.types import POSIT8, POSIT16, index_rows, signed_view
-from repro_torch.kernels import posit_codec
+from repro_torch.kernels import ops, posit_codec
 from .config import ModelConfig
 
 _PCFGS = {"posit16": POSIT16, "posit8": POSIT8}
@@ -36,11 +38,43 @@ def cdtype(cfg: ModelConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
 
 
+_UNSIGNED = (torch.uint8, torch.uint16, torch.uint32)
+
+
+def maybe_dequant(w, cfg: ModelConfig):
+    """Posit-quantized weights (unsigned patterns) decode on the fly."""
+    if w.dtype in _UNSIGNED:
+        return posit_codec.dequantize(w.contiguous(),
+                                      pcfg(cfg.weight_posit or "posit16"))
+    return w
+
+
 def dense(p, x, cfg: ModelConfig):
-    y = x @ p["w"].to(x.dtype)
+    if cfg.posit_exact_linear:
+        return dense_posit_exact(p, x, cfg)
+    y = x @ maybe_dequant(p["w"], cfg).to(x.dtype)
     if "b" in p:
         y = y + p["b"].to(x.dtype)
     return y
+
+
+def dense_posit_exact(p, x, cfg: ModelConfig):
+    """Bit-exact posit linear for numerics audits (``cfg.posit_exact_linear``).
+
+    The paper's §IV-E datapath end to end in the posit domain: the
+    activations quantize once, ``kernels.ops.pgemm`` reduces every output
+    through the quire (one rounding each), the bias adds with the fused
+    ``vadd`` and the result dequantizes once -- three roundings per
+    output whatever K is.  The ground truth the float ``dense`` is
+    audited against; far slower, never on a serving path.
+    """
+    pc = pcfg(cfg.weight_posit or "posit16")
+    w = p["w"]
+    wq = w if w.dtype in _UNSIGNED else ops.quantize(w.to(torch.float32), pc)
+    yq = ops.pgemm(ops.quantize(x.to(torch.float32), pc), wq, pc)
+    if "b" in p:
+        yq = ops.vadd(yq, ops.quantize(p["b"].to(torch.float32), pc), pc)
+    return ops.dequantize(yq, pc).to(x.dtype)
 
 
 def init_dense(gen: torch.Generator, d_in: int, d_out: int, *,

@@ -108,7 +108,7 @@ def _embed(params, tokens, cfg: ModelConfig):
 def _unembed_weight(params, cfg: ModelConfig):
     if cfg.tie_embeddings:
         return params["tok_embed"].T
-    return params["lm_head"]["w"]
+    return L.maybe_dequant(params["lm_head"]["w"], cfg)
 
 
 def _block_mlp(lp, h, cfg: ModelConfig):
@@ -383,12 +383,14 @@ def _decode_attn_mla_paged(p, x, c_arena, r_arena, tables, lens,
     L.paged_write(c_arena, _maybe_quant_kv(c_new, cfg)[:, 0], write_index)
     L.paged_write(r_arena, _maybe_quant_kv(r_new, cfg)[:, 0], write_index)
 
-    wuk = p["wuk"]["w"].to(torch.float32).reshape(rank, h, nope)
+    wuk = L.maybe_dequant(p["wuk"]["w"], cfg).to(torch.float32).reshape(
+        rank, h, nope)
     q_lat_eff = torch.einsum("bhd,rhd->bhr", q_nope.to(torch.float32), wuk)
     ctx = L.decode_attention_paged_mla(
         q_lat_eff, q_rope, c_arena, r_arena, tables, lens, cfg=cfg,
         kv_posit=cfg.kv_posit, kernel=cfg.paged_attn_kernel)
-    wuv = p["wuv"]["w"].to(torch.float32).reshape(rank, h, cfg.v_head_dim)
+    wuv = L.maybe_dequant(p["wuv"]["w"], cfg).to(torch.float32).reshape(
+        rank, h, cfg.v_head_dim)
     out = torch.einsum("bhr,rhv->bhv", ctx, wuv)
     out = out.reshape(b, 1, h * cfg.v_head_dim).to(x.dtype)
     return L.dense(p["wo"], out, cfg)

@@ -1,0 +1,201 @@
+"""The device arithmetic of the ISA kernels, checked on the host.
+
+``csrc/pvu.cuh`` is header-only C++ (``__host__ __device__``), so ``g++``
+builds it into a small shared library here.  Its elementwise ops (add,
+sub, mul, both dividers) and its quire dot (the kernels' tile loop,
+run serially) are held bit for bit to the port's plain versions
+(``repro_torch.core.posit``): every posit8 and posit8e0 pair, and seeded
+2**16-pair samples with the edge patterns in posit16, posit16e1 and
+posit32.  This is the only check of the kernels' arithmetic that runs
+without the card; skipped where ``g++`` is missing.
+"""
+import ctypes
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import posit as P
+from repro_torch.core.types import (POSIT8, POSIT8_E0, POSIT16, POSIT16_E1,
+                                    POSIT32, signed_view)
+from repro_torch.kernels import _build
+
+CFGS = [POSIT8, POSIT8_E0, POSIT16, POSIT16_E1, POSIT32]
+OPS = ["add", "sub", "mul", "div_nr3", "div_exact"]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The plain versions are many small int64 ops: under the suite's
+    parallel workers torch's intra-op threads only contend."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+_SHIM = r"""
+#include "pvu.cuh"
+
+namespace {
+
+template <int N, int ES>
+void ew(int op, const uint32_t* a, const uint32_t* b, uint32_t* o, long long n) {
+  for (long long i = 0; i < n; ++i) {
+    switch (op) {
+      case pvu::kAdd: o[i] = pvu::elementwise<N, ES, pvu::kAdd>(a[i], b[i]); break;
+      case pvu::kSub: o[i] = pvu::elementwise<N, ES, pvu::kSub>(a[i], b[i]); break;
+      case pvu::kMul: o[i] = pvu::elementwise<N, ES, pvu::kMul>(a[i], b[i]); break;
+      case pvu::kDivNr3: o[i] = pvu::elementwise<N, ES, pvu::kDivNr3>(a[i], b[i]); break;
+      default: o[i] = pvu::elementwise<N, ES, pvu::kDivExact>(a[i], b[i]); break;
+    }
+  }
+}
+
+// the kernels' tile loop, serially: per tile of kMaxDotLength the max
+// product exponent, then the placed products, folded in order
+template <int N, int ES>
+void dot(const uint32_t* a, const uint32_t* b, uint32_t* o, long long rows,
+         long long len) {
+  for (long long r = 0; r < rows; ++r) {
+    const uint32_t* x = a + r * len;
+    const uint32_t* y = b + r * len;
+    pvu::Quire s = pvu::quire_empty();
+    for (long long t0 = 0; t0 < len; t0 += pvu::kMaxDotLength) {
+      const long long t1 = t0 + pvu::kMaxDotLength < len ? t0 + pvu::kMaxDotLength : len;
+      pvu::Quire t = pvu::quire_empty();
+      for (long long i = t0; i < t1; ++i) {
+        const pvu::Pir pa = pvu::decode<N, ES>(x[i]), pb = pvu::decode<N, ES>(y[i]);
+        const int e = pvu::product_exp(pa, pb);
+        t.m_exp = e > t.m_exp ? e : t.m_exp;
+        t.nar = t.nar || pa.nar || pb.nar;
+      }
+      for (long long i = t0; i < t1; ++i) {
+        uint32_t st;
+        t.acc += pvu::place_product(pvu::decode<N, ES>(x[i]), pvu::decode<N, ES>(y[i]),
+                                    t.m_exp, &st);
+        t.sticky |= st;
+      }
+      s = pvu::quire_combine(s, t);
+    }
+    o[r] = pvu::quire_finalize<N, ES>(s);
+  }
+}
+
+}  // namespace
+
+#define PVU_DISPATCH(CALL)                                   \
+  if (nbits == 32 && es == 2) { CALL(32, 2); return 0; }     \
+  if (nbits == 16 && es == 2) { CALL(16, 2); return 0; }     \
+  if (nbits == 16 && es == 1) { CALL(16, 1); return 0; }     \
+  if (nbits == 8 && es == 2) { CALL(8, 2); return 0; }       \
+  if (nbits == 8 && es == 0) { CALL(8, 0); return 0; }       \
+  return 1;
+
+extern "C" int host_ew(int nbits, int es, int op, const uint32_t* a,
+                       const uint32_t* b, uint32_t* o, long long n) {
+#define CALL(N, ES) ew<N, ES>(op, a, b, o, n)
+  PVU_DISPATCH(CALL)
+#undef CALL
+}
+
+extern "C" int host_dot(int nbits, int es, const uint32_t* a, const uint32_t* b,
+                        uint32_t* o, long long rows, long long len) {
+#define CALL(N, ES) dot<N, ES>(a, b, o, rows, len)
+  PVU_DISPATCH(CALL)
+#undef CALL
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def lib(tmp_path_factory):
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("g++ not found: the host check of csrc/pvu.cuh needs it")
+    d = tmp_path_factory.mktemp("pvu_host")
+    (d / "shim.cpp").write_text(_SHIM)
+    so = d / "pvu_host.so"
+    subprocess.run([gxx, "-O2", "-std=c++17", "-shared", "-fPIC",
+                    "-I", str(_build.CSRC), "-o", str(so), str(d / "shim.cpp")],
+                   check=True, capture_output=True, text=True)
+    lib = ctypes.CDLL(str(so))
+    ptr, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.host_ew.argtypes = [i, i, i, ptr, ptr, ptr, ll]
+    lib.host_dot.argtypes = [i, i, ptr, ptr, ptr, ll, ll]
+    return lib
+
+
+def _edges(cfg):
+    return np.array([0, cfg.nar_pattern, cfg.maxpos_pattern, 1,
+                     (-1) & cfg.mask, (-cfg.maxpos_pattern) & cfg.mask],
+                    np.uint32)
+
+
+def _pairs(cfg, seed=0):
+    if cfg.nbits == 8:
+        p = np.arange(256, dtype=np.uint32)
+        a, b = np.meshgrid(p, p, indexing="ij")
+        return a.ravel().copy(), b.ravel().copy()
+    rng = np.random.default_rng(seed)
+    e = _edges(cfg)
+    ea, eb = np.meshgrid(e, e, indexing="ij")
+    a = rng.integers(0, 2 ** cfg.nbits, 1 << 16, dtype=np.uint64).astype(np.uint32)
+    b = rng.integers(0, 2 ** cfg.nbits, 1 << 16, dtype=np.uint64).astype(np.uint32)
+    return (np.concatenate([ea.ravel(), a]), np.concatenate([eb.ravel(), b]))
+
+
+def _plain(fn, a, b, cfg, **kw):
+    out = fn(torch.from_numpy(a.astype(np.int64)),
+             torch.from_numpy(b.astype(np.int64)), cfg, **kw)
+    return signed_view(out).to(torch.int64).numpy().astype(np.uint32) & cfg.mask
+
+
+_PLAIN = {"add": (P.vpadd, {}), "sub": (P.vpsub, {}), "mul": (P.vpmul, {}),
+          "div_nr3": (P.vpdiv, {"mode": "nr3"}),
+          "div_exact": (P.vpdiv, {"mode": "exact"})}
+
+
+@pytest.mark.parametrize("cfg", CFGS, ids=lambda c: c.name)
+@pytest.mark.parametrize("op", OPS)
+def test_header_elementwise_equals_plain(lib, cfg, op):
+    a, b = _pairs(cfg)
+    out = np.empty_like(a)
+    rc = lib.host_ew(cfg.nbits, cfg.es, OPS.index(op), a.ctypes.data,
+                     b.ctypes.data, out.ctypes.data, a.size)
+    assert rc == 0
+    fn, kw = _PLAIN[op]
+    want = _plain(fn, a, b, cfg, **kw)
+    bad = np.nonzero(out != want)[0][:5]
+    assert bad.size == 0, [(int(a[i]), int(b[i]), int(out[i]), int(want[i]))
+                           for i in bad]
+
+
+@pytest.mark.parametrize("cfg", [POSIT8, POSIT16, POSIT32], ids=lambda c: c.name)
+@pytest.mark.parametrize("length", [1, 16, 147, 4096, 4097, 9000])
+def test_header_dot_equals_plain(lib, cfg, length):
+    """Random patterns (NaR kept out of all but one row, zeros in one)
+    and a bounded-spread row, across the 4096 tile boundary."""
+    rng = np.random.default_rng(length)
+    rows = 6
+    a = rng.integers(0, 2 ** cfg.nbits, (rows, length), dtype=np.uint64).astype(np.uint32)
+    b = rng.integers(0, 2 ** cfg.nbits, (rows, length), dtype=np.uint64).astype(np.uint32)
+    a[a == cfg.nar_pattern] = 1
+    b[b == cfg.nar_pattern] = 1
+    a[1, -1] = cfg.nar_pattern                      # NaR in the last tile
+    a[2] = 0                                        # an empty quire
+    one = int(P.f32_to_posit(torch.tensor(1.0), cfg).to(torch.int64)) & cfg.mask
+    a[3], b[3] = one, one                           # a sum of ones
+    x = rng.uniform(1, 2, length) * rng.choice([-1, 1], length)
+    a[4] = signed_view(P.f32_to_posit(torch.from_numpy(x.astype(np.float32)), cfg)
+                       ).to(torch.int64).numpy() & cfg.mask
+    out = np.empty(rows, np.uint32)
+    rc = lib.host_dot(cfg.nbits, cfg.es, a.ctypes.data, b.ctypes.data,
+                      out.ctypes.data, rows, length)
+    assert rc == 0
+    want = signed_view(P.vpdot(torch.from_numpy(a.astype(np.int64)),
+                               torch.from_numpy(b.astype(np.int64)), cfg)
+                       ).to(torch.int64).numpy() & cfg.mask
+    np.testing.assert_array_equal(out, want.astype(np.uint32))

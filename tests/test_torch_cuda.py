@@ -5,16 +5,19 @@ Marked ``cuda``: they need an NVIDIA card, ``nvcc`` and the repo's
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-The codec must be bit-exact; paged attention (dense/window and MLA)
-agrees with its plain version within atol/rtol 1e-5 (both accumulate in
-f32, in different orders).
+The codec and the PVU ISA kernels (elementwise ops, the quire dot,
+pgemm) must be bit-exact; paged attention (dense/window and MLA) agrees
+with its plain version within atol/rtol 1e-5 (both accumulate in f32,
+in different orders), and the posit-weight gemm within the f32
+forward-error bound of two summation orders.
 """
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.core.types import POSIT8, POSIT16
-from repro_torch.kernels import posit_codec, posit_paged_attn as K
+from repro_torch.core.types import CONFIGS, POSIT8, POSIT16, POSIT32, signed_view
+from repro_torch.kernels import ops, posit_codec, posit_paged_attn as K
+from repro_torch.kernels import posit_dot, posit_ew, posit_gemm, posit_qgemm
 from repro_torch.models import layers as L
 
 pytestmark = pytest.mark.cuda
@@ -97,3 +100,75 @@ def test_paged_attention_mla_matches_plain_on_card(dev, kv):
                                        scale=scale).cpu()
     torch.testing.assert_close(got, ref, atol=1e-5, rtol=1e-5)
     assert torch.all(got[-1] == 0)
+
+
+def _pats(cfg, shape, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.integers(0, 2 ** cfg.nbits, size=shape, dtype=np.uint64)
+    return torch.from_numpy(x.astype({8: np.uint8, 16: np.uint16,
+                                      32: np.uint32}[cfg.nbits]))
+
+
+def _eq(got, want):
+    return torch.equal(signed_view(got.cpu()), signed_view(want))
+
+
+def test_posit32_codec_bit_exact_on_card(dev):
+    rng = np.random.default_rng(3)
+    bits = rng.integers(0, 2**32, 1 << 18, dtype=np.uint64).astype(np.uint32)
+    x = torch.from_numpy(bits.view(np.float32).copy())
+    assert _eq(posit_codec.quantize(x.to(dev), POSIT32),
+               posit_codec.quantize_plain(x, POSIT32))
+    p = torch.from_numpy(bits.copy())
+    got = posit_codec.dequantize(p.to(dev), POSIT32).cpu()
+    assert torch.equal(got.view(torch.int32),
+                       posit_codec.dequantize_plain(p, POSIT32).view(torch.int32))
+
+
+@pytest.mark.parametrize("cfg", CONFIGS, ids=lambda c: c.name)
+def test_elementwise_kernel_bit_exact_on_card(dev, cfg):
+    a, b = _pats(cfg, (97, 131), 1), _pats(cfg, (97, 131), 2)
+    for op, mode in (("add", "nr3"), ("sub", "nr3"), ("mul", "nr3"),
+                     ("div", "nr3"), ("div", "exact")):
+        want = posit_ew.elementwise_plain(a, b, cfg, op, mode)
+        assert _eq(posit_ew.elementwise(a.to(dev), b.to(dev), cfg, op, mode), want)
+        row = b[3]                                   # a broadcast row
+        want = posit_ew.elementwise_plain(a, row, cfg, op, mode)
+        assert _eq(posit_ew.elementwise(a.to(dev), row.to(dev), cfg, op, mode),
+                   want)
+
+
+@pytest.mark.parametrize("cfg", [POSIT16, POSIT32], ids=lambda c: c.name)
+@pytest.mark.parametrize("length", [1, 147, 4096, 4097, 9000])
+def test_dot_kernel_bit_exact_on_card(dev, cfg, length):
+    a, b = _pats(cfg, (9, length), length), _pats(cfg, (9, length), length + 1)
+    want = posit_dot.vpdot_rows_plain(a, b, cfg)
+    assert _eq(posit_dot.vpdot_rows(a.to(dev), b.to(dev), cfg), want)
+
+
+@pytest.mark.parametrize("cfg", [POSIT8, POSIT16, POSIT32], ids=lambda c: c.name)
+@pytest.mark.parametrize("mkn", [(5, 37, 7), (33, 129, 19), (16, 4097, 16)])
+def test_pgemm_kernel_bit_exact_on_card(dev, cfg, mkn):
+    m, k, n = mkn
+    a, w = _pats(cfg, (m, k), m), _pats(cfg, (k, n), n)
+    want = posit_qgemm.posit_qgemm_plain(a, w, cfg)
+    got = posit_qgemm.posit_qgemm(a.to(dev), w.to(dev), cfg)
+    assert _eq(got, want)
+    per_out = ops.dot(a.to(dev)[:, None, :],
+                      signed_view(w).T.contiguous().view(w.dtype).to(dev)[None], cfg)
+    assert _eq(per_out, got.cpu())
+
+
+@pytest.mark.parametrize("cfg", [POSIT16, POSIT8], ids=lambda c: c.name)
+def test_gemm_kernel_matches_plain_on_card(dev, cfg):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(4)
+    m, k, n = 70, 300, 130
+    a = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)).to(dev)
+    w = posit_codec.quantize(
+        torch.from_numpy(rng.standard_normal((k, n)).astype(np.float32)).to(dev), cfg)
+    got = posit_gemm.posit_gemm(a, w, cfg)
+    wd = posit_codec.dequantize(w, cfg)
+    want = posit_gemm.posit_gemm_plain(a, w, cfg)
+    bound = 2 * k * 2.0 ** -24 * (a.abs().double() @ wd.abs().double())
+    assert ((got.double() - want.double()).abs() <= bound).all()

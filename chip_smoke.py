@@ -17,6 +17,9 @@ paths at full size and checks that every kernel of each path ran there:
   maintenance (scale, merge) on the arena the phi3 path served from.
 
     python3 chip_smoke.py          # needs one NVIDIA GPU and nvcc
+    python3 chip_smoke.py --ptxas  # only: -Xptxas -v (registers, shared
+                                   # memory, spills) of paged_attn.cu and
+                                   # posit_gemm.cu
 
 Prints the card's name and power limit, per-kernel checks and timings,
 the serving reports, the accuracy table, a JSON line with every
@@ -128,6 +131,25 @@ def time_ms(fn, iters=20, warmup=3):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def kernel_alone_ms(call, n=100):
+    """Device time of one launch alone: ``n`` back-to-back calls of the
+    loaded library function on preallocated outputs (``call`` from a
+    wrapper's ``*_call``), bracketed by one event pair, divided by
+    ``n``; the wrapper's Python checks and allocations are outside."""
+    for _ in range(3):
+        if call() != 0:
+            fail("a kernel-alone launch returned a CUDA error")
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        call()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
 
 
 def check_codec(dev):
@@ -280,12 +302,17 @@ def time_attention(args, pcfg, err):
         return sdpa(qh, kh, vh, attn_mask=mask, enable_gqa=True)
 
     lib()
+    call, _ = K.paged_decode_attention_call(*args, pcfg=pcfg)
+    # the kernel alone and the library call, timed the same way
+    kernel_ms = kernel_alone_ms(call)
+    library_alone_ms = kernel_alone_ms(lambda: (lib(), 0)[1])
     return dict(
         name="paged_decode_attention", route="cuda",
         source="src/repro_torch/csrc/paged_attn.cu",
         replaces="src/repro/kernels/posit_paged_attn.py:216", launches=0,
         max_abs_err=err,
         ms=time_ms(lambda: K.paged_decode_attention(*args, pcfg=pcfg)),
+        kernel_ms=kernel_ms, library_alone_ms=library_alone_ms,
         plain_ms=time_ms(lambda: K.paged_decode_attention_plain(*args, pcfg=pcfg),
                          iters=5),
         bound_ms=bound_ms, bound_by=bound_by, library_ms=time_ms(lib),
@@ -672,6 +699,11 @@ def check_isa_kernels(dev):
           f"order bound 2K*2^-24*sum|a||w|: {float((err / bound).max()):.3f}")
     if not bool((err <= bound).all()):
         fail("posit_gemm differs from plain beyond the f32 summation bound")
+    again = G.posit_gemm(a, w, POSIT16)
+    same = torch.equal(got.view(torch.int32), again.view(torch.int32))
+    print(f"posit_gemm two calls bit-identical: {same}")
+    if not same:
+        fail("posit_gemm gave different bits on two calls")
     return dict(a=a, w=w, err=float(err.max()))
 
 
@@ -971,12 +1003,16 @@ def time_isa(dev, p1, conv):
         wd = C.dequantize(gw, gcfg)
         gm, gk = ga.shape
         gn = gw.shape[1]
+        res = torch.empty((gm, gn), dtype=torch.float32, device=ga.device)
         return dict(
             ms=time_ms(lambda: G.posit_gemm(ga, gw, gcfg), iters=10),
+            kernel_ms=kernel_alone_ms(G.posit_gemm_call(ga, gw, gcfg)[0]),
             plain_ms=time_ms(lambda: G.posit_gemm_plain(ga, gw, gcfg), iters=5),
             **_bound(gm * gk * 4 + gk * gn * gw.element_size() + gm * gn * 4,
                      2 * gm * gn * gk, FP32_FLOPS),
             library_ms=time_ms(lambda: torch.matmul(ga, wd), iters=10),
+            library_alone_ms=kernel_alone_ms(
+                lambda: (torch.matmul(ga, wd, out=res), 0)[1]),
             shape=[gm, gk, gn])
 
     af = conv["af"]
@@ -987,9 +1023,9 @@ def time_isa(dev, p1, conv):
     err = float(diff.max())
     mlp = dict(gemm_times(p1["a"], p1["w"], POSIT16), max_abs_err=p1["err"])
     print(f"posit_gemm at the phi3 MLP shape {mlp['shape']} posit16: "
-          f"{mlp['ms']:.4f} ms (bound {mlp['bound_ms']:.4f} ms by "
-          f"{mlp['bound_by']}, plain {mlp['plain_ms']:.4f} ms, library "
-          f"{mlp['library_ms']:.4f} ms)")
+          f"{mlp['ms']:.4f} ms, kernel alone {mlp['kernel_ms']:.4f} ms "
+          f"(bound {mlp['bound_ms']:.4f} ms by {mlp['bound_by']}, plain {mlp['plain_ms']:.4f} ms, library "
+          f"{mlp['library_ms']:.4f} ms, library alone {mlp['library_alone_ms']:.4f} ms)")
     rows.append(dict(
         name="posit_gemm", route="cuda", source="src/repro_torch/csrc/posit_gemm.cu",
         replaces="src/repro/kernels/posit_gemm.py:53", launches=0, max_abs_err=err,
@@ -997,9 +1033,35 @@ def time_isa(dev, p1, conv):
     return rows
 
 
+def ptxas_report():
+    """Registers, shared memory and spills of the redesigned kernels:
+    one ``nvcc -Xptxas -v`` compile of each source, with the build's
+    flags."""
+    import tempfile
+
+    from repro_torch.kernels import _build
+    flags = [f for f in _build.NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    with tempfile.TemporaryDirectory() as tmp:
+        for src in ("paged_attn", "posit_gemm"):
+            res = subprocess.run(
+                [_build.nvcc_path(), *flags, "-Xptxas", "-v", "-c", "-I", str(_build.CSRC),
+                 "-o", os.path.join(tmp, f"{src}.o"), str(_build.CSRC / f"{src}.cu")],
+                capture_output=True, text=True, timeout=600)
+            print(f"ptxas {src}.cu (rc {res.returncode}):")
+            for line in (res.stdout + res.stderr).splitlines():
+                if any(w in line for w in ("Compiling entry", "registers", "spill", "error")):
+                    print("   ", line.strip())
+            if res.returncode != 0:
+                fail(f"nvcc -Xptxas -v failed on {src}.cu")
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke needs a GPU")
+    if sys.argv[1:] == ["--ptxas"]:
+        # resource report only: no checks of the main path
+        ptxas_report()
+        return
     # the golden model is pure Python: its answers are computed on the
     # host's cores, in worker processes, while the card works
     with multiprocessing.get_context("spawn").Pool(min(8, os.cpu_count() or 1)) as pool:
@@ -1089,7 +1151,9 @@ def run(pool):
         row["launches_by_path"] = {p: c[row["name"]] for p, c in by_path.items()}
         row["launches"] = sum(row["launches_by_path"].values())
     for row in rows:
-        print(f"{row['name']} at {row['shape']}: {row['ms']:.4f} ms "
+        alone = (f", kernel alone {row['kernel_ms']:.4f} ms vs library alone "
+                 f"{row['library_alone_ms']:.4f} ms" if "kernel_ms" in row else "")
+        print(f"{row['name']} at {row['shape']}: {row['ms']:.4f} ms{alone} "
               f"(bound {row['bound_ms']:.4f} ms by {row['bound_by']}, "
               f"plain {row['plain_ms']:.4f} ms, library "
               f"{row['library_ms'] if row['library_ms'] is None else round(row['library_ms'], 4)} ms)")

@@ -1,5 +1,6 @@
-// Fused paged-decode attention: one query token per row against the
-// row's block-table KV, posit K/V decoded in-kernel.
+// Fused paged-decode attention, split over the block table
+// (flash-decoding): one query token per row against the row's
+// block-table KV, posit K/V decoded in-kernel.
 //
 // Replaces the Pallas TPU kernel ``repro/kernels/posit_paged_attn.py``
 // ``paged_decode_attention`` (``_paged_attn_kernel``).  Same inputs and
@@ -8,192 +9,507 @@
 // (B, W) int32 with the sentinel nb; apos (B, W*bs) int32 (-1 = dead);
 // lens (B,) int32 -> out (B, G, R, Dv) f32.
 //
-// The TPU kernel walks W as a sequential grid axis and carries the
-// online-softmax state in VMEM scratch.  Blocks on Hopper run in no
-// order, so the walk is a loop inside one CTA per (row b, KV head g),
-// which holds all R = H/G query heads of that KV head.  Each step reads
-// tables[b, w] itself and skips a sentinel block without loading it
-// (its slots are all invalid, so the TPU kernel's update is the identity
-// there too); otherwise it decodes the bs x D posit K and V patterns to
-// f32 in shared memory, scores them against q, and folds them into the
-// running max m, denominator l and accumulator acc, all f32.  Invalid
-// slots get p = 0 (not exp(-1e30 - m)), so a row with no valid slot
-// keeps l == 0 and its output is acc / max(l, 1e-30) = exact zeros.
+// Bound on the H100: memory -- the K/V patterns of each row's live
+// blocks, read once (posit16: 2 B x (D + Dv) per slot and KV head).  At
+// decode batch sizes that is a few tens of MB, so the kernel has to keep
+// the whole card reading: the TPU kernel's sequential walk over W, one
+// CTA per (row, KV head), leaves most SMs idle and each CTA waiting on
+// one block's loads at a time.  The design:
 //
-// Bound on the H100: memory -- the K/V patterns of the row's live
-// blocks, read once (posit16: 2 B x (D + Dv) per slot and KV head).
-// This first version is simple rather than fast: one CTA per (b, g),
-// plain fp32 FMAs, no tensor cores, no TMA, no split over W.
+// - Split W.  The grid is (row b, KV head g, head group) x split s; the
+//   CTA of split s walks table entries [s*c, s*c + c) (c from the
+//   wrapper).  Its live entries are compacted with a warp ballot first,
+//   so sentinel entries cost nothing; a split with none loads nothing.
+//   Each CTA leaves its online-softmax state (m, l, acc[Dv]) per query
+//   head in a scratch tensor; ``paged_attn_fold_kernel`` (a warp per head, the
+//   splits' weights computed 32 at a time across lanes) folds the S
+//   splits of a head in split order (deterministic) and writes
+//   acc / max(l, 1e-30).
+//   A split with l == 0 (no valid slot) has acc == 0 and is given weight
+//   0, whatever its m, so an all-masked row comes out as exact zeros.
+//   With one split the CTA writes the output itself and no fold runs.
+// - Overlap.  Block i+1's K and V patterns are in flight (``cp.async``,
+//   16-byte copies, into the other of two shared-memory stages), and its
+//   slots' apos in a register, while block i is decoded and scored.
+// - Decode once, in registers.  All 128 threads turn the stage's
+//   16-byte pattern vectors into f32 in shared memory (posit8/16 with
+//   ``to_f32_narrow``, exact without rounding), once per block for all
+//   query heads of the KV head.  K rows are padded to an odd number of
+//   16-byte words, so the score's LDS.128 of 8 lanes hit 32 banks.
+// - Warps, not threads, for the math.  Warp w owns query heads
+//   (HPW of them, m and l in registers, q in shared memory); lane t
+//   scores slot t, one FMA chain over d = 0, 1, ..., D-1 per head --
+//   the order of an f32 matmul's inner loop (the plain version's
+//   einsum), so the scores and their exp agree with it to the last
+//   bits, which a shuffle tree over D does not at un-scaled q.  The
+//   block's max, exp and sum run across lanes, and for P.V the lanes
+//   span Dv with acc[Dv] in registers.
+// - Edges.  Rows whose bytes are not a multiple of 16 (ragged D or Dv)
+//   or arenas not 16-byte aligned take a scalar copy into the same
+//   stages; blocks larger than 32 slots are scored 32 at a time.  D and
+//   Dv are at most 256 (8 values per lane).
+//
+// Masking contract (``models/layers.py::paged_apos``): a slot counts iff
+// 0 <= apos < lens + 1, it is inside the window when one is set, and its
+// table entry is not the sentinel.  Invalid slots get p = 0.
 //
 // Plain C interface (loaded through ctypes); returns the CUDA error code
-// of the launch, 0 on success.
+// of the launches, 0 on success.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "posit.cuh"
+#include "posit_narrow.cuh"
 
 namespace {
 
 constexpr float kNeg = -1e30f;
-constexpr int kThreads = 128;
-constexpr int kMaxSmem = 48 * 1024;
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kMaxChunk = 32;        // table entries per split: one ballot
+constexpr int kMaxSmem = 232448;     // H100: 227 KB of shared memory a block
 
+// Each decoder turns one 16-byte vector of patterns into kVec floats.
 struct DecF32 {
   using T = float;
+  static constexpr int kVec = 4;
   static __device__ __forceinline__ float get(T v) { return v; }
+  static __device__ __forceinline__ void vec(uint4 u, float* f) {
+    f[0] = __uint_as_float(u.x); f[1] = __uint_as_float(u.y);
+    f[2] = __uint_as_float(u.z); f[3] = __uint_as_float(u.w);
+  }
 };
 struct DecBF16 {
   using T = __nv_bfloat16;
+  static constexpr int kVec = 8;
   static __device__ __forceinline__ float get(T v) { return __bfloat162float(v); }
+  static __device__ __forceinline__ void vec(uint4 u, float* f) {
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      f[2 * i] = __uint_as_float(w[i] << 16);
+      f[2 * i + 1] = __uint_as_float(w[i] & 0xFFFF0000u);
+    }
+  }
 };
 struct DecPosit16 {
   using T = uint16_t;
-  static __device__ __forceinline__ float get(T v) { return posit::to_f32<16, 2>(v); }
+  static constexpr int kVec = 8;
+  static __device__ __forceinline__ float get(T v) { return posit::to_f32_narrow<16, 2>(v); }
+  static __device__ __forceinline__ void vec(uint4 u, float* f) {
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      f[2 * i] = posit::to_f32_narrow<16, 2>(w[i] & 0xFFFFu);
+      f[2 * i + 1] = posit::to_f32_narrow<16, 2>(w[i] >> 16);
+    }
+  }
 };
 struct DecPosit8 {
   using T = uint8_t;
-  static __device__ __forceinline__ float get(T v) { return posit::to_f32<8, 2>(v); }
+  static constexpr int kVec = 16;
+  static __device__ __forceinline__ float get(T v) { return posit::to_f32_narrow<8, 2>(v); }
+  static __device__ __forceinline__ void vec(uint4 u, float* f) {
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) f[4 * i + j] = posit::to_f32_narrow<8, 2>((w[i] >> (8 * j)) & 0xFFu);
+  }
 };
 
-size_t smem_bytes(int R, int D, int Dv, int bs) {
-  const size_t floats = (size_t)R * D + (size_t)bs * (D + 1) + (size_t)bs * Dv +
-                        (size_t)R * bs + (size_t)R * Dv + 3 * (size_t)R;
-  return floats * sizeof(float) + (size_t)bs * sizeof(int);
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ __forceinline__ void cp_async_wait1() { asm volatile("cp.async.wait_group 1;\n" ::); }
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xFFFFFFFFu, v, o);
+  return v;
+}
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xFFFFFFFFu, v, o));
+  return v;
 }
 
-template <class Dec>
-__global__ void __launch_bounds__(kThreads)
-paged_attn_kernel(const float* __restrict__ q, const typename Dec::T* __restrict__ k_arena,
-                  const typename Dec::T* __restrict__ v_arena,
-                  const int* __restrict__ tables, const int* __restrict__ apos,
-                  const int* __restrict__ lens, float* __restrict__ out, int G, int R,
-                  int D, int Dv, int nb, int bs, int W, int window) {
-  extern __shared__ float smem[];
-  const int b = blockIdx.x / G;
-  const int g = blockIdx.x % G;
-  const int tid = threadIdx.x;
-  const int nt = blockDim.x;
-  const int dp = D + 1;  // padded K row: score loop reads k_s across t
-  float* q_s = smem;                   // R x D
-  float* k_s = q_s + R * D;            // bs x (D + 1)
-  float* v_s = k_s + bs * dp;          // bs x Dv
-  float* p_s = v_s + bs * Dv;          // R x bs  scores, then probabilities
-  float* acc_s = p_s + R * bs;         // R x Dv
-  float* m_s = acc_s + R * Dv;         // R
-  float* l_s = m_s + R;                // R
-  float* alpha_s = l_s + R;            // R
-  int* valid_s = reinterpret_cast<int*>(alpha_s + R);  // bs
+__host__ __device__ inline size_t align16(size_t n) { return (n + 15) & ~static_cast<size_t>(15); }
 
-  const float* qb = q + ((long long)b * G + g) * R * D;
-  for (int i = tid; i < R * D; i += nt) q_s[i] = qb[i];
-  for (int i = tid; i < R * Dv; i += nt) acc_s[i] = 0.f;
-  if (tid < R) {
-    m_s[tid] = kNeg;
-    l_s[tid] = 0.f;
+// Row strides in floats of the decoded K block (an odd number of
+// 16-byte words) and of the CTA's query heads in shared memory.
+__host__ __device__ inline int k_stride(int D) { return (((D + 3) / 4) | 1) * 4; }
+__host__ __device__ inline int q_stride(int D) { return (D + 3) / 4 * 4; }
+
+// Shared memory of one split CTA: two stages of raw K and V patterns,
+// the decoded f32 block, the query heads, the slots' valid flags, the
+// live entries.
+size_t smem_bytes(int es, int D, int Dv, int bs, int hpw) {
+  const size_t stage = align16((size_t)bs * D * es) + align16((size_t)bs * Dv * es);
+  return 2 * stage +
+         ((size_t)bs * (k_stride(D) + Dv) + (size_t)kWarps * hpw * q_stride(D)) * sizeof(float) +
+         align16((size_t)bs * sizeof(int)) + (2 * kMaxChunk + 4) * sizeof(int);
+}
+
+// One CTA: (row b, KV head g, head group hg) x split.  Query heads
+// hg*4*HPW + warp*HPW + h for h < HPW; Dv <= 32*DPL.
+template <class Dec, int HPW, int DPL>
+__global__ void __launch_bounds__(kThreads)
+paged_attn_split(const float* __restrict__ q, const typename Dec::T* __restrict__ k_arena,
+                 const typename Dec::T* __restrict__ v_arena, const int* __restrict__ tables,
+                 const int* __restrict__ apos, const int* __restrict__ lens,
+                 float* __restrict__ out, float* __restrict__ part_acc,
+                 float* __restrict__ part_ml, int G, int R, int D, int Dv, int nb, int bs,
+                 int W, int window, int chunk, int n_hg, int vec) {
+  using T = typename Dec::T;
+  constexpr int kVec = Dec::kVec;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int hg = blockIdx.x % n_hg;
+  const int bg = blockIdx.x / n_hg;
+  const int b = bg / G, g = bg % G;
+  const int split = blockIdx.y, n_split = gridDim.y;
+
+  const size_t rk_bytes = align16((size_t)bs * D * sizeof(T));
+  const size_t stage_bytes = rk_bytes + align16((size_t)bs * Dv * sizeof(T));
+  const int ldk = k_stride(D), ldq = q_stride(D);
+  float* kf = reinterpret_cast<float*>(smem + 2 * stage_bytes);   // bs x ldk
+  float* qs = kf + bs * ldk;                                       // 4*HPW x ldq
+  float* vf = qs + kWarps * HPW * ldq;                             // bs x Dv
+  int* valid_s = reinterpret_cast<int*>(vf + bs * Dv);             // bs
+  int* live_e = valid_s + ((bs + 3) & ~3);                         // chunk
+  int* live_blk = live_e + kMaxChunk;                              // chunk
+  int* n_live_s = live_blk + kMaxChunk;
+
+  const int w0 = split * chunk;
+  if (warp == 0) {  // compact this split's live table entries, in order
+    const int e = w0 + lane;
+    const int blk = (lane < chunk && e < W) ? tables[(long long)b * W + e] : nb;
+    const bool live = lane < chunk && e < W && blk >= 0 && blk < nb;
+    const unsigned mask = __ballot_sync(0xFFFFFFFFu, live);
+    if (live) {
+      const int at = __popc(mask & ((1u << lane) - 1u));
+      live_e[at] = e;
+      live_blk[at] = blk;
+    }
+    if (lane == 0) *n_live_s = __popc(mask);
+  }
+
+  // the CTA's query heads into shared memory (0 past R)
+  for (int i = tid; i < kWarps * HPW * D; i += kThreads) {
+    const int hh = i / D, d = i - hh * D;
+    const int r = hg * kWarps * HPW + hh;
+    qs[hh * ldq + d] = r < R ? q[(((long long)b * G + g) * R + r) * D + d] : 0.f;
+  }
+  // this warp's heads' state; its lanes' slices of Dv
+  float acc[HPW][DPL], m[HPW], l[HPW];
+#pragma unroll
+  for (int h = 0; h < HPW; ++h) {
+#pragma unroll
+    for (int i = 0; i < DPL; ++i) acc[h][i] = 0.f;
+    m[h] = kNeg;
+    l[h] = 0.f;
   }
   const int cl = lens[b] + 1;  // the frontier's own token is visible
   __syncthreads();
+  const int n_live = *n_live_s;
 
-  for (int w = 0; w < W; ++w) {
-    const int blk = tables[(long long)b * W + w];
-    if (blk < 0 || blk >= nb) continue;  // sentinel: same value in every thread
-    const long long base = (long long)blk * bs * G;
-    for (int i = tid; i < bs * D; i += nt) {
-      const int t = i / D, d = i - t * D;
-      k_s[t * dp + d] = Dec::get(k_arena[(base + (long long)t * G + g) * D + d]);
+  // block `blk`'s K and V rows of head g into raw stage `st`
+  // slot tid's apos of the block in flight (bs <= 128; larger blocks
+  // read theirs when decoding)
+  int apos_next = -1;
+  auto prefetch = [&](int blk, int e, int st) {
+    if (bs <= kThreads && tid < bs) apos_next = apos[((long long)b * W + e) * bs + tid];
+    unsigned char* rk = smem + st * stage_bytes;
+    unsigned char* rv = rk + rk_bytes;
+    const long long row0 = (long long)blk * bs * G + g;  // slot t: row0 + t*G
+    if (vec) {
+      const int ck = D * (int)sizeof(T) / 16, cv = Dv * (int)sizeof(T) / 16;
+      for (int i = tid; i < bs * ck; i += kThreads) {
+        const int t = i / ck, j = i - t * ck;
+        cp_async16(rk + 16 * i, reinterpret_cast<const unsigned char*>(
+                                    k_arena + (row0 + (long long)t * G) * D) + 16 * j);
+      }
+      for (int i = tid; i < bs * cv; i += kThreads) {
+        const int t = i / cv, j = i - t * cv;
+        cp_async16(rv + 16 * i, reinterpret_cast<const unsigned char*>(
+                                    v_arena + (row0 + (long long)t * G) * Dv) + 16 * j);
+      }
+    } else {  // scalar edge path: plain loads into the same layout
+      T* k_s = reinterpret_cast<T*>(rk);
+      T* v_s = reinterpret_cast<T*>(rv);
+      for (int i = tid; i < bs * D; i += kThreads) {
+        const int t = i / D, d = i - t * D;
+        k_s[i] = k_arena[(row0 + (long long)t * G) * D + d];
+      }
+      for (int i = tid; i < bs * Dv; i += kThreads) {
+        const int t = i / Dv, d = i - t * Dv;
+        v_s[i] = v_arena[(row0 + (long long)t * G) * Dv + d];
+      }
     }
-    for (int i = tid; i < bs * Dv; i += nt) {
-      const int t = i / Dv, d = i - t * Dv;
-      v_s[i] = Dec::get(v_arena[(base + (long long)t * G + g) * Dv + d]);
+  };
+
+  if (n_live > 0) prefetch(live_blk[0], live_e[0], 0);
+  cp_async_commit();
+  for (int it = 0; it < n_live; ++it) {
+    const int apos_cur = apos_next;
+    if (it + 1 < n_live) prefetch(live_blk[it + 1], live_e[it + 1], (it + 1) & 1);
+    cp_async_commit();
+    cp_async_wait1();  // block it's copies have landed (this thread's)
+    __syncthreads();   // ... everyone's; and block it-1's math is done
+
+    // decode block it into f32, and its slots' valid flags
+    const unsigned char* rk = smem + (it & 1) * stage_bytes;
+    const unsigned char* rv = rk + rk_bytes;
+    if (vec) {
+      const int nk = bs * D / kVec, nv = bs * Dv / kVec;
+      for (int i = tid; i < nk + nv; i += kThreads) {
+        const bool is_k = i < nk;
+        const int j = is_k ? i : i - nk;
+        const uint4 u = reinterpret_cast<const uint4*>(is_k ? rk : rv)[j];
+        float f[kVec];
+        Dec::vec(u, f);
+        // a vector never straddles two rows: kVec divides D and Dv here
+        const int t = j * kVec / D;
+        float4* dst = reinterpret_cast<float4*>(
+            is_k ? kf + t * ldk + (j * kVec - t * D) : vf + j * kVec);
+#pragma unroll
+        for (int x = 0; x < kVec / 4; ++x)
+          dst[x] = make_float4(f[4 * x], f[4 * x + 1], f[4 * x + 2], f[4 * x + 3]);
+      }
+    } else {
+      const T* k_s = reinterpret_cast<const T*>(rk);
+      const T* v_s = reinterpret_cast<const T*>(rv);
+      for (int i = tid; i < bs * D; i += kThreads) {
+        const int t = i / D;
+        kf[t * ldk + (i - t * D)] = Dec::get(k_s[i]);
+      }
+      for (int i = tid; i < bs * Dv; i += kThreads) vf[i] = Dec::get(v_s[i]);
     }
-    if (tid < bs) {
-      const int a = apos[((long long)b * W + w) * bs + tid];
+    const int e = live_e[it];
+    for (int t = tid; t < bs; t += kThreads) {
+      const int a = bs <= kThreads ? apos_cur : apos[((long long)b * W + e) * bs + t];
       bool ok = a >= 0 && a < cl;
       if (window) ok = ok && a >= cl - window;
-      valid_s[tid] = ok;
+      valid_s[t] = ok;
     }
     __syncthreads();
 
-    for (int i = tid; i < R * bs; i += nt) {
-      const int r = i / bs, t = i - r * bs;
-      const float* qr = q_s + r * D;
-      const float* kt = k_s + t * dp;
-      float s = 0.f;
-      for (int d = 0; d < D; ++d) s = fmaf(qr[d], kt[d], s);
-      p_s[i] = valid_s[t] ? s : kNeg;
-    }
-    __syncthreads();
-
-    if (tid < R) {  // online-softmax step for query head tid
-      float* pr = p_s + tid * bs;
-      const float m_prev = m_s[tid];
-      float m_new = m_prev;
-      for (int t = 0; t < bs; ++t) m_new = fmaxf(m_new, pr[t]);
-      float sum = 0.f;
-      for (int t = 0; t < bs; ++t) {
-        const float p = valid_s[t] ? expf(pr[t] - m_new) : 0.f;
-        pr[t] = p;
-        sum += p;
+    // the warp's heads over the block, 32 slots at a time
+    for (int t0 = 0; t0 < bs; t0 += 32) {
+      const int nt = bs - t0 < 32 ? bs - t0 : 32;
+      // lane t: slot t0 + t's scores, one FMA chain over d per head
+      // (lanes past nt read slot t0, a broadcast, and are masked)
+      const int tl = t0 + (lane < nt ? lane : 0);
+      const float* kt = kf + tl * ldk;
+      const float* qw = qs + warp * HPW * ldq;
+      float s_mine[HPW];
+#pragma unroll
+      for (int h = 0; h < HPW; ++h) s_mine[h] = 0.f;
+      int d = 0;
+#pragma unroll 4
+      for (; d + 4 <= D; d += 4) {
+        const float4 kv = *reinterpret_cast<const float4*>(kt + d);
+#pragma unroll
+        for (int h = 0; h < HPW; ++h) {
+          const float4 qv = *reinterpret_cast<const float4*>(qw + h * ldq + d);
+          s_mine[h] = fmaf(qv.x, kv.x, s_mine[h]);
+          s_mine[h] = fmaf(qv.y, kv.y, s_mine[h]);
+          s_mine[h] = fmaf(qv.z, kv.z, s_mine[h]);
+          s_mine[h] = fmaf(qv.w, kv.w, s_mine[h]);
+        }
       }
-      const float alpha = expf(m_prev - m_new);
-      l_s[tid] = l_s[tid] * alpha + sum;
-      m_s[tid] = m_new;
-      alpha_s[tid] = alpha;
+      for (; d < D; ++d) {
+        const float kv = kt[d];
+#pragma unroll
+        for (int h = 0; h < HPW; ++h) s_mine[h] = fmaf(qw[h * ldq + d], kv, s_mine[h]);
+      }
+      const bool ok = lane < nt && valid_s[tl];
+      float p[HPW];
+#pragma unroll
+      for (int h = 0; h < HPW; ++h) {
+        const float s = ok ? s_mine[h] : kNeg;
+        const float m_new = fmaxf(m[h], warp_max(s));
+        p[h] = ok ? expf(s - m_new) : 0.f;
+        const float alpha = expf(m[h] - m_new);
+        l[h] = l[h] * alpha + warp_sum(p[h]);
+        m[h] = m_new;
+#pragma unroll
+        for (int i = 0; i < DPL; ++i) acc[h][i] *= alpha;
+      }
+#pragma unroll 4
+      for (int t = 0; t < nt; ++t) {
+        const float* vt = vf + (t0 + t) * Dv;
+        float pt[HPW];
+#pragma unroll
+        for (int h = 0; h < HPW; ++h) pt[h] = __shfl_sync(0xFFFFFFFFu, p[h], t);
+#pragma unroll
+        for (int i = 0; i < DPL; ++i) {
+          const int d = lane + 32 * i;
+          if (d < Dv) {
+            const float vv = vt[d];
+#pragma unroll
+            for (int h = 0; h < HPW; ++h) acc[h][i] = fmaf(pt[h], vv, acc[h][i]);
+          }
+        }
+      }
     }
-    __syncthreads();
-
-    for (int i = tid; i < R * Dv; i += nt) {
-      const int r = i / Dv, d = i - r * Dv;
-      const float* pr = p_s + r * bs;
-      float sum = 0.f;
-      for (int t = 0; t < bs; ++t) sum = fmaf(pr[t], v_s[t * Dv + d], sum);
-      acc_s[i] = acc_s[i] * alpha_s[r] + sum;
-    }
-    __syncthreads();
   }
 
-  float* ob = out + ((long long)b * G + g) * R * Dv;
-  for (int i = tid; i < R * Dv; i += nt) ob[i] = acc_s[i] / fmaxf(l_s[i / Dv], 1e-30f);
+#pragma unroll
+  for (int h = 0; h < HPW; ++h) {
+    const int r = hg * kWarps * HPW + warp * HPW + h;
+    if (r >= R) continue;
+    const long long row = ((long long)b * G + g) * R + r;
+    if (n_split == 1) {
+      const float lc = fmaxf(l[h], 1e-30f);
+#pragma unroll
+      for (int i = 0; i < DPL; ++i) {
+        const int d = lane + 32 * i;
+        if (d < Dv) out[row * Dv + d] = acc[h][i] / lc;
+      }
+    } else {
+      float* pa = part_acc + (row * n_split + split) * Dv;
+#pragma unroll
+      for (int i = 0; i < DPL; ++i) {
+        const int d = lane + 32 * i;
+        if (d < Dv) pa[d] = acc[h][i];
+      }
+      if (lane == 0) {
+        part_ml[(row * n_split + split) * 2] = m[h];
+        part_ml[(row * n_split + split) * 2 + 1] = l[h];
+      }
+    }
+  }
+}
+
+// One warp per (row, head): the S partials folded in split order.  The
+// lanes read the splits' (m, l) 32 at a time and weigh them in parallel;
+// the sums then walk the splits in order, each split's weight broadcast
+// from its lane, 4 x 32 columns of acc per pass with the loads of
+// successive splits in flight together.
+__global__ void __launch_bounds__(kThreads)
+paged_attn_fold_kernel(const float* __restrict__ part_acc, const float* __restrict__ part_ml,
+                       float* __restrict__ out, long long rows, int n_split, int Dv) {
+  const long long row = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;
+  const float* ml = part_ml + row * n_split * 2;
+  const float* pa = part_acc + row * n_split * Dv;
+  float mx = kNeg;
+  for (int s = lane; s < n_split; s += 32)
+    if (ml[2 * s + 1] > 0.f) mx = fmaxf(mx, ml[2 * s]);
+  mx = warp_max(mx);
+  float l = 0.f;
+  for (int s0 = 0; s0 < n_split; s0 += 32) {
+    const int s = s0 + lane;
+    const float ls = s < n_split ? ml[2 * s + 1] : 0.f;
+    const float lw = ls > 0.f ? ls * expf(ml[2 * s] - mx) : 0.f;
+    const int n = n_split - s0 < 32 ? n_split - s0 : 32;
+    for (int j = 0; j < n; ++j) l += __shfl_sync(0xFFFFFFFFu, lw, j);
+  }
+  const float lc = fmaxf(l, 1e-30f);
+  for (int d0 = 0; d0 < Dv; d0 += 128) {
+    float a[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int s0 = 0; s0 < n_split; s0 += 32) {
+      const int s = s0 + lane;
+      const float wt = (s < n_split && ml[2 * s + 1] > 0.f) ? expf(ml[2 * s] - mx) : 0.f;
+      const int n = n_split - s0 < 32 ? n_split - s0 : 32;
+#pragma unroll 4
+      for (int j = 0; j < n; ++j) {
+        const float wj = __shfl_sync(0xFFFFFFFFu, wt, j);
+        const float* ps = pa + (long long)(s0 + j) * Dv + d0 + lane;
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (d0 + lane + 32 * i < Dv && wj != 0.f) a[i] = fmaf(ps[32 * i], wj, a[i]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (d0 + lane + 32 * i < Dv) out[row * Dv + d0 + lane + 32 * i] = a[i] / lc;
+  }
+}
+
+int fold(const float* part_acc, const float* part_ml, float* out, long long rows,
+         int n_split, int Dv, cudaStream_t s) {
+  const long long blocks = (rows + kWarps - 1) / kWarps;
+  if (blocks > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
+  paged_attn_fold_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
+      part_acc, part_ml, out, rows, n_split, Dv);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <class Dec, int HPW, int DPL>
+int launch(const void* q, const void* k, const void* v, const void* tables,
+           const void* apos, const void* lens, void* out, void* scratch, int B, int G,
+           int R, int D, int Dv, int nb, int bs, int W, int window, int chunk,
+           cudaStream_t s) {
+  using T = typename Dec::T;
+  const size_t smem = smem_bytes(sizeof(T), D, Dv, bs, HPW);
+  if (smem > (size_t)kMaxSmem) return static_cast<int>(cudaErrorInvalidConfiguration);
+  auto kernel = paged_attn_split<Dec, HPW, DPL>;
+  if (smem > 48 * 1024) {  // past the default limit: opt in (per device, so every time)
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const int n_hg = (R + kWarps * HPW - 1) / (kWarps * HPW);
+  const int n_split = (W + chunk - 1) / chunk;
+  const bool vec = (D * sizeof(T)) % 16 == 0 && (Dv * sizeof(T)) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(v) % 16 == 0;
+  const long long rows = (long long)B * G * R;
+  float* part_acc = static_cast<float*>(scratch);
+  float* part_ml = part_acc + rows * n_split * Dv;
+  const dim3 grid(static_cast<unsigned>((long long)B * G * n_hg), static_cast<unsigned>(n_split));
+  kernel<<<grid, kThreads, smem, s>>>(
+      static_cast<const float*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const int*>(tables), static_cast<const int*>(apos),
+      static_cast<const int*>(lens), static_cast<float*>(out), part_acc, part_ml, G, R, D,
+      Dv, nb, bs, W, window, chunk, n_hg, vec ? 1 : 0);
+  const int rc = static_cast<int>(cudaGetLastError());
+  if (rc != 0 || n_split == 1) return rc;
+  return fold(part_acc, part_ml, static_cast<float*>(out), rows, n_split, Dv, s);
 }
 
 template <class Dec>
-int launch(const void* q, const void* k, const void* v, const void* tables,
-           const void* apos, const void* lens, void* out, int B, int G, int R, int D,
-           int Dv, int nb, int bs, int W, int window, cudaStream_t s) {
-  const size_t smem = smem_bytes(R, D, Dv, bs);
-  paged_attn_kernel<Dec><<<B * G, kThreads, smem, s>>>(
-      static_cast<const float*>(q), static_cast<const typename Dec::T*>(k),
-      static_cast<const typename Dec::T*>(v), static_cast<const int*>(tables),
-      static_cast<const int*>(apos), static_cast<const int*>(lens),
-      static_cast<float*>(out), G, R, D, Dv, nb, bs, W, window);
-  return static_cast<int>(cudaGetLastError());
+int dispatch(const void* q, const void* k, const void* v, const void* tables,
+             const void* apos, const void* lens, void* out, void* scratch, int B, int G,
+             int R, int D, int Dv, int nb, int bs, int W, int window, int chunk,
+             cudaStream_t s) {
+  const bool one = R <= kWarps;  // one head per warp, else two
+#define PA_LAUNCH(HPW, DPL) \
+  launch<Dec, HPW, DPL>(q, k, v, tables, apos, lens, out, scratch, B, G, R, D, Dv, nb, bs, W, window, chunk, s)
+  if (Dv <= 128) return one ? PA_LAUNCH(1, 4) : PA_LAUNCH(2, 4);
+  return one ? PA_LAUNCH(1, 8) : PA_LAUNCH(2, 8);
+#undef PA_LAUNCH
 }
 
 }  // namespace
 
-// Shared memory one launch needs, so the wrapper can refuse shapes that
-// do not fit before launching.
-extern "C" long long paged_attn_smem_bytes(int R, int D, int Dv, int bs) {
-  return static_cast<long long>(smem_bytes(R, D, Dv, bs));
-}
-
 // kv_kind: 0 = f32, 1 = bf16, 2 = posit16 (es 2), 3 = posit8 (es 2).
+// chunk: table entries per split (1..32); with W > chunk the CTAs leave
+// partials in scratch (B*G*R*S*(Dv + 2) floats, S = ceil(W / chunk))
+// and a fold writes out.
 extern "C" int paged_decode_attention(int kv_kind, const void* q, const void* k_arena,
                                       const void* v_arena, const void* tables,
                                       const void* apos, const void* lens, void* out,
-                                      int B, int G, int R, int D, int Dv, int nb, int bs,
-                                      int W, int window, void* stream) {
-  if (B <= 0 || G <= 0) return 0;
-  if (smem_bytes(R, D, Dv, bs) > (size_t)kMaxSmem) {
-    return static_cast<int>(cudaErrorInvalidConfiguration);
-  }
+                                      void* scratch, int B, int G, int R, int D, int Dv,
+                                      int nb, int bs, int W, int window, int chunk,
+                                      void* stream) {
+  if (B <= 0 || G <= 0 || R <= 0) return 0;
+  if (D <= 0 || Dv <= 0 || D > 256 || Dv > 256 || bs <= 0 || W <= 0 || chunk <= 0 ||
+      chunk > kMaxChunk || (long long)B * G * R > 0x7FFFFFFFLL)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (kv_kind) {
-    case 0: return launch<DecF32>(q, k_arena, v_arena, tables, apos, lens, out, B, G, R, D, Dv, nb, bs, W, window, s);
-    case 1: return launch<DecBF16>(q, k_arena, v_arena, tables, apos, lens, out, B, G, R, D, Dv, nb, bs, W, window, s);
-    case 2: return launch<DecPosit16>(q, k_arena, v_arena, tables, apos, lens, out, B, G, R, D, Dv, nb, bs, W, window, s);
-    case 3: return launch<DecPosit8>(q, k_arena, v_arena, tables, apos, lens, out, B, G, R, D, Dv, nb, bs, W, window, s);
+    case 0: return dispatch<DecF32>(q, k_arena, v_arena, tables, apos, lens, out, scratch, B, G, R, D, Dv, nb, bs, W, window, chunk, s);
+    case 1: return dispatch<DecBF16>(q, k_arena, v_arena, tables, apos, lens, out, scratch, B, G, R, D, Dv, nb, bs, W, window, chunk, s);
+    case 2: return dispatch<DecPosit16>(q, k_arena, v_arena, tables, apos, lens, out, scratch, B, G, R, D, Dv, nb, bs, W, window, chunk, s);
+    case 3: return dispatch<DecPosit8>(q, k_arena, v_arena, tables, apos, lens, out, scratch, B, G, R, D, Dv, nb, bs, W, window, chunk, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
+

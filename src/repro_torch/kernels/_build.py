@@ -14,11 +14,14 @@ port on hosts without ``nvcc``.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 from pathlib import Path
+
+import torch
 
 from repro_torch.core.types import CONFIGS
 
@@ -103,21 +106,32 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     elif name == "posit_dot":
         lib.posit_dot_rows.argtypes = [I, I, P, P, P, LL, LL, P]
         lib.posit_dot_rows.restype = I
-    elif name in ("posit_qgemm", "posit_gemm"):
-        fn = getattr(lib, name)
-        fn.argtypes = [I, I, P, P, P, LL, LL, LL, P]
-        fn.restype = I
+    elif name == "posit_qgemm":
+        lib.posit_qgemm.argtypes = [I, I, P, P, P, LL, LL, LL, P]
+        lib.posit_qgemm.restype = I
+    elif name == "posit_gemm":
+        lib.posit_gemm.argtypes = [I, I, P, P, P, P, LL, LL, LL, I, I, P]
+        lib.posit_gemm.restype = I
     elif name == "paged_attn":
-        lib.paged_decode_attention.argtypes = [I] + [P] * 7 + [I] * 9 + [P]
+        lib.paged_decode_attention.argtypes = [I] + [P] * 8 + [I] * 10 + [P]
         lib.paged_decode_attention.restype = I
-        lib.paged_attn_smem_bytes.argtypes = [I, I, I, I]
-        lib.paged_attn_smem_bytes.restype = LL
     elif name == "paged_attn_mla":
         lib.paged_decode_attention_mla.argtypes = \
             [I] + [P] * 8 + [I] * 7 + [F, P]
         lib.paged_decode_attention_mla.restype = I
         lib.paged_attn_mla_smem_bytes.argtypes = [I, I, I]
         lib.paged_attn_mla_smem_bytes.restype = LL
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device) -> int:
+    """Streaming multiprocessors of a CUDA ``device`` (a torch device),
+    read once per device; the wrappers size their grids by it."""
+    return _sm_count(device.index if device.index is not None else 0)
 
 
 def check_cfg(cfg, what: str) -> None:

@@ -5,20 +5,26 @@ Replaces ``repro/kernels/posit_paged_attn.py``'s two Pallas TPU kernels:
 sliding-window lanes) and ``paged_decode_attention_mla``
 (``_paged_attn_mla_kernel``, the MLA lane).  The TPU kernels walk each
 row's block table as a sequential grid axis with the online-softmax
-state in VMEM.  The CUDA kernels walk the table in a loop inside a CTA,
-skipping sentinel blocks without loading them, decoding each live
-block's posit patterns into shared memory and folding it into running
-``m``/``l``/``acc`` held in f32:
+state in VMEM.  On the H100:
 
-- ``csrc/paged_attn.cu``: one CTA per (row, KV head).  Bound on the
-  H100: memory -- the K/V patterns of each row's live blocks, read once
-  (:func:`paged_decode_kv_bytes` per layer).
-- ``csrc/paged_attn_mla.cu``: one CTA per (row, tile of 8 query heads);
-  all heads share the row's latent blocks, so a block is decoded once
-  per tile.  Bound on the H100: fp32 operations (some 75 flops per
-  latent byte at minicpm3-4b's widths).
-
-Both are the simple versions: fp32 FMAs, no tensor cores.
+- ``csrc/paged_attn.cu`` (dense and window lanes).  Bound: memory --
+  the K/V patterns of each row's live blocks, read once
+  (:func:`paged_decode_kv_bytes` per layer), a few tens of MB per call
+  at decode batch sizes, so the whole card has to read at once.  The
+  table is split over the grid (flash-decoding): one CTA per (row, KV
+  head, head group, run of :func:`split_chunk` table entries), which
+  skips sentinel entries without loading them, keeps the next block's
+  patterns in flight with ``cp.async`` while it decodes the current one
+  (16-byte vectors, once per block for all query heads) and scores it
+  with whole warps: a lane per slot, each score one FMA chain over D in
+  the order of the plain version's f32 einsum, then lanes span Dv for
+  P.V.  A second kernel folds the runs' partial softmax states in
+  split order.
+- ``csrc/paged_attn_mla.cu``: one CTA per (row, tile of 8 query heads)
+  walking the whole table; all heads share the row's latent blocks, so
+  a block is decoded once per tile.  Bound: fp32 operations (some 75
+  flops per latent byte at minicpm3-4b's widths).  The simple version:
+  fp32 FMAs, no tensor cores, no split.
 
 Masking contract (shared with ``models/layers.py::paged_apos``): a slot
 counts iff ``0 <= apos < lens + 1``, it is inside the window when one is
@@ -27,6 +33,7 @@ set, and its table entry is not the sentinel ``nb``.  Invalid slots get
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -78,11 +85,13 @@ def _check_args(who: str, device, expect: dict) -> None:
                 f"(contiguous={t.is_contiguous()})")
 
 
-def paged_decode_attention_plain(q, k_arena, v_arena, tables, apos, lens, *,
-                                 pcfg: Optional[PositConfig] = None,
-                                 window: int = 0) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: the same table walk and
-    online softmax, vectorized over rows."""
+def paged_decode_partial_plain(q, k_arena, v_arena, tables, apos, lens, *,
+                               pcfg: Optional[PositConfig] = None,
+                               window: int = 0):
+    """The table walk's online-softmax state before normalising: running
+    max ``m`` and denominator ``l`` (B, G, R) and accumulator ``acc``
+    (B, G, R, Dv), all f32, vectorized over rows.  A row with no valid
+    slot keeps ``l == 0`` and ``acc == 0``."""
     b, g, r, d = q.shape
     nb, bs = k_arena.shape[0], k_arena.shape[1]
     w = tables.shape[1]
@@ -112,7 +121,88 @@ def paged_decode_attention_plain(q, k_arena, v_arena, tables, apos, lens, *,
         l = l * alpha + p.sum(-1)
         acc = acc * alpha[..., None] + torch.einsum("bgrt,btgv->bgrv", p, v)
         m = m_new
+    return m, l, acc
+
+
+def paged_decode_attention_plain(q, k_arena, v_arena, tables, apos, lens, *,
+                                 pcfg: Optional[PositConfig] = None,
+                                 window: int = 0) -> torch.Tensor:
+    """Plain PyTorch version of the kernel: the whole table walked in
+    one online softmax, vectorized over rows."""
+    _, l, acc = paged_decode_partial_plain(q, k_arena, v_arena, tables, apos,
+                                           lens, pcfg=pcfg, window=window)
     return acc / torch.clamp(l, min=1e-30)[..., None]
+
+
+def fold_partials_plain(m, l, acc) -> torch.Tensor:
+    """Plain version of the split fold: ``m``, ``l`` (..., S) and ``acc``
+    (..., S, Dv) of S splits -> (..., Dv).  Splits with ``l == 0`` weigh
+    nothing, the others ``exp(m_s - max m)``; summed in split order."""
+    live = l > 0
+    mx = torch.where(live, m, _NEG).amax(-1, keepdim=True)
+    wgt = torch.where(live, torch.exp(m - mx), 0.0)
+    lsum = torch.zeros_like(l[..., 0])
+    asum = torch.zeros_like(acc[..., 0, :])
+    for s in range(l.shape[-1]):
+        lsum = lsum + l[..., s] * wgt[..., s]
+        asum = asum + acc[..., s, :] * wgt[..., s, None]
+    return asum / torch.clamp(lsum, min=1e-30)[..., None]
+
+
+# Split CTAs the wrapper aims the grid at, per SM: 1 056 on the H100's
+# 132.  At phi3's D 128, bs 16, posit16 a CTA (128 threads) takes some
+# 35 KB of shared memory, so 6 are resident per SM at once and the
+# first wave ends as the splits with few live blocks drain.
+_CTAS_PER_SM = 8
+_MAX_CHUNK = 32
+
+
+def split_chunk(w: int, rows: int, sms: int) -> int:
+    """Table entries per split CTA: the power of two nearest the entries
+    one CTA would walk if the ``w * rows`` entries of ``rows`` (row, KV
+    head) pairs were spread over ``_CTAS_PER_SM * sms`` CTAs, in [1,
+    min(w, 32)].  Phi3's decode case (B 8 x G 10, W 64) on 132 SMs gets
+    4, so 16 splits and 1 280 CTAs; a short table gets 1."""
+    per = w * rows / (_CTAS_PER_SM * sms)
+    c = 1 if per < 1 else 1 << round(math.log2(per))
+    return max(1, min(c, _MAX_CHUNK, w))
+
+
+def _prepare(q, k_arena, v_arena, tables, apos, lens, pcfg, window,
+             chunk=None):
+    """Checks, output and scratch of one launch; returns ``(call, out)``
+    with ``call()`` the launch's C call (returns its CUDA error code)."""
+    b, g, r, d = q.shape
+    nb, bs = k_arena.shape[0], k_arena.shape[1]
+    w = tables.shape[1]
+    dv = v_arena.shape[-1]
+    kind = _kv_kind(k_arena.dtype, pcfg, "paged_decode_attention")
+    _check_args("paged_decode_attention", q.device, {
+        "q": (q, (b, g, r, d), torch.float32),
+        "k_arena": (k_arena, (nb, bs, g, d), k_arena.dtype),
+        "v_arena": (v_arena, (nb, bs, g, dv), k_arena.dtype),
+        "tables": (tables, (b, w), torch.int32),
+        "apos": (apos, (b, w * bs), torch.int32),
+        "lens": (lens, (b,), torch.int32),
+    })
+    if d > 256 or dv > 256:
+        raise ValueError(f"paged_decode_attention: D={d}, Dv={dv}; the "
+                         "kernel holds at most 256 per lane group")
+    out = torch.empty((b, g, r, dv), dtype=torch.float32, device=q.device)
+    if w == 0 or b * g * r == 0:
+        out.zero_()                         # no slot: every row is zeros
+        return (lambda: 0), out
+    c = chunk or split_chunk(w, b * g, _build.sm_count(q.device))
+    n_split = -(-w // c)
+    scratch = out if n_split == 1 else torch.empty(
+        b * g * r * n_split * (dv + 2), dtype=torch.float32, device=q.device)
+    lib = _build.load("paged_attn")
+    fn = lib.paged_decode_attention
+    args = (kind, q.data_ptr(), k_arena.data_ptr(), v_arena.data_ptr(),
+            tables.data_ptr(), apos.data_ptr(), lens.data_ptr(),
+            out.data_ptr(), scratch.data_ptr(), b, g, r, d, dv, nb, bs, w,
+            int(window), c, torch.cuda.current_stream(q.device).cuda_stream)
+    return (lambda: fn(*args)), out
 
 
 def paged_decode_attention(q, k_arena, v_arena, tables, apos, lens, *,
@@ -123,39 +213,39 @@ def paged_decode_attention(q, k_arena, v_arena, tables, apos, lens, *,
     q: (B, G, R, D) f32 pre-scaled by ``D**-0.5``; arenas (nb, bs, G, D)
     and (nb, bs, G, Dv), posit patterns when ``pcfg`` is set, else f32 or
     bf16; tables (B, W) int32 (sentinel ``nb``); apos (B, W*bs) int32
-    (``-1`` = dead slot); lens (B,) int32.  Returns (B, G, R, Dv) f32.
+    (``-1`` = dead slot); lens (B,) int32.  D and Dv at most 256.
+    Returns (B, G, R, Dv) f32.
+
+    On a CUDA tensor: one call of ``csrc/paged_attn.cu``.  The table is
+    split into S = ceil(W / c) runs of c entries (:func:`split_chunk`);
+    the CTA of (row, KV head, head group, split) walks its run and
+    leaves its f32 state in a scratch tensor from ``torch.empty``,
+    (B*G*R, S, Dv) accumulators then (B*G*R, S, 2) pairs (m, l).  The
+    fold kernel then combines each head's S partials in split order
+    (0, 1, ..., S-1; deterministic), weighting split s by
+    ``exp(m_s - max m)`` and a split with ``l == 0`` by 0, and writes
+    ``acc / max(l, 1e-30)``.  With S == 1 the split CTA writes the
+    output and no scratch or fold is used.  Counted as one launch.
     """
     if q.device.type == "cpu":
         return paged_decode_attention_plain(
             q, k_arena, v_arena, tables, apos, lens, pcfg=pcfg, window=window)
-    b, g, r, d = q.shape
-    nb, bs = k_arena.shape[0], k_arena.shape[1]
-    w = tables.shape[1]
-    dv = v_arena.shape[-1]
-    kind = _kv_kind(k_arena.dtype, pcfg, "paged_decode_attention")
-    expect = {
-        "q": (q, (b, g, r, d), torch.float32),
-        "k_arena": (k_arena, (nb, bs, g, d), k_arena.dtype),
-        "v_arena": (v_arena, (nb, bs, g, dv), k_arena.dtype),
-        "tables": (tables, (b, w), torch.int32),
-        "apos": (apos, (b, w * bs), torch.int32),
-        "lens": (lens, (b,), torch.int32),
-    }
-    _check_args("paged_decode_attention", q.device, expect)
-    lib = _build.load("paged_attn")
-    smem = lib.paged_attn_smem_bytes(r, d, dv, bs)
-    if smem > 48 * 1024:
-        raise ValueError(f"paged_decode_attention: R={r} D={d} Dv={dv} "
-                         f"bs={bs} needs {smem} B of shared memory > 48 KiB")
-    out = torch.empty((b, g, r, dv), dtype=torch.float32, device=q.device)
-    rc = lib.paged_decode_attention(
-        kind, q.data_ptr(), k_arena.data_ptr(), v_arena.data_ptr(),
-        tables.data_ptr(), apos.data_ptr(), lens.data_ptr(), out.data_ptr(),
-        b, g, r, d, dv, nb, bs, w, int(window),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(rc, "paged_decode_attention")
+    call, out = _prepare(q, k_arena, v_arena, tables, apos, lens, pcfg, window)
+    _build.check(call(), "paged_decode_attention")
     launches["paged_decode_attention"] += 1
     return out
+
+
+def paged_decode_attention_call(q, k_arena, v_arena, tables, apos, lens, *,
+                                pcfg: Optional[PositConfig] = None,
+                                window: int = 0, chunk: Optional[int] = None):
+    """For timing the kernel alone: ``(call, out)``, where ``call()``
+    launches the split and fold kernels once more on the same
+    preallocated output and scratch and returns the CUDA error code.
+    Not counted in ``launches``; CUDA tensors only.  ``chunk`` overrides
+    :func:`split_chunk`."""
+    return _prepare(q, k_arena, v_arena, tables, apos, lens, pcfg, window,
+                    chunk)
 
 
 def paged_decode_attention_mla_plain(q_lat, q_rope, c_arena, r_arena, tables,

@@ -6,8 +6,11 @@ sub, mul, both dividers) and its quire dot (the kernels' tile loop,
 run serially) are held bit for bit to the port's plain versions
 (``repro_torch.core.posit``): every posit8 and posit8e0 pair, and seeded
 2**16-pair samples with the edge patterns in posit16, posit16e1 and
-posit32.  This is the only check of the kernels' arithmetic that runs
-without the card; skipped where ``g++`` is missing.
+posit32.  ``csrc/posit_narrow.cuh``, the decode inside the paged
+attention and posit-weight gemm kernels, is held to the codec on every
+pattern of the four configs of at most 16 bits.  This is the only check
+of the kernels' arithmetic that runs without the card; skipped where
+``g++`` is missing.
 """
 import ctypes
 import shutil
@@ -18,8 +21,9 @@ import pytest
 import torch
 
 from repro_torch.core import posit as P
+from repro_torch.core.convert import posit_to_f32
 from repro_torch.core.types import (POSIT8, POSIT8_E0, POSIT16, POSIT16_E1,
-                                    POSIT32, signed_view)
+                                    POSIT32, signed_view, to_storage)
 from repro_torch.kernels import _build
 
 CFGS = [POSIT8, POSIT8_E0, POSIT16, POSIT16_E1, POSIT32]
@@ -37,6 +41,7 @@ def _one_torch_thread():
 
 
 _SHIM = r"""
+#include "posit_narrow.cuh"
 #include "pvu.cuh"
 
 namespace {
@@ -101,6 +106,15 @@ extern "C" int host_ew(int nbits, int es, int op, const uint32_t* a,
 #undef CALL
 }
 
+extern "C" int host_narrow(int nbits, int es, const uint32_t* p, float* o,
+                           long long n) {
+#define NARROW(N, ES) \
+  if (nbits == N && es == ES) { for (long long i = 0; i < n; ++i) o[i] = posit::to_f32_narrow<N, ES>(p[i]); return 0; }
+  NARROW(16, 2) NARROW(16, 1) NARROW(8, 2) NARROW(8, 0)
+#undef NARROW
+  return 1;
+}
+
 extern "C" int host_dot(int nbits, int es, const uint32_t* a, const uint32_t* b,
                         uint32_t* o, long long rows, long long len) {
 #define CALL(N, ES) dot<N, ES>(a, b, o, rows, len)
@@ -125,6 +139,7 @@ def lib(tmp_path_factory):
     ptr, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.host_ew.argtypes = [i, i, i, ptr, ptr, ptr, ll]
     lib.host_dot.argtypes = [i, i, ptr, ptr, ptr, ll, ll]
+    lib.host_narrow.argtypes = [i, i, ptr, ptr, ll]
     return lib
 
 
@@ -199,3 +214,18 @@ def test_header_dot_equals_plain(lib, cfg, length):
                                torch.from_numpy(b.astype(np.int64)), cfg)
                        ).to(torch.int64).numpy() & cfg.mask
     np.testing.assert_array_equal(out, want.astype(np.uint32))
+
+
+@pytest.mark.parametrize("cfg", [POSIT8, POSIT8_E0, POSIT16, POSIT16_E1],
+                         ids=lambda c: c.name)
+def test_narrow_decode_equals_codec_on_every_pattern(lib, cfg):
+    """``csrc/posit_narrow.cuh::to_f32_narrow`` (the decode inside the
+    paged attention and posit-weight gemm kernels) gives the codec's f32
+    bits for every pattern, NaR and zero included."""
+    p = np.arange(1 << cfg.nbits, dtype=np.uint32)
+    out = np.empty(p.size, np.float32)
+    assert lib.host_narrow(cfg.nbits, cfg.es, p.ctypes.data, out.ctypes.data,
+                           p.size) == 0
+    want = posit_to_f32(to_storage(torch.from_numpy(p.astype(np.int64)),
+                                   cfg.storage_dtype), cfg).numpy()
+    np.testing.assert_array_equal(out.view(np.uint32), want.view(np.uint32))

@@ -72,6 +72,123 @@ def test_paged_attention_matches_plain_on_card(dev, kv, window):
     assert torch.all(got[-1] == 0)
 
 
+def _split_case(kv, d, bs, window, r):
+    """Paged attention inputs that cross several splits: W = 7 table
+    entries dense (3 or 7 in the window ring), a sentinel tail on row 0,
+    on row 1 (dense) a hole of sentinel entries 3..5 with live blocks
+    after it, and an all-masked last row."""
+    rng = np.random.default_rng(d + bs + window + r)
+    b, g = 4, 3
+    w = L.paged_window_blocks(window, bs) if window else 7
+    nb = b * w
+    tables = torch.from_numpy(rng.permutation(nb).astype(np.int32)).reshape(b, w)
+    tables[-1] = nb                                  # all-masked row
+    tables[0, -1] = nb                               # sentinel tail
+    cap = w * bs
+    if window:
+        lens = [window + 7, 5, 3 * window + 1, window - 1]
+    else:
+        tables[1, 3:6] = nb                          # a sentinel-only run
+        lens = [cap - bs - 3, cap - 2, cap - 1, 0]
+    lens = torch.tensor(lens, dtype=torch.int32)
+    apos = L.paged_apos(tables, lens, bs, nb, window=window)
+    shape = (nb, bs, g, d)
+    k = torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+    v = torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+    pcfg = L.pcfg(kv) if kv in ("posit16", "posit8") else None
+    if pcfg:
+        k, v = posit_codec.quantize_plain(k, pcfg), posit_codec.quantize_plain(v, pcfg)
+    elif kv == "bf16":
+        k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
+    q = torch.from_numpy((rng.normal(size=(b, g, r, d)) * d ** -0.5).astype(np.float32))
+    return (q, k, v, tables, apos, lens), pcfg
+
+
+@pytest.mark.parametrize("kv", [None, "bf16", "posit16", "posit8"])
+@pytest.mark.parametrize("d,bs,r", [(16, 4, 5), (128, 16, 4)],
+                         ids=["d16-bs4-r5", "d128-bs16-r4"])
+@pytest.mark.parametrize("window", [0, 24], ids=["dense", "window"])
+@pytest.mark.parametrize("chunk", [None, 1, 3], ids=["auto", "c1", "c3"])
+def test_paged_attention_splits_match_plain_on_card(dev, kv, d, bs, r, window,
+                                                    chunk):
+    """Several splits per row (W 7 is no multiple of 3), a split made
+    only of sentinels, the all-masked row, the window ring, two head
+    counts (one and two heads per warp), and the wrapper's own split."""
+    args, pcfg = _split_case(kv, d, bs, window, r)
+    ref = K.paged_decode_attention_plain(*args, pcfg=pcfg, window=window)
+    on = [t.to(dev) for t in args]
+    if chunk is None:
+        got = K.paged_decode_attention(*on, pcfg=pcfg, window=window)
+    else:
+        call, got = K.paged_decode_attention_call(*on, pcfg=pcfg, window=window,
+                                                  chunk=chunk)
+        assert call() == 0
+    got = got.cpu()
+    torch.testing.assert_close(got, ref, atol=1e-5, rtol=1e-5)
+    assert torch.all(got[-1] == 0)
+
+
+@pytest.mark.parametrize("kv", ["posit16", "posit8", None])
+@pytest.mark.parametrize("d", [16, 20], ids=["d16", "d20-ragged"])
+def test_paged_attention_scalar_edge_path_on_card(dev, kv, d):
+    """Arena bases one element off 16 bytes, and a ragged D (20: rows
+    of 40 or 20 bytes), take the kernel's scalar copy path."""
+    args, pcfg = _split_case(kv, d, 4, 0, 4)
+    ref = K.paged_decode_attention_plain(*args, pcfg=pcfg)
+    q, k, v, tables, apos, lens = args
+    shifted = []
+    for t in (k, v):
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+        flat[1:] = t.reshape(-1).to(dev)
+        shifted.append(flat[1:].view(t.shape))
+    got = K.paged_decode_attention(q.to(dev), *shifted, tables.to(dev),
+                                   apos.to(dev), lens.to(dev), pcfg=pcfg).cpu()
+    torch.testing.assert_close(got, ref, atol=1e-5, rtol=1e-5)
+    assert torch.all(got[-1] == 0)
+
+
+def test_paged_attention_is_deterministic_on_card(dev):
+    args, pcfg = _split_case("posit16", 128, 16, 0, 4)
+    on = [t.to(dev) for t in args]
+    a = K.paged_decode_attention(*on, pcfg=pcfg)
+    b = K.paged_decode_attention(*on, pcfg=pcfg)
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("kv", [None, "posit16", "posit8"])
+@pytest.mark.parametrize("d,bs,r", [(16, 4, 5), (128, 16, 4)],
+                         ids=["d16-bs4-r5", "d128-bs16-r4"])
+@pytest.mark.parametrize("window", [0, 24], ids=["dense", "window"])
+@pytest.mark.parametrize("chunk", [1, 2, 3])
+def test_paged_attention_fold_matches_plain_fold_on_card(dev, kv, d, bs, r,
+                                                         window, chunk):
+    """The kernel's split-and-fold against the fold's plain version on
+    the plain walk of each run's sub-table (every other entry the
+    sentinel): empty runs (the hole, the all-masked row) weigh nothing,
+    and the all-masked row is exact zeros."""
+    args, pcfg = _split_case(kv, d, bs, window, r)
+    q, k, v, tables, apos, lens = args
+    nb, w = k.shape[0], tables.shape[1]
+    ms, ls, accs = [], [], []
+    for w0 in range(0, w, chunk):
+        sub = torch.full_like(tables, nb)
+        sub[:, w0:w0 + chunk] = tables[:, w0:w0 + chunk]
+        m, l, acc = K.paged_decode_partial_plain(q, k, v, sub, apos, lens,
+                                                 pcfg=pcfg, window=window)
+        ms.append(m)
+        ls.append(l)
+        accs.append(acc)
+    want = K.fold_partials_plain(torch.stack(ms, -1), torch.stack(ls, -1),
+                                 torch.stack(accs, -2))
+    call, got = K.paged_decode_attention_call(*(t.to(dev) for t in args),
+                                              pcfg=pcfg, window=window,
+                                              chunk=chunk)
+    assert call() == 0
+    got = got.cpu()
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    assert torch.all(got[-1] == 0)
+
+
 @pytest.mark.parametrize("kv", [None, "bf16", "posit16", "posit8"])
 def test_paged_attention_mla_matches_plain_on_card(dev, kv):
     """H 12 heads (a partial second head tile), rank 256, rope 32, block
@@ -172,3 +289,61 @@ def test_gemm_kernel_matches_plain_on_card(dev, cfg):
     want = posit_gemm.posit_gemm_plain(a, w, cfg)
     bound = 2 * k * 2.0 ** -24 * (a.abs().double() @ wd.abs().double())
     assert ((got.double() - want.double()).abs() <= bound).all()
+
+
+# tile edges of the gemm kernel: BM 128, BN 128 (64 when N <= 64), BK 16
+GEMM_EDGE_SHAPES = [(1, 1, 1), (127, 15, 63), (128, 16, 64), (129, 17, 65),
+                    (128, 16, 128), (129, 33, 129), (300, 147, 64),
+                    (257, 147, 200), (64, 1024, 256), (33, 4100, 130)]
+
+
+@pytest.mark.parametrize("cfg", CONFIGS, ids=lambda c: c.name)
+@pytest.mark.parametrize("mkn", GEMM_EDGE_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_gemm_kernel_tile_edges_on_card(dev, cfg, mkn):
+    """M, N, K below, at and above the tile sizes, the conv's K 147 and
+    N 64, shapes that split K: within the f32 order bound of the plain
+    version, and two calls bit-identical."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    m, k, n = mkn
+    rng = np.random.default_rng(m * k + n)
+    a = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)).to(dev)
+    w = posit_codec.quantize(torch.from_numpy(
+        (rng.standard_normal((k, n)) * k ** -0.5).astype(np.float32)).to(dev), cfg)
+    got = posit_gemm.posit_gemm(a, w, cfg)
+    again = posit_gemm.posit_gemm(a, w, cfg)
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    wd = posit_codec.dequantize(w, cfg)
+    want = posit_gemm.posit_gemm_plain(a, w, cfg)
+    bound = 2 * k * 2.0 ** -24 * (a.abs().double() @ wd.abs().double())
+    assert ((got.double() - want.double()).abs() <= bound).all()
+
+
+@pytest.mark.parametrize("plan", [(64, 1), (128, 1), (128, 3), (64, 8)],
+                         ids=["bn64", "bn128", "bn128-split3", "bn64-split8"])
+@pytest.mark.parametrize("aligned", [True, False], ids=["aligned", "offset"])
+def test_gemm_kernel_plans_and_scalar_paths_on_card(dev, plan, aligned):
+    """Every tile width and split count on a ragged shape, with the
+    operands' bases 16-byte aligned or one element off (the scalar load
+    paths)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = POSIT16
+    m, k, n = 131, 520, 136
+    rng = np.random.default_rng(9)
+    a = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32))
+    w = posit_codec.quantize(torch.from_numpy(
+        (rng.standard_normal((k, n)) * k ** -0.5).astype(np.float32)), cfg)
+    if aligned:
+        ad, wdev = a.to(dev), w.to(dev)
+    else:
+        fa = torch.empty(m * k + 1, device=dev)
+        fa[1:] = a.reshape(-1).to(dev)
+        ad = fa[1:].view(m, k)
+        fw = torch.empty(k * n + 1, dtype=w.dtype, device=dev)
+        signed_view(fw)[1:] = signed_view(w).reshape(-1).to(dev)
+        wdev = fw[1:].view(k, n)
+    call, got = posit_gemm.posit_gemm_call(ad, wdev, cfg, plan=plan)
+    assert call() == 0
+    want = posit_gemm.posit_gemm_plain(a, w, cfg)
+    bound = 2 * k * 2.0 ** -24 * (a.abs().double() @ posit_codec.dequantize(
+        w, cfg).abs().double())
+    assert ((got.cpu().double() - want.double()).abs() <= bound).all()

@@ -3,7 +3,8 @@ against its plain PyTorch version on the card, then drives the port's
 paths at full size and checks that every kernel of each path ran there:
 
 - serving, two Poisson traces at full width (continuous batching,
-  chunked prefill, paged posit16 KV, fused paged decode attention):
+  chunked prefill, paged posit16 KV written by the fused quantize-and-
+  write kernel ``posit_paged_write.cu``, fused paged decode attention):
   phi3-medium-14b (dense GQA lane, ``paged_attn.cu``) and minicpm3-4b
   (MLA lane, ``paged_attn_mla.cu``) with prefix caching and deadlines
   on a shared-prefix trace, on an arena small enough that deadlines
@@ -18,8 +19,9 @@ paths at full size and checks that every kernel of each path ran there:
 
     python3 chip_smoke.py          # needs one NVIDIA GPU and nvcc
     python3 chip_smoke.py --ptxas  # only: -Xptxas -v (registers, shared
-                                   # memory, spills) of paged_attn.cu and
-                                   # posit_gemm.cu
+                                   # memory, spills) of paged_attn.cu,
+                                   # paged_attn_mla.cu, posit_gemm.cu and
+                                   # posit_paged_write.cu
 
 Prints the card's name and power limit, per-kernel checks and timings,
 the serving reports, the accuracy table, a JSON line with every
@@ -84,12 +86,12 @@ _TRACE = [
 # tests/test_torch_prefix.py pins it on the CPU with the model stubbed.
 MAIN_PATHS = {
     "phi3-medium-14b": (["--arch", "phi3-medium-14b"] + _TRACE,
-                        ("posit_quantize", "posit_dequantize",
+                        ("posit_paged_write", "posit_dequantize",
                          "paged_decode_attention")),
     "minicpm3-4b": (["--arch", "minicpm3-4b", "--prefix-cache",
                      "--prefix-share", "0.5", "--deadline-ms", "5000",
                      "--deadline-share", "0.25", "--n-blocks", "200"] + _TRACE,
-                    ("posit_quantize", "posit_dequantize",
+                    ("posit_paged_write", "posit_dequantize",
                      "paged_decode_attention_mla")),
 }
 
@@ -320,50 +322,46 @@ def time_attention(args, pcfg, err):
 
 
 def mla_case(dev, kv, seed):
-    """Full-width minicpm3-4b latent decode attention: B=8 rows, H=40
-    heads, rank 256, rope 32, block 16, W=64 table slots; ragged lens,
-    sentinel tails, one all-masked row (its table is all sentinels)."""
-    from repro_torch.kernels import posit_codec as C
-    from repro_torch.models import layers as L
-
-    b, h, rank, rope, bs, w = 8, 40, 256, 32, 16, 64
-    lens = [1000, 700, 512, 300, 900, 64, 1020, 0]
-    nb = b * w
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    tables = torch.full((b, w), nb, dtype=torch.int32)
-    perm = torch.randperm(nb, generator=torch.Generator().manual_seed(seed))
-    for i, n in enumerate(lens[:-1]):
-        live = -(-(n + 1) // bs)
-        tables[i, :live] = perm[i * w:i * w + live].to(torch.int32)
-    tables = tables.to(dev)
-    lens = torch.tensor(lens, dtype=torch.int32, device=dev)
-    apos = L.paged_apos(tables, lens, bs, nb)
-    pcfg = L.pcfg(kv)
-    c = C.quantize_plain(torch.randn((nb, bs, rank), generator=gen, device=dev), pcfg)
-    r = C.quantize_plain(torch.randn((nb, bs, rope), generator=gen, device=dev), pcfg)
-    q_lat = torch.randn((b, h, rank), generator=gen, device=dev)
-    q_rope = torch.randn((b, h, rope), generator=gen, device=dev)
-    return (q_lat, q_rope, c, r, tables, apos, lens), pcfg
+    """Full-width minicpm3-4b latent decode attention (the case of
+    ``repro_torch.launch.mla_split_sweep``)."""
+    from repro_torch.launch.mla_split_sweep import minicpm3_case
+    return minicpm3_case(dev, kv, seed)
 
 
 def check_attention_mla(dev):
+    """The wrapper's own split and forced ones (a split per table entry,
+    and the policy's) against the plain version, posit16 and posit8."""
+    from repro_torch.kernels import _build
     from repro_torch.kernels import posit_paged_attn as K
 
     scale = (64 + 32) ** -0.5
     row = None
     for kv in ("posit16", "posit8"):
         args, pcfg = mla_case(dev, kv, seed=4)
-        got = K.paged_decode_attention_mla(*args, pcfg=pcfg, scale=scale)
         ref = K.paged_decode_attention_mla_plain(*args, pcfg=pcfg, scale=scale)
-        err = float((got - ref).abs().max())
-        ok = torch.allclose(got, ref, atol=ATTN_TOL, rtol=ATTN_TOL)
-        zero = bool((got[-1] == 0).all())
-        print(f"paged attention MLA {kv}: max abs err {err:.3e} (tolerance "
-              f"atol=rtol={ATTN_TOL}), all-masked row exact zeros: {zero}")
-        if not ok or not zero:
-            fail(f"paged_decode_attention_mla {kv} disagrees with plain")
+        policy = K.split_chunk_mla(args[4].shape[1], args[0].shape[0],
+                                   _build.sm_count(dev))
+        errs = []
+        for chunk in (None, 1, policy):
+            if chunk is None:
+                got = K.paged_decode_attention_mla(*args, pcfg=pcfg, scale=scale)
+            else:
+                call, got = K.paged_decode_attention_mla_call(
+                    *args, pcfg=pcfg, scale=scale, chunk=chunk)
+                if call() != 0:
+                    fail(f"paged_decode_attention_mla chunk={chunk} launch failed")
+            err = float((got - ref).abs().max())
+            ok = torch.allclose(got, ref, atol=ATTN_TOL, rtol=ATTN_TOL)
+            zero = bool((got[-1] == 0).all())
+            print(f"paged attention MLA {kv} chunk={chunk or 'wrapper'}: max "
+                  f"abs err {err:.3e} (tolerance atol=rtol={ATTN_TOL}), "
+                  f"all-masked row exact zeros: {zero}")
+            if not ok or not zero:
+                fail(f"paged_decode_attention_mla {kv} chunk={chunk} "
+                     "disagrees with plain")
+            errs.append(err)
         if kv == "posit16":
-            row = time_attention_mla(args, pcfg, scale, err)
+            row = time_attention_mla(args, pcfg, scale, max(errs))
     return row
 
 
@@ -400,6 +398,10 @@ def time_attention_mla(args, pcfg, scale, err):
         return sdpa(qq, kk, vv, attn_mask=mask, scale=scale, enable_gqa=True)
 
     lib()
+    # the kernel alone and the library call, timed the same way
+    kernel_ms = kernel_alone_ms(K.paged_decode_attention_mla_call(
+        *args, pcfg=pcfg, scale=scale)[0])
+    library_alone_ms = kernel_alone_ms(lambda: (lib(), 0)[1])
     return dict(
         name="paged_decode_attention_mla", route="cuda",
         source="src/repro_torch/csrc/paged_attn_mla.cu",
@@ -407,11 +409,180 @@ def time_attention_mla(args, pcfg, scale, err):
         max_abs_err=err,
         ms=time_ms(lambda: K.paged_decode_attention_mla(*args, pcfg=pcfg,
                                                         scale=scale)),
+        kernel_ms=kernel_ms, library_alone_ms=library_alone_ms,
         plain_ms=time_ms(lambda: K.paged_decode_attention_mla_plain(
             *args, pcfg=pcfg, scale=scale), iters=5),
         bound_ms=max(t_bytes, t_ops) * 1e3,
         bound_by="bytes" if t_bytes >= t_ops else "operations",
         library_ms=time_ms(lib), shape=[b, h, rank, rope, int(tables.shape[1]), bs])
+
+
+MAIN_LAYERS = {"dense": 40, "window": 40, "mla": 62}   # phi3-medium-14b, minicpm3-4b
+
+
+def write_case(dev, cfg, lane, seed):
+    """Full-width arena leaves of one lane at its model's depth (phi3's
+    40 layers of K and V, dense or on a 48-token window ring; minicpm3's
+    62 layers of latent and RoPE key), 512 blocks of 16 slots of random
+    patterns; 8 rows whose tables name live blocks but for a sentinel
+    entry that row 1 writes through; row 3 inactive.  Returns the
+    leaves, bf16 sources for one decode token and for a 16-token prefill
+    chunk of every layer, and the destinations."""
+    from repro_torch.models import layers as L
+
+    b, bs, nb, c, n_layers = 8, 16, 512, 16, MAIN_LAYERS[lane]
+    feats, window = {"dense": (((10, 128), (10, 128)), 0),
+                     "window": (((10, 128), (10, 128)), 48),
+                     "mla": (((256,), (32,)), 0)}[lane]
+    w = L.paged_window_blocks(window, bs) if window else 64
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    perm = torch.randperm(nb, generator=torch.Generator().manual_seed(seed))
+    tables = perm[:b * w].reshape(b, w).to(torch.int32)
+    pos = torch.tensor([1000, 83, 200, 64, 900, 15, 1008, 7])
+    tables[1, (83 // bs) % w] = nb               # row 1 writes through a sentinel
+    tables, pos = tables.to(dev), pos.to(dev)
+    ok = torch.ones(b, dtype=torch.bool, device=dev)
+    ok[3] = False
+    n_valid = torch.tensor([16, 16, 3, 0, 16, 8, 16, 16], device=dev)
+    signed = {16: torch.int16, 8: torch.int8}[cfg.nbits]
+    half = 1 << (cfg.nbits - 1)
+    leaves = [torch.randint(-half, half, (n_layers, nb, bs) + f, generator=gen, device=dev,
+                            dtype=signed).view(cfg.storage_dtype) for f in feats]
+    one = [torch.randn((b,) + f, generator=gen, device=dev).to(torch.bfloat16)
+           for f in feats]
+    chunk = [torch.randn((n_layers, b, c) + f, generator=gen, device=dev).to(torch.bfloat16)
+             for f in feats]
+    geo = dict(n_blocks=nb, block_size=bs, window=window)
+    return dict(leaves=leaves, one=one, chunk=chunk, tables=tables, pos=pos, ok=ok,
+                stop=pos + n_valid, window=window, geo=geo,
+                slots=L.paged_write_slots(tables, pos, ok, **geo),
+                index=L.paged_write_index(tables, pos, ok, **geo),
+                pslots=L.paged_pack_slots(tables, pos, pos + n_valid, c, **geo).reshape(-1))
+
+
+def decode_jobs(arenas, one):
+    """The main path's decode write: layer 0 of both leaves, one launch."""
+    return [(a[0], x) for a, x in zip(arenas, one)]
+
+
+def prefill_jobs(arena, chunk):
+    """The main path's prefill write of one leaf: every layer, one launch."""
+    return [(arena[li], x.reshape((-1,) + x.shape[2:])) for li, x in enumerate(chunk)]
+
+
+def check_paged_write(dev):
+    """The fused quantize-and-write against ``quantize_plain`` and the
+    masked scatter it replaces (``layers.paged_write`` for a decode
+    token, ``layers.paged_pack_range`` for a prefill chunk), arena bit
+    for bit, on the dense, window and MLA leaves in posit16 and posit8,
+    at the main path's launches: a decode token's two leaves, and a
+    prefill chunk's leaf of all 40 (phi3) or 62 (minicpm3) layers; dropped
+    rows and sentinel entries leave their slots untouched.  Returns the
+    kernel row, timed on the posit16 dense case's arenas and jobs."""
+    from repro_torch.core.types import POSIT8, POSIT16, signed_view
+    from repro_torch.kernels import posit_codec as C
+    from repro_torch.models import layers as L
+
+    def same(x, y):
+        return torch.equal(signed_view(x), signed_view(y))
+
+    row = None
+    for cfg in (POSIT16, POSIT8):
+        for lane in ("dense", "window", "mla"):
+            k = write_case(dev, cfg, lane, seed=6)
+            n_layers, index = MAIN_LAYERS[lane], k["index"]
+            # decode: one token per row into layer 0 of each leaf
+            got = [a.clone() for a in k["leaves"]]
+            want = [a.clone() for a in k["leaves"]]
+            C.paged_write(decode_jobs(got, k["one"]), k["slots"], cfg)
+            for a, x in zip(want, k["one"]):
+                L.paged_write(a[0], C.quantize_plain(x.float(), cfg), index)
+            changed = sum(int((signed_view(g[0]) != signed_view(a[0])).flatten(2)
+                              .any(-1).sum()) for g, a in zip(got, k["leaves"]))
+            ok = all(same(g, x) for g, x in zip(got, want)) and \
+                changed <= 2 * len(index[0]) and len(index[0]) == 6
+            # prefill chunk: positions [pos, stop) of every layer, a launch per leaf
+            got = [a.clone() for a in k["leaves"]]
+            want = [a.clone() for a in k["leaves"]]
+            for a, x in zip(got, k["chunk"]):
+                C.paged_write(prefill_jobs(a, x), k["pslots"], cfg)
+            for a, x in zip(want, k["chunk"]):
+                L.paged_pack_range(a, C.quantize_plain(x.float(), cfg), k["tables"],
+                                   k["pos"], k["stop"], window=k["window"])
+            layers_written = min(int((signed_view(w) != signed_view(a)).flatten(1)
+                                     .any(-1).sum()) for w, a in zip(want, k["leaves"]))
+            ok = ok and layers_written == n_layers and \
+                all(same(g, x) for g, x in zip(got, want))
+            print(f"fused paged write {lane} {cfg.name}: decode (2 jobs) and prefill "
+                  f"chunk ({n_layers} jobs a leaf, {int(k['pslots'].numel())} rows) "
+                  f"arenas equal to quantize_plain + scatter: {ok} ({changed} slots "
+                  f"written by the decode token, {layers_written} layers by the chunk)")
+            if not ok:
+                fail(f"posit_paged_write {lane} {cfg.name} differs from "
+                     "quantize_plain + the masked scatter")
+            del got, want
+            if cfg is POSIT16 and lane == "dense":
+                row = time_paged_write(k, cfg)
+            del k
+    return row
+
+
+def time_paged_write(k, cfg):
+    """Times of the fused write on a checked case's arenas: phi3's decode
+    token (K and V of one layer) and one leaf of a prefill chunk (40
+    layers x 8 rows x 16 tokens), wrapper-timed and alone, beside the old
+    pair timed the same ways; the byte bound counts the kept rows' bf16
+    sources read and posit16 patterns written, and the destinations."""
+    from repro_torch.kernels import posit_codec as C
+    from repro_torch.models import layers as L
+
+    slots, index, pslots = k["slots"], k["index"], k["pslots"]
+    jobs = decode_jobs(k["leaves"], k["one"])
+
+    def old():
+        for a, x in jobs:
+            L.paged_write(a, C.quantize(x.to(torch.float32).contiguous(), cfg), index)
+
+    kept = int((slots >= 0).sum())
+    width = jobs[0][1][0].numel()
+    arena, src = k["leaves"][0], k["chunk"][0]
+    n_layers = src.shape[0]
+    pjobs = prefill_jobs(arena, src)
+
+    def old_prefill():
+        stacked = torch.stack([C.quantize(x.to(torch.float32).contiguous(), cfg)
+                               for x in src])
+        L.paged_pack_range(arena, stacked, k["tables"], k["pos"], k["stop"],
+                           window=k["window"])
+
+    pkept = int((pslots >= 0).sum())
+    prefill = dict(
+        ms=time_ms(lambda: C.paged_write(pjobs, pslots, cfg)),
+        kernel_ms=kernel_alone_ms(C.paged_write_call(pjobs, pslots, cfg)),
+        old_pair_ms=time_ms(old_prefill),
+        old_pair_alone_ms=kernel_alone_ms(lambda: (old_prefill(), 0)[1]),
+        **_bound(n_layers * pkept * width * (2 + 2) + pslots.numel() * 8, 0, FP32_FLOPS),
+        shape=[n_layers, int(pslots.numel())] + list(src.shape[3:]))
+    row = dict(
+        name="posit_paged_write", route="cuda",
+        source="src/repro_torch/csrc/posit_paged_write.cu",
+        replaces="src/repro/kernels/posit_codec.py:46", launches=0, max_abs_err=0.0,
+        ms=time_ms(lambda: C.paged_write(jobs, slots, cfg)),
+        kernel_ms=kernel_alone_ms(C.paged_write_call(jobs, slots, cfg)),
+        old_pair_ms=time_ms(old),
+        old_pair_alone_ms=kernel_alone_ms(lambda: (old(), 0)[1]),
+        plain_ms=time_ms(lambda: C.paged_write_plain(jobs, slots, cfg), iters=5),
+        **_bound(2 * kept * width * (2 + 2) + slots.numel() * 8, 0, FP32_FLOPS),
+        library_ms=None, shape=[2, int(slots.numel())] + list(k["one"][0].shape[1:]),
+        prefill=prefill)
+    print(f"posit_paged_write decode (K and V, 8 rows x 1 280): {row['ms']:.4f} ms, "
+          f"alone {row['kernel_ms']:.4f} ms; old quantize + scatter pair "
+          f"{row['old_pair_ms']:.4f} ms, alone {row['old_pair_alone_ms']:.4f} ms. "
+          f"Prefill chunk ({n_layers} layers x 128 rows x 1 280): {prefill['ms']:.4f} ms, "
+          f"alone {prefill['kernel_ms']:.4f} ms; old {prefill['old_pair_ms']:.4f} "
+          f"ms, alone {prefill['old_pair_alone_ms']:.4f} ms (bound "
+          f"{prefill['bound_ms']:.5f} ms)")
+    return row
 
 
 def serve_main_path(argv):
@@ -1042,7 +1213,8 @@ def ptxas_report():
     from repro_torch.kernels import _build
     flags = [f for f in _build.NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
     with tempfile.TemporaryDirectory() as tmp:
-        for src in ("paged_attn", "posit_gemm"):
+        for src in ("paged_attn", "paged_attn_mla", "posit_gemm",
+                    "posit_paged_write"):
             res = subprocess.run(
                 [_build.nvcc_path(), *flags, "-Xptxas", "-v", "-c", "-I", str(_build.CSRC),
                  "-o", os.path.join(tmp, f"{src}.o"), str(_build.CSRC / f"{src}.cu")],
@@ -1095,6 +1267,9 @@ def run(pool):
     rows = time_codec(dev, POSIT16)
     rows.append(check_attention(dev))
     rows.append(check_attention_mla(dev))
+    rows.append(check_paged_write(dev))
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # the PVU ISA: P1 kernel checks, P2 the paper's conv, P3 the
     # posit-exact linear at phi3 width
@@ -1118,6 +1293,9 @@ def run(pool):
         for kernel in kernels:
             if counts[kernel] <= 0:
                 fail(f"kernel {kernel} was not launched on the {name} path")
+        if counts["posit_quantize"]:
+            fail(f"the {name} path quantized outside the fused paged write "
+                 f"({counts['posit_quantize']} posit_quantize launches)")
         if res.sched.prefix_cache and (res.sched.prefix_hits <= 0
                                        or res.sched.n_preempted <= 0):
             fail(f"the {name} path had no prefix hit or no preemption")
@@ -1152,7 +1330,9 @@ def run(pool):
         row["launches"] = sum(row["launches_by_path"].values())
     for row in rows:
         alone = (f", kernel alone {row['kernel_ms']:.4f} ms vs library alone "
-                 f"{row['library_alone_ms']:.4f} ms" if "kernel_ms" in row else "")
+                 f"{row['library_alone_ms']:.4f} ms" if "library_alone_ms" in row
+                 else f", kernel alone {row['kernel_ms']:.4f} ms" if "kernel_ms" in row
+                 else "")
         print(f"{row['name']} at {row['shape']}: {row['ms']:.4f} ms{alone} "
               f"(bound {row['bound_ms']:.4f} ms by {row['bound_by']}, "
               f"plain {row['plain_ms']:.4f} ms, library "

@@ -21,8 +21,8 @@
 //   wrapper).  Its live entries are compacted with a warp ballot first,
 //   so sentinel entries cost nothing; a split with none loads nothing.
 //   Each CTA leaves its online-softmax state (m, l, acc[Dv]) per query
-//   head in a scratch tensor; ``paged_attn_fold_kernel`` (a warp per head, the
-//   splits' weights computed 32 at a time across lanes) folds the S
+//   head in a scratch tensor; the fold of ``paged_split.cuh`` (a thread
+//   per output column, shared with ``paged_attn_mla.cu``) folds the S
 //   splits of a head in split order (deterministic) and writes
 //   acc / max(l, 1e-30).
 //   A split with l == 0 (no valid slot) has acc == 0 and is given weight
@@ -55,11 +55,10 @@
 //
 // Plain C interface (loaded through ctypes); returns the CUDA error code
 // of the launches, 0 on success.
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "posit_narrow.cuh"
+#include "paged_split.cuh"
 
 namespace {
 
@@ -69,72 +68,15 @@ constexpr int kThreads = 32 * kWarps;
 constexpr int kMaxChunk = 32;        // table entries per split: one ballot
 constexpr int kMaxSmem = 232448;     // H100: 227 KB of shared memory a block
 
-// Each decoder turns one 16-byte vector of patterns into kVec floats.
-struct DecF32 {
-  using T = float;
-  static constexpr int kVec = 4;
-  static __device__ __forceinline__ float get(T v) { return v; }
-  static __device__ __forceinline__ void vec(uint4 u, float* f) {
-    f[0] = __uint_as_float(u.x); f[1] = __uint_as_float(u.y);
-    f[2] = __uint_as_float(u.z); f[3] = __uint_as_float(u.w);
-  }
-};
-struct DecBF16 {
-  using T = __nv_bfloat16;
-  static constexpr int kVec = 8;
-  static __device__ __forceinline__ float get(T v) { return __bfloat162float(v); }
-  static __device__ __forceinline__ void vec(uint4 u, float* f) {
-    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      f[2 * i] = __uint_as_float(w[i] << 16);
-      f[2 * i + 1] = __uint_as_float(w[i] & 0xFFFF0000u);
-    }
-  }
-};
-struct DecPosit16 {
-  using T = uint16_t;
-  static constexpr int kVec = 8;
-  static __device__ __forceinline__ float get(T v) { return posit::to_f32_narrow<16, 2>(v); }
-  static __device__ __forceinline__ void vec(uint4 u, float* f) {
-    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      f[2 * i] = posit::to_f32_narrow<16, 2>(w[i] & 0xFFFFu);
-      f[2 * i + 1] = posit::to_f32_narrow<16, 2>(w[i] >> 16);
-    }
-  }
-};
-struct DecPosit8 {
-  using T = uint8_t;
-  static constexpr int kVec = 16;
-  static __device__ __forceinline__ float get(T v) { return posit::to_f32_narrow<8, 2>(v); }
-  static __device__ __forceinline__ void vec(uint4 u, float* f) {
-    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) f[4 * i + j] = posit::to_f32_narrow<8, 2>((w[i] >> (8 * j)) & 0xFFu);
-  }
-};
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait1() { asm volatile("cp.async.wait_group 1;\n" ::); }
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xFFFFFFFFu, v, o);
-  return v;
-}
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xFFFFFFFFu, v, o));
-  return v;
-}
+using paged_split::DecBF16;
+using paged_split::DecF32;
+using paged_split::DecPosit16;
+using paged_split::DecPosit8;
+using paged_split::cp_async16;
+using paged_split::cp_async_commit;
+using paged_split::cp_async_wait1;
+using paged_split::warp_max;
+using paged_split::warp_sum;
 
 __host__ __device__ inline size_t align16(size_t n) { return (n + 15) & ~static_cast<size_t>(15); }
 
@@ -385,62 +327,6 @@ paged_attn_split(const float* __restrict__ q, const typename Dec::T* __restrict_
   }
 }
 
-// One warp per (row, head): the S partials folded in split order.  The
-// lanes read the splits' (m, l) 32 at a time and weigh them in parallel;
-// the sums then walk the splits in order, each split's weight broadcast
-// from its lane, 4 x 32 columns of acc per pass with the loads of
-// successive splits in flight together.
-__global__ void __launch_bounds__(kThreads)
-paged_attn_fold_kernel(const float* __restrict__ part_acc, const float* __restrict__ part_ml,
-                       float* __restrict__ out, long long rows, int n_split, int Dv) {
-  const long long row = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (row >= rows) return;
-  const float* ml = part_ml + row * n_split * 2;
-  const float* pa = part_acc + row * n_split * Dv;
-  float mx = kNeg;
-  for (int s = lane; s < n_split; s += 32)
-    if (ml[2 * s + 1] > 0.f) mx = fmaxf(mx, ml[2 * s]);
-  mx = warp_max(mx);
-  float l = 0.f;
-  for (int s0 = 0; s0 < n_split; s0 += 32) {
-    const int s = s0 + lane;
-    const float ls = s < n_split ? ml[2 * s + 1] : 0.f;
-    const float lw = ls > 0.f ? ls * expf(ml[2 * s] - mx) : 0.f;
-    const int n = n_split - s0 < 32 ? n_split - s0 : 32;
-    for (int j = 0; j < n; ++j) l += __shfl_sync(0xFFFFFFFFu, lw, j);
-  }
-  const float lc = fmaxf(l, 1e-30f);
-  for (int d0 = 0; d0 < Dv; d0 += 128) {
-    float a[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int s0 = 0; s0 < n_split; s0 += 32) {
-      const int s = s0 + lane;
-      const float wt = (s < n_split && ml[2 * s + 1] > 0.f) ? expf(ml[2 * s] - mx) : 0.f;
-      const int n = n_split - s0 < 32 ? n_split - s0 : 32;
-#pragma unroll 4
-      for (int j = 0; j < n; ++j) {
-        const float wj = __shfl_sync(0xFFFFFFFFu, wt, j);
-        const float* ps = pa + (long long)(s0 + j) * Dv + d0 + lane;
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          if (d0 + lane + 32 * i < Dv && wj != 0.f) a[i] = fmaf(ps[32 * i], wj, a[i]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      if (d0 + lane + 32 * i < Dv) out[row * Dv + d0 + lane + 32 * i] = a[i] / lc;
-  }
-}
-
-int fold(const float* part_acc, const float* part_ml, float* out, long long rows,
-         int n_split, int Dv, cudaStream_t s) {
-  const long long blocks = (rows + kWarps - 1) / kWarps;
-  if (blocks > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
-  paged_attn_fold_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
-      part_acc, part_ml, out, rows, n_split, Dv);
-  return static_cast<int>(cudaGetLastError());
-}
-
 template <class Dec, int HPW, int DPL>
 int launch(const void* q, const void* k, const void* v, const void* tables,
            const void* apos, const void* lens, void* out, void* scratch, int B, int G,
@@ -450,11 +336,9 @@ int launch(const void* q, const void* k, const void* v, const void* tables,
   const size_t smem = smem_bytes(sizeof(T), D, Dv, bs, HPW);
   if (smem > (size_t)kMaxSmem) return static_cast<int>(cudaErrorInvalidConfiguration);
   auto kernel = paged_attn_split<Dec, HPW, DPL>;
-  if (smem > 48 * 1024) {  // past the default limit: opt in (per device, so every time)
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
+  static size_t granted[64] = {};  // this kernel's opt-in, per device
+  const cudaError_t e = paged_split::allow_smem(kernel, smem, granted);  // past 48 KB
+  if (e != cudaSuccess) return static_cast<int>(e);
   const int n_hg = (R + kWarps * HPW - 1) / (kWarps * HPW);
   const int n_split = (W + chunk - 1) / chunk;
   const bool vec = (D * sizeof(T)) % 16 == 0 && (Dv * sizeof(T)) % 16 == 0 &&
@@ -471,7 +355,7 @@ int launch(const void* q, const void* k, const void* v, const void* tables,
       Dv, nb, bs, W, window, chunk, n_hg, vec ? 1 : 0);
   const int rc = static_cast<int>(cudaGetLastError());
   if (rc != 0 || n_split == 1) return rc;
-  return fold(part_acc, part_ml, static_cast<float*>(out), rows, n_split, Dv, s);
+  return paged_split::fold(part_acc, part_ml, static_cast<float*>(out), rows, n_split, Dv, s);
 }
 
 template <class Dec>

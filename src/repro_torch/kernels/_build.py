@@ -28,8 +28,8 @@ from repro_torch.core.types import CONFIGS
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parents[1] / "build"
-SOURCES = ("posit_codec", "paged_attn", "paged_attn_mla", "posit_ew",
-           "posit_dot", "posit_qgemm", "posit_gemm")
+SOURCES = ("posit_codec", "posit_paged_write", "paged_attn", "paged_attn_mla",
+           "posit_ew", "posit_dot", "posit_qgemm", "posit_gemm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -100,6 +100,9 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         for fn in (lib.posit_quantize, lib.posit_dequantize):
             fn.argtypes = [I, I, P, P, LL, P]
             fn.restype = I
+    elif name == "posit_paged_write":
+        lib.posit_paged_write.argtypes = [I, I, I, P, P, P, P, LL, LL, P]
+        lib.posit_paged_write.restype = I
     elif name == "posit_ew":
         lib.posit_elementwise.argtypes = [I, I, I, P, P, P, LL, LL, LL, P]
         lib.posit_elementwise.restype = I
@@ -117,9 +120,9 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.paged_decode_attention.restype = I
     elif name == "paged_attn_mla":
         lib.paged_decode_attention_mla.argtypes = \
-            [I] + [P] * 8 + [I] * 7 + [F, P]
+            [I] + [P] * 9 + [I] * 8 + [F, P]
         lib.paged_decode_attention_mla.restype = I
-        lib.paged_attn_mla_smem_bytes.argtypes = [I, I, I]
+        lib.paged_attn_mla_smem_bytes.argtypes = [I] * 5
         lib.paged_attn_mla_smem_bytes.restype = LL
 
 

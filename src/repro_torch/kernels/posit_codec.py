@@ -10,19 +10,28 @@ Bound on the H100: memory -- posit16 moves 6 B per element (4 B f32 in,
 manipulation is a few dozen integer ops per element.  The kernel is one
 coalesced grid-stride pass, for the five configs of ``core/types.py``.
 
+On the serving path the quantize is fused into the paged KV write
+(:func:`paged_write`, ``csrc/posit_paged_write.cu``): one launch
+quantizes a token's (or a prefill chunk's) KV rows and stores the
+patterns straight into their arena slots, dropping masked and sentinel
+writes on the device.
+
 On a CPU tensor the wrappers run the plain versions (``core.convert``);
 on a CUDA tensor they launch the kernel or raise.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from repro_torch.core.convert import f32_to_posit, posit_to_f32
-from repro_torch.core.types import PositConfig
+from repro_torch.core.types import PositConfig, signed_view
 
 from . import _build
 
-launches = {"posit_quantize": 0, "posit_dequantize": 0}
+launches = {"posit_quantize": 0, "posit_dequantize": 0,
+            "posit_paged_write": 0}
 
 
 def quantize_plain(x: torch.Tensor, cfg: PositConfig) -> torch.Tensor:
@@ -71,3 +80,124 @@ def dequantize(p: torch.Tensor, cfg: PositConfig) -> torch.Tensor:
     _build.check(rc, "posit_dequantize")
     launches["posit_dequantize"] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# Quantize fused into the paged KV write
+# ---------------------------------------------------------------------------
+
+_WRITE_CFGS = ((16, 2), (8, 2))
+_WRITE_SRC = {torch.float32: 0, torch.bfloat16: 1}
+_MAX_JOBS = 128
+
+
+def scatter_slots(jobs, slots: torch.Tensor) -> None:
+    """The masked scatter of the paged write, in place: row r of each
+    job's ``rows`` goes to flat slot ``slots[r]`` of its ``arena``.
+
+    ``jobs`` is a list of ``(arena, rows)``: ``arena`` one layer's leaf
+    (nb, bs, *feat), ``rows`` (R, *feat) of the arena's dtype; every leaf
+    has the same nb * bs slots.  ``slots`` (R,) int64 is row r's flat
+    slot ``block * bs + offset``; a negative slot (or one past
+    ``nb * bs``) drops the row's write (one host sync for all jobs)."""
+    if not jobs:
+        return
+    n_slots = jobs[0][0].shape[0] * jobs[0][0].shape[1]
+    keep = torch.nonzero((slots >= 0) & (slots < n_slots))[:, 0]
+    dst = slots[keep]
+    for arena, rows in jobs:
+        flat = signed_view(arena).view(n_slots, -1)
+        flat[dst] = signed_view(rows).reshape(rows.shape[0], -1)[keep]
+
+
+def paged_write_plain(jobs, slots: torch.Tensor, cfg: PositConfig) -> None:
+    """Plain PyTorch version of the fused write: :func:`quantize_plain`
+    of each source, then :func:`scatter_slots` into its arena, in place.
+
+    ``jobs`` is a list of ``(arena, src)``: ``arena`` one layer's leaf
+    (nb, bs, *feat) of posit patterns, ``src`` (R, *feat) f32 or bf16.
+    ``slots`` as in :func:`scatter_slots`."""
+    scatter_slots([(a, quantize_plain(src.to(torch.float32), cfg))
+                   for a, src in jobs], slots)
+
+
+def _check_devices(jobs, slots):
+    """The device every arena, source and ``slots`` of a write lie on;
+    raises if they differ or if there is no job."""
+    if not jobs:
+        raise ValueError("paged_write: no jobs")
+    dev = jobs[0][0].device
+    for t in [slots] + [t for job in jobs for t in job]:
+        if t.device != dev:
+            raise ValueError(f"paged_write: arenas, sources and slots must "
+                             f"share one device, got {t.device} and {dev}")
+    return dev
+
+
+def _paged_write_call(jobs, slots, cfg):
+    """Checks and the C call of one fused write (returns its CUDA error
+    code)."""
+    if (cfg.nbits, cfg.es) not in _WRITE_CFGS:
+        raise ValueError(f"paged_write: the kernel takes posit16 and posit8 "
+                         f"(es 2), got {cfg}")
+    if not 0 < len(jobs) <= _MAX_JOBS:
+        raise ValueError(f"paged_write: 1 to {_MAX_JOBS} jobs a launch, got "
+                         f"{len(jobs)}")
+    dev = _check_devices(jobs, slots)
+    rows = slots.shape[0]
+    if slots.dtype != torch.int64 or slots.ndim != 1 \
+            or not slots.is_contiguous():
+        raise ValueError(f"paged_write: slots must be a contiguous int64 "
+                         f"(R,) tensor, got {slots.dtype} "
+                         f"{tuple(slots.shape)}")
+    n_slots = jobs[0][0].shape[0] * jobs[0][0].shape[1]
+    src_kind = _WRITE_SRC.get(jobs[0][1].dtype)
+    for arena, src in jobs:
+        if arena.dtype != cfg.storage_dtype or not arena.is_contiguous() \
+                or arena.ndim < 2 \
+                or arena.shape[0] * arena.shape[1] != n_slots:
+            raise ValueError(f"paged_write: arena must be a contiguous "
+                             f"{cfg.storage_dtype} (nb, bs, ...) leaf of "
+                             f"{n_slots} slots, got {arena.dtype} "
+                             f"{tuple(arena.shape)}")
+        if _WRITE_SRC.get(src.dtype) != src_kind or src_kind is None \
+                or not src.is_contiguous() \
+                or tuple(src.shape) != (rows,) + tuple(arena.shape[2:]):
+            raise ValueError(f"paged_write: source must be a contiguous f32 "
+                             f"or bf16 tensor of shape "
+                             f"{(rows,) + tuple(arena.shape[2:])}, every "
+                             f"source of one dtype; got {src.dtype} "
+                             f"{tuple(src.shape)}")
+    fn = _build.load("posit_paged_write").posit_paged_write
+    n = len(jobs)
+    srcs = (ctypes.c_void_p * n)(*[s.data_ptr() for _, s in jobs])
+    arenas = (ctypes.c_void_p * n)(*[a.data_ptr() for a, _ in jobs])
+    widths = (ctypes.c_int * n)(*[a[0, 0].numel() for a, _ in jobs])
+    args = (cfg.nbits, src_kind, n, srcs, arenas, widths, slots.data_ptr(),
+            rows, n_slots, torch.cuda.current_stream(dev).cuda_stream)
+    return lambda: fn(*args)
+
+
+def paged_write(jobs, slots: torch.Tensor, cfg: PositConfig) -> None:
+    """Quantize KV rows to posit patterns and store them straight into
+    their arena slots, in place (:func:`paged_write_plain` for the
+    layout of ``jobs`` and ``slots``).  Every job shares ``slots``; a
+    decode step passes a layer's two leaves, a prefill chunk one leaf of
+    every layer.
+
+    On a CUDA tensor: one launch of ``csrc/posit_paged_write.cu`` (1 to
+    128 jobs), posit16 or posit8 (es 2); dropped rows are skipped on the
+    device, with no host sync.  The arenas' device chooses the path;
+    sources and ``slots`` must lie on it."""
+    if _check_devices(jobs, slots).type == "cpu":
+        paged_write_plain(jobs, slots, cfg)
+        return
+    _build.check(_paged_write_call(jobs, slots, cfg)(), "posit_paged_write")
+    launches["posit_paged_write"] += 1
+
+
+def paged_write_call(jobs, slots: torch.Tensor, cfg: PositConfig):
+    """For timing the fused write alone: ``call()`` launches the kernel
+    once more on the same jobs and returns the CUDA error code.  Not
+    counted in ``launches``; CUDA tensors only."""
+    return _paged_write_call(jobs, slots, cfg)

@@ -20,11 +20,16 @@ state in VMEM.  On the H100:
   the order of the plain version's f32 einsum, then lanes span Dv for
   P.V.  A second kernel folds the runs' partial softmax states in
   split order.
-- ``csrc/paged_attn_mla.cu``: one CTA per (row, tile of 8 query heads)
-  walking the whole table; all heads share the row's latent blocks, so
-  a block is decoded once per tile.  Bound: fp32 operations (some 75
-  flops per latent byte at minicpm3-4b's widths).  The simple version:
-  fp32 FMAs, no tensor cores, no split.
+- ``csrc/paged_attn_mla.cu`` (MLA lane).  Bound: fp32 operations (some
+  75 flops per latent byte at minicpm3-4b's widths), a few microseconds
+  at decode batch sizes, so parallelism and latency are what matter.
+  The same split as the dense lane with all H query heads in the CTA:
+  one CTA per (row, run of :func:`split_chunk_mla` table entries), so a
+  live latent block is loaded (``cp.async``, prefetched) and decoded
+  once per row; a thread per (slot, head pair) scores, a group of lanes
+  per head runs the softmax step, a thread per (4 latent columns, 8
+  heads) does P.V.  fp32 FMAs, no tensor cores.  The runs' partial states fold in
+  split order with the dense lane's fold (``csrc/paged_split.cuh``).
 
 Masking contract (shared with ``models/layers.py::paged_apos``): a slot
 counts iff ``0 <= apos < lens + 1``, it is inside the window when one is
@@ -33,6 +38,7 @@ set, and its table entry is not the sentinel ``nb``.  Invalid slots get
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -163,7 +169,12 @@ def split_chunk(w: int, rows: int, sms: int) -> int:
     head) pairs were spread over ``_CTAS_PER_SM * sms`` CTAs, in [1,
     min(w, 32)].  Phi3's decode case (B 8 x G 10, W 64) on 132 SMs gets
     4, so 16 splits and 1 280 CTAs; a short table gets 1."""
-    per = w * rows / (_CTAS_PER_SM * sms)
+    return _chunk_for(w, rows, _CTAS_PER_SM * sms)
+
+
+def _chunk_for(w: int, rows: int, ctas: int) -> int:
+    """The power of two nearest ``w * rows / ctas``, in [1, min(w, 32)]."""
+    per = w * rows / ctas
     c = 1 if per < 1 else 1 << round(math.log2(per))
     return max(1, min(c, _MAX_CHUNK, w))
 
@@ -248,12 +259,14 @@ def paged_decode_attention_call(q, k_arena, v_arena, tables, apos, lens, *,
                     chunk)
 
 
-def paged_decode_attention_mla_plain(q_lat, q_rope, c_arena, r_arena, tables,
-                                     apos, lens, *,
-                                     pcfg: Optional[PositConfig] = None,
-                                     scale: float = 1.0) -> torch.Tensor:
-    """Plain PyTorch version of the MLA kernel: the same table walk and
-    online softmax in latent space, vectorized over rows and heads."""
+def paged_decode_partial_mla_plain(q_lat, q_rope, c_arena, r_arena, tables,
+                                   apos, lens, *,
+                                   pcfg: Optional[PositConfig] = None,
+                                   scale: float = 1.0):
+    """The MLA table walk's online-softmax state before normalising:
+    running max ``m`` and denominator ``l`` (B, H) and latent accumulator
+    ``acc`` (B, H, rank), all f32, vectorized over rows and heads.  A row
+    with no valid slot keeps ``l == 0`` and ``acc == 0``."""
     b, h, rank = q_lat.shape
     nb, bs = c_arena.shape[0], c_arena.shape[1]
     w = tables.shape[1]
@@ -281,26 +294,57 @@ def paged_decode_attention_mla_plain(q_lat, q_rope, c_arena, r_arena, tables,
         l = l * alpha + p.sum(-1)
         acc = acc * alpha[..., None] + torch.einsum("bht,btr->bhr", p, c)
         m = m_new
+    return m, l, acc
+
+
+def paged_decode_attention_mla_plain(q_lat, q_rope, c_arena, r_arena, tables,
+                                     apos, lens, *,
+                                     pcfg: Optional[PositConfig] = None,
+                                     scale: float = 1.0) -> torch.Tensor:
+    """Plain PyTorch version of the MLA kernel: the same table walk and
+    online softmax in latent space, vectorized over rows and heads."""
+    _, l, acc = paged_decode_partial_mla_plain(
+        q_lat, q_rope, c_arena, r_arena, tables, apos, lens, pcfg=pcfg,
+        scale=scale)
     return acc / torch.clamp(l, min=1e-30)[..., None]
 
 
-def paged_decode_attention_mla(q_lat, q_rope, c_arena, r_arena, tables, apos,
-                               lens, *, pcfg: Optional[PositConfig] = None,
-                               scale: float = 1.0) -> torch.Tensor:
-    """Fused paged MLA decode: latent-space scores and context straight
-    off the block tables.
+# Split CTAs the MLA wrapper aims the grid at, per SM: one wave on the
+# H100's 132.  A CTA holds all H heads (320 threads of 128 registers and
+# 86.8 KB of shared memory at minicpm3-4b, posit16), so one is resident
+# per SM; a second wave would cost a second CTA prologue and fewer
+# entries per split a longer fold.
+_MLA_CTAS_PER_SM = 1
 
-    q_lat: (B, H, rank) f32 absorbed query; q_rope: (B, H, rope) f32;
-    arenas (nb, bs, rank) and (nb, bs, rope), posit patterns when
-    ``pcfg`` is set, else f32 or bf16; tables (B, W) int32 (sentinel
-    ``nb``); apos (B, W*bs) int32 (``-1`` = dead slot); lens (B,) int32.
-    ``scale`` multiplies the summed scores.  Returns the latent context
-    (B, H, rank) f32; the caller applies ``wuv``.
-    """
-    if q_lat.device.type == "cpu":
-        return paged_decode_attention_mla_plain(
-            q_lat, q_rope, c_arena, r_arena, tables, apos, lens, pcfg=pcfg,
-            scale=scale)
+
+def split_chunk_mla(w: int, rows: int, sms: int) -> int:
+    """Table entries per MLA split CTA: the power of two nearest the
+    entries one CTA would walk if the ``w * rows`` entries were spread
+    over ``_MLA_CTAS_PER_SM * sms`` CTAs, in [1, min(w, 32)].
+    Minicpm3's decode case (B 8, W 64) on 132 SMs gets 4: 16 splits,
+    128 CTAs, partials of 8 x 40 x 16 x 258 floats (5.3 MB, in L2)."""
+    return _chunk_for(w, rows, _MLA_CTAS_PER_SM * sms)
+
+
+@functools.lru_cache(maxsize=None)
+def _mla_smem(kind: int, h: int, rank: int, rope: int, bs: int) -> int:
+    """Shared memory of one MLA split CTA in bytes, computed by the
+    library once per shape; raises for shapes the kernel does not take
+    (over the card's 227 KB, or over 512 threads)."""
+    smem = _build.load("paged_attn_mla").paged_attn_mla_smem_bytes(
+        kind, h, rank, rope, bs)
+    if smem < 0:
+        raise ValueError(
+            f"paged_decode_attention_mla: H={h} rank={rank} rope={rope} "
+            f"bs={bs} needs more than the kernel's 227 KB of shared memory "
+            "or 512 threads (32 * ceil(ceil(rank/4) * ceil(H/8) / 32))")
+    return smem
+
+
+def _prepare_mla(q_lat, q_rope, c_arena, r_arena, tables, apos, lens, pcfg,
+                 scale, chunk=None):
+    """Checks, output and scratch of one MLA launch; returns ``(call,
+    out)`` with ``call()`` the launch's C call (its CUDA error code)."""
     b, h, rank = q_lat.shape
     rope = q_rope.shape[-1]
     nb, bs = c_arena.shape[0], c_arena.shape[1]
@@ -315,21 +359,68 @@ def paged_decode_attention_mla(q_lat, q_rope, c_arena, r_arena, tables, apos,
         "apos": (apos, (b, w * bs), torch.int32),
         "lens": (lens, (b,), torch.int32),
     })
-    lib = _build.load("paged_attn_mla")
-    smem = lib.paged_attn_mla_smem_bytes(rank, rope, bs)
-    if smem > 48 * 1024:
-        raise ValueError(f"paged_decode_attention_mla: rank={rank} "
-                         f"rope={rope} bs={bs} needs {smem} B of shared "
-                         "memory > 48 KiB")
     out = torch.empty((b, h, rank), dtype=torch.float32, device=q_lat.device)
-    rc = lib.paged_decode_attention_mla(
-        kind, q_lat.data_ptr(), q_rope.data_ptr(), c_arena.data_ptr(),
-        r_arena.data_ptr(), tables.data_ptr(), apos.data_ptr(),
-        lens.data_ptr(), out.data_ptr(), b, h, rank, rope, nb, bs, w,
-        float(scale), torch.cuda.current_stream(q_lat.device).cuda_stream)
-    _build.check(rc, "paged_decode_attention_mla")
+    if w == 0 or b * h == 0:
+        out.zero_()                         # no slot: every row is zeros
+        return (lambda: 0), out
+    _mla_smem(kind, h, rank, rope, bs)
+    c = chunk or split_chunk_mla(w, b, _build.sm_count(q_lat.device))
+    n_split = -(-w // c)
+    scratch = out if n_split == 1 else torch.empty(
+        b * h * n_split * (rank + 2), dtype=torch.float32, device=q_lat.device)
+    fn = _build.load("paged_attn_mla").paged_decode_attention_mla
+    args = (kind, q_lat.data_ptr(), q_rope.data_ptr(), c_arena.data_ptr(),
+            r_arena.data_ptr(), tables.data_ptr(), apos.data_ptr(),
+            lens.data_ptr(), out.data_ptr(), scratch.data_ptr(), b, h, rank,
+            rope, nb, bs, w, c, float(scale),
+            torch.cuda.current_stream(q_lat.device).cuda_stream)
+    return (lambda: fn(*args)), out
+
+
+def paged_decode_attention_mla(q_lat, q_rope, c_arena, r_arena, tables, apos,
+                               lens, *, pcfg: Optional[PositConfig] = None,
+                               scale: float = 1.0) -> torch.Tensor:
+    """Fused paged MLA decode: latent-space scores and context straight
+    off the block tables.
+
+    q_lat: (B, H, rank) f32 absorbed query; q_rope: (B, H, rope) f32;
+    arenas (nb, bs, rank) and (nb, bs, rope), posit patterns when
+    ``pcfg`` is set, else f32 or bf16; tables (B, W) int32 (sentinel
+    ``nb``); apos (B, W*bs) int32 (``-1`` = dead slot); lens (B,) int32.
+    ``scale`` multiplies the summed scores.  Returns the latent context
+    (B, H, rank) f32; the caller applies ``wuv``.
+
+    On a CUDA tensor: one call of ``csrc/paged_attn_mla.cu``.  The table
+    is split into S = ceil(W / c) runs of c entries
+    (:func:`split_chunk_mla`); the CTA of (row, split) walks its run for
+    all H heads and leaves its f32 state in a scratch tensor from
+    ``torch.empty``, (B*H, S, rank) accumulators then (B*H, S, 2) pairs
+    (m, l), folded in split order as the dense lane's are.  With S == 1
+    no scratch or fold is used.  Counted as one launch.
+    """
+    if q_lat.device.type == "cpu":
+        return paged_decode_attention_mla_plain(
+            q_lat, q_rope, c_arena, r_arena, tables, apos, lens, pcfg=pcfg,
+            scale=scale)
+    call, out = _prepare_mla(q_lat, q_rope, c_arena, r_arena, tables, apos,
+                             lens, pcfg, scale)
+    _build.check(call(), "paged_decode_attention_mla")
     launches["paged_decode_attention_mla"] += 1
     return out
+
+
+def paged_decode_attention_mla_call(q_lat, q_rope, c_arena, r_arena, tables,
+                                    apos, lens, *,
+                                    pcfg: Optional[PositConfig] = None,
+                                    scale: float = 1.0,
+                                    chunk: Optional[int] = None):
+    """For timing the MLA kernel alone: ``(call, out)``, where ``call()``
+    launches the split and fold kernels once more on the same
+    preallocated output and scratch and returns the CUDA error code.
+    Not counted in ``launches``; CUDA tensors only.  ``chunk`` overrides
+    :func:`split_chunk_mla`."""
+    return _prepare_mla(q_lat, q_rope, c_arena, r_arena, tables, apos, lens,
+                        pcfg, scale, chunk)
 
 
 # ---------------------------------------------------------------------------

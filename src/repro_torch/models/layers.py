@@ -377,12 +377,13 @@ def decode_attention_paged_mla(q_lat_eff, q_rope, c_arena, r_arena, tables,
     return torch.einsum("bht,btr->bhr", probs, c)
 
 
-def paged_write_index(tables, pos, ok, *, n_blocks: int, block_size: int,
+def paged_write_slots(tables, pos, ok, *, n_blocks: int, block_size: int,
                       window: int = 0):
-    """Where each row's one-token write lands: ``(rows, blocks, offsets)``
-    of the writes that are kept.  Rows with ``ok`` False and writes
-    through sentinel entries are dropped, never clamped (one host sync).
-    Shared by every layer and by K and V within a decode step."""
+    """Where each row's one-token write lands, as a dense (B,) int64
+    tensor: the flat arena slot ``block * block_size + offset``, or -1
+    where the write drops (``ok`` False, or through a sentinel entry).
+    No host sync: the fused write (``kernels.posit_codec.paged_write``)
+    drops the -1 rows on the device."""
     w = tables.shape[1]
     pos = pos.to(torch.int64)
     blk = torch.div(pos, block_size, rounding_mode="floor")
@@ -392,8 +393,21 @@ def paged_write_index(tables, pos, ok, *, n_blocks: int, block_size: int,
         slot = blk
         ok = ok & (blk < w)
     phys = tables.to(torch.int64).gather(1, slot.clamp(0, w - 1)[:, None])[:, 0]
-    rows = torch.nonzero(ok & (phys < n_blocks))[:, 0]
-    return rows, phys[rows], torch.fmod(pos, block_size)[rows]
+    flat = phys * block_size + torch.fmod(pos, block_size)
+    return torch.where(ok & (phys < n_blocks), flat, -1)
+
+
+def paged_write_index(tables, pos, ok, *, n_blocks: int, block_size: int,
+                      window: int = 0):
+    """Where each row's one-token write lands: ``(rows, blocks, offsets)``
+    of the writes that are kept.  Rows with ``ok`` False and writes
+    through sentinel entries are dropped, never clamped (one host sync).
+    Shared by every layer and by K and V within a decode step."""
+    slots = paged_write_slots(tables, pos, ok, n_blocks=n_blocks,
+                              block_size=block_size, window=window)
+    rows = torch.nonzero(slots >= 0)[:, 0]
+    return (rows, torch.div(slots[rows], block_size, rounding_mode="floor"),
+            torch.fmod(slots[rows], block_size))
 
 
 def paged_write(arena, upd, index):
@@ -413,19 +427,16 @@ def paged_cache_update(arena, upd, tables, pos, ok, *, window: int = 0):
     return paged_write(arena, upd, index)
 
 
-def paged_pack_range(arena, kvs, tables, start, lens, *, window: int = 0):
-    """Write positions ``[start, lens)`` of suffix KV into arena blocks,
-    in place, leaving every other slot untouched.
-
-    arena (L, nb, bs, ...); ``kvs`` (L, B, S, ...) with time index ``t``
-    at absolute position ``start + t``.  On the window lane only the
-    latest ring epoch of each slot is written (the positions the
-    frontier ``lens - 1`` still maps); sentinel entries drop.
-    """
-    nb, bs = arena.shape[1], arena.shape[2]
-    s = kvs.shape[2]
+def paged_pack_slots(tables, start, lens, s: int, *, n_blocks: int,
+                     block_size: int, window: int = 0):
+    """Where suffix position ``start + t`` (t < ``s``) of each row lands,
+    as a dense (B, S) int64 tensor: the flat arena slot
+    ``block * block_size + offset``, or -1 where the write drops
+    (positions outside ``[start, lens)``, past the table, an older ring
+    epoch on the window lane, or a sentinel entry).  No host sync."""
+    bs = block_size
     w = tables.shape[1]
-    dev = kvs.device
+    dev = tables.device
     lens = lens.to(torch.int64)
     start = torch.as_tensor(start, device=dev).to(torch.int64)
     start = start.expand(lens.shape[0]) if start.ndim == 0 else start
@@ -440,10 +451,26 @@ def paged_pack_range(arena, kvs, tables, start, lens, *, window: int = 0):
         live &= blk < w
         slot = blk
     phys = tables.to(torch.int64).gather(1, slot.clamp(0, w - 1))
-    live &= phys < nb
-    rows, cols = torch.nonzero(live, as_tuple=True)
-    signed_view(arena)[:, phys[rows, cols], torch.fmod(pos[rows, cols], bs)] = \
-        signed_view(kvs)[:, rows, cols]
+    live &= phys < n_blocks
+    return torch.where(live, phys * bs + torch.fmod(pos, bs), -1)
+
+
+def paged_pack_range(arena, kvs, tables, start, lens, *, window: int = 0):
+    """Write positions ``[start, lens)`` of suffix KV into arena blocks,
+    in place, leaving every other slot untouched.
+
+    arena (L, nb, bs, ...); ``kvs`` (L, B, S, ...) with time index ``t``
+    at absolute position ``start + t``.  On the window lane only the
+    latest ring epoch of each slot is written (the positions the
+    frontier ``lens - 1`` still maps); sentinel entries drop.
+    """
+    nb, bs = arena.shape[1], arena.shape[2]
+    slots = paged_pack_slots(tables.to(kvs.device), start, lens, kvs.shape[2],
+                             n_blocks=nb, block_size=bs, window=window)
+    rows, cols = torch.nonzero(slots >= 0, as_tuple=True)
+    flat = slots[rows, cols]
+    signed_view(arena)[:, torch.div(flat, bs, rounding_mode="floor"),
+                       torch.fmod(flat, bs)] = signed_view(kvs)[:, rows, cols]
     return arena
 
 

@@ -11,8 +11,12 @@ rank | rope) for the MLA latents ``c_kv``/``k_rope``, and are updated in
 place; each function returns the cache dict with the new ``lens``.  MoE
 feed-forward is not ported yet and raises.
 
-KV writes quantize through the CUDA posit codec (``_maybe_quant_kv``)
-and the chunked-prefill arena read dequantizes through it; decode
+Posit KV writes quantize straight into the arena through the fused
+write kernel (``posit_codec.paged_write``: one launch per decode layer
+for both leaves, one per arena leaf for a prefill chunk's layers, dropped
+writes skipped on the device); f32/bf16 KV writes cast and scatter to
+the same dense slots.  The
+chunked-prefill arena read dequantizes through the codec; decode
 attention runs the fused paged kernel (dense/window or MLA latent) or
 the gather path (``cfg.paged_attn_kernel``).
 """
@@ -127,11 +131,28 @@ def _cache_dtype(cfg: ModelConfig):
 
 def _maybe_quant_kv(x, cfg: ModelConfig):
     """KV storage form: posit patterns through the CUDA codec, or the
-    compute dtype."""
+    compute dtype (the reference's function; the model stores posit KV
+    through the fused write of :func:`_write_kv` and calls this for the
+    cast only)."""
     if cfg.kv_posit:
         return posit_codec.quantize(x.to(torch.float32).contiguous(),
                                     L.pcfg(cfg.kv_posit))
     return x.to(L.cdtype(cfg))
+
+
+def _write_kv(jobs, slots, cfg: ModelConfig):
+    """Store KV rows into their arena slots, in place.  ``jobs`` is a
+    list of ``(arena leaf of one layer, (R, *feat) rows)``; ``slots``
+    the rows' dense flat slots (``layers.paged_write_slots`` or
+    ``layers.paged_pack_slots``, -1 drops).  Posit KV: one fused
+    quantize-and-write launch, drops skipped on the device; otherwise
+    the compute-dtype cast and the masked scatter."""
+    if cfg.kv_posit:
+        posit_codec.paged_write([(a, x.contiguous()) for a, x in jobs], slots,
+                                L.pcfg(cfg.kv_posit))
+    else:
+        posit_codec.scatter_slots([(a, _maybe_quant_kv(x, cfg)) for a, x in jobs],
+                                  slots)
 
 
 def paged_table_width(cfg: ModelConfig, block_size: int,
@@ -317,20 +338,22 @@ def prefill_chunk(params, cache, tokens, cfg: ModelConfig, n_valid, *,
 
     attend = attend_mla if cfg.mla else attend_dense
     x = _embed(params, tokens, cfg)
-    fresh = ([], [])
+    fresh = ([], [])                        # each layer's chunk K/V
     for li, lp in enumerate(params["layers"]):
         out, new = attend(lp["attn"], L.rms_norm(lp["ln1"], x, cfg), li)
         x = x + L.dense(lp["attn"]["wo"], out, cfg)
         x = _block_mlp(lp, x, cfg)
         for acc, t in zip(fresh, new):
-            acc.append(_maybe_quant_kv(t, cfg))
+            acc.append(t)
 
     wt = tables if write_tables is None else torch.as_tensor(
         write_tables, dtype=torch.int32, device=dev)
+    # one write per leaf covers all layers
+    slots = L.paged_pack_slots(wt, lens, lens_after, c, n_blocks=nb,
+                               block_size=bs, window=window).reshape(-1)
     for key, kv in zip(keys, fresh):
-        stacked = torch.stack([PT.signed_view(t) for t in kv]).view(kv[0].dtype)
-        L.paged_pack_range(cache[key], stacked, wt, lens, lens_after,
-                           window=window)
+        _write_kv([(cache[key][li], t.reshape((b * c,) + t.shape[2:]))
+                   for li, t in enumerate(kv)], slots, cfg)
     new_cache = dict(cache, lens=lens_after.to(torch.int32))
 
     x = L.rms_norm(params["final_norm"], x, cfg)
@@ -340,11 +363,11 @@ def prefill_chunk(params, cache, tokens, cfg: ModelConfig, n_valid, *,
     return new_cache, logits.to(torch.float32)
 
 
-def _decode_attn_dense_paged(p, x, k_arena, v_arena, tables, lens,
-                             write_index, cfg: ModelConfig):
+def _decode_attn_dense_paged(p, x, k_arena, v_arena, tables, lens, slots,
+                             cfg: ModelConfig):
     """One layer of paged dense/GQA decode: write the row's new K/V at
-    ``lens[b]`` (``write_index`` from ``layers.paged_write_index``), then
-    attend straight off the block tables."""
+    ``lens[b]`` (``slots`` from ``layers.paged_write_slots``), then attend
+    straight off the block tables."""
     b = x.shape[0]
     window = _paged_window(cfg)
     q = L.dense(p["wq"], x, cfg).reshape(b, 1, cfg.n_heads, cfg.head_dim)
@@ -353,8 +376,7 @@ def _decode_attn_dense_paged(p, x, k_arena, v_arena, tables, lens,
     q = L.apply_rope(q, lens[:, None], cfg.rope_theta)
     k = L.apply_rope(k, lens[:, None], cfg.rope_theta)
 
-    L.paged_write(k_arena, _maybe_quant_kv(k, cfg)[:, 0], write_index)
-    L.paged_write(v_arena, _maybe_quant_kv(v, cfg)[:, 0], write_index)
+    _write_kv([(k_arena, k[:, 0]), (v_arena, v[:, 0])], slots, cfg)
     out = L.decode_attention_paged(
         q, k_arena, v_arena, tables, lens, cfg=cfg, kv_posit=cfg.kv_posit,
         window=window, kernel=cfg.paged_attn_kernel)
@@ -362,8 +384,8 @@ def _decode_attn_dense_paged(p, x, k_arena, v_arena, tables, lens,
     return L.dense(p["wo"], out, cfg)
 
 
-def _decode_attn_mla_paged(p, x, c_arena, r_arena, tables, lens,
-                           write_index, cfg: ModelConfig):
+def _decode_attn_mla_paged(p, x, c_arena, r_arena, tables, lens, slots,
+                           cfg: ModelConfig):
     """One layer of paged absorbed-matrix MLA decode: write the row's new
     latent and RoPE key at ``lens[b]``, absorb ``q_nope`` through ``wuk``
     into latent space, attend off the block tables, then apply ``wuv``.
@@ -380,8 +402,7 @@ def _decode_attn_mla_paged(p, x, c_arena, r_arena, tables, lens,
     c_new = L.rms_norm(p["kv_norm"], c_new, cfg)
     r_new = L.apply_rope(r_new[:, :, None, :], lens[:, None],
                          cfg.rope_theta)[:, :, 0, :]
-    L.paged_write(c_arena, _maybe_quant_kv(c_new, cfg)[:, 0], write_index)
-    L.paged_write(r_arena, _maybe_quant_kv(r_new, cfg)[:, 0], write_index)
+    _write_kv([(c_arena, c_new[:, 0]), (r_arena, r_new[:, 0])], slots, cfg)
 
     wuk = L.maybe_dequant(p["wuk"]["w"], cfg).to(torch.float32).reshape(
         rank, h, nope)
@@ -399,8 +420,8 @@ def _decode_attn_mla_paged(p, x, c_arena, r_arena, tables, lens,
 def _decode_step_paged(params, cache, token, cfg: ModelConfig, active):
     """Paged decode: every row writes at its own position ``lens[b]``;
     inactive rows' writes are dropped and their ``lens`` frozen, and so
-    are writes past ``max_len``.  One write index serves every layer and
-    both arena leaves."""
+    are writes past ``max_len``.  One set of write slots serves every
+    layer and both arena leaves."""
     b = token.shape[0]
     dev = token.device
     lens = cache["lens"].to(torch.int32)
@@ -410,13 +431,13 @@ def _decode_step_paged(params, cache, token, cfg: ModelConfig, active):
     ok = (adv > 0) & (lens < int(cache["max_len"]))
     k1, k2 = arena_keys(cfg)
     nb, bs = cache[k1].shape[1], cache[k1].shape[2]
-    index = L.paged_write_index(tables, lens, ok, n_blocks=nb, block_size=bs,
+    slots = L.paged_write_slots(tables, lens, ok, n_blocks=nb, block_size=bs,
                                 window=_paged_window(cfg))
     attend = _decode_attn_mla_paged if cfg.mla else _decode_attn_dense_paged
     x = _embed(params, token[:, None], cfg)
     for li, lp in enumerate(params["layers"]):
         x = x + attend(lp["attn"], L.rms_norm(lp["ln1"], x, cfg),
-                       cache[k1][li], cache[k2][li], tables, lens, index, cfg)
+                       cache[k1][li], cache[k2][li], tables, lens, slots, cfg)
         x = _block_mlp(lp, x, cfg)
     new_cache = dict(cache, lens=lens + adv)
     x = L.rms_norm(params["final_norm"], x, cfg)

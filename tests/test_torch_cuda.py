@@ -5,8 +5,9 @@ Marked ``cuda``: they need an NVIDIA card, ``nvcc`` and the repo's
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-The codec and the PVU ISA kernels (elementwise ops, the quire dot,
-pgemm) must be bit-exact; paged attention (dense/window and MLA) agrees
+The codec, the fused quantize-and-write into the paged arena and the
+PVU ISA kernels (elementwise ops, the quire dot, pgemm) must be
+bit-exact; paged attention (dense/window and MLA) agrees
 with its plain version within atol/rtol 1e-5 (both accumulate in f32,
 in different orders), and the posit-weight gemm within the f32
 forward-error bound of two summation orders.
@@ -189,17 +190,28 @@ def test_paged_attention_fold_matches_plain_fold_on_card(dev, kv, d, bs, r,
     assert torch.all(got[-1] == 0)
 
 
-@pytest.mark.parametrize("kv", [None, "bf16", "posit16", "posit8"])
-def test_paged_attention_mla_matches_plain_on_card(dev, kv):
-    """H 12 heads (a partial second head tile), rank 256, rope 32, block
-    16; a sentinel tail and an all-masked row."""
-    rng = np.random.default_rng(2)
-    b, h, rank, rope, bs, w = 4, 12, 256, 32, 16, 6
+def _mla_case(kv, b, h, w, layout="permuted"):
+    """MLA decode inputs, rank 256, rope 32, block 16, a sentinel tail on
+    row 0 and an all-masked last row.  ``permuted``: permuted tables,
+    ragged lens, sentinel entries 2..3 of row 1 (W > 4) with live blocks
+    after them.  ``identity``: identity tables and lens [60, 5, 93, 40]
+    (B 4, W 6), so the all-masked row's lens names 40 live tokens."""
+    rank, rope, bs = 256, 32, 16
     nb = b * w
-    tables = torch.arange(nb, dtype=torch.int32).reshape(b, w)
+    if layout == "identity":
+        rng = np.random.default_rng(2)
+        tables = torch.arange(nb, dtype=torch.int32).reshape(b, w)
+        lens = [60, 5, 93, 40]
+    else:
+        rng = np.random.default_rng(h + w)
+        tables = torch.from_numpy(rng.permutation(nb).astype(np.int32)).reshape(b, w)
+        if w > 4:
+            tables[1, 2:4] = nb                      # a hole mid-table
+        cap = w * bs
+        lens = [cap - 2 * bs - 4, cap - 1, cap // 2, cap // 3, cap - 7, 5, cap - 20, 0][-b:]
     tables[-1] = nb                                  # all-masked row
     tables[0, -2:] = nb                              # sentinel tail
-    lens = torch.tensor([60, 5, 93, 40], dtype=torch.int32)
+    lens = torch.tensor(lens, dtype=torch.int32)
     apos = L.paged_apos(tables, lens, bs, nb)
     c = torch.from_numpy(rng.normal(size=(nb, bs, rank)).astype(np.float32))
     r = torch.from_numpy(rng.normal(size=(nb, bs, rope)).astype(np.float32))
@@ -210,13 +222,117 @@ def test_paged_attention_mla_matches_plain_on_card(dev, kv):
         c, r = c.to(torch.bfloat16), r.to(torch.bfloat16)
     q_lat = torch.from_numpy(rng.normal(size=(b, h, rank)).astype(np.float32))
     q_rope = torch.from_numpy(rng.normal(size=(b, h, rope)).astype(np.float32))
-    args = (q_lat, q_rope, c, r, tables, apos, lens)
+    return (q_lat, q_rope, c, r, tables, apos, lens), pcfg
+
+
+@pytest.mark.parametrize("kv", [None, "bf16", "posit16", "posit8"])
+@pytest.mark.parametrize("b,h,w,layout", [(4, 12, 6, "identity"), (4, 12, 6, "permuted"),
+                                          (8, 40, 64, "permuted")],
+                         ids=["h12-w6-identity", "h12-w6", "minicpm3-h40-w64"])
+@pytest.mark.parametrize("chunk", [None, 1, 3], ids=["auto", "c1", "c3"])
+def test_paged_attention_mla_matches_plain_on_card(dev, kv, b, h, w, layout, chunk):
+    """H 12 (a partial last head group) and minicpm3-4b's H 40 at W 64;
+    the wrapper's own split and forced ones (a split per entry, and runs
+    of 3, no divisor of W); a sentinel tail, a hole and an all-masked row
+    (see :func:`_mla_case`)."""
+    args, pcfg = _mla_case(kv, b, h, w, layout)
     scale = 96 ** -0.5
     ref = K.paged_decode_attention_mla_plain(*args, pcfg=pcfg, scale=scale)
-    got = K.paged_decode_attention_mla(*(t.to(dev) for t in args), pcfg=pcfg,
-                                       scale=scale).cpu()
+    on = [t.to(dev) for t in args]
+    if chunk is None:
+        got = K.paged_decode_attention_mla(*on, pcfg=pcfg, scale=scale)
+    else:
+        call, got = K.paged_decode_attention_mla_call(*on, pcfg=pcfg, scale=scale,
+                                                      chunk=chunk)
+        assert call() == 0
+    got = got.cpu()
     torch.testing.assert_close(got, ref, atol=1e-5, rtol=1e-5)
     assert torch.all(got[-1] == 0)
+
+
+def test_paged_attention_mla_is_deterministic_on_card(dev):
+    args, pcfg = _mla_case("posit16", 8, 40, 64)
+    on = [t.to(dev) for t in args]
+    a = K.paged_decode_attention_mla(*on, pcfg=pcfg, scale=0.1)
+    b = K.paged_decode_attention_mla(*on, pcfg=pcfg, scale=0.1)
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("cfg", [POSIT16, POSIT8], ids=["posit16", "posit8"])
+@pytest.mark.parametrize("src", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("window", [0, 8], ids=["dense", "window"])
+def test_paged_write_matches_quantize_and_scatter_on_card(dev, cfg, src, window):
+    """The fused quantize-and-write leaves the arenas (a K/V pair and an
+    MLA pair of widths) bit-identical to ``quantize_plain`` + the masked
+    scatter, for a decode token (an inactive row, a write through a
+    sentinel entry, a row past the table) and a prefill chunk."""
+    rng = np.random.default_rng(window + cfg.nbits)
+    b, bs, nb, c = 5, 4, 40, 6
+    w = L.paged_window_blocks(window, bs) if window else 6
+    tables = torch.from_numpy(rng.permutation(nb)[:b * w].astype(np.int32)).reshape(b, w)
+    pos = torch.tensor([3, 9, 13, 23, 30 if window else 24])
+    tables[1, (9 // bs) % w] = nb                    # row 1: through a sentinel
+    ok = torch.tensor([True, True, False, True, True])
+    n_valid = torch.tensor([6, 2, 0, 6, 1])
+    for feats in (((2, 16), (2, 16)), ((24,), (8,))):
+        leaves = [posit_codec.quantize_plain(torch.from_numpy(
+            rng.normal(size=(2, nb, bs) + f).astype(np.float32)), cfg) for f in feats]
+        one = [torch.from_numpy(rng.normal(size=(b,) + f).astype(np.float32)).to(src)
+               for f in feats]
+        chunk = [torch.from_numpy(rng.normal(size=(2, b, c) + f).astype(np.float32)).to(src)
+                 for f in feats]
+        geo = dict(n_blocks=nb, block_size=bs, window=window)
+        want = [a.clone() for a in leaves]
+        index = L.paged_write_index(tables, pos, ok, **geo)
+        for a, x in zip(want, one):
+            L.paged_write(a[0], posit_codec.quantize_plain(x.float(), cfg), index)
+        for a, x in zip(want, chunk):
+            L.paged_pack_range(a, posit_codec.quantize_plain(x.float(), cfg), tables,
+                               pos, pos + n_valid, window=window)
+        got = [a.to(dev) for a in leaves]
+        slots = L.paged_write_slots(tables, pos, ok, **geo).to(dev)
+        posit_codec.paged_write([(a[0], x.to(dev)) for a, x in zip(got, one)], slots, cfg)
+        slots = L.paged_pack_slots(tables, pos, pos + n_valid, c, **geo).reshape(-1).to(dev)
+        for a, x in zip(got, chunk):
+            posit_codec.paged_write([(a[li], x[li].reshape((-1,) + x.shape[3:]).to(dev))
+                                     for li in range(2)], slots, cfg)
+        for g, x in zip(got, want):
+            assert torch.equal(signed_view(g.cpu()), signed_view(x))
+
+
+@pytest.mark.parametrize("lane", ["dense", "mla"])
+def test_decode_steps_fused_write_leave_same_arena_on_card(dev, lane, monkeypatch):
+    """A few ``decode_step`` calls with posit16 KV leave the same arena
+    bytes and logits with the fused write as with its plain version."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import transformer as T
+
+    arch = "minicpm3-4b" if lane == "mla" else "phi3-medium-14b"
+    cfg = dataclasses.replace(configs.get_config(arch).reduced(compute_dtype="float32"),
+                              kv_posit="posit16", paged_attn_kernel="fused")
+    params = T.init_params(cfg, seed=1, device=dev)
+    runs = []
+    for fused in (True, False):
+        if not fused:
+            monkeypatch.setattr(posit_codec, "paged_write", posit_codec.paged_write_plain)
+        cache = T.init_paged_cache(cfg, 3, 32, 4, 24, device=dev)
+        cache["block_tables"][:] = torch.arange(24, dtype=torch.int32,
+                                                device=dev).reshape(3, 8)
+        cache["block_tables"][1, 2:] = 24            # row 1 runs into sentinels
+        gen = torch.Generator().manual_seed(2)
+        logits = []
+        for _ in range(12):
+            tok = torch.randint(1, cfg.vocab, (3,), generator=gen).to(dev)
+            out, cache = T.decode_step(params, cache, tok, cfg,
+                                       active=torch.tensor([True, True, False]))
+            logits.append(out.cpu())
+        runs.append((cache, torch.stack(logits)))
+    (a, la), (b, lb) = runs
+    for key in T.arena_keys(cfg):
+        assert torch.equal(signed_view(a[key]), signed_view(b[key]))
+    assert torch.equal(la.view(torch.int32), lb.view(torch.int32))
 
 
 def _pats(cfg, shape, seed):

@@ -4,7 +4,9 @@ paths at full size and checks that every kernel of each path ran there:
 
 - serving, two Poisson traces at full width (continuous batching,
   chunked prefill, paged posit16 KV written by the fused quantize-and-
-  write kernel ``posit_paged_write.cu``, fused paged decode attention):
+  write kernel ``posit_paged_write.cu`` and read back by the chunked
+  prefill through the fused read ``posit_paged_read.cu``, fused paged
+  decode attention):
   phi3-medium-14b (dense GQA lane, ``paged_attn.cu``) and minicpm3-4b
   (MLA lane, ``paged_attn_mla.cu``) with prefix caching and deadlines
   on a shared-prefix trace, on an arena small enough that deadlines
@@ -20,8 +22,9 @@ paths at full size and checks that every kernel of each path ran there:
     python3 chip_smoke.py          # needs one NVIDIA GPU and nvcc
     python3 chip_smoke.py --ptxas  # only: -Xptxas -v (registers, shared
                                    # memory, spills) of paged_attn.cu,
-                                   # paged_attn_mla.cu, posit_gemm.cu and
-                                   # posit_paged_write.cu
+                                   # paged_attn_mla.cu, posit_gemm.cu,
+                                   # posit_paged_write.cu,
+                                   # posit_paged_read.cu and posit_qgemm.cu
 
 Prints the card's name and power limit, per-kernel checks and timings,
 the serving reports, the accuracy table, a JSON line with every
@@ -68,16 +71,17 @@ EW_BLOCK = (1024, 1024)
 GEMM_SHAPE = (128, 5120, 17920)
 CONV_IMAGES = 8
 DOT_LENGTHS = (1, 16, 147, 4095, 4096, 4097, 17920)
-PGEMM_SHAPES = ((5, 37, 7), (33, 129, 19), (16, 4097, 16))
+PGEMM_SHAPES = ((5, 37, 7), (33, 129, 19), (16, 4097, 16), (16, 17920, 64))
 
 _TRACE = [
-    "--batch", "8", "--n-requests", "16", "--arrival-rate", "0.5",
+    "--continuous", "--paged", "--chunked-prefill", "--batch", "8", "--n-requests", "16", "--arrival-rate", "0.5",
     "--prompt-len", "512", "--gen", "32", "--max-len", "1024",
     "--chunk-size", "16", "--block-size", "16", "--kv-posit", "posit16",
     "--decode-kernel", "fused", "--temperature", "0", "--seed", "0",
     "--device", "cuda",
 ]
-# the main path, two lanes at full width and depth, bf16 weights.  The
+# the main path, two lanes at full width and depth, bf16 weights, the
+# reference's command line for the chunked paged scheduler.  The
 # minicpm3 trace shares half of every prompt; a quarter of its requests
 # carry a 5 s deadline (500 decode steps) and the rest are best-effort,
 # and its 200-block arena (of a worst case 512) makes deadline requests
@@ -86,12 +90,12 @@ _TRACE = [
 # tests/test_torch_prefix.py pins it on the CPU with the model stubbed.
 MAIN_PATHS = {
     "phi3-medium-14b": (["--arch", "phi3-medium-14b"] + _TRACE,
-                        ("posit_paged_write", "posit_dequantize",
+                        ("posit_paged_write", "posit_paged_read",
                          "paged_decode_attention")),
     "minicpm3-4b": (["--arch", "minicpm3-4b", "--prefix-cache",
                      "--prefix-share", "0.5", "--deadline-ms", "5000",
                      "--deadline-share", "0.25", "--n-blocks", "200"] + _TRACE,
-                    ("posit_paged_write", "posit_dequantize",
+                    ("posit_paged_write", "posit_paged_read",
                      "paged_decode_attention_mla")),
 }
 
@@ -184,9 +188,10 @@ def check_codec(dev):
 
 
 def time_codec(dev, cfg):
-    """Kernel vs plain times at the main path's shapes: quantize at a
-    prefill chunk's K (8 rows x 16 tokens x 10 heads x 128), dequantize
-    at the chunked-prefill arena read (8 x 1024 slots x 10 x 128)."""
+    """Kernel vs plain times: quantize at a prefill chunk's K (8 rows x
+    16 tokens x 10 heads x 128), dequantize at one leaf of the chunked-
+    prefill arena read (8 x 1024 slots x 10 x 128; that read now runs
+    through the fused ``posit_paged_read``)."""
     from repro_torch.core.types import signed_view
     from repro_torch.kernels import posit_codec as C
 
@@ -585,31 +590,150 @@ def time_paged_write(k, cfg):
     return row
 
 
+def read_case(dev, cfg, lane, seed):
+    """One lane's arena leaves at its model's depth and width (phi3's 40
+    layers of K and V, dense or on a 48-token window ring; minicpm3's 62
+    layers of latent and RoPE key), 512 blocks of 16 slots of random
+    patterns, read as a prefill chunk of the main path reads them: 8 rows
+    of a 64-entry virtual table (max_len 1024) at ragged lens, sentinel
+    entries past each dense row's blocks, one all-masked row; the window
+    ring's read starts past position 0."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+
+    b, bs, nb, vw, n_layers = 8, 16, 512, 64, MAIN_LAYERS[lane]
+    feats, window = {"dense": (((10, 128), (10, 128)), 0),
+                     "window": (((10, 128), (10, 128)), 48),
+                     "mla": (((256,), (32,)), 0)}[lane]
+    lens = torch.tensor([1000, 700, 512, 300, 900, 64, 1020, 0])
+    perm = torch.randperm(nb, generator=torch.Generator().manual_seed(seed))
+    w = L.paged_window_blocks(window, bs) if window else vw
+    tables = perm[:b * w].reshape(b, w).to(torch.int32)
+    if not window:
+        for i, n in enumerate(lens.tolist()):
+            tables[i, -(-n // bs):] = nb
+    vtables, low_pos = T._chunk_virtual_tables(tables.to(dev), lens.to(dev), bs, window,
+                                               vw, nb)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    signed = {16: torch.int16, 8: torch.int8}[cfg.nbits]
+    half = 1 << (cfg.nbits - 1)
+    leaves = [torch.randint(-half, half, (n_layers, nb, bs) + f, generator=gen, device=dev,
+                            dtype=signed).view(cfg.storage_dtype) for f in feats]
+    return dict(leaves=leaves, vtables=vtables.contiguous(),
+                lens=lens.to(dev, torch.int64), low_pos=low_pos.to(torch.int64).contiguous())
+
+
+def check_paged_read(dev):
+    """The fused chunked-prefill read against its plain version (gather,
+    ``dequantize_plain``, the cast, the mask), bf16 out as the main path
+    reads, bit for bit through an integer view (NaN patterns count), on
+    the dense, window and MLA leaves in posit16 and posit8, every layer
+    of the model's depth read as the main path reads it (one launch a
+    layer, both leaves); f32 out on layer 0 too.  Returns the kernel row,
+    timed on the posit16 dense case."""
+    from repro_torch.core.types import POSIT8, POSIT16
+    from repro_torch.kernels import posit_codec as C
+
+    row = None
+    for cfg in (POSIT16, POSIT8):
+        for lane in ("dense", "window", "mla"):
+            k = read_case(dev, cfg, lane, seed=8)
+            geo = (k["vtables"], k["lens"], k["low_pos"])
+            ok, n_layers = True, k["leaves"][0].shape[0]
+            for li in range(n_layers):
+                arenas = [leaf[li] for leaf in k["leaves"]]
+                for out, iv in ((torch.bfloat16, torch.int16), (torch.float32, torch.int32)):
+                    if out is torch.float32 and li:
+                        continue
+                    got = C.paged_read(arenas, *geo, cfg, out)
+                    want = C.paged_read_plain(arenas, *geo, cfg, out)
+                    ok = ok and all(torch.equal(g.view(iv), x.view(iv))
+                                    for g, x in zip(got, want))
+            print(f"fused paged read {lane} {cfg.name}: {n_layers} layers (both leaves a "
+                  f"launch) equal to gather + dequantize_plain + cast + mask: {ok}")
+            if not ok:
+                fail(f"posit_paged_read {lane} {cfg.name} differs from its plain version")
+            if cfg is POSIT16 and lane == "dense":
+                row = time_paged_read(k, cfg)
+            del k
+    return row
+
+
+def time_paged_read(k, cfg):
+    """Times of one layer's read (K and V) on a checked case, bf16 out:
+    wrapper-timed and alone, beside the chain it replaced (per leaf
+    ``paged_gather``, the ``posit_dequantize`` kernel, the cast and the
+    mask) timed the same ways.  The byte bound counts each resident
+    pattern read once and every output written once; the operation
+    bound a decode per resident pattern."""
+    from repro_torch.kernels import posit_codec as C
+    from repro_torch.models import layers as L
+
+    vt, lens, low = k["vtables"], k["lens"], k["low_pos"]
+    arenas = [leaf[0] for leaf in k["leaves"]]
+    b, vw = vt.shape
+    bs = arenas[0].shape[1]
+    t_len = vw * bs
+    apos = torch.arange(t_len, device=vt.device)[None, :]
+    resident = (apos < lens[:, None]) & (apos >= low[:, None])
+    n_res = int(resident.sum())
+    width = sum(a[0, 0].numel() for a in arenas)
+
+    def old():
+        for a in arenas:
+            g = C.dequantize(L.paged_gather(a, vt), cfg)
+            C.zero_invalid(g.to(torch.bfloat16), resident)
+
+    args = (arenas, vt, lens, low, cfg, torch.bfloat16)
+    row = dict(
+        name="posit_paged_read", route="cuda",
+        source="src/repro_torch/csrc/posit_paged_read.cu",
+        replaces="src/repro/kernels/posit_codec.py:61", launches=0, max_abs_err=0.0,
+        ms=time_ms(lambda: C.paged_read(*args)),
+        kernel_ms=kernel_alone_ms(C.paged_read_call(*args)[0]),
+        old_chain_ms=time_ms(old),
+        old_chain_alone_ms=kernel_alone_ms(lambda: (old(), 0)[1]),
+        plain_ms=time_ms(lambda: C.paged_read_plain(*args), iters=5),
+        **_bound(n_res * width * cfg.nbits // 8 + b * t_len * width * 2 + vt.numel() * 4
+                 + 2 * b * 8, n_res * width * OPS_DECODE, INT_OPS),
+        library_ms=None, shape=[2, b, vw, bs] + list(arenas[0].shape[2:]))
+    print(f"posit_paged_read one layer (K and V, 8 rows x 1 024 slots x 1 280, {n_res} "
+          f"resident slots, bf16 out): {row['ms']:.4f} ms, alone {row['kernel_ms']:.4f} "
+          f"ms; old gather + dequantize + cast + mask {row['old_chain_ms']:.4f} ms, alone "
+          f"{row['old_chain_alone_ms']:.4f} ms (bound {row['bound_ms']:.5f} ms by "
+          f"{row['bound_by']})")
+    return row
+
+
 def serve_main_path(argv):
     """The user entry point at full width; returns the serving result,
-    the launch counts of exactly this run, its wall time and the number
-    of decode steps it ran."""
+    the launch counts of exactly this run, its wall time and the numbers
+    of decode steps and prefill chunks it ran."""
     from repro_torch.launch import serve
     from repro_torch.models import transformer as T
 
-    decode_step = T._decode_step_paged
-    steps = [0]
+    decode_step, prefill_chunk = T._decode_step_paged, T.prefill_chunk
+    steps, chunks = [0], [0]
 
     def counted(*a, **kw):
         steps[0] += 1
         return decode_step(*a, **kw)
 
+    def counted_chunk(*a, **kw):
+        chunks[0] += 1
+        return prefill_chunk(*a, **kw)
+
     reset_counts()
     torch.cuda.reset_peak_memory_stats()
-    T._decode_step_paged = counted
+    T._decode_step_paged, T.prefill_chunk = counted, counted_chunk
     try:
         t0 = time.perf_counter()
         res = serve.main(argv)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     finally:
-        T._decode_step_paged = decode_step
-    return res, read_counts(), wall, steps[0]
+        T._decode_step_paged, T.prefill_chunk = decode_step, prefill_chunk
+    return res, read_counts(), wall, steps[0], chunks[0]
 
 
 def check_served(res):
@@ -630,7 +754,7 @@ def check_served(res):
         fail(f"{sched.pool.in_use - held} blocks still in use after the trace")
 
 
-def report_served(name, res, counts, wall, steps):
+def report_served(name, res, counts, wall, steps, chunks):
     from repro_torch.compress import kvcache as kvc
 
     sched = res.sched
@@ -644,7 +768,8 @@ def report_served(name, res, counts, wall, steps):
           f"goodput {useful / max(sched.steps_run, 1):.3f} tok/step, "
           f"{useful / res.seconds:.2f} tok/s; step wall p50 "
           f"{st['step_wall_p50_ms']:.1f} ms p99 {st['step_wall_p99_ms']:.1f} ms "
-          f"over {sched.n_chunks} rounds, {steps} decode steps; peak arena "
+          f"over {sched.n_chunks} rounds, {steps} decode steps, {chunks} prefill "
+          f"chunks; peak arena "
           f"bytes {peak_arena:,} of {arena:,}; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     if sched.prefix_cache:
@@ -1057,12 +1182,19 @@ def posit_exact_linear(dev):
         fail("posit-exact dense differs from the plain chain on the checked columns")
     wq = ops.quantize(w, POSIT16)
     xq = ops.quantize(x, POSIT16)
-    ms = time_ms(lambda: ops.pgemm(xq, wq, POSIT16), iters=5, warmup=1)
+    m, n = xq.shape[0], wq.shape[1]
+    p3 = dict(ms=time_ms(lambda: ops.pgemm(xq, wq, POSIT16), iters=5, warmup=1),
+              kernel_ms=kernel_alone_ms(Q.posit_qgemm_call(xq, wq, POSIT16)[0], n=20),
+              **_bound((m * d_in + d_in * n + m * n) * 2,
+                       m * d_in * n * OPS_QUIRE + (m * d_in + d_in * n) * OPS_DECODE
+                       + m * n * OPS_ENCODE, INT_OPS),
+              shape=[m, d_in, n])
     print(f"posit-exact dense 16 x {d_in} -> {d_out} (posit16, phi3-medium-14b "
           f"MLP down): {wall:.3f} s with quantize and build; equal to the plain "
-          f"chain on 64 seeded columns; pgemm kernel {ms:.3f} ms for "
-          f"{16 * d_in * d_out:,} quire products")
-    return dict(counts=counts, pgemm_ms=ms)
+          f"chain on 64 seeded columns; pgemm {p3['ms']:.3f} ms, kernel alone "
+          f"{p3['kernel_ms']:.3f} ms for {m * d_in * n:,} quire products (bound "
+          f"{p3['bound_ms']:.4f} ms by {p3['bound_by']})")
+    return dict(counts=counts, p3=p3)
 
 
 def cache_maintenance(cache):
@@ -1162,6 +1294,7 @@ def time_isa(dev, p1, conv):
         name="posit_qgemm", route="cuda", source="src/repro_torch/csrc/posit_qgemm.cu",
         replaces="src/repro/kernels/posit_qgemm.py:105", launches=0, max_abs_err=0.0,
         ms=time_ms(lambda: Q.posit_qgemm(a, w, cfg), iters=5, warmup=1),
+        kernel_ms=kernel_alone_ms(Q.posit_qgemm_call(a, w, cfg)[0], n=20),
         plain_ms=conv["plain_ms"],
         **_bound((m * kk + kk * n + m * n) * 4,
                  m * kk * n * OPS_QUIRE + (m * kk + kk * n) * OPS_DECODE + m * n * OPS_ENCODE,
@@ -1214,7 +1347,7 @@ def ptxas_report():
     flags = [f for f in _build.NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
     with tempfile.TemporaryDirectory() as tmp:
         for src in ("paged_attn", "paged_attn_mla", "posit_gemm",
-                    "posit_paged_write"):
+                    "posit_paged_write", "posit_paged_read", "posit_qgemm"):
             res = subprocess.run(
                 [_build.nvcc_path(), *flags, "-Xptxas", "-v", "-c", "-I", str(_build.CSRC),
                  "-o", os.path.join(tmp, f"{src}.o"), str(_build.CSRC / f"{src}.cu")],
@@ -1270,6 +1403,9 @@ def run(pool):
     rows.append(check_paged_write(dev))
     gc.collect()
     torch.cuda.empty_cache()
+    rows.append(check_paged_read(dev))
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # the PVU ISA: P1 kernel checks, P2 the paper's conv, P3 the
     # posit-exact linear at phi3 width
@@ -1280,22 +1416,27 @@ def run(pool):
     got8 = posit8_through_kernels(dev)
     rows += time_isa(dev, p1, conv)
     del p1
-    by_path["dense"] = posit_exact_linear(dev)["counts"]
+    p3 = posit_exact_linear(dev)
+    by_path["dense"] = p3["counts"]
+    next(r for r in rows if r["name"] == "posit_qgemm")["p3"] = p3["p3"]
     gc.collect()
     torch.cuda.empty_cache()
     isa_s = time.perf_counter() - t_isa
 
     ew_row = None
     for name, (argv, kernels) in MAIN_PATHS.items():
-        res, counts, wall, steps = serve_main_path(argv)
+        res, counts, wall, steps, chunks = serve_main_path(argv)
         check_served(res)
-        report_served(name, res, counts, wall, steps)
+        report_served(name, res, counts, wall, steps, chunks)
         for kernel in kernels:
             if counts[kernel] <= 0:
                 fail(f"kernel {kernel} was not launched on the {name} path")
         if counts["posit_quantize"]:
             fail(f"the {name} path quantized outside the fused paged write "
                  f"({counts['posit_quantize']} posit_quantize launches)")
+        if counts["posit_dequantize"]:
+            fail(f"the {name} path dequantized outside the fused paged read "
+                 f"({counts['posit_dequantize']} posit_dequantize launches)")
         if res.sched.prefix_cache and (res.sched.prefix_hits <= 0
                                        or res.sched.n_preempted <= 0):
             fail(f"the {name} path had no prefix hit or no preemption")
@@ -1306,6 +1447,9 @@ def run(pool):
         if counts[attn] != n_layers * steps:
             fail(f"{attn} ran {counts[attn]} times in {steps} decode steps "
                  f"of {n_layers} layers")
+        if counts["posit_paged_read"] != n_layers * chunks:
+            fail(f"posit_paged_read ran {counts['posit_paged_read']} times in "
+                 f"{chunks} prefill chunks of {n_layers} layers")
         by_path[name] = counts
         if name == "phi3-medium-14b":
             # P4: cache maintenance on the arena this path served from

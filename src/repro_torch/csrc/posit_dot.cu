@@ -13,7 +13,7 @@
 // the whole tile (core/dot.py), and every product is floored against
 // it, so no product can be placed before the tile's maximum is known.
 // Pass 1 takes a warp-wide max of the product exponents; pass 2 places
-// each product (pvu::place_product) and the warp sums the 128-bit
+// each product (pvu::place_add) and the warp sums the 128-bit
 // contributions.  Within a tile the sum is exact mod 2^128 and the
 // sticky an OR, so the lanes may add in any order; across tiles the
 // fold is in order, from element 0, exactly as the reference tiles.
@@ -72,15 +72,15 @@ __global__ void dot_kernel(const P* __restrict__ a, const P* __restrict__ b,
       t.m_exp = o > t.m_exp ? o : t.m_exp;
     }
     t.nar = __any_sync(kFull, nar);
-    uint32_t sticky = 0u;
+    pvu::TileSum sum = pvu::tile_sum_empty();
     for (long long i = t0 + lane; i < t1; i += 32) {
-      uint32_t st;
-      t.acc += pvu::place_product(pvu::decode<N, ES>(x[i]), pvu::decode<N, ES>(y[i]),
-                                  t.m_exp, &st);
-      sticky |= st;
+      const pvu::Pir pa = pvu::decode<N, ES>(x[i]), pb = pvu::decode<N, ES>(y[i]);
+      pvu::place_add<(N <= 16)>(&sum, pvu::place_sig<(N <= 16)>(pa.sig),
+                                pvu::place_sig<(N <= 16)>(pb.sig), t.m_exp - (pa.exp + pb.exp),
+                                pa.sign ^ pb.sign);
     }
-    t.acc = warp_sum128(t.acc);
-    t.sticky = __any_sync(kFull, sticky != 0u) ? 1u : 0u;
+    t.acc = warp_sum128(sum.acc + sum.ones);
+    t.sticky = __any_sync(kFull, sum.sticky != 0u) ? 1u : 0u;
     s = pvu::quire_combine(s, t);
   }
   if (lane == 0) out[row] = static_cast<P>(pvu::quire_finalize<N, ES>(s));

@@ -279,7 +279,8 @@ POSIT_HD int product_exp(const Pir& a, const Pir& b) {
 }
 
 // dot.py::quire_partial, one product: (p * 2^32) >> d as a 128-bit
-// two's-complement contribution, floored; dropped bits set *st.
+// two's-complement contribution, floored; dropped bits set *st.  The
+// plain form; the kernels add through place_add.
 POSIT_HD u128 place_product(const Pir& a, const Pir& b, int m_exp, uint32_t* st) {
   *st = 0u;
   if (a.zero || b.zero) return 0;
@@ -289,6 +290,79 @@ POSIT_HD u128 place_product(const Pir& a, const Pir& b, int m_exp, uint32_t* st)
   if (d > 32) *st = (p & ((1ull << (d - 32)) - 1ull)) != 0ull;
   if (a.sign ^ b.sign) v = static_cast<u128>(0) - v - *st;     // floor of -(v + tail)
   return v;
+}
+
+// (hi:lo) >> r, the low word; r in [0, 31]
+POSIT_HD uint32_t fshr(uint32_t lo, uint32_t hi, int r) {
+#ifdef __CUDA_ARCH__
+  return __funnelshift_r(lo, hi, r);
+#else
+  return static_cast<uint32_t>(((static_cast<uint64_t>(hi) << 32) | lo) >> r);
+#endif
+}
+
+// A tile's running sum in the kernels: the 128-bit sum is acc + ones,
+// the +1s of the negated products counted apart from the carry chain.
+struct TileSum {
+  u128 acc;
+  uint32_t ones;
+  uint32_t sticky;
+};
+
+POSIT_HD TileSum tile_sum_empty() {
+  TileSum t;
+  t.acc = 0;
+  t.ones = 0u;
+  t.sticky = 0u;
+  return t;
+}
+
+// place_product fused with the sum, on 32-bit words: adds to t what
+// place_product(a, b, m_exp, &st) adds (and st to the sticky), bit for
+// bit, from the significands (0 for zero and NaR, so p = 0 places
+// nothing, as place_product's zero test does), the exponent distance
+// d = m_exp - (a.exp + b.exp) and the product's sign.  (p * 2^32) >> d
+// is the 96-bit (ph:pl:0) shifted right by q = d / 32 words and r bits;
+// a negative product adds ~v + 1 - st, the floor of -(v + tail).  No
+// 128-bit variable shift, negate or branch: funnel shifts, selects, the
+// sign flip as a multiply-add (the FMA pipe, beside the integer ALU the
+// rest keeps busy) and one 128-bit add; place_product stays the plain
+// form it is tested against.  kNarrow (posits of at most 16 bits, whose
+// significands have 16 low zero bits) takes sig >> 16 of both operands:
+// the product then fits ph, and pl is 0.
+template <bool kNarrow>
+POSIT_HD void place_add(TileSum* t, uint32_t sig_a, uint32_t sig_b, int d, uint32_t neg) {
+  uint32_t pl, ph;
+  if (kNarrow) {
+    pl = 0u;
+    ph = sig_a * sig_b;
+  } else {
+    const uint64_t p = static_cast<uint64_t>(sig_a) * sig_b;    // Q2.62
+    pl = static_cast<uint32_t>(p);
+    ph = static_cast<uint32_t>(p >> 32);
+  }
+  d = clampi(d, 0, 95);
+  const int q = d >> 5, r = d & 31;
+  const uint32_t x0 = fshr(0u, pl, r), x1 = fshr(pl, ph, r), x2 = ph >> r;
+  const uint32_t x3 = fshr(0u, ph, r);                  // ph's low r bits
+  const uint32_t v0 = q == 0 ? x0 : (q == 1 ? x1 : x2);
+  const uint32_t v1 = q == 0 ? x1 : (q == 1 ? x2 : 0u);
+  const uint32_t v2 = q == 0 ? x2 : 0u;
+  // the dropped bits: none at q 0, pl's low r at q 1, pl and ph's low r at q 2
+  const uint32_t dropped = q == 0 ? 0u : (q == 1 ? x0 : (pl | x3));
+  const uint32_t st = dropped != 0u ? 1u : 0u;
+  // v ^ m as v * (1 + 2m) + m: v, or ~v when m is all ones
+  const uint32_t m = 0u - neg, f = 1u + 2u * m;
+  t->acc += (static_cast<u128>(m) << 96) | (static_cast<u128>(v2 * f + m) << 64) |
+            (static_cast<u128>(v1 * f + m) << 32) | (v0 * f + m);
+  t->ones += neg & (st ^ 1u);
+  t->sticky |= st;
+}
+
+// The significand place_add<kNarrow> takes.
+template <bool kNarrow>
+POSIT_HD uint32_t place_sig(uint32_t sig) {
+  return kNarrow ? sig >> 16 : sig;
 }
 
 POSIT_HD Quire quire_empty() {

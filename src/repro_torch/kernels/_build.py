@@ -28,8 +28,8 @@ from repro_torch.core.types import CONFIGS
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parents[1] / "build"
-SOURCES = ("posit_codec", "posit_paged_write", "paged_attn", "paged_attn_mla",
-           "posit_ew", "posit_dot", "posit_qgemm", "posit_gemm")
+SOURCES = ("posit_codec", "posit_paged_write", "posit_paged_read", "paged_attn",
+           "paged_attn_mla", "posit_ew", "posit_dot", "posit_qgemm", "posit_gemm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -103,6 +103,10 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     elif name == "posit_paged_write":
         lib.posit_paged_write.argtypes = [I, I, I, P, P, P, P, LL, LL, P]
         lib.posit_paged_write.restype = I
+    elif name == "posit_paged_read":
+        lib.posit_paged_read.argtypes = [I, I, I, P, P, P, P, I, I, P, P, P,
+                                         I, I, I, I, P]
+        lib.posit_paged_read.restype = I
     elif name == "posit_ew":
         lib.posit_elementwise.argtypes = [I, I, I, P, P, P, LL, LL, LL, P]
         lib.posit_elementwise.restype = I
@@ -110,8 +114,10 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.posit_dot_rows.argtypes = [I, I, P, P, P, LL, LL, P]
         lib.posit_dot_rows.restype = I
     elif name == "posit_qgemm":
-        lib.posit_qgemm.argtypes = [I, I, P, P, P, LL, LL, LL, P]
+        lib.posit_qgemm.argtypes = [I, I, P, P, P, P, LL, LL, LL, LL, P]
         lib.posit_qgemm.restype = I
+        lib.posit_qgemm_workspace_bytes.argtypes = [LL, LL, LL]
+        lib.posit_qgemm_workspace_bytes.restype = LL
     elif name == "posit_gemm":
         lib.posit_gemm.argtypes = [I, I, P, P, P, P, LL, LL, LL, I, I, P]
         lib.posit_gemm.restype = I

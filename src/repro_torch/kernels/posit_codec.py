@@ -14,7 +14,10 @@ On the serving path the quantize is fused into the paged KV write
 (:func:`paged_write`, ``csrc/posit_paged_write.cu``): one launch
 quantizes a token's (or a prefill chunk's) KV rows and stores the
 patterns straight into their arena slots, dropping masked and sentinel
-writes on the device.
+writes on the device.  The dequantize is fused into the chunked-prefill
+arena read (:func:`paged_read`, ``csrc/posit_paged_read.cu``): one
+launch gathers a layer's two leaves through the chunk's virtual table,
+decodes them and zeroes the slots that are not resident.
 
 On a CPU tensor the wrappers run the plain versions (``core.convert``);
 on a CUDA tensor they launch the kernel or raise.
@@ -31,7 +34,7 @@ from repro_torch.core.types import PositConfig, signed_view
 from . import _build
 
 launches = {"posit_quantize": 0, "posit_dequantize": 0,
-            "posit_paged_write": 0}
+            "posit_paged_write": 0, "posit_paged_read": 0}
 
 
 def quantize_plain(x: torch.Tensor, cfg: PositConfig) -> torch.Tensor:
@@ -86,8 +89,8 @@ def dequantize(p: torch.Tensor, cfg: PositConfig) -> torch.Tensor:
 # Quantize fused into the paged KV write
 # ---------------------------------------------------------------------------
 
-_WRITE_CFGS = ((16, 2), (8, 2))
-_WRITE_SRC = {torch.float32: 0, torch.bfloat16: 1}
+_PAGED_CFGS = ((16, 2), (8, 2))
+_FLOAT_KINDS = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_JOBS = 128
 
 
@@ -137,7 +140,7 @@ def _check_devices(jobs, slots):
 def _paged_write_call(jobs, slots, cfg):
     """Checks and the C call of one fused write (returns its CUDA error
     code)."""
-    if (cfg.nbits, cfg.es) not in _WRITE_CFGS:
+    if (cfg.nbits, cfg.es) not in _PAGED_CFGS:
         raise ValueError(f"paged_write: the kernel takes posit16 and posit8 "
                          f"(es 2), got {cfg}")
     if not 0 < len(jobs) <= _MAX_JOBS:
@@ -151,7 +154,7 @@ def _paged_write_call(jobs, slots, cfg):
                          f"(R,) tensor, got {slots.dtype} "
                          f"{tuple(slots.shape)}")
     n_slots = jobs[0][0].shape[0] * jobs[0][0].shape[1]
-    src_kind = _WRITE_SRC.get(jobs[0][1].dtype)
+    src_kind = _FLOAT_KINDS.get(jobs[0][1].dtype)
     for arena, src in jobs:
         if arena.dtype != cfg.storage_dtype or not arena.is_contiguous() \
                 or arena.ndim < 2 \
@@ -160,7 +163,7 @@ def _paged_write_call(jobs, slots, cfg):
                              f"{cfg.storage_dtype} (nb, bs, ...) leaf of "
                              f"{n_slots} slots, got {arena.dtype} "
                              f"{tuple(arena.shape)}")
-        if _WRITE_SRC.get(src.dtype) != src_kind or src_kind is None \
+        if _FLOAT_KINDS.get(src.dtype) != src_kind or src_kind is None \
                 or not src.is_contiguous() \
                 or tuple(src.shape) != (rows,) + tuple(arena.shape[2:]):
             raise ValueError(f"paged_write: source must be a contiguous f32 "
@@ -201,3 +204,103 @@ def paged_write_call(jobs, slots: torch.Tensor, cfg: PositConfig):
     once more on the same jobs and returns the CUDA error code.  Not
     counted in ``launches``; CUDA tensors only."""
     return _paged_write_call(jobs, slots, cfg)
+
+
+# ---------------------------------------------------------------------------
+# Dequantize fused into the chunked-prefill arena read
+# ---------------------------------------------------------------------------
+
+def zero_invalid(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Zero time-axis slots whose (B, T) mask is False: gathered arena
+    garbage (sentinel clamps, older ring blocks, sanitizer poison) stays
+    out of the downstream matmuls; valid slots are untouched."""
+    m = mask.reshape(tuple(mask.shape) + (1,) * (x.ndim - 2))
+    return torch.where(m, x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def paged_read_plain(arenas, vtables: torch.Tensor, lens: torch.Tensor,
+                     low_pos: torch.Tensor, cfg, out_dtype: torch.dtype):
+    """Plain PyTorch version of the fused read: for each leaf,
+    ``layers.paged_gather`` through ``vtables``, :func:`dequantize_plain`
+    (skipped when ``cfg`` is None: the arenas hold f32/bf16 values), the
+    cast to ``out_dtype`` and :func:`zero_invalid` of the slots t outside
+    ``low_pos[b] <= t < lens[b]``.
+
+    ``arenas`` lists one layer's leaves (nb, bs, *feat); ``vtables``
+    (B, Wv) the chunk's virtual block table; ``lens`` and ``low_pos``
+    (B,).  Returns one (B, Wv * bs, *feat) tensor per leaf."""
+    # layers imports this module, so its gather is imported here
+    from repro_torch.models.layers import paged_gather
+
+    t_len = vtables.shape[1] * arenas[0].shape[1]
+    apos = torch.arange(t_len, device=vtables.device)[None, :]
+    resident = (apos < lens[:, None]) & (apos >= low_pos[:, None])
+    outs = []
+    for arena in arenas:
+        g = paged_gather(arena, vtables)
+        if cfg is not None:
+            g = dequantize_plain(g, cfg)
+        outs.append(zero_invalid(g.to(out_dtype), resident))
+    return outs
+
+
+def paged_read_call(arenas, vtables, lens, low_pos, cfg, out_dtype):
+    """Checks, outputs and the C call of one fused read: returns
+    ``(call, outs)``, where ``call()`` launches the kernel into ``outs``
+    and returns the CUDA error code (not counted in ``launches``; for
+    timing the kernel alone).  CUDA tensors only."""
+    if (cfg.nbits, cfg.es) not in _PAGED_CFGS:
+        raise ValueError(f"paged_read: the kernel takes posit16 and posit8 "
+                         f"(es 2), got {cfg}")
+    if out_dtype not in _FLOAT_KINDS or not 1 <= len(arenas) <= 2:
+        raise ValueError(f"paged_read: one or two leaves to f32 or bf16, got "
+                         f"{len(arenas)} to {out_dtype}")
+    dev = arenas[0].device
+    b, vw = vtables.shape
+    nb, bs = arenas[0].shape[:2]
+    if vtables.dtype != torch.int32 or not vtables.is_contiguous() \
+            or vtables.device != dev:
+        raise ValueError(f"paged_read: vtables must be a contiguous int32 "
+                         f"(B, Wv) tensor on {dev}")
+    for t in (lens, low_pos):
+        if t.dtype != torch.int64 or tuple(t.shape) != (b,) \
+                or not t.is_contiguous() or t.device != dev:
+            raise ValueError(f"paged_read: lens and low_pos must be "
+                             f"contiguous int64 ({b},) tensors on {dev}")
+    for arena in arenas:
+        if arena.dtype != cfg.storage_dtype or not arena.is_contiguous() \
+                or arena.ndim < 3 or tuple(arena.shape[:2]) != (nb, bs) \
+                or arena.device != dev:
+            raise ValueError(f"paged_read: leaves must be contiguous "
+                             f"{cfg.storage_dtype} ({nb}, {bs}, ...) arenas "
+                             f"on {dev}, got {arena.dtype} "
+                             f"{tuple(arena.shape)}")
+    outs = [torch.empty((b, vw * bs) + tuple(a.shape[2:]), dtype=out_dtype,
+                        device=dev) for a in arenas]
+    fn = _build.load("posit_paged_read").posit_paged_read
+    args = (cfg.nbits, _FLOAT_KINDS[out_dtype], len(arenas), arenas[0].data_ptr(),
+            arenas[-1].data_ptr(), outs[0].data_ptr(), outs[-1].data_ptr(),
+            arenas[0][0, 0].numel(), arenas[-1][0, 0].numel(), vtables.data_ptr(),
+            lens.data_ptr(), low_pos.data_ptr(), b, vw, nb, bs,
+            torch.cuda.current_stream(dev).cuda_stream)
+    return (lambda: fn(*args)), outs
+
+
+def paged_read(arenas, vtables: torch.Tensor, lens: torch.Tensor,
+               low_pos: torch.Tensor, cfg: PositConfig,
+               out_dtype: torch.dtype):
+    """Gather, decode and mask one layer's posit leaves for a prefill
+    chunk (:func:`paged_read_plain` for the layout); returns one
+    (B, Wv * bs, *feat) tensor of ``out_dtype`` per leaf.
+
+    On a CUDA tensor: one launch of ``csrc/posit_paged_read.cu`` for
+    both leaves, posit16 or posit8 (es 2), f32 or bf16 out; blocks with
+    no resident slot are not read.  The arenas' device chooses the
+    path."""
+    if arenas[0].device.type == "cpu":
+        return paged_read_plain(arenas, vtables, lens, low_pos, cfg, out_dtype)
+    call, outs = paged_read_call(arenas, vtables, lens, low_pos, cfg,
+                                 out_dtype)
+    _build.check(call(), "posit_paged_read")
+    launches["posit_paged_read"] += 1
+    return outs

@@ -7,9 +7,11 @@ so ``pgemm(a, w)[i, j] == dot(a[i], w[:, j])`` bit for bit
 (``csrc/posit_qgemm.cu``; the quire code is ``csrc/pvu.cuh``'s, shared
 with ``posit_dot.cu``).
 
-Bound on the H100: integer operations per product.  One thread per
-output, blocks of 16 x 16 outputs, a loop over the K tiles in each
-thread.
+Bound on the H100: integer operations per product.  A CTA owns 16 x 64
+outputs and one K tile (2 x 2 outputs a thread), operands decoded once
+per CTA and pass into shared memory; the K tiles run in parallel and
+their states are folded in tile order by a second kernel into the one
+rounding (a single-tile K finalizes in the first).
 
 On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
 launches the kernel or raises.
@@ -42,6 +44,32 @@ def posit_qgemm_plain(a, w, cfg: PositConfig,
     return torch.cat([signed_view(p) for p in parts]).view(cfg.storage_dtype)
 
 
+def _prepare(a, w, cfg):
+    """Checks, output and workspace of one call; returns ``(call, out)``
+    with ``call()`` the kernel's C call (returns its CUDA error code), or
+    None when the product is empty."""
+    _build.check_cfg(cfg, "posit_qgemm")
+    for t in (a, w):
+        if t.device.type != "cuda" or t.device != a.device \
+                or t.dtype != cfg.storage_dtype or not t.is_contiguous():
+            raise ValueError(f"posit_qgemm needs contiguous {cfg.storage_dtype} "
+                             f"CUDA tensors on one device, got {t.dtype} on "
+                             f"{t.device} (contiguous={t.is_contiguous()})")
+    m, k = a.shape
+    n = w.shape[1]
+    if m == 0 or n == 0 or k == 0:
+        return None, zeros((m, n), cfg.storage_dtype, device=a.device)
+    out = torch.empty((m, n), dtype=cfg.storage_dtype, device=a.device)
+    lib = _build.load("posit_qgemm")
+    nbytes = lib.posit_qgemm_workspace_bytes(m, k, n)
+    ws = torch.empty((nbytes,), dtype=torch.uint8, device=a.device)
+    args = (cfg.nbits, cfg.es, a.data_ptr(), w.data_ptr(), out.data_ptr(),
+            ws.data_ptr(), nbytes, m, k, n,
+            torch.cuda.current_stream(a.device).cuda_stream)
+    fn = lib.posit_qgemm
+    return (lambda: fn(*args)), out
+
+
 def posit_qgemm(a: torch.Tensor, w: torch.Tensor,
                 cfg: PositConfig) -> torch.Tensor:
     """a: posit (M, K); w: posit (K, N) -> posit (M, N), quire-exact."""
@@ -50,22 +78,16 @@ def posit_qgemm(a: torch.Tensor, w: torch.Tensor,
                          f"{tuple(w.shape)}")
     if a.device.type == "cpu" and w.device.type == "cpu":
         return posit_qgemm_plain(a, w, cfg)
-    _build.check_cfg(cfg, "posit_qgemm")
-    for t in (a, w):
-        if t.device.type != "cuda" or t.dtype != cfg.storage_dtype \
-                or not t.is_contiguous():
-            raise ValueError(f"posit_qgemm needs contiguous {cfg.storage_dtype} "
-                             f"CUDA tensors, got {t.dtype} on {t.device} "
-                             f"(contiguous={t.is_contiguous()})")
-    m, k = a.shape
-    n = w.shape[1]
-    if m == 0 or n == 0 or k == 0:
-        return zeros((m, n), cfg.storage_dtype, device=a.device)
-    out = torch.empty((m, n), dtype=cfg.storage_dtype, device=a.device)
-    lib = _build.load("posit_qgemm")
-    rc = lib.posit_qgemm(cfg.nbits, cfg.es, a.data_ptr(), w.data_ptr(),
-                         out.data_ptr(), m, k, n,
-                         torch.cuda.current_stream(a.device).cuda_stream)
-    _build.check(rc, "posit_qgemm")
-    launches["posit_qgemm"] += 1
+    call, out = _prepare(a, w, cfg)
+    if call is not None:
+        _build.check(call(), "posit_qgemm")
+        launches["posit_qgemm"] += 1
     return out
+
+
+def posit_qgemm_call(a, w, cfg: PositConfig):
+    """For timing the kernel alone: ``(call, out)``, where ``call()``
+    launches the kernel (and the fold) once more on the same output and
+    workspace and returns the CUDA error code.  Not counted in
+    ``launches``; CUDA tensors of a non-empty product only."""
+    return _prepare(a, w, cfg)

@@ -10,10 +10,16 @@ through the decode lane in ``--chunk-size``-token chunks.  The report
 prints goodput, latency, cache bytes, the block-pool peak, step wall
 times and the dispatch count.
 
-  python -m repro_torch.launch.serve --arch phi3-medium-14b --batch 8 \\
-      --n-requests 16 --prompt-len 512 --gen 32 --max-len 1024 \\
-      --chunk-size 16 --block-size 16 --kv-posit posit16 \\
-      --decode-kernel fused --device cuda
+The command line is the reference's (``repro.launch.serve``), defaults
+included (``--kv-posit none``, ``--decode-kernel gather``).  Only its
+``--continuous --paged --chunked-prefill`` mode is ported (implied
+chunking by ``--prefix-cache`` included); the others raise
+``NotImplementedError``:
+
+  python -m repro_torch.launch.serve --arch phi3-medium-14b --continuous \\
+      --paged --chunked-prefill --batch 8 --n-requests 16 --prompt-len 512 \\
+      --gen 32 --max-len 1024 --chunk-size 16 --block-size 16 \\
+      --kv-posit posit16 --decode-kernel fused --device cuda
 
 ``--prefix-cache`` shares prompt prefixes through copy-on-write block
 tables; ``--prefix-share`` draws the matching trace, whose prompts open
@@ -27,13 +33,15 @@ rest best-effort (interactive and batch traffic on one pool; with a
 deadline on every request arrival order is deadline order, so nothing
 is ever preempted):
 
-  python -m repro_torch.launch.serve --arch minicpm3-4b --batch 8 \\
-      --n-requests 16 --prompt-len 512 --gen 32 --max-len 1024 \\
-      --chunk-size 16 --block-size 16 --kv-posit posit16 \\
-      --decode-kernel fused --prefix-cache --prefix-share 0.5 \\
-      --deadline-ms 5000 --deadline-share 0.25 --n-blocks 200 --device cuda
+  python -m repro_torch.launch.serve --arch minicpm3-4b --continuous \\
+      --paged --chunked-prefill --batch 8 --n-requests 16 --prompt-len 512 \\
+      --gen 32 --max-len 1024 --chunk-size 16 --block-size 16 \\
+      --kv-posit posit16 --decode-kernel fused --prefix-cache \\
+      --prefix-share 0.5 --deadline-ms 5000 --deadline-share 0.25 \\
+      --n-blocks 200 --device cuda
 
-``--n-layers`` cuts depth only (every width stays the architecture's);
+The port's own flags: ``--n-layers`` cuts depth only (every width stays
+the architecture's), ``--deadline-share`` as above, and ``--device``.
 ``--reduced`` swaps in the tiny same-family config for CPU runs
 (``--device cpu``).
 """
@@ -227,9 +235,19 @@ def build_parser():
     ap.add_argument("--n-blocks", type=int, default=0,
                     help="arena size in blocks (0 = worst case)")
     ap.add_argument("--kv-posit", choices=["posit16", "posit8", "none"],
-                    default="posit16")
+                    default="none")
+    ap.add_argument("--continuous", action="store_true",
+                    help="continuous batching on a simulated Poisson "
+                         "trace (the only serving mode ported)")
+    ap.add_argument("--paged", action="store_true",
+                    help="paged block-table KV cache (with --continuous; "
+                         "required: the dense layout is not ported)")
+    ap.add_argument("--chunked-prefill", action="store_true",
+                    help="prompts through the decode lane in chunk-size "
+                         "chunks (with --continuous --paged; required "
+                         "unless --prefix-cache, which implies it)")
     ap.add_argument("--decode-kernel", choices=["gather", "fused"],
-                    default="fused",
+                    default="gather",
                     help="paged decode attention: the fused CUDA table "
                          "walk or the plain gather path")
     ap.add_argument("--prefix-cache", action="store_true",
@@ -265,8 +283,35 @@ def model_config(args):
         cfg, kv_posit=None if args.kv_posit == "none" else args.kv_posit)
 
 
+def check_mode(ap, args) -> None:
+    """The reference's own refusals (``ap.error``, exit status 2), then
+    ``NotImplementedError`` for the modes the port has not ported."""
+    if args.prefix_cache and not (args.continuous and args.paged):
+        ap.error("--prefix-cache requires --continuous --paged")
+    if args.chunked_prefill and not (args.continuous and args.paged):
+        ap.error("--chunked-prefill requires --continuous --paged")
+    if args.deadline_ms > 0 and not args.continuous:
+        ap.error("--deadline-ms requires --continuous")
+    if args.decode_kernel == "fused" and not args.paged:
+        ap.error("--decode-kernel fused requires --paged")
+    missing = None
+    if not args.continuous:
+        missing = "the one-shot engine path (no --continuous)"
+    elif not args.paged:
+        missing = "the dense-cache scheduler (--continuous without --paged)"
+    elif not (args.chunked_prefill or args.prefix_cache):
+        missing = ("the unchunked paged scheduler (--paged without "
+                   "--chunked-prefill)")
+    if missing:
+        raise NotImplementedError(
+            f"{missing} is not ported yet (ROADMAP Queue 1 item 3); pass "
+            "--continuous --paged --chunked-prefill")
+
+
 def main(argv=None) -> ServeResult:
-    args = build_parser().parse_args(argv)
+    ap = build_parser()
+    args = ap.parse_args(argv)
+    check_mode(ap, args)
     cfg = model_config(args)
     params = T.init_params(cfg, seed=args.seed, device=args.device)
     return run_continuous(args, cfg, params)

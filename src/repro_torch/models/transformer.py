@@ -202,13 +202,6 @@ def init_paged_cache(cfg: ModelConfig, batch: int, max_len: int,
     }
 
 
-def _zero_invalid(x, mask):
-    """Zero time-axis slots whose (B, T) mask is False (gathered arena
-    garbage stays out of the downstream matmuls)."""
-    m = mask.reshape(tuple(mask.shape) + (1,) * (x.ndim - 2))
-    return torch.where(m, x, torch.zeros((), dtype=x.dtype, device=x.device))
-
-
 def _chunk_virtual_tables(tables, lens, bs: int, window: int,
                           virtual_width: int, n_blocks: int):
     """Position-ordered virtual block tables for the chunked-prefill
@@ -281,15 +274,19 @@ def prefill_chunk(params, cache, tokens, cfg: ModelConfig, n_valid, *,
         tables, lens, bs, window, virtual_width, nb)
     t_len = int(virtual_width) * bs
     apos = torch.arange(t_len, device=dev)[None, :]
-    resident = (apos < lens[:, None]) & (apos >= low_pos[:, None])
     kv_mask = (apos < lens_after[:, None]) & (apos >= low_pos[:, None])
     bidx = torch.arange(b, device=dev)[:, None]
 
-    def load(arena):
-        g = L.paged_gather(arena, vtables)                   # (B, T, ...)
+    def load(li):
+        # both leaves of layer li, (B, T, ...) each, zero where not
+        # resident: posit arenas in one fused launch, f32/bf16 arenas
+        # through the plain gather, cast and mask
+        arenas = [cache[key][li] for key in keys]
         if cfg.kv_posit:
-            g = posit_codec.dequantize(g, L.pcfg(cfg.kv_posit))
-        return _zero_invalid(g.to(L.cdtype(cfg)), resident)
+            return posit_codec.paged_read(arenas, vtables, lens, low_pos,
+                                          L.pcfg(cfg.kv_posit), L.cdtype(cfg))
+        return posit_codec.paged_read_plain(arenas, vtables, lens, low_pos,
+                                            None, L.cdtype(cfg))
 
     def insert(ctx, fresh):
         # row b's fresh chunk lands at virtual slots lens[b]+j; slots past
@@ -310,8 +307,9 @@ def prefill_chunk(params, cache, tokens, cfg: ModelConfig, n_valid, *,
         c_suf = L.rms_norm(at["kv_norm"], c_suf, cfg)
         r_suf = L.apply_rope(r_suf[:, :, None, :], positions,
                              cfg.rope_theta)[:, :, 0, :]
-        c_all = insert(load(cache["c_kv"][li]), c_suf)       # (B, T, rank)
-        r_all = insert(load(cache["k_rope"][li]), r_suf)
+        c_ctx, r_ctx = load(li)
+        c_all = insert(c_ctx, c_suf)                         # (B, T, rank)
+        r_all = insert(r_ctx, r_suf)
         k_nope = L.dense(at["wuk"], c_all, cfg).reshape(b, t_len, h, nope)
         v = L.dense(at["wuv"], c_all, cfg).reshape(b, t_len, h,
                                                    cfg.v_head_dim)
@@ -329,8 +327,9 @@ def prefill_chunk(params, cache, tokens, cfg: ModelConfig, n_valid, *,
                                                    cfg.head_dim)
         q = L.apply_rope(q, positions, cfg.rope_theta)
         k_suf = L.apply_rope(k_suf, positions, cfg.rope_theta)
-        k = insert(load(cache["k"][li]), k_suf)
-        v = insert(load(cache["v"][li]), v_suf)
+        k_ctx, v_ctx = load(li)
+        k = insert(k_ctx, k_suf)
+        v = insert(v_ctx, v_suf)
         out = L.flash_attention(q, k, v, cfg=cfg, kv_mask=kv_mask,
                                 q_positions=positions,
                                 window=cfg.sliding_window)

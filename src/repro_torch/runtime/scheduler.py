@@ -88,6 +88,10 @@ class Completion:
     def latency_steps(self) -> int:
         return self.finished_step - self.arrival_step
 
+    @property
+    def queue_steps(self) -> int:
+        return self.admitted_step - self.arrival_step
+
 
 @dataclasses.dataclass
 class _Slot:

@@ -6,7 +6,9 @@ sub, mul, both dividers) and its quire dot (the kernels' tile loop,
 run serially) are held bit for bit to the port's plain versions
 (``repro_torch.core.posit``): every posit8 and posit8e0 pair, and seeded
 2**16-pair samples with the edge patterns in posit16, posit16e1 and
-posit32.  ``csrc/posit_narrow.cuh``, the decode inside the paged
+posit32; its word-level placement ``place_add`` (the kernels' hot
+loop) is held to ``place_product`` product by product.
+``csrc/posit_narrow.cuh``, the decode inside the paged
 attention and posit-weight gemm kernels, is held to the codec on every
 pattern of the four configs of at most 16 bits.  This is the only check
 of the kernels' arithmetic that runs without the card; skipped where
@@ -77,16 +79,42 @@ void dot(const uint32_t* a, const uint32_t* b, uint32_t* o, long long rows,
         t.m_exp = e > t.m_exp ? e : t.m_exp;
         t.nar = t.nar || pa.nar || pb.nar;
       }
+      pvu::TileSum sum = pvu::tile_sum_empty();
       for (long long i = t0; i < t1; ++i) {
-        uint32_t st;
-        t.acc += pvu::place_product(pvu::decode<N, ES>(x[i]), pvu::decode<N, ES>(y[i]),
-                                    t.m_exp, &st);
-        t.sticky |= st;
+        const pvu::Pir pa = pvu::decode<N, ES>(x[i]), pb = pvu::decode<N, ES>(y[i]);
+        pvu::place_add<(N <= 16)>(&sum, pvu::place_sig<(N <= 16)>(pa.sig),
+                                  pvu::place_sig<(N <= 16)>(pb.sig), t.m_exp - (pa.exp + pb.exp),
+                                  pa.sign ^ pb.sign);
       }
+      t.acc = sum.acc + sum.ones;
+      t.sticky = sum.sticky;
       s = pvu::quire_combine(s, t);
     }
     o[r] = pvu::quire_finalize<N, ES>(s);
   }
+}
+
+// place_add (narrow where the kernels take it, and wide) against
+// place_product, one product each, against the
+// alignment exponent m_exp = a.exp + b.exp + delta[i]; returns the count
+// of products whose 128-bit contribution or sticky differ
+template <int N, int ES>
+long long place(const uint32_t* a, const uint32_t* b, const int* delta, long long n) {
+  long long bad = 0;
+  for (long long i = 0; i < n; ++i) {
+    const pvu::Pir pa = pvu::decode<N, ES>(a[i]), pb = pvu::decode<N, ES>(b[i]);
+    const int m_exp = pa.exp + pb.exp + delta[i];
+    uint32_t st;
+    const pvu::u128 want = pvu::place_product(pa, pb, m_exp, &st);
+    pvu::TileSum t = pvu::tile_sum_empty(), w = pvu::tile_sum_empty();
+    pvu::place_add<(N <= 16)>(&t, pvu::place_sig<(N <= 16)>(pa.sig),
+                              pvu::place_sig<(N <= 16)>(pb.sig), m_exp - (pa.exp + pb.exp),
+                              pa.sign ^ pb.sign);
+    pvu::place_add<false>(&w, pa.sig, pb.sig, m_exp - (pa.exp + pb.exp), pa.sign ^ pb.sign);
+    bad += (t.acc + t.ones != want || t.sticky != st) ? 1 : 0;
+    bad += (w.acc + w.ones != want || w.sticky != st) ? 1 : 0;
+  }
+  return bad;
 }
 
 }  // namespace
@@ -115,6 +143,14 @@ extern "C" int host_narrow(int nbits, int es, const uint32_t* p, float* o,
   return 1;
 }
 
+extern "C" long long host_place(int nbits, int es, const uint32_t* a, const uint32_t* b,
+                                const int* delta, long long n) {
+#define PLACE(N, ES) if (nbits == N && es == ES) return place<N, ES>(a, b, delta, n);
+  PLACE(32, 2) PLACE(16, 2) PLACE(16, 1) PLACE(8, 2) PLACE(8, 0)
+#undef PLACE
+  return -1;
+}
+
 extern "C" int host_dot(int nbits, int es, const uint32_t* a, const uint32_t* b,
                         uint32_t* o, long long rows, long long len) {
 #define CALL(N, ES) dot<N, ES>(a, b, o, rows, len)
@@ -140,6 +176,8 @@ def lib(tmp_path_factory):
     lib.host_ew.argtypes = [i, i, i, ptr, ptr, ptr, ll]
     lib.host_dot.argtypes = [i, i, ptr, ptr, ptr, ll, ll]
     lib.host_narrow.argtypes = [i, i, ptr, ptr, ll]
+    lib.host_place.argtypes = [i, i, ptr, ptr, ptr, ll]
+    lib.host_place.restype = ll
     return lib
 
 
@@ -214,6 +252,20 @@ def test_header_dot_equals_plain(lib, cfg, length):
                                torch.from_numpy(b.astype(np.int64)), cfg)
                        ).to(torch.int64).numpy() & cfg.mask
     np.testing.assert_array_equal(out, want.astype(np.uint32))
+
+
+@pytest.mark.parametrize("cfg", CFGS, ids=lambda c: c.name)
+def test_place_add_equals_place_product(lib, cfg):
+    """Every posit8 pair (2^16 seeded pairs with the edges in the wider
+    configs), each at four alignment distances: the product's own
+    exponent (d = 0), inside the window, past it (clamped at 95) and
+    below it (clamped at 0)."""
+    a, b = _pairs(cfg, seed=3)
+    rng = np.random.default_rng(cfg.nbits)
+    for lo, hi in ((0, 1), (1, 96), (96, 600), (-40, 0)):
+        delta = rng.integers(lo, hi, a.size).astype(np.int32)
+        assert lib.host_place(cfg.nbits, cfg.es, a.ctypes.data, b.ctypes.data,
+                              delta.ctypes.data, a.size) == 0
 
 
 @pytest.mark.parametrize("cfg", [POSIT8, POSIT8_E0, POSIT16, POSIT16_E1],

@@ -5,8 +5,8 @@ Marked ``cuda``: they need an NVIDIA card, ``nvcc`` and the repo's
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-The codec, the fused quantize-and-write into the paged arena and the
-PVU ISA kernels (elementwise ops, the quire dot, pgemm) must be
+The codec, the fused quantize-and-write into the paged arena, the
+fused chunked-prefill read out of it and the PVU ISA kernels (elementwise ops, the quire dot, pgemm) must be
 bit-exact; paged attention (dense/window and MLA) agrees
 with its plain version within atol/rtol 1e-5 (both accumulate in f32,
 in different orders), and the posit-weight gemm within the f32
@@ -380,16 +380,94 @@ def test_dot_kernel_bit_exact_on_card(dev, cfg, length):
 
 
 @pytest.mark.parametrize("cfg", [POSIT8, POSIT16, POSIT32], ids=lambda c: c.name)
-@pytest.mark.parametrize("mkn", [(5, 37, 7), (33, 129, 19), (16, 4097, 16)])
+@pytest.mark.parametrize("mkn", [(5, 37, 7), (33, 129, 19), (16, 4097, 16),
+                                 (3, 8193, 70), (17, 12289, 65), (16, 17920, 64)])
 def test_pgemm_kernel_bit_exact_on_card(dev, cfg, mkn):
+    """Tiles of 16 x 64 outputs with ragged M and N, one to five quire
+    tiles of K (the last ragged), against the plain version (run on the
+    card: it is device-agnostic tensor code) and the per-output dot."""
     m, k, n = mkn
     a, w = _pats(cfg, (m, k), m), _pats(cfg, (k, n), n)
-    want = posit_qgemm.posit_qgemm_plain(a, w, cfg)
+    want = posit_qgemm.posit_qgemm_plain(a.to(dev), w.to(dev), cfg).cpu()
     got = posit_qgemm.posit_qgemm(a.to(dev), w.to(dev), cfg)
     assert _eq(got, want)
     per_out = ops.dot(a.to(dev)[:, None, :],
                       signed_view(w).T.contiguous().view(w.dtype).to(dev)[None], cfg)
     assert _eq(per_out, got.cpu())
+
+
+@pytest.mark.parametrize("cfg", CONFIGS, ids=lambda c: c.name)
+def test_pgemm_kernel_edges_on_card(dev, cfg):
+    """NaR in one row's last tile, a zero column, a row whose middle
+    tile is all zero (an empty state in the fold), maxpos and minpos."""
+    m, k, n = 5, 12289, 70
+    a = signed_view(_pats(cfg, (m, k), 7))
+    w = signed_view(_pats(cfg, (k, n), 8))
+    nar, maxpos = signed_view(torch.tensor([cfg.nar_pattern, cfg.maxpos_pattern]).to(
+        cfg.storage_dtype))
+    a[a == nar] = 1
+    w[w == nar] = 1
+    a[0, k - 1] = nar
+    w[:, 1] = 0
+    a[1, 4096:8192] = 0
+    a[2, ::2] = maxpos
+    a[2, 1::4] = 1
+    a, w = a.view(cfg.storage_dtype), w.view(cfg.storage_dtype)
+    want = posit_qgemm.posit_qgemm_plain(a.to(dev), w.to(dev), cfg).cpu()
+    got = posit_qgemm.posit_qgemm(a.to(dev), w.to(dev), cfg).cpu()
+    assert _eq(got, want)
+    assert (signed_view(got)[0] == nar).all() and (signed_view(got)[1:, 1] == 0).all()
+
+
+def _read_case(cfg, lane, seed):
+    """Leaves of one layer (K/V pairs, or MLA's latent and RoPE key) with
+    zero and NaR planted in every block, a virtual table with sentinel
+    and out-of-range entries, an all-masked row; the window lane's table
+    and ``low_pos`` from ``_chunk_virtual_tables`` on a 40-token ring."""
+    from repro_torch.models import transformer as T
+
+    rng = np.random.default_rng(seed)
+    b, bs, nb, vw = 4, 16, 40, 8
+    feats = {"dense": ((10, 128), (10, 128)), "window": ((10, 128), (10, 128)),
+             "mla": ((256,), (32,)), "odd": ((3, 5),)}[lane]
+    leaves = []
+    for f in feats:
+        x = _pats(cfg, (nb, bs) + f, seed + len(leaves))
+        flat = signed_view(x).view(nb, bs, -1)
+        flat[:, 1, :2] = signed_view(torch.tensor([0, cfg.nar_pattern]).to(cfg.storage_dtype))
+        leaves.append(x)
+    lens = torch.tensor([100, 37, 128, 0])
+    if lane == "window":
+        rw = L.paged_window_blocks(40, bs)
+        ring = torch.from_numpy(rng.permutation(nb)[:b * rw].reshape(b, rw).astype(np.int32))
+        vt, low = T._chunk_virtual_tables(ring, lens, bs, 40, vw, nb)
+        assert int(low[0]) > 0
+    else:
+        vt = torch.from_numpy(rng.permutation(nb)[:b * vw].reshape(b, vw).astype(np.int32))
+        vt[0, 7] = nb                                   # sentinel
+        vt[1, 1] = nb + 9                               # out of range, resident
+        vt[2, 0] = -1
+        low = torch.tensor([0, 5, 0, 0])
+    return leaves, vt.to(torch.int32).contiguous(), lens.to(torch.int64), low.to(torch.int64)
+
+
+@pytest.mark.parametrize("out", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("cfg", [POSIT16, POSIT8], ids=["posit16", "posit8"])
+@pytest.mark.parametrize("lane", ["dense", "window", "mla", "odd"])
+def test_paged_read_matches_plain_on_card(dev, lane, cfg, out):
+    """The fused chunked-prefill read (16-byte vectors; ``odd`` widths
+    take the scalar loop) equals gather, dequantize, cast and mask bit
+    for bit, NaN patterns included."""
+    leaves, vt, lens, low = _read_case(cfg, lane, seed=cfg.nbits)
+    on = ([x.to(dev) for x in leaves], vt.to(dev), lens.to(dev), low.to(dev))
+    want = posit_codec.paged_read_plain(*on, cfg, out)
+    got = posit_codec.paged_read(*on, cfg, out)
+    iv = {torch.float32: torch.int32, torch.bfloat16: torch.int16}[out]
+    assert len(got) == len(leaves)
+    for g, x in zip(got, want):
+        assert g.dtype == out and g.shape == x.shape
+        assert torch.equal(g.view(iv), x.view(iv))
+        assert bool(torch.isnan(g.float()).any()) and not g[-1].view(iv).any()
 
 
 @pytest.mark.parametrize("cfg", [POSIT16, POSIT8], ids=lambda c: c.name)

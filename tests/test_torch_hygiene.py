@@ -59,4 +59,5 @@ def test_serve_cli_defaults_to_cuda():
     args = serve.build_parser().parse_args([])
     assert args.device == "cuda"
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        serve.main(["--reduced", "--n-requests", "1"])
+        serve.main(["--reduced", "--n-requests", "1", "--continuous",
+                    "--paged", "--chunked-prefill"])

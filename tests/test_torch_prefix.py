@@ -308,7 +308,8 @@ def test_serve_cli_prefix_cache_and_deadlines():
     drained pool holds only the prefix index's blocks."""
     res = serve.main([
         "--arch", "minicpm3-4b", "--reduced", "--device", "cpu",
-        "--batch", "4", "--n-requests", "8", "--prompt-len", "24",
+        "--continuous", "--paged", "--chunked-prefill", "--kv-posit",
+        "posit16", "--decode-kernel", "fused", "--batch", "4", "--n-requests", "8", "--prompt-len", "24",
         "--gen", "8", "--chunk-size", "4", "--block-size", "4",
         "--prefix-cache", "--prefix-share", "0.5", "--deadline-ms", "200",
         "--deadline-share", "0.5", "--n-blocks", "24"])

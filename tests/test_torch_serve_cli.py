@@ -1,0 +1,88 @@
+"""The port's serve command line against the reference's.
+
+The README's main-path argv (``--continuous --paged --chunked-prefill
+--kv-posit posit16 --decode-kernel fused``) goes through both ``main``s
+at reduced width on the dense (phi3-medium-14b) and MLA (minicpm3-4b)
+lanes.  The reference random-inits from ``PRNGKey(0)``; the port's
+``init_params`` is replaced by those weights carried across with
+``weights.params_from_jax``, since the two RNG streams differ.  Greedy
+tokens and each request's queueing delay must be equal.  The modes the
+port has not ported raise ``NotImplementedError``; the argv the
+reference refuses, the port refuses too.
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax
+
+from repro import configs as RCFG
+from repro.launch import serve as ref_serve
+from repro.models import get_family
+from repro_torch.launch import serve
+from repro_torch.models import transformer as T
+from repro_torch.weights import params_from_jax
+
+MAIN_PATH = ["--reduced", "--continuous", "--paged", "--chunked-prefill",
+             "--kv-posit", "posit16", "--decode-kernel", "fused",
+             "--batch", "4", "--n-requests", "8", "--prompt-len", "24",
+             "--gen", "8", "--chunk-size", "4", "--block-size", "4"]
+
+
+@pytest.fixture(autouse=True)
+def _no_tf32():
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def _reference_weights(monkeypatch, arch):
+    """Make the port's launcher build the reference launcher's weights."""
+    rc = RCFG.get_config(arch).reduced(compute_dtype="float32")
+    rp = jax.tree.map(np.asarray,
+                      get_family(rc).init_params(jax.random.PRNGKey(0), rc))
+    monkeypatch.setattr(T, "init_params", lambda cfg, seed, device: (
+        params_from_jax(rp, cfg, device=device)))
+
+
+@pytest.mark.parametrize("arch", ["phi3-medium-14b", "minicpm3-4b"])
+def test_main_path_argv_matches_reference(monkeypatch, arch):
+    argv = ["--arch", arch] + MAIN_PATH
+    want = ref_serve.main(argv)
+    _reference_weights(monkeypatch, arch)
+    res = serve.main(argv + ["--device", "cpu"])
+    assert res.sched.engine.cfg.kv_posit == "posit16"
+    assert res.sched.engine.cfg.paged_attn_kernel == "fused"
+    assert {r: c.tokens.tolist() for r, c in res.done.items()} == \
+        {r: c.tokens.tolist() for r, c in want.items()}
+    assert {r: c.queue_steps for r, c in res.done.items()} == \
+        {r: c.queue_steps for r, c in want.items()}
+    assert any(c.queue_steps > 0 for c in res.done.values())
+
+
+def test_defaults_are_the_reference_defaults():
+    args = serve.build_parser().parse_args([])
+    assert (args.kv_posit, args.decode_kernel) == ("none", "gather")
+    assert not (args.continuous or args.paged or args.chunked_prefill)
+
+
+@pytest.mark.parametrize("flags", [
+    [],                                          # the one-shot engine path
+    ["--paged"],
+    ["--continuous"],                            # dense-cache scheduler
+    ["--continuous", "--paged"],                 # unchunked paged scheduler
+], ids=["one-shot", "one-shot-paged", "dense", "unchunked"])
+def test_unported_modes_raise(flags):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 3"):
+        serve.main(["--reduced", "--device", "cpu"] + flags)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--prefix-cache"],
+    ["--chunked-prefill", "--continuous"],
+    ["--deadline-ms", "100"],
+    ["--decode-kernel", "fused", "--continuous"],
+], ids=["prefix-cache", "chunked-unpaged", "deadline", "fused-unpaged"])
+def test_reference_refusals_exit_with_status_2(flags):
+    with pytest.raises(SystemExit) as exc:
+        serve.main(["--reduced", "--device", "cpu"] + flags)
+    assert exc.value.code == 2

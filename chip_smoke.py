@@ -24,7 +24,8 @@ paths at full size and checks that every kernel of each path ran there:
                                    # memory, spills) of paged_attn.cu,
                                    # paged_attn_mla.cu, posit_gemm.cu,
                                    # posit_paged_write.cu,
-                                   # posit_paged_read.cu and posit_qgemm.cu
+                                   # posit_paged_read.cu, posit_qgemm.cu,
+                                   # posit_ew.cu and posit_dot.cu
 
 Prints the card's name and power limit, per-kernel checks and timings,
 the serving reports, the accuracy table, a JSON line with every
@@ -50,10 +51,12 @@ import torch  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 FP32_FLOPS = 67e12             # H100 SXM fp32 outside the tensor cores
-# 32-bit integer operations: the table's rate for 32-bit arithmetic
-# outside the tensor cores (the card's INT32 pipes are no faster), so
-# a bound from it is a least time
-INT_OPS = 67e12
+# 32-bit integer operations a second: the card's issue rate, one warp
+# instruction a clock on each of an SM's four partitions (SMs x 128
+# lanes x the maximum SM clock; set by run() from the card).  That is a
+# least time for any instruction mix; pure INT32 ALU work caps at half
+# of it (16 INT32 lanes a partition), so a bound from it is a least time
+INT_OPS = None
 ATTN_TOL = 1e-5                # atol and rtol, kernel vs plain, both f32
 PAPER_DIV_ACC = 0.9584         # the paper's nr3 division exact-match rate
 # the fewest 32-bit integer operations per element the PVU datapath
@@ -959,12 +962,20 @@ def check_isa_kernels(dev):
             ea, eb = torch.meshgrid(e, e, indexing="ij")
             signed_view(a).view(-1)[:36] = signed_view(to_storage(ea.reshape(-1), cfg.storage_dtype)).to(dev)
             signed_view(b).view(-1)[:36] = signed_view(to_storage(eb.reshape(-1), cfg.storage_dtype)).to(dev)
+        # full operands, then a scalar and a suffix row on either side (the
+        # kernel's other operand modes), the row from an odd element offset
+        a2, b2 = a.reshape(-1, 256), b.reshape(-1, 256)
+        s, row = b2[1, 7:8], b2[2, 1:]
+        cases = ((a, b), (s, a2), (a2, s), (row, a2[:, 1:]), (a2[:, 1:], row))
         for op, mode in EW_OPS:
-            if not _same(E.elementwise(a, b, cfg, op, mode),
-                         E.elementwise_plain(a, b, cfg, op, mode)):
-                fail(f"posit_ew {op} {mode} {cfg.name} differs from plain")
+            for x, y in cases:
+                if not _same(E.elementwise(x, y, cfg, op, mode),
+                             E.elementwise_plain(x, y, cfg, op, mode)):
+                    fail(f"posit_ew {op} {mode} {cfg.name} differs from plain "
+                         f"at operands {tuple(x.shape)}, {tuple(y.shape)}")
         print(f"posit_ew {cfg.name}: add, sub, mul, div nr3, div exact on "
-              f"{a.numel()} pairs (edge patterns crossed): equal to plain")
+              f"{a.numel()} pairs (edge patterns crossed), and with a scalar and "
+              f"a 255-pattern row on either side: equal to plain")
 
     for cfg in (POSIT16, POSIT32):
         for length in DOT_LENGTHS:
@@ -1099,7 +1110,7 @@ def conv_workload(dev, pool):
     if not _same(y, yp):
         fail("posit_qgemm differs from its plain version on the conv")
     print(f"posit_qgemm == plain on all {m * cw.out_channels:,} conv outputs")
-    return dict(counts=counts, a=a, w=w, wt=wt, y=y, af=af, cfg=cfg, golden=golden,
+    return dict(counts=counts, a=a, w=w, wt=wt, y=y, bq=bq, af=af, cfg=cfg, golden=golden,
                 got=got, plain_ms=ev0.elapsed_time(ev1))
 
 
@@ -1236,23 +1247,58 @@ def cache_maintenance(cache):
         if not _same(m0[i:i + step], want):
             fail(f"merge_caches layer 0 differs from plain at {i}")
     leaf = cache[keys[0]]
-    full_ms = time_ms(lambda: E.elementwise(leaf, half, POSIT16, "mul"), iters=5, warmup=1)
-    print(f"cache maintenance on the served phi3 arena ({len(keys)} leaves, "
-          f"{n:,} posit16 patterns): scale_cache + merge_caches {wall:.3f} s; "
-          f"tables and lens unchanged; layer 0 equal to plain; one vmul over "
-          f"a whole leaf ({leaf.numel():,} patterns) {full_ms:.3f} ms")
-    # the ew timing row: vmul by a scalar on layer 0 of the leaf
-    x0 = leaf[0]
-    nb = x0.numel()
+    x0, x1 = leaf[0], leaf[1]
+    # the ew timing row: vmul by a scalar on layer 0 of the leaf, and
+    # beside it the whole leaf and an exact division of two layers
     row = dict(
         name="posit_ew", route="cuda", source="src/repro_torch/csrc/posit_ew.cu",
         replaces="src/repro/kernels/posit_ew.py:81", launches=0, max_abs_err=0.0,
-        ms=time_ms(lambda: E.elementwise(x0, half, POSIT16, "mul")),
+        **ew_times(x0, half, POSIT16, "mul"),
         plain_ms=time_ms(lambda: E.elementwise_plain(x0, half, POSIT16, "mul"), iters=3),
-        **_bound(2 * nb * 2 + 2, nb * (2 * OPS_DECODE + OPS_EW[("mul", "nr3")] + OPS_ENCODE),
-                 INT_OPS),
-        library_ms=None, shape=list(x0.shape), full_leaf_ms=full_ms)
+        library_ms=None,
+        leaf=ew_times(leaf, half, POSIT16, "mul", iters=5, n=10),
+        vdiv_exact=ew_times(x0, x1, POSIT16, "div", "exact", n=20))
+    if not _same(E.elementwise(x0, x1, POSIT16, "div", "exact")[:64],
+                 E.elementwise_plain(x0[:64], x1[:64], POSIT16, "div", "exact")):
+        fail("vdiv exact on arena layers differs from plain")
+    print(f"cache maintenance on the served phi3 arena ({len(keys)} leaves, "
+          f"{n:,} posit16 patterns): scale_cache + merge_caches {wall:.3f} s; "
+          f"tables and lens unchanged; layer 0 equal to plain; one vmul over "
+          f"a whole leaf ({leaf.numel():,} patterns) {row['leaf']['ms']:.3f} ms, "
+          f"kernel alone {row['leaf']['kernel_ms']:.4f} ms (bound "
+          f"{row['leaf']['bound_ms']:.4f} ms by {row['leaf']['bound_by']})")
     return dict(counts=counts, row=row)
+
+
+def ew_times(a, b, cfg, op, div_mode="nr3", iters=20, n=100):
+    """A posit_ew call's wrapper time, kernel-alone time and bound (each
+    full operand read once, the output written once; the fewest
+    operations of the op's datapath on every element)."""
+    from repro_torch.kernels import posit_ew as E
+
+    call, out = E.elementwise_call(a, b, cfg, op, div_mode)
+    m, nbytes = out.numel(), out.element_size()
+    return dict(ms=time_ms(lambda: E.elementwise(a, b, cfg, op, div_mode), iters=iters),
+                kernel_ms=kernel_alone_ms(call, n=n),
+                **_bound((a.numel() + b.numel() + m) * nbytes,
+                         m * (2 * OPS_DECODE + OPS_EW[(op, div_mode)] + OPS_ENCODE), INT_OPS),
+                shape=list(out.shape), operands=[list(a.shape), list(b.shape)])
+
+
+def int_issue_rate():
+    """SMs x 128 lanes x the maximum SM clock (``nvidia-smi``), and the
+    line that states it."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    res = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"], capture_output=True,
+                         text=True, timeout=60)
+    try:
+        mhz = float(res.stdout.strip().splitlines()[0])
+    except (IndexError, ValueError):
+        fail(f"nvidia-smi gave no maximum SM clock: {res.stdout!r} {res.stderr!r}")
+    rate = sms * 128 * mhz * 1e6
+    return rate, (f"integer issue rate: {sms} SMs x 128 lanes x {mhz:g} MHz = "
+                  f"{rate:.4e} instructions/s")
 
 
 def _bound(nbytes, ops, rate):
@@ -1285,6 +1331,7 @@ def time_isa(dev, p1, conv):
         name="posit_dot", route="cuda", source="src/repro_torch/csrc/posit_dot.cu",
         replaces="src/repro/kernels/posit_dot.py:109", launches=0, max_abs_err=0.0,
         ms=time_ms(lambda: D.vpdot_rows(da, db, cfg)),
+        kernel_ms=kernel_alone_ms(D.vpdot_rows_call(da, db, cfg)[0]),
         plain_ms=time_ms(lambda: D.vpdot_rows_plain(da, db, cfg, max_entries=1 << 24), iters=3),
         **_bound(nd * kk * 4 * 2 + nd * 4,
                  nd * kk * (2 * OPS_DECODE + OPS_QUIRE) + nd * OPS_ENCODE, INT_OPS),
@@ -1346,8 +1393,8 @@ def ptxas_report():
     from repro_torch.kernels import _build
     flags = [f for f in _build.NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
     with tempfile.TemporaryDirectory() as tmp:
-        for src in ("paged_attn", "paged_attn_mla", "posit_gemm",
-                    "posit_paged_write", "posit_paged_read", "posit_qgemm"):
+        for src in ("paged_attn", "paged_attn_mla", "posit_gemm", "posit_paged_write",
+                    "posit_paged_read", "posit_qgemm", "posit_ew", "posit_dot"):
             res = subprocess.run(
                 [_build.nvcc_path(), *flags, "-Xptxas", "-v", "-c", "-I", str(_build.CSRC),
                  "-o", os.path.join(tmp, f"{src}.o"), str(_build.CSRC / f"{src}.cu")],
@@ -1383,6 +1430,9 @@ def run(pool):
         timeout=60)
     print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
           else f"nvidia-smi failed: {smi.stderr.strip()}")
+    global INT_OPS
+    INT_OPS, rate_line = int_issue_rate()
+    print(rate_line)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"device {torch.cuda.get_device_name(0)}")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1415,6 +1465,8 @@ def run(pool):
     by_path = {"conv": conv["counts"]}
     got8 = posit8_through_kernels(dev)
     rows += time_isa(dev, p1, conv)
+    # the conv's bias vadd, (95 048, 64) + (64,): a row operand
+    ew_bias = ew_times(conv["y"], conv["bq"], conv["cfg"], "add")
     del p1
     p3 = posit_exact_linear(dev)
     by_path["dense"] = p3["counts"]
@@ -1461,6 +1513,7 @@ def run(pool):
         del res
         gc.collect()
         torch.cuda.empty_cache()
+    ew_row["bias_vadd"] = ew_bias
     rows.append(ew_row)
     for kernel in ("posit_ew", "posit_dot", "posit_qgemm", "posit_gemm"):
         if not any(c[kernel] > 0 for p, c in by_path.items()
@@ -1481,6 +1534,10 @@ def run(pool):
               f"(bound {row['bound_ms']:.4f} ms by {row['bound_by']}, "
               f"plain {row['plain_ms']:.4f} ms, library "
               f"{row['library_ms'] if row['library_ms'] is None else round(row['library_ms'], 4)} ms)")
+    for key in ("leaf", "bias_vadd", "vdiv_exact"):
+        r = ew_row[key]
+        print(f"posit_ew {key} at {r['shape']}: {r['ms']:.4f} ms, kernel alone "
+              f"{r['kernel_ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by {r['bound_by']})")
 
     check_fused_equals_gather(dev)
     check_prefix_identity(dev)

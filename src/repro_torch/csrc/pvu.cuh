@@ -55,6 +55,24 @@ struct Quire {
   bool nar;
 };
 
+// x << s and x >> s, 0 for any s outside [0, 32) (posit::sll32 and
+// srl32): one clamped funnel shift on the card, no compare and select
+POSIT_HD uint32_t shl(uint32_t x, int s) {
+#ifdef __CUDA_ARCH__
+  return __funnelshift_lc(0u, x, static_cast<unsigned>(s));
+#else
+  return posit::sll32(x, s);
+#endif
+}
+
+POSIT_HD uint32_t shr(uint32_t x, int s) {
+#ifdef __CUDA_ARCH__
+  return __funnelshift_rc(x, 0u, static_cast<unsigned>(s));
+#else
+  return posit::srl32(x, s);
+#endif
+}
+
 POSIT_HD int clz64(uint64_t x) {
   const uint32_t hi = static_cast<uint32_t>(x >> 32);
   return hi ? clz32(hi) : 32 + clz32(static_cast<uint32_t>(x));
@@ -85,7 +103,7 @@ POSIT_HD Pir decode(uint32_t p) {
   const int run = clz32(t);
   const int k = run < N - 1 ? run : N - 1;           // regime run length
   const int reg = r0 ? k - 1 : -k;
-  const uint32_t body = posit::sll32(y, k + 2);
+  const uint32_t body = shl(y, k + 2);
   const uint32_t e = ES > 0 ? (body >> (32 - ES)) : 0u;
   r.sign = sign;
   r.sig = 0x80000000u | (posit::sll32(body, ES) >> 1);
@@ -93,12 +111,57 @@ POSIT_HD Pir decode(uint32_t p) {
   return r;
 }
 
+// posit::encode (core/pir.py::encode) on 32-bit words.  The pattern
+// reads the top N + 1 bits of posit::encode's 64-bit stream (the body and
+// the round bit) and an OR of the bits below them, so the stream's top
+// word and a sticky of its low word give the same pattern for every
+// N <= 32.  The regime (at most 32 bits: |exp| is clamped to (N - 2)
+// 2^ES) lies in the top word; the exponent field and the fraction
+// straddle the two words.
+template <int N, int ES>
+POSIT_HD uint32_t encode_fields(uint32_t sign, int exp, uint32_t sig, uint32_t sticky) {
+  const uint32_t mask = N < 32 ? ((1u << N) - 1u) : 0xFFFFFFFFu;
+  const uint32_t maxpos = (1u << (N - 1)) - 1u;
+  const int max_scale = (N - 2) * (1 << ES);
+  const bool too_big = exp > max_scale;
+  const bool too_small = exp < -max_scale;
+  const int expc = clampi(exp, -max_scale, max_scale);
+  // floor division by 2^es without shifting a negative value
+  const int r = expc >= 0 ? (expc >> ES) : -((-expc + (1 << ES) - 1) >> ES);
+  const uint32_t e = static_cast<uint32_t>(expc - r * (1 << ES));
+  const int reg_len = r >= 0 ? r + 2 : 1 - r;        // in [2, N]
+  const uint32_t v_reg = r >= 0 ? shl(2u, r + 1) - 2u : 1u;
+  uint32_t top = v_reg << (32 - reg_len);
+  uint32_t low = sticky;                             // nonzero: a bit in the low word
+  if (ES > 0) {
+    const int esh = 32 - reg_len - ES;               // e's LSB in the top word
+    top |= esh >= 0 ? shl(e, esh) : shr(e, -esh);
+    if (esh < 0) low |= e & (shl(1u, -esh) - 1u);
+  }
+  const uint32_t frac31 = sig & 0x7FFFFFFFu;
+  const int fr = reg_len + ES - 1;                   // fraction bits below the top word
+  top |= shr(frac31, fr);
+  low |= frac31 & (shl(1u, fr) - 1u);
+
+  const uint32_t body = top >> (33 - N);
+  const uint32_t round_bit = (top >> (32 - N)) & 1u;
+  const uint32_t sticky_rest =
+      ((N < 32 ? (top & ((1u << (32 - N)) - 1u)) : 0u) | low) != 0u ? 1u : 0u;
+  uint32_t p = body + (round_bit & (sticky_rest | (body & 1u)));
+  p = p > maxpos ? maxpos : p;                       // never past maxpos
+  p = p < 1u ? 1u : p;                               // never to zero
+  if (too_big) p = maxpos;
+  if (too_small) p = 1u;
+  if (sign) p = (~p + 1u) & mask;
+  return p;
+}
+
 // core/pir.py::encode_pir
 template <int N, int ES>
 POSIT_HD uint32_t encode(const Pir& r, uint32_t sticky) {
   if (r.nar) return 1u << (N - 1);
   if (r.zero) return 0u;
-  return posit::encode<N, ES>(r.sign, r.exp, r.sig, sticky);
+  return encode_fields<N, ES>(r.sign, r.exp, r.sig, sticky);
 }
 
 // u64.shr_sticky for d in [0, 63]
@@ -260,12 +323,19 @@ POSIT_HD Pir binary(const Pir& a, const Pir& b, uint32_t* sticky) {
   return div<OP == kDivExact>(a, b, sticky);
 }
 
+// One elementwise op on two decoded operands -> pattern (a kernel
+// decodes a scalar operand once and passes it here for every element).
+template <int N, int ES, int OP>
+POSIT_HD uint32_t elementwise_pir(const Pir& a, const Pir& b) {
+  uint32_t sticky;
+  const Pir r = binary<OP>(a, b, &sticky);
+  return encode<N, ES>(r, sticky);
+}
+
 // One elementwise op on two patterns (the fused vadd/vsub/vmul/vdiv).
 template <int N, int ES, int OP>
 POSIT_HD uint32_t elementwise(uint32_t pa, uint32_t pb) {
-  uint32_t sticky;
-  const Pir r = binary<OP>(decode<N, ES>(pa), decode<N, ES>(pb), &sticky);
-  return encode<N, ES>(r, sticky);
+  return elementwise_pir<N, ES, OP>(decode<N, ES>(pa), decode<N, ES>(pb));
 }
 
 // ---------------------------------------------------------------------

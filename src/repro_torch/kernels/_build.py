@@ -108,10 +108,11 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
                                          I, I, I, I, P]
         lib.posit_paged_read.restype = I
     elif name == "posit_ew":
-        lib.posit_elementwise.argtypes = [I, I, I, P, P, P, LL, LL, LL, P]
+        lib.posit_elementwise.argtypes = [I, I, I, P, I, I, P, I, I, P, LL, I,
+                                          P]
         lib.posit_elementwise.restype = I
     elif name == "posit_dot":
-        lib.posit_dot_rows.argtypes = [I, I, P, P, P, LL, LL, P]
+        lib.posit_dot_rows.argtypes = [I, I, P, P, P, LL, LL, I, P]
         lib.posit_dot_rows.restype = I
     elif name == "posit_qgemm":
         lib.posit_qgemm.argtypes = [I, I, P, P, P, P, LL, LL, LL, LL, P]

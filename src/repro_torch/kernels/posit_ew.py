@@ -5,11 +5,15 @@ TPU kernel ``_ew_kernel``): decode -> PIR add/sub/mul/div -> one RNE
 encode with the sticky bit, no f32 round trip (``csrc/posit_ew.cu``,
 the arithmetic of ``csrc/pvu.cuh``).
 
-Bound on the H100: bytes for add, sub and mul (3 patterns per element);
-the dividers may be bound by integer operations.  One thread per
-element in a grid-stride pass; an operand whose shape is a suffix of
-the output's (a scalar, a bias row) is read in place, not broadcast
-into memory.
+Bound on the H100: by operations (the datapath's 45-181 integer
+operations an element against 2-12 bytes), at the card's issue rate.
+The kernel moves 16-byte vectors, several in flight a thread, and
+reads each operand in one of three modes the wrapper picks: ``full``
+(the output's shape), ``scalar`` (one pattern, decoded once per
+thread) or ``row`` (a suffix of C patterns, such as a bias row, read at
+i mod C with a running column).  An operand whose shape is a suffix of
+the output's is read in place, never broadcast into memory; ragged
+heads, tails and misaligned views are handled inside the kernel.
 
 On a CPU tensor the wrapper runs the plain version (``core.posit``); on
 a CUDA tensor it launches the kernel or raises.
@@ -66,12 +70,19 @@ def _suffix_operand(x: torch.Tensor, shape) -> torch.Tensor:
     return s.contiguous().view(x.dtype)
 
 
-def elementwise(a: torch.Tensor, b: torch.Tensor, cfg: PositConfig,
-                op: str, div_mode: str = "nr3") -> torch.Tensor:
-    """Fused posit op on two pattern tensors (``cfg.storage_dtype``) that
-    broadcast against each other -> patterns of the broadcast shape."""
-    if a.device.type == "cpu" and b.device.type == "cpu":
-        return elementwise_plain(a, b, cfg, op, div_mode)
+# operand modes of csrc/posit_ew.cu: the output's shape, one pattern, a
+# suffix of C patterns read at i mod C
+_FULL, _SCALAR, _ROW = 0, 1, 2
+
+
+def _mode(x: torch.Tensor, n: int) -> int:
+    return _FULL if x.numel() == n else (_SCALAR if x.numel() == 1 else _ROW)
+
+
+def _prepare(a, b, cfg, op, div_mode):
+    """Checks, operands and output of one call; returns ``(call, out)``
+    with ``call()`` the kernel's C call (returns its CUDA error code), or
+    None when the output is empty."""
     _check_op(op, div_mode)
     _build.check_cfg(cfg, "posit_ew")
     for t in (a, b):
@@ -85,13 +96,39 @@ def elementwise(a: torch.Tensor, b: torch.Tensor, cfg: PositConfig,
     out = torch.empty(shape, dtype=cfg.storage_dtype, device=a.device)
     n = math.prod(shape)
     if n == 0:
-        return out
+        return None, out
+    # two suffixes of one broadcast shape: the longer is the output's, so
+    # at most one operand is not full
+    ma, mb = _mode(a, n), _mode(b, n)
+    cols = [x.numel() if m == _ROW else 0 for x, m in ((a, ma), (b, mb))]
+    if max(cols) >= 2 ** 31:
+        raise ValueError(f"posit_ew: a suffix operand of {max(cols)} elements "
+                         f"(the kernel's column counter is 32-bit)")
     lib = _build.load("posit_ew")
     code = _OP_CODE[(op, div_mode if op == "div" else "nr3")]
-    rc = lib.posit_elementwise(cfg.nbits, cfg.es, code, a.data_ptr(),
-                               b.data_ptr(), out.data_ptr(), n, a.numel(),
-                               b.numel(),
-                               torch.cuda.current_stream(a.device).cuda_stream)
-    _build.check(rc, "posit_ew")
-    launches["posit_ew"] += 1
+    args = (cfg.nbits, cfg.es, code, a.data_ptr(), ma, cols[0], b.data_ptr(),
+            mb, cols[1], out.data_ptr(), n, _build.sm_count(a.device),
+            torch.cuda.current_stream(a.device).cuda_stream)
+    fn = lib.posit_elementwise
+    return (lambda: fn(*args)), out
+
+
+def elementwise(a: torch.Tensor, b: torch.Tensor, cfg: PositConfig,
+                op: str, div_mode: str = "nr3") -> torch.Tensor:
+    """Fused posit op on two pattern tensors (``cfg.storage_dtype``) that
+    broadcast against each other -> patterns of the broadcast shape."""
+    if a.device.type == "cpu" and b.device.type == "cpu":
+        return elementwise_plain(a, b, cfg, op, div_mode)
+    call, out = _prepare(a, b, cfg, op, div_mode)
+    if call is not None:
+        _build.check(call(), "posit_ew")
+        launches["posit_ew"] += 1
     return out
+
+
+def elementwise_call(a, b, cfg: PositConfig, op: str, div_mode: str = "nr3"):
+    """For timing the kernel alone: ``(call, out)``, where ``call()``
+    launches the kernel once more on the same operands and output and
+    returns the CUDA error code.  Not counted in ``launches``; CUDA
+    tensors of a non-empty output only."""
+    return _prepare(a, b, cfg, op, div_mode)

@@ -117,7 +117,30 @@ long long place(const uint32_t* a, const uint32_t* b, const int* delta, long lon
   return bad;
 }
 
+// pvu::encode_fields against posit::encode on every exponent of the
+// config's range and past it, each significand, both stickies and signs;
+// returns the count of differing patterns
+template <int N, int ES>
+long long enc(const uint32_t* sig, long long m) {
+  long long bad = 0;
+  const int ms = (N - 2) * (1 << ES);
+  for (int e = -ms - 9; e <= ms + 9; ++e)
+    for (long long i = 0; i < m; ++i)
+      for (uint32_t st = 0; st < 2; ++st)
+        for (uint32_t sg = 0; sg < 2; ++sg)
+          bad += pvu::encode_fields<N, ES>(sg, e, sig[i], st) !=
+                 posit::encode<N, ES>(sg, e, sig[i], st);
+  return bad;
+}
+
 }  // namespace
+
+extern "C" long long host_encode(int nbits, int es, const uint32_t* sig, long long m) {
+#define ENC(N, ES) if (nbits == N && es == ES) return enc<N, ES>(sig, m);
+  ENC(32, 2) ENC(16, 2) ENC(16, 1) ENC(8, 2) ENC(8, 0)
+#undef ENC
+  return -1;
+}
 
 #define PVU_DISPATCH(CALL)                                   \
   if (nbits == 32 && es == 2) { CALL(32, 2); return 0; }     \
@@ -178,6 +201,8 @@ def lib(tmp_path_factory):
     lib.host_narrow.argtypes = [i, i, ptr, ptr, ll]
     lib.host_place.argtypes = [i, i, ptr, ptr, ptr, ll]
     lib.host_place.restype = ll
+    lib.host_encode.argtypes = [i, i, ptr, ll]
+    lib.host_encode.restype = ll
     return lib
 
 
@@ -281,3 +306,21 @@ def test_narrow_decode_equals_codec_on_every_pattern(lib, cfg):
     want = posit_to_f32(to_storage(torch.from_numpy(p.astype(np.int64)),
                                    cfg.storage_dtype), cfg).numpy()
     np.testing.assert_array_equal(out.view(np.uint32), want.view(np.uint32))
+
+
+@pytest.mark.parametrize("cfg", CFGS, ids=lambda c: c.name)
+def test_encode_fields_equals_posit_encode(lib, cfg):
+    """``pvu::encode_fields`` (the kernels' encode on 32-bit words) gives
+    ``posit::encode``'s pattern for every exponent from 9 past each end
+    of the config's range, both signs and stickies, and 2^14 significands:
+    seeded ones with the hidden bit, without it, every run of trailing
+    ones and zeros, and every significand of one or two set bits (the
+    ties of the rounding)."""
+    rng = np.random.default_rng(cfg.nbits * 10 + cfg.es)
+    runs = [(1 << 32) - (1 << k) for k in range(33)] + [(1 << k) - 1 for k in range(33)]
+    runs += [(1 << j) | (1 << k) for j in range(32) for k in range(j, 32)]
+    sig = np.concatenate([
+        rng.integers(0, 2 ** 31, 1 << 13, dtype=np.uint64) | (1 << 31),
+        rng.integers(0, 2 ** 32, (1 << 14) - (1 << 13) - 2 * len(runs), dtype=np.uint64),
+        np.array(runs, np.uint64), np.array(runs, np.uint64) | (1 << 31)]).astype(np.uint32)
+    assert lib.host_encode(cfg.nbits, cfg.es, sig.ctypes.data, sig.size) == 0

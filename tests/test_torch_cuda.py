@@ -379,6 +379,91 @@ def test_dot_kernel_bit_exact_on_card(dev, cfg, length):
     assert _eq(posit_dot.vpdot_rows(a.to(dev), b.to(dev), cfg), want)
 
 
+def test_dot_whole_cta_rows_at_scale_on_card(dev):
+    """The whole-CTA width on 8 192 conv-length rows (thousands of CTAs
+    in flight, so a race between its warps over the reduction's shared
+    memory would show), three times, against the row-block width and
+    the plain version."""
+    cfg = POSIT32
+    a = _specials(cfg, _pats(cfg, (8192, 147), 11), 3).to(dev)
+    b = _specials(cfg, _pats(cfg, (8192, 147), 12), 4).to(dev)
+    want = posit_dot.vpdot_rows_plain(a, b, cfg).cpu()
+    assert _eq(posit_dot.vpdot_rows(a, b, cfg), want)
+    for _ in range(3):
+        call, out = posit_dot.vpdot_rows_call(a, b, cfg, group=256)
+        assert call() == 0 and _eq(out, want)
+
+
+_EW_OPS = [("add", "nr3"), ("sub", "nr3"), ("mul", "nr3"), ("div", "nr3"), ("div", "exact")]
+
+
+def _specials(cfg, x, seed):
+    """``x`` with zero, NaR, maxpos and minpos planted at seeded places."""
+    s = signed_view(x.clone()).reshape(-1)
+    idx = torch.from_numpy(np.random.default_rng(seed).choice(s.numel(), 4, replace=False))
+    s[idx] = signed_view(torch.tensor([0, cfg.nar_pattern, cfg.maxpos_pattern, 1]).to(
+        cfg.storage_dtype))
+    return s.reshape(x.shape).view(cfg.storage_dtype)
+
+
+@pytest.mark.parametrize("cfg", CONFIGS, ids=lambda c: c.name)
+@pytest.mark.parametrize("op,mode", _EW_OPS, ids=[f"{o}_{m}" for o, m in _EW_OPS])
+def test_elementwise_operand_modes_on_card(dev, cfg, op, mode):
+    """Full, scalar (both sides) and row (both sides, C = 37, no multiple
+    of a vector) operands; views at odd element offsets (scalar loads in
+    the vector loop); a shape of several grid strides with a ragged tail;
+    every special as the scalar.  The plain version runs on the card."""
+    for shape, seed in (((301, 37), 5), ((4099, 37 * 9), 6)):
+        a = _specials(cfg, _pats(cfg, shape, seed), seed).to(dev)
+        b = _specials(cfg, _pats(cfg, shape, seed + 1), seed + 1).to(dev)
+        row = _pats(cfg, (shape[1],), seed + 2).to(dev)
+        cases = [(a, b), (b[:1, :1], a), (a, b[:1, :1]), (row, b), (a, row)]
+        wide = signed_view(_pats(cfg, (a.numel() + 3,), seed + 3)).to(dev)
+        cases.append((wide[1:1 + a.numel()].view(cfg.storage_dtype).view(shape), b))
+        cases.append((a, wide[3:3 + b.numel()].view(cfg.storage_dtype).view(shape)))
+        for sp in (0, cfg.nar_pattern, cfg.maxpos_pattern, 1):
+            s = torch.tensor([sp]).to(cfg.storage_dtype).to(dev)
+            cases += [(s, b), (a, s)]
+        for x, y in cases:
+            want = posit_ew.elementwise_plain(x, y, cfg, op, mode)
+            assert _eq(posit_ew.elementwise(x, y, cfg, op, mode), want.cpu())
+
+
+def test_elementwise_call_and_launch_count_on_card(dev):
+    a, b = _pats(POSIT16, (512, 130), 7).to(dev), _pats(POSIT16, (130,), 8).to(dev)
+    before = posit_ew.launches["posit_ew"]
+    want = posit_ew.elementwise(a, b, POSIT16, "add")
+    assert posit_ew.launches["posit_ew"] == before + 1
+    call, out = posit_ew.elementwise_call(a, b, POSIT16, "add")
+    assert call() == 0 and posit_ew.launches["posit_ew"] == before + 1
+    assert _eq(out, want.cpu())
+
+
+@pytest.mark.parametrize("cfg", CONFIGS, ids=lambda c: c.name)
+@pytest.mark.parametrize("length", [1, 16, 80, 81, 147, 160, 161, 320, 321, 4095, 4096,
+                                    4097, 9000])
+def test_dot_group_widths_on_card(dev, cfg, length):
+    """The wrapper's group width at the edges of each range; 37 rows (no
+    multiple of a row block); zero and NaR; operands as views at odd
+    element offsets (ragged heads and tails of every staged span); and
+    the whole-CTA width forced on the short rows."""
+    rows = 37
+    a = _specials(cfg, _pats(cfg, (rows, length), length), 1).to(dev)
+    b = _specials(cfg, _pats(cfg, (rows, length), length + 1), 2).to(dev)
+    want = posit_dot.vpdot_rows_plain(a, b, cfg).cpu()
+    assert _eq(posit_dot.vpdot_rows(a, b, cfg), want)
+    wa = torch.zeros(rows * length + 1, dtype=torch.int64, device=dev)
+    wb = torch.zeros(rows * length + 5, dtype=torch.int64, device=dev)
+    sa, sb = signed_view(wa.to(signed_view(a).dtype)), signed_view(wb.to(signed_view(b).dtype))
+    sa[1:] = signed_view(a).reshape(-1)
+    sb[5:] = signed_view(b).reshape(-1)
+    va = sa[1:].view(rows, length).view(cfg.storage_dtype)
+    vb = sb[5:].view(rows, length).view(cfg.storage_dtype)
+    assert _eq(posit_dot.vpdot_rows(va, vb, cfg), want)
+    call, out = posit_dot.vpdot_rows_call(va, vb, cfg, group=256)
+    assert call() == 0 and _eq(out, want)
+
+
 @pytest.mark.parametrize("cfg", [POSIT8, POSIT16, POSIT32], ids=lambda c: c.name)
 @pytest.mark.parametrize("mkn", [(5, 37, 7), (33, 129, 19), (16, 4097, 16),
                                  (3, 8193, 70), (17, 12289, 65), (16, 17920, 64)])

@@ -25,7 +25,13 @@ paths at full size and checks that every kernel of each path ran there:
                                    # paged_attn_mla.cu, posit_gemm.cu,
                                    # posit_paged_write.cu,
                                    # posit_paged_read.cu, posit_qgemm.cu,
-                                   # posit_ew.cu and posit_dot.cu
+                                   # posit_ew.cu, posit_dot.cu and
+                                   # posit_codec.cu
+
+Before the paths it checks and times the codec's quantize and dequantize
+at the shapes the ISA phases give them, and the fused write's decode
+launch on the card's own clock (``torch.profiler``) beside its launch
+floor (an empty kernel through the same C call).
 
 Prints the card's name and power limit, per-kernel checks and timings,
 the serving reports, the accuracy table, a JSON line with every
@@ -143,28 +149,19 @@ def time_ms(fn, iters=20, warmup=3):
 
 
 def kernel_alone_ms(call, n=100):
-    """Device time of one launch alone: ``n`` back-to-back calls of the
-    loaded library function on preallocated outputs (``call`` from a
-    wrapper's ``*_call``), bracketed by one event pair, divided by
-    ``n``; the wrapper's Python checks and allocations are outside."""
-    for _ in range(3):
-        if call() != 0:
-            fail("a kernel-alone launch returned a CUDA error")
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(n):
-        call()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / n
+    """Time of one launch alone (``repro_torch.launch.timing``): ``n``
+    back-to-back calls of the loaded library function on preallocated
+    outputs, one event pair, divided by ``n``."""
+    from repro_torch.launch.timing import kernel_alone_ms as alone
+    return alone(call, n)
 
 
 def check_codec(dev):
-    """Every posit16 and posit8 pattern decoded, a seeded f32 sweep with
-    specials encoded: bit-exact against the plain versions."""
-    from repro_torch.core.types import POSIT8, POSIT16
+    """Every posit16 and posit8 pattern decoded; a seeded f32 sweep with
+    specials encoded in all five configs, whole and as a view at an odd
+    element offset (a ragged head, a source off the output's vectors):
+    bit-exact against the plain versions."""
+    from repro_torch.core.types import CONFIGS, POSIT8, POSIT16, signed_view
     from repro_torch.kernels import posit_codec as C
 
     rng = np.random.default_rng(0)
@@ -182,47 +179,100 @@ def check_codec(dev):
               f"{bad} mismatches")
         if bad:
             fail(f"posit_dequantize {cfg.name} not bit-exact")
-        got = C.quantize(x.to(dev), cfg).cpu()
-        bad = int((got != C.quantize_plain(x, cfg)).sum())
-        print(f"codec {cfg.name}: encode {x.numel()} f32 values, "
-              f"{bad} mismatches")
+    for cfg in CONFIGS:
+        bad = 0
+        for off in (0, 3):
+            got = C.quantize(x.to(dev)[off:], cfg).cpu()
+            bad += int((signed_view(got) != signed_view(C.quantize_plain(x[off:], cfg))).sum())
+        print(f"codec {cfg.name}: encode {x.numel()} f32 values (and the view at "
+              f"element 3), {bad} mismatches")
         if bad:
             fail(f"posit_quantize {cfg.name} not bit-exact")
 
 
-def time_codec(dev, cfg):
-    """Kernel vs plain times: quantize at a prefill chunk's K (8 rows x
-    16 tokens x 10 heads x 128), dequantize at one leaf of the chunked-
-    prefill arena read (8 x 1024 slots x 10 x 128; that read now runs
-    through the fused ``posit_paged_read``)."""
-    from repro_torch.core.types import signed_view
+def codec_shapes(dev):
+    """The shapes the ISA phases give the codec, with phase-like data
+    from seeds: name -> (cfg, tensor).  Quantize: P3's weight (17 920 x
+    5 120 posit16, ``randn`` / sqrt(17 920)), P2's images (8 x 3 x 224^2
+    posit32, integers 0-127 x 0.02) and bias (64 posit32, integers x
+    0.005).  Dequantize: P2's conv output (95 048 x 64 posit32), P3's
+    output (16 x 5 120 posit16)."""
+    from repro_torch.core.types import POSIT16, POSIT32
     from repro_torch.kernels import posit_codec as C
 
     gen = torch.Generator(device=dev).manual_seed(1)
-    x = torch.randn((8, 16, 10, 128), generator=gen, device=dev)
-    p = C.quantize_plain(torch.randn((8, 1024, 10, 128), generator=gen,
-                                     device=dev), cfg)
+    quant = {
+        "p3_weight": (POSIT16, torch.randn((17920, 5120), generator=gen, device=dev)
+                      * 17920 ** -0.5),
+        "p2_images": (POSIT32, torch.randint(0, 128, (8, 3, 224, 224), generator=gen,
+                                             device=dev).float() * 0.02),
+        "p2_bias": (POSIT32, torch.randint(-127, 128, (64,), generator=gen,
+                                           device=dev).float() * 0.005)}
+    dequant = {
+        "p2_conv_out": (POSIT32, C.quantize_plain(torch.randn((95048, 64), generator=gen,
+                                                              device=dev), POSIT32)),
+        "p3_out": (POSIT16, C.quantize_plain(torch.randn((16, 5120), generator=gen,
+                                                         device=dev), POSIT16))}
+    return quant, dequant
+
+
+def time_codec(dev):
+    """Rows 1 and 2 at the shapes the phases launch (``codec_shapes``):
+    wrapper time, alone (the ``*_call`` helpers), plain, and both bounds,
+    bytes (each input read once, each output written once) and operations
+    (the encode's or decode's fewest, at the integer issue rate); each
+    output checked bit for bit against the plain version.  A row's main
+    numbers are its largest shape's (P3's weight, P2's conv output)."""
+    from repro_torch.core.types import signed_view
+    from repro_torch.kernels import posit_codec as C
+
+    quant, dequant = codec_shapes(dev)
     rows = []
-    for name, fn, plain, arg, in_b, out_b, replaces in (
-            ("posit_quantize", C.quantize, C.quantize_plain, x, 4, 2,
-             "src/repro/kernels/posit_codec.py:46"),
-            ("posit_dequantize", C.dequantize, C.dequantize_plain, p, 2, 4,
-             "src/repro/kernels/posit_codec.py:61")):
-        got, ref = fn(arg, cfg), plain(arg, cfg)
-        exact = torch.equal(signed_view(got), signed_view(ref)) \
-            if got.dtype != torch.float32 else \
-            torch.equal(got.view(torch.int32), ref.view(torch.int32))
-        if not exact:
-            fail(f"{name} differs from its plain version at {tuple(arg.shape)}")
-        n = arg.numel()
-        nbytes = n * (in_b + out_b)
+    for name, fn, call_of, plain, shapes, ops, replaces in (
+            ("posit_quantize", C.quantize, C.quantize_call, C.quantize_plain, quant,
+             OPS_ENCODE, "src/repro/kernels/posit_codec.py:46"),
+            ("posit_dequantize", C.dequantize, C.dequantize_call, C.dequantize_plain, dequant,
+             OPS_DECODE, "src/repro/kernels/posit_codec.py:61")):
+        by_shape = {}
+        for key, (cfg, arg) in shapes.items():
+            got, ref = fn(arg, cfg), plain(arg, cfg)
+            exact = torch.equal(signed_view(got), signed_view(ref)) \
+                if got.dtype != torch.float32 else \
+                torch.equal(got.view(torch.int32), ref.view(torch.int32))
+            if not exact:
+                fail(f"{name} differs from its plain version at {key} {tuple(arg.shape)}")
+            del got, ref
+            n = arg.numel()
+            nbytes = n * (arg.element_size() + (cfg.nbits // 8 if name == "posit_quantize"
+                                                 else 4))
+            call, out = call_of(arg, cfg)
+            # a PyTorch cast that moves the same bytes (f32 read and 1-4 B
+            # written, or the reverse): the memory's pace in practice
+            cast = torch.empty(out.shape, dtype={1: torch.uint8, 2: torch.bfloat16,
+                                                 4: torch.float32}[out.element_size()],
+                               device=dev)
+            src = arg if arg.dtype == torch.float32 else signed_view(arg).view(
+                {1: torch.uint8, 2: torch.bfloat16, 4: torch.float32}[arg.element_size()])
+            r = dict(shape=list(arg.shape), cfg=cfg.name,
+                     ms=time_ms(lambda: fn(arg, cfg)), kernel_ms=kernel_alone_ms(call),
+                     same_bytes_cast_alone_ms=kernel_alone_ms(lambda: (cast.copy_(src), 0)[1]),
+                     plain_ms=time_ms(lambda: plain(arg, cfg), iters=3),
+                     bytes_bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                     ops_bound_ms=n * ops / INT_OPS * 1e3, **_bound(nbytes, n * ops, INT_OPS))
+            by_shape[key] = r
+            del out, cast
+            print(f"{name} {key} {r['shape']} {cfg.name}: {r['ms']:.4f} ms, alone "
+                  f"{r['kernel_ms']:.4f} ms (bounds: bytes {r['bytes_bound_ms']:.4f} ms, "
+                  f"operations {r['ops_bound_ms']:.4f} ms; a cast of the same bytes alone "
+                  f"{r['same_bytes_cast_alone_ms']:.4f} ms; plain {r['plain_ms']:.3f} ms)")
+        main = next(iter(by_shape.values()))
         rows.append(dict(
             name=name, route="cuda", source="src/repro_torch/csrc/posit_codec.cu",
-            replaces=replaces, launches=0, max_abs_err=0.0,
-            ms=time_ms(lambda: fn(arg, cfg)),
-            plain_ms=time_ms(lambda: plain(arg, cfg), iters=5),
-            bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
-            library_ms=None, shape=list(arg.shape)))
+            replaces=replaces, launches=0, max_abs_err=0.0, library_ms=None,
+            **{k: main[k] for k in ("ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+                                    "bytes_bound_ms", "ops_bound_ms", "shape")},
+            shapes=by_shape))
+    del quant, dequant
     return rows
 
 
@@ -486,7 +536,8 @@ def check_paged_write(dev):
     at the main path's launches: a decode token's two leaves, and a
     prefill chunk's leaf of all 40 (phi3) or 62 (minicpm3) layers; dropped
     rows and sentinel entries leave their slots untouched.  Returns the
-    kernel row, timed on the posit16 dense case's arenas and jobs."""
+    kernel row, timed on the posit16 dense case's arenas and jobs, and
+    the function that adds its profiler readings (``time_paged_write``)."""
     from repro_torch.core.types import POSIT8, POSIT16, signed_view
     from repro_torch.kernels import posit_codec as C
     from repro_torch.models import layers as L
@@ -530,9 +581,9 @@ def check_paged_write(dev):
                      "quantize_plain + the masked scatter")
             del got, want
             if cfg is POSIT16 and lane == "dense":
-                row = time_paged_write(k, cfg)
+                row, profile = time_paged_write(k, cfg)
             del k
-    return row
+    return row, profile
 
 
 def time_paged_write(k, cfg):
@@ -540,8 +591,12 @@ def time_paged_write(k, cfg):
     token (K and V of one layer) and one leaf of a prefill chunk (40
     layers x 8 rows x 16 tokens), wrapper-timed and alone, beside the old
     pair timed the same ways; the byte bound counts the kept rows' bf16
-    sources read and posit16 patterns written, and the destinations."""
+    sources read and posit16 patterns written, and the destinations.
+    Returns the row and a function that adds both launches' device times
+    from ``torch.profiler``: called after the serving paths, so that no
+    profiler session precedes their walls."""
     from repro_torch.kernels import posit_codec as C
+    from repro_torch.launch.timing import device_ms
     from repro_torch.models import layers as L
 
     slots, index, pslots = k["slots"], k["index"], k["pslots"]
@@ -577,12 +632,21 @@ def time_paged_write(k, cfg):
         replaces="src/repro/kernels/posit_codec.py:46", launches=0, max_abs_err=0.0,
         ms=time_ms(lambda: C.paged_write(jobs, slots, cfg)),
         kernel_ms=kernel_alone_ms(C.paged_write_call(jobs, slots, cfg)),
+        # an empty kernel through the same C call: with the 2-job table of
+        # this launch, and (a third job) with the 128-job table
+        floor_ms=kernel_alone_ms(C.paged_write_call(jobs, slots, cfg, floor=True)),
+        floor_128_ms=kernel_alone_ms(C.paged_write_call(jobs + jobs[:1], slots, cfg,
+                                                        floor=True)),
         old_pair_ms=time_ms(old),
         old_pair_alone_ms=kernel_alone_ms(lambda: (old(), 0)[1]),
         plain_ms=time_ms(lambda: C.paged_write_plain(jobs, slots, cfg), iters=5),
         **_bound(2 * kept * width * (2 + 2) + slots.numel() * 8, 0, FP32_FLOPS),
         library_ms=None, shape=[2, int(slots.numel())] + list(k["one"][0].shape[1:]),
         prefill=prefill)
+
+    print(f"posit_paged_write decode: launch floor {row['floor_ms']:.4f} ms alone (an empty "
+          f"kernel through the same call; {row['floor_128_ms']:.4f} ms with the 128-job "
+          f"table)")
     print(f"posit_paged_write decode (K and V, 8 rows x 1 280): {row['ms']:.4f} ms, "
           f"alone {row['kernel_ms']:.4f} ms; old quantize + scatter pair "
           f"{row['old_pair_ms']:.4f} ms, alone {row['old_pair_alone_ms']:.4f} ms. "
@@ -590,7 +654,19 @@ def time_paged_write(k, cfg):
           f"alone {prefill['kernel_ms']:.4f} ms; old {prefill['old_pair_ms']:.4f} "
           f"ms, alone {prefill['old_pair_alone_ms']:.4f} ms (bound "
           f"{prefill['bound_ms']:.5f} ms)")
-    return row
+
+    def profile():
+        row["device_ms"] = device_ms(C.paged_write_call(jobs, slots, cfg), "paged_write_kernel")
+        prefill["device_ms"] = device_ms(C.paged_write_call(pjobs, pslots, cfg),
+                                         "paged_write_kernel")
+
+        def ms4(t):
+            return "not measured" if t is None else f"{t:.4f} ms"
+
+        print(f"posit_paged_write device time (torch.profiler, after the serving paths): "
+              f"decode {ms4(row['device_ms'])}, prefill leaf {ms4(prefill['device_ms'])}")
+
+    return row, profile
 
 
 def read_case(dev, cfg, lane, seed):
@@ -1394,7 +1470,7 @@ def ptxas_report():
     flags = [f for f in _build.NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
     with tempfile.TemporaryDirectory() as tmp:
         for src in ("paged_attn", "paged_attn_mla", "posit_gemm", "posit_paged_write",
-                    "posit_paged_read", "posit_qgemm", "posit_ew", "posit_dot"):
+                    "posit_paged_read", "posit_qgemm", "posit_ew", "posit_dot", "posit_codec"):
             res = subprocess.run(
                 [_build.nvcc_path(), *flags, "-Xptxas", "-v", "-c", "-I", str(_build.CSRC),
                  "-o", os.path.join(tmp, f"{src}.o"), str(_build.CSRC / f"{src}.cu")],
@@ -1438,7 +1514,6 @@ def run(pool):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    from repro_torch.core.types import POSIT16
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
@@ -1447,10 +1522,11 @@ def run(pool):
           f"({', '.join(_build.SOURCES)})")
 
     check_codec(dev)
-    rows = time_codec(dev, POSIT16)
+    rows = time_codec(dev)
     rows.append(check_attention(dev))
     rows.append(check_attention_mla(dev))
-    rows.append(check_paged_write(dev))
+    write_row, profile_write = check_paged_write(dev)
+    rows.append(write_row)
     gc.collect()
     torch.cuda.empty_cache()
     rows.append(check_paged_read(dev))
@@ -1515,6 +1591,8 @@ def run(pool):
         torch.cuda.empty_cache()
     ew_row["bias_vadd"] = ew_bias
     rows.append(ew_row)
+    profile_write()
+    del profile_write
     for kernel in ("posit_ew", "posit_dot", "posit_qgemm", "posit_gemm"):
         if not any(c[kernel] > 0 for p, c in by_path.items()
                    if p in ("conv", "dense", "cache")):

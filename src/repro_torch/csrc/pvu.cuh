@@ -111,13 +111,14 @@ POSIT_HD Pir decode(uint32_t p) {
   return r;
 }
 
-// posit::encode (core/pir.py::encode) on 32-bit words.  The pattern
-// reads the top N + 1 bits of posit::encode's 64-bit stream (the body and
-// the round bit) and an OR of the bits below them, so the stream's top
-// word and a sticky of its low word give the same pattern for every
-// N <= 32.  The regime (at most 32 bits: |exp| is clamped to (N - 2)
-// 2^ES) lies in the top word; the exponent field and the fraction
-// straddle the two words.
+// core/pir.py::encode on 32-bit words.  The pattern reads the top N + 1
+// bits of that encode's 64-bit stream (the body and the round bit) and an
+// OR of the bits below them, so the stream's top word and a sticky of its
+// low word give the same pattern for every N <= 32.  The regime (at most
+// 32 bits: |exp| is clamped to (N - 2) 2^ES) lies in the top word; the
+// exponent field and the fraction straddle the two words.  The 64-bit
+// stream form is the reference in tests/test_torch_csrc_host.py that
+// test_encode_fields_equals_posit_encode holds this one to.
 template <int N, int ES>
 POSIT_HD uint32_t encode_fields(uint32_t sign, int exp, uint32_t sig, uint32_t sticky) {
   const uint32_t mask = N < 32 ? ((1u << N) - 1u) : 0xFFFFFFFFu;

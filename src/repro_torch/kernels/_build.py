@@ -97,12 +97,14 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     P, I, LL, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
         ctypes.c_float
     if name == "posit_codec":
+        lib.posit_quantize.argtypes = [I, I, P, P, LL, I, P]
+        lib.posit_dequantize.argtypes = [I, I, P, P, LL, P]
         for fn in (lib.posit_quantize, lib.posit_dequantize):
-            fn.argtypes = [I, I, P, P, LL, P]
             fn.restype = I
     elif name == "posit_paged_write":
-        lib.posit_paged_write.argtypes = [I, I, I, P, P, P, P, LL, LL, P]
-        lib.posit_paged_write.restype = I
+        for fn in (lib.posit_paged_write, lib.posit_paged_write_floor):
+            fn.argtypes = [I, I, I, P, P, P, P, LL, LL, P]
+            fn.restype = I
     elif name == "posit_paged_read":
         lib.posit_paged_read.argtypes = [I, I, I, P, P, P, P, I, I, P, P, P,
                                          I, I, I, I, P]

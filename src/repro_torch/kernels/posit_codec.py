@@ -6,18 +6,21 @@ Replaces ``repro/kernels/posit_codec.py`` ``quantize_2d`` /
 elementwise, so these wrappers take a contiguous tensor of any shape.
 
 Bound on the H100: memory -- posit16 moves 6 B per element (4 B f32 in,
-2 B pattern out, or the reverse; posit32 8 B, posit8 5 B); the bit
-manipulation is a few dozen integer ops per element.  The kernel is one
-coalesced grid-stride pass, for the five configs of ``core/types.py``.
+2 B pattern out, or the reverse; posit32 8 B, posit8 5 B).  The quantize
+runs 16-byte vector passes on a persistent grid, its encode a table
+entry per sign and exponent in shared memory and one 32-bit rounding
+(``csrc/posit_quant.cuh``); the dequantize is one coalesced grid-stride
+pass.  Both cover the five configs of ``core/types.py``.
 
 On the serving path the quantize is fused into the paged KV write
-(:func:`paged_write`, ``csrc/posit_paged_write.cu``): one launch
-quantizes a token's (or a prefill chunk's) KV rows and stores the
-patterns straight into their arena slots, dropping masked and sentinel
-writes on the device.  The dequantize is fused into the chunked-prefill
-arena read (:func:`paged_read`, ``csrc/posit_paged_read.cu``): one
-launch gathers a layer's two leaves through the chunk's virtual table,
-decodes them and zeroes the slots that are not resident.
+(:func:`paged_write`, ``csrc/posit_paged_write.cu``, the same encode):
+one launch quantizes a token's (or a prefill chunk's) KV rows and stores
+the patterns straight into their arena slots, dropping masked and
+sentinel writes on the device.  The dequantize is fused into the
+chunked-prefill arena read (:func:`paged_read`,
+``csrc/posit_paged_read.cu``): one launch gathers a layer's two leaves
+through the chunk's virtual table, decodes them and zeroes the slots
+that are not resident.
 
 On a CPU tensor the wrappers run the plain versions (``core.convert``);
 on a CUDA tensor they launch the kernel or raise.
@@ -47,21 +50,33 @@ def dequantize_plain(p: torch.Tensor, cfg: PositConfig) -> torch.Tensor:
     return posit_to_f32(p, cfg)
 
 
+def _codec_call(t: torch.Tensor, cfg: PositConfig, quant: bool):
+    """Checks, the output and the C call of one quantize (``quant``) or
+    dequantize of a CUDA tensor: ``(call, out)``."""
+    what = "quantize" if quant else "dequantize"
+    _build.check_cfg(cfg, what)
+    want = torch.float32 if quant else cfg.storage_dtype
+    if t.device.type != "cuda" or t.dtype != want or not t.is_contiguous():
+        raise ValueError(f"{what} needs a contiguous {want} CUDA tensor, got "
+                         f"{t.dtype} on {t.device} (contiguous={t.is_contiguous()})")
+    out = torch.empty(t.shape, dtype=cfg.storage_dtype if quant else torch.float32,
+                      device=t.device)
+    lib = _build.load("posit_codec")
+    stream = torch.cuda.current_stream(t.device).cuda_stream
+    if quant:
+        args = (cfg.nbits, cfg.es, t.data_ptr(), out.data_ptr(), t.numel(),
+                _build.sm_count(t.device), stream)
+        return (lambda: lib.posit_quantize(*args)), out
+    args = (cfg.nbits, cfg.es, t.data_ptr(), out.data_ptr(), t.numel(), stream)
+    return (lambda: lib.posit_dequantize(*args)), out
+
+
 def quantize(x: torch.Tensor, cfg: PositConfig) -> torch.Tensor:
     """f32 tensor -> posit patterns (``cfg.storage_dtype``), same shape."""
     if x.device.type == "cpu":
         return quantize_plain(x, cfg)
-    _build.check_cfg(cfg, "quantize")
-    if x.device.type != "cuda" or x.dtype != torch.float32 \
-            or not x.is_contiguous():
-        raise ValueError(f"quantize needs a contiguous float32 CUDA tensor, "
-                         f"got {x.dtype} on {x.device} "
-                         f"(contiguous={x.is_contiguous()})")
-    out = torch.empty(x.shape, dtype=cfg.storage_dtype, device=x.device)
-    lib = _build.load("posit_codec")
-    rc = lib.posit_quantize(cfg.nbits, cfg.es, x.data_ptr(), out.data_ptr(),
-                            x.numel(), torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(rc, "posit_quantize")
+    call, out = _codec_call(x, cfg, True)
+    _build.check(call(), "posit_quantize")
     launches["posit_quantize"] += 1
     return out
 
@@ -70,19 +85,22 @@ def dequantize(p: torch.Tensor, cfg: PositConfig) -> torch.Tensor:
     """Posit patterns (``cfg.storage_dtype``) -> f32 tensor, same shape."""
     if p.device.type == "cpu":
         return dequantize_plain(p, cfg)
-    _build.check_cfg(cfg, "dequantize")
-    if p.device.type != "cuda" or p.dtype != cfg.storage_dtype \
-            or not p.is_contiguous():
-        raise ValueError(f"dequantize needs a contiguous {cfg.storage_dtype} "
-                         f"CUDA tensor, got {p.dtype} on {p.device} "
-                         f"(contiguous={p.is_contiguous()})")
-    out = torch.empty(p.shape, dtype=torch.float32, device=p.device)
-    lib = _build.load("posit_codec")
-    rc = lib.posit_dequantize(cfg.nbits, cfg.es, p.data_ptr(), out.data_ptr(),
-                              p.numel(), torch.cuda.current_stream(p.device).cuda_stream)
-    _build.check(rc, "posit_dequantize")
+    call, out = _codec_call(p, cfg, False)
+    _build.check(call(), "posit_dequantize")
     launches["posit_dequantize"] += 1
     return out
+
+
+def quantize_call(x: torch.Tensor, cfg: PositConfig):
+    """For timing the quantize alone: ``(call, out)``, where ``call()``
+    launches the kernel into ``out`` and returns the CUDA error code.
+    Not counted in ``launches``; CUDA tensors only."""
+    return _codec_call(x, cfg, True)
+
+
+def dequantize_call(p: torch.Tensor, cfg: PositConfig):
+    """:func:`quantize_call` for the dequantize."""
+    return _codec_call(p, cfg, False)
 
 
 # ---------------------------------------------------------------------------
@@ -137,9 +155,9 @@ def _check_devices(jobs, slots):
     return dev
 
 
-def _paged_write_call(jobs, slots, cfg):
+def _paged_write_call(jobs, slots, cfg, floor=False):
     """Checks and the C call of one fused write (returns its CUDA error
-    code)."""
+    code); with ``floor``, the same call of an empty kernel."""
     if (cfg.nbits, cfg.es) not in _PAGED_CFGS:
         raise ValueError(f"paged_write: the kernel takes posit16 and posit8 "
                          f"(es 2), got {cfg}")
@@ -171,7 +189,8 @@ def _paged_write_call(jobs, slots, cfg):
                              f"{(rows,) + tuple(arena.shape[2:])}, every "
                              f"source of one dtype; got {src.dtype} "
                              f"{tuple(src.shape)}")
-    fn = _build.load("posit_paged_write").posit_paged_write
+    fn = getattr(_build.load("posit_paged_write"),
+                 "posit_paged_write_floor" if floor else "posit_paged_write")
     n = len(jobs)
     srcs = (ctypes.c_void_p * n)(*[s.data_ptr() for _, s in jobs])
     arenas = (ctypes.c_void_p * n)(*[a.data_ptr() for a, _ in jobs])
@@ -199,11 +218,13 @@ def paged_write(jobs, slots: torch.Tensor, cfg: PositConfig) -> None:
     launches["posit_paged_write"] += 1
 
 
-def paged_write_call(jobs, slots: torch.Tensor, cfg: PositConfig):
+def paged_write_call(jobs, slots: torch.Tensor, cfg: PositConfig, floor: bool = False):
     """For timing the fused write alone: ``call()`` launches the kernel
-    once more on the same jobs and returns the CUDA error code.  Not
-    counted in ``launches``; CUDA tensors only."""
-    return _paged_write_call(jobs, slots, cfg)
+    once more on the same jobs and returns the CUDA error code; with
+    ``floor``, an empty kernel with the same job table and grid through
+    the same C call (the launch floor).  Not counted in ``launches``;
+    CUDA tensors only."""
+    return _paged_write_call(jobs, slots, cfg, floor)
 
 
 # ---------------------------------------------------------------------------

@@ -1,25 +1,38 @@
-"""Time ``csrc/posit_ew.cu`` and ``csrc/posit_dot.cu`` alone against a
-second build of the two sources from another tree, at the shapes of
-``chip_smoke.py``'s rows, in one process on one card; and count their
-SASS instructions.
+"""Time the port's kernels alone against a second build of their sources
+from another tree, in one process on one card, and count their SASS
+instructions.
 
   git archive <commit> src/repro_torch/csrc | tar -x -C build/other
   PYTHONPATH=src python -m repro_torch.launch.ew_dot_ab \\
-      build/other/src/repro_torch/csrc
+      build/other/src/repro_torch/csrc [--quantizers]
 
-The other tree's sources are the designs before vector passes and staged
-rows, with their C interface: ``posit_elementwise(nbits, es, op, a, b,
-out, n, na, nb, stream)`` (operands read at ``i % na``) and
-``posit_dot_rows(nbits, es, a, b, out, rows, len, stream)``.
+Without ``--quantizers``: ``csrc/posit_ew.cu`` and ``csrc/posit_dot.cu``
+against the designs before vector passes and staged rows, with their C
+interface: ``posit_elementwise(nbits, es, op, a, b, out, n, na, nb,
+stream)`` (operands read at ``i % na``) and ``posit_dot_rows(nbits, es, a,
+b, out, rows, len, stream)``.  Shapes (random patterns from seeds): a
+``vmul`` by 0.5 on one phi3 arena layer (512, 16, 10, 128) posit16 and on
+a whole 40-layer leaf, the conv's bias ``vadd`` (95 048, 64) + (64,)
+posit32, a ``vdiv`` exact of two layers, and the conv's dot (65 536 rows
+of 147 posit32).
 
-Shapes (random patterns from seeds): a ``vmul`` by 0.5 on one phi3
-arena layer (512, 16, 10, 128) posit16 and on a whole 40-layer leaf,
-the conv's bias ``vadd`` (95 048, 64) + (64,) posit32, a ``vdiv`` exact
-of two layers, and the conv's dot (65 536 rows of 147 posit32).  Each
-kernel alone is ``n`` back-to-back launches on preallocated outputs
-between one CUDA event pair, divided by ``n``, in the turns other,
-this, this, other; the two builds' outputs must be equal bit for bit.
-Needs a CUDA card and ``nvcc``.  Prints the card line and one JSON line.
+With ``--quantizers``: the two quantizers, ``csrc/posit_codec.cu``'s
+quantize and ``csrc/posit_paged_write.cu``, against the designs before
+the shared table encode (a thread an element through the 64-bit stream
+encode; ``posit_quantize(nbits, es, x, out, n, stream)``, the write's C
+interface unchanged).  Shapes: the quantize at P3's weight
+(17 920 x 5 120 posit16), P2's images (8 x 3 x 224^2 posit32) and bias
+(64 posit32); the write at a phi3 decode step's K and V (2 jobs x 8 rows
+x 1 280, bf16 into posit16, one row dropped) and a prefill leaf (40
+layers x 128 rows, 37 dropped), with both builds' device times from
+``torch.profiler`` and, for the decode write, the launch floor (an empty
+kernel through the same C call), ten pairs in turns with the 2- and the
+128-job table.
+
+Each kernel alone is ``n`` back-to-back launches on preallocated outputs
+between one CUDA event pair, divided by ``n``, in the turns other, this,
+this, other; the builds' outputs must be equal bit for bit.  Needs a CUDA card
+and ``nvcc``.  Prints the card line and one JSON line.
 """
 from __future__ import annotations
 
@@ -38,15 +51,18 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import posit_codec as C
 from repro_torch.kernels import posit_dot as D
 from repro_torch.kernels import posit_ew as E
+from repro_torch.launch.timing import device_ms, kernel_alone_ms as alone_ms
 
 _OTHER = ("posit_ew", "posit_dot")
+_QUANT = ("posit_codec", "posit_paged_write")
 
 
-def build_other(csrc: Path, out_dir: Path) -> dict:
-    """The other tree's two sources, built as the checkout's are."""
+def build_other(csrc: Path, out_dir: Path, names=_OTHER) -> dict:
+    """Sources ``names`` of the tree ``csrc``, built as the checkout's are
+    into ``other_<name>.so``."""
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name in _OTHER:
+    for name in names:
         so = out_dir / f"other_{name}.so"
         procs[name] = (so, subprocess.Popen(
             [_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", str(csrc), "-o", str(so),
@@ -56,29 +72,22 @@ def build_other(csrc: Path, out_dir: Path) -> dict:
     for name, (so, proc) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc {name}.cu of the other tree failed:\n{log}")
+            raise RuntimeError(f"nvcc {name}.cu of {csrc} failed:\n{log}")
         libs[name] = ctypes.CDLL(str(so))
     P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    libs["posit_ew"].posit_elementwise.argtypes = [I, I, I, P, P, P, LL, LL, LL, P]
-    libs["posit_ew"].posit_elementwise.restype = I
-    libs["posit_dot"].posit_dot_rows.argtypes = [I, I, P, P, P, LL, LL, P]
-    libs["posit_dot"].posit_dot_rows.restype = I
+    if "posit_ew" in libs:
+        libs["posit_ew"].posit_elementwise.argtypes = [I, I, I, P, P, P, LL, LL, LL, P]
+        libs["posit_ew"].posit_elementwise.restype = I
+    if "posit_dot" in libs:
+        libs["posit_dot"].posit_dot_rows.argtypes = [I, I, P, P, P, LL, LL, P]
+        libs["posit_dot"].posit_dot_rows.restype = I
+    if "posit_codec" in libs:      # the other tree's quantize takes no SM count
+        libs["posit_codec"].posit_quantize.argtypes = [I, I, P, P, LL, P]
+        libs["posit_codec"].posit_quantize.restype = I
+    if "posit_paged_write" in libs:
+        libs["posit_paged_write"].posit_paged_write.argtypes = [I, I, I, P, P, P, P, LL, LL, P]
+        libs["posit_paged_write"].posit_paged_write.restype = I
     return libs
-
-
-def alone_ms(call, n: int) -> float:
-    for _ in range(2):
-        if call() != 0:
-            raise RuntimeError("a kernel-alone launch returned a CUDA error")
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(n):
-        call()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / n
 
 
 def _random(cfg, shape, seed, dev):
@@ -143,6 +152,104 @@ def run(other_csrc: Path) -> dict:
     return res
 
 
+def quant_cases(dev):
+    """name -> (cfg, f32 source, launches timed) of the quantize rows, and
+    (arena leaf, decode jobs and slots, prefill jobs and slots) of the
+    write rows, phase- and serving-like values from seeds."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    quant = {
+        "p3_weight": (POSIT16, torch.randn((17920, 5120), generator=gen, device=dev)
+                      * 17920 ** -0.5, 20),
+        "p2_images": (POSIT32, torch.randint(0, 128, (8, 3, 224, 224), generator=gen,
+                                             device=dev).float() * 0.02, 100),
+        "p2_bias": (POSIT32, torch.randint(-127, 128, (64,), generator=gen,
+                                           device=dev).float() * 0.005, 100)}
+    n_layers, nb, bs, feat = 40, 512, 16, (10, 128)
+    leaves = [torch.randint(-2 ** 15, 2 ** 15, (n_layers, nb, bs) + feat, generator=gen,
+                            device=dev, dtype=torch.int16).view(torch.uint16)
+              for _ in range(2)]
+    perm = torch.randperm(nb * bs, generator=gen, device=dev)
+    slots = perm[:8].clone()
+    slots[3] = -1                                        # an inactive row
+    n_valid = torch.tensor([16, 16, 3, 0, 16, 8, 16, 16], device=dev)
+    pslots = perm[8:8 + 128].clone().view(8, 16)
+    pslots[torch.arange(16, device=dev)[None, :] >= n_valid[:, None]] = -1
+    one = [torch.randn((8,) + feat, generator=gen, device=dev).to(torch.bfloat16)
+           for _ in range(2)]
+    chunk = torch.randn((n_layers, 128) + feat, generator=gen, device=dev).to(torch.bfloat16)
+    write = {"decode": (leaves, lambda arenas: [(a[0], x) for a, x in zip(arenas, one)],
+                        slots),
+             "prefill_leaf": (leaves[:1], lambda arenas: [(arenas[0][li], chunk[li])
+                                                         for li in range(n_layers)],
+                              pslots.reshape(-1).contiguous())}
+    return quant, write
+
+
+def _write_call(fn, jobs, slots, cfg, stream):
+    """A call of a ``posit_paged_write`` C entry on ``jobs``."""
+    n = len(jobs)
+    args = (cfg.nbits, 1, n, (ctypes.c_void_p * n)(*[x.data_ptr() for _, x in jobs]),
+            (ctypes.c_void_p * n)(*[a.data_ptr() for a, _ in jobs]),
+            (ctypes.c_int * n)(*[a[0, 0].numel() for a, _ in jobs]), slots.data_ptr(),
+            slots.numel(), jobs[0][0].shape[0] * jobs[0][0].shape[1], stream)
+    return lambda: fn(*args)
+
+
+def run_quantizers(other_csrc: Path) -> dict:
+    """The quantizers in turns against the other tree's build; outputs
+    equal bit for bit."""
+    dev = torch.device("cuda")
+    other = build_other(other_csrc, _build.BUILD_DIR / "other", _QUANT)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    quant, write = quant_cases(dev)
+    res = {}
+
+    def turns(calls, n):
+        t = [alone_ms(c, n) for c in (calls[0], calls[1], calls[1], calls[0])]
+        return dict(other_ms=(t[0] + t[3]) / 2, ms=(t[1] + t[2]) / 2, turns=t)
+
+    for name, (cfg, x, n) in quant.items():
+        call, out = C.quantize_call(x, cfg)
+        o_out = torch.empty_like(out)
+        o_call = lambda: other["posit_codec"].posit_quantize(      # noqa: E731
+            cfg.nbits, cfg.es, x.data_ptr(), o_out.data_ptr(), x.numel(), stream)
+        res[name] = dict(turns([o_call, call], n), shape=list(x.shape), cfg=cfg.name,
+                         equal=_same(out, o_out))
+        del out, o_out
+    for name, (leaves, jobs_of, slots) in write.items():
+        outs = {}
+        for tag, fn in (("this", None), ("other", other["posit_paged_write"].posit_paged_write)):
+            arenas = [a.clone() for a in leaves]
+            call = C.paged_write_call(jobs_of(arenas), slots, POSIT16) if fn is None else \
+                _write_call(fn, jobs_of(arenas), slots, POSIT16, stream)
+            if call() != 0:
+                raise RuntimeError(f"the {tag} paged write failed")
+            outs[tag] = (arenas, call)
+        equal = all(_same(a, b) for a, b in zip(outs["this"][0], outs["other"][0]))
+        res[name] = dict(turns([outs[t][1] for t in ("other", "this")], 100),
+                         shape=[len(jobs_of(leaves)), slots.numel(), 10, 128],
+                         kept_rows=int((slots >= 0).sum()), cfg="posit16e2", equal=equal,
+                         device_ms={t: device_ms(outs[t][1], "paged_write_kernel")
+                                    for t in ("other", "this")})
+        if name == "decode":
+            # the launch floor: an empty kernel through the same C call, with
+            # this launch's 2-job table and (a third job) the 128-job one,
+            # ten pairs in turns 2, 128, 128, 2, ...
+            jobs = jobs_of(outs["this"][0])
+            floors = (C.paged_write_call(jobs, slots, POSIT16, floor=True),
+                      C.paged_write_call(jobs + jobs[:1], slots, POSIT16, floor=True))
+            pairs = []
+            for i in range(10):
+                t = [alone_ms(floors[(i + k) % 2], 100) for k in (0, 1)]
+                pairs.append(t if i % 2 == 0 else t[::-1])
+            res[name].update(floor_pairs=pairs,
+                             floor_ms=sum(p[0] for p in pairs) / 10,
+                             floor_128_ms=sum(p[1] for p in pairs) / 10,
+                             floor_2_faster=sum(p[0] < p[1] for p in pairs))
+        del outs
+    return res
+
+
 def _functions(sass: str) -> dict:
     """cuobjdump -sass text -> {mangled function: [(address, instruction)]}."""
     funcs, cur = {}, None
@@ -193,13 +300,55 @@ def sass_counts(lib: Path, want) -> dict:
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("other_csrc", type=Path, help="the other tree's csrc directory")
+    ap.add_argument("--quantizers", action="store_true",
+                    help="the quantize and the fused paged write instead of ew and dot")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("ew_dot_ab needs a CUDA card")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
     print(smi.stdout.strip())
-    res = run(args.other_csrc)
+    if args.quantizers:
+        res = run_quantizers(args.other_csrc)
+        res["sass"] = quantizer_sass()
+    else:
+        res = ew_dot(args.other_csrc)
+    print(json.dumps(res))
+    if not all(v["equal"] for k, v in res.items() if k != "sass"):
+        sys.exit("the builds disagree")
+
+
+def quantizer_sass() -> dict:
+    """SASS counts of the quantizers' hot instances (posit16 and posit32
+    quantize; the bf16 -> posit16 write with the 2- and the 128-job
+    table) in this build and the other tree's, with
+    the longest loop's instructions per element (a trip of the loop
+    encodes 16 elements a thread in the quantize, 32 a lane in the
+    write; one in the other tree's kernels)."""
+    paths = _build.build_all()
+    out = _build.BUILD_DIR / "other"
+    this_q = {"quantize16": ("15quantize_kernel", "ILi16ELi2Et"),
+              "quantize32": ("15quantize_kernel", "ILi32ELi2Ej")}
+    this_w = {"write16_bf16_jobs2": ("paged_write_kernel", "ILi16EttLi2E"),
+              "write16_bf16_jobs128": ("paged_write_kernel", "ILi16EttLi128E")}
+    res = {"posit_codec": sass_counts(paths["posit_codec"], this_q),
+           "posit_paged_write": sass_counts(paths["posit_paged_write"], this_w),
+           "other_posit_codec": sass_counts(out / "other_posit_codec.so", this_q),
+           "other_posit_paged_write": sass_counts(out / "other_posit_paged_write.so", {
+               "write16_bf16": ("paged_write_kernel", "ILi16Et13__nv_bfloat16E")})}
+    for lib, tags in res.items():
+        per_trip = 1 if lib.startswith("other") else (16 if "codec" in lib else 32)
+        for entries in tags.values():
+            for e in entries:
+                e["loop_per_element"] = e["longest_loop"] / per_trip
+                e["loop_alu_per_element"] = e["loop_alu"] / per_trip
+    return res
+
+
+def ew_dot(other_csrc: Path) -> dict:
+    """posit_ew and posit_dot in turns against the other tree's, with
+    their SASS counts."""
+    res = run(other_csrc)
     paths = _build.build_all()
     # the hot instantiations: posit16 vmul by a scalar (full x scalar),
     # the posit32 bias add (full x row), posit16 exact division (full x
@@ -219,9 +368,7 @@ def main(argv=None):
         "other_posit_dot": sass_counts(_build.BUILD_DIR / "other" / "other_posit_dot.so", {
             "dot32": ("dot_kernel", "ILi32ELi2E")}),
     }
-    print(json.dumps(res))
-    if not all(v["equal"] for k, v in res.items() if k != "sass"):
-        sys.exit("the two builds disagree")
+    return res
 
 
 if __name__ == "__main__":

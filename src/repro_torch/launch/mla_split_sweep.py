@@ -20,6 +20,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels import posit_codec as C
 from repro_torch.kernels import posit_paged_attn as K
+from repro_torch.launch.timing import kernel_alone_ms
 from repro_torch.models import layers as L
 
 
@@ -46,21 +47,6 @@ def minicpm3_case(dev, kv: str = "posit16", seed: int = 4):
     q_lat = torch.randn((b, h, rank), generator=gen, device=dev)
     q_rope = torch.randn((b, h, rope), generator=gen, device=dev)
     return (q_lat, q_rope, c, r, tables, apos, lens), pcfg
-
-
-def kernel_alone_ms(call, n: int = 100) -> float:
-    for _ in range(3):
-        if call() != 0:
-            raise RuntimeError("paged_decode_attention_mla launch failed")
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(n):
-        call()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / n
 
 
 def main(argv=None) -> dict:

@@ -10,7 +10,10 @@ posit32; its word-level placement ``place_add`` (the kernels' hot
 loop) is held to ``place_product`` product by product.
 ``csrc/posit_narrow.cuh``, the decode inside the paged
 attention and posit-weight gemm kernels, is held to the codec on every
-pattern of the four configs of at most 16 bits.  This is the only check
+pattern of the four configs of at most 16 bits; ``csrc/posit.cuh``'s
+f32 encode, the quantizers' (a table entry per sign and exponent, one
+rounding), to ``core.convert.f32_to_posit`` on every exponent and, in
+posit8 and posit16, around every rounding midpoint.  This is the only check
 of the kernels' arithmetic that runs without the card; skipped where
 ``g++`` is missing.
 """
@@ -23,7 +26,7 @@ import pytest
 import torch
 
 from repro_torch.core import posit as P
-from repro_torch.core.convert import posit_to_f32
+from repro_torch.core.convert import f32_to_posit, posit_to_f32
 from repro_torch.core.types import (POSIT8, POSIT8_E0, POSIT16, POSIT16_E1,
                                     POSIT32, signed_view, to_storage)
 from repro_torch.kernels import _build
@@ -47,6 +50,44 @@ _SHIM = r"""
 #include "pvu.cuh"
 
 namespace {
+
+// PIR -> posit pattern with round-to-nearest-even (core/pir.py::encode) on
+// a 64-bit stream: the reference form pvu::encode_fields is held to
+template <int N, int ES>
+inline uint32_t encode(uint32_t sign, int exp, uint32_t sig, uint32_t sticky) {
+  const uint32_t mask = N < 32 ? ((1u << N) - 1u) : 0xFFFFFFFFu;
+  const uint32_t maxpos = (1u << (N - 1)) - 1u;
+  const int max_scale = (N - 2) * (1 << ES);
+  const bool too_big = exp > max_scale;
+  const bool too_small = exp < -max_scale;
+  const int expc = posit::clampi(exp, -max_scale, max_scale);
+  // floor division by 2^es without shifting a negative value
+  const int r = expc >= 0 ? (expc >> ES) : -((-expc + (1 << ES) - 1) >> ES);
+  const int e = expc - r * (1 << ES);
+
+  const int reg_len = r >= 0 ? r + 2 : 1 - r;
+  uint32_t v_reg = 1u;
+  if (r >= 0) v_reg = (r + 2 >= 32) ? 0xFFFFFFFEu : (posit::sll32(2u, r + 1) - 2u);
+
+  uint64_t stream = posit::sll64(v_reg, 64 - reg_len);
+  if (ES > 0) stream |= posit::sll64(static_cast<uint32_t>(e), 64 - reg_len - ES);
+  const uint32_t frac31 = sig & 0x7FFFFFFFu;
+  const int fsh = 33 - reg_len - ES;                 // fraction LSB position
+  stream |= fsh >= 0 ? posit::sll64(frac31, fsh) : posit::srl64(frac31, -fsh);
+  if (fsh < 0 && (frac31 & (posit::sll32(1u, -fsh) - 1u)) != 0u) sticky = 1u;
+  stream |= sticky;
+
+  const uint32_t body = static_cast<uint32_t>(posit::srl64(stream, 64 - (N - 1)));
+  const uint32_t round_bit = static_cast<uint32_t>(posit::srl64(stream, 64 - N) & 1ull);
+  const uint32_t sticky_rest = (stream & (posit::sll64(1ull, 64 - N) - 1ull)) != 0ull;
+  uint32_t p = body + (round_bit & (sticky_rest | (body & 1u)));
+  p = p > maxpos ? maxpos : p;                       // never past maxpos
+  p = p < 1u ? 1u : p;                               // never to zero
+  if (too_big) p = maxpos;
+  if (too_small) p = 1u;
+  if (sign) p = (~p + 1u) & mask;
+  return p;
+}
 
 template <int N, int ES>
 void ew(int op, const uint32_t* a, const uint32_t* b, uint32_t* o, long long n) {
@@ -117,7 +158,7 @@ long long place(const uint32_t* a, const uint32_t* b, const int* delta, long lon
   return bad;
 }
 
-// pvu::encode_fields against posit::encode on every exponent of the
+// pvu::encode_fields against encode on every exponent of the
 // config's range and past it, each significand, both stickies and signs;
 // returns the count of differing patterns
 template <int N, int ES>
@@ -129,18 +170,25 @@ long long enc(const uint32_t* sig, long long m) {
       for (uint32_t st = 0; st < 2; ++st)
         for (uint32_t sg = 0; sg < 2; ++sg)
           bad += pvu::encode_fields<N, ES>(sg, e, sig[i], st) !=
-                 posit::encode<N, ES>(sg, e, sig[i], st);
+                 encode<N, ES>(sg, e, sig[i], st);
   return bad;
 }
 
-}  // namespace
-
-extern "C" long long host_encode(int nbits, int es, const uint32_t* sig, long long m) {
-#define ENC(N, ES) if (nbits == N && es == ES) return enc<N, ES>(sig, m);
-  ENC(32, 2) ENC(16, 2) ENC(16, 1) ENC(8, 2) ENC(8, 0)
-#undef ENC
-  return -1;
+// f32 -> pattern both ways: ``direct`` computes each element's entry in
+// place (posit::f32_to_posit), ``table`` reads it from the 512 entries
+// posit::f32_fill writes, as the kernels do
+template <int N, int ES>
+void f32(const uint32_t* bits, uint32_t* direct, uint32_t* table, long long n) {
+  posit::F32Entry lut[512];
+  for (uint32_t e = 0; e < 256; ++e) posit::f32_fill<N, ES>(lut, e);
+  const uint32_t mask = N < 32 ? (1u << N) - 1u : 0xFFFFFFFFu;
+  for (long long i = 0; i < n; ++i) {
+    direct[i] = posit::f32_to_posit<N, ES>(bits[i]);
+    table[i] = posit::f32_round<N>(lut[bits[i] >> 23], bits[i]) & mask;
+  }
 }
+
+}  // namespace
 
 #define PVU_DISPATCH(CALL)                                   \
   if (nbits == 32 && es == 2) { CALL(32, 2); return 0; }     \
@@ -149,6 +197,21 @@ extern "C" long long host_encode(int nbits, int es, const uint32_t* sig, long lo
   if (nbits == 8 && es == 2) { CALL(8, 2); return 0; }       \
   if (nbits == 8 && es == 0) { CALL(8, 0); return 0; }       \
   return 1;
+
+extern "C" int host_f32(int nbits, int es, const uint32_t* bits, uint32_t* direct,
+                        uint32_t* table, long long n) {
+#define CALL(N, ES) f32<N, ES>(bits, direct, table, n)
+  PVU_DISPATCH(CALL)
+#undef CALL
+}
+
+extern "C" long long host_encode(int nbits, int es, const uint32_t* sig, long long m) {
+#define ENC(N, ES) if (nbits == N && es == ES) return enc<N, ES>(sig, m);
+  ENC(32, 2) ENC(16, 2) ENC(16, 1) ENC(8, 2) ENC(8, 0)
+#undef ENC
+  return -1;
+}
+
 
 extern "C" int host_ew(int nbits, int es, int op, const uint32_t* a,
                        const uint32_t* b, uint32_t* o, long long n) {
@@ -203,6 +266,7 @@ def lib(tmp_path_factory):
     lib.host_place.restype = ll
     lib.host_encode.argtypes = [i, i, ptr, ll]
     lib.host_encode.restype = ll
+    lib.host_f32.argtypes = [i, i, ptr, ptr, ptr, ll]
     return lib
 
 
@@ -311,7 +375,7 @@ def test_narrow_decode_equals_codec_on_every_pattern(lib, cfg):
 @pytest.mark.parametrize("cfg", CFGS, ids=lambda c: c.name)
 def test_encode_fields_equals_posit_encode(lib, cfg):
     """``pvu::encode_fields`` (the kernels' encode on 32-bit words) gives
-    ``posit::encode``'s pattern for every exponent from 9 past each end
+    the 64-bit stream encode's pattern for every exponent from 9 past each end
     of the config's range, both signs and stickies, and 2^14 significands:
     seeded ones with the hidden bit, without it, every run of trailing
     ones and zeros, and every significand of one or two set bits (the
@@ -324,3 +388,49 @@ def test_encode_fields_equals_posit_encode(lib, cfg):
         rng.integers(0, 2 ** 32, (1 << 14) - (1 << 13) - 2 * len(runs), dtype=np.uint64),
         np.array(runs, np.uint64), np.array(runs, np.uint64) | (1 << 31)]).astype(np.uint32)
     assert lib.host_encode(cfg.nbits, cfg.es, sig.ctypes.data, sig.size) == 0
+
+
+def _f32_sweep(cfg):
+    """Every f32 biased exponent with both signs and seeded mantissas
+    (and mantissas 0, 1 and all ones); for posit8 and posit16 both f32
+    neighbours of every midpoint between adjacent patterns, the midpoint
+    itself where f32 holds it (the ties), on both signs; zeros,
+    subnormals, +-inf and NaNs."""
+    rng = np.random.default_rng(cfg.nbits * 10 + cfg.es + 1)
+    e8 = np.arange(512, dtype=np.uint32)[:, None] << 23
+    man = np.concatenate([rng.integers(0, 1 << 23, (512, 61), dtype=np.uint64).astype(np.uint32),
+                          np.tile(np.array([0, 1, 2, (1 << 22), (1 << 23) - 1], np.uint32),
+                                  (512, 1))], axis=1)
+    parts = [(e8 | man).ravel()]
+    if cfg.nbits <= 16:
+        pats = np.arange(1, 1 << (cfg.nbits - 1), dtype=np.int64)       # minpos..maxpos
+        v = posit_to_f32(to_storage(torch.from_numpy(pats), cfg.storage_dtype),
+                         cfg).numpy().astype(np.float64)
+        mid = ((v[:-1] + v[1:]) / 2).astype(np.float32)
+        near = np.concatenate([np.nextafter(mid, np.float32(0)), mid,
+                               np.nextafter(mid, np.float32(np.inf))])
+        parts += [near.view(np.uint32), (-near).view(np.uint32)]
+    special = np.array([0.0, -0.0, np.inf, -np.inf, np.nan, -np.nan, 1e-45, -1e-45,
+                        1.1754942e-38, -1.1754942e-38, 5.9e-39, 3.4028235e38,
+                        -3.4028235e38], np.float32).view(np.uint32)
+    parts += [special, np.array([0x7F800001, 0xFFC00001, 0x7FFFFFFF, 0x00000001,
+                                 0x807FFFFF, 0x00400000], np.uint32)]
+    return np.concatenate(parts)
+
+
+@pytest.mark.parametrize("cfg", CFGS, ids=lambda c: c.name)
+def test_f32_encode_equals_codec(lib, cfg):
+    """The quantizers' encode (``csrc/posit.cuh``: a table entry per sign
+    and biased exponent and one 32-bit rounding) gives
+    ``core.convert.f32_to_posit``'s pattern on the whole sweep, both with
+    the entry computed in place (``f32_to_posit``) and read from the
+    512-entry table ``f32_fill`` writes, as the kernels read it."""
+    bits = _f32_sweep(cfg)
+    direct, table = np.empty_like(bits), np.empty_like(bits)
+    assert lib.host_f32(cfg.nbits, cfg.es, bits.ctypes.data, direct.ctypes.data,
+                        table.ctypes.data, bits.size) == 0
+    want = signed_view(f32_to_posit(torch.from_numpy(bits.view(np.float32).copy()), cfg)
+                       ).to(torch.int64).numpy().astype(np.uint32) & cfg.mask
+    for got in (direct, table):
+        bad = np.nonzero(got != want)[0][:5]
+        assert bad.size == 0, [(hex(int(bits[i])), int(got[i]), int(want[i])) for i in bad]

@@ -300,6 +300,87 @@ def test_paged_write_matches_quantize_and_scatter_on_card(dev, cfg, src, window)
             assert torch.equal(signed_view(g.cpu()), signed_view(x))
 
 
+@pytest.mark.parametrize("cfg", CONFIGS, ids=lambda c: c.name)
+def test_quantize_misaligned_views_on_card(dev, cfg):
+    """The quantize on contiguous views at element offsets 1-7 of their
+    buffers (a ragged head, a source not aligned with the output's 16-byte
+    vectors), lengths below one vector, at one and past one CTA's chunk."""
+    rng = np.random.default_rng(cfg.nbits + cfg.es)
+    for n in (1, 7, 16, 17, 1531, 100_003):
+        bits = rng.integers(0, 2**32, n + 8, dtype=np.uint64).astype(np.uint32)
+        x = torch.from_numpy(bits.view(np.float32).copy())
+        x[::3] = torch.from_numpy(rng.standard_normal(x[::3].numel()).astype(np.float32))
+        for off in range(8):
+            xv = x.to(dev)[off:off + n]
+            got = posit_codec.quantize(xv, cfg)
+            assert _eq(got, posit_codec.quantize_plain(xv.cpu(), cfg)), (n, off)
+            call, out = posit_codec.quantize_call(xv, cfg)
+            assert call() == 0
+            assert _eq(out, posit_codec.quantize_plain(xv.cpu(), cfg))
+
+
+@pytest.mark.parametrize("shape,cfg", [((17920, 5120), POSIT16), ((8, 3, 224, 224), POSIT32),
+                                       ((64,), POSIT32), ((16, 17920), POSIT16)],
+                         ids=["p3-weight", "p2-images", "p2-bias", "p3-activations"])
+def test_quantize_at_phase_shapes_on_card(dev, shape, cfg):
+    """The quantize at the shapes the ISA phases launch it (P3's 91.75 M
+    weight, P2's images and bias), N(0, 1) values and a spread of
+    exponents, against the plain version on the card."""
+    gen = torch.Generator(device=dev).manual_seed(sum(shape))
+    x = torch.randn(shape, generator=gen, device=dev)
+    x = x * torch.exp2(torch.randint(-20, 20, shape, generator=gen, device=dev).float())
+    assert _eq(posit_codec.quantize(x, cfg), posit_codec.quantize_plain(x, cfg).cpu())
+
+
+@pytest.mark.parametrize("cfg", [POSIT16, POSIT8], ids=["posit16", "posit8"])
+@pytest.mark.parametrize("src", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_paged_write_main_path_shapes_and_views_on_card(dev, cfg, src):
+    """The fused write at the main path's shapes (a decode step's K and V,
+    8 rows x 10 x 128; MLA's 256 and 32; a prefill leaf of 40 layers x 128
+    rows x 1 280), at 32 and 64 jobs of 16 rows (2 and 4 rows a CTA), with
+    dropped rows, and on arenas and sources that are views at odd element
+    offsets with a width of 20 (no whole vectors), against
+    ``paged_write_plain``."""
+    rng = np.random.default_rng(cfg.nbits)
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def leaf(n_layers, nb, bs, feat, off=0):
+        n = n_layers * nb * bs * int(np.prod(feat))
+        half = 1 << (cfg.nbits - 1)
+        flat = torch.randint(-half, half, (n + off,), generator=gen, device=dev,
+                             dtype={16: torch.int16, 8: torch.int8}[cfg.nbits])
+        return flat.view(cfg.storage_dtype)[off:].view((n_layers, nb, bs) + feat)
+
+    def check(jobs, slots):
+        want = [(a.clone(), x) for a, x in jobs]
+        posit_codec.paged_write_plain(want, slots, cfg)
+        posit_codec.paged_write(jobs, slots, cfg)
+        for (g, _), (w, _) in zip(jobs, want):
+            assert torch.equal(signed_view(g), signed_view(w))
+
+    nb, bs = 64, 16
+    slots = torch.from_numpy(rng.permutation(nb * bs)[:8].astype(np.int64)).to(dev)
+    slots[3], slots[5] = -1, nb * bs
+    for feats in (((10, 128), (10, 128)), ((256,), (32,))):
+        arenas = [leaf(1, nb, bs, f) for f in feats]
+        check([(a[0], torch.randn((8,) + f, generator=gen, device=dev).to(src))
+               for a, f in zip(arenas, feats)], slots)
+    pslots = torch.from_numpy(rng.permutation(nb * bs)[:128].astype(np.int64)).to(dev)
+    pslots[::7] = -1
+    arena = leaf(40, nb, bs, (10, 128))
+    chunk = torch.randn((40, 128, 10, 128), generator=gen, device=dev).to(src)
+    check([(arena[li], chunk[li]) for li in range(40)], pslots)
+    for n_jobs in (32, 64):                          # 2 and 4 rows a CTA
+        arena = leaf(n_jobs, nb, bs, (10, 128))
+        chunk = torch.randn((n_jobs, 16, 10, 128), generator=gen, device=dev).to(src)
+        check([(arena[li], chunk[li]) for li in range(n_jobs)], pslots[:16])
+    for a_off, s_off in ((1, 0), (0, 3), (5, 1)):
+        arenas = [leaf(1, nb, bs, (20,), a_off) for _ in range(2)]
+        xs = [torch.randn(8 * 20 + s_off, generator=gen, device=dev).to(src)[s_off:].view(8, 20)
+              for _ in range(2)]
+        check([(a[0], x) for a, x in zip(arenas, xs)], slots)
+
+
 @pytest.mark.parametrize("lane", ["dense", "mla"])
 def test_decode_steps_fused_write_leave_same_arena_on_card(dev, lane, monkeypatch):
     """A few ``decode_step`` calls with posit16 KV leave the same arena

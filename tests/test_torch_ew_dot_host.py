@@ -1,26 +1,25 @@
 """``csrc/posit_ew.cu`` and ``csrc/posit_dot.cu`` themselves, run on the host.
 
 The two kernels compile with ``g++`` against a small stand-in for the
-CUDA runtime (``_STUB`` below, written next to the build): a launch runs
-each CTA in turn as ``blockDim.x`` threads, ``__syncthreads`` is a
-barrier of the CTA's threads, a warp shuffle goes through an exchange
-array between two barriers of the warp's threads, dynamic shared memory
-is one buffer (filled with a junk pattern before every CTA) and static
-``__shared__`` arrays are function statics; the sources copy with
-``memcpy`` where the card runs ``cp.async``.  Their C entry points then
-take CPU tensors' addresses, and the results must equal the plain
-versions (``posit_ew.elementwise_plain``, ``posit_dot.vpdot_rows_plain``)
-bit for bit, and on a subset the reference's Pallas kernels in
-interpret mode.  This runs the kernels' indexing -- operand modes, the
-ragged head and tail of 16-byte vectors, misaligned views, row blocks
-and group widths, tile staging and the in-order fold -- where no card
-is; the arithmetic is ``csrc/pvu.cuh``'s, checked exhaustively in
-``test_torch_csrc_host.py``.  Skipped where ``g++`` is missing.
+CUDA runtime (``cuda_host_stub.py``, shared with the quantizers' host
+run): a launch runs each CTA in turn as ``blockDim.x`` threads,
+``__syncthreads`` is a barrier of the CTA's threads, a warp shuffle goes
+through an exchange array between two barriers of the warp's threads,
+dynamic shared memory is one buffer (filled with a junk pattern before
+every CTA) and static ``__shared__`` arrays are function statics; the
+sources copy with ``memcpy`` where the card runs ``cp.async``.  Their C
+entry points then take CPU tensors' addresses, and the results must
+equal the plain versions (``posit_ew.elementwise_plain``,
+``posit_dot.vpdot_rows_plain``) bit for bit, and on a subset the
+reference's Pallas kernels in interpret mode.  This runs the kernels'
+indexing -- operand modes, the ragged head and tail of 16-byte vectors,
+misaligned views, row blocks and group widths, tile staging and the
+in-order fold -- where no card is; the arithmetic is ``csrc/pvu.cuh``'s,
+checked exhaustively in ``test_torch_csrc_host.py``.  Skipped where
+``g++`` is missing.
 """
 import ctypes
-import re
 import shutil
-import subprocess
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -29,6 +28,7 @@ import torch
 
 import jax.numpy as jnp
 
+import cuda_host_stub
 from repro.core import types as RT
 from repro.kernels import posit_dot as RD
 from repro.kernels import posit_ew as RE
@@ -45,97 +45,6 @@ FULL, SCALAR, ROW = 0, 1, 2
 NP = {8: np.uint8, 16: np.uint16, 32: np.uint32}
 REF_CFG = {"posit8e2": RT.POSIT8, "posit16e2": RT.POSIT16, "posit32e2": RT.POSIT32}
 
-_STUB = r"""
-#pragma once
-#include <barrier>
-#include <cstddef>
-#include <cstdint>
-#include <cstring>
-#include <memory>
-#include <thread>
-#include <vector>
-
-#define __global__
-#define __device__
-#define __host__
-#define __forceinline__ inline
-#define __launch_bounds__(...)
-#define __shared__ static
-
-struct dim3 { unsigned x = 1, y = 1, z = 1; };
-struct alignas(16) uint4 { unsigned int x, y, z, w; };
-inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) { return {a, b, c, d}; }
-typedef struct CUstream_st* cudaStream_t;
-enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaErrorMisalignedAddress = 716 };
-enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
-
-inline thread_local dim3 threadIdx, blockIdx;
-inline dim3 blockDim, gridDim;
-
-namespace emu {
-inline cudaError_t last_error = cudaSuccess;
-inline std::barrier<>* cta_bar = nullptr;
-inline std::vector<std::unique_ptr<std::barrier<>>> warp_bars;
-inline uint32_t xchg[1024];
-alignas(16) inline unsigned char smem[1 << 17];
-
-inline uint32_t shfl_xor(uint32_t v, int off) {
-  const unsigned t = threadIdx.x;
-  xchg[t] = v;
-  warp_bars[t / 32]->arrive_and_wait();
-  const uint32_t r = xchg[(t & ~31u) | ((t & 31u) ^ static_cast<unsigned>(off))];
-  warp_bars[t / 32]->arrive_and_wait();
-  return r;
-}
-
-template <class F>
-void launch(unsigned grid, unsigned block, size_t smem_bytes, cudaStream_t, F fn) {
-  if (smem_bytes > sizeof(smem) || block % 32 != 0 || block > 1024 || grid == 0) {
-    last_error = cudaErrorInvalidValue;
-    return;
-  }
-  gridDim = {grid, 1, 1};
-  blockDim = {block, 1, 1};
-  std::barrier<> bar(block);
-  cta_bar = &bar;
-  warp_bars.clear();
-  for (unsigned w = 0; w < block / 32; ++w) warp_bars.push_back(std::make_unique<std::barrier<>>(32));
-  for (unsigned b = 0; b < grid; ++b) {
-    memset(smem, 0xA5, sizeof(smem));
-    std::vector<std::thread> ts;
-    for (unsigned t = 0; t < block; ++t)
-      ts.emplace_back([&, t, b] { threadIdx = {t, 1, 1}; blockIdx = {b, 1, 1}; fn(); });
-    for (auto& th : ts) th.join();
-  }
-  last_error = cudaSuccess;
-}
-}  // namespace emu
-
-inline void __syncthreads() { emu::cta_bar->arrive_and_wait(); }
-template <class T> inline T __ldg(const T* p) { return *p; }
-template <class T> inline T __shfl_xor_sync(unsigned, T v, int off) {
-  static_assert(sizeof(T) == 4, "32-bit shuffles only");
-  uint32_t u;
-  memcpy(&u, &v, 4);
-  u = emu::shfl_xor(u, off);
-  T r;
-  memcpy(&r, &u, 4);
-  return r;
-}
-inline cudaError_t cudaGetLastError() { return emu::last_error; }
-template <class F> inline cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return cudaSuccess; }
-"""
-
-
-def _for_host(src: str) -> str:
-    """A ``.cu`` source as C++ for the stub: the dynamic shared array is
-    the stub's buffer, a ``<<<...>>>`` launch a call of ``emu::launch``."""
-    src = re.sub(r"extern __shared__ [^;]*\b(\w+)\[\];",
-                 r"unsigned char* \1 = emu::smem;", src)
-    src, n = re.subn(r"(\w+)<<<(.*?)>>>\((.*?)\);",
-                     r"emu::launch(\2, [&] { \1(\3); });", src, flags=re.S)
-    assert n == 1, n
-    return src
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -154,19 +63,11 @@ def libs(tmp_path_factory):
     if gxx is None:
         pytest.skip("g++ not found: the host run of the kernels needs it")
     d = tmp_path_factory.mktemp("ew_dot_host")
-    (d / "cuda_runtime.h").write_text(_STUB)
-
-    def build(name):
-        (d / f"{name}.cpp").write_text(_for_host((_build.CSRC / f"{name}.cu").read_text()))
-        so = d / f"{name}.so"
-        res = subprocess.run([gxx, "-std=c++20", "-O1", "-pthread", "-shared", "-fPIC",
-                              "-I", str(d), "-I", str(_build.CSRC), "-o", str(so),
-                              str(d / f"{name}.cpp")], capture_output=True, text=True)
-        assert res.returncode == 0, res.stderr[-4000:]
-        return ctypes.CDLL(str(so))
+    (d / "cuda_runtime.h").write_text(cuda_host_stub.STUB)
 
     with ThreadPoolExecutor(2) as pool:
-        ew, dot = pool.map(build, ["posit_ew", "posit_dot"])
+        ew, dot = pool.map(lambda n: cuda_host_stub.build(gxx, d, _build.CSRC, n),
+                           ["posit_ew", "posit_dot"])
     P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     ew.posit_elementwise.argtypes = [I, I, I, P, I, I, P, I, I, P, LL, I, P]
     ew.posit_elementwise.restype = I

@@ -11,6 +11,16 @@ paths at full size and checks that every kernel of each path ran there:
   (MLA lane, ``paged_attn_mla.cu``) with prefix caching and deadlines
   on a shared-prefix trace, on an arena small enough that deadlines
   preempt;
+- the one-shot engine and the two unchunked schedulers at full width
+  and depth (``LINEAR_PATHS``): the one-shot engine on phi3-medium-14b
+  (a ragged batch on a linear posit16 cache: the codec's quantize at
+  every prefill, its dequantize of the whole cache at every decode
+  step, the fused write for the decode token; ``generate`` ==
+  ``generate_stepwise`` and two ragged rows against their singleton
+  generations on the card), the dense-cache scheduler on minicpm3-4b
+  (the MLA linear lane, compaction) and the unchunked paged scheduler
+  on phi3-medium-14b, each with exact launch counts per prefill and
+  decode step and the schedule pinned on the CPU;
 - the PVU ISA (``posit_ew.cu``, ``posit_dot.cu``, ``posit_qgemm.cu``,
   ``posit_gemm.cu``): the paper's verification workload
   (``configs/pvu_resnet_conv.py``, the ResNet-18 first conv on 8 images
@@ -29,9 +39,10 @@ paths at full size and checks that every kernel of each path ran there:
                                    # posit_codec.cu
 
 Before the paths it checks and times the codec's quantize and dequantize
-at the shapes the ISA phases give them, and the fused write's decode
-launch on the card's own clock (``torch.profiler``) beside its launch
-floor (an empty kernel through the same C call).
+at the shapes the ISA phases and the linear lanes give them, the fused
+write as the paged and the linear decode lanes launch it, and its
+decode launch on the card's own clock (``torch.profiler``) beside its
+launch floor (an empty kernel through the same C call).
 
 Prints the card's name and power limit, per-kernel checks and timings,
 the serving reports, the accuracy table, a JSON line with every
@@ -106,6 +117,44 @@ MAIN_PATHS = {
                      "--deadline-share", "0.25", "--n-blocks", "200"] + _TRACE,
                     ("posit_paged_write", "posit_paged_read",
                      "paged_decode_attention_mla")),
+}
+
+
+# The one-shot engine and the two unchunked schedulers, full width and
+# depth, through the reference's command line: (a) the one-shot engine on
+# phi3-medium-14b (a ragged batch of 8 prompts, a linear posit16 cache);
+# (b) the dense-cache scheduler on minicpm3-4b (the MLA linear lane, with
+# compaction); (c) the unchunked paged scheduler on phi3-medium-14b, on
+# the trace flags of (b).  Each kernel's launches must be exactly L (the
+# model's layers) times the per-prefill and per-decode-step counts given
+# here, and every other kernel must stay unlaunched.
+_SLICE9 = ["--batch", "8", "--prompt-len", "512", "--gen", "32", "--max-len", "1024",
+           "--kv-posit", "posit16", "--temperature", "0", "--seed", "0",
+           "--device", "cuda"]
+_UNCHUNKED = ["--continuous", "--n-requests", "16", "--arrival-rate", "0.5",
+              "--chunk-size", "16"] + _SLICE9
+_LINEAR_KERNELS = {"posit_quantize": (2, 0), "posit_paged_write": (0, 1),
+                   "posit_dequantize": (0, 2)}
+LINEAR_PATHS = {
+    "phi3-medium-14b-oneshot": (["--arch", "phi3-medium-14b", "--ragged"] + _SLICE9,
+                                _LINEAR_KERNELS),
+    "minicpm3-4b-dense": (["--arch", "minicpm3-4b"] + _UNCHUNKED, _LINEAR_KERNELS),
+    "phi3-medium-14b-unchunked": (
+        ["--arch", "phi3-medium-14b", "--paged", "--block-size", "16",
+         "--decode-kernel", "fused"] + _UNCHUNKED,
+        {"posit_quantize": (2, 0), "posit_paged_write": (0, 1),
+         "paged_decode_attention": (0, 1)}),
+}
+# The two schedulers' schedules on their traces (no EOS, so they do not
+# depend on the model): rounds, decode steps, compactions of the shared
+# frontier (moves to fit a longer prompt included), each request's
+# admission step.  tests/test_torch_scheduler_unchunked.py pins them on
+# the CPU with the model stubbed out.
+_ADMITTED = [2, 18, 18, 18, 18, 18, 18, 18, 34, 34, 50, 50, 50, 50, 50, 50]
+SCHEDULES = {
+    "minicpm3-4b-dense": dict(rounds=5, steps=82, compactions=3, admitted=_ADMITTED),
+    "phi3-medium-14b-unchunked": dict(rounds=5, steps=82, compactions=0,
+                                      admitted=_ADMITTED),
 }
 
 
@@ -191,12 +240,16 @@ def check_codec(dev):
 
 
 def codec_shapes(dev):
-    """The shapes the ISA phases give the codec, with phase-like data
-    from seeds: name -> (cfg, tensor).  Quantize: P3's weight (17 920 x
-    5 120 posit16, ``randn`` / sqrt(17 920)), P2's images (8 x 3 x 224^2
+    """The shapes the phases give the codec, with phase-like data from
+    seeds: name -> (cfg, tensor).  Quantize: P3's weight (17 920 x 5 120
+    posit16, ``randn`` / sqrt(17 920)), P2's images (8 x 3 x 224^2
     posit32, integers 0-127 x 0.02) and bias (64 posit32, integers x
-    0.005).  Dequantize: P2's conv output (95 048 x 64 posit32), P3's
-    output (16 x 5 120 posit16)."""
+    0.005); the linear prefill's KV of one layer, phi3's (8, 512, 10, 128)
+    and an admission's minicpm3 latent (1, 512, 256) and RoPE key
+    (1, 512, 32), posit16.  Dequantize: P2's conv output (95 048 x 64
+    posit32), P3's output (16 x 5 120 posit16); the linear decode's whole
+    cache leaf of one layer, phi3's (8, 1 024, 10, 128) and minicpm3's
+    (8, 1 024, 256) and (8, 1 024, 32), posit16."""
     from repro_torch.core.types import POSIT16, POSIT32
     from repro_torch.kernels import posit_codec as C
 
@@ -208,11 +261,20 @@ def codec_shapes(dev):
                                              device=dev).float() * 0.02),
         "p2_bias": (POSIT32, torch.randint(-127, 128, (64,), generator=gen,
                                            device=dev).float() * 0.005)}
+    for key, shape in (("phi3_linear_prefill", (8, 512, 10, 128)),
+                       ("mla_prefill_latent", (1, 512, 256)),
+                       ("mla_prefill_rope", (1, 512, 32))):
+        quant[key] = (POSIT16, torch.randn(shape, generator=gen, device=dev))
     dequant = {
         "p2_conv_out": (POSIT32, C.quantize_plain(torch.randn((95048, 64), generator=gen,
                                                               device=dev), POSIT32)),
         "p3_out": (POSIT16, C.quantize_plain(torch.randn((16, 5120), generator=gen,
                                                          device=dev), POSIT16))}
+    for key, shape in (("phi3_linear_decode", (8, 1024, 10, 128)),
+                       ("mla_linear_latent", (8, 1024, 256)),
+                       ("mla_linear_rope", (8, 1024, 32))):
+        dequant[key] = (POSIT16, C.quantize_plain(torch.randn(shape, generator=gen,
+                                                              device=dev), POSIT16))
     return quant, dequant
 
 
@@ -518,6 +580,55 @@ def write_case(dev, cfg, lane, seed):
                 pslots=L.paged_pack_slots(tables, pos, pos + n_valid, c, **geo).reshape(-1))
 
 
+def check_linear_write(dev):
+    """The fused write as the linear decode lanes launch it: one layer's
+    two phi3 leaves (8, 1 024, 10, 128) posit16, each seen as an arena
+    of 8 blocks of 1 024 slots, and bf16 rows written at the shared
+    frontier; against its plain version bit for bit, also on a 48-slot
+    window ring past a wrap and at a frontier past the capacity (every
+    write dropped, the leaves unchanged).  Returns its times on the
+    first case, beside the byte bound."""
+    from repro_torch.core.types import POSIT16, signed_view
+    from repro_torch.kernels import posit_codec as C
+    from repro_torch.models import layers as L
+
+    cfg, b = POSIT16, 8
+    gen = torch.Generator(device=dev).manual_seed(9)
+    ok, timed = True, None
+    for t, pos, ring in ((1024, 700, False), (48, 1000, True), (1024, 1024, False)):
+        leaves = [torch.randint(-32768, 32768, (b, t, 10, 128), generator=gen, device=dev,
+                                dtype=torch.int16).view(torch.uint16) for _ in range(2)]
+        rows = [torch.randn((b, 10, 128), generator=gen, device=dev).to(torch.bfloat16)
+                for _ in range(2)]
+        slots = L.linear_write_slots(b, t, pos, ring=ring, device=dev)
+        got, want = [a.clone() for a in leaves], [a.clone() for a in leaves]
+        C.paged_write(list(zip(got, rows)), slots, cfg)
+        C.paged_write_plain(list(zip(want, rows)), slots, cfg)
+        ok = ok and all(torch.equal(signed_view(g), signed_view(w)) for g, w in zip(got, want))
+        if pos >= t and not ring:
+            ok = ok and all(torch.equal(signed_view(g), signed_view(a))
+                            for g, a in zip(got, leaves))
+        if timed is None:
+            timed = (list(zip(leaves, rows)), slots)
+        del got, want
+    print(f"fused paged write, linear decode lane (phi3 K and V of one layer as 8 blocks "
+          f"of 1 024 slots; a 48-slot ring past a wrap; a write past the capacity "
+          f"dropped): equal to quantize_plain + scatter: {ok}")
+    if not ok:
+        fail("posit_paged_write differs from its plain version on the linear decode lane")
+    jobs, slots = timed
+    width = jobs[0][1][0].numel()
+    r = dict(ms=time_ms(lambda: C.paged_write(jobs, slots, cfg)),
+             kernel_ms=kernel_alone_ms(C.paged_write_call(jobs, slots, cfg)),
+             plain_ms=time_ms(lambda: C.paged_write_plain(jobs, slots, cfg), iters=5),
+             **_bound(2 * b * width * (2 + 2) + slots.numel() * 8, 0, FP32_FLOPS),
+             shape=[2, b, 10, 128])
+    print(f"posit_paged_write linear decode (K and V, 8 rows x 1 280 into (8, 1 024, 10, "
+          f"128) leaves): {r['ms']:.4f} ms, alone {r['kernel_ms']:.4f} ms (bound "
+          f"{r['bound_ms']:.6f} ms by {r['bound_by']}; plain {r['plain_ms']:.4f} ms)")
+    return r
+
+
 def decode_jobs(arenas, one):
     """The main path's decode write: layer 0 of both leaves, one launch."""
     return [(a[0], x) for a, x in zip(arenas, one)]
@@ -816,9 +927,9 @@ def serve_main_path(argv):
 
 
 def check_served(res):
-    """Every request completed, every token in the vocabulary, no block
-    leaked, and the block pool drained (under prefix caching, down to
-    the blocks the prefix index holds)."""
+    """Every request completed, every token in the vocabulary; on a paged
+    pool no block leaked and the pool drained (under prefix caching, down
+    to the blocks the prefix index holds)."""
     sched = res.sched
     vocab = sched.engine.cfg.vocab
     if len(res.done) != 16:
@@ -826,6 +937,8 @@ def check_served(res):
     for c in res.done.values():
         if c.tokens.size == 0 or c.tokens.min() < 0 or c.tokens.max() >= vocab:
             fail(f"request {c.rid} produced out-of-vocabulary tokens")
+    if not sched.paged:
+        return
     if sched.leak_report():
         fail(f"{len(sched.leak_report())} blocks leaked")
     held = len(sched.index) if sched.prefix_cache else 0
@@ -881,10 +994,10 @@ def check_fused_equals_gather(dev):
                               24, 12)
         streams = []
         for kernel in ("fused", "gather"):
-            eng = Engine(cfg, params, max_len=48, block_size=4,
+            eng = Engine(cfg, params, max_len=48, paged=True, block_size=4,
                          decode_kernel=kernel, device=dev)
-            done, order = drive_trace(Scheduler(eng, n_slots=3, chunk_size=4),
-                                      trace)
+            done, order = drive_trace(Scheduler(eng, n_slots=3, chunk_size=4,
+                                                chunked_prefill=True), trace)
             streams.append({order[r]: c.tokens.tolist() for r, c in done.items()})
         same = streams[0] == streams[1]
         print(f"small input (reduced {arch}, posit16 KV): fused == gather "
@@ -914,9 +1027,10 @@ def check_prefix_identity(dev):
                shared[:16] + rng.integers(1, cfg.vocab, 6).tolist()]
     streams, scheds = [], []
     for prefix in (False, True):
-        eng = Engine(cfg, params, max_len=64, block_size=4, n_blocks=48,
+        eng = Engine(cfg, params, max_len=64, paged=True, block_size=4, n_blocks=48,
                      sanitize=True, decode_kernel="fused", device=dev)
-        sched = Scheduler(eng, n_slots=2, chunk_size=4, prefix_cache=prefix)
+        sched = Scheduler(eng, n_slots=2, chunk_size=4, prefix_cache=prefix,
+                          chunked_prefill=True)
         rids = [sched.submit(prompts[0], 8)]
         done = sched.run(max_rounds=200)
         rids += [sched.submit(p, 8) for p in prompts[1:]]
@@ -930,6 +1044,186 @@ def check_prefix_identity(dev):
           f"{s.n_cow} COW copies, {len(s.leak_report())} leaked blocks")
     if not same or s.prefix_hits == 0 or s.n_cow == 0 or s.leak_report():
         fail("prefix caching changed tokens or did not share on the card")
+
+
+def schedule_of(res, compactions):
+    """A scheduler run's schedule: rounds, decode steps, compactions and
+    each request's admission step, in request order."""
+    sched = res.sched
+    return dict(rounds=sched.n_chunks, steps=sched.steps_run, compactions=compactions,
+                admitted=[res.done[r].admitted_step for r in sorted(res.done)])
+
+
+def serve_linear_path(argv):
+    """One of ``LINEAR_PATHS`` through the user entry point: returns what
+    ``serve.main`` returns, the launch counts of exactly this run, its
+    wall time, the numbers of whole-prompt prefills, decode steps and
+    compactions it ran, and (one-shot) the run's ``OneShotResult``."""
+    from repro_torch.compress import kvcache as kvc
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+
+    real = dict(prefill=T.prefill, linear=T._decode_step_linear, paged=T._decode_step_paged,
+                compact=kvc.compact, oneshot=serve.run_oneshot)
+    n = dict(prefill=0, step=0, compact=0)
+    captured = []
+
+    def counting(fn, key):
+        def wrapped(*a, **kw):
+            n[key] += 1
+            return fn(*a, **kw)
+        return wrapped
+
+    def oneshot(*a, **kw):
+        captured.append(real["oneshot"](*a, **kw))
+        return captured[-1]
+
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    T.prefill = counting(real["prefill"], "prefill")
+    T._decode_step_linear = counting(real["linear"], "step")
+    T._decode_step_paged = counting(real["paged"], "step")
+    kvc.compact = counting(real["compact"], "compact")
+    serve.run_oneshot = oneshot
+    try:
+        t0 = time.perf_counter()
+        res = serve.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        T.prefill, T._decode_step_linear = real["prefill"], real["linear"]
+        T._decode_step_paged, kvc.compact = real["paged"], real["compact"]
+        serve.run_oneshot = real["oneshot"]
+    return res, read_counts(), wall, n, captured[0] if captured else None
+
+
+def check_linear_counts(name, counts, expect, n_layers, n):
+    """Every kernel of the path launched exactly ``n_layers`` x (its
+    per-prefill count x prefills + its per-step count x decode steps)
+    times, every other kernel never."""
+    for kernel, got in counts.items():
+        per_prefill, per_step = expect.get(kernel, (0, 0))
+        want = n_layers * (per_prefill * n["prefill"] + per_step * n["step"])
+        if got != want:
+            fail(f"{kernel} ran {got} times on the {name} path, {want} expected "
+                 f"({n['prefill']} prefills, {n['step']} decode steps, {n_layers} layers)")
+        if kernel in expect and got <= 0:
+            fail(f"kernel {kernel} was not launched on the {name} path")
+
+
+# Ragged rows against their singleton generations on the card: the
+# singleton is fed the batched row's tokens (teacher-forced) and its logits
+# at each of the 32 positions must lie within this share of the batched
+# row's logit spread (std over the vocabulary).  bf16 logits carry 8 bits
+# and the batch-8 and batch-1 GEMMs round differently in every layer, so
+# greedy streams of a random-weight model part at near-ties (on an H100,
+# 9 and 11 of 32 tokens equal); a mask or position fault moves
+# logits by the whole spread.  Where the argmax differs, the batched
+# row's top-2 gap must be within twice that position's max difference.
+# The exact token identity is held on the CPU in f32
+# (tests/test_torch_engine.py).
+FORCED_TOL = 0.25
+
+
+def forced_logits(eng, prompts, tokens):
+    """(B, n, V) logits of a prefill and n - 1 decode steps fed ``tokens``
+    (B, n) in place of their own samples."""
+    n = tokens.shape[1]
+    cache, logits, _ = eng.prefill(prompts, reserve_tokens=n - 1)
+    tok = torch.as_tensor(tokens, dtype=torch.int64, device=eng.device)
+    out = [logits]
+    for j in range(n - 1):
+        logits, cache = eng._step(cache, tok[:, j])
+        out.append(logits)
+    return torch.stack(out, 1)
+
+
+def check_ragged_rows(name, eng, prompts, tokens, lens):
+    """The shortest and the longest ragged row against their singleton
+    generations: greedy tokens compared (reported), and the singleton's
+    teacher-forced logits held to the batched row's within
+    ``FORCED_TOL`` of its spread."""
+    batched = forced_logits(eng, prompts, tokens)
+    if not torch.equal(batched.argmax(-1).cpu(), torch.as_tensor(tokens, dtype=torch.int64)):
+        fail(f"the {name} path's teacher-forced batch does not reproduce its own tokens")
+    for i in (int(np.argmin(lens)), int(np.argmax(lens))):
+        solo = eng.generate([prompts[i]], tokens.shape[1]).tokens[0]
+        single = forced_logits(eng, [prompts[i]], tokens[i:i + 1])[0]
+        want = batched[i]
+        diff = (single - want).abs().amax(-1)
+        rel = float((diff / want.std(-1)).max())
+        top2 = want.topk(2, dim=-1).values
+        flips = single.argmax(-1).cpu() != torch.as_tensor(tokens[i], dtype=torch.int64)
+        near_tie = bool(((top2[:, 0] - top2[:, 1]) <= 2 * diff).cpu()[flips].all())
+        print(f"linear path {name}: ragged row {i} (len {int(lens[i])}) against its "
+              f"singleton: {int((solo == tokens[i]).sum())} of {tokens.shape[1]} greedy "
+              f"tokens equal; teacher-forced logits max |diff| {float(diff.max()):.4f}, "
+              f"{rel:.4f} of the spread (limit {FORCED_TOL}), {int(flips.sum())} argmax "
+              f"flips, all at near-ties: {near_tie}")
+        if rel > FORCED_TOL or not near_tie:
+            fail(f"ragged row {i} of the {name} path differs from its singleton "
+                 "generation beyond bf16 rounding")
+
+
+def run_linear_paths(dev):
+    """Paths (a)-(c) of ``LINEAR_PATHS``: launch counts, outputs, the
+    pinned schedules, and on the one-shot path ``generate`` ==
+    ``generate_stepwise`` and two ragged rows against their singleton
+    generations, on the card.  Returns each path's launch counts."""
+    by_path = {}
+    for name, (argv, expect) in LINEAR_PATHS.items():
+        res, counts, wall, n, oneshot = serve_linear_path(argv)
+        cfg_layers = (oneshot.engine if oneshot else res.sched.engine).cfg.n_layers
+        check_linear_counts(name, counts, expect, cfg_layers, n)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if oneshot is not None:
+            tokens, eng, prompts = res, oneshot.engine, oneshot.prompts
+            vocab = eng.cfg.vocab
+            if tokens.shape != (len(prompts), 32) or tokens.min() < 0 \
+                    or tokens.max() >= vocab \
+                    or not np.isfinite(oneshot.result.prefill_logits).all():
+                fail(f"the {name} path gave {tokens.shape} tokens outside the vocabulary "
+                     "or non-finite prefill logits")
+            print(f"linear path {name}: full width, {len(prompts)} ragged prompts "
+                  f"(lens {oneshot.result.prompt_lens.tolist()}), prefill (the report) "
+                  f"{oneshot.prefill_seconds:.2f} s, generate {oneshot.seconds:.2f} s for "
+                  f"{tokens.size} tokens ({tokens.size / oneshot.seconds:.2f} tok/s, prefill "
+                  f"included); {wall:.2f} s with init; {n['prefill']} prefills, "
+                  f"{n['step']} decode steps; peak device memory {peak:.2f} GiB")
+            same = bool((eng.generate_stepwise(prompts, 32).tokens == tokens).all())
+            print(f"linear path {name}: generate == generate_stepwise tokens: {same}")
+            if not same:
+                fail(f"generate and generate_stepwise disagree on the {name} path")
+            check_ragged_rows(name, eng, prompts, tokens, oneshot.result.prompt_lens)
+            del eng, oneshot
+        else:
+            sched = res.sched
+            check_served(res)
+            got = schedule_of(res, n["compact"])
+            useful = sum(len(c.tokens) for c in res.done.values())
+            st = sched.stats
+            print(f"linear path {name}: full width, {len(res.done)} requests, {useful} "
+                  f"tokens in {res.seconds:.2f} s ({wall:.2f} s with init), "
+                  f"{useful / res.seconds:.2f} tok/s; step wall p50 "
+                  f"{st['step_wall_p50_ms']:.1f} ms p99 {st['step_wall_p99_ms']:.1f} ms; "
+                  f"{got['rounds']} rounds, {n['step']} decode steps, {n['prefill']} "
+                  f"prefills, {got['compactions']} compactions; peak device memory "
+                  f"{peak:.2f} GiB")
+            if got != SCHEDULES[name]:
+                fail(f"the {name} schedule {got} differs from the one pinned on the "
+                     f"CPU {SCHEDULES[name]}")
+            if not sched.paged and bool((sched.cache["lens"] != 0).any()):
+                fail(f"the {name} path left live rows in its cache")
+        for kernel, (pp, ps) in expect.items():
+            if ps:
+                print(f"linear path {name}: {kernel} launches per decode step "
+                      f"{counts[kernel] / max(n['step'], 1):.2f} ({cfg_layers} layers)")
+        print(f"linear path {name} kernel launches: {counts}")
+        by_path[name] = counts
+        del res
+        gc.collect()
+        torch.cuda.empty_cache()
+    return by_path
 
 
 # ---------------------------------------------------------------------------
@@ -1526,6 +1820,7 @@ def run(pool):
     rows.append(check_attention(dev))
     rows.append(check_attention_mla(dev))
     write_row, profile_write = check_paged_write(dev)
+    write_row["linear_decode"] = check_linear_write(dev)
     rows.append(write_row)
     gc.collect()
     torch.cuda.empty_cache()
@@ -1591,6 +1886,7 @@ def run(pool):
         torch.cuda.empty_cache()
     ew_row["bias_vadd"] = ew_bias
     rows.append(ew_row)
+    by_path.update(run_linear_paths(dev))
     profile_write()
     del profile_write
     for kernel in ("posit_ew", "posit_dot", "posit_qgemm", "posit_gemm"):

@@ -1,15 +1,19 @@
-"""Paged KV-cache memory model: the host-side block pool, the prefix
-index, row release and the cache report; and posit-domain cache
-maintenance (``scale_cache``, ``merge_caches``) on the fused elementwise
-kernel.
+"""KV-cache memory model: the paged layout's host-side block pool, prefix
+index and row release; the linear layout's slot-pool surgery
+(``reset_slots``, ``compact``, ``adopt_row``) and the graft of a linear
+prefill into the arena (``paged_adopt_row``); the cache codec
+(``quantize_cache``, ``dequantize_cache``), byte counts and report; and
+posit-domain cache maintenance (``scale_cache``, ``merge_caches``) on the
+fused elementwise kernel.
 
-Layout (see ``models/transformer.py``): arena content leaves are
+Paged layout (see ``models/transformer.py``): arena content leaves are
 (L, n_blocks, block_size, ...), one pool of blocks shared by every batch
 row; ``block_tables`` (B, W) int32 names each row's physical blocks, with
 the out-of-range sentinel ``n_blocks`` in unassigned entries (writes
 through it are dropped, reads through it clamp and are masked).  The
 :class:`BlockPool` is host state; block ids reach the device only inside
-``block_tables``.
+``block_tables``.  Linear layout: (L, B, T, ...) leaves, the shared
+write frontier ``len`` and ``max_len`` as Python ints, per-row ``lens``.
 
 Caches are plain dicts, so the leaf name is the tag: content leaves
 (K/V, posit patterns or floats) are listed in ``CONTENT_LEAVES`` and
@@ -22,7 +26,9 @@ from collections import OrderedDict
 
 import torch
 
+from repro_torch.core.types import signed_view
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels import posit_codec
 from .gradient import pcfg_of, scalar_pattern
 
 # Time-axis / row-state content, and bookkeeping (the reference's schema).
@@ -66,8 +72,146 @@ def cache_report(cache, pool=None) -> dict:
     return out
 
 
+def cache_bytes(cache) -> int:
+    """Bytes the cache holds (a Python-int scalar leaf as int32)."""
+    return sum(_leaf_bytes(key, x)[0] for key, x in cache.items())
+
+
+def quantize_cache(cache, name: str):
+    """Quantize every float content leaf to posit patterns (the codec's
+    quantize); bookkeeping passes through.  An unregistered float leaf
+    raises rather than being silently left uncompressed.  Returns a new
+    dict."""
+    cfg = pcfg_of(name)
+    out = {}
+    for key, x in cache.items():
+        floating = isinstance(x, torch.Tensor) and x.is_floating_point()
+        if floating and key in CONTENT_LEAVES:
+            x = posit_codec.quantize(x.to(torch.float32).contiguous(), cfg)
+        elif floating and key not in META_LEAVES:
+            raise ValueError(
+                f"unknown float cache leaf {key!r}: register it in "
+                "kvcache.CONTENT_LEAVES (quantizable content) or "
+                "kvcache.META_LEAVES (bookkeeping); refusing to silently "
+                "skip it")
+        out[key] = x
+    return out
+
+
+def dequantize_cache(cache, name: str):
+    """Decode every posit-pattern content leaf to f32 (the codec's
+    dequantize); returns a new dict."""
+    cfg = pcfg_of(name)
+    return {key: posit_codec.dequantize(x.contiguous(), cfg)
+            if _leaf_is_patterns(key, x) else x for key, x in cache.items()}
+
+
 def is_paged(cache) -> bool:
     return isinstance(cache, dict) and "block_tables" in cache
+
+
+def _reject_paged(cache, what: str):
+    if is_paged(cache):
+        raise ValueError(
+            f"{what}: paged (block-table) caches have no shared linear "
+            "frontier to move; use paged_adopt_row / paged_release_rows "
+            "and the BlockPool instead")
+
+
+# ---------------------------------------------------------------------------
+# Slot-pool surgery on linear (and ring) caches
+#
+# A linear cache carries ``len`` (the shared padded write frontier, a
+# Python int), ``lens`` (B,) per-row valid counts and ``max_len``.  The
+# scheduler treats the batch axis as a slot pool: retired rows are wiped
+# (``reset_slots``), the frontier moves to reclaim headroom or fit a long
+# prompt (``compact``), and a prefilled batch-1 cache is grafted into a
+# free row (``adopt_row``).  Time leaves roll circularly, which is exact
+# for linear caches (stale slots stay masked by ``lens``) and is the
+# frontier relabelling of a ring (slot = pos % T).
+# ---------------------------------------------------------------------------
+
+def reset_slots(cache, rows):
+    """Retire the batch rows where ``rows`` (B,) is True: their content
+    zeroed in place and ``lens`` set to 0.  Returns a new dict."""
+    from repro_torch.models import layers as L
+
+    _reject_paged(cache, "reset_slots")
+    rows = torch.as_tensor(rows).to(torch.bool)
+    for key, leaf in cache.items():
+        if key in _TIME_LEAVES:
+            L.reset_cache_rows(leaf, rows)
+    lens = cache["lens"]
+    return dict(cache, lens=torch.where(rows.to(lens.device), 0, lens).to(torch.int32))
+
+
+def compact(cache, target_len=None):
+    """Move the shared write frontier to ``target_len`` (default:
+    ``max(lens)``), rolling every time leaf so each row's content still
+    ends at the frontier.  ``lens`` and ``max_len`` are unchanged.
+    Returns a new dict (the rolled leaves are new tensors)."""
+    from repro_torch.models import layers as L
+
+    _reject_paged(cache, "compact")
+    target = int(cache["lens"].max()) if target_len is None else int(target_len)
+    if target > int(cache["max_len"]):
+        raise ValueError(f"compact: target frontier {target} exceeds cache "
+                         f"max_len {int(cache['max_len'])}")
+    shift = target - int(cache["len"])
+    out = {key: L.roll_cache_time(leaf, shift) if key in _TIME_LEAVES else leaf
+           for key, leaf in cache.items()}
+    out["len"] = target
+    return out
+
+
+def adopt_row(cache, row_cache, row: int):
+    """Graft a batch-1 prefilled linear cache into slot ``row``, in
+    place: its content rolled so the prompt ends at the pool's frontier
+    (RoPE positions are content-relative, so relabelling padded slots is
+    free), its ``lens`` into the row.  The prompt's frontier must not
+    pass the pool's (``compact`` first).  Returns a new dict."""
+    from repro_torch.models import layers as L
+
+    _reject_paged(cache, "adopt_row")
+    cur, src = int(cache["len"]), int(row_cache["len"])
+    if src > cur:
+        raise ValueError(
+            f"adopt_row: admitted prompt frontier {src} exceeds the pool "
+            f"frontier {cur}; compact(cache, target_len={src}) first")
+    for key, leaf in cache.items():
+        if key in _TIME_LEAVES and key in row_cache:
+            upd = L.roll_cache_time(row_cache[key], cur - src)
+            signed_view(leaf)[:, row] = signed_view(upd)[:, 0]
+    lens = cache["lens"].clone()
+    lens[row] = row_cache["lens"][0]
+    return dict(cache, lens=lens)
+
+
+def paged_adopt_row(cache, row_cache, row: int, block_ids, *, window: int = 0,
+                    src_ring: bool = False):
+    """Graft a batch-1 linear prefilled cache into row ``row`` of a
+    paged pool cache, in place: its patterns are packed verbatim (no
+    second quantize) into the arena blocks ``block_ids`` (W,) names
+    (sentinel entries drop), and the row's table and ``lens`` take over.
+    ``src_ring`` marks a ring-layout source (a window prefill longer than
+    the window); out-of-window slots get the garbage the masks exclude,
+    as in the ring itself.  Returns a new dict."""
+    from repro_torch.models import layers as L
+
+    if not is_paged(cache):
+        raise ValueError("paged_adopt_row: pool cache is not paged "
+                         "(no block_tables leaf)")
+    dev = cache["lens"].device
+    ids = torch.as_tensor(block_ids, device=dev).to(torch.int32)
+    plen = row_cache["lens"][:1].to(device=dev, dtype=torch.int32)
+    for key in arena_leaves(cache):
+        if key in row_cache:
+            L.paged_pack(cache[key], row_cache[key], ids[None], plen,
+                         window=window, src_ring=src_ring)
+    tables, lens = cache["block_tables"].clone(), cache["lens"].clone()
+    tables[row] = ids
+    lens[row] = plen[0]
+    return dict(cache, block_tables=tables, lens=lens)
 
 
 def arena_leaves(cache) -> list:

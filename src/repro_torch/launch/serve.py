@@ -1,20 +1,31 @@
-"""Serving launcher: continuous batching over the paged posit KV cache.
+"""Serving launcher: the preallocated posit-KV engine and the
+continuous-batching scheduler.
 
-Random-inits a model from a seed on ``--device`` (default ``cuda``),
-builds a paged :class:`Engine` and a chunked-prefill
-:class:`Scheduler`, and drives a simulated Poisson trace through it:
-``--n-requests`` requests arrive at ``--arrival-rate`` expected arrivals
-per decode step with ragged prompt and generation lengths, join free
-slots of a ``--batch``-slot pool and leave as they finish.  Prompts flow
+Random-inits a model from a seed on ``--device`` (default ``cuda``).
+The command line is the reference's (``repro.launch.serve``), defaults
+included (``--kv-posit none``, ``--decode-kernel gather``), and every
+mode of it runs.
+
+Without ``--continuous`` (the one-shot engine): a ``--batch`` of prompts
+(``--ragged`` draws their lengths from ``[prompt-len/2, prompt-len]``)
+is prefilled whole, the cache report printed, then ``Engine.generate``
+decodes ``--gen`` tokens; ``main`` returns the (B, gen) token array.
+``--paged`` takes the block-table cache:
+
+  python -m repro_torch.launch.serve --arch phi3-medium-14b --batch 8 \\
+      --prompt-len 512 --ragged --gen 32 --max-len 1024 --kv-posit posit16 \\
+      --device cuda
+
+``--continuous`` drives a simulated Poisson trace through the
+scheduler: ``--n-requests`` requests arrive at ``--arrival-rate``
+expected arrivals per decode step with ragged prompt and generation
+lengths, join free slots of a ``--batch``-slot pool and leave as they
+finish, ``--chunk-size`` decode steps a round.  Alone it runs the
+dense-cache scheduler (a shared frontier, compaction); ``--paged`` the
+block-table one; ``--chunked-prefill`` (with ``--paged``) sends prompts
 through the decode lane in ``--chunk-size``-token chunks.  The report
 prints goodput, latency, cache bytes, the block-pool peak, step wall
-times and the dispatch count.
-
-The command line is the reference's (``repro.launch.serve``), defaults
-included (``--kv-posit none``, ``--decode-kernel gather``).  Only its
-``--continuous --paged --chunked-prefill`` mode is ported (implied
-chunking by ``--prefix-cache`` included); the others raise
-``NotImplementedError``:
+times and the dispatch count:
 
   python -m repro_torch.launch.serve --arch phi3-medium-14b --continuous \\
       --paged --chunked-prefill --batch 8 --n-requests 16 --prompt-len 512 \\
@@ -43,7 +54,9 @@ is ever preempted):
 The port's own flags: ``--n-layers`` cuts depth only (every width stays
 the architecture's), ``--deadline-share`` as above, and ``--device``.
 ``--reduced`` swaps in the tiny same-family config for CPU runs
-(``--device cpu``).
+(``--device cpu``).  The reference's visual and encoder-frame inputs
+(internvl, whisper) belong to families the port lacks and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -53,10 +66,12 @@ import time
 
 import numpy as np
 
+import torch
+
 from repro_torch import configs
 from repro_torch.compress.kvcache import cache_report
 from repro_torch.models import transformer as T
-from repro_torch.runtime.engine import Engine
+from repro_torch.runtime.engine import Engine, GenerationResult
 from repro_torch.runtime.scheduler import Scheduler
 
 # assumed wall time of one decode step, used only to convert
@@ -132,16 +147,70 @@ class ServeResult:
     deadlines_met: tuple = None   # (met, requests with a deadline)
 
 
+@dataclasses.dataclass
+class OneShotResult:
+    result: GenerationResult  # its (B, gen) tokens are what ``main`` returns
+    engine: Engine
+    prompts: list             # the batch as given to the engine
+    prefill_seconds: float    # the reported prefill alone
+    seconds: float            # generate: prefill and every decode step
+
+
+def _build_engine(args, cfg, params, max_len):
+    return Engine(cfg, params, max_len=max_len,
+                  temperature=args.temperature, seed=args.seed,
+                  paged=args.paged, block_size=args.block_size,
+                  n_blocks=args.n_blocks,
+                  decode_kernel=None if args.decode_kernel == "gather"
+                  else args.decode_kernel, device=args.device)
+
+
+def run_oneshot(args, cfg, params) -> OneShotResult:
+    """Prefill a batch of prompts (the cache report), then generate."""
+    if cfg.family == "whisper" or cfg.n_visual_tokens:
+        raise NotImplementedError(
+            "the visual and encoder-frame inputs are not ported yet (ROADMAP "
+            "Queue 1 items 2 and 4)")
+    rng = np.random.default_rng(args.seed)
+    if args.ragged:
+        lens = rng.integers(max(2, args.prompt_len // 2), args.prompt_len + 1,
+                            size=args.batch)
+        prompts = [rng.integers(1, cfg.vocab, int(n)).tolist() for n in lens]
+    else:
+        prompts = rng.integers(1, cfg.vocab, size=(args.batch, args.prompt_len))
+    max_len = args.max_len or (args.prompt_len + args.gen)
+    engine = _build_engine(args, cfg, params, max_len)
+
+    t0 = time.perf_counter()
+    cache, _, lens = engine.prefill(prompts, reserve_tokens=args.gen - 1)
+    if engine.device.type == "cuda":
+        torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    rep = cache_report(cache)
+    del cache
+    print(f"prefill: {args.batch} prompts (lens {lens.tolist()}) in "
+          f"{t_prefill:.2f}s; cache bytes = {rep['bytes']:,} of "
+          f"{rep['f32_bytes']:,} f32-equiv ({rep['ratio']:.2f}x, "
+          f"kv_posit={cfg.kv_posit}, max_len={max_len})")
+    t0 = time.perf_counter()
+    res = engine.generate(prompts, args.gen)
+    dt = time.perf_counter() - t0
+    print(f"decode: {args.gen} steps in {dt:.2f}s "
+          f"({args.gen * args.batch / max(dt, 1e-9):.1f} tok/s, prefill "
+          f"included; device {engine.device})")
+    print("generated ids:\n", res.tokens)
+    return OneShotResult(result=res, engine=engine, prompts=prompts,
+                         prefill_seconds=t_prefill, seconds=dt)
+
+
 def run_continuous(args, cfg, params) -> ServeResult:
     rng = np.random.default_rng(args.seed)
     max_len = args.max_len or (args.prompt_len + args.gen - 1 +
                                args.chunk_size)
-    engine = Engine(cfg, params, max_len=max_len,
-                    temperature=args.temperature, seed=args.seed,
-                    block_size=args.block_size, n_blocks=args.n_blocks,
-                    decode_kernel=args.decode_kernel, device=args.device)
+    engine = _build_engine(args, cfg, params, max_len)
     sched = Scheduler(engine, n_slots=args.batch, chunk_size=args.chunk_size,
-                      prefix_cache=args.prefix_cache, chunked_prefill=True)
+                      prefix_cache=args.prefix_cache,
+                      chunked_prefill=args.chunked_prefill)
     if args.prefix_share > 0:
         trace = shared_prefix_trace(rng, args.n_requests, args.arrival_rate,
                                     cfg.vocab, args.prompt_len, args.gen,
@@ -159,7 +228,7 @@ def run_continuous(args, cfg, params) -> ServeResult:
     t0 = time.perf_counter()
     done, order = drive_trace(sched, trace, deadline_steps=deadlines)
     dt = time.perf_counter() - t0
-    rep = cache_report(sched.cache, sched.pool)
+    rep = cache_report(sched.cache, sched.pool if sched.paged else None)
 
     useful = sum(len(c.tokens) for c in done.values())
     lat = np.array(sorted(c.latency_steps for c in done.values()))
@@ -175,17 +244,23 @@ def run_continuous(args, cfg, params) -> ServeResult:
     print(f"  cache: {rep['bytes']:,} bytes of {rep['f32_bytes']:,} "
           f"f32-equiv ({rep['ratio']:.2f}x, kv_posit={cfg.kv_posit}, "
           f"max_len={max_len})")
-    print(f"  paged: {sched.n_blocks} arena blocks x {sched.block_size} "
-          f"slots (dense worst case {args.batch * sched.table_width}); "
-          f"peak in use {sched.pool.peak_in_use}, peak committed "
-          f"{sched.peak_committed}")
+    if sched.paged:
+        print(f"  paged: {sched.n_blocks} arena blocks x {sched.block_size} "
+              f"slots (dense worst case {args.batch * sched.table_width}); "
+              f"peak in use {sched.pool.peak_in_use}, peak committed "
+              f"{sched.peak_committed}")
     print(f"  step wall p50 {st['step_wall_p50_ms']:.1f} ms p99 "
           f"{st['step_wall_p99_ms']:.1f} ms over {sched.n_chunks} rounds "
           f"(device {engine.device})")
-    print(f"  chunked prefill: {sched.prefill_tokens} prompt tokens "
-          f"through the decode lane in {args.chunk_size}-token chunks; "
-          f"{engine.n_compiles} dispatch shapes (flat across prompt "
-          f"lengths)")
+    if sched.chunked:
+        print(f"  chunked prefill: {sched.prefill_tokens} prompt tokens "
+              f"through the decode lane in {args.chunk_size}-token chunks; "
+              f"{engine.n_compiles} dispatch shapes (flat across prompt "
+              f"lengths)")
+    else:
+        print(f"  whole-prompt prefill: {sched.prefill_tokens} prompt tokens "
+              f"at admission; {engine.n_compiles} dispatch shapes (one per "
+              f"prompt length)")
     if deadlines is not None:
         timed = [(c, deadlines[order[r]]) for r, c in done.items()
                  if deadlines[order[r]] is not None]
@@ -216,18 +291,23 @@ def build_parser():
                     help="cut depth to this many layers (0 = the "
                          "architecture's); widths are never cut")
     ap.add_argument("--batch", type=int, default=4,
-                    help="slot-pool width")
+                    help="prompts of the one-shot batch, or the slot-pool "
+                         "width with --continuous")
     ap.add_argument("--n-requests", type=int, default=16)
     ap.add_argument("--arrival-rate", type=float, default=0.2,
                     help="expected request arrivals per decode step")
     ap.add_argument("--prompt-len", type=int, default=32,
-                    help="longest prompt (lengths are uniform in "
+                    help="prompt length (the longest with --ragged or "
+                         "--continuous: lengths uniform in "
                          "[prompt-len/2, prompt-len])")
+    ap.add_argument("--ragged", action="store_true",
+                    help="one-shot: vary the prompt lengths across the batch")
     ap.add_argument("--gen", type=int, default=16,
                     help="longest generation (uniform in [gen/4, gen])")
     ap.add_argument("--max-len", type=int, default=0,
-                    help="per-row cache budget (default prompt-len + gen "
-                         "- 1 + chunk-size)")
+                    help="per-row cache budget (default prompt-len + gen; "
+                         "with --continuous prompt-len + gen - 1 + "
+                         "chunk-size)")
     ap.add_argument("--chunk-size", type=int, default=8,
                     help="prefill chunk width and decode steps per round")
     ap.add_argument("--block-size", type=int, default=16,
@@ -237,15 +317,14 @@ def build_parser():
     ap.add_argument("--kv-posit", choices=["posit16", "posit8", "none"],
                     default="none")
     ap.add_argument("--continuous", action="store_true",
-                    help="continuous batching on a simulated Poisson "
-                         "trace (the only serving mode ported)")
+                    help="continuous batching on a simulated Poisson trace")
     ap.add_argument("--paged", action="store_true",
-                    help="paged block-table KV cache (with --continuous; "
-                         "required: the dense layout is not ported)")
+                    help="paged block-table KV cache (omit for the dense "
+                         "layout)")
     ap.add_argument("--chunked-prefill", action="store_true",
                     help="prompts through the decode lane in chunk-size "
-                         "chunks (with --continuous --paged; required "
-                         "unless --prefix-cache, which implies it)")
+                         "chunks (with --continuous --paged; implied by "
+                         "--prefix-cache)")
     ap.add_argument("--decode-kernel", choices=["gather", "fused"],
                     default="gather",
                     help="paged decode attention: the fused CUDA table "
@@ -284,8 +363,7 @@ def model_config(args):
 
 
 def check_mode(ap, args) -> None:
-    """The reference's own refusals (``ap.error``, exit status 2), then
-    ``NotImplementedError`` for the modes the port has not ported."""
+    """The reference's own refusals (``ap.error``, exit status 2)."""
     if args.prefix_cache and not (args.continuous and args.paged):
         ap.error("--prefix-cache requires --continuous --paged")
     if args.chunked_prefill and not (args.continuous and args.paged):
@@ -294,27 +372,20 @@ def check_mode(ap, args) -> None:
         ap.error("--deadline-ms requires --continuous")
     if args.decode_kernel == "fused" and not args.paged:
         ap.error("--decode-kernel fused requires --paged")
-    missing = None
-    if not args.continuous:
-        missing = "the one-shot engine path (no --continuous)"
-    elif not args.paged:
-        missing = "the dense-cache scheduler (--continuous without --paged)"
-    elif not (args.chunked_prefill or args.prefix_cache):
-        missing = ("the unchunked paged scheduler (--paged without "
-                   "--chunked-prefill)")
-    if missing:
-        raise NotImplementedError(
-            f"{missing} is not ported yet (ROADMAP Queue 1 item 3); pass "
-            "--continuous --paged --chunked-prefill")
 
 
-def main(argv=None) -> ServeResult:
+def main(argv=None):
+    """Run the command line; returns the one-shot path's (B, gen) token
+    array, as the reference's ``main`` does, or the continuous run's
+    :class:`ServeResult`."""
     ap = build_parser()
     args = ap.parse_args(argv)
     check_mode(ap, args)
     cfg = model_config(args)
     params = T.init_params(cfg, seed=args.seed, device=args.device)
-    return run_continuous(args, cfg, params)
+    if args.continuous:
+        return run_continuous(args, cfg, params)
+    return run_oneshot(args, cfg, params).result.tokens
 
 
 if __name__ == "__main__":

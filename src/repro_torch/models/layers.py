@@ -8,12 +8,16 @@ the quire, ``dense_posit_exact``); attention is the chunked online-
 softmax ``flash_attention`` with its fixed ``attn_chunk_kv`` KV grouping
 (the chunked-prefill identity depends on it).
 
-Paged KV primitives (block arenas + per-row block tables, sentinel
-``n_blocks``, row-local addressing, the sliding-window block ring) keep
-the reference's layout contract.  Where the reference scatters with
-``mode="drop"``, the port computes which writes land first and scatters
-only those; reads through sentinel entries clamp into block ``nb - 1``
-and are masked by ``paged_apos``.  Arena writes are in place.
+Linear caches (a shared write frontier, the window ring written at
+``pos % T``) decode through ``decode_attention`` over the whole
+dequantized cache; their writes never clamp (``check_cache_capacity``,
+``linear_write_slots``).  Paged KV primitives (block arenas + per-row
+block tables, sentinel ``n_blocks``, row-local addressing, the
+sliding-window block ring) keep the reference's layout contract.  Where
+the reference scatters with ``mode="drop"``, the port computes which
+writes land first and scatters only those; reads through sentinel
+entries clamp into block ``nb - 1`` and are masked by ``paged_apos``.
+Cache writes are in place.
 """
 from __future__ import annotations
 
@@ -22,7 +26,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.types import POSIT8, POSIT16, index_rows, signed_view
+from repro_torch.core.types import POSIT8, POSIT16, index_rows, signed_view, zeros
 from repro_torch.kernels import ops, posit_codec
 from .config import ModelConfig
 
@@ -195,11 +199,35 @@ def flash_attention(q, k, v, *, cfg: ModelConfig, kv_mask, q_positions,
     return out.to(q.dtype)
 
 
+def _per_row(x, b: int, device) -> torch.Tensor:
+    """A scalar or (B,) position as a (B,) int64 tensor."""
+    x = torch.as_tensor(x, device=device).to(torch.int64)
+    return x.expand(b) if x.ndim == 0 else x
+
+
+def decode_positions(cache_len, t_len: int, *, ring: bool = False):
+    """(B,) write frontiers ``cache_len`` -> (B, T) absolute position of
+    every slot of a linear cache (slot ``t`` holds position ``t``) or a
+    ring of capacity T written at ``pos % T`` (slot ``i`` holds
+    ``p - fmod(p - i, T)`` for the frontier ``p = cache_len - 1``;
+    slots ahead of it get positions past the frontier, unwritten ones
+    negative)."""
+    t_pos = torch.arange(t_len, dtype=torch.int64, device=cache_len.device)
+    if ring:
+        p = (cache_len - 1)[:, None]
+        return p - torch.fmod(p - t_pos[None, :], t_len)
+    return t_pos[None, :].expand(cache_len.shape[0], t_len)
+
+
 def decode_attention(q, k_cache, v_cache, cache_len, *, cfg: ModelConfig,
-                     kv_posit: Optional[str] = None, window: int = 0, apos):
-    """Single-token decode over a gathered cache: q (B,1,H,D); caches
-    (B,T,G,D) possibly posit patterns; ``apos`` (B,T) absolute position
-    of every slot (``-1`` dead); ``cache_len`` (B,) visible length."""
+                     kv_posit: Optional[str] = None, window: int = 0,
+                     start=None, ring: bool = False, apos=None):
+    """Single-token decode: q (B,1,H,D); caches (B,T,G,D) possibly posit
+    patterns, dequantized whole.  ``cache_len`` (scalar or (B,)) is the
+    visible length, ``start`` (scalar or (B,), default 0) the first valid
+    position (a left-padded row's offset).  Slot positions come from
+    ``apos`` (B,T) (the paged lanes; ``-1`` dead) or, without it, from
+    :func:`decode_positions` on a linear or ``ring`` cache."""
     b, _, h, d = q.shape
     g = k_cache.shape[2]
     r = h // g
@@ -215,9 +243,15 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, cfg: ModelConfig,
     # products of compute-dtype operands, accumulated in f32
     scores = torch.einsum("bgrd,btgd->bgrt", qg.to(torch.float32),
                           ks.to(torch.float32))
-    cl = cache_len.to(torch.int64)[:, None]
+    cl = _per_row(cache_len, b, q.device)
+    st = _per_row(0 if start is None else start, b, q.device)
+    if apos is None:
+        apos = decode_positions(cl, k_cache.shape[1], ring=ring)
     apos = apos.to(torch.int64)
-    valid = (apos < cl) & (apos >= 0)
+    cl = cl[:, None]
+    valid = (apos < cl) & (apos >= st[:, None])
+    if ring:
+        valid &= apos >= 0                                  # unwritten slots
     if window:
         valid &= apos >= cl - window
     valid = valid[:, None, None, :]
@@ -231,6 +265,79 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, cfg: ModelConfig,
                        vs.to(torch.float32))
     out = out / torch.clamp(l, min=1e-30)[..., None]
     return out.reshape(b, 1, h, -1).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Linear (and ring) caches: guarded decode writes and slot-pool surgery
+#
+# A linear cache leaf is (L, B, T, ...): one shared write frontier
+# ``len`` (a Python int), per-row valid counts ``lens``.  Decode writes
+# never clamp: a write past the capacity raises eagerly
+# (``check_cache_capacity``) or, through the write slots, drops.
+# ---------------------------------------------------------------------------
+
+def check_cache_capacity(pos, capacity: int, what: str = "KV cache"):
+    """Raise on a decode position past the cache capacity."""
+    if int(pos) >= capacity:
+        raise ValueError(
+            f"decode_step past {what} capacity: position {int(pos)} >= "
+            f"{capacity}. Preallocate headroom with init_cache(..., "
+            "max_len) / prefill(..., max_len=...) or use "
+            "repro_torch.runtime.engine.Engine, which sizes caches up front.")
+
+
+def guarded_cache_update(arr, upd, idx: int, axis: int):
+    """Write ``upd`` (extent 1 on ``axis``) at ``idx`` of ``axis``, in
+    place; a write at ``idx >= capacity`` leaves ``arr`` unchanged
+    instead of clamping onto the last slot.  Returns ``arr``."""
+    if 0 <= int(idx) < arr.shape[axis]:
+        signed_view(arr).narrow(axis, int(idx), 1).copy_(signed_view(upd))
+    return arr
+
+
+def linear_write_slots(batch: int, capacity: int, pos: int, *, ring: bool,
+                       device):
+    """Where each row's decode write lands in one layer's linear leaf
+    (B, T, ...) seen as an arena of B blocks of T slots: the flat slot
+    ``b * T + (pos % T if ring else pos)``, or -1 for every row when a
+    linear write would land past the capacity (dropped)."""
+    if ring:
+        slot = int(pos) % capacity
+    elif int(pos) >= capacity:
+        return torch.full((batch,), -1, dtype=torch.int64, device=device)
+    else:
+        slot = int(pos)
+    return torch.arange(batch, dtype=torch.int64, device=device) * capacity + slot
+
+
+def roll_cache_time(kv, shift: int):
+    """Circularly shift a stacked-layer KV time axis (L, B, T, ...) by
+    ``shift`` slots: the one primitive behind compaction and admission
+    (content at ``[len - l, len)`` moves to ``[len + shift - l, ...)``;
+    on a ring of capacity T it relabels slot ``q % T`` to
+    ``(q + shift) % T``)."""
+    return torch.roll(signed_view(kv), int(shift), dims=2).view(kv.dtype)
+
+
+def reset_cache_rows(kv, row_mask, batch_axis: int = 1):
+    """Zero the batch rows of a stacked cache leaf where ``row_mask``
+    (B,) is True, in place; returns ``kv``."""
+    rows = torch.nonzero(torch.as_tensor(row_mask).to(torch.bool))[:, 0].tolist()
+    if rows:
+        signed_view(kv).index_fill_(
+            batch_axis, torch.tensor(rows, device=kv.device), 0)
+    return kv
+
+
+def pad_cache_time(kv, t: int):
+    """Zero-pad the stacked-layer KV time axis (L, B, S, ...) up to
+    ``t``: an exactly prompt-sized cache with decode headroom."""
+    s = kv.shape[2]
+    if s == t:
+        return kv
+    out = zeros(kv.shape[:2] + (t,) + kv.shape[3:], kv.dtype, kv.device)
+    signed_view(out)[:, :, :s] = signed_view(kv)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -425,6 +532,41 @@ def paged_cache_update(arena, upd, tables, pos, ok, *, window: int = 0):
     index = paged_write_index(tables, pos, ok, n_blocks=arena.shape[0],
                               block_size=arena.shape[1], window=window)
     return paged_write(arena, upd, index)
+
+
+def paged_pack(arena, kvs, tables, lens, *, window: int = 0,
+               src_shift=None, src_ring: bool = False):
+    """Pack prompt KV (L, B, S, ...) into whole arena blocks (L, nb, bs,
+    ...), in place; returns ``arena``.  Patterns move verbatim.
+
+    Row b's content positions land in the blocks ``tables[b]`` names
+    (sentinel entries drop), each block slot taking the position the
+    decode attention will read there (``paged_positions`` at the
+    frontier ``lens - 1``).  ``src_shift`` (B,) is each row's content
+    start in ``kvs`` (``S - lens`` for left-padded batches; default 0);
+    ``src_ring`` reads a ring-layout source at ``pos % S``.  Slots whose
+    position precedes the prompt or falls out of the window receive
+    clamped garbage the masks exclude, as the reference's do."""
+    nb, bs = arena.shape[1], arena.shape[2]
+    b, s = kvs.shape[1], kvs.shape[2]
+    w = tables.shape[1]
+    lens = torch.as_tensor(lens, device=kvs.device).to(torch.int64)
+    cpos = paged_positions((lens - 1).clamp(min=0), w, bs,
+                           window=window).to(torch.int64)         # (B, W*bs)
+    if src_ring:
+        tpos = torch.fmod(cpos, s)
+    elif src_shift is not None:
+        tpos = cpos + torch.as_tensor(src_shift, device=kvs.device).to(
+            torch.int64)[:, None]
+    else:
+        tpos = cpos
+    tpos = tpos.clamp(0, s - 1).reshape(b * w, bs)
+    ids = torch.as_tensor(tables, device=kvs.device).to(torch.int64).reshape(-1)
+    keep = torch.nonzero((ids >= 0) & (ids < nb))[:, 0]
+    blocks = signed_view(kvs)[:, torch.div(keep, w, rounding_mode="floor")[:, None],
+                              tpos[keep]]                         # (L, K, bs, ...)
+    signed_view(arena)[:, ids[keep]] = blocks
+    return arena
 
 
 def paged_pack_slots(tables, start, lens, s: int, *, n_blocks: int,

@@ -1,24 +1,32 @@
-"""Decoder-only transformer LM: the paged serving lane (dense GQA,
-sliding-window and MLA attention).
+"""Decoder-only transformer LM (dense GQA, sliding-window and MLA
+attention) on linear and paged KV caches.
 
-The port of ``repro/models/transformer.py``'s paged entry points:
-``init_params``, ``init_paged_cache``, ``prefill_chunk`` (chunked
-prefill through the paged cache) and ``decode_step`` on a paged cache.
-Layers run in a Python loop over a list of per-layer parameter dicts
-(the reference scans stacked parameters).  Arena leaves stay stacked,
-(L, n_blocks, block_size, G, D) for K/V and (L, n_blocks, block_size,
-rank | rope) for the MLA latents ``c_kv``/``k_rope``, and are updated in
-place; each function returns the cache dict with the new ``lens``.  MoE
+The port of ``repro/models/transformer.py``'s serving entry points:
+``init_params``; the whole-prompt ``prefill`` (ragged left-padded
+batches) into a linear cache (``init_cache``: (L, B, T, ...) leaves with
+one shared write frontier, a ring of the window's size on the window
+lane) or into the paged arena (``block_tables=``); ``prefill_chunk``
+(chunked prefill through the paged cache); and ``decode_step`` on
+either layout.  Layers run in a Python loop over a list of per-layer
+parameter dicts (the reference scans stacked parameters).  Cache leaves
+stay stacked, (L, n_blocks, block_size, G, D) arenas or (L, B, T, G, D)
+linear leaves for K/V, and the MLA latents ``c_kv``/``k_rope`` the same
+way without the head axis; they are updated in place and each function
+returns the cache dict with the new ``lens`` (and ``len``).  MoE
 feed-forward is not ported yet and raises.
 
-Posit KV writes quantize straight into the arena through the fused
-write kernel (``posit_codec.paged_write``: one launch per decode layer
-for both leaves, one per arena leaf for a prefill chunk's layers, dropped
-writes skipped on the device); f32/bf16 KV writes cast and scatter to
-the same dense slots.  The
-chunked-prefill arena read dequantizes through the codec; decode
-attention runs the fused paged kernel (dense/window or MLA latent) or
-the gather path (``cfg.paged_attn_kernel``).
+KV writes have one destination form, :func:`_write_kv`: rows to flat
+slots of a layer's leaf seen as an arena (a linear leaf (B, T, ...) is
+B blocks of T slots), -1 dropped.  On posit KV it is the fused write
+kernel (``posit_codec.paged_write``: one launch per decode layer for
+both leaves, one per arena leaf for a prefill chunk's layers, dropped
+writes skipped on the device); f32/bf16 KV casts and scatters to the
+same slots.  The whole-prompt prefill quantizes each layer's KV through
+the codec (``posit_codec.quantize``); the linear decode lanes
+dequantize the whole cache every step (``posit_codec.dequantize``), as
+the reference does; the chunked-prefill arena read is one fused launch
+a layer; paged decode attention runs the fused kernel (dense/window or
+MLA latent) or the gather path (``cfg.paged_attn_kernel``).
 """
 from __future__ import annotations
 
@@ -120,6 +128,50 @@ def _block_mlp(lp, h, cfg: ModelConfig):
 
 
 # ---------------------------------------------------------------------------
+# Whole-prompt attention (the unchunked prefill)
+# ---------------------------------------------------------------------------
+
+def _attn_forward(p, x, positions, cfg: ModelConfig, kv_mask):
+    """Causal self-attention over a whole (left-padded) prompt.  RoPE
+    takes ``positions`` (B, S) (row-relative, negative on pad tokens);
+    the causal mask runs on the padded coordinates and ``kv_mask``
+    (B, S) drops each row's pad keys.  Returns ``(out, (K, V))`` with
+    the layer's fresh KV (MLA: the latent and its RoPE key)."""
+    b, s, _ = x.shape
+    q_pos = torch.arange(s, device=x.device)[None, :].expand(b, s)
+    if cfg.mla:
+        h, nope, rope = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
+        q_lat = L.rms_norm(p["q_norm"], L.dense(p["wdq"], x, cfg), cfg)
+        q = L.dense(p["wuq"], q_lat, cfg).reshape(b, s, h, nope + rope)
+        q_nope, q_rope = q.split([nope, rope], dim=-1)
+        q = torch.cat([q_nope, L.apply_rope(q_rope, positions, cfg.rope_theta)], -1)
+        c_kv, k_rope = L.dense(p["wdkv"], x, cfg).split([cfg.kv_lora_rank, rope], dim=-1)
+        c_kv = L.rms_norm(p["kv_norm"], c_kv, cfg)
+        k_rope = L.apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)
+        k_nope = L.dense(p["wuk"], c_kv, cfg).reshape(b, s, h, nope)
+        v = L.dense(p["wuv"], c_kv, cfg).reshape(b, s, h, cfg.v_head_dim)
+        k = torch.cat([k_nope, k_rope.expand(b, s, h, rope)], -1)
+        out = L.flash_attention(q, k, v, cfg=cfg, kv_mask=kv_mask, q_positions=q_pos)
+        out = out.reshape(b, s, h * cfg.v_head_dim)
+        return L.dense(p["wo"], out, cfg), (c_kv, k_rope[:, :, 0, :])
+    q = L.dense(p["wq"], x, cfg).reshape(b, s, cfg.n_heads, cfg.head_dim)
+    k = L.dense(p["wk"], x, cfg).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    v = L.dense(p["wv"], x, cfg).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    q = L.apply_rope(q, positions, cfg.rope_theta)
+    k = L.apply_rope(k, positions, cfg.rope_theta)
+    out = L.flash_attention(q, k, v, cfg=cfg, kv_mask=kv_mask, q_positions=q_pos,
+                            window=cfg.sliding_window)
+    out = out.reshape(b, s, cfg.n_heads * cfg.head_dim)
+    return L.dense(p["wo"], out, cfg), (k, v)
+
+
+def _block_forward(lp, x, positions, cfg: ModelConfig, kv_mask):
+    a, kv = _attn_forward(lp["attn"], L.rms_norm(lp["ln1"], x, cfg), positions,
+                          cfg, kv_mask)
+    return _block_mlp(lp, x + a, cfg), kv
+
+
+# ---------------------------------------------------------------------------
 # Paged cache: block arena + per-row block tables (row-local addressing)
 # ---------------------------------------------------------------------------
 
@@ -131,9 +183,9 @@ def _cache_dtype(cfg: ModelConfig):
 
 def _maybe_quant_kv(x, cfg: ModelConfig):
     """KV storage form: posit patterns through the CUDA codec, or the
-    compute dtype (the reference's function; the model stores posit KV
-    through the fused write of :func:`_write_kv` and calls this for the
-    cast only)."""
+    compute dtype.  The whole-prompt prefill quantizes each layer's KV
+    through it; decode and chunked-prefill writes go through the fused
+    write of :func:`_write_kv` instead."""
     if cfg.kv_posit:
         return posit_codec.quantize(x.to(torch.float32).contiguous(),
                                     L.pcfg(cfg.kv_posit))
@@ -200,6 +252,129 @@ def init_paged_cache(cfg: ModelConfig, batch: int, max_len: int,
         "lens": torch.zeros((batch,), dtype=torch.int32, device=dev),
         "max_len": int(max_len),
     }
+
+
+# ---------------------------------------------------------------------------
+# Linear cache: (L, B, T, ...) leaves with one shared write frontier
+#
+#   * the time axis is preallocated to ``max_len`` (or to the sliding
+#     window, run as a ring written at ``pos % window``);
+#   * ``len``: the shared write frontier (padded coordinates), a Python
+#     int; ``lens`` (B,) int32 per-row valid counts (``len - lens[b]`` is
+#     row b's padding offset); ``max_len`` a Python int.
+# ---------------------------------------------------------------------------
+
+def _cache_meta(batch: int, frontier: int, max_len: int, lens=None, *,
+                device="cuda"):
+    dev = resolve_device(device)
+    if lens is None:
+        lens = torch.full((batch,), int(frontier), dtype=torch.int32, device=dev)
+    return {"len": int(frontier),
+            "lens": torch.as_tensor(lens, device=dev).to(torch.int32),
+            "max_len": int(max_len)}
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               window_ring: bool = True, *, device="cuda"):
+    """Empty linear decode cache.  ``window_ring=False`` keeps a
+    full-``max_len`` cache under a sliding window (the layout the ring
+    is tested against)."""
+    _require_dense(cfg)
+    dev = resolve_device(device)
+    meta = _cache_meta(batch, 0, max_len, device=dev)
+    dt = _cache_dtype(cfg)
+    lead = (cfg.n_layers, batch)
+    if cfg.mla:
+        return {"c_kv": PT.zeros(lead + (max_len, cfg.kv_lora_rank), dt, dev),
+                "k_rope": PT.zeros(lead + (max_len, cfg.qk_rope_dim), dt, dev),
+                **meta}
+    window = cfg.sliding_window or 0
+    t = min(max_len, window) if (window and window_ring) else max_len
+    shape = lead + (t, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": PT.zeros(shape, dt, dev), "v": PT.zeros(shape, dt, dev), **meta}
+
+
+def _is_ring(cfg: ModelConfig, capacity: int) -> bool:
+    """Window-sized caches run as rings; full-length ones stay linear
+    (when the capacity is both the window and ``max_len`` the frontier
+    never wraps, so the two readings agree)."""
+    return bool(cfg.sliding_window) and capacity == cfg.sliding_window
+
+
+def _ring_pack(kv, w: int):
+    """Fold prompt KV (L, B, S, ...) with S > w into ring layout: slot i
+    holds the latest position q <= S-1 with q % w == i (a gather of the
+    latest positions, never a scatter with colliding destinations)."""
+    s = kv.shape[2]
+    idx = (s - 1) - torch.fmod((s - 1) - torch.arange(w, device=kv.device), w)
+    return PT.signed_view(kv).index_select(2, idx).view(kv.dtype)
+
+
+def prefill(params, tokens, cfg: ModelConfig, visual=None, *, max_len=None,
+            prompt_lens=None, window_ring: bool = True, block_size: int = 0,
+            n_blocks: int = 0, block_tables=None):
+    """Run whole prompts, return ``(cache, logits (B, V) f32)`` at the
+    last position.
+
+    ``tokens`` (B, S) int64 on the device.  ``max_len`` preallocates
+    decode headroom (default: a prompt-sized cache, so decode refuses to
+    write past it).  ``prompt_lens`` (B,) makes a ragged batch: tokens
+    are LEFT-padded, row b's real tokens take the last ``prompt_lens[b]``
+    slots with RoPE positions ``0 .. len-1``, and its pad keys are
+    masked.  Each layer's KV is quantized once (``_maybe_quant_kv``:
+    the codec's quantize on posit KV), then padded or ring-packed into a
+    linear cache, or -- with ``block_tables`` (B, W) -- packed into the
+    arena blocks the tables name (``block_size``/``n_blocks`` size the
+    arena; sentinel entries drop).  The KV values are the same in both
+    layouts."""
+    _require_dense(cfg)
+    if visual is not None:
+        raise NotImplementedError(
+            "the visual prefix is not ported yet (ROADMAP Queue 1 items 2 "
+            "and 4)")
+    b, s = tokens.shape
+    dev = tokens.device
+    ml = s if max_len is None else int(max_len)
+    if ml < s:
+        raise ValueError(f"prefill max_len={ml} < prompt length {s}")
+    ar = torch.arange(s, device=dev)[None, :]
+    if prompt_lens is None:
+        lens = torch.full((b,), s, dtype=torch.int32, device=dev)
+        positions = ar.expand(b, s)
+        kv_mask = torch.ones((b, s), dtype=torch.bool, device=dev)
+    else:
+        lens = torch.as_tensor(prompt_lens, device=dev).to(torch.int32)
+        positions = ar - (s - lens.to(torch.int64))[:, None]
+        kv_mask = positions >= 0
+    keys = arena_keys(cfg)
+
+    if block_tables is not None:
+        tables = torch.as_tensor(block_tables, device=dev).to(torch.int32)
+        cache = dict(init_paged_cache(cfg, b, ml, int(block_size), int(n_blocks),
+                                      device=dev), block_tables=tables, lens=lens)
+        shift = (s - lens) if prompt_lens is not None else None
+
+        def store(li, kv):
+            for key, t in zip(keys, kv):
+                L.paged_pack(cache[key][li:li + 1], t[None], tables, lens,
+                             window=_paged_window(cfg), src_shift=shift)
+    else:
+        cache = dict(init_cache(cfg, b, ml, window_ring, device=dev), len=s, lens=lens)
+        cap = cache[keys[0]].shape[2]
+
+        def store(li, kv):
+            for key, t in zip(keys, kv):
+                if s > cap:
+                    t = _ring_pack(t[None], cap)[0]
+                PT.signed_view(cache[key][li])[:, :t.shape[1]] = PT.signed_view(t)
+
+    x = _embed(params, tokens, cfg)
+    for li, lp in enumerate(params["layers"]):
+        x, kv = _block_forward(lp, x, positions, cfg, kv_mask)
+        store(li, tuple(_maybe_quant_kv(t, cfg) for t in kv))
+    x = L.rms_norm(params["final_norm"], x, cfg)
+    logits = x[:, -1, :] @ _unembed_weight(params, cfg).to(x.dtype)
+    return cache, logits.to(torch.float32)
 
 
 def _chunk_virtual_tables(tables, lens, bs: int, window: int,
@@ -444,22 +619,122 @@ def _decode_step_paged(params, cache, token, cfg: ModelConfig, active):
     return logits.to(torch.float32), new_cache
 
 
+def _decode_attn_dense(p, x, k_cache, v_cache, pos: int, lens, slots,
+                       cfg: ModelConfig):
+    """One layer of linear dense/GQA decode: write every row's new K/V
+    at the shared frontier ``pos`` (``slots`` from
+    ``layers.linear_write_slots``: ``pos % T`` on a ring), then attend
+    over the whole dequantized cache, row b from ``pos - lens[b]``."""
+    b = x.shape[0]
+    ring = _is_ring(cfg, k_cache.shape[1])
+    q = L.dense(p["wq"], x, cfg).reshape(b, 1, cfg.n_heads, cfg.head_dim)
+    k = L.dense(p["wk"], x, cfg).reshape(b, 1, cfg.n_kv_heads, cfg.head_dim)
+    v = L.dense(p["wv"], x, cfg).reshape(b, 1, cfg.n_kv_heads, cfg.head_dim)
+    q = L.apply_rope(q, lens[:, None], cfg.rope_theta)
+    k = L.apply_rope(k, lens[:, None], cfg.rope_theta)
+    _write_kv([(k_cache, k[:, 0]), (v_cache, v[:, 0])], slots, cfg)
+    out = L.decode_attention(
+        q, k_cache, v_cache, pos + 1, cfg=cfg, kv_posit=cfg.kv_posit,
+        window=cfg.sliding_window or 0, start=pos - lens, ring=ring)
+    return L.dense(p["wo"], out.reshape(b, 1, cfg.n_heads * cfg.head_dim), cfg)
+
+
+def _decode_attn_mla(p, x, c_cache, r_cache, pos: int, lens, slots,
+                     cfg: ModelConfig):
+    """One layer of linear absorbed-matrix MLA decode: write the new
+    latent and RoPE key at ``pos``, dequantize the whole latent cache and
+    attend in latent space with a plain softmax (the reference's own
+    order of operations, not ``decode_attention``'s)."""
+    b = x.shape[0]
+    h, nope, rope = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
+    rank = cfg.kv_lora_rank
+    q_lat = L.rms_norm(p["q_norm"], L.dense(p["wdq"], x, cfg), cfg)
+    q = L.dense(p["wuq"], q_lat, cfg).reshape(b, h, nope + rope)
+    q_nope, q_rope = q.split([nope, rope], dim=-1)
+    q_rope = L.apply_rope(q_rope[:, None], lens[:, None], cfg.rope_theta)[:, 0]
+    c_new, r_new = L.dense(p["wdkv"], x, cfg).split([rank, rope], dim=-1)
+    c_new = L.rms_norm(p["kv_norm"], c_new, cfg)
+    r_new = L.apply_rope(r_new[:, :, None, :], lens[:, None],
+                         cfg.rope_theta)[:, :, 0, :]
+    _write_kv([(c_cache, c_new[:, 0]), (r_cache, r_new[:, 0])], slots, cfg)
+
+    c, r = c_cache, r_cache
+    if cfg.kv_posit:
+        c = posit_codec.dequantize(c, L.pcfg(cfg.kv_posit))
+        r = posit_codec.dequantize(r, L.pcfg(cfg.kv_posit))
+    c, r = c.to(torch.float32), r.to(torch.float32)
+    wuk = L.maybe_dequant(p["wuk"]["w"], cfg).to(torch.float32).reshape(rank, h, nope)
+    q_lat_eff = torch.einsum("bhd,rhd->bhr", q_nope.to(torch.float32), wuk)
+    scores = torch.einsum("bhr,btr->bht", q_lat_eff, c)
+    scores = scores + torch.einsum("bhd,btd->bht", q_rope.to(torch.float32), r)
+    scale = (nope + rope) ** -0.5
+    t_pos = torch.arange(c.shape[1], device=x.device)[None, :]
+    valid = (t_pos <= pos) & (t_pos >= (pos - lens.to(torch.int64))[:, None])
+    scores = torch.where(valid[:, None, :], scores * scale, L._NEG)
+    probs = torch.softmax(scores, dim=-1)
+    ctx = torch.einsum("bht,btr->bhr", probs, c)
+    wuv = L.maybe_dequant(p["wuv"]["w"], cfg).to(torch.float32).reshape(
+        rank, h, cfg.v_head_dim)
+    out = torch.einsum("bhr,rhv->bhv", ctx, wuv)
+    out = out.reshape(b, 1, h * cfg.v_head_dim).to(x.dtype)
+    return L.dense(p["wo"], out, cfg)
+
+
+def _decode_lens(cache, pos: int, batch: int, device):
+    lens = cache.get("lens")
+    if lens is None:                       # a cache without per-row counts
+        lens = torch.full((batch,), pos, dtype=torch.int32, device=device)
+    return lens.to(torch.int32)
+
+
+def _decode_step_linear(params, cache, token, cfg: ModelConfig, active):
+    """Linear decode: every row writes at the shared frontier ``len``,
+    which always advances; inactive rows' ``lens`` stay frozen (their
+    outputs are discarded).  One set of write slots serves every layer
+    and both leaves: one fused write launch a layer on posit KV."""
+    b = token.shape[0]
+    dev = token.device
+    pos = int(cache["len"])
+    lens = _decode_lens(cache, pos, b, dev)
+    adv = torch.ones((b,), dtype=torch.int32, device=dev) if active is None \
+        else torch.as_tensor(active, device=dev).to(torch.int32)
+    k1, k2 = arena_keys(cfg)
+    cap = cache[k1].shape[2]
+    slots = L.linear_write_slots(b, cap, pos, ring=not cfg.mla and _is_ring(cfg, cap),
+                                 device=dev)
+    attend = _decode_attn_mla if cfg.mla else _decode_attn_dense
+    x = _embed(params, token[:, None], cfg)
+    for li, lp in enumerate(params["layers"]):
+        x = x + attend(lp["attn"], L.rms_norm(lp["ln1"], x, cfg),
+                       cache[k1][li], cache[k2][li], pos, lens, slots, cfg)
+        x = _block_mlp(lp, x, cfg)
+    new_cache = dict(cache, len=pos + 1, lens=lens + adv)
+    x = L.rms_norm(params["final_norm"], x, cfg)
+    logits = x[:, 0, :] @ _unembed_weight(params, cfg).to(x.dtype)
+    return logits.to(torch.float32), new_cache
+
+
 def decode_step(params, cache, token, cfg: ModelConfig, active=None):
-    """token (B,) -> (logits (B, V) f32, cache) on a paged cache.
+    """token (B,) -> (logits (B, V) f32, cache).
 
     ``active`` (B,) bool marks rows holding a live request; inactive rows
-    still produce (discarded) logits.  Raises when a live row's frontier
-    is already at ``max_len``."""
+    still produce (discarded) logits and their ``lens`` stays frozen.  A
+    paged cache (a ``block_tables`` leaf) writes every row at its own
+    ``lens[b]``; a linear cache writes every row at the shared frontier
+    ``len``, which always advances.  A write past the capacity raises
+    here, before the step (a ring never runs out)."""
     _require_dense(cfg)
     if "block_tables" not in cache:
-        raise NotImplementedError(
-            "the port serves paged caches only (no block_tables leaf)")
+        k1 = arena_keys(cfg)[0]
+        cap = cache[k1].shape[2]
+        if cfg.mla:
+            L.check_cache_capacity(cache["len"], cap, "MLA latent cache")
+        elif not _is_ring(cfg, cap):
+            L.check_cache_capacity(cache["len"], cap)
+        return _decode_step_linear(params, cache, token, cfg, active)
     live = torch.ones_like(cache["lens"], dtype=torch.bool) if active is None \
         else torch.as_tensor(active, device=cache["lens"].device).to(torch.bool)
     if bool(live.any()):
         top = int(cache["lens"][live].max())
-        if top >= int(cache["max_len"]):
-            raise ValueError(
-                f"decode_step past paged KV cache capacity: position {top} "
-                f">= {int(cache['max_len'])}")
+        L.check_cache_capacity(top, int(cache["max_len"]), "paged KV cache")
     return _decode_step_paged(params, cache, token, cfg, active)

@@ -1,23 +1,45 @@
-"""Serving engine over the paged posit KV cache (chunked-prefill lane).
+"""Serving engine: preallocated posit KV caches, the one-shot generate and
+the decode quantum of the continuous-batching scheduler.
 
-The port of ``repro/runtime/engine.py``'s paged mode: the engine owns the
-model, the block-table geometry and the sampler, and serves chunked
-prefill through :meth:`Engine.mixed_step` -- one prefill chunk for every
-row followed by ``n_steps`` masked decode steps, keyed
-``("mixed", C, n_steps)`` and never by a prompt length.  PyTorch runs
-eagerly, so there is no compiled program per key; ``n_compiles`` counts
-the distinct dispatch keys the engine has served, which keeps the
-reference's "flat across prompt lengths" invariant testable.
+The port of ``repro/runtime/engine.py``.  The engine owns the model, the
+cache geometry and the sampler:
+
+* every cache is preallocated to ``max_len`` up front (posit patterns
+  when ``cfg.kv_posit`` is set) and a request that would not fit is
+  refused before any work (``_check_fits``) -- decode never writes past
+  the capacity;
+* sliding-window caches run as rings (capacity = window, writes at
+  ``pos % window``);
+* ragged prompt batches are left-padded to a common length; each row
+  carries its own length, RoPE positions and masks;
+* sampling is greedy or at a temperature, batched, from one
+  ``torch.Generator``;
+* ``paged=True`` swaps the linear ``batch x max_len`` cache for the
+  block-table layout (rows take arena blocks from a host-side
+  ``kvcache.BlockPool``), with token streams identical to the linear
+  layout's; a paged engine also serves chunked prefill through
+  :meth:`Engine.mixed_step` (one prefill chunk for every row, then
+  ``n_steps`` masked decode steps).
+
+PyTorch runs eagerly: the reference's one ``lax.scan`` per generation
+is a loop of decode steps here, and ``n_compiles`` counts the dispatch
+keys of the programs the reference would compile -- one prefill per
+(ragged, batch, padded prompt length), one generate per (tokens, batch),
+one decode quantum per (steps, batch), one mixed step per (chunk width,
+steps) -- so its compile-count invariants stay testable.
 
 Usage::
 
     from repro_torch.runtime.engine import Engine
-    eng = Engine(cfg, params, max_len=256, block_size=16,
-                 decode_kernel="fused")            # device="cuda"
+    eng = Engine(cfg, params, max_len=256)                 # device="cuda"
+    res = eng.generate([[5, 3, 9], [7, 2, 4, 4, 1]], max_new_tokens=32)
+    res.tokens          # (2, 32) int32
+    res.prompt_lens     # [3, 5]
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
 import numpy as np
 import torch
@@ -39,21 +61,32 @@ def sample_token(logits, gen: torch.Generator, temperature: float):
     return torch.multinomial(probs, 1, generator=gen)[:, 0]
 
 
+@dataclasses.dataclass
+class GenerationResult:
+    tokens: np.ndarray          # (B, max_new_tokens) int32
+    prompt_lens: np.ndarray     # (B,) int32 per-row prompt lengths
+    prefill_logits: np.ndarray  # (B, V) f32 logits after the prompt
+    cache: Any                  # the final cache dict
+
+
 class Engine:
-    """Batched paged serving engine for the transformer family."""
+    """Batched serving engine for the transformer family."""
 
     def __init__(self, cfg: ModelConfig, params, *, max_len: int,
                  temperature: float = 0.0, seed: int = 0, pad_id: int = 0,
-                 block_size: int = 16, n_blocks: int = 0,
+                 paged: bool = False, block_size: int = 16, n_blocks: int = 0,
                  sanitize: bool = False, decode_kernel: str = None,
                  device="cuda"):
-        """``n_blocks`` sizes the shared arena (0 = one full table per
-        row).  ``sanitize=True`` arms the arena sanitizer: the
-        scheduler's pool checks double frees, use-after-free and writes
-        into shared blocks, and reclaimed blocks are poisoned on the
-        device (:meth:`poison_blocks`).  ``decode_kernel`` picks the
-        paged decode attention: ``'gather'`` (plain torch) or ``'fused'``
-        (the CUDA table-walk kernels); it threads through
+        """``paged=True`` takes the block-table layout: prefill allocates
+        arena blocks per row from a ``BlockPool`` instead of reserving
+        ``batch x max_len`` slots.  ``n_blocks`` sizes the shared arena
+        (0 = one full table per row).  ``sanitize=True`` arms the arena
+        sanitizer: the scheduler's pool checks double frees,
+        use-after-free and writes into shared blocks, and reclaimed
+        blocks are poisoned on the device (:meth:`poison_blocks`).
+        ``decode_kernel`` picks the paged decode attention (paged
+        engines only): ``'gather'`` (plain torch) or ``'fused'`` (the
+        CUDA table-walk kernels); it threads through
         ``cfg.paged_attn_kernel``.  ``params`` must already live on
         ``device``."""
         self.device = resolve_device(device)
@@ -62,14 +95,16 @@ class Engine:
                 raise ValueError(
                     f"decode_kernel must be 'gather' or 'fused', got "
                     f"{decode_kernel!r}")
+            if not paged:
+                raise ValueError(
+                    "decode_kernel selects the PAGED decode attention "
+                    "path; construct the engine with paged=True")
             cfg = dataclasses.replace(cfg, paged_attn_kernel=decode_kernel)
         if cfg.family != "transformer":
             raise ValueError(
-                "paged KV caches need the transformer family's per-row "
-                f"decode positions (got {cfg.family!r})")
+                f"the port serves the transformer family only (got "
+                f"{cfg.family!r})")
         T._require_dense(cfg)
-        if int(block_size) < 1:
-            raise ValueError(f"block_size must be >= 1, got {block_size}")
         if params["tok_embed"].device.type != self.device.type:
             raise ValueError(
                 f"params live on {params['tok_embed'].device}, engine "
@@ -79,23 +114,27 @@ class Engine:
         self.max_len = int(max_len)
         self.temperature = float(temperature)
         self.pad_id = int(pad_id)
+        self.paged = bool(paged)
         self.block_size = int(block_size)
         self.n_blocks = int(n_blocks)
         self.sanitize = bool(sanitize)
-        self.table_width = T.paged_table_width(cfg, self.block_size,
-                                               self.max_len)
-        self.window_lane = L.paged_is_window_lane(
-            T._paged_window(cfg), self.block_size, self.table_width)
+        if self.paged:
+            if self.block_size < 1:
+                raise ValueError(f"block_size must be >= 1, got {block_size}")
+            self.table_width = T.paged_table_width(cfg, self.block_size,
+                                                   self.max_len)
+            self.window_lane = L.paged_is_window_lane(
+                T._paged_window(cfg), self.block_size, self.table_width)
+        self.pool = None               # BlockPool of the last paged prefill
         self.gen = torch.Generator(device=self.device)
         self.gen.manual_seed(int(seed))
         self._dispatch_keys: set = set()
 
     @property
     def n_compiles(self) -> int:
-        """Distinct dispatch keys served (``("mixed", C, n_steps)``, and
-        ``("copy", n)``/``("poison", n)`` per block count): the port's
-        counterpart of the reference's compiled-program count, flat
-        across prompt lengths in chunked mode."""
+        """Distinct dispatch keys served: the port's counterpart of the
+        reference's compiled-program count (per-shape prefill retraces
+        included), flat across prompt lengths in chunked mode."""
         return len(self._dispatch_keys)
 
     def init_cache(self, n_slots: int):
@@ -104,6 +143,22 @@ class Engine:
         return T.init_paged_cache(
             self.cfg, n_slots, self.max_len, self.block_size,
             self.n_blocks or n_slots * self.table_width, device=self.device)
+
+    # ------------------------------------------------------------------
+    # prompt packing and prefill
+    # ------------------------------------------------------------------
+
+    def pack_prompts(self, prompts):
+        """A list of token lists (or a 2-D array) -> left-padded (B, S)
+        int32 tokens and (B,) int32 lengths, on the host."""
+        if isinstance(prompts, (np.ndarray, torch.Tensor)) and prompts.ndim == 2:
+            tokens = np.asarray(prompts, np.int32)
+            return tokens, np.full((tokens.shape[0],), tokens.shape[1], np.int32)
+        lens = np.asarray([len(p) for p in prompts], np.int32)
+        tokens = np.full((len(prompts), int(lens.max())), self.pad_id, np.int32)
+        for i, p in enumerate(prompts):                       # left-pad
+            tokens[i, tokens.shape[1] - len(p):] = np.asarray(p, np.int32)
+        return tokens, lens
 
     def _row_blocks_needed(self, prompt_len: int, reserve: int) -> int:
         """Blocks covering a row's prompt plus ``reserve`` decode writes
@@ -117,16 +172,158 @@ class Engine:
         """Host-side block allocation for a prompt batch: the (B, W) int32
         table (sentinel ``n_blocks`` in unassigned entries) and the pool
         it drew from."""
-        pool = pool or kvc.BlockPool(n_blocks)
+        pool = pool or kvc.BlockPool(n_blocks, sanitize=self.sanitize)
         tables = np.full((len(lens), self.table_width), n_blocks, np.int32)
         for row, plen in enumerate(lens):
             need = self._row_blocks_needed(int(plen), reserve)
             tables[row, :need] = pool.alloc(need)
         return tables, pool
 
+    def prefill(self, prompts, *, frames=None, visual=None,
+                reserve_tokens: int = 0, paged=None):
+        """Run a (possibly ragged) prompt batch whole; returns ``(cache,
+        last-position logits (B, V) f32, lens (B,) numpy)``.
+
+        On a paged engine each row gets arena blocks for its prompt plus
+        ``reserve_tokens`` decode writes (``generate`` reserves its whole
+        budget); ``paged=False`` forces the linear layout (the unchunked
+        paged scheduler prefills rows linearly and packs them into its
+        pool itself)."""
+        use_paged = self.paged if paged is None else bool(paged)
+        if use_paged and not self.paged:
+            raise ValueError(
+                "prefill(paged=True) needs an engine constructed with "
+                "Engine(..., paged=True): only that sizes the block tables "
+                "and arena")
+        if frames is not None:
+            raise NotImplementedError(
+                "encoder frames (whisper) are not ported yet (ROADMAP Queue 1 "
+                "item 4)")
+        tokens, lens = self.pack_prompts(prompts)
+        b, s = tokens.shape
+        if s > self.max_len:
+            raise ValueError(f"padded prompt length {s} exceeds engine max_len "
+                             f"{self.max_len}")
+        ragged = bool((lens != lens[0]).any())
+        if ragged and visual is not None:
+            raise ValueError(
+                "ragged prompt batches cannot carry a visual prefix: patch "
+                "embeddings are prepended at the sequence front, which is "
+                "where left-padding lives; pad the prompts to a common "
+                "length instead")
+        kw = {}
+        nb = 0
+        if use_paged:
+            nb = self.n_blocks or b * self.table_width
+            tables, self.pool = self._alloc_tables(lens, int(reserve_tokens), nb)
+            kw = dict(block_tables=tables, block_size=self.block_size, n_blocks=nb)
+        self._dispatch_keys.add(("prefill", ragged, visual is not None, nb, b, s))
+        dev = self.device
+        cache, logits = T.prefill(
+            self.params, torch.as_tensor(tokens, dtype=torch.int64, device=dev),
+            self.cfg, visual, max_len=self.max_len,
+            prompt_lens=torch.as_tensor(lens, device=dev) if ragged else None, **kw)
+        return cache, logits, lens
+
+    # ------------------------------------------------------------------
+    # decode
+    # ------------------------------------------------------------------
+
+    def _step(self, cache, tok, active=None):
+        """One decode step without the eager capacity check (callers
+        checked the whole quantum up front, as the reference's traced
+        scan relies on)."""
+        step = T._decode_step_paged if "block_tables" in cache \
+            else T._decode_step_linear
+        return step(self.params, cache, tok, self.cfg, active)
+
+    def decode_chunk(self, cache, tokens, n_steps: int, *, active=None):
+        """Advance every row by ``n_steps`` decode steps; returns
+        ``(cache, (B, n_steps) int64 sampled tokens)`` on the device.
+
+        ``tokens`` (B,): the last sampled token per row.  ``active`` (B,)
+        bool: inactive rows run through the batch, their ``lens`` stay
+        frozen and their tokens are garbage the scheduler discards.
+        Raises if the quantum would run the write frontier past
+        ``max_len`` (callers compact or retire rows first)."""
+        b = len(tokens)
+        act = np.ones((b,), bool) if active is None else np.asarray(active, bool)
+        if "block_tables" in cache:
+            if act.any():
+                hi = int(cache["lens"].cpu().numpy()[act].max())
+                if hi + int(n_steps) > self.max_len:
+                    raise ValueError(
+                        f"decode_chunk: paged row frontier {hi} + {int(n_steps)} "
+                        f"steps exceeds engine max_len {self.max_len}; retire "
+                        "rows first")
+        elif int(cache["len"]) + int(n_steps) > self.max_len:
+            raise ValueError(
+                f"decode_chunk: frontier {int(cache['len'])} + {int(n_steps)} "
+                f"steps exceeds engine max_len {self.max_len}; compact the "
+                "cache (kvcache.compact) or retire rows first")
+        self._dispatch_keys.add(("chunk", int(n_steps), b))
+        dev = self.device
+        tok = torch.as_tensor(np.asarray(tokens), dtype=torch.int64, device=dev)
+        active_t = torch.as_tensor(act, device=dev)
+        toks = torch.zeros((b, int(n_steps)), dtype=torch.int64, device=dev)
+        for i in range(int(n_steps)):
+            logits, cache = self._step(cache, tok, active_t)
+            tok = sample_token(logits, self.gen, self.temperature)
+            toks[:, i] = tok
+        return cache, toks
+
+    def _check_fits(self, padded_len: int, max_new_tokens: int):
+        need = padded_len + max_new_tokens - 1        # last token not cached
+        if need > self.max_len:
+            raise ValueError(
+                f"prompt ({padded_len}) + {max_new_tokens} new tokens needs "
+                f"{need} cache slots > engine max_len {self.max_len}")
+
+    def _generate(self, prompts, max_new_tokens: int, stepwise: bool, frames,
+                  visual):
+        tokens, _ = self.pack_prompts(prompts)
+        self._check_fits(tokens.shape[1], max_new_tokens)
+        cache, logits, lens = self.prefill(prompts, frames=frames, visual=visual,
+                                           reserve_tokens=max_new_tokens - 1)
+        b = tokens.shape[0]
+        self._dispatch_keys.add(("step", b) if stepwise
+                                else ("generate", int(max_new_tokens), b))
+        tok = sample_token(logits, self.gen, self.temperature)
+        out = [tok]
+        for _ in range(max_new_tokens - 1):
+            if stepwise:
+                step_logits, cache = T.decode_step(self.params, cache, tok, self.cfg)
+            else:
+                step_logits, cache = self._step(cache, tok)
+            tok = sample_token(step_logits, self.gen, self.temperature)
+            out.append(tok)
+        return GenerationResult(
+            tokens=torch.stack(out, dim=1).cpu().numpy().astype(np.int32),
+            prompt_lens=np.asarray(lens), prefill_logits=logits.cpu().numpy(),
+            cache=cache)
+
+    def generate(self, prompts, max_new_tokens: int, *, frames=None,
+                 visual=None) -> GenerationResult:
+        """Prefill, then ``max_new_tokens - 1`` decode steps after the
+        first sampled token, checked against ``max_len`` once up front
+        (the reference's one compiled scan).  Raises before any work if
+        the request cannot fit."""
+        return self._generate(prompts, max_new_tokens, False, frames, visual)
+
+    def generate_stepwise(self, prompts, max_new_tokens: int, *, frames=None,
+                          visual=None) -> GenerationResult:
+        """The same sampling through the public ``decode_step`` (its eager
+        capacity check every step); tokens identical to :meth:`generate`."""
+        return self._generate(prompts, max_new_tokens, True, frames, visual)
+
+    # ------------------------------------------------------------------
+    # chunked prefill: prefill chunks and decode steps in one dispatch
+    # ------------------------------------------------------------------
+
     def mixed_step(self, cache, chunk_tokens, n_valid, tokens, n_steps: int,
                    *, decode_active=None, write_tables=None):
-        """Advance prefilling and decoding rows in one dispatch.
+        """Advance prefilling and decoding rows in one dispatch (paged
+        engines only).
 
         Phase 1 runs ``prefill_chunk``: row ``b`` appends
         ``chunk_tokens[b, :n_valid[b]]`` at positions ``lens[b] ..``.
@@ -142,6 +339,8 @@ class Engine:
         device tensors; ``chunk_logits[b]`` is taken at row ``b``'s last
         valid chunk position.
         """
+        if not self.paged:
+            raise ValueError("mixed_step needs Engine(paged=True)")
         dev = self.device
         chunk_tokens = torch.as_tensor(np.asarray(chunk_tokens),
                                        dtype=torch.int64, device=dev)

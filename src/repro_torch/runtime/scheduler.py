@@ -1,21 +1,33 @@
-"""Continuous-batching request scheduler (chunked paged mode).
+"""Continuous-batching request scheduler.
 
-The port of ``repro/runtime/scheduler.py`` with ``chunked_prefill=True``
-over a paged engine.  The cache's batch dimension is a slot pool; every
-scheduling round
+The port of ``repro/runtime/scheduler.py``, in its three modes.  The
+cache's batch dimension is a slot pool; every scheduling round admits
+queued prompts into free slots, runs one decode quantum of
+``chunk_size`` steps for the live rows (inactive rows ride along with
+frozen ``lens``; their tokens are discarded) and retires finished rows.
 
-    admit queued prompts into free slots (allocation only: block table,
-    ``lens`` cursor, prefix borrows)  ->  extend live rows' tables for
-    the round's writes, copy-on-write shared blocks they would touch
-    ->  ONE ``Engine.mixed_step`` (a prefill chunk for every prefilling
-    row, the decode quantum for every decoding row)  ->  advance prompt
-    cursors, sample first tokens for rows whose prompt completed, emit
-    decode tokens  ->  retire finished rows (drop their block
-    references).
+* **Dense-cache mode** (``Engine(paged=False)``, the default): one
+  linear cache with a shared padded write frontier.  Admission prefills
+  the prompt alone (batch 1, the KV an isolated ``Engine.generate``
+  computes), samples its first token, raises the frontier for a long
+  prompt (``kvcache.compact``) and grafts the row in
+  (``kvcache.adopt_row``).  Retirement wipes the row
+  (``kvcache.reset_slots``); before a quantum that would run past
+  ``max_len`` the frontier is pulled back to the longest live row.
+* **Unchunked paged mode** (``Engine(paged=True)``): row-local block
+  tables, no compaction.  Admission prefills the prompt linearly and
+  packs its patterns into freshly allocated blocks
+  (``kvcache.paged_adopt_row``); live rows extend their tables between
+  quanta.
+* **Chunked paged mode** (``chunked_prefill=True``): admission only
+  allocates (block table, ``lens`` cursor, prefix borrows); every round
+  is ONE ``Engine.mixed_step``: a prefill chunk for every prefilling
+  row and the decode quantum for every decoding row.  A row whose
+  prompt completes samples its first token from the chunk's logits.
 
-Each request's worst-case block demand is reserved at admission, so
-table extension and copy-on-write never find the pool empty; admission
-defers while the reservation does not fit.
+In both paged modes each request's worst-case block demand is reserved
+at admission, so table extension and copy-on-write never find the pool
+empty; admission defers while the reservation does not fit.
 
 Policy: ``submit(..., deadline=)`` attaches an absolute sim-step
 deadline.  Admission is earliest-deadline-first (deadline-less requests
@@ -43,9 +55,8 @@ gates on every live table entry, poisoned reclaims and evictions, and
 the ``n_leaked`` gauge from :meth:`Scheduler.leak_report`.
 
 Greedy token streams, and the counters ``prefix_hits``, ``n_cow``,
-``n_preempted``, ``peak_committed`` and ``peak_logical``, equal the
-reference scheduler's.  Not ported: the unchunked and the dense
-(non-paged) modes.
+``n_preempted``, ``peak_committed``, ``peak_logical`` and ``n_compiles``,
+equal the reference scheduler's in every mode.
 
 Time is counted in decode steps (the simulation clock); each round is
 also wall-timed (``stats['step_wall_p50_ms']``/``['step_wall_p99_ms']``).
@@ -115,22 +126,19 @@ def _deadline_key(req: Request) -> float:
 
 
 class Scheduler:
-    """Iteration-level batching over a paged :class:`Engine`.
+    """Iteration-level batching over an :class:`Engine`.
 
-    ``n_slots`` is the pool width, ``chunk_size`` both the prefill chunk
-    width and the decode steps per round.  Only ``chunked_prefill=True``
-    is ported; ``prefix_cache=True`` switches on prefix sharing with
-    copy-on-write block tables.  The sanitizer follows
-    ``engine.sanitize``.
+    ``n_slots`` is the pool width, ``chunk_size`` the decode steps per
+    round and, in chunked mode, the prefill chunk width.  The mode
+    follows ``engine.paged`` and ``chunked_prefill`` (paged engines
+    only); ``prefix_cache=True`` (implies chunked prefill) switches on
+    prefix sharing with copy-on-write block tables.  The sanitizer
+    follows ``engine.sanitize``.
     """
 
     def __init__(self, engine: Engine, *, n_slots: int, chunk_size: int = 8,
                  eos_id: Optional[int] = None, prefix_cache: bool = False,
-                 chunked_prefill: bool = True):
-        if not chunked_prefill:
-            raise NotImplementedError(
-                "only the chunked-prefill scheduler is ported "
-                "(chunked_prefill=True)")
+                 chunked_prefill: bool = False):
         if chunk_size < 1:
             raise ValueError(f"chunk_size must be >= 1, got {chunk_size}")
         if n_slots < 1:
@@ -139,8 +147,45 @@ class Scheduler:
         self.n_slots = int(n_slots)
         self.chunk_size = int(chunk_size)
         self.eos_id = eos_id
+        self.paged = engine.paged
         self.prefix_cache = bool(prefix_cache)
+        # prefix borrows are chunk-cursor skips: sharing rides on chunking
+        self.chunked = bool(chunked_prefill) or self.prefix_cache
         self.sanitize = engine.sanitize
+        if self.prefix_cache and not self.paged:
+            raise ValueError(
+                "prefix_cache=True needs Engine(paged=True): sharing is "
+                "expressed through block-table entries")
+        if self.chunked and not self.paged:
+            raise ValueError(
+                "chunked_prefill=True needs Engine(paged=True): chunks write "
+                "through per-row block tables")
+        self._frontier = 0             # host mirror of a linear cache's len
+        if self.paged:
+            self._init_pool()
+        else:
+            self.cache = T.init_cache(engine.cfg, self.n_slots, engine.max_len,
+                                      device=engine.device)
+        self.prefill_tokens = 0        # tokens run through prefill
+        self.prefix_hits = 0           # admissions that borrowed blocks
+        self.prefix_matched_tokens = 0  # prompt tokens served from cache
+        self.n_cow = 0                 # copy-on-write block copies
+        self.n_evicted = 0             # index blocks reclaimed
+        self.n_leaked = 0              # sanitizer leak gauge
+        self.n_preempted = 0           # rows evicted for a deadline
+        self._slots: list = [None] * self.n_slots
+        self._queue: deque = deque()
+        self._cur_tok = np.zeros((self.n_slots,), np.int64)
+        self._next_rid = 0
+        self.steps_run = 0
+        self._step_wall_ms: list = []
+        self.n_chunks = 0
+        self.n_admitted = 0
+        self.n_retired = 0
+
+    def _init_pool(self):
+        """The paged modes' arena, block pool and per-row bookkeeping."""
+        engine = self.engine
         self.block_size = engine.block_size
         self.table_width = engine.table_width
         self.n_blocks = engine.n_blocks or self.n_slots * self.table_width
@@ -168,22 +213,6 @@ class Scheduler:
         self.peak_logical = 0
         if self.prefix_cache:
             self.index = kvc.PrefixIndex()
-        self.prefill_tokens = 0        # tokens run through prefill
-        self.prefix_hits = 0           # admissions that borrowed blocks
-        self.prefix_matched_tokens = 0  # prompt tokens served from cache
-        self.n_cow = 0                 # copy-on-write block copies
-        self.n_evicted = 0             # index blocks reclaimed
-        self.n_leaked = 0              # sanitizer leak gauge
-        self.n_preempted = 0           # rows evicted for a deadline
-        self._slots: list = [None] * self.n_slots
-        self._queue: deque = deque()
-        self._cur_tok = np.zeros((self.n_slots,), np.int64)
-        self._next_rid = 0
-        self.steps_run = 0
-        self._step_wall_ms: list = []
-        self.n_chunks = 0
-        self.n_admitted = 0
-        self.n_retired = 0
 
     # ------------------------------------------------------------------
     # queue
@@ -211,15 +240,16 @@ class Scheduler:
                 f"{len(prompt)} + {max_new_tokens} new + chunk "
                 f"{self.chunk_size} headroom) > engine max_len "
                 f"{self.engine.max_len}")
-        worst = self._worst_blocks(len(prompt), max_new_tokens)
-        if self.prefix_cache and self.engine.window_lane and \
-                self._share_cap(len(prompt)):
-            # registered ring blocks each pre-reserve one copy
-            worst += len(prompt) // self.block_size
-        if worst > self.n_blocks:
-            raise ValueError(
-                f"request needs up to {worst} cache blocks > block pool "
-                f"capacity {self.n_blocks} (block_size {self.block_size})")
+        if self.paged:
+            worst = self._worst_blocks(len(prompt), max_new_tokens)
+            if self.prefix_cache and self.engine.window_lane and \
+                    self._share_cap(len(prompt)):
+                # registered ring blocks each pre-reserve one copy
+                worst += len(prompt) // self.block_size
+            if worst > self.n_blocks:
+                raise ValueError(
+                    f"request needs up to {worst} cache blocks > block pool "
+                    f"capacity {self.n_blocks} (block_size {self.block_size})")
         rid = self._next_rid
         self._next_rid += 1
         self._queue.append(Request(
@@ -242,7 +272,7 @@ class Scheduler:
         """Counters of the run; ``step_wall_*_ms`` are real per-round wall
         times (0.0 before the first round)."""
         wall = np.asarray(self._step_wall_ms, np.float64)
-        return dict(
+        d = dict(
             n_admitted=self.n_admitted, n_retired=self.n_retired,
             n_preempted=self.n_preempted, n_chunks=self.n_chunks,
             steps_run=self.steps_run,
@@ -255,9 +285,17 @@ class Scheduler:
             prefix_matched_tokens=self.prefix_matched_tokens,
             n_cow=self.n_cow, n_evicted=self.n_evicted,
             n_leaked=self.n_leaked,
-            n_compiles=self.engine.n_compiles,
-            peak_committed=self.peak_committed,
-            peak_logical=self.peak_logical)
+            n_compiles=self.engine.n_compiles)
+        if self.paged:
+            d.update(peak_committed=self.peak_committed,
+                     peak_logical=self.peak_logical)
+        return d
+
+    def _set_frontier(self, target: int):
+        """Dense-cache mode: move the shared frontier (``kvcache.compact``)."""
+        if target != self._frontier:
+            self.cache = kvc.compact(self.cache, target)
+            self._frontier = int(target)
 
     # ------------------------------------------------------------------
     # block accounting
@@ -364,6 +402,50 @@ class Scheduler:
     def _set_device_tables(self):
         self.cache = dict(self.cache, block_tables=torch.as_tensor(
             self._tables, device=self.engine.device))
+
+    def _first_token(self, logits) -> int:
+        return int(sample_token(logits, self.engine.gen,
+                                self.engine.temperature)[0])
+
+    def _admit_paged(self, req: Request, row: int):
+        """Unchunked paged admission: a batch-1 linear prefill (the KV an
+        isolated ``Engine.generate`` computes), its patterns packed into
+        freshly allocated blocks; no other row moves.  Returns the first
+        token, or ``None`` while the pool cannot cover the reservation."""
+        plen = len(req.prompt)
+        worst = self._worst_blocks(plen, req.max_new_tokens)
+        if self.pool.n_free - self._outstanding < worst:
+            return None                # wait for retirements' blocks
+        row_cache, logits, _ = self.engine.prefill([req.prompt], paged=False)
+        now = self.table_width if self.engine.window_lane else \
+            -(-plen // self.block_size)
+        ids = self.pool.alloc(now)
+        block_ids = np.full((self.table_width,), self.n_blocks, np.int32)
+        block_ids[:now] = ids
+        cap = min(self.engine.max_len, self._window) if self._window \
+            else self.engine.max_len
+        self.cache = kvc.paged_adopt_row(self.cache, row_cache, row, block_ids,
+                                         window=self._window, src_ring=plen > cap)
+        self._tables[row] = block_ids
+        self._row_blocks[row] = ids
+        self._row_borrowed[row] = {}
+        self._row_used[row] = now
+        self._worst[row] = worst
+        self._outstanding += worst - now
+        self.prefill_tokens += plen
+        self._note_peaks()
+        return self._first_token(logits)
+
+    def _admit_dense(self, req: Request, row: int) -> int:
+        """Dense-cache admission: a batch-1 prefill grafted into ``row``
+        at the shared frontier, raised first for a long prompt.  Returns
+        the first token."""
+        row_cache, logits, _ = self.engine.prefill([req.prompt])
+        tok0 = self._first_token(logits)
+        if len(req.prompt) > self._frontier:
+            self._set_frontier(len(req.prompt))
+        self.cache = kvc.adopt_row(self.cache, row_cache, row)
+        return tok0
 
     def _admit_chunked(self, req: Request, row: int):
         """Allocate a row for ``req``: block table, ``lens`` cursor and
@@ -574,7 +656,10 @@ class Scheduler:
 
     def _try_preempt(self, req: Request) -> bool:
         """Preempt the active row with the latest deadline, if strictly
-        later than ``req``'s (best-effort counts as latest)."""
+        later than ``req``'s (best-effort counts as latest); paged modes
+        only."""
+        if not self.paged:
+            return False
         victim, vd_max = None, _deadline_key(req)
         for i, s in enumerate(self._slots):
             if s is None or s.done:
@@ -593,8 +678,13 @@ class Scheduler:
         while self._queue and free:
             req = self._queue[0]
             row = free[0]
-            cursor = self._admit_chunked(req, row)
-            if cursor is None:         # the pool cannot cover it yet
+            if not self.paged:
+                got = self._admit_dense(req, row)
+            elif self.chunked:
+                got = self._admit_chunked(req, row)
+            else:
+                got = self._admit_paged(req, row)
+            if got is None:            # the pool cannot cover it yet
                 if self._try_preempt(req):
                     self._order_queue()
                     free = [i for i, s in enumerate(self._slots) if s is None]
@@ -602,15 +692,26 @@ class Scheduler:
                 break                  # EDF: do not admit around the head
             self._queue.popleft()
             free.remove(row)
-            self._slots[row] = _Slot(req=req, emitted=[],
-                                     admitted_step=self.steps_run,
-                                     cursor=cursor)
             self.n_admitted += 1
+            if self.chunked:           # got: the chunk cursor
+                self._slots[row] = _Slot(req=req, emitted=[],
+                                         admitted_step=self.steps_run,
+                                         cursor=got)
+                continue
+            # got: the first token, from the whole-prompt prefill; a
+            # request can finish on it
+            self._slots[row] = _Slot(
+                req=req, emitted=[got], admitted_step=self.steps_run,
+                done=got == req.eos_id or req.max_new_tokens == 1)
+            self._cur_tok[row] = got
 
     def leak_report(self) -> set:
         """Allocated block ids unreachable from any live row's owned or
         borrowed entries or from the prefix index: references dropped
-        without ``free``/``release``.  Empty on a healthy run."""
+        without ``free``/``release``.  Empty on a healthy run (and in
+        dense-cache mode, which has no pool)."""
+        if not self.paged:
+            return set()
         held: set = set()
         for ids in self._row_blocks:
             held.update(int(b) for b in ids)
@@ -637,9 +738,13 @@ class Scheduler:
                 finished_step=self.steps_run))
             self._slots[i] = None
             self.n_retired += 1
-            reclaimed += self._drop_row(i)
+            if self.paged:
+                reclaimed += self._drop_row(i)
         if done_mask.any():
-            self._release_rows(done_mask, reclaimed)
+            if self.paged:
+                self._release_rows(done_mask, reclaimed)
+            else:
+                self.cache = kvc.reset_slots(self.cache, done_mask)
         return completions
 
     def _step_chunked(self):
@@ -697,13 +802,48 @@ class Scheduler:
                     if self.prefix_cache:
                         self._register_row(req.prompt, i)
                         self._note_peaks()
-                    tok0 = int(sample_token(chunk_logits[i:i + 1],
-                                            self.engine.gen,
-                                            self.engine.temperature)[0])
+                    tok0 = self._first_token(chunk_logits[i:i + 1])
                     s.emitted.append(tok0)
                     self._cur_tok[i] = tok0
                     if tok0 == req.eos_id or req.max_new_tokens == 1:
                         s.done = True
+        return self._retire()
+
+    def _step_unchunked(self):
+        """Admit (a whole-prompt prefill each) -> extend live rows' tables
+        (paged) or pull the shared frontier back if the quantum would not
+        fit (dense) -> ONE decode quantum for the live rows -> emit their
+        tokens -> retire."""
+        self._admit()
+        active = np.array([s is not None and not s.done for s in self._slots],
+                          bool)
+        if not active.any():
+            # admissions can finish at once (EOS on the prefill token)
+            return self._retire()
+        if self.paged:
+            self._ensure_blocks()
+            if self.sanitize:
+                self._sanitize_check_chunk()
+        elif self._frontier + self.chunk_size > self.engine.max_len:
+            # reclaim headroom freed by retirements and short rows
+            self._set_frontier(max(s.lens for s in self._slots
+                                   if s is not None and not s.done))
+        self.cache, toks = self.engine.decode_chunk(
+            self.cache, self._cur_tok, self.chunk_size, active=active)
+        toks = toks.cpu().numpy()
+        if not self.paged:
+            self._frontier += self.chunk_size      # mirror of cache["len"]
+        self.steps_run += self.chunk_size
+        self.n_chunks += 1
+        for i in np.nonzero(active)[0]:
+            slot = self._slots[i]
+            for t in toks[i]:
+                slot.emitted.append(int(t))
+                if int(t) == slot.req.eos_id or \
+                        len(slot.emitted) >= slot.req.max_new_tokens:
+                    slot.done = True
+                    break
+            self._cur_tok[i] = toks[i, -1]
         return self._retire()
 
     def step(self):
@@ -711,7 +851,9 @@ class Scheduler:
         completed in it."""
         t0 = time.perf_counter()
         try:
-            return self._step_chunked()
+            if self.chunked:
+                return self._step_chunked()
+            return self._step_unchunked()
         finally:
             self._step_wall_ms.append((time.perf_counter() - t0) * 1e3)
 

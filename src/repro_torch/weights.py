@@ -5,7 +5,7 @@ leaves are stacked on axis 0 (``jax.vmap`` over the layer keys) and
 caches as dicts of arrays.  These converters take those trees as nested
 dicts of numpy arrays (no JAX needed) and return the port's layout:
 ``params["layers"]`` becomes a list of per-layer dicts, and a cache's
-``max_len`` becomes a Python int.
+``len`` and ``max_len`` become Python ints.
 """
 from __future__ import annotations
 
@@ -49,10 +49,11 @@ def params_from_jax(tree, cfg, *, device="cuda", dtype=None):
 
 
 def cache_from_jax(tree, *, device="cuda"):
-    """Reference paged cache (dict of numpy arrays) -> port cache on
-    ``device``; posit patterns keep their unsigned dtype."""
+    """Reference cache, paged or linear (dict of numpy arrays) -> port
+    cache on ``device``; posit patterns keep their unsigned dtype and the
+    scalars ``len`` and ``max_len`` become Python ints."""
     dev = resolve_device(device)
     out = {}
     for k, v in tree.items():
-        out[k] = int(np.asarray(v)) if k == "max_len" else _tensor(v, dev)
+        out[k] = int(np.asarray(v)) if k in ("len", "max_len") else _tensor(v, dev)
     return out

@@ -381,6 +381,50 @@ def test_paged_write_main_path_shapes_and_views_on_card(dev, cfg, src):
         check([(a[0], x) for a, x in zip(arenas, xs)], slots)
 
 
+@pytest.mark.parametrize("cfg", [POSIT16, POSIT8], ids=["posit16", "posit8"])
+@pytest.mark.parametrize("src", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("t,pos,ring", [(1024, 700, False), (48, 1000, True),
+                                        (1024, 1024, False)],
+                         ids=["linear", "ring", "dropped"])
+def test_linear_decode_write_matches_plain_on_card(dev, cfg, src, t, pos, ring):
+    """The fused write as the linear decode lanes launch it: one layer's
+    two leaves (8, T, 10, 128), each an arena of 8 blocks of T slots,
+    rows written at the frontier (``pos % T`` on a 48-slot ring past a
+    wrap; at ``pos >= T`` on a linear leaf every write drops and the
+    leaves stay unchanged), against ``paged_write_plain``."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    half = 1 << (cfg.nbits - 1)
+    signed = {16: torch.int16, 8: torch.int8}[cfg.nbits]
+    leaves = [torch.randint(-half, half, (8, t, 10, 128), generator=gen, device=dev,
+                            dtype=signed).view(cfg.storage_dtype) for _ in range(2)]
+    rows = [torch.randn((8, 10, 128), generator=gen, device=dev).to(src) for _ in range(2)]
+    slots = L.linear_write_slots(8, t, pos, ring=ring, device=dev)
+    want = [(a.clone(), x) for a, x in zip(leaves, rows)]
+    got = [(a.clone(), x) for a, x in zip(leaves, rows)]
+    posit_codec.paged_write_plain(want, slots, cfg)
+    posit_codec.paged_write(got, slots, cfg)
+    for (g, _), (w, _), a in zip(got, want, leaves):
+        assert torch.equal(signed_view(g), signed_view(w))
+        assert torch.equal(signed_view(g), signed_view(a)) == (pos >= t and not ring)
+
+
+@pytest.mark.parametrize("shape", [(8, 1024, 10, 128), (8, 1024, 256), (8, 1024, 32)],
+                         ids=["phi3", "mla-latent", "mla-rope"])
+@pytest.mark.parametrize("cfg", [POSIT16, POSIT8], ids=["posit16", "posit8"])
+def test_dequantize_at_linear_decode_shapes_on_card(dev, cfg, shape):
+    """The codec's dequantize of one layer's whole linear cache leaf, as
+    every linear decode step launches it, on random patterns (NaR
+    included), bit for bit against ``dequantize_plain``."""
+    gen = torch.Generator(device=dev).manual_seed(12)
+    half = 1 << (cfg.nbits - 1)
+    pats = torch.randint(-half, half, shape, generator=gen, device=dev,
+                         dtype={16: torch.int16, 8: torch.int8}[cfg.nbits]
+                         ).view(cfg.storage_dtype)
+    got = posit_codec.dequantize(pats, cfg).cpu()
+    want = posit_codec.dequantize_plain(pats.cpu(), cfg)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
 @pytest.mark.parametrize("lane", ["dense", "mla"])
 def test_decode_steps_fused_write_leave_same_arena_on_card(dev, lane, monkeypatch):
     """A few ``decode_step`` calls with posit16 KV leave the same arena

@@ -79,9 +79,10 @@ def _schedulers(lane, *, bs, nb, max_len, n_slots, chunk, prefix_cache=True,
         n_slots=n_slots, chunk_size=chunk, prefix_cache=prefix_cache,
         chunked_prefill=True)
     port = Scheduler(
-        Engine(tc, tp, max_len=max_len, block_size=bs, n_blocks=nb,
+        Engine(tc, tp, max_len=max_len, paged=True, block_size=bs, n_blocks=nb,
                sanitize=sanitize, decode_kernel="fused", device="cpu"),
-        n_slots=n_slots, chunk_size=chunk, prefix_cache=prefix_cache)
+        n_slots=n_slots, chunk_size=chunk, prefix_cache=prefix_cache,
+        chunked_prefill=True)
     return ref, port
 
 

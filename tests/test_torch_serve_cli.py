@@ -1,15 +1,20 @@
 """The port's serve command line against the reference's.
 
 The README's main-path argv (``--continuous --paged --chunked-prefill
---kv-posit posit16 --decode-kernel fused``) goes through both ``main``s
-at reduced width on the dense (phi3-medium-14b) and MLA (minicpm3-4b)
-lanes.  The reference random-inits from ``PRNGKey(0)``; the port's
-``init_params`` is replaced by those weights carried across with
+--kv-posit posit16 --decode-kernel fused``) and every other mode (the
+one-shot engine, linear or paged; the dense-cache scheduler; the
+unchunked paged scheduler) go through both ``main``s at reduced width,
+on the dense (phi3-medium-14b) and MLA (minicpm3-4b) lanes.  The
+reference random-inits from ``PRNGKey(0)``; the port's ``init_params`` is
+replaced by those weights carried across with
 ``weights.params_from_jax``, since the two RNG streams differ.  Greedy
-tokens and each request's queueing delay must be equal.  The modes the
-port has not ported raise ``NotImplementedError``; the argv the
-reference refuses, the port refuses too.
+tokens, and each request's queueing delay where the mode has one, must
+be equal.  The visual and encoder-frame inputs, whose families the port
+lacks, raise ``NotImplementedError``; the argv the reference refuses,
+the port refuses too.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -65,15 +70,45 @@ def test_defaults_are_the_reference_defaults():
     assert not (args.continuous or args.paged or args.chunked_prefill)
 
 
-@pytest.mark.parametrize("flags", [
-    [],                                          # the one-shot engine path
-    ["--paged"],
-    ["--continuous"],                            # dense-cache scheduler
-    ["--continuous", "--paged"],                 # unchunked paged scheduler
-], ids=["one-shot", "one-shot-paged", "dense", "unchunked"])
-def test_unported_modes_raise(flags):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 3"):
-        serve.main(["--reduced", "--device", "cpu"] + flags)
+_MODE_ARGV = ["--reduced", "--kv-posit", "posit16", "--batch", "4",
+              "--n-requests", "8", "--prompt-len", "24", "--gen", "8",
+              "--chunk-size", "4", "--block-size", "4"]
+
+
+@pytest.mark.parametrize("arch,flags", [
+    ("phi3-medium-14b", ["--ragged"]),                   # the one-shot engine
+    ("phi3-medium-14b", ["--ragged", "--paged", "--decode-kernel", "fused"]),
+    ("phi3-medium-14b", ["--continuous"]),               # dense-cache scheduler
+    ("minicpm3-4b", ["--continuous"]),
+    ("phi3-medium-14b", ["--continuous", "--paged", "--decode-kernel", "fused"]),
+], ids=["one-shot", "one-shot-paged", "dense", "dense-mla", "unchunked"])
+def test_every_mode_matches_reference(monkeypatch, arch, flags):
+    argv = ["--arch", arch] + _MODE_ARGV + flags
+    want = ref_serve.main(argv)
+    _reference_weights(monkeypatch, arch)
+    got = serve.main(argv + ["--device", "cpu"])
+    if "--continuous" not in flags:
+        assert isinstance(got, np.ndarray) and got.shape == (4, 8)
+        np.testing.assert_array_equal(got, np.asarray(want))
+        return
+    assert got.sched.paged == ("--paged" in flags) and not got.sched.chunked
+    assert {r: c.tokens.tolist() for r, c in got.done.items()} == \
+        {r: c.tokens.tolist() for r, c in want.items()}
+    assert {r: c.queue_steps for r, c in got.done.items()} == \
+        {r: c.queue_steps for r, c in want.items()}
+
+
+@pytest.mark.parametrize("field", ["n_visual_tokens", "family"],
+                         ids=["visual", "frames"])
+def test_unported_modes_raise(monkeypatch, field):
+    """The one-shot path of a config with a visual prefix (internvl) or
+    encoder frames (whisper) raises, naming the ROADMAP items."""
+    config = serve.model_config
+    monkeypatch.setattr(serve, "model_config", lambda args: dataclasses.replace(
+        config(args), **{field: 8 if field == "n_visual_tokens" else "whisper"}))
+    monkeypatch.setattr(T, "init_params", lambda cfg, seed, device: {})
+    with pytest.raises(NotImplementedError, match="Queue 1 items 2 and 4"):
+        serve.main(["--reduced", "--device", "cpu"])
 
 
 @pytest.mark.parametrize("flags", [

@@ -65,8 +65,8 @@ def test_scheduler_tokens_match_reference(lane):
     ref_done, ref_order = ref_drive_trace(ref, trace)
 
     sched = Scheduler(
-        Engine(tc, tp, max_len=MAX_LEN, block_size=BS, decode_kernel="fused",
-               device="cpu"),
+        Engine(tc, tp, max_len=MAX_LEN, paged=True, block_size=BS,
+               decode_kernel="fused", device="cpu"),
         n_slots=SLOTS, chunk_size=CHUNK, chunked_prefill=True)
     done, order = drive_trace(sched, trace)
 
@@ -86,7 +86,8 @@ def test_engine_block_allocation_matches_reference(lane):
     rp = get_family(rc).init_params(jax.random.PRNGKey(0), rc)
     tp = params_from_jax(jax.tree.map(np.asarray, rp), tc, device="cpu")
     ref = RefEngine(rc, rp, max_len=MAX_LEN, paged=True, block_size=BS)
-    eng = Engine(tc, tp, max_len=MAX_LEN, block_size=BS, device="cpu")
+    eng = Engine(tc, tp, max_len=MAX_LEN, paged=True, block_size=BS,
+                 device="cpu")
     assert (eng.table_width, eng.window_lane) == \
         (ref.table_width, ref.window_lane)
     lens = [5, 17, 1, 30]
@@ -110,7 +111,8 @@ def test_mla_engine_takes_the_dense_table_width():
     rp = get_family(rc).init_params(jax.random.PRNGKey(0), rc)
     tp = params_from_jax(jax.tree.map(np.asarray, rp), tc, device="cpu")
     ref = RefEngine(rc, rp, max_len=MAX_LEN, paged=True, block_size=BS)
-    eng = Engine(tc, tp, max_len=MAX_LEN, block_size=BS, device="cpu")
+    eng = Engine(tc, tp, max_len=MAX_LEN, paged=True, block_size=BS,
+                 device="cpu")
     assert (eng.table_width, eng.window_lane) == \
         (ref.table_width, ref.window_lane) == (MAX_LEN // BS, False)
     cache = eng.init_cache(2)

@@ -15,7 +15,8 @@ paths at full size and checks that every kernel of each path ran there:
   and depth (``LINEAR_PATHS``): the one-shot engine on phi3-medium-14b
   (a ragged batch on a linear posit16 cache: the codec's quantize at
   every prefill, its dequantize of the whole cache at every decode
-  step, the fused write for the decode token; ``generate`` ==
+  step, a layer's two leaves in one launch, the fused write for the
+  decode token; ``generate`` ==
   ``generate_stepwise`` and two ragged rows against their singleton
   generations on the card), the dense-cache scheduler on minicpm3-4b
   (the MLA linear lane, compaction) and the unchunked paged scheduler
@@ -39,7 +40,9 @@ paths at full size and checks that every kernel of each path ran there:
                                    # posit_codec.cu
 
 Before the paths it checks and times the codec's quantize and dequantize
-at the shapes the ISA phases and the linear lanes give them, the fused
+at the shapes the ISA phases and the linear lanes give them (the
+dequantize in its job form, a layer's two leaves a launch, beside the
+launches PR 19's linear read made for the same values), the fused
 write as the paged and the linear decode lanes launch it, and its
 decode launch on the card's own clock (``torch.profiler``) beside its
 launch floor (an empty kernel through the same C call).
@@ -134,7 +137,7 @@ _SLICE9 = ["--batch", "8", "--prompt-len", "512", "--gen", "32", "--max-len", "1
 _UNCHUNKED = ["--continuous", "--n-requests", "16", "--arrival-rate", "0.5",
               "--chunk-size", "16"] + _SLICE9
 _LINEAR_KERNELS = {"posit_quantize": (2, 0), "posit_paged_write": (0, 1),
-                   "posit_dequantize": (0, 2)}
+                   "posit_dequantize": (0, 1)}
 LINEAR_PATHS = {
     "phi3-medium-14b-oneshot": (["--arch", "phi3-medium-14b", "--ragged"] + _SLICE9,
                                 _LINEAR_KERNELS),
@@ -241,16 +244,18 @@ def check_codec(dev):
 
 def codec_shapes(dev):
     """The shapes the phases give the codec, with phase-like data from
-    seeds: name -> (cfg, tensor).  Quantize: P3's weight (17 920 x 5 120
+    seeds.  Quantize, name -> (cfg, tensor): P3's weight (17 920 x 5 120
     posit16, ``randn`` / sqrt(17 920)), P2's images (8 x 3 x 224^2
     posit32, integers 0-127 x 0.02) and bias (64 posit32, integers x
     0.005); the linear prefill's KV of one layer, phi3's (8, 512, 10, 128)
     and an admission's minicpm3 latent (1, 512, 256) and RoPE key
-    (1, 512, 32), posit16.  Dequantize: P2's conv output (95 048 x 64
-    posit32), P3's output (16 x 5 120 posit16); the linear decode's whole
-    cache leaf of one layer, phi3's (8, 1 024, 10, 128) and minicpm3's
-    (8, 1 024, 256) and (8, 1 024, 32), posit16."""
-    from repro_torch.core.types import POSIT16, POSIT32
+    (1, 512, 32), posit16.  Dequantize, name -> (cfg, leaves of one
+    launch, round_to): P2's conv output (95 048 x 64 posit32) and P3's
+    output (16 x 5 120 posit16) to f32; the linear decode's whole cache of
+    one layer, phi3's K and V (2 x (8, 1 024, 10, 128)) rounded through
+    bf16 and minicpm3's latent (8, 1 024, 256) and RoPE key (8, 1 024, 32)
+    to f32, posit16, one NaR pattern at the head of each leaf."""
+    from repro_torch.core.types import POSIT16, POSIT32, signed_view
     from repro_torch.kernels import posit_codec as C
 
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -265,75 +270,164 @@ def codec_shapes(dev):
                        ("mla_prefill_latent", (1, 512, 256)),
                        ("mla_prefill_rope", (1, 512, 32))):
         quant[key] = (POSIT16, torch.randn(shape, generator=gen, device=dev))
+
+    def leaf(cfg, shape):
+        p = C.quantize_plain(torch.randn(shape, generator=gen, device=dev), cfg)
+        signed_view(p).view(-1)[0] = -(1 << (cfg.nbits - 1))       # NaR
+        return p
+
     dequant = {
-        "p2_conv_out": (POSIT32, C.quantize_plain(torch.randn((95048, 64), generator=gen,
-                                                              device=dev), POSIT32)),
-        "p3_out": (POSIT16, C.quantize_plain(torch.randn((16, 5120), generator=gen,
-                                                         device=dev), POSIT16))}
-    for key, shape in (("phi3_linear_decode", (8, 1024, 10, 128)),
-                       ("mla_linear_latent", (8, 1024, 256)),
-                       ("mla_linear_rope", (8, 1024, 32))):
-        dequant[key] = (POSIT16, C.quantize_plain(torch.randn(shape, generator=gen,
-                                                              device=dev), POSIT16))
+        "phi3_linear_decode_kv": (POSIT16, [leaf(POSIT16, (8, 1024, 10, 128))
+                                            for _ in range(2)], torch.bfloat16),
+        "mla_linear_decode_cr": (POSIT16, [leaf(POSIT16, (8, 1024, 256)),
+                                           leaf(POSIT16, (8, 1024, 32))], None),
+        "p2_conv_out": (POSIT32, [leaf(POSIT32, (95048, 64))], None),
+        "p3_out": (POSIT16, [leaf(POSIT16, (16, 5120))], None)}
     return quant, dequant
 
 
-def time_codec(dev):
-    """Rows 1 and 2 at the shapes the phases launch (``codec_shapes``):
-    wrapper time, alone (the ``*_call`` helpers), plain, and both bounds,
-    bytes (each input read once, each output written once) and operations
-    (the encode's or decode's fewest, at the integer issue rate); each
-    output checked bit for bit against the plain version.  A row's main
-    numbers are its largest shape's (P3's weight, P2's conv output)."""
+# the bf16 rounding's operations an element (a shift-and for the lsb, an
+# add, a mask): added to the decode's in the rounding mode
+OPS_ROUND_BF16 = 3
+_SAME_BYTES = {1: torch.uint8, 2: torch.bfloat16, 4: torch.float32}
+
+
+def _same_bytes_cast(src, out_elem, dev):
+    """A PyTorch cast reading ``src``'s bytes and writing ``out_elem``
+    bytes an element (the memory's pace in practice): ``call`` for
+    ``kernel_alone_ms``."""
+    from repro_torch.core.types import signed_view
+
+    s = src if src.dtype == torch.float32 else signed_view(src).view(
+        _SAME_BYTES[src.element_size()])
+    out = torch.empty(src.shape, dtype=_SAME_BYTES[out_elem], device=dev)
+    return lambda: (out.copy_(s), 0)[1]
+
+
+def time_quantize(dev, quant):
+    """Row 1 at the shapes the phases launch: wrapper time, alone (the
+    ``*_call`` helper), plain, and both bounds, bytes (each input read
+    once, each output written once) and operations (the encode's fewest,
+    at the integer issue rate); each output checked bit for bit against
+    the plain version.  The row's main numbers are P3's weight's."""
     from repro_torch.core.types import signed_view
     from repro_torch.kernels import posit_codec as C
 
+    by_shape = {}
+    for key, (cfg, x) in quant.items():
+        if not torch.equal(signed_view(C.quantize(x, cfg)),
+                           signed_view(C.quantize_plain(x, cfg))):
+            fail(f"posit_quantize differs from its plain version at {key} "
+                 f"{tuple(x.shape)}")
+        n = x.numel()
+        nbytes = n * (4 + cfg.nbits // 8)
+        call, out = C.quantize_call(x, cfg)
+        r = dict(shape=list(x.shape), cfg=cfg.name,
+                 ms=time_ms(lambda: C.quantize(x, cfg)), kernel_ms=kernel_alone_ms(call),
+                 same_bytes_cast_alone_ms=kernel_alone_ms(
+                     _same_bytes_cast(x, cfg.nbits // 8, dev)),
+                 plain_ms=time_ms(lambda: C.quantize_plain(x, cfg), iters=3),
+                 bytes_bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                 ops_bound_ms=n * OPS_ENCODE / INT_OPS * 1e3,
+                 **_bound(nbytes, n * OPS_ENCODE, INT_OPS))
+        by_shape[key] = r
+        del out
+        print(f"posit_quantize {key} {r['shape']} {cfg.name}: {r['ms']:.4f} ms, alone "
+              f"{r['kernel_ms']:.4f} ms (bounds: bytes {r['bytes_bound_ms']:.4f} ms, "
+              f"operations {r['ops_bound_ms']:.4f} ms; a cast of the same bytes alone "
+              f"{r['same_bytes_cast_alone_ms']:.4f} ms; plain {r['plain_ms']:.3f} ms)")
+    main = by_shape["p3_weight"]
+    return dict(name="posit_quantize", route="cuda",
+                source="src/repro_torch/csrc/posit_codec.cu",
+                replaces="src/repro/kernels/posit_codec.py:46", launches=0,
+                max_abs_err=0.0, library_ms=None,
+                **{k: main[k] for k in ("ms", "kernel_ms", "plain_ms", "bound_ms",
+                                        "bound_by", "bytes_bound_ms", "ops_bound_ms",
+                                        "shape")}, shapes=by_shape)
+
+
+def time_dequantize(dev, dequant):
+    """Row 2 in its job form at the shapes the phases launch: one
+    ``dequantize_many`` launch for a case's leaves, wrapper-timed and
+    alone, beside PR 19's form of the same read alone on this build's
+    kernel (a one-leaf f32 launch a leaf, and on the rounded case the cast
+    of each to bf16 and back: the linear read's chain before the job
+    table; ``launch/ew_dot_ab.py --dequantize`` times it on PR 19's
+    kernel) and beside PyTorch
+    casts that move the same bytes; bounds as ``time_quantize``'s
+    (the decode's operations, and the rounding's in bf16 mode).  Each
+    output checked bit for bit (``int32`` views, NaR included) against
+    ``dequantize_many_plain`` on the card.  The row's main numbers are
+    phi3's K and V."""
+    from repro_torch.kernels import posit_codec as C
+
+    nan_bits = int(torch.tensor([float("nan")], device=dev).to(torch.bfloat16)
+                   .view(torch.int16)[0]) & 0xFFFF
+    print(f"torch's cast of a NaN to bf16 on this card: 0x{nan_bits:04x} (the "
+          "reference's astype keeps NaR's 0x7fc0; the kernel's rounding does too)")
+    by_shape = {}
+    for key, (cfg, leaves, round_to) in dequant.items():
+        got = C.dequantize_many(leaves, cfg, round_to)
+        want = C.dequantize_many_plain(leaves, cfg, round_to)
+        if not all(torch.equal(g.view(torch.int32), w.view(torch.int32))
+                   for g, w in zip(got, want)):
+            fail(f"posit_dequantize differs from its plain version at {key}")
+        del got, want
+        n = sum(p.numel() for p in leaves)
+        nbytes = n * (cfg.nbits // 8 + 4)
+        ops = n * (OPS_DECODE + (OPS_ROUND_BF16 if round_to is not None else 0))
+        call, outs = C.dequantize_many_call(leaves, cfg, round_to)
+        one = [C.dequantize_call(p, cfg) for p in leaves]
+        casts = []
+        if round_to is not None:
+            for _, f in one:
+                b = torch.empty(f.shape, dtype=torch.bfloat16, device=dev)
+                back = torch.empty_like(f)
+                casts += [(b, f), (back, b)]
+
+        def chain():
+            for c, _ in one:
+                c()
+            for dst, src in casts:
+                dst.copy_(src)
+            return 0
+
+        same = [_same_bytes_cast(p, 4, dev) for p in leaves]
+        r = dict(shape=[list(p.shape) for p in leaves], cfg=cfg.name,
+                 round_to=None if round_to is None else str(round_to),
+                 ms=time_ms(lambda: C.dequantize_many(leaves, cfg, round_to)),
+                 kernel_ms=kernel_alone_ms(call),
+                 pr19_chain_alone_ms=kernel_alone_ms(chain),
+                 pr19_chain_launches=len(one) + len(casts),
+                 same_bytes_cast_alone_ms=kernel_alone_ms(
+                     lambda: sum(c() for c in same)),
+                 plain_ms=time_ms(lambda: C.dequantize_many_plain(leaves, cfg, round_to),
+                                  iters=3),
+                 bytes_bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                 ops_bound_ms=ops / INT_OPS * 1e3, **_bound(nbytes, ops, INT_OPS))
+        r["share_of_bound"] = r["bound_ms"] / r["kernel_ms"]
+        by_shape[key] = r
+        del outs, one, casts, same
+        print(f"posit_dequantize {key} {r['shape']} {cfg.name} round_to={r['round_to']}: "
+              f"{r['ms']:.4f} ms, alone {r['kernel_ms']:.4f} ms, {r['share_of_bound']:.0%} "
+              f"of its bound (bytes {r['bytes_bound_ms']:.4f} ms, operations "
+              f"{r['ops_bound_ms']:.4f} ms); PR 19's form alone ({r['pr19_chain_launches']} "
+              f"launches) {r['pr19_chain_alone_ms']:.4f} ms; casts of the same bytes alone "
+              f"{r['same_bytes_cast_alone_ms']:.4f} ms; plain {r['plain_ms']:.3f} ms")
+    main = by_shape["phi3_linear_decode_kv"]
+    return dict(name="posit_dequantize", route="cuda",
+                source="src/repro_torch/csrc/posit_codec.cu",
+                replaces="src/repro/kernels/posit_codec.py:61", launches=0,
+                max_abs_err=0.0, library_ms=None,
+                **{k: main[k] for k in ("ms", "kernel_ms", "plain_ms", "bound_ms",
+                                        "bound_by", "bytes_bound_ms", "ops_bound_ms",
+                                        "shape", "pr19_chain_alone_ms")}, shapes=by_shape)
+
+
+def time_codec(dev):
+    """Rows 1 and 2 at the shapes the phases launch (``codec_shapes``)."""
     quant, dequant = codec_shapes(dev)
-    rows = []
-    for name, fn, call_of, plain, shapes, ops, replaces in (
-            ("posit_quantize", C.quantize, C.quantize_call, C.quantize_plain, quant,
-             OPS_ENCODE, "src/repro/kernels/posit_codec.py:46"),
-            ("posit_dequantize", C.dequantize, C.dequantize_call, C.dequantize_plain, dequant,
-             OPS_DECODE, "src/repro/kernels/posit_codec.py:61")):
-        by_shape = {}
-        for key, (cfg, arg) in shapes.items():
-            got, ref = fn(arg, cfg), plain(arg, cfg)
-            exact = torch.equal(signed_view(got), signed_view(ref)) \
-                if got.dtype != torch.float32 else \
-                torch.equal(got.view(torch.int32), ref.view(torch.int32))
-            if not exact:
-                fail(f"{name} differs from its plain version at {key} {tuple(arg.shape)}")
-            del got, ref
-            n = arg.numel()
-            nbytes = n * (arg.element_size() + (cfg.nbits // 8 if name == "posit_quantize"
-                                                 else 4))
-            call, out = call_of(arg, cfg)
-            # a PyTorch cast that moves the same bytes (f32 read and 1-4 B
-            # written, or the reverse): the memory's pace in practice
-            cast = torch.empty(out.shape, dtype={1: torch.uint8, 2: torch.bfloat16,
-                                                 4: torch.float32}[out.element_size()],
-                               device=dev)
-            src = arg if arg.dtype == torch.float32 else signed_view(arg).view(
-                {1: torch.uint8, 2: torch.bfloat16, 4: torch.float32}[arg.element_size()])
-            r = dict(shape=list(arg.shape), cfg=cfg.name,
-                     ms=time_ms(lambda: fn(arg, cfg)), kernel_ms=kernel_alone_ms(call),
-                     same_bytes_cast_alone_ms=kernel_alone_ms(lambda: (cast.copy_(src), 0)[1]),
-                     plain_ms=time_ms(lambda: plain(arg, cfg), iters=3),
-                     bytes_bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
-                     ops_bound_ms=n * ops / INT_OPS * 1e3, **_bound(nbytes, n * ops, INT_OPS))
-            by_shape[key] = r
-            del out, cast
-            print(f"{name} {key} {r['shape']} {cfg.name}: {r['ms']:.4f} ms, alone "
-                  f"{r['kernel_ms']:.4f} ms (bounds: bytes {r['bytes_bound_ms']:.4f} ms, "
-                  f"operations {r['ops_bound_ms']:.4f} ms; a cast of the same bytes alone "
-                  f"{r['same_bytes_cast_alone_ms']:.4f} ms; plain {r['plain_ms']:.3f} ms)")
-        main = next(iter(by_shape.values()))
-        rows.append(dict(
-            name=name, route="cuda", source="src/repro_torch/csrc/posit_codec.cu",
-            replaces=replaces, launches=0, max_abs_err=0.0, library_ms=None,
-            **{k: main[k] for k in ("ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
-                                    "bytes_bound_ms", "ops_bound_ms", "shape")},
-            shapes=by_shape))
+    rows = [time_quantize(dev, quant), time_dequantize(dev, dequant)]
     del quant, dequant
     return rows
 

@@ -98,7 +98,7 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         ctypes.c_float
     if name == "posit_codec":
         lib.posit_quantize.argtypes = [I, I, P, P, LL, I, P]
-        lib.posit_dequantize.argtypes = [I, I, P, P, LL, P]
+        lib.posit_dequantize.argtypes = [I, I, I, I, P, P, P, I, P]
         for fn in (lib.posit_quantize, lib.posit_dequantize):
             fn.restype = I
     elif name == "posit_paged_write":

@@ -6,11 +6,14 @@ Replaces ``repro/kernels/posit_codec.py`` ``quantize_2d`` /
 elementwise, so these wrappers take a contiguous tensor of any shape.
 
 Bound on the H100: memory -- posit16 moves 6 B per element (4 B f32 in,
-2 B pattern out, or the reverse; posit32 8 B, posit8 5 B).  The quantize
-runs 16-byte vector passes on a persistent grid, its encode a table
-entry per sign and exponent in shared memory and one 32-bit rounding
-(``csrc/posit_quant.cuh``); the dequantize is one coalesced grid-stride
-pass.  Both cover the five configs of ``core/types.py``.
+2 B pattern out, or the reverse; posit32 8 B, posit8 5 B).  Both run
+vector passes on a persistent grid, 16-byte vectors on the f32 side, and
+cover the five configs of ``core/types.py``.  The quantize's encode is a table entry per sign and
+exponent in shared memory and one 32-bit rounding
+(``csrc/posit_quant.cuh``).  The dequantize takes up to four leaves a
+launch (:func:`dequantize_many`: a layer's K and V, or MLA's latent and
+RoPE key) and can round each value through bf16 on its way to f32, the
+values the linear decode's einsums read.
 
 On the serving path the quantize is fused into the paged KV write
 (:func:`paged_write`, ``csrc/posit_paged_write.cu``, the same encode):
@@ -50,57 +53,121 @@ def dequantize_plain(p: torch.Tensor, cfg: PositConfig) -> torch.Tensor:
     return posit_to_f32(p, cfg)
 
 
-def _codec_call(t: torch.Tensor, cfg: PositConfig, quant: bool):
-    """Checks, the output and the C call of one quantize (``quant``) or
-    dequantize of a CUDA tensor: ``(call, out)``."""
-    what = "quantize" if quant else "dequantize"
-    _build.check_cfg(cfg, what)
-    want = torch.float32 if quant else cfg.storage_dtype
-    if t.device.type != "cuda" or t.dtype != want or not t.is_contiguous():
-        raise ValueError(f"{what} needs a contiguous {want} CUDA tensor, got "
-                         f"{t.dtype} on {t.device} (contiguous={t.is_contiguous()})")
-    out = torch.empty(t.shape, dtype=cfg.storage_dtype if quant else torch.float32,
-                      device=t.device)
+def dequantize_many_plain(leaves, cfg: PositConfig, round_to=None):
+    """Plain PyTorch version of :func:`dequantize_many`: each leaf
+    decoded to f32 and, with ``round_to=torch.bfloat16``, cast to bf16
+    and back to f32.  NaR keeps the codec's NaN 0x7FC00000 through the
+    cast, as the reference's ``astype(bfloat16)`` does (torch's own cast
+    of a NaN gives other bits on other devices and versions)."""
+    _check_round_to(round_to)
+    outs = []
+    for p in leaves:
+        y = dequantize_plain(p, cfg)
+        if round_to is not None:
+            y = torch.where(torch.isnan(y), y, y.to(round_to).to(torch.float32))
+        outs.append(y)
+    return outs
+
+
+_MAX_DEQ_JOBS = 4
+
+
+def _check_round_to(round_to):
+    if round_to not in (None, torch.bfloat16):
+        raise ValueError(f"dequantize: round_to is None or torch.bfloat16, "
+                         f"got {round_to}")
+
+
+def _quantize_call(x: torch.Tensor, cfg: PositConfig):
+    """Checks, the output and the C call of one quantize of a CUDA
+    tensor: ``(call, out)``."""
+    _build.check_cfg(cfg, "quantize")
+    if x.device.type != "cuda" or x.dtype != torch.float32 or not x.is_contiguous():
+        raise ValueError(f"quantize needs a contiguous float32 CUDA tensor, got "
+                         f"{x.dtype} on {x.device} (contiguous={x.is_contiguous()})")
+    out = torch.empty(x.shape, dtype=cfg.storage_dtype, device=x.device)
     lib = _build.load("posit_codec")
-    stream = torch.cuda.current_stream(t.device).cuda_stream
-    if quant:
-        args = (cfg.nbits, cfg.es, t.data_ptr(), out.data_ptr(), t.numel(),
-                _build.sm_count(t.device), stream)
-        return (lambda: lib.posit_quantize(*args)), out
-    args = (cfg.nbits, cfg.es, t.data_ptr(), out.data_ptr(), t.numel(), stream)
-    return (lambda: lib.posit_dequantize(*args)), out
+    args = (cfg.nbits, cfg.es, x.data_ptr(), out.data_ptr(), x.numel(),
+            _build.sm_count(x.device), torch.cuda.current_stream(x.device).cuda_stream)
+    return (lambda: lib.posit_quantize(*args)), out
+
+
+def _dequantize_call(leaves, cfg: PositConfig, round_to):
+    """Checks, the outputs and the C call of one dequantize launch over
+    ``leaves`` (CUDA tensors): ``(call, outs)``."""
+    _build.check_cfg(cfg, "dequantize")
+    _check_round_to(round_to)
+    if not 0 < len(leaves) <= _MAX_DEQ_JOBS:
+        raise ValueError(f"dequantize: 1 to {_MAX_DEQ_JOBS} leaves a launch, got "
+                         f"{len(leaves)}")
+    dev = leaves[0].device
+    for p in leaves:
+        if p.device.type != "cuda" or p.device != dev or p.dtype != cfg.storage_dtype \
+                or not p.is_contiguous():
+            raise ValueError(f"dequantize needs contiguous {cfg.storage_dtype} leaves "
+                             f"on one CUDA device, got {p.dtype} on {p.device} "
+                             f"(contiguous={p.is_contiguous()})")
+    outs = [torch.empty(p.shape, dtype=torch.float32, device=dev) for p in leaves]
+    lib = _build.load("posit_codec")
+    n = len(leaves)
+    args = (cfg.nbits, cfg.es, int(round_to is not None), n,
+            (ctypes.c_void_p * n)(*[p.data_ptr() for p in leaves]),
+            (ctypes.c_void_p * n)(*[o.data_ptr() for o in outs]),
+            (ctypes.c_longlong * n)(*[p.numel() for p in leaves]),
+            _build.sm_count(dev), torch.cuda.current_stream(dev).cuda_stream)
+    return (lambda: lib.posit_dequantize(*args)), outs
 
 
 def quantize(x: torch.Tensor, cfg: PositConfig) -> torch.Tensor:
     """f32 tensor -> posit patterns (``cfg.storage_dtype``), same shape."""
     if x.device.type == "cpu":
         return quantize_plain(x, cfg)
-    call, out = _codec_call(x, cfg, True)
+    call, out = _quantize_call(x, cfg)
     _build.check(call(), "posit_quantize")
     launches["posit_quantize"] += 1
     return out
 
 
-def dequantize(p: torch.Tensor, cfg: PositConfig) -> torch.Tensor:
-    """Posit patterns (``cfg.storage_dtype``) -> f32 tensor, same shape."""
-    if p.device.type == "cpu":
-        return dequantize_plain(p, cfg)
-    call, out = _codec_call(p, cfg, False)
+def dequantize_many(leaves, cfg: PositConfig, round_to=None):
+    """Posit-pattern leaves (``cfg.storage_dtype``, any shapes) -> one
+    f32 tensor each, of the same shape; with ``round_to=torch.bfloat16``
+    every value is rounded to nearest-even bf16 on its way
+    (:func:`dequantize_many_plain`).
+
+    On CUDA tensors: one launch of ``csrc/posit_codec.cu``'s dequantize
+    for all leaves (1 to 4, contiguous, on one device).  The first
+    leaf's device chooses the path."""
+    if leaves[0].device.type == "cpu":
+        return dequantize_many_plain(leaves, cfg, round_to)
+    call, outs = _dequantize_call(leaves, cfg, round_to)
     _build.check(call(), "posit_dequantize")
     launches["posit_dequantize"] += 1
-    return out
+    return outs
+
+
+def dequantize(p: torch.Tensor, cfg: PositConfig) -> torch.Tensor:
+    """Posit patterns (``cfg.storage_dtype``) -> f32 tensor, same shape:
+    :func:`dequantize_many` of one leaf."""
+    return dequantize_many([p], cfg)[0]
 
 
 def quantize_call(x: torch.Tensor, cfg: PositConfig):
     """For timing the quantize alone: ``(call, out)``, where ``call()``
     launches the kernel into ``out`` and returns the CUDA error code.
     Not counted in ``launches``; CUDA tensors only."""
-    return _codec_call(x, cfg, True)
+    return _quantize_call(x, cfg)
 
 
 def dequantize_call(p: torch.Tensor, cfg: PositConfig):
-    """:func:`quantize_call` for the dequantize."""
-    return _codec_call(p, cfg, False)
+    """:func:`quantize_call` for the dequantize of one leaf to f32."""
+    call, outs = _dequantize_call([p], cfg, None)
+    return call, outs[0]
+
+
+def dequantize_many_call(leaves, cfg: PositConfig, round_to=None):
+    """:func:`quantize_call` for :func:`dequantize_many`: ``(call,
+    outs)``."""
+    return _dequantize_call(leaves, cfg, round_to)
 
 
 # ---------------------------------------------------------------------------

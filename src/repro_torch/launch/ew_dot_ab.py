@@ -4,7 +4,7 @@ instructions.
 
   git archive <commit> src/repro_torch/csrc | tar -x -C build/other
   PYTHONPATH=src python -m repro_torch.launch.ew_dot_ab \\
-      build/other/src/repro_torch/csrc [--quantizers]
+      build/other/src/repro_torch/csrc [--quantizers | --dequantize]
 
 Without ``--quantizers``: ``csrc/posit_ew.cu`` and ``csrc/posit_dot.cu``
 against the designs before vector passes and staged rows, with their C
@@ -28,6 +28,20 @@ layers x 128 rows, 37 dropped), with both builds' device times from
 ``torch.profiler`` and, for the decode write, the launch floor (an empty
 kernel through the same C call), ten pairs in turns with the 2- and the
 128-job table.
+
+With ``--dequantize``: the codec's dequantize against its design before
+the job table (a thread an element, grid-stride, ``posit.cuh``'s
+``to_f32``; ``posit_dequantize(nbits, es, p, out, n, stream)``, e.g.
+``git archive 3def82d src/repro_torch/csrc``).  One leaf to f32 at phi3's
+linear leaf (8, 1 024, 10, 128) posit16, minicpm3's latent (8, 1 024,
+256) and RoPE key (8, 1 024, 32) posit16, P2's conv output (95 048, 64)
+posit32; and the linear decode's reads of one layer as each design runs
+them: phi3's K and V in one bf16-rounded launch against two launches and
+four casts (to bf16 and back), minicpm3's latent and RoPE key in one
+launch against two.  Random patterns from seeds, NaR among them; the
+outputs must be equal bit for bit (a NaN only as NaN: torch's cast of
+NaR's NaN to bf16 gives other bits than the kernel's, which keeps the
+reference's).  SASS counts of both builds' hot instances.
 
 Each kernel alone is ``n`` back-to-back launches on preallocated outputs
 between one CUDA event pair, divided by ``n``, in the turns other, this,
@@ -81,9 +95,11 @@ def build_other(csrc: Path, out_dir: Path, names=_OTHER) -> dict:
     if "posit_dot" in libs:
         libs["posit_dot"].posit_dot_rows.argtypes = [I, I, P, P, P, LL, LL, P]
         libs["posit_dot"].posit_dot_rows.restype = I
-    if "posit_codec" in libs:      # the other tree's quantize takes no SM count
+    if "posit_codec" in libs:      # the other tree's codec takes no SM count
         libs["posit_codec"].posit_quantize.argtypes = [I, I, P, P, LL, P]
-        libs["posit_codec"].posit_quantize.restype = I
+        libs["posit_codec"].posit_dequantize.argtypes = [I, I, P, P, LL, P]
+        for fn in (libs["posit_codec"].posit_quantize, libs["posit_codec"].posit_dequantize):
+            fn.restype = I
     if "posit_paged_write" in libs:
         libs["posit_paged_write"].posit_paged_write.argtypes = [I, I, I, P, P, P, P, LL, LL, P]
         libs["posit_paged_write"].posit_paged_write.restype = I
@@ -300,8 +316,11 @@ def sass_counts(lib: Path, want) -> dict:
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("other_csrc", type=Path, help="the other tree's csrc directory")
-    ap.add_argument("--quantizers", action="store_true",
-                    help="the quantize and the fused paged write instead of ew and dot")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--quantizers", action="store_true",
+                      help="the quantize and the fused paged write instead of ew and dot")
+    mode.add_argument("--dequantize", action="store_true",
+                      help="the codec's dequantize instead of ew and dot")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("ew_dot_ab needs a CUDA card")
@@ -311,6 +330,9 @@ def main(argv=None):
     if args.quantizers:
         res = run_quantizers(args.other_csrc)
         res["sass"] = quantizer_sass()
+    elif args.dequantize:
+        res = run_dequantize(args.other_csrc)
+        res["sass"] = dequantize_sass()
     else:
         res = ew_dot(args.other_csrc)
     print(json.dumps(res))
@@ -368,6 +390,104 @@ def ew_dot(other_csrc: Path) -> dict:
         "other_posit_dot": sass_counts(_build.BUILD_DIR / "other" / "other_posit_dot.so", {
             "dot32": ("dot_kernel", "ILi32ELi2E")}),
     }
+    return res
+
+
+def _same_values(x, y):
+    """f32 tensors equal bit for bit, a NaN only as a NaN."""
+    nan = torch.isnan(x)
+    return torch.equal(nan, torch.isnan(y)) and torch.equal(
+        x.view(torch.int32)[~nan], y.view(torch.int32)[~nan])
+
+
+def run_dequantize(other_csrc: Path) -> dict:
+    """The dequantize in turns against the other tree's build: one leaf
+    to f32, and the linear decode's reads of a layer in each design's
+    launches; outputs equal."""
+    dev = torch.device("cuda")
+    other = build_other(other_csrc, _build.BUILD_DIR / "other", ("posit_codec",))
+    fn = other["posit_codec"].posit_dequantize
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    leaves = {"phi3_leaf": (POSIT16, (8, 1024, 10, 128)),
+              "mla_latent": (POSIT16, (8, 1024, 256)),
+              "mla_rope": (POSIT16, (8, 1024, 32)),
+              "p2_conv_out": (POSIT32, (95048, 64))}
+    res = {}
+
+    def turns(calls, n=100):
+        t = [alone_ms(c, n) for c in (calls[0], calls[1], calls[1], calls[0])]
+        return dict(other_ms=(t[0] + t[3]) / 2, ms=(t[1] + t[2]) / 2, turns=t)
+
+    def old_call(cfg, p):
+        out = torch.empty(p.shape, dtype=torch.float32, device=dev)
+        return (lambda: fn(cfg.nbits, cfg.es, p.data_ptr(), out.data_ptr(), p.numel(),
+                           stream)), out
+
+    pats = {}
+    for i, (name, (cfg, shape)) in enumerate(leaves.items()):
+        p = _random(cfg, shape, 20 + i, dev)
+        pats[name] = p
+        call, out = C.dequantize_call(p, cfg)
+        o_call, o_out = old_call(cfg, p)
+        if call() != 0 or o_call() != 0:
+            raise RuntimeError(f"a dequantize launch failed at {name}")
+        res[name] = dict(turns([o_call, call]), shape=list(shape), cfg=cfg.name,
+                         equal=_same_values(out, o_out))
+        del out, o_out
+    # the linear reads of one layer: phi3's K and V (a second leaf from
+    # another seed), minicpm3's latent and RoPE key
+    kv = [pats["phi3_leaf"], _random(POSIT16, leaves["phi3_leaf"][1], 30, dev)]
+    for name, ps, round_to in (("phi3_layer_kv_bf16", kv, torch.bfloat16),
+                               ("mla_layer_cr", [pats["mla_latent"], pats["mla_rope"]],
+                                None)):
+        call, outs = C.dequantize_many_call(ps, POSIT16, round_to)
+        olds = [old_call(POSIT16, p) for p in ps]
+        casts = []
+        if round_to is not None:
+            for _, o in olds:
+                b = torch.empty(o.shape, dtype=torch.bfloat16, device=dev)
+                casts += [(b, o), (o, b)]
+
+        def o_chain(olds=olds, casts=casts):
+            for c, _ in olds:
+                c()
+            for dst, src in casts:
+                dst.copy_(src)
+            return 0
+
+        if call() != 0 or o_chain() != 0:
+            raise RuntimeError(f"a dequantize launch failed at {name}")
+        res[name] = dict(turns([o_chain, call]), launches=1, other_launches=len(olds) + len(casts),
+                         shape=[list(p.shape) for p in ps], cfg="posit16e2",
+                         round_to=None if round_to is None else str(round_to),
+                         equal=all(_same_values(a, o) for a, (_, o) in zip(outs, olds)))
+        del outs, olds, casts
+    return res
+
+
+def dequantize_sass() -> dict:
+    """SASS counts of the dequantize's instances (posit16 to f32 and
+    bf16-rounded, posit8, posit32) in this build and the other tree's,
+    with the longest loop's instructions per element (a trip decodes four
+    units of four patterns a thread, two of posit32: 16 posit8 or posit16,
+    8 posit32; one in the other tree's kernel)."""
+    paths = _build.build_all()
+    res = {"posit_codec": sass_counts(paths["posit_codec"], {
+        "dequantize16_f32": ("17dequantize_kernel", "ILi16ELi2EtLb0E"),
+        "dequantize16_bf16": ("17dequantize_kernel", "ILi16ELi2EtLb1E"),
+        "dequantize8_f32": ("17dequantize_kernel", "ILi8ELi2EhLb0E"),
+        "dequantize32_f32": ("17dequantize_kernel", "ILi32ELi2EjLb0E")}),
+        "other_posit_codec": sass_counts(_build.BUILD_DIR / "other" / "other_posit_codec.so", {
+            "dequantize16": ("17dequantize_kernel", "ILi16ELi2EtE"),
+            "dequantize8": ("17dequantize_kernel", "ILi8ELi2EhE"),
+            "dequantize32": ("17dequantize_kernel", "ILi32ELi2EjE")})}
+    per_trip = {"16": 16, "8": 16, "32": 8}
+    for lib, tags in res.items():
+        for tag, entries in tags.items():
+            n = 1 if lib.startswith("other") else per_trip[tag[10:].split("_")[0]]
+            for e in entries:
+                e["loop_per_element"] = e["longest_loop"] / n
+                e["loop_alu_per_element"] = e["loop_alu"] / n
     return res
 
 

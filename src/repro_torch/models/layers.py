@@ -10,7 +10,8 @@ softmax ``flash_attention`` with its fixed ``attn_chunk_kv`` KV grouping
 
 Linear caches (a shared write frontier, the window ring written at
 ``pos % T``) decode through ``decode_attention`` over the whole
-dequantized cache; their writes never clamp (``check_cache_capacity``,
+dequantized cache (a layer's two posit leaves in one codec launch);
+their writes never clamp (``check_cache_capacity``,
 ``linear_write_slots``).  Paged KV primitives (block arenas + per-row
 block tables, sentinel ``n_blocks``, row-local addressing, the
 sliding-window block ring) keep the reference's layout contract.  Where
@@ -232,17 +233,20 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, cfg: ModelConfig,
     g = k_cache.shape[2]
     r = h // g
     scale = d ** -0.5
-    ks, vs = k_cache, v_cache
+    # the caches as f32 values of the compute dtype: a posit cache in one
+    # launch for both leaves, each value rounded through bf16 on its way
+    # when that is the compute dtype
     if kv_posit is not None:
-        ks = posit_codec.dequantize(ks.contiguous(), pcfg(kv_posit))
-        vs = posit_codec.dequantize(vs.contiguous(), pcfg(kv_posit))
-    ks = ks.to(cdtype(cfg))
-    vs = vs.to(cdtype(cfg))
+        ks, vs = posit_codec.dequantize_many(
+            [k_cache.contiguous(), v_cache.contiguous()], pcfg(kv_posit),
+            round_to=None if cdtype(cfg) == torch.float32 else cdtype(cfg))
+    else:
+        ks = k_cache.to(cdtype(cfg)).to(torch.float32)
+        vs = v_cache.to(cdtype(cfg)).to(torch.float32)
 
     qg = (q.reshape(b, g, r, d) * scale).to(cdtype(cfg))
     # products of compute-dtype operands, accumulated in f32
-    scores = torch.einsum("bgrd,btgd->bgrt", qg.to(torch.float32),
-                          ks.to(torch.float32))
+    scores = torch.einsum("bgrd,btgd->bgrt", qg.to(torch.float32), ks)
     cl = _per_row(cache_len, b, q.device)
     st = _per_row(0 if start is None else start, b, q.device)
     if apos is None:
@@ -262,7 +266,7 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, cfg: ModelConfig,
     p = torch.where(valid, torch.exp(scores - m), 0.0)
     l = p.sum(-1)
     out = torch.einsum("bgrt,btgv->bgrv", p.to(cdtype(cfg)).to(torch.float32),
-                       vs.to(torch.float32))
+                       vs)
     out = out / torch.clamp(l, min=1e-30)[..., None]
     return out.reshape(b, 1, h, -1).to(q.dtype)
 
@@ -468,8 +472,8 @@ def decode_attention_paged_mla(q_lat_eff, q_rope, c_arena, r_arena, tables,
     c = paged_gather(c_arena, tables)                 # (B, W*bs, rank)
     r = paged_gather(r_arena, tables)
     if kv_posit:
-        c = posit_codec.dequantize(c.contiguous(), pcfg(kv_posit))
-        r = posit_codec.dequantize(r.contiguous(), pcfg(kv_posit))
+        c, r = posit_codec.dequantize_many([c.contiguous(), r.contiguous()],
+                                           pcfg(kv_posit))
     c = c.to(torch.float32)
     r = r.to(torch.float32)
     scores = torch.einsum("bhr,btr->bht", q_lat_eff.to(torch.float32), c)

@@ -23,9 +23,10 @@ both leaves, one per arena leaf for a prefill chunk's layers, dropped
 writes skipped on the device); f32/bf16 KV casts and scatters to the
 same slots.  The whole-prompt prefill quantizes each layer's KV through
 the codec (``posit_codec.quantize``); the linear decode lanes
-dequantize the whole cache every step (``posit_codec.dequantize``), as
-the reference does; the chunked-prefill arena read is one fused launch
-a layer; paged decode attention runs the fused kernel (dense/window or
+dequantize the whole cache every step, as the reference does, a layer's
+two leaves in one launch (``posit_codec.dequantize_many``); the
+chunked-prefill arena read is one fused launch a layer; paged decode
+attention runs the fused kernel (dense/window or
 MLA latent) or the gather path (``cfg.paged_attn_kernel``).
 """
 from __future__ import annotations
@@ -659,9 +660,8 @@ def _decode_attn_mla(p, x, c_cache, r_cache, pos: int, lens, slots,
     _write_kv([(c_cache, c_new[:, 0]), (r_cache, r_new[:, 0])], slots, cfg)
 
     c, r = c_cache, r_cache
-    if cfg.kv_posit:
-        c = posit_codec.dequantize(c, L.pcfg(cfg.kv_posit))
-        r = posit_codec.dequantize(r, L.pcfg(cfg.kv_posit))
+    if cfg.kv_posit:                       # both leaves in one launch, f32
+        c, r = posit_codec.dequantize_many([c, r], L.pcfg(cfg.kv_posit))
     c, r = c.to(torch.float32), r.to(torch.float32)
     wuk = L.maybe_dequant(p["wuk"]["w"], cfg).to(torch.float32).reshape(rank, h, nope)
     q_lat_eff = torch.einsum("bhd,rhd->bhr", q_nope.to(torch.float32), wuk)

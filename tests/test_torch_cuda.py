@@ -425,6 +425,112 @@ def test_dequantize_at_linear_decode_shapes_on_card(dev, cfg, shape):
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
+def _leaves_on_card(dev, cfg, shapes, seed):
+    """Random patterns of every bit, NaR at each non-empty leaf's head, on
+    the card."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    half = 1 << (cfg.nbits - 1)
+    out = []
+    for shape in shapes:
+        p = torch.randint(-half, half, shape, generator=gen, device=dev,
+                          dtype={32: torch.int64, 16: torch.int32, 8: torch.int32}[cfg.nbits])
+        p = p.to(signed_view(torch.empty(0, dtype=cfg.storage_dtype)).dtype)
+        p.view(-1)[:1] = -half
+        out.append(p.view(cfg.storage_dtype))
+    return out
+
+
+def _same_f32(got, want):
+    return all(torch.equal(g.cpu().view(torch.int32), w.view(torch.int32))
+               for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("round_to", [None, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", ["phi3-kv", "mla-cr", "four-jobs"])
+@pytest.mark.parametrize("cfg", [POSIT16, POSIT8], ids=["posit16", "posit8"])
+def test_dequantize_many_at_linear_decode_shapes_on_card(dev, cfg, case, round_to):
+    """One ``dequantize_many`` launch over a layer's two linear leaves
+    (phi3's K and V, minicpm3's latent and RoPE key) and over four leaves
+    of unequal lengths, f32 and bf16-rounded, bit for bit (``int32``
+    views, NaR included) against ``dequantize_many_plain`` on the host;
+    one launch counted a call, and the ``_call`` helper writes the same."""
+    shapes = {"phi3-kv": [(8, 1024, 10, 128)] * 2,
+              "mla-cr": [(8, 1024, 256), (8, 1024, 32)],
+              "four-jobs": [(3, 1000, 7), (0,), (13,), (70_001,)]}[case]
+    leaves = _leaves_on_card(dev, cfg, shapes, len(case))
+    before = posit_codec.launches["posit_dequantize"]
+    got = posit_codec.dequantize_many(leaves, cfg, round_to)
+    assert posit_codec.launches["posit_dequantize"] == before + 1
+    want = posit_codec.dequantize_many_plain([p.cpu() for p in leaves], cfg, round_to)
+    assert [tuple(g.shape) for g in got] == [tuple(p.shape) for p in leaves]
+    assert _same_f32(got, want)
+    call, outs = posit_codec.dequantize_many_call(leaves, cfg, round_to)
+    assert call() == 0
+    assert _same_f32(outs, want)
+    assert posit_codec.launches["posit_dequantize"] == before + 1
+
+
+@pytest.mark.parametrize("round_to", [None, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("cfg", CONFIGS, ids=lambda c: c.name)
+def test_dequantize_misaligned_views_on_card(dev, cfg, round_to):
+    """Leaves that are views at element offsets 1-7 of their buffers (a
+    ragged head before the source's first unit of four), lengths below one
+    vector, at one and past one CTA's chunk, two leaves a launch."""
+    for n in (1, 7, 16, 17, 1531, 100_003):
+        (buf,) = _leaves_on_card(dev, cfg, [(n + 8,)], n)
+        for off in range(8):
+            a, b = buf[off:off + n], buf[8 - off:8 - off + n // 2]
+            got = posit_codec.dequantize_many([a, b], cfg, round_to)
+            want = posit_codec.dequantize_many_plain([a.cpu(), b.cpu()], cfg, round_to)
+            assert _same_f32(got, want), (n, off)
+
+
+def test_dequantize_bf16_keeps_nar_nan_on_card(dev):
+    """NaR rounded through bf16 stays the codec's NaN 0x7FC00000, as the
+    reference's ``astype(bfloat16)`` keeps it (torch's own cast of a NaN
+    on the card may give other bits); every posit16 pattern."""
+    p = torch.arange(1 << 16, dtype=torch.int64).to(POSIT16.storage_dtype)
+    (got,) = posit_codec.dequantize_many([p.to(dev)], POSIT16, torch.bfloat16)
+    assert int(got.view(torch.int32)[1 << 15]) == 0x7FC00000
+    assert _same_f32([got], posit_codec.dequantize_many_plain([p], POSIT16, torch.bfloat16))
+
+
+@pytest.mark.parametrize("kv", ["posit16", "posit8"])
+@pytest.mark.parametrize("arch,compute", [("phi3-medium-14b", "bfloat16"),
+                                          ("phi3-medium-14b", "float32"),
+                                          ("minicpm3-4b", "float32")],
+                         ids=["dense-bf16", "dense-f32", "mla"])
+def test_linear_decode_one_dequantize_a_layer_on_card(dev, arch, compute, kv, monkeypatch):
+    """Linear-cache decode steps on the card launch the dequantize once a
+    layer a step (both leaves in one launch), and give the logits, bit for
+    bit, of the same steps with the read's plain version."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(configs.get_config(arch).reduced(compute_dtype=compute),
+                              kv_posit=kv)
+    params = T.init_params(cfg, seed=3, device=dev)
+    runs = []
+    for fused in (True, False):
+        if not fused:
+            monkeypatch.setattr(posit_codec, "dequantize_many",
+                                posit_codec.dequantize_many_plain)
+        cache = T.init_cache(cfg, 3, 24, device=dev)
+        gen = torch.Generator().manual_seed(4)
+        logits = []
+        for _ in range(6):
+            tok = torch.randint(1, cfg.vocab, (3,), generator=gen).to(dev)
+            before = posit_codec.launches["posit_dequantize"]
+            out, cache = T.decode_step(params, cache, tok, cfg)
+            assert posit_codec.launches["posit_dequantize"] - before == \
+                (cfg.n_layers if fused else 0)
+            logits.append(out.cpu())
+        runs.append(torch.stack(logits))
+    assert torch.equal(runs[0].view(torch.int32), runs[1].view(torch.int32))
+
+
 @pytest.mark.parametrize("lane", ["dense", "mla"])
 def test_decode_steps_fused_write_leave_same_arena_on_card(dev, lane, monkeypatch):
     """A few ``decode_step`` calls with posit16 KV leave the same arena

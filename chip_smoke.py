@@ -10,7 +10,14 @@ paths at full size and checks that every kernel of each path ran there:
   phi3-medium-14b (dense GQA lane, ``paged_attn.cu``) and minicpm3-4b
   (MLA lane, ``paged_attn_mla.cu``) with prefix caching and deadlines
   on a shared-prefix trace, on an arena small enough that deadlines
-  preempt;
+  preempt; then on the same trace the rest of the transformer family:
+  granite-moe-3b-a800m (the MoE feed-forward on every chunk and decode
+  step, full width and depth), gemma-7b (head_dim 256, full width and
+  depth), granite-34b (MQA, 48 query heads on one KV head, full width,
+  24 of 88 layers) and dbrx-132b (16 experts top 4, posit8 KV, full
+  width, 4 of 40 layers), each with exact launch counts, and on gemma
+  and granite-34b the fused decode kernel against the gather path on
+  the served weights;
 - the one-shot engine and the two unchunked schedulers at full width
   and depth (``LINEAR_PATHS``): the one-shot engine on phi3-medium-14b
   (a ragged batch on a linear posit16 cache: the codec's quantize at
@@ -21,7 +28,8 @@ paths at full size and checks that every kernel of each path ran there:
   generations on the card), the dense-cache scheduler on minicpm3-4b
   (the MLA linear lane, compaction) and the unchunked paged scheduler
   on phi3-medium-14b, each with exact launch counts per prefill and
-  decode step and the schedule pinned on the CPU;
+  decode step and the schedule pinned on the CPU; and the one-shot
+  engine on internvl2-1b with its visual prefix (full width and depth);
 - the PVU ISA (``posit_ew.cu``, ``posit_dot.cu``, ``posit_qgemm.cu``,
   ``posit_gemm.cu``): the paper's verification workload
   (``configs/pvu_resnet_conv.py``, the ResNet-18 first conv on 8 images
@@ -39,7 +47,10 @@ paths at full size and checks that every kernel of each path ran there:
                                    # posit_ew.cu, posit_dot.cu and
                                    # posit_codec.cu
 
-Before the paths it checks and times the codec's quantize and dequantize
+Before the paths it checks paged attention at every served
+architecture's head shape (``ATTN_SHAPES``) and the fused write and read
+on every served lane's leaves (``LANES``) against their plain versions,
+and checks and times the codec's quantize and dequantize
 at the shapes the ISA phases and the linear lanes give them (the
 dequantize in its job form, a layer's two leaves a launch, beside the
 launches PR 19's linear read made for the same values), the fused
@@ -68,6 +79,8 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+
+T_START = time.perf_counter()
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 FP32_FLOPS = 67e12             # H100 SXM fp32 outside the tensor cores
@@ -121,6 +134,24 @@ MAIN_PATHS = {
                     ("posit_paged_write", "posit_paged_read",
                      "paged_decode_attention_mla")),
 }
+# The rest of the transformer family on the same trace and kernels (the
+# MoE feed-forward launches no posit kernel).  granite-moe-3b-a800m and
+# gemma-7b at full width and depth (3.4 B and 8.5 B parameters in bf16);
+# granite-34b at full width with 24 of its 88 layers (all 88 in bf16,
+# some 93 GB with the port's three-matrix MLP, leave no room on an
+# 80 GB card); dbrx-132b at full width with 4 of its 40 layers (6.3 GB of
+# bf16 experts a layer) and posit8 KV, as its serving config asks.
+_DENSE_KERNELS = ("posit_paged_write", "posit_paged_read", "paged_decode_attention")
+_TRACE8 = ["posit8" if a == "posit16" else a for a in _TRACE]
+MAIN_PATHS.update({
+    "granite-moe-3b-a800m": (["--arch", "granite-moe-3b-a800m"] + _TRACE, _DENSE_KERNELS),
+    "gemma-7b": (["--arch", "gemma-7b"] + _TRACE, _DENSE_KERNELS),
+    "granite-34b": (["--arch", "granite-34b", "--n-layers", "24"] + _TRACE, _DENSE_KERNELS),
+    "dbrx-132b": (["--arch", "dbrx-132b", "--n-layers", "4"] + _TRACE8, _DENSE_KERNELS),
+})
+# paths whose fused decode kernel is held to the gather path on the
+# served weights at full width (head_dim 256; 48 heads in 6 head groups)
+FUSED_GATHER_PATHS = ("gemma-7b", "granite-34b")
 
 
 # The one-shot engine and the two unchunked schedulers, full width and
@@ -131,15 +162,15 @@ MAIN_PATHS = {
 # the trace flags of (b).  Each kernel's launches must be exactly L (the
 # model's layers) times the per-prefill and per-decode-step counts given
 # here, and every other kernel must stay unlaunched.
-_SLICE9 = ["--batch", "8", "--prompt-len", "512", "--gen", "32", "--max-len", "1024",
+_LINEAR_ARGS = ["--batch", "8", "--prompt-len", "512", "--gen", "32", "--max-len", "1024",
            "--kv-posit", "posit16", "--temperature", "0", "--seed", "0",
            "--device", "cuda"]
 _UNCHUNKED = ["--continuous", "--n-requests", "16", "--arrival-rate", "0.5",
-              "--chunk-size", "16"] + _SLICE9
+              "--chunk-size", "16"] + _LINEAR_ARGS
 _LINEAR_KERNELS = {"posit_quantize": (2, 0), "posit_paged_write": (0, 1),
                    "posit_dequantize": (0, 1)}
 LINEAR_PATHS = {
-    "phi3-medium-14b-oneshot": (["--arch", "phi3-medium-14b", "--ragged"] + _SLICE9,
+    "phi3-medium-14b-oneshot": (["--arch", "phi3-medium-14b", "--ragged"] + _LINEAR_ARGS,
                                 _LINEAR_KERNELS),
     "minicpm3-4b-dense": (["--arch", "minicpm3-4b"] + _UNCHUNKED, _LINEAR_KERNELS),
     "phi3-medium-14b-unchunked": (
@@ -147,6 +178,9 @@ LINEAR_PATHS = {
          "--decode-kernel", "fused"] + _UNCHUNKED,
         {"posit_quantize": (2, 0), "posit_paged_write": (0, 1),
          "paged_decode_attention": (0, 1)}),
+    # internvl2-1b with its 256 visual tokens: prompts of equal length
+    # (a ragged batch cannot carry a visual prefix)
+    "internvl2-1b-oneshot": (["--arch", "internvl2-1b"] + _LINEAR_ARGS, _LINEAR_KERNELS),
 }
 # The two schedulers' schedules on their traces (no EOS, so they do not
 # depend on the model): rounds, decode steps, compactions of the shared
@@ -432,14 +466,22 @@ def time_codec(dev):
     return rows
 
 
-def attn_case(dev, kv, window, seed):
-    """Full-width phi3 decode attention: B=8 rows, G=10 KV heads, R=4,
-    D=128, block 16, W=64 table slots; ragged lens, sentinel tails, one
-    all-masked row (its table is all sentinels)."""
+# the other served architectures' decode attention: (KV heads G, query
+# heads a KV head R, head_dim D, KV format) of the paths in MAIN_PATHS
+ATTN_SHAPES = {"granite-moe-3b-a800m": (8, 3, 64, "posit16"),
+               "gemma-7b": (16, 1, 256, "posit16"),
+               "granite-34b": (1, 48, 128, "posit16"),
+               "dbrx-132b": (8, 6, 128, "posit8")}
+
+
+def attn_case(dev, kv, window, seed, g=10, r=4, d=128):
+    """Full-width decode attention, by default phi3's: B=8 rows, G=10 KV
+    heads, R=4, D=128, block 16, W=64 table slots; ragged lens, sentinel
+    tails, one all-masked row (its table is all sentinels)."""
     from repro_torch.kernels import posit_codec as C
     from repro_torch.models import layers as L
 
-    b, g, r, d, bs, w = 8, 10, 4, 128, 16, 64
+    b, bs, w = 8, 16, 64
     lens = [1000, 700, 512, 300, 900, 64, 1020, 0]
     if window:
         lens = [1500, 2047, 512, 300, 1800, 64, 1020, 0]
@@ -481,6 +523,22 @@ def check_attention(dev):
                 fail(f"paged_decode_attention {lane} {kv} disagrees with plain")
             if window == 0 and kv == "posit16":
                 row = time_attention(args, pcfg, err)
+    row["arch_shapes"] = {}
+    for name, (g, r, d, kv) in ATTN_SHAPES.items():
+        args, pcfg = attn_case(dev, kv, 0, seed=2, g=g, r=r, d=d)
+        got = K.paged_decode_attention(*args, pcfg=pcfg)
+        ref = K.paged_decode_attention_plain(*args, pcfg=pcfg)
+        err = float((got - ref).abs().max())
+        print(f"paged attention {name} (G {g}, R {r}, D {d}) {kv}: max abs err {err:.3e} "
+              f"(tolerance atol=rtol={ATTN_TOL}), all-masked row exact zeros: "
+              f"{bool((got[-1] == 0).all())}")
+        if not torch.allclose(got, ref, atol=ATTN_TOL, rtol=ATTN_TOL) or \
+                not bool((got[-1] == 0).all()):
+            fail(f"paged_decode_attention at {name}'s shape disagrees with plain")
+        t = time_attention(args, pcfg, err)
+        row["arch_shapes"][name] = {key: t[key] for key in (
+            "shape", "max_abs_err", "ms", "kernel_ms", "bound_ms", "bound_by", "plain_ms",
+            "library_ms", "library_alone_ms")}
     return row
 
 
@@ -631,23 +689,31 @@ def time_attention_mla(args, pcfg, scale, err):
         library_ms=time_ms(lib), shape=[b, h, rank, rope, int(tables.shape[1]), bs])
 
 
-MAIN_LAYERS = {"dense": 40, "window": 40, "mla": 62}   # phi3-medium-14b, minicpm3-4b
+# each served lane's arena leaves at its model's depth: (layers, the two
+# leaves' per-slot widths, window).  phi3-medium-14b dense and on a
+# 48-token window ring, minicpm3-4b's latent and RoPE key, and the paths
+# of MAIN_PATHS that follow (granite-34b and dbrx-132b at their cut depth)
+LANES = {"dense": (40, ((10, 128), (10, 128)), 0),
+         "window": (40, ((10, 128), (10, 128)), 48),
+         "mla": (62, ((256,), (32,)), 0),
+         "granite-moe": (32, ((8, 64), (8, 64)), 0),
+         "gemma": (28, ((16, 256), (16, 256)), 0),
+         "granite-34b": (24, ((1, 128), (1, 128)), 0),
+         "dbrx": (4, ((8, 128), (8, 128)), 0)}
 
 
 def write_case(dev, cfg, lane, seed):
-    """Full-width arena leaves of one lane at its model's depth (phi3's
-    40 layers of K and V, dense or on a 48-token window ring; minicpm3's
-    62 layers of latent and RoPE key), 512 blocks of 16 slots of random
+    """Full-width arena leaves of one of ``LANES`` at its model's depth
+    (e.g. phi3's 40 layers of K and V, dense or on a 48-token window
+    ring; minicpm3's 62 layers of latent and RoPE key), 512 blocks of 16 slots of random
     patterns; 8 rows whose tables name live blocks but for a sentinel
     entry that row 1 writes through; row 3 inactive.  Returns the
     leaves, bf16 sources for one decode token and for a 16-token prefill
     chunk of every layer, and the destinations."""
     from repro_torch.models import layers as L
 
-    b, bs, nb, c, n_layers = 8, 16, 512, 16, MAIN_LAYERS[lane]
-    feats, window = {"dense": (((10, 128), (10, 128)), 0),
-                     "window": (((10, 128), (10, 128)), 48),
-                     "mla": (((256,), (32,)), 0)}[lane]
+    b, bs, nb, c = 8, 16, 512, 16
+    n_layers, feats, window = LANES[lane]
     w = L.paged_window_blocks(window, bs) if window else 64
     gen = torch.Generator(device=dev).manual_seed(seed)
     perm = torch.randperm(nb, generator=torch.Generator().manual_seed(seed))
@@ -737,9 +803,9 @@ def check_paged_write(dev):
     """The fused quantize-and-write against ``quantize_plain`` and the
     masked scatter it replaces (``layers.paged_write`` for a decode
     token, ``layers.paged_pack_range`` for a prefill chunk), arena bit
-    for bit, on the dense, window and MLA leaves in posit16 and posit8,
-    at the main path's launches: a decode token's two leaves, and a
-    prefill chunk's leaf of all 40 (phi3) or 62 (minicpm3) layers; dropped
+    for bit, on every lane's leaves (``LANES``) in posit16 and posit8,
+    at the main paths' launches: a decode token's two leaves, and a
+    prefill chunk's leaf of all the model's layers; dropped
     rows and sentinel entries leave their slots untouched.  Returns the
     kernel row, timed on the posit16 dense case's arenas and jobs, and
     the function that adds its profiler readings (``time_paged_write``)."""
@@ -752,9 +818,9 @@ def check_paged_write(dev):
 
     row = None
     for cfg in (POSIT16, POSIT8):
-        for lane in ("dense", "window", "mla"):
+        for lane in LANES:
             k = write_case(dev, cfg, lane, seed=6)
-            n_layers, index = MAIN_LAYERS[lane], k["index"]
+            n_layers, index = LANES[lane][0], k["index"]
             # decode: one token per row into layer 0 of each leaf
             got = [a.clone() for a in k["leaves"]]
             want = [a.clone() for a in k["leaves"]]
@@ -875,9 +941,9 @@ def time_paged_write(k, cfg):
 
 
 def read_case(dev, cfg, lane, seed):
-    """One lane's arena leaves at its model's depth and width (phi3's 40
-    layers of K and V, dense or on a 48-token window ring; minicpm3's 62
-    layers of latent and RoPE key), 512 blocks of 16 slots of random
+    """The arena leaves of one of ``LANES`` at its model's depth and width
+    (e.g. phi3's 40 layers of K and V, dense or on a 48-token window ring;
+    minicpm3's 62 layers of latent and RoPE key), 512 blocks of 16 slots of random
     patterns, read as a prefill chunk of the main path reads them: 8 rows
     of a 64-entry virtual table (max_len 1024) at ragged lens, sentinel
     entries past each dense row's blocks, one all-masked row; the window
@@ -885,10 +951,8 @@ def read_case(dev, cfg, lane, seed):
     from repro_torch.models import layers as L
     from repro_torch.models import transformer as T
 
-    b, bs, nb, vw, n_layers = 8, 16, 512, 64, MAIN_LAYERS[lane]
-    feats, window = {"dense": (((10, 128), (10, 128)), 0),
-                     "window": (((10, 128), (10, 128)), 48),
-                     "mla": (((256,), (32,)), 0)}[lane]
+    b, bs, nb, vw = 8, 16, 512, 64
+    n_layers, feats, window = LANES[lane]
     lens = torch.tensor([1000, 700, 512, 300, 900, 64, 1020, 0])
     perm = torch.randperm(nb, generator=torch.Generator().manual_seed(seed))
     w = L.paged_window_blocks(window, bs) if window else vw
@@ -911,7 +975,7 @@ def check_paged_read(dev):
     """The fused chunked-prefill read against its plain version (gather,
     ``dequantize_plain``, the cast, the mask), bf16 out as the main path
     reads, bit for bit through an integer view (NaN patterns count), on
-    the dense, window and MLA leaves in posit16 and posit8, every layer
+    every lane's leaves (``LANES``) in posit16 and posit8, every layer
     of the model's depth read as the main path reads it (one launch a
     layer, both leaves); f32 out on layer 0 too.  Returns the kernel row,
     timed on the posit16 dense case."""
@@ -920,7 +984,7 @@ def check_paged_read(dev):
 
     row = None
     for cfg in (POSIT16, POSIT8):
-        for lane in ("dense", "window", "mla"):
+        for lane in LANES:
             k = read_case(dev, cfg, lane, seed=8)
             geo = (k["vtables"], k["lens"], k["low_pos"])
             ok, n_layers = True, k["leaves"][0].shape[0]
@@ -1101,6 +1165,42 @@ def check_fused_equals_gather(dev):
                  f"({arch})")
 
 
+def check_fused_equals_gather_full(name, served):
+    """The fused decode kernel against the gather path on a main path's
+    own weights at full width: 8 ragged prompts of 64-128 tokens through
+    a paged engine, 16 greedy tokens with each decode attention.  Both
+    attend in f32 over the same posit KV in other orders, and the model
+    rounds to bf16, so a near-tie may flip a token: the gather stream is
+    then fed to both engines (teacher-forced) and the fused logits must
+    lie within ``FORCED_TOL`` of the gather logits' spread, every argmax
+    flip at a near-tie (the rule of ``check_ragged_rows``)."""
+    from repro_torch.runtime.engine import Engine
+
+    cfg, params = served.cfg, served.params
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(1, cfg.vocab, int(n)).tolist()
+               for n in rng.integers(64, 129, size=8)]
+    engines = {k: Engine(cfg, params, max_len=256, paged=True, block_size=16,
+                         decode_kernel=k, device=served.device) for k in ("fused", "gather")}
+    toks = {k: eng.generate(prompts, 16).tokens for k, eng in engines.items()}
+    same = int((toks["fused"] == toks["gather"]).sum())
+    want = forced_logits(engines["gather"], prompts, toks["gather"])
+    got = forced_logits(engines["fused"], prompts, toks["gather"])
+    if not torch.equal(want.argmax(-1).cpu(), torch.as_tensor(toks["gather"], dtype=torch.int64)):
+        fail(f"the {name} gather engine's teacher-forced run does not reproduce its tokens")
+    diff = (got - want).abs().amax(-1)
+    rel = float((diff / want.std(-1)).max())
+    top2 = want.topk(2, dim=-1).values
+    flips = got.argmax(-1) != want.argmax(-1)
+    near_tie = bool(((top2[..., 0] - top2[..., 1]) <= 2 * diff)[flips].all())
+    print(f"main path {name}: fused == gather on the served weights: {same} of "
+          f"{toks['gather'].size} greedy tokens equal; teacher-forced logits max |diff| "
+          f"{float(diff.max()):.5f}, {rel:.5f} of the spread (limit {FORCED_TOL}), "
+          f"{int(flips.sum())} argmax flips, all at near-ties: {near_tie}")
+    if rel > FORCED_TOL or not near_tie:
+        fail(f"the fused decode kernel and the gather path disagree on the {name} path")
+
+
 def check_prefix_identity(dev):
     """On the card, reduced minicpm3 with f32 KV under the sanitizer:
     prefix caching changes no greedy token.  Exact duplicate prompts
@@ -1278,17 +1378,30 @@ def run_linear_paths(dev):
                     or not np.isfinite(oneshot.result.prefill_logits).all():
                 fail(f"the {name} path gave {tokens.shape} tokens outside the vocabulary "
                      "or non-finite prefill logits")
-            print(f"linear path {name}: full width, {len(prompts)} ragged prompts "
+            print(f"linear path {name}: full width, {len(prompts)} prompts "
                   f"(lens {oneshot.result.prompt_lens.tolist()}), prefill (the report) "
                   f"{oneshot.prefill_seconds:.2f} s, generate {oneshot.seconds:.2f} s for "
                   f"{tokens.size} tokens ({tokens.size / oneshot.seconds:.2f} tok/s, prefill "
                   f"included); {wall:.2f} s with init; {n['prefill']} prefills, "
                   f"{n['step']} decode steps; peak device memory {peak:.2f} GiB")
-            same = bool((eng.generate_stepwise(prompts, 32).tokens == tokens).all())
-            print(f"linear path {name}: generate == generate_stepwise tokens: {same}")
+            inputs = oneshot.inputs
+            same = bool((eng.generate_stepwise(prompts, 32, **inputs).tokens == tokens).all())
+            print(f"linear path {name}: generate == generate_stepwise tokens: {same}"
+                  f"{' (with the visual prefix)' if inputs else ''}")
             if not same:
                 fail(f"generate and generate_stepwise disagree on the {name} path")
-            check_ragged_rows(name, eng, prompts, tokens, oneshot.result.prompt_lens)
+            if "visual" in inputs:
+                # the prefix must reach the logits: without it they move
+                plain = eng.prefill(prompts)[1]
+                moved = float((plain - torch.as_tensor(
+                    oneshot.result.prefill_logits, device=plain.device)).abs().max())
+                print(f"linear path {name}: prefill logits without the visual prefix "
+                      f"differ by up to {moved:.4f}")
+                if not moved > 0:
+                    fail(f"the visual prefix did not reach the {name} path's logits")
+            lens = oneshot.result.prompt_lens
+            if len(set(lens.tolist())) > 1:
+                check_ragged_rows(name, eng, prompts, tokens, lens)
             del eng, oneshot
         else:
             sched = res.sched
@@ -1308,6 +1421,7 @@ def run_linear_paths(dev):
                      f"CPU {SCHEDULES[name]}")
             if not sched.paged and bool((sched.cache["lens"] != 0).any()):
                 fail(f"the {name} path left live rows in its cache")
+            del sched          # its engine holds the weights: free them for the next path
         for kernel, (pp, ps) in expect.items():
             if ps:
                 print(f"linear path {name}: {kernel} launches per decode step "
@@ -1967,6 +2081,12 @@ def run(pool):
         if counts["posit_paged_read"] != n_layers * chunks:
             fail(f"posit_paged_read ran {counts['posit_paged_read']} times in "
                  f"{chunks} prefill chunks of {n_layers} layers")
+        # one write a layer each decode step, one a leaf (all layers) each chunk
+        if counts["posit_paged_write"] != n_layers * steps + 2 * chunks:
+            fail(f"posit_paged_write ran {counts['posit_paged_write']} times in "
+                 f"{steps} decode steps and {chunks} prefill chunks of {n_layers} layers")
+        if name in FUSED_GATHER_PATHS:
+            check_fused_equals_gather_full(name, res.sched.engine)
         by_path[name] = counts
         if name == "phi3-medium-14b":
             # P4: cache maintenance on the arena this path served from
@@ -2002,6 +2122,12 @@ def run(pool):
               f"(bound {row['bound_ms']:.4f} ms by {row['bound_by']}, "
               f"plain {row['plain_ms']:.4f} ms, library "
               f"{row['library_ms'] if row['library_ms'] is None else round(row['library_ms'], 4)} ms)")
+    for name, t in next(r for r in rows if r["name"] == "paged_decode_attention")[
+            "arch_shapes"].items():
+        print(f"paged_decode_attention at {name}'s shape {t['shape']}: {t['ms']:.4f} ms, "
+              f"kernel alone {t['kernel_ms']:.4f} ms vs library alone "
+              f"{t['library_alone_ms']:.4f} ms (bound {t['bound_ms']:.5f} ms by "
+              f"{t['bound_by']}, plain {t['plain_ms']:.4f} ms)")
     for key in ("leaf", "bias_vadd", "vdiv_exact"):
         r = ew_row[key]
         print(f"posit_ew {key} at {r['shape']}: {r['ms']:.4f} ms, kernel alone "
@@ -2014,6 +2140,7 @@ def run(pool):
     accuracy_table(conv, golden8, got8)
     isa_s += time.perf_counter() - t0
     print(f"ISA phases (P1-P5 and the accuracy table) took {isa_s:.1f} s")
+    print(f"smoke wall {time.perf_counter() - T_START:.1f} s, the kernels' build included")
 
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -30,6 +30,10 @@ class PositConfig:
             raise ValueError("align_width must be in [1, 63]")
 
     @property
+    def useed(self) -> int:
+        return 1 << (1 << self.es)
+
+    @property
     def mask(self) -> int:
         """Mask of the low ``nbits`` bits."""
         return (1 << self.nbits) - 1 if self.nbits < 32 else 0xFFFFFFFF
@@ -54,6 +58,11 @@ class PositConfig:
     @property
     def min_scale(self) -> int:
         return -self.max_scale
+
+    @property
+    def max_frac_bits(self) -> int:
+        """Longest possible fraction field: n - 1 (sign) - 2 (min regime) - es."""
+        return max(0, self.nbits - 3 - self.es)
 
     @property
     def storage_dtype(self) -> torch.dtype:

@@ -54,9 +54,12 @@ is ever preempted):
 The port's own flags: ``--n-layers`` cuts depth only (every width stays
 the architecture's), ``--deadline-share`` as above, and ``--device``.
 ``--reduced`` swaps in the tiny same-family config for CPU runs
-(``--device cpu``).  The reference's visual and encoder-frame inputs
-(internvl, whisper) belong to families the port lacks and raise
-``NotImplementedError``.
+(``--device cpu``).  ``--arch`` takes every transformer-family
+architecture (``configs.ARCH_IDS``: the dense, MLA and MoE ones); on
+internvl2-1b the one-shot path draws the visual prefix from the seeded
+stream after the prompts, as the reference does.  The reference's
+encoder-frame input (whisper) belongs to a family the port lacks and
+raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -154,6 +157,7 @@ class OneShotResult:
     prompts: list             # the batch as given to the engine
     prefill_seconds: float    # the reported prefill alone
     seconds: float            # generate: prefill and every decode step
+    inputs: dict = dataclasses.field(default_factory=dict)   # ``visual``, if any
 
 
 def _build_engine(args, cfg, params, max_len):
@@ -167,10 +171,10 @@ def _build_engine(args, cfg, params, max_len):
 
 def run_oneshot(args, cfg, params) -> OneShotResult:
     """Prefill a batch of prompts (the cache report), then generate."""
-    if cfg.family == "whisper" or cfg.n_visual_tokens:
+    if cfg.family == "whisper":
         raise NotImplementedError(
-            "the visual and encoder-frame inputs are not ported yet (ROADMAP "
-            "Queue 1 items 2 and 4)")
+            "encoder frames (whisper) are not ported yet (ROADMAP Queue 1 "
+            "item 4)")
     rng = np.random.default_rng(args.seed)
     if args.ragged:
         lens = rng.integers(max(2, args.prompt_len // 2), args.prompt_len + 1,
@@ -178,11 +182,16 @@ def run_oneshot(args, cfg, params) -> OneShotResult:
         prompts = [rng.integers(1, cfg.vocab, int(n)).tolist() for n in lens]
     else:
         prompts = rng.integers(1, cfg.vocab, size=(args.batch, args.prompt_len))
+    kwargs = {}
+    if cfg.n_visual_tokens:           # drawn after the prompts, as the reference
+        kwargs["visual"] = torch.as_tensor(rng.standard_normal(
+            (args.batch, cfg.n_visual_tokens, cfg.d_model)), dtype=torch.float32,
+            device=args.device)
     max_len = args.max_len or (args.prompt_len + args.gen)
     engine = _build_engine(args, cfg, params, max_len)
 
     t0 = time.perf_counter()
-    cache, _, lens = engine.prefill(prompts, reserve_tokens=args.gen - 1)
+    cache, _, lens = engine.prefill(prompts, reserve_tokens=args.gen - 1, **kwargs)
     if engine.device.type == "cuda":
         torch.cuda.synchronize()
     t_prefill = time.perf_counter() - t0
@@ -193,14 +202,14 @@ def run_oneshot(args, cfg, params) -> OneShotResult:
           f"{rep['f32_bytes']:,} f32-equiv ({rep['ratio']:.2f}x, "
           f"kv_posit={cfg.kv_posit}, max_len={max_len})")
     t0 = time.perf_counter()
-    res = engine.generate(prompts, args.gen)
+    res = engine.generate(prompts, args.gen, **kwargs)
     dt = time.perf_counter() - t0
     print(f"decode: {args.gen} steps in {dt:.2f}s "
           f"({args.gen * args.batch / max(dt, 1e-9):.1f} tok/s, prefill "
           f"included; device {engine.device})")
     print("generated ids:\n", res.tokens)
     return OneShotResult(result=res, engine=engine, prompts=prompts,
-                         prefill_seconds=t_prefill, seconds=dt)
+                         prefill_seconds=t_prefill, seconds=dt, inputs=kwargs)
 
 
 def run_continuous(args, cfg, params) -> ServeResult:

@@ -6,7 +6,10 @@ cast to the activation dtype at use (posit-pattern weights decode first,
 ``maybe_dequant``; ``cfg.posit_exact_linear`` routes ``dense`` through
 the quire, ``dense_posit_exact``); attention is the chunked online-
 softmax ``flash_attention`` with its fixed ``attn_chunk_kv`` KV grouping
-(the chunked-prefill identity depends on it).
+(the chunked-prefill identity depends on it).  The feed-forward is the
+SwiGLU/GeGLU ``mlp`` or the mixture of experts ``moe`` (the reference's
+row-local sort-based capacity dispatch, vectorised over rows, with no
+host sync; the experts' products as batched matmuls).
 
 Linear caches (a shared write frontier, the window ring written at
 ``pos % T``) decode through ``decode_attention`` over the whole
@@ -671,7 +674,115 @@ def init_mlp(gen: torch.Generator, cfg: ModelConfig, *, dtype=torch.float32):
     }
 
 
+def _act(gate, cfg: ModelConfig):
+    return F.gelu(gate, approximate="tanh") if cfg.act == "gelu" else F.silu(gate)
+
+
 def mlp(p, x, cfg: ModelConfig):
     gate = dense(p["wg"], x, cfg)
-    act = F.gelu(gate, approximate="tanh") if cfg.act == "gelu" else F.silu(gate)
-    return dense(p["wo"], act * dense(p["wi"], x, cfg), cfg)
+    return dense(p["wo"], _act(gate, cfg) * dense(p["wi"], x, cfg), cfg)
+
+
+# ---------------------------------------------------------------------------
+# Mixture of Experts: sort-based capacity dispatch, row-local
+# ---------------------------------------------------------------------------
+
+def init_moe(gen: torch.Generator, cfg: ModelConfig, *, dtype=torch.float32):
+    d, f, e = cfg.d_model, cfg.d_ff_expert, cfg.n_experts
+    s = d ** -0.5
+
+    def normal(shape, scale):
+        w = torch.randn(shape, generator=gen, device=gen.device,
+                        dtype=torch.float32) * scale
+        return w.to(dtype)
+
+    return {
+        "router": init_dense(gen, d, e, dtype=dtype, scale=s),
+        "wi": normal((e, d, f), s),
+        "wg": normal((e, d, f), s),
+        "wo": normal((e, f, d), f ** -0.5),
+    }
+
+
+def moe_top_k(probs, k: int):
+    """``lax.top_k`` over the last axis: the k largest values, the lower
+    index first among equal values (a stable descending sort; torch's
+    ``topk`` leaves tie order unspecified)."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _moe_capacity(s: int, cfg: ModelConfig) -> int:
+    return int(max(1, (s * cfg.top_k / cfg.n_experts) * cfg.capacity_factor))
+
+
+def _moe_dispatch(p, x, cfg: ModelConfig):
+    """Route every row of x (B, S, D) into fixed-capacity expert buffers
+    (B, E, cap, D), each row on its own: the reference's ``_moe_row``
+    over all rows at once.
+
+    Every position of a row takes capacity (pad tokens and a chunk's
+    positions past its valid count included): cap comes from S.  Top-k
+    of the router softmax, weights renormalised; choices sorted by
+    expert (stable), the first ``cap`` of each expert kept, the rest
+    sent to the overflow slot ``E * cap`` and dropped.  Returns the
+    buffers and ``(order, dest, keep, gate_w)``, each (B, S*k).  No
+    host sync: counts are a scatter-add into (B, E)."""
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    logits = dense(p["router"], x, cfg).to(torch.float32)         # (B, S, E)
+    gate_w, gate_i = moe_top_k(torch.softmax(logits, dim=-1), k)
+    gate_w = gate_w / gate_w.sum(-1, keepdim=True).clamp(min=1e-9)
+
+    flat_e = gate_i.reshape(b, s * k)
+    order = torch.argsort(flat_e, dim=-1, stable=True)            # groups by expert
+    sorted_e = flat_e.gather(1, order)
+    counts = torch.zeros((b, e), dtype=torch.int64, device=x.device).scatter_add_(
+        1, flat_e, torch.ones_like(flat_e))
+    offsets = counts.cumsum(1) - counts                           # exclusive
+    pos_in_e = torch.arange(s * k, device=x.device)[None, :] - offsets.gather(1, sorted_e)
+
+    cap = _moe_capacity(s, cfg)
+    keep = pos_in_e < cap
+    dest = torch.where(keep, sorted_e * cap + pos_in_e, e * cap)  # overflow slot
+
+    tok_sorted = torch.div(order, k, rounding_mode="floor")
+    xg = x.gather(1, tok_sorted[..., None].expand(b, s * k, d))
+    xg = torch.where(keep[..., None], xg, torch.zeros((), dtype=x.dtype, device=x.device))
+    slots = e * cap + 1                   # row b's buffer starts at b * slots
+    row0 = torch.arange(b, device=x.device)[:, None] * slots
+    buf = x.new_zeros((b * slots, d)).index_copy_(
+        0, (dest + row0).reshape(-1), xg.reshape(b * s * k, d))
+    xe = buf.view(b, slots, d)[:, :-1].reshape(b, e, cap, d)
+    return xe, (order, dest, keep, gate_w)
+
+
+def _moe_combine(ye, aux, cfg: ModelConfig):
+    """Expert outputs (B, E, cap, D) back to (B, S, D): each kept choice
+    read from its slot (dropped ones are zero), written back through
+    ``order``, scaled by its gate weight and summed over the k choices."""
+    b, e, cap, d = ye.shape
+    order, dest, keep, gate_w = aux
+    sk = order.shape[1]
+    y_sorted = ye.reshape(b, e * cap, d).gather(
+        1, dest.clamp(max=e * cap - 1)[..., None].expand(b, sk, d))
+    y_sorted = torch.where(keep[..., None], y_sorted,
+                           torch.zeros((), dtype=ye.dtype, device=ye.device))
+    y_flat = torch.empty_like(y_sorted).scatter_(
+        1, order[..., None].expand(b, sk, d), y_sorted)
+    k = cfg.top_k
+    return (y_flat.view(b, sk // k, k, d) * gate_w[..., None].to(ye.dtype)).sum(2)
+
+
+def moe(p, x, cfg: ModelConfig):
+    """x (B, S, D) -> (B, S, D): row-local top-k dispatch, then every
+    expert's SwiGLU/GeGLU on its (B * cap) buffer rows as one batched
+    product over the experts, output in the compute dtype."""
+    b, s, d = x.shape
+    xe, aux = _moe_dispatch(p, x, cfg)                            # (B, E, cap, D)
+    e, cap = xe.shape[1], xe.shape[2]
+    wi, wg, wo = (maybe_dequant(p[key], cfg).to(x.dtype) for key in ("wi", "wg", "wo"))
+    xf = xe.transpose(0, 1).reshape(e, b * cap, d)
+    h = _act(torch.bmm(xf, wg), cfg) * torch.bmm(xf, wi)         # (E, B*cap, F)
+    ye = torch.bmm(h, wo).reshape(e, b, cap, d).transpose(0, 1)   # (B, E, cap, D)
+    return _moe_combine(ye, aux, cfg)

@@ -12,8 +12,11 @@ parameter dicts (the reference scans stacked parameters).  Cache leaves
 stay stacked, (L, n_blocks, block_size, G, D) arenas or (L, B, T, G, D)
 linear leaves for K/V, and the MLA latents ``c_kv``/``k_rope`` the same
 way without the head axis; they are updated in place and each function
-returns the cache dict with the new ``lens`` (and ``len``).  MoE
-feed-forward is not ported yet and raises.
+returns the cache dict with the new ``lens`` (and ``len``).  The
+feed-forward is the dense MLP or, on a MoE config, ``layers.moe``
+(row-local capacity dispatch over every position a call passes); a
+config with visual tokens takes ``visual`` patch embeddings at the
+front of a whole-prompt prefill.
 
 KV writes have one destination form, :func:`_write_kv`: rows to flat
 slots of a layer's leaf seen as an arena (a linear leaf (B, T, ...) is
@@ -38,13 +41,6 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import posit_codec
 from . import layers as L
 from .config import ModelConfig
-
-
-def _require_dense(cfg: ModelConfig):
-    """Raise for a mixture-of-experts feed-forward (every attention lane
-    is ported; the FFN must be dense)."""
-    if cfg.is_moe:
-        raise NotImplementedError("MoE feed-forward is not ported yet")
 
 
 # ---------------------------------------------------------------------------
@@ -85,7 +81,6 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda"):
     (the forward casts them to it anyway); norm scales stay f32.
     ``params["layers"]`` is a list of per-layer dicts.
     """
-    _require_dense(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
@@ -93,12 +88,16 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda"):
     d = cfg.d_model
     layers = []
     for _ in range(cfg.n_layers):
-        layers.append({
+        layer = {
             "ln1": L.init_rms_norm(d, cfg, dev),
             "attn": _init_attention(gen, cfg, dt, dev),
             "ln2": L.init_rms_norm(d, cfg, dev),
-            "mlp": L.init_mlp(gen, cfg, dtype=dt),
-        })
+        }
+        if cfg.is_moe:
+            layer["moe"] = L.init_moe(gen, cfg, dtype=dt)
+        else:
+            layer["mlp"] = L.init_mlp(gen, cfg, dtype=dt)
+        layers.append(layer)
     embed = torch.randn((cfg.vocab, d), generator=gen, device=dev,
                         dtype=torch.float32) * 0.02
     params = {
@@ -111,10 +110,17 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda"):
     return params
 
 
-def _embed(params, tokens, cfg: ModelConfig):
+def _embed(params, tokens, cfg: ModelConfig, visual=None):
+    """Token embeddings (B, S, D); with ``visual`` (B, nv, D) on a config
+    with visual tokens, the patch embeddings take the front of the
+    sequence and the prompt's last nv embeddings drop, so the length
+    stays S (the reference's stub prefix)."""
     x = params["tok_embed"][tokens].to(L.cdtype(cfg))
     if cfg.scale_embed:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
+    if cfg.n_visual_tokens and visual is not None:
+        nv = cfg.n_visual_tokens
+        x = torch.cat([visual.to(x.dtype), x[:, :x.shape[1] - nv]], dim=1)
     return x
 
 
@@ -125,7 +131,10 @@ def _unembed_weight(params, cfg: ModelConfig):
 
 
 def _block_mlp(lp, h, cfg: ModelConfig):
-    return h + L.mlp(lp["mlp"], L.rms_norm(lp["ln2"], h, cfg), cfg)
+    """The feed-forward half of a block, dense or MoE (every position of
+    ``h`` routes, whatever its validity)."""
+    hn = L.rms_norm(lp["ln2"], h, cfg)
+    return h + (L.moe(lp["moe"], hn, cfg) if cfg.is_moe else L.mlp(lp["mlp"], hn, cfg))
 
 
 # ---------------------------------------------------------------------------
@@ -235,7 +244,6 @@ def init_paged_cache(cfg: ModelConfig, batch: int, max_len: int,
                      block_size: int, n_blocks: int, *, device="cuda"):
     """Empty paged pool cache: zeroed arenas, sentinel block tables,
     ``lens`` all zero; ``max_len`` is a Python int."""
-    _require_dense(cfg)
     dev = resolve_device(device)
     w = paged_table_width(cfg, block_size, max_len)
     lead = (cfg.n_layers, n_blocks, block_size)
@@ -280,7 +288,6 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     """Empty linear decode cache.  ``window_ring=False`` keeps a
     full-``max_len`` cache under a sliding window (the layout the ring
     is tested against)."""
-    _require_dense(cfg)
     dev = resolve_device(device)
     meta = _cache_meta(batch, 0, max_len, device=dev)
     dt = _cache_dtype(cfg)
@@ -327,12 +334,8 @@ def prefill(params, tokens, cfg: ModelConfig, visual=None, *, max_len=None,
     linear cache, or -- with ``block_tables`` (B, W) -- packed into the
     arena blocks the tables name (``block_size``/``n_blocks`` size the
     arena; sentinel entries drop).  The KV values are the same in both
-    layouts."""
-    _require_dense(cfg)
-    if visual is not None:
-        raise NotImplementedError(
-            "the visual prefix is not ported yet (ROADMAP Queue 1 items 2 "
-            "and 4)")
+    layouts.  ``visual`` (B, nv, D) replaces the front of the embedded
+    sequence on a config with visual tokens (``_embed``)."""
     b, s = tokens.shape
     dev = tokens.device
     ml = s if max_len is None else int(max_len)
@@ -369,7 +372,7 @@ def prefill(params, tokens, cfg: ModelConfig, visual=None, *, max_len=None,
                     t = _ring_pack(t[None], cap)[0]
                 PT.signed_view(cache[key][li])[:, :t.shape[1]] = PT.signed_view(t)
 
-    x = _embed(params, tokens, cfg)
+    x = _embed(params, tokens, cfg, visual)
     for li, lp in enumerate(params["layers"]):
         x, kv = _block_forward(lp, x, positions, cfg, kv_mask)
         store(li, tuple(_maybe_quant_kv(t, cfg) for t in kv))
@@ -430,7 +433,6 @@ def prefill_chunk(params, cache, tokens, cfg: ModelConfig, n_valid, *,
     reads it) and KV blocks keep the fixed ``attn_chunk_kv`` grouping,
     so every split of a prompt reduces in the same groups.
     """
-    _require_dense(cfg)
     b, c = tokens.shape
     dev = tokens.device
     tables = cache["block_tables"]
@@ -723,7 +725,6 @@ def decode_step(params, cache, token, cfg: ModelConfig, active=None):
     ``lens[b]``; a linear cache writes every row at the shared frontier
     ``len``, which always advances.  A write past the capacity raises
     here, before the step (a ring never runs out)."""
-    _require_dense(cfg)
     if "block_tables" not in cache:
         k1 = arena_keys(cfg)[0]
         cap = cache[k1].shape[2]

@@ -52,13 +52,14 @@ from repro_torch.models.config import ModelConfig
 
 
 def sample_token(logits, gen: torch.Generator, temperature: float):
-    """(B, V) f32 logits -> (B,) int64 tokens.  ``temperature`` 0 is
-    greedy argmax (first maximum on ties, consumes no randomness); > 0
-    samples from the softmax at that temperature using ``gen``."""
+    """(B, V) f32 logits -> (B,) int32 tokens, as the reference's.
+    ``temperature`` 0 is greedy argmax (first maximum on ties, consumes
+    no randomness); > 0 samples from the softmax at that temperature
+    using ``gen``."""
     if temperature <= 0.0:
-        return torch.argmax(logits, dim=-1)
+        return torch.argmax(logits, dim=-1).to(torch.int32)
     probs = torch.softmax(logits / temperature, dim=-1)
-    return torch.multinomial(probs, 1, generator=gen)[:, 0]
+    return torch.multinomial(probs, 1, generator=gen)[:, 0].to(torch.int32)
 
 
 @dataclasses.dataclass
@@ -104,7 +105,6 @@ class Engine:
             raise ValueError(
                 f"the port serves the transformer family only (got "
                 f"{cfg.family!r})")
-        T._require_dense(cfg)
         if params["tok_embed"].device.type != self.device.type:
             raise ValueError(
                 f"params live on {params['tok_embed'].device}, engine "
@@ -219,6 +219,8 @@ class Engine:
             kw = dict(block_tables=tables, block_size=self.block_size, n_blocks=nb)
         self._dispatch_keys.add(("prefill", ragged, visual is not None, nb, b, s))
         dev = self.device
+        if visual is not None:
+            visual = torch.as_tensor(visual, device=dev)
         cache, logits = T.prefill(
             self.params, torch.as_tensor(tokens, dtype=torch.int64, device=dev),
             self.cfg, visual, max_len=self.max_len,

@@ -135,3 +135,18 @@ def test_quant_dequant_posit32():
     got = TC.quant_dequant(torch.from_numpy(x), POSIT32).numpy()
     want = np.asarray(RC.quant_dequant(jnp.asarray(x), R32))
     np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+@pytest.mark.parametrize("rcfg,tcfg", [(R32, POSIT32), (R16, POSIT16), (R8, POSIT8),
+                                       (R16E1, POSIT16_E1), (R8E0, POSIT8_E0)],
+                         ids=["posit32", "posit16", "posit8", "posit16e1", "posit8e0"])
+def test_posit_config_constants_match_reference(rcfg, tcfg):
+    """Every derived constant of ``PositConfig`` (``useed`` and
+    ``max_frac_bits`` included) equals the reference's on the five
+    configs."""
+    for name in ("useed", "mask", "nar_pattern", "maxpos_pattern",
+                 "minpos_pattern", "max_scale", "min_scale", "max_frac_bits",
+                 "name"):
+        assert getattr(tcfg, name) == getattr(rcfg, name), name
+    assert (tcfg.nbits, tcfg.es, tcfg.align_width) == \
+        (rcfg.nbits, rcfg.es, rcfg.align_width)

@@ -73,13 +73,14 @@ def test_paged_attention_matches_plain_on_card(dev, kv, window):
     assert torch.all(got[-1] == 0)
 
 
-def _split_case(kv, d, bs, window, r):
+def _split_case(kv, d, bs, window, r, g=3):
     """Paged attention inputs that cross several splits: W = 7 table
     entries dense (3 or 7 in the window ring), a sentinel tail on row 0,
     on row 1 (dense) a hole of sentinel entries 3..5 with live blocks
-    after it, and an all-masked last row."""
+    after it, and an all-masked last row; ``g`` KV heads of ``r`` query
+    heads each."""
     rng = np.random.default_rng(d + bs + window + r)
-    b, g = 4, 3
+    b = 4
     w = L.paged_window_blocks(window, bs) if window else 7
     nb = b * w
     tables = torch.from_numpy(rng.permutation(nb).astype(np.int32)).reshape(b, w)
@@ -857,3 +858,109 @@ def test_gemm_kernel_plans_and_scalar_paths_on_card(dev, plan, aligned):
     bound = 2 * k * 2.0 ** -24 * (a.abs().double() @ posit_codec.dequantize(
         w, cfg).abs().double())
     assert ((got.cpu().double() - want.double()).abs() <= bound).all()
+
+
+# ---------------------------------------------------------------------------
+# the shapes the other transformer architectures give the serving kernels
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("kv", [None, "posit16", "posit8"])
+@pytest.mark.parametrize("g,r,d", [(16, 1, 256), (1, 48, 128), (8, 3, 64), (2, 7, 64),
+                                   (8, 6, 128)],
+                         ids=["gemma-g16-r1-d256", "granite34b-g1-r48", "granite-moe-g8-r3",
+                              "internvl-g2-r7", "dbrx-g8-r6"])
+@pytest.mark.parametrize("chunk", [None, 1, 3], ids=["auto", "c1", "c3"])
+def test_paged_attention_arch_shapes_on_card(dev, kv, g, r, d, chunk):
+    """``paged_attn.cu`` at the architectures' head shapes: head_dim 256
+    (the ``Dv > 128`` instantiation), MQA's 48 query heads on one KV head
+    (six head groups), and R 3, 6 and 7 (heads that do not fill a
+    warp's pairs), over several splits, sentinel runs and an all-masked
+    row; within 1e-5 of the plain version."""
+    args, pcfg = _split_case(kv, d, 16, 0, r, g=g)
+    ref = K.paged_decode_attention_plain(*args, pcfg=pcfg, window=0)
+    on = [t.to(dev) for t in args]
+    if chunk is None:
+        got = K.paged_decode_attention(*on, pcfg=pcfg, window=0)
+    else:
+        call, got = K.paged_decode_attention_call(*on, pcfg=pcfg, window=0, chunk=chunk)
+        assert call() == 0
+    got = got.cpu()
+    torch.testing.assert_close(got, ref, atol=1e-5, rtol=1e-5)
+    assert torch.all(got[-1] == 0)
+
+
+@pytest.mark.parametrize("cfg", [POSIT16, POSIT8], ids=["posit16", "posit8"])
+@pytest.mark.parametrize("src", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("feat", [(16, 256), (1, 128)], ids=["w4096-gemma", "w128-granite34b"])
+def test_paged_write_and_read_at_arch_widths_on_card(dev, cfg, src, feat):
+    """The fused write (a decode step's K and V of 8 rows, one with a
+    dropped slot; a prefill leaf of 4 layers x 64 rows) and the fused
+    read of a layer's two leaves at gemma's KV width 4 096 and
+    granite-34b's 128, bit for bit against their plain versions."""
+    rng = np.random.default_rng(cfg.nbits + feat[0])
+    gen = torch.Generator(device=dev).manual_seed(feat[0])
+    nb, bs, b, vw = 48, 16, 4, 8
+
+    def check(jobs, slots):
+        want = [(a.clone(), x) for a, x in jobs]
+        posit_codec.paged_write_plain(want, slots, cfg)
+        posit_codec.paged_write(jobs, slots, cfg)
+        for (g, _), (w, _) in zip(jobs, want):
+            assert torch.equal(signed_view(g), signed_view(w))
+
+    arenas = [_pats(cfg, (4, nb, bs) + feat, seed).to(dev) for seed in (1, 2)]
+    slots = torch.from_numpy(rng.permutation(nb * bs)[:8].astype(np.int64)).to(dev)
+    slots[5] = -1
+    check([(a[0], torch.randn((8,) + feat, generator=gen, device=dev).to(src))
+           for a in arenas], slots)
+    pslots = torch.from_numpy(rng.permutation(nb * bs)[:64].astype(np.int64)).to(dev)
+    pslots[::9] = -1
+    chunk = torch.randn((4, 64) + feat, generator=gen, device=dev).to(src)
+    check([(arenas[0][li], chunk[li]) for li in range(4)], pslots)
+
+    vt = torch.from_numpy(rng.permutation(nb)[:b * vw].reshape(b, vw).astype(np.int32))
+    vt[0, 7] = nb                                       # sentinel
+    lens = torch.tensor([100, 37, 128, 0])
+    low = torch.tensor([0, 5, 0, 0])
+    on = ([a[1] for a in arenas], vt.to(dev), lens.to(dev), low.to(dev))
+    out = torch.bfloat16
+    want = posit_codec.paged_read_plain(*on, cfg, out)
+    got = posit_codec.paged_read(*on, cfg, out)
+    for g, x in zip(got, want):
+        assert g.shape == (b, vw * bs) + feat
+        assert torch.equal(g.view(torch.int16), x.view(torch.int16))
+
+
+# f32 on the card against the CPU: sums over D = 1 536 and F = 512 in
+# other orders, values of size ~1, so a few f32 ulps; the routing equal
+MOE_TOL = 1e-4
+
+
+@pytest.mark.parametrize("s", [16, 1], ids=["chunk16", "decode"])
+def test_moe_on_card_matches_cpu(dev, s):
+    """granite-moe-3b-a800m's MoE feed-forward at full width (40 experts,
+    top 8) in f32 with TF32 off: the same kept choices and outputs within
+    ``MOE_TOL`` of its CPU run, and no host sync inside the call."""
+    import dataclasses
+
+    from repro_torch import configs
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(configs.get_config("granite-moe-3b-a800m"),
+                              compute_dtype="float32")
+    gen = torch.Generator().manual_seed(s)
+    p = L.init_moe(gen, cfg)
+    x = torch.randn((8, s, cfg.d_model), generator=gen)
+    want = L.moe(p, x, cfg)
+    keep = L._moe_dispatch(p, x, cfg)[1][2]
+    pd = {k: ({"w": v["w"].to(dev)} if k == "router" else v.to(dev)) for k, v in p.items()}
+    xd = x.to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = L.moe(pd, xd, cfg)
+        got_keep = L._moe_dispatch(pd, xd, cfg)[1][2]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(got_keep.cpu(), keep)
+    torch.testing.assert_close(got.cpu(), want, atol=MOE_TOL, rtol=MOE_TOL)

@@ -303,8 +303,8 @@ def test_ragged_batch_matches_singleton_generations():
 
 
 def test_engine_mode_checks_match_reference():
-    _, tc = _cfgs("dense")
-    _, tp = _params("dense")
+    rc, tc = _cfgs("dense")
+    rp, tp = _params("dense")
     with pytest.raises(ValueError, match="paged=True"):
         Engine(tc, tp, max_len=16, decode_kernel="fused", device="cpu")
     eng = Engine(tc, tp, max_len=16, device="cpu")
@@ -313,8 +313,13 @@ def test_engine_mode_checks_match_reference():
         eng.prefill([[1, 2, 3]], paged=True)
     with pytest.raises(ValueError, match="paged=True"):
         eng.mixed_step(None, np.zeros((1, 4)), [0], [0], 4)
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        eng.generate([[1, 2, 3]], 2, visual=torch.zeros((1, 8, 64)))
+    # a config with no visual tokens ignores ``visual``, as the reference does
+    plain = eng.generate([[1, 2, 3]], 2).tokens
+    np.testing.assert_array_equal(
+        eng.generate([[1, 2, 3]], 2, visual=torch.ones((1, 8, 64))).tokens, plain)
+    np.testing.assert_array_equal(
+        RefEngine(rc, rp, max_len=16).generate(
+            [[1, 2, 3]], 2, visual=jnp.ones((1, 8, 64))).tokens, plain)
 
 
 # ---------------------------------------------------------------------------

@@ -9,9 +9,11 @@ reference random-inits from ``PRNGKey(0)``; the port's ``init_params`` is
 replaced by those weights carried across with
 ``weights.params_from_jax``, since the two RNG streams differ.  Greedy
 tokens, and each request's queueing delay where the mode has one, must
-be equal.  The visual and encoder-frame inputs, whose families the port
-lacks, raise ``NotImplementedError``; the argv the reference refuses,
-the port refuses too.
+be equal.  internvl2-1b's one-shot path draws its visual prefix from
+the same seeded stream and gives the reference's tokens; the
+encoder-frame input, whose family the port lacks, raises
+``NotImplementedError``; the argv the reference refuses, the port
+refuses too.
 """
 import dataclasses
 
@@ -101,13 +103,24 @@ def test_every_mode_matches_reference(monkeypatch, arch, flags):
 @pytest.mark.parametrize("field", ["n_visual_tokens", "family"],
                          ids=["visual", "frames"])
 def test_unported_modes_raise(monkeypatch, field):
-    """The one-shot path of a config with a visual prefix (internvl) or
-    encoder frames (whisper) raises, naming the ROADMAP items."""
+    """The one-shot path of a config with a visual prefix (internvl2-1b)
+    draws the patch embeddings after the prompts, as the reference's
+    does, and returns the reference ``main``'s tokens; encoder frames
+    (whisper) still raise, naming the ROADMAP item."""
+    if field == "n_visual_tokens":
+        argv = ["--arch", "internvl2-1b", "--reduced", "--kv-posit", "posit16",
+                "--batch", "3", "--prompt-len", "16", "--gen", "6"]
+        want = ref_serve.main(argv)
+        _reference_weights(monkeypatch, "internvl2-1b")
+        got = serve.main(argv + ["--device", "cpu"])
+        assert got.shape == (3, 6)
+        np.testing.assert_array_equal(got, np.asarray(want))
+        return
     config = serve.model_config
     monkeypatch.setattr(serve, "model_config", lambda args: dataclasses.replace(
-        config(args), **{field: 8 if field == "n_visual_tokens" else "whisper"}))
+        config(args), family="whisper"))
     monkeypatch.setattr(T, "init_params", lambda cfg, seed, device: {})
-    with pytest.raises(NotImplementedError, match="Queue 1 items 2 and 4"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
         serve.main(["--reduced", "--device", "cpu"])
 
 

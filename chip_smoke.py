@@ -28,8 +28,21 @@ paths at full size and checks that every kernel of each path ran there:
   generations on the card), the dense-cache scheduler on minicpm3-4b
   (the MLA linear lane, compaction) and the unchunked paged scheduler
   on phi3-medium-14b, each with exact launch counts per prefill and
-  decode step and the schedule pinned on the CPU; and the one-shot
+  decode step and the schedule pinned on the CPU; the one-shot
   engine on internvl2-1b with its visual prefix (full width and depth);
+  and the other three families through the one-shot engine at full
+  width and depth: hymba-1.5b (ring caches on its 29 window layers,
+  full ones on its 3 global layers, SSM state; its prefill a decode step
+  a prompt token, so one fused write and one dequantize a layer and a
+  prompt token), rwkv6-7b (15 GB of bf16 weights, the recurrent state,
+  no posit kernel) and whisper-tiny (1 500 encoder frames from the seed
+  that must reach the logits, the codec's quantize four times a decoder
+  layer at prefill, a fused write and two dequantizes, self and cross
+  leaves, a layer and a decode step), ``generate`` ==
+  ``generate_stepwise`` on each; then hymba-1.5b's ring past its wrap
+  at full width and depth, its window replaced by 64 so that it wraps
+  in the smoke's time (every decode step writes ring slot ``pos % 64``
+  of every window layer and nothing else);
 - the PVU ISA (``posit_ew.cu``, ``posit_dot.cu``, ``posit_qgemm.cu``,
   ``posit_gemm.cu``): the paper's verification workload
   (``configs/pvu_resnet_conv.py``, the ResNet-18 first conv on 8 images
@@ -50,13 +63,14 @@ paths at full size and checks that every kernel of each path ran there:
 Before the paths it checks paged attention at every served
 architecture's head shape (``ATTN_SHAPES``) and the fused write and read
 on every served lane's leaves (``LANES``) against their plain versions,
-and checks and times the codec's quantize and dequantize
-at the shapes the ISA phases and the linear lanes give them (the
+and checks and times the codec's quantize and dequantize at the shapes
+the ISA phases and the linear lanes of every family give them (the
 dequantize in its job form, a layer's two leaves a launch, beside the
-launches PR 19's linear read made for the same values), the fused
-write as the paged and the linear decode lanes launch it, and its
-decode launch on the card's own clock (``torch.profiler``) beside its
-launch floor (an empty kernel through the same C call).
+launches PR 19's linear read made for the same values), the fused write
+as the paged and the linear decode lanes launch it (hymba's ring and
+whisper's self leaves included), and its decode launch on the card's
+own clock (``torch.profiler``) beside its launch floor (an empty kernel
+through the same C call).
 
 Prints the card's name and power limit, per-kernel checks and timings,
 the serving reports, the accuracy table, a JSON line with every
@@ -90,6 +104,7 @@ FP32_FLOPS = 67e12             # H100 SXM fp32 outside the tensor cores
 # least time for any instruction mix; pure INT32 ALU work caps at half
 # of it (16 INT32 lanes a partition), so a bound from it is a least time
 INT_OPS = None
+CARD = None                    # the nvidia-smi line: name, power limit
 ATTN_TOL = 1e-5                # atol and rtol, kernel vs plain, both f32
 PAPER_DIV_ACC = 0.9584         # the paper's nr3 division exact-match rate
 # the fewest 32-bit integer operations per element the PVU datapath
@@ -182,6 +197,33 @@ LINEAR_PATHS = {
     # (a ragged batch cannot carry a visual prefix)
     "internvl2-1b-oneshot": (["--arch", "internvl2-1b"] + _LINEAR_ARGS, _LINEAR_KERNELS),
 }
+# The other three families through the one-shot engine, full width and
+# depth, posit16 KV, prompts of equal length (the reference refuses ragged
+# batches outside the transformer family).  A count's third entry is per
+# prompt token: hymba-1.5b's prefill is a decode step a prompt token, one
+# fused write and one dequantize a layer each (its 29 ring layers of
+# 1 024 slots and 3 global ones); rwkv6-7b (15 GB of bf16 weights, a
+# 512-token prompt: a multiple of its WKV chunk, 16) launches no posit
+# kernel; whisper-tiny (448 is its decoder context, 1 500 encoder frames
+# from the seed) quantizes each decoder layer's K, V and cross K, V at
+# prefill, and a decode step writes once and dequantizes twice (self and
+# cross leaves) a layer.
+_FAMILY_ARGS = ["--batch", "8", "--gen", "32", "--kv-posit", "posit16", "--temperature", "0",
+                "--seed", "0", "--device", "cuda"]
+LINEAR_PATHS.update({
+    "hymba-1.5b-oneshot": (
+        ["--arch", "hymba-1.5b", "--prompt-len", "128", "--max-len", "1024"] + _FAMILY_ARGS,
+        {"posit_paged_write": (0, 1, 1), "posit_dequantize": (0, 1, 1)}),
+    "rwkv6-7b-oneshot": (
+        ["--arch", "rwkv6-7b", "--prompt-len", "512", "--max-len", "1024"] + _FAMILY_ARGS, {}),
+    "whisper-tiny-oneshot": (
+        ["--arch", "whisper-tiny", "--prompt-len", "384", "--max-len", "448"] + _FAMILY_ARGS,
+        {"posit_quantize": (4, 0), "posit_paged_write": (0, 1), "posit_dequantize": (0, 2)}),
+})
+# hymba-1.5b's ring at full width and depth: its published window of
+# 1 024 cannot wrap inside the smoke's time, so the check replaces it with
+# RING_WINDOW and writes past the wrap
+RING_WINDOW, RING_BATCH, RING_PROMPT, RING_STEPS = 64, 2, 48, 48
 # The two schedulers' schedules on their traces (no EOS, so they do not
 # depend on the model): rounds, decode steps, compactions of the shared
 # frontier (moves to fit a longer prompt included), each request's
@@ -288,7 +330,11 @@ def codec_shapes(dev):
     output (16 x 5 120 posit16) to f32; the linear decode's whole cache of
     one layer, phi3's K and V (2 x (8, 1 024, 10, 128)) rounded through
     bf16 and minicpm3's latent (8, 1 024, 256) and RoPE key (8, 1 024, 32)
-    to f32, posit16, one NaR pattern at the head of each leaf."""
+    to f32, posit16, one NaR pattern at the head of each leaf.  The other
+    families: whisper-tiny's cross K (8, 1 500, 6, 64) quantized at
+    prefill; a layer's K and V read at decode in both output forms,
+    hymba-1.5b's ring (8, 1 024, 5, 64), whisper-tiny's self leaves
+    (8, 448, 6, 64) and cross leaves (8, 1 500, 6, 64)."""
     from repro_torch.core.types import POSIT16, POSIT32, signed_view
     from repro_torch.kernels import posit_codec as C
 
@@ -302,7 +348,8 @@ def codec_shapes(dev):
                                            device=dev).float() * 0.005)}
     for key, shape in (("phi3_linear_prefill", (8, 512, 10, 128)),
                        ("mla_prefill_latent", (1, 512, 256)),
-                       ("mla_prefill_rope", (1, 512, 32))):
+                       ("mla_prefill_rope", (1, 512, 32)),
+                       ("whisper_cross_k", (8, 1500, 6, 64))):
         quant[key] = (POSIT16, torch.randn(shape, generator=gen, device=dev))
 
     def leaf(cfg, shape):
@@ -317,6 +364,14 @@ def codec_shapes(dev):
                                            leaf(POSIT16, (8, 1024, 32))], None),
         "p2_conv_out": (POSIT32, [leaf(POSIT32, (95048, 64))], None),
         "p3_out": (POSIT16, [leaf(POSIT16, (16, 5120))], None)}
+    # the other families' linear reads, a layer's two leaves a launch, in
+    # both output forms: hymba's ring, whisper's self and cross leaves
+    for key, shape in (("hymba_ring_kv", (8, 1024, 5, 64)),
+                       ("whisper_self_kv", (8, 448, 6, 64)),
+                       ("whisper_cross_kv", (8, 1500, 6, 64))):
+        leaves = [leaf(POSIT16, shape) for _ in range(2)]
+        dequant[key + "_bf16"] = (POSIT16, leaves, torch.bfloat16)
+        dequant[key + "_f32"] = (POSIT16, leaves, None)
     return quant, dequant
 
 
@@ -740,52 +795,73 @@ def write_case(dev, cfg, lane, seed):
                 pslots=L.paged_pack_slots(tables, pos, pos + n_valid, c, **geo).reshape(-1))
 
 
+# the linear decode lanes' fused write: (leaf slots T, frontier, ring,
+# per-slot feature shape); phi3's K and V of one layer (and past a wrap of
+# a 48-slot ring, and past the capacity: every write dropped), hymba-1.5b's
+# ring past its wrap, whisper-tiny's self leaves
+LINEAR_WRITES = {"phi3": (1024, 700, False, (10, 128)),
+                 "phi3_ring48": (48, 1000, True, (10, 128)),
+                 "phi3_past_capacity": (1024, 1024, False, (10, 128)),
+                 "hymba_ring": (1024, 1500, True, (5, 64)),
+                 "whisper_self": (448, 300, False, (6, 64))}
+LINEAR_WRITES_TIMED = ("phi3", "hymba_ring", "whisper_self")
+
+
 def check_linear_write(dev):
-    """The fused write as the linear decode lanes launch it: one layer's
-    two phi3 leaves (8, 1 024, 10, 128) posit16, each seen as an arena
-    of 8 blocks of 1 024 slots, and bf16 rows written at the shared
-    frontier; against its plain version bit for bit, also on a 48-slot
-    window ring past a wrap and at a frontier past the capacity (every
-    write dropped, the leaves unchanged).  Returns its times on the
-    first case, beside the byte bound."""
+    """The fused write as the linear decode lanes launch it
+    (``LINEAR_WRITES``): one layer's two leaves (8, T, G, D) posit16,
+    each seen as an arena of 8 blocks of T slots, and bf16 rows written
+    at the shared frontier (``pos % T`` on a ring); against its plain
+    version bit for bit, every row written at that slot and nowhere
+    else, and a write past the capacity dropped (the leaves unchanged).
+    Returns its times on phi3's case beside the byte bound, and
+    (``shapes``) on the other families' leaves."""
     from repro_torch.core.types import POSIT16, signed_view
     from repro_torch.kernels import posit_codec as C
     from repro_torch.models import layers as L
 
     cfg, b = POSIT16, 8
     gen = torch.Generator(device=dev).manual_seed(9)
-    ok, timed = True, None
-    for t, pos, ring in ((1024, 700, False), (48, 1000, True), (1024, 1024, False)):
-        leaves = [torch.randint(-32768, 32768, (b, t, 10, 128), generator=gen, device=dev,
+    ok, timed = True, {}
+    for key, (t, pos, ring, feat) in LINEAR_WRITES.items():
+        leaves = [torch.randint(-32768, 32768, (b, t) + feat, generator=gen, device=dev,
                                 dtype=torch.int16).view(torch.uint16) for _ in range(2)]
-        rows = [torch.randn((b, 10, 128), generator=gen, device=dev).to(torch.bfloat16)
+        rows = [torch.randn((b,) + feat, generator=gen, device=dev).to(torch.bfloat16)
                 for _ in range(2)]
         slots = L.linear_write_slots(b, t, pos, ring=ring, device=dev)
         got, want = [a.clone() for a in leaves], [a.clone() for a in leaves]
         C.paged_write(list(zip(got, rows)), slots, cfg)
         C.paged_write_plain(list(zip(want, rows)), slots, cfg)
-        ok = ok and all(torch.equal(signed_view(g), signed_view(w)) for g, w in zip(got, want))
-        if pos >= t and not ring:
-            ok = ok and all(torch.equal(signed_view(g), signed_view(a))
-                            for g, a in zip(got, leaves))
-        if timed is None:
-            timed = (list(zip(leaves, rows)), slots)
+        same = all(torch.equal(signed_view(g), signed_view(w)) for g, w in zip(got, want))
+        slot = pos % t if ring or pos < t else None
+        expect = torch.arange(t, device=dev) == (-1 if slot is None else slot)
+        for g, a in zip(got, leaves):
+            written = (signed_view(g) != signed_view(a)).flatten(2).any(-1)     # (B, T)
+            same = same and bool((written == expect[None, :]).all())
+        print(f"fused paged write, linear decode lane {key} (K and V (8, {t}) + {feat}, "
+              f"frontier {pos}{', a ring' if ring else ''}): equal to quantize_plain + "
+              f"scatter, every row written at slot {slot} alone: {same}")
+        ok = ok and same
+        if key in LINEAR_WRITES_TIMED:
+            timed[key] = (list(zip(leaves, rows)), slots)
         del got, want
-    print(f"fused paged write, linear decode lane (phi3 K and V of one layer as 8 blocks "
-          f"of 1 024 slots; a 48-slot ring past a wrap; a write past the capacity "
-          f"dropped): equal to quantize_plain + scatter: {ok}")
     if not ok:
-        fail("posit_paged_write differs from its plain version on the linear decode lane")
-    jobs, slots = timed
-    width = jobs[0][1][0].numel()
-    r = dict(ms=time_ms(lambda: C.paged_write(jobs, slots, cfg)),
-             kernel_ms=kernel_alone_ms(C.paged_write_call(jobs, slots, cfg)),
-             plain_ms=time_ms(lambda: C.paged_write_plain(jobs, slots, cfg), iters=5),
-             **_bound(2 * b * width * (2 + 2) + slots.numel() * 8, 0, FP32_FLOPS),
-             shape=[2, b, 10, 128])
-    print(f"posit_paged_write linear decode (K and V, 8 rows x 1 280 into (8, 1 024, 10, "
-          f"128) leaves): {r['ms']:.4f} ms, alone {r['kernel_ms']:.4f} ms (bound "
-          f"{r['bound_ms']:.6f} ms by {r['bound_by']}; plain {r['plain_ms']:.4f} ms)")
+        fail("posit_paged_write differs from its plain version on a linear decode lane")
+    out = {}
+    for key, (jobs, slots) in timed.items():
+        width = jobs[0][1][0].numel()
+        r = dict(ms=time_ms(lambda: C.paged_write(jobs, slots, cfg)),
+                 kernel_ms=kernel_alone_ms(C.paged_write_call(jobs, slots, cfg)),
+                 plain_ms=time_ms(lambda: C.paged_write_plain(jobs, slots, cfg), iters=5),
+                 **_bound(2 * b * width * (2 + 2) + slots.numel() * 8, 0, FP32_FLOPS),
+                 shape=[2, b, LINEAR_WRITES[key][0]] + list(LINEAR_WRITES[key][3]))
+        out[key] = r
+        print(f"posit_paged_write linear decode {key} (K and V, 8 rows x {width} into "
+              f"{r['shape'][1:]} leaves): {r['ms']:.4f} ms, alone {r['kernel_ms']:.4f} ms "
+              f"(bound {r['bound_ms']:.6f} ms by {r['bound_by']}; plain "
+              f"{r['plain_ms']:.4f} ms)")
+    r = out.pop("phi3")
+    r["shapes"] = out
     return r
 
 
@@ -1251,22 +1327,31 @@ def schedule_of(res, compactions):
 def serve_linear_path(argv):
     """One of ``LINEAR_PATHS`` through the user entry point: returns what
     ``serve.main`` returns, the launch counts of exactly this run, its
-    wall time, the numbers of whole-prompt prefills, decode steps and
-    compactions it ran, and (one-shot) the run's ``OneShotResult``."""
+    wall time, the numbers of whole-prompt prefills (the engine's), the
+    prompt tokens they ran (padded), the decode steps (the engine's, for
+    every family) and compactions, and (one-shot) the run's
+    ``OneShotResult``."""
     from repro_torch.compress import kvcache as kvc
     from repro_torch.launch import serve
-    from repro_torch.models import transformer as T
+    from repro_torch.runtime.engine import Engine
 
-    real = dict(prefill=T.prefill, linear=T._decode_step_linear, paged=T._decode_step_paged,
-                compact=kvc.compact, oneshot=serve.run_oneshot)
-    n = dict(prefill=0, step=0, compact=0)
+    real = dict(prefill=Engine.prefill, step=Engine._step, compact=kvc.compact,
+                oneshot=serve.run_oneshot)
+    n = dict(prefill=0, prompt_tokens=0, step=0, compact=0)
     captured = []
 
-    def counting(fn, key):
-        def wrapped(*a, **kw):
-            n[key] += 1
-            return fn(*a, **kw)
-        return wrapped
+    def prefill(self, prompts, **kw):
+        n["prefill"] += 1
+        n["prompt_tokens"] += self.pack_prompts(prompts)[0].shape[1]
+        return real["prefill"](self, prompts, **kw)
+
+    def step(self, *a, **kw):
+        n["step"] += 1
+        return real["step"](self, *a, **kw)
+
+    def compact(*a, **kw):
+        n["compact"] += 1
+        return real["compact"](*a, **kw)
 
     def oneshot(*a, **kw):
         captured.append(real["oneshot"](*a, **kw))
@@ -1274,10 +1359,7 @@ def serve_linear_path(argv):
 
     reset_counts()
     torch.cuda.reset_peak_memory_stats()
-    T.prefill = counting(real["prefill"], "prefill")
-    T._decode_step_linear = counting(real["linear"], "step")
-    T._decode_step_paged = counting(real["paged"], "step")
-    kvc.compact = counting(real["compact"], "compact")
+    Engine.prefill, Engine._step, kvc.compact = prefill, step, compact
     serve.run_oneshot = oneshot
     try:
         t0 = time.perf_counter()
@@ -1285,22 +1367,24 @@ def serve_linear_path(argv):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     finally:
-        T.prefill, T._decode_step_linear = real["prefill"], real["linear"]
-        T._decode_step_paged, kvc.compact = real["paged"], real["compact"]
-        serve.run_oneshot = real["oneshot"]
+        Engine.prefill, Engine._step = real["prefill"], real["step"]
+        kvc.compact, serve.run_oneshot = real["compact"], real["oneshot"]
     return res, read_counts(), wall, n, captured[0] if captured else None
 
 
 def check_linear_counts(name, counts, expect, n_layers, n):
     """Every kernel of the path launched exactly ``n_layers`` x (its
-    per-prefill count x prefills + its per-step count x decode steps)
-    times, every other kernel never."""
+    per-prefill count x prefills + its per-step count x decode steps +
+    its per-prompt-token count, if it has one, x prompt tokens) times,
+    every other kernel never."""
     for kernel, got in counts.items():
-        per_prefill, per_step = expect.get(kernel, (0, 0))
-        want = n_layers * (per_prefill * n["prefill"] + per_step * n["step"])
+        per_prefill, per_step, per_token = (tuple(expect.get(kernel, ())) + (0, 0, 0))[:3]
+        want = n_layers * (per_prefill * n["prefill"] + per_step * n["step"]
+                           + per_token * n["prompt_tokens"])
         if got != want:
             fail(f"{kernel} ran {got} times on the {name} path, {want} expected "
-                 f"({n['prefill']} prefills, {n['step']} decode steps, {n_layers} layers)")
+                 f"({n['prefill']} prefills of {n['prompt_tokens']} prompt tokens, "
+                 f"{n['step']} decode steps, {n_layers} layers)")
         if kernel in expect and got <= 0:
             fail(f"kernel {kernel} was not launched on the {name} path")
 
@@ -1383,22 +1467,28 @@ def run_linear_paths(dev):
                   f"{oneshot.prefill_seconds:.2f} s, generate {oneshot.seconds:.2f} s for "
                   f"{tokens.size} tokens ({tokens.size / oneshot.seconds:.2f} tok/s, prefill "
                   f"included); {wall:.2f} s with init; {n['prefill']} prefills, "
-                  f"{n['step']} decode steps; peak device memory {peak:.2f} GiB")
+                  f"{n['step']} decode steps; peak device memory {peak:.2f} GiB; {CARD}")
             inputs = oneshot.inputs
             same = bool((eng.generate_stepwise(prompts, 32, **inputs).tokens == tokens).all())
             print(f"linear path {name}: generate == generate_stepwise tokens: {same}"
-                  f"{' (with the visual prefix)' if inputs else ''}")
+                  f"{' (with its ' + ', '.join(inputs) + ')' if inputs else ''}")
             if not same:
                 fail(f"generate and generate_stepwise disagree on the {name} path")
-            if "visual" in inputs:
-                # the prefix must reach the logits: without it they move
-                plain = eng.prefill(prompts)[1]
+            for key in ("visual", "frames"):
+                if key not in inputs:
+                    continue
+                # the input must reach the logits: without the visual
+                # prefix, or with zero frames, they move
+                other = {"frames": torch.zeros_like(inputs["frames"])} if key == "frames" \
+                    else {}
+                plain = eng.prefill(prompts, **other)[1]
                 moved = float((plain - torch.as_tensor(
                     oneshot.result.prefill_logits, device=plain.device)).abs().max())
-                print(f"linear path {name}: prefill logits without the visual prefix "
+                print(f"linear path {name}: prefill logits "
+                      f"{'with zero frames' if other else 'without the visual prefix'} "
                       f"differ by up to {moved:.4f}")
                 if not moved > 0:
-                    fail(f"the visual prefix did not reach the {name} path's logits")
+                    fail(f"the {key} input did not reach the {name} path's logits")
             lens = oneshot.result.prompt_lens
             if len(set(lens.tolist())) > 1:
                 check_ragged_rows(name, eng, prompts, tokens, lens)
@@ -1422,16 +1512,77 @@ def run_linear_paths(dev):
             if not sched.paged and bool((sched.cache["lens"] != 0).any()):
                 fail(f"the {name} path left live rows in its cache")
             del sched          # its engine holds the weights: free them for the next path
-        for kernel, (pp, ps) in expect.items():
-            if ps:
-                print(f"linear path {name}: {kernel} launches per decode step "
-                      f"{counts[kernel] / max(n['step'], 1):.2f} ({cfg_layers} layers)")
+        for kernel, per in expect.items():
+            if per[1]:
+                # a prompt token of a prefill that steps the decoder counts as a step
+                stepped = n["step"] + (n["prompt_tokens"] if per[2:] else 0)
+                print(f"linear path {name}: {kernel} launches per decode step"
+                      f"{' and prompt token' if per[2:] else ''} "
+                      f"{counts[kernel] / max(stepped, 1):.2f} ({cfg_layers} layers)")
         print(f"linear path {name} kernel launches: {counts}")
         by_path[name] = counts
         del res
         gc.collect()
         torch.cuda.empty_cache()
     return by_path
+
+
+def check_hymba_ring(dev):
+    """hymba-1.5b at full width and depth on posit16 KV, its window
+    replaced by ``RING_WINDOW`` so that the ring wraps inside the smoke's
+    time: ``RING_BATCH`` rows, a ``RING_PROMPT``-token prompt, then
+    ``RING_STEPS`` decode steps.  At every decode step every SWA layer's
+    ring K and V change at slot ``pos % RING_WINDOW`` of every row and
+    nowhere else (the global layers' ring leaves not at all), and the
+    global layers' prompt slots stay as the prefill left them while their
+    decode writes land in the headroom."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.core.types import signed_view
+    from repro_torch.models import hymba
+
+    published = configs.get_config("hymba-1.5b")
+    cfg = dataclasses.replace(published, sliding_window=RING_WINDOW, kv_posit="posit16")
+    params = hymba.init_params(cfg, seed=0, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    tokens = torch.randint(1, cfg.vocab, (RING_BATCH, RING_PROMPT), generator=gen, device=dev)
+    t0 = time.perf_counter()
+    cache, logits = hymba.prefill(params, tokens, cfg, max_len=RING_PROMPT + RING_STEPS)
+    glb = [signed_view(cache[k][:, :, :RING_PROMPT]).clone() for k in ("k_glb", "v_glb")]
+    t_ring = cache["k_swa"].shape[2]
+    swa = [li for li in range(cfg.n_layers) if li not in cfg.global_layers]
+    wrapped = 0
+    for _ in range(RING_STEPS):
+        pos = cache["len"]
+        before = [signed_view(cache[k]).clone() for k in ("k_swa", "v_swa")]
+        logits, cache = hymba.decode_step(params, cache, logits.argmax(-1), cfg)
+        expect = torch.zeros((cfg.n_layers, RING_BATCH, t_ring), dtype=torch.bool, device=dev)
+        expect[swa, :, pos % t_ring] = True
+        for key, old in zip(("k_swa", "v_swa"), before):
+            written = (signed_view(cache[key]) != old).flatten(3).any(-1)     # (L, B, T)
+            if not torch.equal(written, expect):
+                fail(f"hymba ring: decode at position {pos} wrote {key} slots "
+                     f"{torch.nonzero(written != expect)[:4].tolist()} against slot "
+                     f"{pos % t_ring} of the {len(swa)} SWA layers")
+        wrapped += pos >= t_ring
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    kept = all(torch.equal(signed_view(cache[k][:, :, :RING_PROMPT]), g)
+               for k, g in zip(("k_glb", "v_glb"), glb))
+    landed = bool(signed_view(cache["k_glb"][:, :, RING_PROMPT:]).ne(0)
+                  .flatten(2).any(-1).all())
+    finite = bool(torch.isfinite(logits).all())
+    print(f"hymba ring check (hymba-1.5b, full width and depth, sliding_window replaced: "
+          f"{RING_WINDOW} in place of the published {published.sliding_window}, which "
+          f"cannot wrap in the smoke's time): {RING_BATCH} rows, a {RING_PROMPT}-token "
+          f"prompt and {RING_STEPS} decode steps ({wrapped} past the wrap) in {wall:.2f} s; "
+          f"each step wrote slot pos % {t_ring} of the {len(swa)} SWA layers alone; the "
+          f"{len(cfg.global_layers)} global layers' prompt slots untouched: {kept}, their "
+          f"decode writes in the headroom: {landed}; logits finite: {finite}")
+    if not (kept and landed and finite and wrapped):
+        fail("hymba ring: the global layers' prompt slots moved, their decode writes "
+             "did not land, the logits are not finite or the ring did not wrap")
 
 
 # ---------------------------------------------------------------------------
@@ -2006,9 +2157,10 @@ def run(pool):
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60)
-    print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
-          else f"nvidia-smi failed: {smi.stderr.strip()}")
-    global INT_OPS
+    global CARD, INT_OPS
+    CARD = (smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
+            else f"nvidia-smi failed: {smi.stderr.strip()}")
+    print(CARD)
     INT_OPS, rate_line = int_issue_rate()
     print(rate_line)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -2101,6 +2253,9 @@ def run(pool):
     ew_row["bias_vadd"] = ew_bias
     rows.append(ew_row)
     by_path.update(run_linear_paths(dev))
+    check_hymba_ring(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
     profile_write()
     del profile_write
     for kernel in ("posit_ew", "posit_dot", "posit_qgemm", "posit_gemm"):

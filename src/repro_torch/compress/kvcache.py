@@ -31,11 +31,14 @@ from repro_torch.kernels import ops as kops
 from repro_torch.kernels import posit_codec
 from .gradient import pcfg_of, scalar_pattern
 
-# Time-axis / row-state content, and bookkeeping (the reference's schema).
+# Time-axis content (the surgery's move set), per-row state without a
+# time axis (zeroed on reset, grafted on adopt), all content, and
+# bookkeeping (the reference's schema).
 _TIME_LEAVES = frozenset(
     {"k", "v", "c_kv", "k_rope", "k_swa", "v_swa", "k_glb", "v_glb"})
-CONTENT_LEAVES = _TIME_LEAVES | frozenset(
-    {"ssm", "ck", "cv", "wkv", "tm_x", "cm_x"})
+_ROW_LEAVES = frozenset({"ssm"})
+CONTENT_LEAVES = _TIME_LEAVES | _ROW_LEAVES | frozenset(
+    {"ck", "cv", "wkv", "tm_x", "cm_x"})
 META_LEAVES = frozenset(
     {"len", "lens", "max_len", "length", "block_tables"})
 
@@ -133,13 +136,14 @@ def _reject_paged(cache, what: str):
 
 def reset_slots(cache, rows):
     """Retire the batch rows where ``rows`` (B,) is True: their content
-    zeroed in place and ``lens`` set to 0.  Returns a new dict."""
+    (time leaves and per-row state) zeroed in place and ``lens`` set to
+    0.  Returns a new dict."""
     from repro_torch.models import layers as L
 
     _reject_paged(cache, "reset_slots")
     rows = torch.as_tensor(rows).to(torch.bool)
     for key, leaf in cache.items():
-        if key in _TIME_LEAVES:
+        if key in _TIME_LEAVES or key in _ROW_LEAVES:
             L.reset_cache_rows(leaf, rows)
     lens = cache["lens"]
     return dict(cache, lens=torch.where(rows.to(lens.device), 0, lens).to(torch.int32))
@@ -166,10 +170,11 @@ def compact(cache, target_len=None):
 
 def adopt_row(cache, row_cache, row: int):
     """Graft a batch-1 prefilled linear cache into slot ``row``, in
-    place: its content rolled so the prompt ends at the pool's frontier
-    (RoPE positions are content-relative, so relabelling padded slots is
-    free), its ``lens`` into the row.  The prompt's frontier must not
-    pass the pool's (``compact`` first).  Returns a new dict."""
+    place: its time leaves rolled so the prompt ends at the pool's
+    frontier (RoPE positions are content-relative, so relabelling padded
+    slots is free), its per-row state copied, its ``lens`` into the row.
+    The prompt's frontier must not pass the pool's (``compact`` first).
+    Returns a new dict."""
     from repro_torch.models import layers as L
 
     _reject_paged(cache, "adopt_row")
@@ -182,6 +187,8 @@ def adopt_row(cache, row_cache, row: int):
         if key in _TIME_LEAVES and key in row_cache:
             upd = L.roll_cache_time(row_cache[key], cur - src)
             signed_view(leaf)[:, row] = signed_view(upd)[:, 0]
+        elif key in _ROW_LEAVES and key in row_cache:
+            signed_view(leaf)[:, row] = signed_view(row_cache[key])[:, 0]
     lens = cache["lens"].clone()
     lens[row] = row_cache["lens"][0]
     return dict(cache, lens=lens)

@@ -1,26 +1,34 @@
 """Architectures the port can serve: ``--arch <id>`` resolves here.
 
-Every transformer-family architecture of the reference is served: the
-dense GQA lane (phi3-medium-14b, gemma-7b, granite-34b, and
-internvl2-1b with its visual prefix), the MLA lane (minicpm3-4b) and
-the MoE feed-forward (granite-moe-3b-a800m, dbrx-132b).  The other
-families (hymba, rwkv6, whisper) join as they are ported.
+Every architecture of the reference is served, in the reference's
+order: the transformer family's dense GQA lane (phi3-medium-14b,
+gemma-7b, granite-34b, and internvl2-1b with its visual prefix), MLA
+lane (minicpm3-4b) and MoE feed-forward (granite-moe-3b-a800m,
+dbrx-132b); the hybrid hymba-1.5b (sliding-window ring caches, three
+global layers, SSM state); the attention-free rwkv6-7b (O(1) recurrent
+state); and the encoder-decoder whisper-tiny (encoder frames, a
+cross-attention cache).  Only the transformer family runs the
+continuous-batching scheduler and the paged cache.
 """
 from __future__ import annotations
 
 from repro_torch.models.config import ModelConfig
 
 from . import (dbrx_132b, gemma_7b, granite_34b, granite_moe_3b_a800m,
-               internvl2_1b, minicpm3_4b, phi3_medium_14b)
+               hymba_1_5b, internvl2_1b, minicpm3_4b, phi3_medium_14b,
+               rwkv6_7b, whisper_tiny)
 
 _MODULES = {
     "internvl2-1b": internvl2_1b,
+    "rwkv6-7b": rwkv6_7b,
     "phi3-medium-14b": phi3_medium_14b,
     "gemma-7b": gemma_7b,
     "granite-34b": granite_34b,
     "minicpm3-4b": minicpm3_4b,
     "granite-moe-3b-a800m": granite_moe_3b_a800m,
     "dbrx-132b": dbrx_132b,
+    "hymba-1.5b": hymba_1_5b,
+    "whisper-tiny": whisper_tiny,
 }
 
 ARCH_IDS = tuple(_MODULES)

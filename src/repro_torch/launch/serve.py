@@ -54,12 +54,19 @@ is ever preempted):
 The port's own flags: ``--n-layers`` cuts depth only (every width stays
 the architecture's), ``--deadline-share`` as above, and ``--device``.
 ``--reduced`` swaps in the tiny same-family config for CPU runs
-(``--device cpu``).  ``--arch`` takes every transformer-family
-architecture (``configs.ARCH_IDS``: the dense, MLA and MoE ones); on
-internvl2-1b the one-shot path draws the visual prefix from the seeded
-stream after the prompts, as the reference does.  The reference's
-encoder-frame input (whisper) belongs to a family the port lacks and
-raises ``NotImplementedError``.
+(``--device cpu``).  ``--arch`` takes every architecture of
+``configs.ARCH_IDS``, its parameters from its family's ``init_params``
+(``models.registry``).  The one-shot path serves every family: on
+whisper-tiny it draws the encoder frames (batch, ``encoder_seq``,
+``d_model``) from the seeded stream after the prompts, and on
+internvl2-1b the visual prefix after them, as the reference does:
+
+  python -m repro_torch.launch.serve --arch whisper-tiny --batch 8 \\
+      --prompt-len 384 --gen 32 --max-len 448 --kv-posit posit16 \\
+      --device cuda
+
+``--continuous`` and ``--paged`` need the transformer family and raise
+``ValueError`` on the others, as the reference's do.
 """
 from __future__ import annotations
 
@@ -73,7 +80,7 @@ import torch
 
 from repro_torch import configs
 from repro_torch.compress.kvcache import cache_report
-from repro_torch.models import transformer as T
+from repro_torch.models.registry import get_family
 from repro_torch.runtime.engine import Engine, GenerationResult
 from repro_torch.runtime.scheduler import Scheduler
 
@@ -157,7 +164,7 @@ class OneShotResult:
     prompts: list             # the batch as given to the engine
     prefill_seconds: float    # the reported prefill alone
     seconds: float            # generate: prefill and every decode step
-    inputs: dict = dataclasses.field(default_factory=dict)   # ``visual``, if any
+    inputs: dict = dataclasses.field(default_factory=dict)   # ``frames``/``visual``
 
 
 def _build_engine(args, cfg, params, max_len):
@@ -171,10 +178,6 @@ def _build_engine(args, cfg, params, max_len):
 
 def run_oneshot(args, cfg, params) -> OneShotResult:
     """Prefill a batch of prompts (the cache report), then generate."""
-    if cfg.family == "whisper":
-        raise NotImplementedError(
-            "encoder frames (whisper) are not ported yet (ROADMAP Queue 1 "
-            "item 4)")
     rng = np.random.default_rng(args.seed)
     if args.ragged:
         lens = rng.integers(max(2, args.prompt_len // 2), args.prompt_len + 1,
@@ -183,7 +186,11 @@ def run_oneshot(args, cfg, params) -> OneShotResult:
     else:
         prompts = rng.integers(1, cfg.vocab, size=(args.batch, args.prompt_len))
     kwargs = {}
-    if cfg.n_visual_tokens:           # drawn after the prompts, as the reference
+    if cfg.family == "whisper":       # drawn after the prompts, as the reference
+        kwargs["frames"] = torch.as_tensor(rng.standard_normal(
+            (args.batch, cfg.encoder_seq, cfg.d_model)), dtype=torch.float32,
+            device=args.device)
+    if cfg.n_visual_tokens:
         kwargs["visual"] = torch.as_tensor(rng.standard_normal(
             (args.batch, cfg.n_visual_tokens, cfg.d_model)), dtype=torch.float32,
             device=args.device)
@@ -391,7 +398,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
     check_mode(ap, args)
     cfg = model_config(args)
-    params = T.init_params(cfg, seed=args.seed, device=args.device)
+    params = get_family(cfg).init_params(cfg, seed=args.seed, device=args.device)
     if args.continuous:
         return run_continuous(args, cfg, params)
     return run_oneshot(args, cfg, params).result.tokens

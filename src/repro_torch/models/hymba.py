@@ -1,0 +1,217 @@
+"""Hymba: a hybrid-head LM, attention and Mamba2-style SSM heads in
+parallel.
+
+The port of ``repro/models/hymba.py``'s serving entry points.  In every
+layer the same input feeds GQA attention heads (sliding-window in most
+layers, full in ``cfg.global_layers``) and SSM heads (a scalar
+data-dependent decay a head, state size N); the two outputs are
+RMS-normalized and averaged before the output projection.
+
+The cache (``init_cache``): a ring of ``min(max_len, window)`` slots a
+layer (``k_swa``/``v_swa``, written at ``pos % T``), full-length caches
+for the global layers only (``k_glb``/``v_glb``), the SSM state ``ssm``
+(L, B, H, P, N) f32, the shared frontier ``len`` and ``max_len`` as
+Python ints and per-row ``lens``.  Each decode layer writes its K and V
+with one fused quantize-and-write launch on posit KV
+(``transformer._write_kv`` at ``layers.linear_write_slots``; a global
+layer's write past its capacity raises first) and reads both leaves
+through ``layers.decode_attention`` (one dequantize launch), the ring
+layers with ``ring=True``.  ``prefill`` is a loop of ``decode_step``
+over the prompt, as in the reference; the meta tokens are not read on
+this path (the reference's serving path does not read them either).
+The SSD step runs in plain PyTorch, as the reference's runs in plain
+``jnp``.  Cache writes are in place.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core import types as PT
+from repro_torch.device import resolve_device
+from . import layers as L
+from . import transformer as T
+from .config import ModelConfig
+
+_F32 = torch.float32
+
+
+def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda"):
+    """Random parameters from a seeded ``torch.Generator`` on ``device``:
+    weights in the compute dtype, norm scales, ``A_log``, ``dt_bias``
+    and ``D`` f32 (the forward reads them in f32)."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(seed))
+    dt = L.cdtype(cfg)
+    d = cfg.d_model
+    hs, p_dim, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    d_in = hs * p_dim
+    layers = []
+    for _ in range(cfg.n_layers):
+        layers.append({
+            "ln1": L.init_rms_norm(d, cfg, dev),
+            "ln2": L.init_rms_norm(d, cfg, dev),
+            # attention branch
+            "wq": L.init_dense(gen, d, cfg.n_heads * cfg.head_dim, dtype=dt),
+            "wk": L.init_dense(gen, d, cfg.n_kv_heads * cfg.head_dim, dtype=dt),
+            "wv": L.init_dense(gen, d, cfg.n_kv_heads * cfg.head_dim, dtype=dt),
+            "attn_norm": L.init_rms_norm(cfg.n_heads * cfg.head_dim, cfg, dev),
+            # ssm branch
+            "in_proj": L.init_dense(gen, d, 2 * d_in + 2 * n + hs, dtype=dt),
+            "A_log": torch.zeros((hs,), dtype=_F32, device=dev),
+            "dt_bias": torch.zeros((hs,), dtype=_F32, device=dev),
+            "D": torch.ones((hs,), dtype=_F32, device=dev),
+            "ssm_norm": L.init_rms_norm(d_in, cfg, dev),
+            # merge + mlp
+            "wo": L.init_dense(gen, d_in, d, dtype=dt),
+            "mlp": L.init_mlp(gen, cfg, dtype=dt),
+        })
+
+    def normal(shape):
+        return (torch.randn(shape, generator=gen, device=dev, dtype=_F32)
+                * 0.02).to(dt)
+
+    params = {
+        "tok_embed": normal((cfg.vocab, d)),
+        "layers": layers,
+        "final_norm": L.init_rms_norm(d, cfg, dev),
+        "lm_head": L.init_dense(gen, d, cfg.vocab, dtype=dt),
+    }
+    if cfg.n_meta_tokens:
+        params["meta_tokens"] = normal((cfg.n_meta_tokens, d))
+    return params
+
+
+# ---------------------------------------------------------------------------
+# SSD step and the hybrid block's pieces
+# ---------------------------------------------------------------------------
+
+def ssd_step(x, b_in, c_in, dt, a_log, h):
+    """Single decode step.  x: (B,H,P); b_in, c_in: (B,N); dt: (B,H);
+    h: (B,H,P,N).  Returns (y (B,H,P), new h)."""
+    a = torch.exp((-torch.exp(a_log))[None, :] * dt)          # (B,H)
+    upd = torch.einsum("bh,bhp,bn->bhpn", dt, x, b_in)
+    h = a[..., None, None] * h + upd
+    y = torch.einsum("bhpn,bn->bhp", h, c_in)
+    return y, h
+
+
+def _split_ssm_proj(p, x, cfg: ModelConfig):
+    hs, p_dim, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    d_in = hs * p_dim
+    z = L.dense(p["in_proj"], x, cfg)
+    xs, gate, b_in, c_in, dt = torch.split(z, [d_in, d_in, n, n, hs], dim=-1)
+    dt = dt.to(_F32) + p["dt_bias"][None, None, :]
+    dt = torch.logaddexp(dt, torch.zeros_like(dt))            # softplus
+    return xs, gate, b_in.to(_F32), c_in.to(_F32), dt
+
+
+def _merge(p, attn_out, ssm_out, cfg: ModelConfig):
+    return L.dense(p["wo"], 0.5 * (attn_out + ssm_out), cfg)
+
+
+# ---------------------------------------------------------------------------
+# serving: ring SWA caches + tiny SSM state (+ full cache on global layers)
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device="cuda"):
+    """Empty cache: a ring of ``min(max_len, window)`` slots for every
+    layer, full-length caches for the global layers, zero SSM state."""
+    dev = resolve_device(device)
+    hs, p_dim, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    t_swa = min(max_len, cfg.sliding_window or max_len)
+    kv = (batch, t_swa, cfg.n_kv_heads, cfg.head_dim)
+    kv_g = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    dt = T._cache_dtype(cfg)
+    n_glb = len(cfg.global_layers)
+    return {
+        "k_swa": PT.zeros((cfg.n_layers,) + kv, dt, dev),
+        "v_swa": PT.zeros((cfg.n_layers,) + kv, dt, dev),
+        "k_glb": PT.zeros((n_glb,) + kv_g, dt, dev),
+        "v_glb": PT.zeros((n_glb,) + kv_g, dt, dev),
+        "ssm": torch.zeros((cfg.n_layers, batch, hs, p_dim, n), dtype=_F32,
+                           device=dev),
+        "len": 0,
+        "lens": torch.zeros((batch,), dtype=torch.int32, device=dev),
+        "max_len": int(max_len),
+    }
+
+
+def decode_step(params, cache, token, cfg: ModelConfig, active=None):
+    """token (B,) -> (logits (B, V) f32, cache).  Every row writes at the
+    shared frontier ``len``; ``active`` (B,) bool freezes inactive rows'
+    ``lens``.  A global layer's write past its capacity raises here."""
+    pos = int(cache["len"])
+    b = token.shape[0]
+    dev = token.device
+    if cfg.global_layers:
+        L.check_cache_capacity(pos, cache["k_glb"].shape[2],
+                               "global-layer KV cache")
+    glb_index = {i: j for j, i in enumerate(cfg.global_layers)}
+    ring_slots = L.linear_write_slots(b, cache["k_swa"].shape[2], pos, ring=True,
+                                      device=dev)
+    glb_slots = L.linear_write_slots(b, cache["k_glb"].shape[2], pos, ring=False,
+                                     device=dev)
+    positions = torch.full((b, 1), pos, dtype=torch.int64, device=dev)
+    hd, g = cfg.head_dim, cfg.n_kv_heads
+    h = params["tok_embed"][token][:, None, :].to(L.cdtype(cfg))
+    for li, lp in enumerate(params["layers"]):
+        xin = L.rms_norm(lp["ln1"], h, cfg)
+        q = L.dense(lp["wq"], xin, cfg).reshape(b, 1, cfg.n_heads, hd)
+        k = L.dense(lp["wk"], xin, cfg).reshape(b, 1, g, hd)
+        v = L.dense(lp["wv"], xin, cfg).reshape(b, 1, g, hd)
+        q = L.apply_rope(q, positions, cfg.rope_theta)
+        k = L.apply_rope(k, positions, cfg.rope_theta)
+        if li in glb_index:
+            kc, vc = cache["k_glb"][glb_index[li]], cache["v_glb"][glb_index[li]]
+            T._write_kv([(kc, k[:, 0]), (vc, v[:, 0])], glb_slots, cfg)
+            att = L.decode_attention(q, kc, vc, pos + 1, cfg=cfg,
+                                     kv_posit=cfg.kv_posit)
+        else:
+            # ring buffer: written at pos % T, rotation-aware masking
+            kc, vc = cache["k_swa"][li], cache["v_swa"][li]
+            T._write_kv([(kc, k[:, 0]), (vc, v[:, 0])], ring_slots, cfg)
+            att = L.decode_attention(q, kc, vc, pos + 1, cfg=cfg,
+                                     kv_posit=cfg.kv_posit, ring=True)
+        att = L.rms_norm(lp["attn_norm"], att.reshape(b, 1, cfg.n_heads * hd), cfg)
+
+        xs, gate, b_in, c_in, dt = _split_ssm_proj(lp, xin, cfg)
+        xh = xs[:, 0].reshape(b, cfg.ssm_heads, cfg.ssm_head_dim).to(_F32)
+        y, hnew = ssd_step(xh, b_in[:, 0], c_in[:, 0], dt[:, 0], lp["A_log"],
+                           cache["ssm"][li])
+        cache["ssm"][li] = hnew
+        y = y + lp["D"][None, :, None] * xh
+        y = y.reshape(b, 1, -1).to(h.dtype) * F.silu(gate)
+        y = L.rms_norm(lp["ssm_norm"], y, cfg)
+
+        h = h + _merge(lp, att, y, cfg)
+        h = h + L.mlp(lp["mlp"], L.rms_norm(lp["ln2"], h, cfg), cfg)
+
+    h = L.rms_norm(params["final_norm"], h, cfg)
+    logits = h[:, 0, :] @ params["lm_head"]["w"].to(h.dtype)
+    new_cache = dict(cache, len=pos + 1)
+    if "lens" in cache:
+        adv = torch.ones((b,), dtype=torch.int32, device=dev) if active is None \
+            else torch.as_tensor(active, device=dev).to(torch.int32)
+        new_cache["lens"] = cache["lens"] + adv
+    return logits.to(_F32), new_cache
+
+
+def prefill(params, tokens, cfg: ModelConfig, visual=None, *, max_len=None):
+    """``decode_step`` over the prompt (the hybrid caches' layouts differ
+    per layer), as the reference's prefill.  ``max_len`` preallocates
+    decode headroom (default: the window, or the prompt and one more);
+    ``visual`` is accepted for the protocol and ignored.  Returns
+    ``(cache, logits (B, V) f32)`` at the last position."""
+    del visual
+    b, s = tokens.shape
+    ml = max(s + 1, cfg.sliding_window or s + 1) if max_len is None \
+        else int(max_len)
+    if ml < s:
+        raise ValueError(f"prefill max_len={ml} < prompt length {s}")
+    cache = init_cache(cfg, b, ml, device=tokens.device)
+    logits = None
+    for t in range(s):
+        logits, cache = decode_step(params, cache, tokens[:, t], cfg)
+    return cache, logits

@@ -86,11 +86,14 @@ def dense_posit_exact(p, x, cfg: ModelConfig):
 
 
 def init_dense(gen: torch.Generator, d_in: int, d_out: int, *,
-               dtype=torch.float32, scale=None):
+               dtype=torch.float32, scale=None, bias: bool = False):
     scale = (d_in ** -0.5) if scale is None else scale
     w = torch.randn((d_in, d_out), generator=gen, device=gen.device,
                     dtype=torch.float32) * scale
-    return {"w": w.to(dtype)}
+    p = {"w": w.to(dtype)}
+    if bias:
+        p["b"] = torch.zeros((d_out,), dtype=dtype, device=gen.device)
+    return p
 
 
 def rms_norm(p, x, cfg: ModelConfig):
@@ -107,6 +110,20 @@ def rms_norm(p, x, cfg: ModelConfig):
 def init_rms_norm(d: int, cfg: ModelConfig, device):
     init = torch.zeros if cfg.norm_plus_one else torch.ones
     return {"scale": init((d,), dtype=torch.float32, device=device)}
+
+
+def layer_norm(p, x, eps: float = 1e-5):
+    dt = x.dtype
+    x = x.to(torch.float32)
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean((x - mu) ** 2, dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * p["scale"] + p["bias"]).to(dt)
+
+
+def init_layer_norm(d: int, device):
+    return {"scale": torch.ones((d,), dtype=torch.float32, device=device),
+            "bias": torch.zeros((d,), dtype=torch.float32, device=device)}
 
 
 # ---------------------------------------------------------------------------
@@ -142,17 +159,19 @@ def _pick_chunk(n: int, target: int) -> int:
     return c
 
 
-def flash_attention(q, k, v, *, cfg: ModelConfig, kv_mask, q_positions,
-                    window: int = 0):
-    """Causal attention, q: (B,S,H,D); k,v: (B,T,G,D[v]) grouped-query;
-    returns (B,S,H,Dv).
+def flash_attention(q, k, v, *, causal: bool, cfg: ModelConfig,
+                    window: int = 0, q_offset: int = 0, kv_mask=None,
+                    q_positions=None):
+    """q: (B,S,H,D); k,v: (B,T,G,D[v]) grouped-query; returns (B,S,H,Dv).
 
-    ``kv_mask`` (B, T) bool excludes keys per row; ``q_positions`` (B, S)
-    gives each query its absolute position (chunked prefill: every row
-    sits at its own frontier).  KV is padded to a multiple of
-    ``cfg.attn_chunk_kv`` so KV block ``i`` always covers positions
-    ``[i*kc, (i+1)*kc)``: a whole-prompt prefill and a chunked one reduce
-    in the same groups.
+    ``causal`` masks keys past each query's position; ``window`` keys
+    ``window`` or more behind it.  ``kv_mask`` (B, T) bool, optional,
+    excludes keys per row; ``q_positions`` (B, S), optional, gives each
+    query its absolute position (chunked prefill: every row sits at its
+    own frontier), by default ``q_offset + arange(S)`` for every row.
+    KV is padded to a multiple of ``cfg.attn_chunk_kv`` (the padding
+    masked) so KV block ``i`` always covers positions ``[i*kc, (i+1)*kc)``:
+    a whole-prompt prefill and a chunked one reduce in the same groups.
     """
     b, s_len, h, d = q.shape
     t_len, g = k.shape[1], k.shape[2]
@@ -166,13 +185,18 @@ def flash_attention(q, k, v, *, cfg: ModelConfig, kv_mask, q_positions,
         pad = t_pad - t_len
         k = F.pad(k, (0, 0, 0, 0, 0, pad))
         v = F.pad(v, (0, 0, 0, 0, 0, pad))
+        if kv_mask is None:
+            kv_mask = torch.ones((b, t_len), dtype=torch.bool, device=q.device)
         kv_mask = F.pad(kv_mask, (0, pad))
+    if q_positions is None:
+        q_positions = (q_offset + torch.arange(s_len, device=q.device))[None, :].expand(
+            b, s_len)
     n_q, n_k = s_len // qc, t_pad // kc
 
     qg = q.reshape(b, n_q, qc, g, r, d).permute(1, 0, 3, 4, 2, 5) * scale
     kg = k.reshape(b, n_k, kc, g, d).permute(1, 0, 3, 2, 4)
     vg = v.reshape(b, n_k, kc, g, dv).permute(1, 0, 3, 2, 4)
-    km = kv_mask.reshape(b, n_k, kc).permute(1, 0, 2)          # (nk,B,kc)
+    km = None if kv_mask is None else kv_mask.reshape(b, n_k, kc).permute(1, 0, 2)
     q_pos = q_positions.to(torch.int64).reshape(b, n_q, qc).permute(1, 0, 2)
     k_pos = torch.arange(t_pad, device=q.device).reshape(n_k, kc)
 
@@ -184,12 +208,14 @@ def flash_attention(q, k, v, *, cfg: ModelConfig, kv_mask, q_positions,
         acc = torch.zeros((b, g, r, qc, dv), dtype=torch.float32, device=q.device)
         for ki in range(n_k):
             kblk, vblk, kp = kg[ki], vg[ki], k_pos[ki]
-            bias = torch.where(qp[:, :, None] >= kp, 0.0, _NEG)     # causal
-            if window:
-                bias = bias + torch.where(qp[:, :, None] - kp < window, 0.0, _NEG)
             sblk = torch.einsum("bgrqd,bgkd->bgrqk", qblk, kblk).to(torch.float32)
-            sblk = sblk + bias[:, None, None]                # (B,1,1,qc,kc)
-            sblk = torch.where(km[ki][:, None, None, None, :], sblk, _NEG)
+            if causal or window:
+                bias = torch.where(qp[:, :, None] >= kp, 0.0, _NEG) if causal else 0.0
+                if window:
+                    bias = bias + torch.where(qp[:, :, None] - kp < window, 0.0, _NEG)
+                sblk = sblk + bias[:, None, None]            # (B,1,1,qc,kc)
+            if km is not None:
+                sblk = torch.where(km[ki][:, None, None, None, :], sblk, _NEG)
             m_new = torch.maximum(m, sblk.amax(-1))
             p = torch.exp(sblk - m_new[..., None])
             alpha = torch.exp(m - m_new)

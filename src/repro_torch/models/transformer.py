@@ -161,7 +161,8 @@ def _attn_forward(p, x, positions, cfg: ModelConfig, kv_mask):
         k_nope = L.dense(p["wuk"], c_kv, cfg).reshape(b, s, h, nope)
         v = L.dense(p["wuv"], c_kv, cfg).reshape(b, s, h, cfg.v_head_dim)
         k = torch.cat([k_nope, k_rope.expand(b, s, h, rope)], -1)
-        out = L.flash_attention(q, k, v, cfg=cfg, kv_mask=kv_mask, q_positions=q_pos)
+        out = L.flash_attention(q, k, v, causal=True, cfg=cfg, kv_mask=kv_mask,
+                                q_positions=q_pos)
         out = out.reshape(b, s, h * cfg.v_head_dim)
         return L.dense(p["wo"], out, cfg), (c_kv, k_rope[:, :, 0, :])
     q = L.dense(p["wq"], x, cfg).reshape(b, s, cfg.n_heads, cfg.head_dim)
@@ -169,8 +170,8 @@ def _attn_forward(p, x, positions, cfg: ModelConfig, kv_mask):
     v = L.dense(p["wv"], x, cfg).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
     q = L.apply_rope(q, positions, cfg.rope_theta)
     k = L.apply_rope(k, positions, cfg.rope_theta)
-    out = L.flash_attention(q, k, v, cfg=cfg, kv_mask=kv_mask, q_positions=q_pos,
-                            window=cfg.sliding_window)
+    out = L.flash_attention(q, k, v, causal=True, cfg=cfg, kv_mask=kv_mask,
+                            q_positions=q_pos, window=cfg.sliding_window)
     out = out.reshape(b, s, cfg.n_heads * cfg.head_dim)
     return L.dense(p["wo"], out, cfg), (k, v)
 
@@ -493,7 +494,7 @@ def prefill_chunk(params, cache, tokens, cfg: ModelConfig, n_valid, *,
                                                    cfg.v_head_dim)
         k = torch.cat([k_nope, r_all[:, :, None, :].expand(
             b, t_len, h, rope)], -1)
-        out = L.flash_attention(q, k, v, cfg=cfg, kv_mask=kv_mask,
+        out = L.flash_attention(q, k, v, causal=True, cfg=cfg, kv_mask=kv_mask,
                                 q_positions=positions)
         return out.reshape(b, c, h * cfg.v_head_dim), (c_suf, r_suf)
 
@@ -508,7 +509,7 @@ def prefill_chunk(params, cache, tokens, cfg: ModelConfig, n_valid, *,
         k_ctx, v_ctx = load(li)
         k = insert(k_ctx, k_suf)
         v = insert(v_ctx, v_suf)
-        out = L.flash_attention(q, k, v, cfg=cfg, kv_mask=kv_mask,
+        out = L.flash_attention(q, k, v, causal=True, cfg=cfg, kv_mask=kv_mask,
                                 q_positions=positions,
                                 window=cfg.sliding_window)
         return out.reshape(b, c, cfg.n_heads * cfg.head_dim), (k_suf, v_suf)

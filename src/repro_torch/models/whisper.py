@@ -1,0 +1,214 @@
+"""Whisper-style encoder-decoder (the audio backbone; the conv frontend is
+a stub: ``frames`` are precomputed frame embeddings (B, encoder_seq,
+d_model)).
+
+The port of ``repro/models/whisper.py``'s serving entry points: a
+sinusoidal-position encoder with bidirectional attention, and a decoder
+with learned positions, causal self-attention and cross-attention;
+LayerNorm and GELU (the tanh form, ``jax.nn.gelu``'s default); the head
+is tied to the token embedding.
+
+The cache (``init_cache``): the self-attention leaves ``k``/``v`` (L, B,
+max_len, G, D), the cross-attention leaves ``ck``/``cv`` (L, B,
+encoder_seq, G, D), the shared frontier ``len`` and ``max_len`` as
+Python ints and per-row ``lens``.  ``prefill`` encodes the frames and
+quantizes each decoder layer's self and cross K and V through the codec
+(``transformer._maybe_quant_kv``: four launches a layer on posit KV);
+each decode layer writes its self K and V with one fused write launch,
+then reads the self leaves and the cross leaves with one dequantize
+launch each (``layers.decode_attention``).  Cache writes are in place.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core import types as PT
+from repro_torch.device import resolve_device
+from . import layers as L
+from . import transformer as T
+from .config import ModelConfig
+
+_F32 = torch.float32
+
+
+def _sinusoids(length: int, channels: int, device):
+    t = torch.arange(length, dtype=_F32, device=device)[:, None]
+    step = torch.log(torch.tensor(10000.0, dtype=_F32, device=device)) \
+        / (channels // 2 - 1)
+    inv = torch.exp(-torch.arange(channels // 2, dtype=_F32, device=device) * step)
+    ang = t * inv[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def _init_attn(gen, cfg: ModelConfig, dt):
+    d = cfg.d_model
+    return {
+        "wq": L.init_dense(gen, d, cfg.n_heads * cfg.head_dim, dtype=dt, bias=True),
+        "wk": L.init_dense(gen, d, cfg.n_kv_heads * cfg.head_dim, dtype=dt),
+        "wv": L.init_dense(gen, d, cfg.n_kv_heads * cfg.head_dim, dtype=dt, bias=True),
+        "wo": L.init_dense(gen, cfg.n_heads * cfg.head_dim, d, dtype=dt, bias=True),
+    }
+
+
+def _init_mlp(gen, cfg: ModelConfig, dt):
+    return {
+        "wi": L.init_dense(gen, cfg.d_model, cfg.d_ff, dtype=dt, bias=True),
+        "wo": L.init_dense(gen, cfg.d_ff, cfg.d_model, dtype=dt, bias=True),
+    }
+
+
+def _mlp(p, x, cfg: ModelConfig):
+    return L.dense(p["wo"], F.gelu(L.dense(p["wi"], x, cfg), approximate="tanh"), cfg)
+
+
+def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda"):
+    """Random parameters from a seeded ``torch.Generator`` on ``device``:
+    weights, dense biases and embeddings in the compute dtype, the layer
+    norms f32.  ``enc_layers`` and ``dec_layers`` are lists of per-layer
+    dicts."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(seed))
+    dt = L.cdtype(cfg)
+    d = cfg.d_model
+
+    def normal(shape, scale):
+        return (torch.randn(shape, generator=gen, device=dev, dtype=_F32)
+                * scale).to(dt)
+
+    n_enc = cfg.encoder_layers or cfg.n_layers
+    enc = [{"ln1": L.init_layer_norm(d, dev), "attn": _init_attn(gen, cfg, dt),
+            "ln2": L.init_layer_norm(d, dev), "mlp": _init_mlp(gen, cfg, dt)}
+           for _ in range(n_enc)]
+    dec = [{"ln1": L.init_layer_norm(d, dev), "self": _init_attn(gen, cfg, dt),
+            "ln_x": L.init_layer_norm(d, dev), "cross": _init_attn(gen, cfg, dt),
+            "ln2": L.init_layer_norm(d, dev), "mlp": _init_mlp(gen, cfg, dt)}
+           for _ in range(cfg.n_layers)]
+    return {
+        "enc_layers": enc,
+        "enc_ln": L.init_layer_norm(d, dev),
+        "tok_embed": normal((cfg.vocab, d), 0.02),
+        "pos_embed": normal((4096 * 8, d), 0.01),
+        "dec_layers": dec,
+        "dec_ln": L.init_layer_norm(d, dev),
+    }
+
+
+def _qkv(p, x, cfg: ModelConfig):
+    b, s, _ = x.shape
+    q = L.dense(p["wq"], x, cfg).reshape(b, s, cfg.n_heads, cfg.head_dim)
+    k = L.dense(p["wk"], x, cfg).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    v = L.dense(p["wv"], x, cfg).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    return q, k, v
+
+
+def encode(params, frames, cfg: ModelConfig):
+    """frames: (B, T_enc, d) precomputed embeddings (the conv stub's
+    output) -> the encoder's output (B, T_enc, d)."""
+    x = frames.to(L.cdtype(cfg))
+    b, t_enc, _ = x.shape
+    x = x + _sinusoids(t_enc, cfg.d_model, x.device).to(x.dtype)[None]
+    for lp in params["enc_layers"]:
+        q, k, v = _qkv(lp["attn"], L.layer_norm(lp["ln1"], x), cfg)
+        a = L.flash_attention(q, k, v, causal=False, cfg=cfg).reshape(b, t_enc, -1)
+        x = x + L.dense(lp["attn"]["wo"], a, cfg)
+        x = x + _mlp(lp["mlp"], L.layer_norm(lp["ln2"], x), cfg)
+    return L.layer_norm(params["enc_ln"], x)
+
+
+def _logits(params, x):
+    x = L.layer_norm(params["dec_ln"], x)
+    return (x @ params["tok_embed"].T.to(x.dtype)).to(_F32)   # the tied head
+
+
+# ---------------------------------------------------------------------------
+# serving
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device="cuda"):
+    dev = resolve_device(device)
+    dt = T._cache_dtype(cfg)
+    kv = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    ckv = (cfg.n_layers, batch, cfg.encoder_seq, cfg.n_kv_heads, cfg.head_dim)
+    return {
+        "k": PT.zeros(kv, dt, dev), "v": PT.zeros(kv, dt, dev),
+        "ck": PT.zeros(ckv, dt, dev), "cv": PT.zeros(ckv, dt, dev),
+        "len": 0,
+        "lens": torch.zeros((batch,), dtype=torch.int32, device=dev),
+        "max_len": int(max_len),
+    }
+
+
+def _stack(leaves):
+    """Stack per-layer leaves (posit patterns included) on a new axis 0."""
+    return torch.stack([PT.signed_view(t) for t in leaves]).view(leaves[0].dtype)
+
+
+def prefill(params, tokens, cfg: ModelConfig, frames=None, *, max_len=None):
+    """Encode the frames, compute every decoder layer's cross-attention K
+    and V once, and run the prompt through the decoder caching its
+    self-attention K and V; returns ``(cache, logits (B, V) f32)`` at the
+    last position.  ``max_len`` preallocates decode headroom on the
+    self-attention cache (default: the prompt's length)."""
+    b, s = tokens.shape
+    ml = s if max_len is None else int(max_len)
+    if ml < s:
+        raise ValueError(f"prefill max_len={ml} < prompt length {s}")
+    enc_out = encode(params, frames, cfg)
+    t_enc = enc_out.shape[1]
+    g, hd = cfg.n_kv_heads, cfg.head_dim
+    x = params["tok_embed"][tokens].to(L.cdtype(cfg))
+    x = x + params["pos_embed"][:s].to(x.dtype)[None]
+    stored = ([], [], [], [])                        # k, v, ck, cv per layer
+    for lp in params["dec_layers"]:
+        q, k, v = _qkv(lp["self"], L.layer_norm(lp["ln1"], x), cfg)
+        a = L.flash_attention(q, k, v, causal=True, cfg=cfg)
+        x = x + L.dense(lp["self"]["wo"], a.reshape(b, s, -1), cfg)
+        xin = L.layer_norm(lp["ln_x"], x)
+        q = L.dense(lp["cross"]["wq"], xin, cfg).reshape(b, s, cfg.n_heads, hd)
+        ek = L.dense(lp["cross"]["wk"], enc_out, cfg).reshape(b, t_enc, g, hd)
+        ev = L.dense(lp["cross"]["wv"], enc_out, cfg).reshape(b, t_enc, g, hd)
+        c = L.flash_attention(q, ek, ev, causal=False, cfg=cfg)
+        x = x + L.dense(lp["cross"]["wo"], c.reshape(b, s, -1), cfg)
+        x = x + _mlp(lp["mlp"], L.layer_norm(lp["ln2"], x), cfg)
+        for acc, t in zip(stored, (k, v, ek, ev)):
+            acc.append(T._maybe_quant_kv(t, cfg))
+    ks, vs, cks, cvs = (_stack(acc) for acc in stored)
+    dev = tokens.device
+    cache = {"k": L.pad_cache_time(ks, ml), "v": L.pad_cache_time(vs, ml),
+             "ck": cks, "cv": cvs, "len": s,
+             "lens": torch.full((b,), s, dtype=torch.int32, device=dev),
+             "max_len": ml}
+    return cache, _logits(params, x[:, -1, :])
+
+
+def decode_step(params, cache, token, cfg: ModelConfig):
+    """token (B,) -> (logits (B, V) f32, cache): every row writes its
+    self K and V at the shared frontier ``len`` (a write past the
+    capacity raises here), then attends over the self cache and the
+    whole cross cache."""
+    pos = int(cache["len"])
+    b = token.shape[0]
+    L.check_cache_capacity(pos, cache["k"].shape[2], "decoder self-attention cache")
+    x = params["tok_embed"][token][:, None, :].to(L.cdtype(cfg))
+    x = x + params["pos_embed"][pos].to(x.dtype)
+    slots = L.linear_write_slots(b, cache["k"].shape[2], pos, ring=False,
+                                 device=token.device)
+    for li, lp in enumerate(params["dec_layers"]):
+        q, k, v = _qkv(lp["self"], L.layer_norm(lp["ln1"], x), cfg)
+        kc, vc = cache["k"][li], cache["v"][li]
+        T._write_kv([(kc, k[:, 0]), (vc, v[:, 0])], slots, cfg)
+        a = L.decode_attention(q, kc, vc, pos + 1, cfg=cfg, kv_posit=cfg.kv_posit)
+        x = x + L.dense(lp["self"]["wo"], a.reshape(b, 1, -1), cfg)
+        xin = L.layer_norm(lp["ln_x"], x)
+        q = L.dense(lp["cross"]["wq"], xin, cfg).reshape(
+            b, 1, cfg.n_heads, cfg.head_dim)
+        ck, cv = cache["ck"][li], cache["cv"][li]
+        c = L.decode_attention(q, ck, cv, ck.shape[1], cfg=cfg, kv_posit=cfg.kv_posit)
+        x = x + L.dense(lp["cross"]["wo"], c.reshape(b, 1, -1), cfg)
+        x = x + _mlp(lp["mlp"], L.layer_norm(lp["ln2"], x), cfg)
+    new_cache = dict(cache, len=pos + 1)
+    if "lens" in cache:
+        new_cache["lens"] = cache["lens"] + 1
+    return _logits(params, x[:, 0, :]), new_cache

@@ -1,8 +1,9 @@
 """Serving engine: preallocated posit KV caches, the one-shot generate and
 the decode quantum of the continuous-batching scheduler.
 
-The port of ``repro/runtime/engine.py``.  The engine owns the model, the
-cache geometry and the sampler:
+The port of ``repro/runtime/engine.py``.  The engine owns the model (any
+family of ``models.registry``: the transformer, hymba, rwkv6, whisper),
+the cache geometry and the sampler:
 
 * every cache is preallocated to ``max_len`` up front (posit patterns
   when ``cfg.kv_posit`` is set) and a request that would not fit is
@@ -10,23 +11,27 @@ cache geometry and the sampler:
   the capacity;
 * sliding-window caches run as rings (capacity = window, writes at
   ``pos % window``);
-* ragged prompt batches are left-padded to a common length; each row
-  carries its own length, RoPE positions and masks;
+* ragged prompt batches (transformer family only) are left-padded to a
+  common length; each row carries its own length, RoPE positions and
+  masks;
+* encoder ``frames`` (whisper) and ``visual`` patch embeddings
+  (internvl) go to the family's prefill; decode runs off the cache;
 * sampling is greedy or at a temperature, batched, from one
   ``torch.Generator``;
-* ``paged=True`` swaps the linear ``batch x max_len`` cache for the
-  block-table layout (rows take arena blocks from a host-side
-  ``kvcache.BlockPool``), with token streams identical to the linear
-  layout's; a paged engine also serves chunked prefill through
-  :meth:`Engine.mixed_step` (one prefill chunk for every row, then
-  ``n_steps`` masked decode steps).
+* ``paged=True`` (transformer family only) swaps the linear
+  ``batch x max_len`` cache for the block-table layout (rows take arena
+  blocks from a host-side ``kvcache.BlockPool``), with token streams
+  identical to the linear layout's; a paged engine also serves chunked
+  prefill through :meth:`Engine.mixed_step` (one prefill chunk for every
+  row, then ``n_steps`` masked decode steps).
 
 PyTorch runs eagerly: the reference's one ``lax.scan`` per generation
 is a loop of decode steps here, and ``n_compiles`` counts the dispatch
 keys of the programs the reference would compile -- one prefill per
-(ragged, batch, padded prompt length), one generate per (tokens, batch),
-one decode quantum per (steps, batch), one mixed step per (chunk width,
-steps) -- so its compile-count invariants stay testable.
+(ragged, extra inputs, batch, padded prompt length), one generate per
+(tokens, batch), one decode quantum per (steps, batch), one mixed step
+per (chunk width, steps) -- so its compile-count invariants stay
+testable.
 
 Usage::
 
@@ -49,6 +54,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.registry import get_family
 
 
 def sample_token(logits, gen: torch.Generator, temperature: float):
@@ -71,7 +77,7 @@ class GenerationResult:
 
 
 class Engine:
-    """Batched serving engine for the transformer family."""
+    """Batched serving engine for every model family."""
 
     def __init__(self, cfg: ModelConfig, params, *, max_len: int,
                  temperature: float = 0.0, seed: int = 0, pad_id: int = 0,
@@ -101,10 +107,7 @@ class Engine:
                     "decode_kernel selects the PAGED decode attention "
                     "path; construct the engine with paged=True")
             cfg = dataclasses.replace(cfg, paged_attn_kernel=decode_kernel)
-        if cfg.family != "transformer":
-            raise ValueError(
-                f"the port serves the transformer family only (got "
-                f"{cfg.family!r})")
+        self.fam = get_family(cfg)
         if params["tok_embed"].device.type != self.device.type:
             raise ValueError(
                 f"params live on {params['tok_embed'].device}, engine "
@@ -118,7 +121,13 @@ class Engine:
         self.block_size = int(block_size)
         self.n_blocks = int(n_blocks)
         self.sanitize = bool(sanitize)
+        # families whose decode step takes the scheduler's ``active`` mask
+        self.masked = cfg.family in ("transformer", "hymba")
         if self.paged:
+            if cfg.family != "transformer":
+                raise ValueError(
+                    "paged KV caches need the transformer family's "
+                    f"per-row decode positions (got {cfg.family!r})")
             if self.block_size < 1:
                 raise ValueError(f"block_size must be >= 1, got {block_size}")
             self.table_width = T.paged_table_width(cfg, self.block_size,
@@ -195,36 +204,38 @@ class Engine:
                 "prefill(paged=True) needs an engine constructed with "
                 "Engine(..., paged=True): only that sizes the block tables "
                 "and arena")
-        if frames is not None:
-            raise NotImplementedError(
-                "encoder frames (whisper) are not ported yet (ROADMAP Queue 1 "
-                "item 4)")
         tokens, lens = self.pack_prompts(prompts)
         b, s = tokens.shape
         if s > self.max_len:
             raise ValueError(f"padded prompt length {s} exceeds engine max_len "
                              f"{self.max_len}")
         ragged = bool((lens != lens[0]).any())
+        if ragged and self.cfg.family != "transformer":
+            raise ValueError(
+                "ragged prompt batches are only supported for the "
+                f"transformer family (got family={self.cfg.family!r}); "
+                "pad or bucket the prompts")
         if ragged and visual is not None:
             raise ValueError(
                 "ragged prompt batches cannot carry a visual prefix: patch "
                 "embeddings are prepended at the sequence front, which is "
                 "where left-padding lives; pad the prompts to a common "
                 "length instead")
-        kw = {}
+        dev = self.device
+        kw = {k: torch.as_tensor(v, device=dev)
+              for k, v in (("frames", frames), ("visual", visual)) if v is not None}
+        key = ("prefill", ragged, tuple(sorted(kw)))
         nb = 0
         if use_paged:
             nb = self.n_blocks or b * self.table_width
             tables, self.pool = self._alloc_tables(lens, int(reserve_tokens), nb)
-            kw = dict(block_tables=tables, block_size=self.block_size, n_blocks=nb)
-        self._dispatch_keys.add(("prefill", ragged, visual is not None, nb, b, s))
-        dev = self.device
-        if visual is not None:
-            visual = torch.as_tensor(visual, device=dev)
-        cache, logits = T.prefill(
+            kw.update(block_tables=tables, block_size=self.block_size, n_blocks=nb)
+        if ragged:
+            kw["prompt_lens"] = torch.as_tensor(lens, device=dev)
+        self._dispatch_keys.add(key + (nb, b, s))
+        cache, logits = self.fam.prefill(
             self.params, torch.as_tensor(tokens, dtype=torch.int64, device=dev),
-            self.cfg, visual, max_len=self.max_len,
-            prompt_lens=torch.as_tensor(lens, device=dev) if ragged else None, **kw)
+            self.cfg, max_len=self.max_len, **kw)
         return cache, logits, lens
 
     # ------------------------------------------------------------------
@@ -232,12 +243,18 @@ class Engine:
     # ------------------------------------------------------------------
 
     def _step(self, cache, tok, active=None):
-        """One decode step without the eager capacity check (callers
-        checked the whole quantum up front, as the reference's traced
-        scan relies on)."""
-        step = T._decode_step_paged if "block_tables" in cache \
-            else T._decode_step_linear
-        return step(self.params, cache, tok, self.cfg, active)
+        """One decode step of the family; the transformer's without the
+        eager capacity check (callers checked the whole quantum up front,
+        as the reference's traced scan relies on).  ``active`` reaches
+        only the families that take it (``masked``)."""
+        if self.cfg.family == "transformer":
+            step = T._decode_step_paged if "block_tables" in cache \
+                else T._decode_step_linear
+            return step(self.params, cache, tok, self.cfg, active)
+        if self.masked:
+            return self.fam.decode_step(self.params, cache, tok, self.cfg,
+                                        active=active)
+        return self.fam.decode_step(self.params, cache, tok, self.cfg)
 
     def decode_chunk(self, cache, tokens, n_steps: int, *, active=None):
         """Advance every row by ``n_steps`` decode steps; returns
@@ -294,7 +311,8 @@ class Engine:
         out = [tok]
         for _ in range(max_new_tokens - 1):
             if stepwise:
-                step_logits, cache = T.decode_step(self.params, cache, tok, self.cfg)
+                step_logits, cache = self.fam.decode_step(self.params, cache, tok,
+                                                          self.cfg)
             else:
                 step_logits, cache = self._step(cache, tok)
             tok = sample_token(step_logits, self.gen, self.temperature)

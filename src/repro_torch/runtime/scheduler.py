@@ -139,6 +139,12 @@ class Scheduler:
     def __init__(self, engine: Engine, *, n_slots: int, chunk_size: int = 8,
                  eos_id: Optional[int] = None, prefix_cache: bool = False,
                  chunked_prefill: bool = False):
+        if engine.cfg.family != "transformer":
+            raise ValueError(
+                "continuous batching needs per-row decode positions, "
+                "which only the transformer family provides (got family="
+                f"{engine.cfg.family!r}); hymba/rwkv/whisper decode at a "
+                "shared absolute position")
         if chunk_size < 1:
             raise ValueError(f"chunk_size must be >= 1, got {chunk_size}")
         if n_slots < 1:

@@ -4,8 +4,8 @@ The reference keeps parameters as a nested dict pytree whose per-layer
 leaves are stacked on axis 0 (``jax.vmap`` over the layer keys) and
 caches as dicts of arrays.  These converters take those trees as nested
 dicts of numpy arrays (no JAX needed) and return the port's layout:
-``params["layers"]`` becomes a list of per-layer dicts, and a cache's
-``len`` and ``max_len`` become Python ints.
+each stacked per-layer tree becomes a list of per-layer dicts, and a
+cache's ``len`` and ``max_len`` become Python ints.
 """
 from __future__ import annotations
 
@@ -21,30 +21,44 @@ def _tensor(x, device, dtype=None):
         else t.to(device)
 
 
+# per-layer trees the reference stacks on axis 0, and the layer count of each
+_STACKED = {"layers": lambda cfg: cfg.n_layers,
+            "enc_layers": lambda cfg: cfg.encoder_layers or cfg.n_layers,
+            "dec_layers": lambda cfg: cfg.n_layers}
+# leaves the reference reads in f32 whatever the compute dtype: norm scales,
+# the layer norms' biases, rwkv6's decay base and bonus, hymba's SSM decay,
+# step bias and skip
+_F32_LEAVES = frozenset({"scale", "bias", "w0", "u", "A_log", "dt_bias", "D"})
+
+
 def _convert(tree, device, dtype, key=None):
     if isinstance(tree, dict):
         return {k: _convert(v, device, dtype, k) for k, v in tree.items()}
-    # norm scales stay f32; every other leaf may take ``dtype``
-    return _tensor(tree, device, None if key == "scale" else dtype)
+    return _tensor(tree, device, None if key in _F32_LEAVES else dtype)
 
 
 def params_from_jax(tree, cfg, *, device="cuda", dtype=None):
     """Reference parameter pytree (nested dicts of numpy arrays) -> port
-    parameters on ``device``.  ``dtype`` (e.g. ``torch.bfloat16``) stores
-    every weight in that dtype except the norm scales, which stay f32;
-    the forward casts weights to the compute dtype either way."""
+    parameters on ``device``.  Every stacked per-layer tree (``layers``;
+    whisper's ``enc_layers`` and ``dec_layers``) becomes a list of
+    per-layer dicts; other leaves stay whole.  ``dtype`` (e.g.
+    ``torch.bfloat16``) stores every leaf in that dtype except the ones
+    the reference reads in f32 (``_F32_LEAVES``); the forward casts the
+    others to the compute dtype either way."""
     dev = resolve_device(device)
-    layers = tree["layers"]
-    n = cfg.n_layers
 
     def layer(i, t):
         if isinstance(t, dict):
             return {k: layer(i, v) for k, v in t.items()}
         return np.asarray(t)[i]
 
-    out = {k: _convert(v, dev, dtype, k) for k, v in tree.items()
-           if k != "layers"}
-    out["layers"] = [_convert(layer(i, layers), dev, dtype) for i in range(n)]
+    out = {}
+    for k, v in tree.items():
+        if k in _STACKED:
+            out[k] = [_convert(layer(i, v), dev, dtype)
+                      for i in range(_STACKED[k](cfg))]
+        else:
+            out[k] = _convert(v, dev, dtype, k)
     return out
 
 

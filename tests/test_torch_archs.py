@@ -62,8 +62,10 @@ def _prompts(cfg, lens, seed):
 
 
 def test_registry_serves_every_transformer_architecture():
-    assert TCFG.ARCH_IDS == tuple(a for a in RCFG.ARCH_IDS
-                                  if RCFG.get_config(a).family == "transformer")
+    transformers = tuple(a for a in RCFG.ARCH_IDS
+                         if RCFG.get_config(a).family == "transformer")
+    assert set(transformers) <= set(TCFG.ARCH_IDS)
+    assert TCFG.ARCH_IDS == RCFG.ARCH_IDS      # the other families too, in order
     for arch in TCFG.ARCH_IDS:
         assert TCFG.get_config(arch).__dict__ == RCFG.get_config(arch).__dict__
 

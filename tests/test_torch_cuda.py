@@ -964,3 +964,105 @@ def test_moe_on_card_matches_cpu(dev, s):
         torch.cuda.set_sync_debug_mode("default")
     assert torch.equal(got_keep.cpu(), keep)
     torch.testing.assert_close(got.cpu(), want, atol=MOE_TOL, rtol=MOE_TOL)
+
+
+# ---------------------------------------------------------------------------
+# the hymba, rwkv6 and whisper families: their codec shapes, their engines
+# ---------------------------------------------------------------------------
+
+FAMILY_READS = {"hymba-ring": (8, 1024, 5, 64), "whisper-self": (8, 448, 6, 64),
+                "whisper-cross": (8, 1500, 6, 64)}
+
+
+@pytest.mark.parametrize("out", [None, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("leaf", list(FAMILY_READS))
+def test_dequantize_at_family_shapes_on_card(dev, leaf, out):
+    """A layer's K and V in one dequantize launch at hymba-1.5b's ring
+    and whisper-tiny's self and cross leaves, f32 and bf16-rounded out,
+    bit for bit against the plain version (NaR at each leaf's head)."""
+    leaves = [_pats(POSIT16, FAMILY_READS[leaf], seed).to(dev) for seed in (3, 4)]
+    for p in leaves:
+        signed_view(p).view(-1)[0] = -(1 << 15)
+    got = posit_codec.dequantize_many(leaves, POSIT16, out)
+    want = posit_codec.dequantize_many_plain([p.cpu() for p in leaves], POSIT16, out)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu().view(torch.int32), w.view(torch.int32))
+
+
+def test_quantize_at_whisper_cross_shape_on_card(dev):
+    """whisper-tiny's cross K of one layer, (8, 1 500, 6, 64) f32 ->
+    posit16, bit for bit against the plain version."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn((8, 1500, 6, 64), generator=gen, device=dev) * 3
+    got = posit_codec.quantize(x, POSIT16)
+    assert torch.equal(signed_view(got).cpu(),
+                       signed_view(posit_codec.quantize_plain(x.cpu(), POSIT16)))
+
+
+@pytest.mark.parametrize("leaf,pos,ring", [("hymba-ring", 1500, True),
+                                           ("whisper-self", 300, False),
+                                           ("whisper-self", 448, False)],
+                         ids=["hymba-ring-wrapped", "whisper-self", "whisper-self-full"])
+def test_linear_write_at_family_shapes_on_card(dev, leaf, pos, ring):
+    """The fused write of a decode step's K and V (8 bf16 rows) into
+    hymba-1.5b's ring past its wrap and whisper-tiny's self leaves (a
+    write past the capacity dropped), bit for bit against the plain
+    version."""
+    shape = FAMILY_READS[leaf]
+    leaves = [_pats(POSIT16, shape, seed).to(dev) for seed in (6, 7)]
+    gen = torch.Generator(device=dev).manual_seed(pos)
+    rows = [torch.randn((8,) + shape[2:], generator=gen, device=dev).to(torch.bfloat16)
+            for _ in leaves]
+    slots = L.linear_write_slots(8, shape[1], pos, ring=ring, device=dev)
+    want = [a.clone() for a in leaves]
+    posit_codec.paged_write_plain(list(zip(want, rows)), slots, POSIT16)
+    before = [a.clone() for a in leaves]
+    posit_codec.paged_write(list(zip(leaves, rows)), slots, POSIT16)
+    for g, w, a in zip(leaves, want, before):
+        assert torch.equal(signed_view(g), signed_view(w))
+        assert torch.equal(signed_view(g), signed_view(a)) == (pos >= shape[1] and not ring)
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+@pytest.mark.parametrize("arch,kv,kernels", [
+    ("hymba-1.5b", "posit16", ("posit_paged_write", "posit_dequantize")),
+    ("rwkv6-7b", None, ()),
+    ("whisper-tiny", "posit16", ("posit_quantize", "posit_paged_write", "posit_dequantize")),
+], ids=["hymba", "rwkv6", "whisper"])
+def test_family_oneshot_on_card_matches_cpu(dev, arch, kv, kernels):
+    """Each family's reduced one-shot engine on the card, its kernels
+    launched, against the same engine on the CPU in f32 (TF32 off): the
+    same greedy tokens, prefill logits within 1e-4, ``generate_stepwise``
+    equal, and no posit kernel launched on rwkv6."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import get_family
+    from repro_torch.runtime.engine import Engine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(configs.get_config(arch).reduced(compute_dtype="float32"),
+                              kv_posit=kv)
+    params = get_family(cfg).init_params(cfg, seed=4, device="cpu")
+    rng = np.random.default_rng(4)
+    prompts = rng.integers(1, cfg.vocab, (3, 16))
+    kw = {}
+    if cfg.family == "whisper":
+        kw["frames"] = rng.standard_normal((3, cfg.encoder_seq, cfg.d_model)).astype(
+            np.float32)
+    want = Engine(cfg, params, max_len=32, device="cpu").generate(prompts, 12, **kw)
+    eng = Engine(cfg, _to(params, dev), max_len=32, device="cuda")
+    before = {k: posit_codec.launches[k] for k in posit_codec.launches}
+    got = eng.generate(prompts, 12, **kw)
+    launched = {k: posit_codec.launches[k] - before[k] for k in before}
+    np.testing.assert_array_equal(got.tokens, want.tokens)
+    np.testing.assert_allclose(got.prefill_logits, want.prefill_logits, rtol=1e-4, atol=1e-4)
+    np.testing.assert_array_equal(eng.generate_stepwise(prompts, 12, **kw).tokens, got.tokens)
+    assert {k for k, v in launched.items() if v} == set(kernels)

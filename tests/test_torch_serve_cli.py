@@ -5,17 +5,16 @@ The README's main-path argv (``--continuous --paged --chunked-prefill
 one-shot engine, linear or paged; the dense-cache scheduler; the
 unchunked paged scheduler) go through both ``main``s at reduced width,
 on the dense (phi3-medium-14b) and MLA (minicpm3-4b) lanes.  The
-reference random-inits from ``PRNGKey(0)``; the port's ``init_params`` is
-replaced by those weights carried across with
+reference random-inits from ``PRNGKey(0)``; the family's ``init_params``
+in the port is replaced by those weights carried across with
 ``weights.params_from_jax``, since the two RNG streams differ.  Greedy
 tokens, and each request's queueing delay where the mode has one, must
-be equal.  internvl2-1b's one-shot path draws its visual prefix from
-the same seeded stream and gives the reference's tokens; the
-encoder-frame input, whose family the port lacks, raises
-``NotImplementedError``; the argv the reference refuses, the port
-refuses too.
+be equal.  The one-shot paths of internvl2-1b (its visual prefix) and
+whisper-tiny (its encoder frames) draw their extra input from the same
+seeded stream and give the reference's tokens, and so do hymba-1.5b's
+and rwkv6-7b's; the argv the reference refuses, the port refuses too,
+``--continuous`` outside the transformer family included.
 """
-import dataclasses
 
 import numpy as np
 import pytest
@@ -26,8 +25,9 @@ import jax
 from repro import configs as RCFG
 from repro.launch import serve as ref_serve
 from repro.models import get_family
+from repro_torch import configs as TCFG
 from repro_torch.launch import serve
-from repro_torch.models import transformer as T
+from repro_torch.models import get_family as port_family
 from repro_torch.weights import params_from_jax
 
 MAIN_PATH = ["--reduced", "--continuous", "--paged", "--chunked-prefill",
@@ -47,8 +47,8 @@ def _reference_weights(monkeypatch, arch):
     rc = RCFG.get_config(arch).reduced(compute_dtype="float32")
     rp = jax.tree.map(np.asarray,
                       get_family(rc).init_params(jax.random.PRNGKey(0), rc))
-    monkeypatch.setattr(T, "init_params", lambda cfg, seed, device: (
-        params_from_jax(rp, cfg, device=device)))
+    monkeypatch.setattr(port_family(TCFG.get_config(arch)), "init_params",
+                        lambda cfg, seed, device: params_from_jax(rp, cfg, device=device))
 
 
 @pytest.mark.parametrize("arch", ["phi3-medium-14b", "minicpm3-4b"])
@@ -103,25 +103,51 @@ def test_every_mode_matches_reference(monkeypatch, arch, flags):
 @pytest.mark.parametrize("field", ["n_visual_tokens", "family"],
                          ids=["visual", "frames"])
 def test_unported_modes_raise(monkeypatch, field):
-    """The one-shot path of a config with a visual prefix (internvl2-1b)
-    draws the patch embeddings after the prompts, as the reference's
-    does, and returns the reference ``main``'s tokens; encoder frames
-    (whisper) still raise, naming the ROADMAP item."""
+    """The one-shot paths that take an extra input draw it after the
+    prompts, as the reference's do, and return the reference ``main``'s
+    tokens: the visual prefix of a config with visual tokens
+    (internvl2-1b) and the encoder frames of whisper-tiny (at posit16
+    KV: the cross-attention cache through the codec)."""
     if field == "n_visual_tokens":
-        argv = ["--arch", "internvl2-1b", "--reduced", "--kv-posit", "posit16",
-                "--batch", "3", "--prompt-len", "16", "--gen", "6"]
-        want = ref_serve.main(argv)
-        _reference_weights(monkeypatch, "internvl2-1b")
-        got = serve.main(argv + ["--device", "cpu"])
-        assert got.shape == (3, 6)
-        np.testing.assert_array_equal(got, np.asarray(want))
-        return
-    config = serve.model_config
-    monkeypatch.setattr(serve, "model_config", lambda args: dataclasses.replace(
-        config(args), family="whisper"))
-    monkeypatch.setattr(T, "init_params", lambda cfg, seed, device: {})
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        serve.main(["--reduced", "--device", "cpu"])
+        arch, n = "internvl2-1b", ["--batch", "3", "--prompt-len", "16", "--gen", "6"]
+    else:
+        arch, n = "whisper-tiny", ["--batch", "3", "--prompt-len", "12", "--gen", "7"]
+    argv = ["--arch", arch, "--reduced", "--kv-posit", "posit16"] + n
+    want = ref_serve.main(argv)
+    _reference_weights(monkeypatch, arch)
+    got = serve.main(argv + ["--device", "cpu"])
+    assert got.shape == (3, int(n[-1]))
+    np.testing.assert_array_equal(got, np.asarray(want))
+
+
+@pytest.mark.parametrize("arch,flags", [
+    ("hymba-1.5b", ["--kv-posit", "posit16", "--prompt-len", "10", "--gen", "7"]),
+    ("rwkv6-7b", ["--prompt-len", "16", "--gen", "7"]),
+], ids=["hymba", "rwkv6"])
+def test_oneshot_families_match_reference(monkeypatch, arch, flags):
+    """hymba-1.5b (ring and global caches, SSM state) and rwkv6-7b (the
+    recurrent state; its prompt a multiple of the chunk) through both
+    one-shot ``main``s: the reference's tokens."""
+    argv = ["--arch", arch, "--reduced", "--batch", "3"] + flags
+    want = ref_serve.main(argv)
+    _reference_weights(monkeypatch, arch)
+    got = serve.main(argv + ["--device", "cpu"])
+    assert got.shape == (3, 7)
+    np.testing.assert_array_equal(got, np.asarray(want))
+
+
+@pytest.mark.parametrize("flags", [["--continuous"], ["--continuous", "--paged"]],
+                         ids=["dense", "paged"])
+def test_continuous_refused_outside_transformer_family(monkeypatch, flags):
+    """The schedulers need the transformer family: both ``main``s raise
+    ``ValueError`` on rwkv6-7b."""
+    argv = ["--arch", "rwkv6-7b", "--reduced", "--batch", "2", "--prompt-len", "8",
+            "--gen", "4"] + flags
+    with pytest.raises(ValueError, match="transformer"):
+        ref_serve.main(argv)
+    _reference_weights(monkeypatch, "rwkv6-7b")
+    with pytest.raises(ValueError, match="transformer"):
+        serve.main(argv + ["--device", "cpu"])
 
 
 @pytest.mark.parametrize("flags", [

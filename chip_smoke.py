@@ -43,6 +43,20 @@ paths at full size and checks that every kernel of each path ran there:
   at full width and depth, its window replaced by 64 so that it wraps
   in the smoke's time (every decode step writes ring slot ``pos % 64``
   of every window layer and nothing else);
+- the paged sliding-window lane: phi3-medium-14b at full width and
+  depth on the chunked trace with ``sliding_window`` replaced by 128
+  (``WINDOW_PATH``; the published config has none), exact launch counts,
+  every decode read exactly the window, fused == gather on the served
+  weights;
+- training, each phase in a process of its own (``--phase train``,
+  ``--phase train-families``): (T) ``launch/train.py`` on gemma-7b at
+  full width, 8 of its 28 layers, ``--posit-moments`` (the codec's
+  quantize and dequantize once a leaf a step, exactly; the supervisor's
+  final checkpoint restored bit for bit; one AdamW update on the real
+  leaves on the kernels against the plain codec, bit for bit; rows 1 and
+  2 timed at the optimizer's leaves), and (T2) two steps of
+  minicpm3-4b, granite-moe-3b-a800m, hymba-1.5b, rwkv6-7b (16 of 32
+  layers) and whisper-tiny (``TRAIN_FAMILIES``);
 - the PVU ISA (``posit_ew.cu``, ``posit_dot.cu``, ``posit_qgemm.cu``,
   ``posit_gemm.cu``): the paper's verification workload
   (``configs/pvu_resnet_conv.py``, the ResNet-18 first conv on 8 images
@@ -52,6 +66,8 @@ paths at full size and checks that every kernel of each path ran there:
   maintenance (scale, merge) on the arena the phi3 path served from.
 
     python3 chip_smoke.py          # needs one NVIDIA GPU and nvcc
+    python3 chip_smoke.py --phase train            # (T) alone (kernels built)
+    python3 chip_smoke.py --phase train-families   # (T2) alone
     python3 chip_smoke.py --ptxas  # only: -Xptxas -v (registers, shared
                                    # memory, spills) of paged_attn.cu,
                                    # paged_attn_mla.cu, posit_gemm.cu,
@@ -84,8 +100,10 @@ import gc
 import json
 import multiprocessing
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -1586,6 +1604,453 @@ def check_hymba_ring(dev):
 
 
 # ---------------------------------------------------------------------------
+# The paged sliding-window lane: phi3-medium-14b with its window replaced
+# ---------------------------------------------------------------------------
+
+# phi3-medium-14b's published config has no window, and the command line
+# no window flag: the lane replaces it by WINDOW (dataclasses.replace, as
+# check_hymba_ring does), so that every prompt of _TRACE (256-512 tokens)
+# outgrows the window; full width and depth
+WINDOW = 128
+WINDOW_PATH = ("phi3-medium-14b-window", ["--arch", "phi3-medium-14b"] + _TRACE)
+
+
+def check_main_counts(name, res, counts, steps, chunks, kernels):
+    """A chunked main path's exact launch counts: its decode attention L
+    a decode step, the fused read L a prefill chunk, the fused write L a
+    decode step and one a leaf (all layers) a chunk; no other quantize
+    or dequantize."""
+    for kernel in kernels:
+        if counts[kernel] <= 0:
+            fail(f"kernel {kernel} was not launched on the {name} path")
+    if counts["posit_quantize"]:
+        fail(f"the {name} path quantized outside the fused paged write "
+             f"({counts['posit_quantize']} posit_quantize launches)")
+    if counts["posit_dequantize"]:
+        fail(f"the {name} path dequantized outside the fused paged read "
+             f"({counts['posit_dequantize']} posit_dequantize launches)")
+    n_layers = res.sched.engine.cfg.n_layers
+    attn = kernels[-1]
+    print(f"main path {name}: {attn} launches per decode step "
+          f"{counts[attn] / max(steps, 1):.2f} ({n_layers} layers)")
+    if counts[attn] != n_layers * steps:
+        fail(f"{attn} ran {counts[attn]} times in {steps} decode steps "
+             f"of {n_layers} layers")
+    if counts["posit_paged_read"] != n_layers * chunks:
+        fail(f"posit_paged_read ran {counts['posit_paged_read']} times in "
+             f"{chunks} prefill chunks of {n_layers} layers")
+    if counts["posit_paged_write"] != n_layers * steps + 2 * chunks:
+        fail(f"posit_paged_write ran {counts['posit_paged_write']} times in "
+             f"{steps} decode steps and {chunks} prefill chunks of {n_layers} layers")
+
+
+def run_window_lane(dev):
+    """The paged window lane served end to end (``WINDOW_PATH``): exact
+    launch counts; at every decode attention launch the block table is
+    the window ring's width and the slots the kernel counts for each
+    served row are exactly its last ``min(lens + 1, WINDOW)`` positions,
+    each once (their number, range and sum; a free slot's row none);
+    then the fused decode kernel against
+    the gather path on the served weights.  Returns the launch counts."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.kernels import posit_paged_attn as K
+    from repro_torch.models import layers as L
+
+    name, argv = WINDOW_PATH
+    published, fused = configs.get_config, K.paged_decode_attention
+    seen = {"calls": 0, "off_ring": 0, "width": 0}
+    bad = torch.zeros((), dtype=torch.bool, device=dev)
+
+    def windowed(arch):
+        cfg = published(arch)
+        return dataclasses.replace(cfg, sliding_window=WINDOW) \
+            if arch == "phi3-medium-14b" else cfg
+
+    def checked(q, k_arena, v_arena, tables, apos, lens, *, pcfg=None, window=0):
+        nonlocal bad
+        seen["calls"] += 1
+        seen["width"] = tables.shape[1]
+        if window != WINDOW or tables.shape[1] != L.paged_window_blocks(
+                WINDOW, k_arena.shape[1]):
+            seen["off_ring"] += 1
+        front = lens.to(torch.int64)[:, None] + 1            # positions < front
+        a = apos.to(torch.int64)
+        counted = (a >= 0) & (a < front) & (a >= front - WINDOW)
+        lo = torch.clamp(front[:, 0] - WINDOW, min=0)
+        n = counted.sum(1)
+        series = (lo + front[:, 0] - 1) * (front[:, 0] - lo) // 2
+        live = (tables < k_arena.shape[0]).any(1)          # a free slot's row reads nothing
+        want_n = torch.where(live, front[:, 0] - lo, 0)
+        want_sum = torch.where(live, series, 0)
+        bad = bad | (n != want_n).any() \
+            | (torch.where(counted, a, 0).sum(1) != want_sum).any()
+        return fused(q, k_arena, v_arena, tables, apos, lens, pcfg=pcfg, window=window)
+
+    configs.get_config, K.paged_decode_attention = windowed, checked
+    try:
+        res, counts, wall, steps, chunks = serve_main_path(argv)
+    finally:
+        configs.get_config, K.paged_decode_attention = published, fused
+    check_served(res)
+    report_served(name, res, counts, wall, steps, chunks)
+    if res.sched.engine.cfg.sliding_window != WINDOW or not res.sched.engine.window_lane:
+        fail(f"the {name} path did not serve the window lane")
+    check_main_counts(name, res, counts, steps, chunks, _DENSE_KERNELS)
+    in_window = not bool(bad) and not seen["off_ring"]
+    print(f"main path {name}: sliding_window replaced ({WINDOW}; the published config "
+          f"has none), tables {seen['width']} blocks wide; at each of {seen['calls']} decode "
+          f"attention launches every row counted exactly its last min(len, {WINDOW}) "
+          f"positions: {in_window}")
+    if not in_window or seen["calls"] != counts["paged_decode_attention"]:
+        fail(f"the {name} path read outside its window ({seen['off_ring']} launches off "
+             f"the ring's width, counted slots wrong: {bool(bad)})")
+    check_fused_equals_gather_full(name, res.sched.engine)
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# Training, each phase in a process of its own (its memory freed at exit)
+# ---------------------------------------------------------------------------
+
+# (T) the main training path through the user entry point: gemma-7b at
+# full width, 8 of its 28 layers (3.0 B parameters: f32 weights,
+# gradients and v, posit16 m: 42 GB), grad_accum 4 from its config
+# (microbatches of 2 x 512), synthetic data, the supervisor's checkpoint
+# of the final step (30 GB)
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 8, 8, 512
+TRAIN_ARGV = ["--arch", "gemma-7b", "--n-layers", "8", "--batch", str(TRAIN_BATCH),
+              "--seq", str(TRAIN_SEQ), "--steps", str(TRAIN_STEPS), "--posit-moments",
+              "--log-every", "1", "--device", "cuda"]
+BF16_DENSE_FLOPS = 989.4e12    # H100 SXM data sheet: bf16 dense tensor-core peak
+PLAIN_CHUNK = 1 << 25          # elements a chunk of the plain codec on the card
+# (T2) one family a process-local run of two train steps at full width:
+# arch -> (layers, 0 = all; batch; sequence).  rwkv6-7b's 32 layers are
+# 7.6 B parameters, 106 GB of f32 training state: 16 layers (4.1 B,
+# 57 GB); the others fit whole.  hymba's sequence is a multiple of its
+# SSD chunk (64) beyond its 128 meta tokens, rwkv6's of its WKV chunk
+# (16); whisper's is its decoder context, 448, with 1 500 seeded frames
+TRAIN_FAMILIES = {
+    "minicpm3-4b": (0, 8, 512),
+    "granite-moe-3b-a800m": (0, 8, 512),
+    "hymba-1.5b": (0, 8, 512),
+    "rwkv6-7b": (16, 8, 512),
+    "whisper-tiny": (0, 8, 448),
+}
+PHASE_TAG = "PHASE_RESULT "
+
+
+def run_phase_process(phase, timeout=900):
+    """``chip_smoke.py --phase <phase>`` in a child process: its lines
+    echoed, its result (the line tagged ``PHASE_TAG``) returned; a
+    non-zero exit fails the smoke."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--phase", phase],
+                          stdout=subprocess.PIPE, text=True, timeout=timeout)
+    result = None
+    for line in proc.stdout.splitlines():
+        if line.startswith(PHASE_TAG):
+            result = json.loads(line[len(PHASE_TAG):])
+        else:
+            print(line)
+    print(f"phase {phase}: its process took {time.perf_counter() - t0:.1f} s", flush=True)
+    if proc.returncode != 0 or result is None:
+        fail(f"the {phase} phase exited {proc.returncode}")
+    return result
+
+
+def _roomiest_dir():
+    """The temporary directory or the checkout's ``build/``, whichever
+    file system has more free bytes."""
+    cands = [tempfile.gettempdir(), os.path.join(ROOT, "build")]
+    os.makedirs(cands[1], exist_ok=True)
+    return max(cands, key=lambda d: shutil.disk_usage(d).free)
+
+
+def _plain_codec(fn, out_dtype):
+    """A codec's plain version run ``PLAIN_CHUNK`` elements at a time (it
+    is elementwise; its int64 temporaries of a whole 786 M leaf would
+    not fit beside the training state)."""
+    from repro_torch.core.types import signed_view
+
+    def run(x):
+        out = torch.empty(x.shape, dtype=out_dtype, device=x.device)
+        src, dst = x.reshape(-1), signed_view(out).view(-1)
+        for i in range(0, src.numel(), PLAIN_CHUNK):
+            dst[i:i + PLAIN_CHUNK] = signed_view(fn(src[i:i + PLAIN_CHUNK]))
+        return out
+    return run
+
+
+def _bits(t):
+    """A tensor's bits as a signed integer tensor of its width."""
+    from repro_torch.core.types import signed_view
+    return t.view(torch.int32) if t.dtype == torch.float32 else signed_view(t)
+
+
+def _clone(t):
+    from repro_torch.core.types import signed_view
+    return signed_view(t).clone().view(t.dtype)
+
+
+def _codec_at(x, m, plain_q, plain_dq):
+    """Rows 1 and 2 at an optimizer leaf's shape: the quantize of its
+    f32 moment and the dequantize of its patterns, wrapper-timed and
+    alone, the plain versions (run by chunks), the bytes bound; each
+    output bit for bit against the plain version's."""
+    from repro_torch.core.types import POSIT16, signed_view
+    from repro_torch.kernels import posit_codec as C
+
+    q, d = C.quantize(x, POSIT16), C.dequantize(m, POSIT16)
+    if not torch.equal(signed_view(q), signed_view(plain_q(x))) \
+            or not torch.equal(d.view(torch.int32), plain_dq(m).view(torch.int32)):
+        fail(f"the codec differs from its plain version at {tuple(x.shape)}")
+    del q, d
+    out = {}
+    for kind, fn, call, plain in (
+            ("quantize", lambda: C.quantize(x, POSIT16), C.quantize_call(x, POSIT16)[0],
+             lambda: plain_q(x)),
+            ("dequantize", lambda: C.dequantize(m, POSIT16),
+             C.dequantize_call(m, POSIT16)[0], lambda: plain_dq(m))):
+        out[kind] = dict(shape=list(x.shape), ms=time_ms(fn, iters=5),
+                         kernel_ms=kernel_alone_ms(call, n=10),
+                         plain_ms=time_ms(plain, iters=1, warmup=1),
+                         bound_ms=x.numel() * 6 / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
+    return out
+
+
+def train_phase(dev):
+    """(T): ``launch/train.py`` at ``TRAIN_ARGV`` with exact launch
+    counts (row 1 a leaf at init and a step, row 2 a leaf a step, no
+    other kernel); finite losses and gradient norms; the final step's
+    checkpoint restored equal to the live state leaf for leaf, bit for
+    bit; one AdamW update on the real leaves and a fresh gradient, on
+    the kernels and on the plain codec, bit-identical; rows 1 and 2 at
+    the optimizer's leaf shapes.  Prints its numbers; returns them."""
+    from repro_torch import tree as TT
+    from repro_torch.core.convert import f32_to_posit, posit_to_f32
+    from repro_torch.core.types import POSIT16, signed_view
+    from repro_torch.data.pipeline import DataConfig, Pipeline
+    from repro_torch.launch import train
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import train_loop
+
+    base = _roomiest_dir()
+    ckdir = tempfile.mkdtemp(prefix="chip_smoke_train_", dir=base)
+    print(f"(T) checkpoints in {base} ({shutil.disk_usage(base).free / 1e9:.1f} GB free)")
+    try:
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = train.main(TRAIN_ARGV + ["--ckpt-dir", ckdir])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        params, opt_state = res.state
+        cfg = res.cfg
+        leaves = TT.leaves(params)
+        n_leaves = len(leaves)
+        n_params = sum(p.numel() for p in leaves)
+        n_mult = sum(p.numel() for p in leaves if p.dim() >= 2)   # the tied head included
+        if res.supervisor.events:
+            fail(f"(T) the supervisor recovered from failures: {res.supervisor.events}")
+        if res.executed != TRAIN_STEPS or len(res.losses) != TRAIN_STEPS \
+                or not np.isfinite(res.losses).all() or not np.isfinite(res.grad_norms).all():
+            fail(f"(T) ran {res.executed} steps, losses {res.losses}, grad norms "
+                 f"{res.grad_norms}")
+        expect = {k: 0 for k in counts}
+        expect.update(posit_quantize=n_leaves * (1 + TRAIN_STEPS),
+                      posit_dequantize=n_leaves * TRAIN_STEPS)
+        print(f"(T) kernel launches: {counts} ({n_leaves} leaves, {TRAIN_STEPS} steps)")
+        if counts != expect:
+            fail(f"(T) launches {counts}, expected {expect}")
+        walls = np.array(res.step_walls)
+        tokens = TRAIN_BATCH * TRAIN_SEQ
+        p50 = float(np.median(walls))
+        mfu = 6 * n_mult * tokens / p50 / BF16_DENSE_FLOPS
+        save = dict(res.ckpt.last_save, wait_s=res.ckpt.last_wait_s)
+        print(f"(T) gemma-7b, full width, {cfg.n_layers} of 28 layers, {n_params:,} "
+              f"parameters ({n_mult:,} multiplied, the tied head included), {n_leaves} "
+              f"leaves, grad_accum {cfg.grad_accum} x {TRAIN_BATCH // cfg.grad_accum} x "
+              f"{TRAIN_SEQ}: "
+              f"{TRAIN_STEPS} steps in {wall:.2f} s with init and the save; step wall p50 "
+              f"{p50:.4f} s, max {walls.max():.4f} s (step 0 {walls[0]:.4f} s); "
+              f"{tokens / p50:.1f} tokens/s; 6 N tokens / p50 = "
+              f"{6 * n_mult * tokens / p50 / 1e12:.1f} TFLOP/s, {100 * mfu:.1f} % of the "
+              f"bf16 dense peak ({BF16_DENSE_FLOPS / 1e12:.1f} TFLOP/s); peak device memory "
+              f"{peak:.2f} GiB; {CARD}")
+        print(f"(T) losses {[round(x, 4) for x in res.losses]}, grad norms "
+              f"{[round(x, 4) for x in res.grad_norms]}")
+        print(f"(T) the final checkpoint: {save['bytes']:,} bytes, host copy "
+              f"{save['host_copy_s']:.2f} s, write {save.get('write_s', float('nan')):.2f} s, "
+              f"wait() {save['wait_s']:.2f} s")
+
+        # the checkpoint restored equals the live state, leaf for leaf, bit for bit
+        if res.ckpt.latest_step() != TRAIN_STEPS:
+            fail(f"(T) the supervisor's latest checkpoint is {res.ckpt.latest_step()}")
+        t0 = time.perf_counter()
+        restored, step = res.ckpt.restore(TRAIN_STEPS, res.state, device="cpu")
+        t_restore = time.perf_counter() - t0
+        live, back = TT.leaves(res.state), TT.leaves(restored)
+        same = step == TRAIN_STEPS and len(live) == len(back) and all(
+            a.dtype == b.dtype and torch.equal(_bits(a).cpu(), _bits(b))
+            for a, b in zip(live, back))
+        print(f"(T) restore of step {step} onto the host: {t_restore:.2f} s; equal to the "
+              f"live state leaf for leaf ({len(back)} leaves), bit for bit: {same}")
+        if not same:
+            fail("(T) the restored checkpoint differs from the live state")
+        del restored, back, live
+        gc.collect()
+
+        # one update on the real leaves: kernels against the plain codec
+        opt_cfg = adamw.AdamWConfig(posit_moments=True)
+        pipe = Pipeline(DataConfig(), cfg, TRAIN_BATCH, TRAIN_SEQ, device=dev)
+        loss, grads = train_loop.make_grad_fn(cfg)(params, pipe.batch_at(TRAIN_STEPS))
+        c = adamw.coefficients(grads, opt_state, opt_cfg, adamw.cosine_schedule(
+            TRAIN_STEPS, total=TRAIN_STEPS + 1, device=dev))
+        plain_q = _plain_codec(lambda x: f32_to_posit(x, POSIT16), POSIT16.storage_dtype)
+        plain_dq = _plain_codec(lambda p: posit_to_f32(p, POSIT16), torch.float32)
+        upd_s, differ = 0.0, []
+        for i, (p, g, m, v) in enumerate(zip(leaves, TT.leaves(grads),
+                                             TT.leaves(opt_state["m"]),
+                                             TT.leaves(opt_state["v"]))):
+            pa, ma, va = _clone(p), _clone(m), _clone(v)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ma = adamw.update_leaf(pa, g, ma, va, c, opt_cfg)
+            torch.cuda.synchronize()
+            upd_s += time.perf_counter() - t0
+            pb, mb, vb = _clone(p), _clone(m), _clone(v)
+            kernels = adamw.quantize_m, adamw.dequantize_m
+            adamw.quantize_m, adamw.dequantize_m = plain_q, plain_dq
+            try:
+                mb = adamw.update_leaf(pb, g, mb, vb, c, opt_cfg)
+            finally:
+                adamw.quantize_m, adamw.dequantize_m = kernels
+            if not (torch.equal(pa.view(torch.int32), pb.view(torch.int32))
+                    and torch.equal(va.view(torch.int32), vb.view(torch.int32))
+                    and torch.equal(signed_view(ma), signed_view(mb))):
+                differ.append(i)
+            del pa, ma, va, pb, mb, vb
+        print(f"(T) one AdamW update on the real leaves (a fresh gradient, loss "
+              f"{float(loss):.4f}): {n_leaves} leaves on the kernels in {upd_s:.4f} s "
+              f"(leaf by leaf, synchronized); parameters, m and v bit-identical to the "
+              f"update on the plain codec: {not differ}")
+        if differ:
+            fail(f"(T) the update on the kernels differs from the plain codec's at leaves "
+                 f"{differ[:8]}")
+        del grads, c
+        for p in leaves:
+            p.grad = None
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # rows 1 and 2 at the optimizer's shapes: the tied embedding's
+        # moment (786 M) and one MLP weight's
+        emb = params["tok_embed"]
+        layer_w = params["layers"][0]["mlp"]["wi"]["w"]
+        codec = {}
+        for key, p, m in (("embedding", emb, opt_state["m"]["tok_embed"]),
+                          ("mlp_wi", layer_w, opt_state["m"]["layers"][0]["mlp"]["wi"]["w"])):
+            x = (p * 1e-3).contiguous()
+            codec[key] = _codec_at(x, m, plain_q, plain_dq)
+            del x
+            for kind, r in codec[key].items():
+                print(f"(T) posit_{kind} at the optimizer's {key} leaf {r['shape']}: "
+                      f"{r['ms']:.4f} ms, alone {r['kernel_ms']:.4f} ms (bound "
+                      f"{r['bound_ms']:.4f} ms by bytes, plain by chunks {r['plain_ms']:.2f} ms)")
+        return dict(counts=counts, codec=codec, n_leaves=n_leaves, n_params=n_params,
+                    n_mult=n_mult, step_p50_s=p50, step_max_s=float(walls.max()),
+                    tokens_per_s=tokens / p50, mfu=mfu, peak_gib=peak, update_s=upd_s,
+                    save=save, restore_s=t_restore, losses=res.losses)
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+
+
+def train_families_phase(dev):
+    """(T2): two train steps of each of ``TRAIN_FAMILIES`` at full width
+    (posit16 moments): finite losses, the second unlike the first, exact
+    codec launches (a quantize a leaf at init and a step, a dequantize
+    a leaf a step)."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch import tree as TT
+    from repro_torch.data.pipeline import DataConfig, Pipeline
+    from repro_torch.models import get_family
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import train_loop
+
+    out = {"counts": None}
+    for arch, (layers, batch, seq) in TRAIN_FAMILIES.items():
+        published = configs.get_config(arch)
+        cfg = dataclasses.replace(published, n_layers=layers or published.n_layers,
+                                  fsdp=False, seq_shard_activations=False)
+        opt_cfg = adamw.AdamWConfig(posit_moments=True)
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = get_family(cfg).init_params(cfg, seed=0, device=dev, dtype=torch.float32)
+        opt = adamw.init(params, opt_cfg)
+        step = train_loop.make_train_step(cfg, opt_cfg, total_steps=2)
+        pipe = Pipeline(DataConfig(), cfg, batch, seq, device=dev)
+        losses, walls = [], []
+        for i in range(2):
+            t1 = time.perf_counter()
+            params, opt, metrics = step(params, opt, pipe.batch_at(i), i)
+            losses.append(float(metrics["loss"]))
+            walls.append(time.perf_counter() - t1)
+        counts = read_counts()
+        n_leaves = len(TT.leaves(params))
+        n_params = sum(p.numel() for p in TT.leaves(params))
+        expect = {k: 0 for k in counts}
+        expect.update(posit_quantize=3 * n_leaves, posit_dequantize=2 * n_leaves)
+        cut = (f"{cfg.n_layers} of {published.n_layers} layers" if layers
+               else f"all {cfg.n_layers} layers")
+        print(f"(T2) {arch}: full width, {cut}, {n_params:,} parameters, batch {batch} x "
+              f"{seq} (grad_accum {max(1, cfg.grad_accum)}): losses "
+              f"{losses[0]:.4f}, {losses[1]:.4f}; step walls {walls[0]:.3f} s, "
+              f"{walls[1]:.3f} s; {time.perf_counter() - t0:.1f} s with init; peak "
+              f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+              f"launches {counts['posit_quantize']} quantize, "
+              f"{counts['posit_dequantize']} dequantize ({n_leaves} leaves)")
+        if not np.isfinite(losses).all() or losses[1] == losses[0]:
+            fail(f"(T2) {arch}: losses {losses}")
+        if counts != expect:
+            fail(f"(T2) {arch}: launches {counts}, expected {expect}")
+        out["counts"] = {k: (out["counts"] or {}).get(k, 0) + v for k, v in counts.items()}
+        out[arch] = dict(losses=losses, walls=walls, n_params=n_params)
+        del params, opt, step, metrics
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+PHASES = {"train": train_phase, "train-families": train_families_phase}
+
+
+def run_phase(name):
+    """The body of a ``--phase`` child: the card line, the kernels built
+    (the parent built them), the phase; its result on the tagged line."""
+    global CARD, INT_OPS
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60)
+    CARD = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else "nvidia-smi failed"
+    from repro_torch.kernels import _build
+    _build.build_all()
+    result = PHASES[name](torch.device("cuda"))
+    print(PHASE_TAG + json.dumps(result), flush=True)
+
+
+# ---------------------------------------------------------------------------
 # The PVU ISA: kernel checks (P1), the paper's conv workload (P2), a
 # posit-exact linear at phi3 width (P3), cache maintenance (P4), times (P5)
 # ---------------------------------------------------------------------------
@@ -2143,6 +2608,10 @@ def main():
         # resource report only: no checks of the main path
         ptxas_report()
         return
+    if sys.argv[1:2] == ["--phase"]:
+        # a child of the smoke: one phase in a process of its own
+        run_phase(sys.argv[2])
+        return
     # the golden model is pure Python: its answers are computed on the
     # host's cores, in worker processes, while the card works
     with multiprocessing.get_context("spawn").Pool(min(8, os.cpu_count() or 1)) as pool:
@@ -2211,32 +2680,10 @@ def run(pool):
         res, counts, wall, steps, chunks = serve_main_path(argv)
         check_served(res)
         report_served(name, res, counts, wall, steps, chunks)
-        for kernel in kernels:
-            if counts[kernel] <= 0:
-                fail(f"kernel {kernel} was not launched on the {name} path")
-        if counts["posit_quantize"]:
-            fail(f"the {name} path quantized outside the fused paged write "
-                 f"({counts['posit_quantize']} posit_quantize launches)")
-        if counts["posit_dequantize"]:
-            fail(f"the {name} path dequantized outside the fused paged read "
-                 f"({counts['posit_dequantize']} posit_dequantize launches)")
+        check_main_counts(name, res, counts, steps, chunks, kernels)
         if res.sched.prefix_cache and (res.sched.prefix_hits <= 0
                                        or res.sched.n_preempted <= 0):
             fail(f"the {name} path had no prefix hit or no preemption")
-        n_layers = res.sched.engine.cfg.n_layers
-        attn = kernels[-1]
-        print(f"main path {name}: {attn} launches per decode step "
-              f"{counts[attn] / max(steps, 1):.2f} ({n_layers} layers)")
-        if counts[attn] != n_layers * steps:
-            fail(f"{attn} ran {counts[attn]} times in {steps} decode steps "
-                 f"of {n_layers} layers")
-        if counts["posit_paged_read"] != n_layers * chunks:
-            fail(f"posit_paged_read ran {counts['posit_paged_read']} times in "
-                 f"{chunks} prefill chunks of {n_layers} layers")
-        # one write a layer each decode step, one a leaf (all layers) each chunk
-        if counts["posit_paged_write"] != n_layers * steps + 2 * chunks:
-            fail(f"posit_paged_write ran {counts['posit_paged_write']} times in "
-                 f"{steps} decode steps and {chunks} prefill chunks of {n_layers} layers")
         if name in FUSED_GATHER_PATHS:
             check_fused_equals_gather_full(name, res.sched.engine)
         by_path[name] = counts
@@ -2258,6 +2705,12 @@ def run(pool):
     torch.cuda.empty_cache()
     profile_write()
     del profile_write
+    by_path["window"] = run_window_lane(dev)
+    # training, each phase in its own process: (T) the main training
+    # path, (T2) a step of each family
+    trained = run_phase_process("train")
+    by_path["train"] = trained["counts"]
+    by_path["train_families"] = run_phase_process("train-families")["counts"]
     for kernel in ("posit_ew", "posit_dot", "posit_qgemm", "posit_gemm"):
         if not any(c[kernel] > 0 for p, c in by_path.items()
                    if p in ("conv", "dense", "cache")):
@@ -2266,6 +2719,9 @@ def run(pool):
         {p: {k: v for k, v in by_path[p].items() if v}
          for p in ("conv", "dense", "cache")}))
     for row in rows:
+        if row["name"] in ("posit_quantize", "posit_dequantize"):
+            kind = row["name"].split("_")[1]
+            row["train"] = {leaf: r[kind] for leaf, r in trained["codec"].items()}
         row["launches_by_path"] = {p: c[row["name"]] for p, c in by_path.items()}
         row["launches"] = sum(row["launches_by_path"].values())
     for row in rows:

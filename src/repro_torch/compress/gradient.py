@@ -1,14 +1,20 @@
-"""Posit wire-format gradient reductions (the posit-domain consumers).
+"""Posit gradient compression: error feedback and wire-format reductions.
 
-Gradients cross the wire as posit16/posit8 patterns; the reductions a
-hierarchical cross-pod sync runs on them -- ``combine_compressed``,
-``scale_compressed``, ``mean_compressed`` -- stay in the posit domain
-on the fused elementwise kernel (``kernels.ops``), one rounding per op
-and no f32 round trip, as ``repro/compress/gradient.py`` does.  Trees
-are nested dicts, lists and tuples of tensors.
+Error-feedback compression (EF-SGD / EF21 style), as
+``repro/compress/gradient.py``:
 
-Error-feedback compression (``compress_with_feedback``) belongs to the
-training loop and is not ported yet.
+    buf    <- g + e                  (accumulate the residual)
+    q      <- posit_quantize(buf)    (what crosses the wire)
+    e'     <- buf - dequantize(q)    (the residual stays local)
+
+``compress_with_feedback`` runs the codec kernels on the card
+(``kernels.posit_codec``: a quantize and a dequantize a leaf), their
+plain versions on the CPU.  Gradients cross the wire as posit16/posit8
+patterns; the reductions a hierarchical cross-pod sync runs on them --
+``combine_compressed``, ``scale_compressed``, ``mean_compressed`` --
+stay in the posit domain on the fused elementwise kernel
+(``kernels.ops``), one rounding per op and no f32 round trip.  Trees are
+nested dicts, lists and tuples of tensors (``repro_torch.tree``).
 """
 from __future__ import annotations
 
@@ -18,6 +24,8 @@ from repro_torch.core import softposit_ref
 from repro_torch.core.convert import posit_to_f32
 from repro_torch.core.types import POSIT8, POSIT16, PositConfig, to_storage
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels import posit_codec
+from repro_torch.tree import leaves, tree_map, unflatten
 
 _CFGS = {"posit16": POSIT16, "posit8": POSIT8}
 
@@ -26,14 +34,21 @@ def pcfg_of(name: str) -> PositConfig:
     return _CFGS[name]
 
 
-def tree_map(fn, *trees):
-    """``fn`` over the tensor leaves of equally shaped nested containers."""
-    t0 = trees[0]
-    if isinstance(t0, dict):
-        return {k: tree_map(fn, *(t[k] for t in trees)) for k in t0}
-    if isinstance(t0, (list, tuple)):
-        return type(t0)(tree_map(fn, *xs) for xs in zip(*trees))
-    return fn(*trees)
+def init_error_state(params):
+    """Zero f32 residuals shaped like ``params``."""
+    return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                          device=p.device), params)
+
+
+def compress_with_feedback(grads, error, name: str):
+    """Returns ``(patterns tree, new error tree)``."""
+    cfg = pcfg_of(name)
+    qs, es = [], []
+    for g, e in zip(leaves(grads), leaves(error)):
+        buf = (g.to(torch.float32) + e).contiguous()
+        qs.append(posit_codec.quantize(buf, cfg))
+        es.append(buf - posit_codec.dequantize(qs[-1], cfg))
+    return unflatten(grads, qs), unflatten(grads, es)
 
 
 def decompress(patterns, name: str):

@@ -1,11 +1,13 @@
 """Hymba: a hybrid-head LM, attention and Mamba2-style SSM heads in
 parallel.
 
-The port of ``repro/models/hymba.py``'s serving entry points.  In every
-layer the same input feeds GQA attention heads (sliding-window in most
-layers, full in ``cfg.global_layers``) and SSM heads (a scalar
-data-dependent decay a head, state size N); the two outputs are
-RMS-normalized and averaged before the output projection.
+The port of ``repro/models/hymba.py``: ``train_loss`` and ``logits_fn``
+over whole sequences (the chunk-parallel SSD engine ``ssd_chunked``, the
+meta tokens in place of the sequence's front), and the serving entry
+points. In every layer the same input feeds GQA attention heads
+(sliding-window in most layers, full in ``cfg.global_layers``) and SSM
+heads (a scalar data-dependent decay a head, state size N); the two
+outputs are RMS-normalized and averaged before the output projection.
 
 The cache (``init_cache``): a ring of ``min(max_len, window)`` slots a
 layer (``k_swa``/``v_swa``, written at ``pos % T``), full-length caches
@@ -36,14 +38,15 @@ from .config import ModelConfig
 _F32 = torch.float32
 
 
-def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda"):
+def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda", dtype=None):
     """Random parameters from a seeded ``torch.Generator`` on ``device``:
-    weights in the compute dtype, norm scales, ``A_log``, ``dt_bias``
-    and ``D`` f32 (the forward reads them in f32)."""
+    weights drawn in f32 and stored in ``dtype`` (default the compute
+    dtype; training passes ``torch.float32``), norm scales, ``A_log``,
+    ``dt_bias`` and ``D`` f32 (the forward reads them in f32)."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
-    dt = L.cdtype(cfg)
+    dt = L.cdtype(cfg) if dtype is None else dtype
     d = cfg.d_model
     hs, p_dim, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
     d_in = hs * p_dim
@@ -109,6 +112,125 @@ def _split_ssm_proj(p, x, cfg: ModelConfig):
 
 def _merge(p, attn_out, ssm_out, cfg: ModelConfig):
     return L.dense(p["wo"], 0.5 * (attn_out + ssm_out), cfg)
+
+
+# ---------------------------------------------------------------------------
+# SSD chunk-parallel engine and the whole-sequence forward (training)
+# ---------------------------------------------------------------------------
+
+def ssd_chunked(x, b_in, c_in, dt, a_log, h0, chunk: int):
+    """Chunk-parallel SSD with a scalar log decay a head (every exponent
+    <= 0; (C, C) ratio matrices, no channel axis).  x: (B,S,H,P);
+    b_in, c_in: (B,S,N); dt: (B,S,H) (after the softplus); h0:
+    (B,H,P,N).  Returns (y (B,S,H,P), the final state)."""
+    bsz, s, h, p = x.shape
+    n = b_in.shape[-1]
+    assert s % chunk == 0, (s, chunk)
+    nc = s // chunk
+    la = (-torch.exp(a_log))[None, None, :] * dt              # log decay <= 0
+    xs = x.reshape(bsz, nc, chunk, h, p).permute(1, 0, 3, 2, 4)
+    bs = b_in.reshape(bsz, nc, chunk, n).permute(1, 0, 2, 3)
+    cs = c_in.reshape(bsz, nc, chunk, n).permute(1, 0, 2, 3)
+    dts = dt.reshape(bsz, nc, chunk, h).permute(1, 0, 3, 2)
+    las = la.reshape(bsz, nc, chunk, h).permute(1, 0, 3, 2)
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=x.device))
+    hprev, ys = h0, []
+    for ci in range(nc):
+        xx, bb, cc, dd, ll = xs[ci], bs[ci], cs[ci], dts[ci], las[ci]
+        li = torch.cumsum(ll, dim=-1)                          # (B,H,C) inclusive
+        diff = li[:, :, :, None] - li[:, :, None, :]           # (B,H,C,C)
+        ratio = torch.where(tri[None, None], torch.exp(torch.clamp(diff, max=0.0)),
+                            0.0)
+        sc = torch.einsum("bcn,bjn->bcj", cc, bb)               # (B,C,C)
+        scores = sc[:, None] * ratio * dd[:, :, None, :]        # (B,H,C,C)
+        y = torch.einsum("bhcj,bhjp->bhcp", scores, xx)
+        # inter-chunk: y += exp(li) * C . h_prev
+        y = y + torch.einsum("bcn,bhpn->bhcp", cc, hprev) * torch.exp(li)[..., None]
+        # state update
+        l_tot = li[:, :, -1:]
+        wsc = torch.exp(l_tot - li) * dd                        # (B,H,C)
+        upd = torch.einsum("bhc,bhcp,bcn->bhpn", wsc, xx, bb)
+        hprev = torch.exp(l_tot[:, :, 0])[..., None, None] * hprev + upd
+        ys.append(y)
+    y = torch.stack(ys).permute(1, 0, 3, 2, 4).reshape(bsz, s, h, p)
+    return y, hprev
+
+
+def _ssm_branch_full(p, x, cfg: ModelConfig, h0=None):
+    bsz, s, _ = x.shape
+    hs, p_dim, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    xs, gate, b_in, c_in, dt = _split_ssm_proj(p, x, cfg)
+    xh = xs.reshape(bsz, s, hs, p_dim).to(_F32)
+    if h0 is None:
+        h0 = torch.zeros((bsz, hs, p_dim, n), dtype=_F32, device=x.device)
+    y, hfin = ssd_chunked(xh, b_in, c_in, dt, p["A_log"], h0, min(cfg.wkv_chunk, s))
+    y = y + p["D"][None, None, :, None] * xh
+    y = y.reshape(bsz, s, hs * p_dim).to(x.dtype) * F.silu(gate)
+    return L.rms_norm(p["ssm_norm"], y, cfg), hfin
+
+
+def _attn_branch_full(p, x, positions, cfg: ModelConfig, *, is_global):
+    bsz, s, _ = x.shape
+    hd = cfg.head_dim
+    q = L.dense(p["wq"], x, cfg).reshape(bsz, s, cfg.n_heads, hd)
+    k = L.dense(p["wk"], x, cfg).reshape(bsz, s, cfg.n_kv_heads, hd)
+    v = L.dense(p["wv"], x, cfg).reshape(bsz, s, cfg.n_kv_heads, hd)
+    q = L.apply_rope(q, positions, cfg.rope_theta)
+    k = L.apply_rope(k, positions, cfg.rope_theta)
+    window = 0 if is_global else cfg.sliding_window
+    out = L.flash_attention(q, k, v, causal=True, cfg=cfg, window=window)
+    out = out.reshape(bsz, s, cfg.n_heads * hd)
+    return L.rms_norm(p["attn_norm"], out, cfg), (k, v)
+
+
+def _train_layer(lp, h, positions, cfg: ModelConfig, is_global: bool):
+    xin = L.rms_norm(lp["ln1"], h, cfg)
+    a, _ = _attn_branch_full(lp, xin, positions, cfg, is_global=is_global)
+    m, _ = _ssm_branch_full(lp, xin, cfg)
+    h = h + _merge(lp, a, m, cfg)
+    return h + L.mlp(lp["mlp"], L.rms_norm(lp["ln2"], h, cfg), cfg)
+
+
+def _forward(params, tokens, cfg: ModelConfig):
+    """The whole sequence, the meta tokens in place of its first
+    ``n_meta_tokens`` embeddings (the length stays S); global layers
+    attend over everything, the others over ``sliding_window``.  Window
+    layers are rematerialised in the backward pass under ``cfg.remat ==
+    "layer"`` (the reference scans them under ``jax.checkpoint``) and
+    global layers are not.  Returns the final norm's output."""
+    bsz, s0 = tokens.shape
+    x = params["tok_embed"][tokens.to(torch.int64)].to(L.cdtype(cfg))
+    if cfg.n_meta_tokens:
+        meta = params["meta_tokens"][None].to(x.dtype).expand(
+            bsz, cfg.n_meta_tokens, cfg.d_model)
+        x = torch.cat([meta, x[:, :s0 - cfg.n_meta_tokens]], dim=1)
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    glb = set(cfg.global_layers)
+    for li, lp in enumerate(params["layers"]):
+        if li in glb:
+            x = _train_layer(lp, x, positions, cfg, True)
+        else:
+            x = L.remat_layer(_train_layer, cfg, lp, x, positions, cfg, False)
+    return L.rms_norm(params["final_norm"], x, cfg)
+
+
+def train_loss(params, batch, cfg: ModelConfig):
+    """Next-token cross entropy; the meta tokens' positions carry no
+    loss.  A ``"mask"`` is ignored, as in the reference."""
+    tokens = batch["tokens"]
+    x = _forward(params, tokens, cfg)
+    labels, mask = L.next_token_labels(tokens)
+    if cfg.n_meta_tokens:
+        mask[:, :cfg.n_meta_tokens] = 0.0
+    w = params["lm_head"]["w"].to(x.dtype)
+    return L.chunked_xent(x, w, labels, mask, cfg.loss_chunk)
+
+
+def logits_fn(params, tokens, cfg: ModelConfig, visual=None):
+    """Full-sequence logits (B, S, V) f32."""
+    del visual
+    x = _forward(params, tokens, cfg)
+    return (x @ params["lm_head"]["w"].to(x.dtype)).to(_F32)
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,4 @@
-"""Shared neural layers on torch tensors (the serving path's subset).
+"""Shared neural layers on torch tensors (the serving and training paths).
 
 Conventions follow ``repro/models/layers.py``: params are plain dicts of
 tensors; activations run in ``cfg.compute_dtype`` and every weight is
@@ -29,6 +29,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.types import POSIT8, POSIT16, index_rows, signed_view, zeros
 from repro_torch.kernels import ops, posit_codec
@@ -812,3 +813,49 @@ def moe(p, x, cfg: ModelConfig):
     h = _act(torch.bmm(xf, wg), cfg) * torch.bmm(xf, wi)         # (E, B*cap, F)
     ye = torch.bmm(h, wo).reshape(e, b, cap, d).transpose(0, 1)   # (B, E, cap, D)
     return _moe_combine(ye, aux, cfg)
+
+
+# ---------------------------------------------------------------------------
+# Training: layer rematerialisation and the chunked vocabulary loss
+# ---------------------------------------------------------------------------
+
+def remat_layer(fn, cfg: ModelConfig, *args):
+    """``fn(*args)``; under autograd with ``cfg.remat == "layer"`` its
+    activations are recomputed in the backward pass instead of kept
+    (``torch.utils.checkpoint``, the reference's ``jax.checkpoint``
+    around each scanned layer).  A MoE layer recomputes its dispatch
+    too: the reference keeps the MoE output (``moe_out``) instead, the
+    same values either way."""
+    if cfg.remat == "layer" and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def next_token_labels(tokens):
+    """(B, S) labels: each position's next token, 0 at the last, and
+    the (B, S) f32 label mask with the last position off."""
+    b, s = tokens.shape
+    labels = torch.cat([tokens[:, 1:], tokens.new_zeros((b, 1))], dim=1)
+    mask = torch.ones((b, s), dtype=torch.float32, device=tokens.device)
+    mask[:, -1] = 0.0
+    return labels, mask
+
+
+def chunked_xent(x, w, labels, mask, loss_chunk: int):
+    """Mean next-token cross entropy over the unmasked positions, the
+    vocabulary projection ``x @ w`` run ``loss_chunk`` positions at a
+    time to bound the (B, chunk, V) f32 logits: the reference's
+    ``chunk_loss`` under ``lax.map``, the chunks' sums added in order.
+    As there, positions past the last whole chunk are left out."""
+    s = x.shape[1]
+    ck = min(loss_chunk, s)
+    labels = labels.to(torch.int64)
+    losses, counts = [], []
+    for c0 in range(0, (s // ck) * ck, ck):
+        logits = (x[:, c0:c0 + ck] @ w).to(torch.float32)
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[:, c0:c0 + ck, None])[..., 0]
+        ms = mask[:, c0:c0 + ck]
+        losses.append(((logz - gold) * ms).sum())
+        counts.append(ms.sum())
+    return torch.stack(losses).sum() / torch.clamp(torch.stack(counts).sum(), min=1.0)

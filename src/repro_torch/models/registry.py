@@ -1,9 +1,10 @@
-"""Model family registry: one serving protocol over the four families.
+"""Model family registry: one protocol over the four families.
 
-Each family module provides ``init_params(cfg, *, seed, device)``,
-``init_cache(cfg, batch, max_len, *, device)``, ``prefill(params,
-tokens, cfg, ..., max_len=)`` and ``decode_step(params, cache, token,
-cfg, ...)``; the training functions are not ported yet.
+Each family module provides ``init_params(cfg, *, seed, device,
+dtype)``, ``train_loss(params, batch, cfg)``, ``logits_fn(params,
+tokens, cfg, ...)``, ``init_cache(cfg, batch, max_len, *, device)``,
+``prefill(params, tokens, cfg, ..., max_len=)`` and
+``decode_step(params, cache, token, cfg, ...)``.
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ _FAMILIES = {
 
 
 def get_family(cfg: ModelConfig):
-    """The module implementing the serving protocol for ``cfg``."""
+    """The module implementing the protocol for ``cfg``."""
     try:
         return _FAMILIES[cfg.family]
     except KeyError:
@@ -33,7 +34,10 @@ def build(cfg: ModelConfig, *, device="cuda"):
     fam = get_family(cfg)
     return SimpleNamespace(
         cfg=cfg,
-        init_params=lambda seed=0: fam.init_params(cfg, seed=seed, device=device),
+        init_params=lambda seed=0, dtype=None: fam.init_params(
+            cfg, seed=seed, device=device, dtype=dtype),
+        train_loss=lambda params, batch: fam.train_loss(params, batch, cfg),
+        logits=lambda params, tokens, **kw: fam.logits_fn(params, tokens, cfg, **kw),
         init_cache=lambda batch, max_len: fam.init_cache(cfg, batch, max_len,
                                                          device=device),
         prefill=lambda params, tokens, **kw: fam.prefill(params, tokens, cfg, **kw),

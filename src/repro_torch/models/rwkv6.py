@@ -1,21 +1,22 @@
 """RWKV6 "Finch": an attention-free LM with data-dependent decay, served
 from an O(1) recurrent state.
 
-The port of ``repro/models/rwkv6.py``'s serving entry points:
-token-shift with data-dependent mixing (5-way LoRA), the WKV recurrence
-``S_t = diag(w_t) S_{t-1} + k_t^T v_t``, ``out_t = r_t (S_{t-1} +
-diag(u) k_t^T v_t)``, a layer norm over the heads' outputs, the output
-gate and the squared-ReLU channel mix; decay ``w_t = exp(-exp(w0 +
-LoRA))``.  Two WKV engines: ``wkv_scan`` (the step recurrence, decode)
-and ``wkv_chunked`` (chunk-parallel in log-decay space, every exponent
-<= 0, prefill).  Both run in plain PyTorch, as the reference's run in
-plain ``jnp``: no posit kernel is on this path.
+The port of ``repro/models/rwkv6.py``: ``train_loss`` and ``logits_fn``
+over whole sequences, and the serving entry points. Token-shift with
+data-dependent mixing (5-way LoRA), the WKV recurrence ``S_t = diag(w_t)
+S_{t-1} + k_t^T v_t``, ``out_t = r_t (S_{t-1} + diag(u) k_t^T v_t)``, a
+layer norm over the heads' outputs, the output gate and the squared-ReLU
+channel mix; decay ``w_t = exp(-exp(w0 + LoRA))``. Two WKV engines:
+``wkv_scan`` (the step recurrence, decode) and ``wkv_chunked`` (chunk-
+parallel in log-decay space, every exponent <= 0, prefill). Both run in
+plain PyTorch, as the reference's run in plain ``jnp``: no posit kernel
+is on this path.
 
 There is no KV cache: the cache is the recurrent state, ``wkv`` (L, B,
 H, N, N) f32 and the token-shift carries ``tm_x``/``cm_x`` (L, B, D),
 stored f32 holding values rounded to the compute dtype, with the
-frontier ``len`` a Python int.  Decode updates the state in place.
-Layers run in a Python loop over a list of per-layer parameter dicts.
+frontier ``len`` a Python int. Decode updates the state in place. Layers
+run in a Python loop over a list of per-layer parameter dicts.
 """
 from __future__ import annotations
 
@@ -35,14 +36,15 @@ def _heads(cfg: ModelConfig):
     return h, n, h * n
 
 
-def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda"):
+def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda", dtype=None):
     """Random parameters from a seeded ``torch.Generator`` on ``device``:
-    weights and mixing coefficients in the compute dtype, the layer
-    norms, ``w0`` and ``u`` f32 (the forward reads them in f32)."""
+    weights and mixing coefficients drawn in f32 and stored in ``dtype``
+    (default the compute dtype; training passes ``torch.float32``), the
+    layer norms, ``w0`` and ``u`` f32 (the forward reads them in f32)."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
-    dt = L.cdtype(cfg)
+    dt = L.cdtype(cfg) if dtype is None else dtype
     h, n, d_att = _heads(cfg)
     d, ff, lora = cfg.d_model, cfg.d_ff, cfg.decay_lora
     s = d ** -0.5
@@ -200,6 +202,53 @@ def _channel_mix(p, x, prev_x, cfg: ModelConfig):
     kk = torch.square(F.relu(L.dense(p["cm_wk"], xk, cfg)))
     out = torch.sigmoid(L.dense(p["cm_wr"], xr, cfg)) * L.dense(p["cm_wv"], kk, cfg)
     return out, x[:, -1, :]
+
+
+# ---------------------------------------------------------------------------
+# training loss and full-sequence logits
+# ---------------------------------------------------------------------------
+
+def _train_layer(lp, x, zeros_prev, zero_state, cfg: ModelConfig, use_chunked):
+    a, _, _ = _time_mix(lp, L.layer_norm(lp["ln1"], x, cfg.norm_eps), zeros_prev,
+                        zero_state, cfg, use_chunked=use_chunked)
+    x = x + a
+    c, _ = _channel_mix(lp, L.layer_norm(lp["ln2"], x, cfg.norm_eps), zeros_prev, cfg)
+    return x + c
+
+
+def _forward(params, tokens, cfg: ModelConfig, *, use_chunked=True):
+    """The whole sequence from a zero state, each layer rematerialised
+    in the backward pass under ``cfg.remat == "layer"``; returns the
+    final layer norm's output (B, S, D)."""
+    b = tokens.shape[0]
+    h, n, _ = _heads(cfg)
+    x = _embed(params, tokens.to(torch.int64), cfg)
+    zeros_prev = torch.zeros((b, cfg.d_model), dtype=x.dtype, device=x.device)
+    zero_state = torch.zeros((b, h, n, n), dtype=_F32, device=x.device)
+    for lp in params["layers"]:
+        x = L.remat_layer(_train_layer, cfg, lp, x, zeros_prev, zero_state, cfg,
+                          use_chunked)
+    return L.layer_norm(params["ln_out"], x, cfg.norm_eps)
+
+
+def train_loss(params, batch, cfg: ModelConfig):
+    """Next-token cross entropy through the chunked WKV engine (the
+    sequence a multiple of ``cfg.wkv_chunk``)."""
+    tokens = batch["tokens"]
+    x = _forward(params, tokens, cfg)
+    labels, mask = L.next_token_labels(tokens)
+    if batch.get("mask") is not None:
+        mask = mask * batch["mask"]
+    w = params["lm_head"]["w"].to(x.dtype)
+    return L.chunked_xent(x, w, labels, mask, cfg.loss_chunk)
+
+
+def logits_fn(params, tokens, cfg: ModelConfig, visual=None):
+    """Full-sequence logits (B, S, V) f32 through the step recurrence
+    (``wkv_scan``), as the reference's."""
+    del visual
+    x = _forward(params, tokens, cfg, use_chunked=False)
+    return (x @ params["lm_head"]["w"].to(x.dtype)).to(_F32)
 
 
 # ---------------------------------------------------------------------------

@@ -1,22 +1,24 @@
 """Decoder-only transformer LM (dense GQA, sliding-window and MLA
 attention) on linear and paged KV caches.
 
-The port of ``repro/models/transformer.py``'s serving entry points:
-``init_params``; the whole-prompt ``prefill`` (ragged left-padded
-batches) into a linear cache (``init_cache``: (L, B, T, ...) leaves with
-one shared write frontier, a ring of the window's size on the window
-lane) or into the paged arena (``block_tables=``); ``prefill_chunk``
-(chunked prefill through the paged cache); and ``decode_step`` on
-either layout.  Layers run in a Python loop over a list of per-layer
-parameter dicts (the reference scans stacked parameters).  Cache leaves
-stay stacked, (L, n_blocks, block_size, G, D) arenas or (L, B, T, G, D)
-linear leaves for K/V, and the MLA latents ``c_kv``/``k_rope`` the same
-way without the head axis; they are updated in place and each function
-returns the cache dict with the new ``lens`` (and ``len``).  The
-feed-forward is the dense MLP or, on a MoE config, ``layers.moe``
-(row-local capacity dispatch over every position a call passes); a
-config with visual tokens takes ``visual`` patch embeddings at the
-front of a whole-prompt prefill.
+The port of ``repro/models/transformer.py``: ``init_params`` (f32 master
+weights with ``dtype=torch.float32``); ``train_loss`` (the chunked
+vocabulary loss, each layer rematerialised in the backward pass under
+``cfg.remat == "layer"``) and ``logits_fn``; the whole-prompt
+``prefill`` (ragged left-padded batches) into a linear cache
+(``init_cache``: (L, B, T, ...) leaves with one shared write frontier, a
+ring of the window's size on the window lane) or into the paged arena
+(``block_tables=``); ``prefill_chunk`` (chunked prefill through the
+paged cache); and ``decode_step`` on either layout. Layers run in a
+Python loop over a list of per-layer parameter dicts (the reference
+scans stacked parameters). Cache leaves stay stacked, (L, n_blocks,
+block_size, G, D) arenas or (L, B, T, G, D) linear leaves for K/V, and
+the MLA latents ``c_kv``/``k_rope`` the same way without the head axis;
+they are updated in place and each function returns the cache dict with
+the new ``lens`` (and ``len``). The feed-forward is the dense MLP or, on
+a MoE config, ``layers.moe`` (row-local capacity dispatch over every
+position a call passes); a config with visual tokens takes ``visual``
+patch embeddings at the front of a whole-prompt prefill.
 
 KV writes have one destination form, :func:`_write_kv`: rows to flat
 slots of a layer's leaf seen as an arena (a linear leaf (B, T, ...) is
@@ -74,17 +76,19 @@ def _init_attention(gen, cfg: ModelConfig, dt, dev):
     }
 
 
-def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda"):
+def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda", dtype=None):
     """Random parameters from a seeded ``torch.Generator`` on ``device``.
 
-    Every 2-D weight and the embedding are stored in the compute dtype
-    (the forward casts them to it anyway); norm scales stay f32.
-    ``params["layers"]`` is a list of per-layer dicts.
+    Every 2-D weight and the embedding are drawn in f32 and stored in
+    ``dtype``, by default the compute dtype (the forward casts them to
+    it anyway); training passes ``torch.float32`` for f32 master
+    weights.  Norm scales stay f32.  ``params["layers"]`` is a list of
+    per-layer dicts.
     """
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
-    dt = L.cdtype(cfg)
+    dt = L.cdtype(cfg) if dtype is None else dtype
     d = cfg.d_model
     layers = []
     for _ in range(cfg.n_layers):
@@ -180,6 +184,54 @@ def _block_forward(lp, x, positions, cfg: ModelConfig, kv_mask):
     a, kv = _attn_forward(lp["attn"], L.rms_norm(lp["ln1"], x, cfg), positions,
                           cfg, kv_mask)
     return _block_mlp(lp, x + a, cfg), kv
+
+
+# ---------------------------------------------------------------------------
+# Training loss and full-sequence logits
+# ---------------------------------------------------------------------------
+
+def _train_block(lp, x, positions, cfg: ModelConfig):
+    return _block_forward(lp, x, positions, cfg, None)[0]
+
+
+def _run_layers(params, x, positions, cfg: ModelConfig):
+    """Every layer over the whole (causal) sequence, each one
+    rematerialised in the backward pass under ``cfg.remat == "layer"``."""
+    for lp in params["layers"]:
+        x = L.remat_layer(_train_block, cfg, lp, x, positions, cfg)
+    return x
+
+
+def _final_hidden(params, tokens, cfg: ModelConfig, visual=None):
+    tokens = tokens.to(torch.int64)
+    positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
+    x = _run_layers(params, _embed(params, tokens, cfg, visual), positions, cfg)
+    return L.rms_norm(params["final_norm"], x, cfg)
+
+
+def train_loss(params, batch, cfg: ModelConfig):
+    """batch: ``{"tokens": (B, S) int, "mask": optional (B, S) f32,
+    "visual": optional (B, nv, D)}``.  Next-token cross entropy, the
+    vocabulary projection chunked over the sequence
+    (``layers.chunked_xent``); the visual prefix's positions carry no
+    loss."""
+    tokens = batch["tokens"]
+    s = tokens.shape[1]
+    assert s % min(cfg.loss_chunk, s) == 0
+    x = _final_hidden(params, tokens, cfg, batch.get("visual"))
+    labels, label_mask = L.next_token_labels(tokens)
+    if batch.get("mask") is not None:
+        label_mask = label_mask * batch["mask"]
+    if cfg.n_visual_tokens:
+        label_mask[:, :cfg.n_visual_tokens] = 0.0
+    w = _unembed_weight(params, cfg).to(x.dtype)
+    return L.chunked_xent(x, w, labels, label_mask, cfg.loss_chunk)
+
+
+def logits_fn(params, tokens, cfg: ModelConfig, visual=None):
+    """Full-sequence logits (B, S, V) f32 (small models and tests)."""
+    x = _final_hidden(params, tokens, cfg, visual)
+    return (x @ _unembed_weight(params, cfg).to(x.dtype)).to(torch.float32)
 
 
 # ---------------------------------------------------------------------------

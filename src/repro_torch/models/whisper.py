@@ -2,7 +2,8 @@
 a stub: ``frames`` are precomputed frame embeddings (B, encoder_seq,
 d_model)).
 
-The port of ``repro/models/whisper.py``'s serving entry points: a
+The port of ``repro/models/whisper.py``: ``train_loss`` and
+``logits_fn`` over whole sequences, and the serving entry points. A
 sinusoidal-position encoder with bidirectional attention, and a decoder
 with learned positions, causal self-attention and cross-attention;
 LayerNorm and GELU (the tanh form, ``jax.nn.gelu``'s default); the head
@@ -62,15 +63,16 @@ def _mlp(p, x, cfg: ModelConfig):
     return L.dense(p["wo"], F.gelu(L.dense(p["wi"], x, cfg), approximate="tanh"), cfg)
 
 
-def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda"):
+def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda", dtype=None):
     """Random parameters from a seeded ``torch.Generator`` on ``device``:
-    weights, dense biases and embeddings in the compute dtype, the layer
-    norms f32.  ``enc_layers`` and ``dec_layers`` are lists of per-layer
-    dicts."""
+    weights, dense biases and embeddings drawn in f32 and stored in
+    ``dtype`` (default the compute dtype; training passes
+    ``torch.float32``), the layer norms f32.  ``enc_layers`` and
+    ``dec_layers`` are lists of per-layer dicts."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
-    dt = L.cdtype(cfg)
+    dt = L.cdtype(cfg) if dtype is None else dtype
     d = cfg.d_model
 
     def normal(shape, scale):
@@ -107,14 +109,63 @@ def encode(params, frames, cfg: ModelConfig):
     """frames: (B, T_enc, d) precomputed embeddings (the conv stub's
     output) -> the encoder's output (B, T_enc, d)."""
     x = frames.to(L.cdtype(cfg))
-    b, t_enc, _ = x.shape
-    x = x + _sinusoids(t_enc, cfg.d_model, x.device).to(x.dtype)[None]
+    x = x + _sinusoids(x.shape[1], cfg.d_model, x.device).to(x.dtype)[None]
     for lp in params["enc_layers"]:
-        q, k, v = _qkv(lp["attn"], L.layer_norm(lp["ln1"], x), cfg)
-        a = L.flash_attention(q, k, v, causal=False, cfg=cfg).reshape(b, t_enc, -1)
-        x = x + L.dense(lp["attn"]["wo"], a, cfg)
-        x = x + _mlp(lp["mlp"], L.layer_norm(lp["ln2"], x), cfg)
+        x = L.remat_layer(_enc_layer, cfg, lp, x, cfg)
     return L.layer_norm(params["enc_ln"], x)
+
+
+def _enc_layer(lp, x, cfg: ModelConfig):
+    b, t_enc, _ = x.shape
+    q, k, v = _qkv(lp["attn"], L.layer_norm(lp["ln1"], x), cfg)
+    a = L.flash_attention(q, k, v, causal=False, cfg=cfg).reshape(b, t_enc, -1)
+    x = x + L.dense(lp["attn"]["wo"], a, cfg)
+    return x + _mlp(lp["mlp"], L.layer_norm(lp["ln2"], x), cfg)
+
+
+def _dec_layer(lp, x, enc_out, cfg: ModelConfig):
+    """One decoder layer over the whole sequence: causal self-attention,
+    cross-attention to ``enc_out``, the MLP."""
+    b, s, _ = x.shape
+    g, hd = cfg.n_kv_heads, cfg.head_dim
+    q, k, v = _qkv(lp["self"], L.layer_norm(lp["ln1"], x), cfg)
+    a = L.flash_attention(q, k, v, causal=True, cfg=cfg)
+    x = x + L.dense(lp["self"]["wo"], a.reshape(b, s, -1), cfg)
+    q = L.dense(lp["cross"]["wq"], L.layer_norm(lp["ln_x"], x), cfg).reshape(
+        b, s, cfg.n_heads, hd)
+    ek = L.dense(lp["cross"]["wk"], enc_out, cfg).reshape(b, enc_out.shape[1], g, hd)
+    ev = L.dense(lp["cross"]["wv"], enc_out, cfg).reshape(b, enc_out.shape[1], g, hd)
+    c = L.flash_attention(q, ek, ev, causal=False, cfg=cfg)
+    x = x + L.dense(lp["cross"]["wo"], c.reshape(b, s, -1), cfg)
+    return x + _mlp(lp["mlp"], L.layer_norm(lp["ln2"], x), cfg)
+
+
+def _decoder(params, tokens, enc_out, cfg: ModelConfig):
+    """The decoder over whole sequences (training and ``logits_fn``),
+    each layer rematerialised in the backward pass under ``cfg.remat ==
+    "layer"``; returns the final layer norm's output (B, S, D)."""
+    s = tokens.shape[1]
+    x = params["tok_embed"][tokens.to(torch.int64)].to(L.cdtype(cfg))
+    x = x + params["pos_embed"][:s].to(x.dtype)[None]
+    for lp in params["dec_layers"]:
+        x = L.remat_layer(_dec_layer, cfg, lp, x, enc_out, cfg)
+    return L.layer_norm(params["dec_ln"], x)
+
+
+def train_loss(params, batch, cfg: ModelConfig):
+    """batch: ``{"tokens": (B, S), "frames": (B, T_enc, D)}``; a
+    ``"mask"`` is ignored, as in the reference.  The head is tied."""
+    tokens = batch["tokens"]
+    x = _decoder(params, tokens, encode(params, batch["frames"], cfg), cfg)
+    labels, mask = L.next_token_labels(tokens)
+    w = params["tok_embed"].T.to(x.dtype)
+    return L.chunked_xent(x, w, labels, mask, cfg.loss_chunk)
+
+
+def logits_fn(params, tokens, cfg: ModelConfig, frames=None):
+    """Full-sequence logits (B, S, V) f32."""
+    x = _decoder(params, tokens, encode(params, frames, cfg), cfg)
+    return (x @ params["tok_embed"].T.to(x.dtype)).to(_F32)
 
 
 def _logits(params, x):

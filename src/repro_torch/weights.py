@@ -5,7 +5,8 @@ leaves are stacked on axis 0 (``jax.vmap`` over the layer keys) and
 caches as dicts of arrays.  These converters take those trees as nested
 dicts of numpy arrays (no JAX needed) and return the port's layout:
 each stacked per-layer tree becomes a list of per-layer dicts, and a
-cache's ``len`` and ``max_len`` become Python ints.
+cache's ``len`` and ``max_len`` become Python ints.  ``params_to_jax``
+is the inverse for parameter (and gradient) trees.
 """
 from __future__ import annotations
 
@@ -71,3 +72,30 @@ def cache_from_jax(tree, *, device="cuda"):
     for k, v in tree.items():
         out[k] = int(np.asarray(v)) if k in ("len", "max_len") else _tensor(v, dev)
     return out
+
+
+def _host(t):
+    """A tensor as numpy: bf16 as f32, unsigned patterns as themselves."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.to(torch.float32).numpy()
+    if t.dtype == torch.uint16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
+
+
+def params_to_jax(tree):
+    """Port parameters (or gradients, or any tree of the same layout) ->
+    the reference's layout as nested dicts of numpy arrays: every
+    per-layer list is stacked back on a new axis 0."""
+    if isinstance(tree, dict):
+        return {k: params_to_jax(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        layers = [params_to_jax(v) for v in tree]
+
+        def stack(*xs):
+            if isinstance(xs[0], dict):
+                return {k: stack(*(x[k] for x in xs)) for k in xs[0]}
+            return np.stack(xs)
+        return stack(*layers)
+    return _host(tree)

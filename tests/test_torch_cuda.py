@@ -1066,3 +1066,196 @@ def test_family_oneshot_on_card_matches_cpu(dev, arch, kv, kernels):
     np.testing.assert_allclose(got.prefill_logits, want.prefill_logits, rtol=1e-4, atol=1e-4)
     np.testing.assert_array_equal(eng.generate_stepwise(prompts, 12, **kw).tokens, got.tokens)
     assert {k for k, v in launched.items() if v} == set(kernels)
+
+
+# ---------------------------------------------------------------------------
+# Training: AdamW's posit moments, error feedback, the checkpoint payload
+# ---------------------------------------------------------------------------
+
+def _plain_on_card(fn, out_dtype):
+    def run(x):
+        out = torch.empty(x.shape, dtype=out_dtype, device=x.device)
+        signed_view(out).view(-1).copy_(signed_view(fn(x.reshape(-1))))
+        return out
+    return run
+
+
+@pytest.mark.parametrize("shape", [(3072,), (512, 768), (4, 96, 64)],
+                         ids=["scale-1d", "weight-2d", "experts-3d"])
+def test_adamw_posit_moments_on_card_equal_plain(dev, shape, monkeypatch):
+    """Three updates of one leaf with posit16 moments on the codec kernels
+    against the same updates with the plain codec on the card: parameters,
+    m patterns and v bit for bit; the kernels launch once a leaf and an
+    update each way (and once at init), the plain run not at all."""
+    from repro_torch.optim import adamw
+
+    cfg = adamw.AdamWConfig(lr=1e-2, posit_moments=True)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    p0 = torch.randn(shape, generator=gen, device=dev)
+    runs = []
+    for plain in (False, True):
+        if plain:
+            monkeypatch.setattr(adamw, "quantize_m", _plain_on_card(
+                lambda x: posit_codec.quantize_plain(x, POSIT16), torch.uint16))
+            monkeypatch.setattr(adamw, "dequantize_m", _plain_on_card(
+                lambda q: posit_codec.dequantize_plain(q, POSIT16), torch.float32))
+        p = p0.clone()
+        before = dict(posit_codec.launches)
+        state = adamw.init({"w": p}, cfg)
+        m, v = state["m"]["w"], state["v"]["w"]
+        g_gen = torch.Generator(device=dev).manual_seed(8)
+        for step in range(3):
+            g = torch.randn(shape, generator=g_gen, device=dev) * (0.1 + step)
+            c = adamw.coefficients({"w": g}, state, cfg, torch.tensor(0.5, device=dev))
+            m = adamw.update_leaf(p, g, m, v, c, cfg)
+            state = {"m": {"w": m}, "v": {"w": v}, "count": c.count}
+        launched = {k: posit_codec.launches[k] - before[k] for k in before}
+        runs.append((p, m, v, launched))
+    (pk, mk, vk, lk), (pp, mp, vp, lp) = runs
+    assert torch.equal(pk.view(torch.int32), pp.view(torch.int32))
+    assert torch.equal(vk.view(torch.int32), vp.view(torch.int32))
+    assert mk.dtype == torch.uint16 and torch.equal(signed_view(mk), signed_view(mp))
+    assert lk["posit_quantize"] == 4 and lk["posit_dequantize"] == 3
+    assert lp["posit_quantize"] == 0 and lp["posit_dequantize"] == 0
+
+
+@pytest.mark.parametrize("name", ["posit16", "posit8"])
+def test_compress_with_feedback_on_card_equals_plain(dev, name):
+    from repro_torch.compress import gradient as gc
+
+    rng = np.random.default_rng(9)
+    grads = {"w": torch.from_numpy(rng.standard_normal((64, 130)).astype(np.float32)),
+             "layers": [{"b": torch.from_numpy(
+                 (1e-3 * rng.standard_normal(77)).astype(np.float32))}]}
+    err = gc.init_error_state(grads)
+    want_q, want_e = gc.compress_with_feedback(grads, err, name)
+    want_q, want_e = gc.compress_with_feedback(grads, want_e, name)
+    before = dict(posit_codec.launches)
+    err = gc.init_error_state(_to(grads, dev))
+    got_q, got_e = gc.compress_with_feedback(_to(grads, dev), err, name)
+    got_q, got_e = gc.compress_with_feedback(_to(grads, dev), got_e, name)
+    assert posit_codec.launches["posit_quantize"] - before["posit_quantize"] == 4
+    assert posit_codec.launches["posit_dequantize"] - before["posit_dequantize"] == 4
+    for a, b in ((got_q["w"], want_q["w"]), (got_q["layers"][0]["b"], want_q["layers"][0]["b"])):
+        assert a.device.type == "cuda" and torch.equal(signed_view(a.cpu()), signed_view(b))
+    for a, b in ((got_e["w"], want_e["w"]), (got_e["layers"][0]["b"], want_e["layers"][0]["b"])):
+        assert torch.equal(a.cpu().view(torch.int32), b.view(torch.int32))
+
+
+def test_checkpoint_posit_payload_on_card_equals_plain(dev, tmp_path):
+    """The payload quantized on the card (row 1) is the CPU's file, bit for
+    bit, and its restore onto the card (row 2) the CPU's values."""
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+
+    rng = np.random.default_rng(10)
+    tree = {"w": torch.from_numpy(rng.standard_normal((33, 70)).astype(np.float32)),
+            "n": torch.tensor(3, dtype=torch.int32)}
+    Checkpointer(str(tmp_path / "cpu"), posit_payload=True).save(1, tree, blocking=True)
+    ck = Checkpointer(str(tmp_path / "gpu"), posit_payload=True)
+    before = dict(posit_codec.launches)
+    ck.save(1, _to(tree, dev), blocking=True)
+    assert posit_codec.launches["posit_quantize"] - before["posit_quantize"] == 1
+    a = np.load(tmp_path / "cpu" / "step_00000001" / "arrays.npz")
+    b = np.load(tmp_path / "gpu" / "step_00000001" / "arrays.npz")
+    for k in a.files:
+        np.testing.assert_array_equal(a[k], b[k])
+    got, _ = ck.restore(1, _to(tree, dev))
+    want, _ = Checkpointer(str(tmp_path / "cpu")).restore(1, tree)
+    assert posit_codec.launches["posit_dequantize"] - before["posit_dequantize"] == 1
+    assert got["w"].device.type == "cuda"
+    assert torch.equal(got["w"].cpu().view(torch.int32), want["w"].view(torch.int32))
+    assert int(got["n"]) == 3
+
+
+TRAIN_ARCHS = ["gemma-7b", "minicpm3-4b", "granite-moe-3b-a800m", "hymba-1.5b", "rwkv6-7b",
+               "whisper-tiny"]
+
+
+def _worst_rel(got, want):
+    """The largest |got - want| over each leaf's largest |want|, across
+    the leaves of two trees."""
+    from repro_torch import tree as TT
+    return max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+               for a, b in zip(TT.leaves(got), TT.leaves(want)))
+
+
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_train_step_on_card_matches_cpu(dev, arch, monkeypatch):
+    """One reduced train step (``grad_accum`` 2, posit16 moments) on the
+    card, the codec kernels launched once a leaf each, against the CPU in
+    f32 with TF32 off, in two parts.  The step's loss and the gradients
+    it hands the optimizer against the CPU's: the loss within rel 1e-5,
+    each gradient leaf within 1e-4 of its largest magnitude (the two
+    devices sum in other orders; the reference parity's tolerances).
+    Its update against the CPU's update of the same parameters on those
+    same gradients: parameters and ``v`` within 1e-6 of each leaf's
+    largest magnitude (plus ``lr`` for the parameters: a leaf that starts
+    at zero moves by about ``lr``), ``m`` patterns within one posit step,
+    99.9 % equal (only the clip scale's global norm and ``pow`` differ
+    between the devices).  Comparing the parameters after a whole step
+    on each device's own gradients would not do: the first Adam step
+    moves each one by about ``lr * sign(g)``, and where a gradient is
+    within its tolerance of zero rounding decides that sign."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch import tree as TT
+    from repro_torch.data.pipeline import DataConfig, Pipeline
+    from repro_torch.models import get_family
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import train_loop
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(configs.get_config(arch).reduced(compute_dtype="float32"),
+                              grad_accum=2)
+    lr = 1e-2
+    opt_cfg = adamw.AdamWConfig(lr=lr, posit_moments=True)
+    cpu = torch.device("cpu")
+
+    def init():
+        return get_family(cfg).init_params(cfg, seed=2, device="cpu", dtype=torch.float32)
+
+    # the CPU's gradient of the step's batch
+    batch = Pipeline(DataConfig(seed=4), cfg, 4, 32, device=cpu).batch_at(100)
+    want_loss, want_grads = train_loop.make_grad_fn(cfg)(init(), batch)
+    want_grads = TT.tree_map(lambda g: g.clone(), want_grads)
+
+    # the step on the card, its gradients and learning rate recorded
+    seen = {}
+    update = adamw.update
+
+    def recording(grads, state, params, c, lr_scale=None):
+        seen["grads"] = TT.tree_map(lambda g: g.detach().cpu().clone(), grads)
+        seen["lr_scale"] = lr_scale.cpu()
+        return update(grads, state, params, c, lr_scale)
+
+    monkeypatch.setattr(adamw, "update", recording)
+    params = _to(init(), dev)
+    opt = adamw.init(params, opt_cfg)
+    before = dict(posit_codec.launches)
+    batch_dev = {k: v.to(dev) for k, v in batch.items()}
+    params, opt, m = train_loop.make_train_step(cfg, opt_cfg, total_steps=3)(
+        params, opt, batch_dev, 100)            # past the warm-up: lr itself
+    launched = {k: posit_codec.launches[k] - before[k] for k in before}
+    monkeypatch.setattr(adamw, "update", update)
+    n = len(TT.leaves(params))
+    assert launched["posit_quantize"] == n and launched["posit_dequantize"] == n
+    assert abs(float(m["loss"]) - float(want_loss)) <= 1e-5 * abs(float(want_loss))
+    worst = _worst_rel(seen["grads"], want_grads)
+    assert worst <= 1e-4, worst
+
+    # the CPU's update of the same parameters on the card's gradients
+    p_cpu = init()
+    opt_cpu = adamw.init(p_cpu, opt_cfg)
+    p_cpu, opt_cpu, _ = adamw.update(seen["grads"], opt_cpu, p_cpu, opt_cfg,
+                                     seen["lr_scale"])
+    errs = []
+    for a, b in zip(TT.leaves(_to(params, cpu)), TT.leaves(p_cpu)):
+        errs.append(float((a - b).abs().max()) / (float(b.abs().max()) + lr))
+    for a, b in zip(TT.leaves(_to(opt["v"], cpu)), TT.leaves(opt_cpu["v"])):
+        errs.append(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30))
+    steps, same = 0, 1.0
+    for a, b in zip(TT.leaves(_to(opt["m"], cpu)), TT.leaves(opt_cpu["m"])):
+        d = (signed_view(a).to(torch.int32) - signed_view(b).to(torch.int32)).abs()
+        steps, same = max(steps, int(d.max())), min(same, float((d == 0).float().mean()))
+    assert max(errs) <= 1e-6 and steps <= 1 and same >= 0.999, (max(errs), steps, same)

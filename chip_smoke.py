@@ -48,6 +48,14 @@ paths at full size and checks that every kernel of each path ran there:
   (``WINDOW_PATH``; the published config has none), exact launch counts,
   every decode read exactly the window, fused == gather on the served
   weights;
+- (j) tensor-parallel serving (``TP_PATHS``): ``serve --model-parallel
+  2`` with two ranks sharing the one card over gloo, phi3-medium-14b
+  (its KV heads split, the arena head-sharded) and minicpm3-4b (its
+  query heads split, the latent arena whole) at full width and depth on
+  a shortened trace, each against a single-rank run of the same trace
+  on the same weights: the schedule equal, each rank's launches exactly
+  the single run's, the cache's bytes per device, and greedy tokens
+  equal up to flips at near-ties (teacher-forced through both);
 - training, each phase in a process of its own (``--phase train``,
   ``--phase train-families``): (T) ``launch/train.py`` on gemma-7b at
   full width, 8 of its 28 layers, ``--posit-moments`` (the codec's
@@ -68,6 +76,7 @@ paths at full size and checks that every kernel of each path ran there:
     python3 chip_smoke.py          # needs one NVIDIA GPU and nvcc
     python3 chip_smoke.py --phase train            # (T) alone (kernels built)
     python3 chip_smoke.py --phase train-families   # (T2) alone
+    python3 chip_smoke.py --phase tp               # (j) alone
     python3 chip_smoke.py --ptxas  # only: -Xptxas -v (registers, shared
                                    # memory, spills) of paged_attn.cu,
                                    # paged_attn_mla.cu, posit_gemm.cu,
@@ -77,8 +86,10 @@ paths at full size and checks that every kernel of each path ran there:
                                    # posit_codec.cu
 
 Before the paths it checks paged attention at every served
-architecture's head shape (``ATTN_SHAPES``) and the fused write and read
-on every served lane's leaves (``LANES``) against their plain versions,
+architecture's head shape (``ATTN_SHAPES``), a rank's heads at mp 2
+included, the MLA kernel at a rank's 20 heads, and the fused write and
+read on every served lane's leaves (``LANES``, a rank's arena at mp 2
+included) against their plain versions,
 and checks and times the codec's quantize and dequantize at the shapes
 the ISA phases and the linear lanes of every family give them (the
 dequantize in its job form, a layer's two leaves a launch, beside the
@@ -544,7 +555,12 @@ def time_codec(dev):
 ATTN_SHAPES = {"granite-moe-3b-a800m": (8, 3, 64, "posit16"),
                "gemma-7b": (16, 1, 256, "posit16"),
                "granite-34b": (1, 48, 128, "posit16"),
-               "dbrx-132b": (8, 6, 128, "posit8")}
+               "dbrx-132b": (8, 6, 128, "posit8"),
+               # a rank's heads under tensor parallelism at mp 2 (phase (j)):
+               # phi3's 5 of 10 KV heads; granite-34b's 24 of 48 query heads
+               # on its one replicated KV head
+               "phi3-medium-14b-mp2": (5, 4, 128, "posit16"),
+               "granite-34b-mp2": (1, 24, 128, "posit16")}
 
 
 def attn_case(dev, kv, window, seed, g=10, r=4, d=128):
@@ -666,11 +682,12 @@ def time_attention(args, pcfg, err):
         shape=[b, g, r, d, int(tables.shape[1]), bs])
 
 
-def mla_case(dev, kv, seed):
+def mla_case(dev, kv, seed, h=40):
     """Full-width minicpm3-4b latent decode attention (the case of
-    ``repro_torch.launch.mla_split_sweep``)."""
+    ``repro_torch.launch.mla_split_sweep``); ``h`` 20 is a rank's heads
+    at mp 2 (phase (j))."""
     from repro_torch.launch.mla_split_sweep import minicpm3_case
-    return minicpm3_case(dev, kv, seed)
+    return minicpm3_case(dev, kv, seed, h=h)
 
 
 def check_attention_mla(dev):
@@ -707,6 +724,21 @@ def check_attention_mla(dev):
             errs.append(err)
         if kv == "posit16":
             row = time_attention_mla(args, pcfg, scale, max(errs))
+    # a rank's 20 heads at mp 2 (phase (j)), against the plain version
+    args, pcfg = mla_case(dev, "posit16", seed=4, h=20)
+    got = K.paged_decode_attention_mla(*args, pcfg=pcfg, scale=scale)
+    ref = K.paged_decode_attention_mla_plain(*args, pcfg=pcfg, scale=scale)
+    err = float((got - ref).abs().max())
+    print(f"paged attention MLA posit16 at H 20 (a rank's heads at mp 2): max abs err "
+          f"{err:.3e} (tolerance atol=rtol={ATTN_TOL}), all-masked row exact zeros: "
+          f"{bool((got[-1] == 0).all())}")
+    if not torch.allclose(got, ref, atol=ATTN_TOL, rtol=ATTN_TOL) or \
+            not bool((got[-1] == 0).all()):
+        fail("paged_decode_attention_mla at H 20 disagrees with plain")
+    t = time_attention_mla(args, pcfg, scale, err)
+    row["tp_mp2"] = {key: t[key] for key in (
+        "shape", "max_abs_err", "ms", "kernel_ms", "bound_ms", "bound_by", "plain_ms",
+        "library_ms", "library_alone_ms")}
     return row
 
 
@@ -772,7 +804,9 @@ LANES = {"dense": (40, ((10, 128), (10, 128)), 0),
          "granite-moe": (32, ((8, 64), (8, 64)), 0),
          "gemma": (28, ((16, 256), (16, 256)), 0),
          "granite-34b": (24, ((1, 128), (1, 128)), 0),
-         "dbrx": (4, ((8, 128), (8, 128)), 0)}
+         "dbrx": (4, ((8, 128), (8, 128)), 0),
+         # phi3's arena on one rank at mp 2 (phase (j)): 5 of its 10 KV heads
+         "dense-mp2": (40, ((5, 128), (5, 128)), 0)}
 
 
 def write_case(dev, cfg, lane, seed):
@@ -947,7 +981,11 @@ def check_paged_write(dev):
             del got, want
             if cfg is POSIT16 and lane == "dense":
                 row, profile = time_paged_write(k, cfg)
+            if cfg is POSIT16 and lane == "dense-mp2":
+                tp_row = time_paged_write(k, cfg)[0]
             del k
+    row["tp_mp2"] = {key: tp_row[key] for key in (
+        "shape", "ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "prefill")}
     return row, profile
 
 
@@ -1012,10 +1050,10 @@ def time_paged_write(k, cfg):
     print(f"posit_paged_write decode: launch floor {row['floor_ms']:.4f} ms alone (an empty "
           f"kernel through the same call; {row['floor_128_ms']:.4f} ms with the 128-job "
           f"table)")
-    print(f"posit_paged_write decode (K and V, 8 rows x 1 280): {row['ms']:.4f} ms, "
+    print(f"posit_paged_write decode (K and V, 8 rows x {width:,}): {row['ms']:.4f} ms, "
           f"alone {row['kernel_ms']:.4f} ms; old quantize + scatter pair "
           f"{row['old_pair_ms']:.4f} ms, alone {row['old_pair_alone_ms']:.4f} ms. "
-          f"Prefill chunk ({n_layers} layers x 128 rows x 1 280): {prefill['ms']:.4f} ms, "
+          f"Prefill chunk ({n_layers} layers x 128 rows x {width:,}): {prefill['ms']:.4f} ms, "
           f"alone {prefill['kernel_ms']:.4f} ms; old {prefill['old_pair_ms']:.4f} "
           f"ms, alone {prefill['old_pair_alone_ms']:.4f} ms (bound "
           f"{prefill['bound_ms']:.5f} ms)")
@@ -1097,7 +1135,11 @@ def check_paged_read(dev):
                 fail(f"posit_paged_read {lane} {cfg.name} differs from its plain version")
             if cfg is POSIT16 and lane == "dense":
                 row = time_paged_read(k, cfg)
+            if cfg is POSIT16 and lane == "dense-mp2":
+                tp_row = time_paged_read(k, cfg)
             del k
+    row["tp_mp2"] = {key: tp_row[key] for key in (
+        "shape", "ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by")}
     return row
 
 
@@ -1139,7 +1181,7 @@ def time_paged_read(k, cfg):
         **_bound(n_res * width * cfg.nbits // 8 + b * t_len * width * 2 + vt.numel() * 4
                  + 2 * b * 8, n_res * width * OPS_DECODE, INT_OPS),
         library_ms=None, shape=[2, b, vw, bs] + list(arenas[0].shape[2:]))
-    print(f"posit_paged_read one layer (K and V, 8 rows x 1 024 slots x 1 280, {n_res} "
+    print(f"posit_paged_read one layer (K and V, 8 rows x 1 024 slots x {width // 2:,}, {n_res} "
           f"resident slots, bf16 out): {row['ms']:.4f} ms, alone {row['kernel_ms']:.4f} "
           f"ms; old gather + dequantize + cast + mask {row['old_chain_ms']:.4f} ms, alone "
           f"{row['old_chain_alone_ms']:.4f} ms (bound {row['bound_ms']:.5f} ms by "
@@ -1178,14 +1220,14 @@ def serve_main_path(argv):
     return res, read_counts(), wall, steps[0], chunks[0]
 
 
-def check_served(res):
+def check_served(res, n_requests=16):
     """Every request completed, every token in the vocabulary; on a paged
     pool no block leaked and the pool drained (under prefix caching, down
     to the blocks the prefix index holds)."""
     sched = res.sched
     vocab = sched.engine.cfg.vocab
-    if len(res.done) != 16:
-        fail(f"served {len(res.done)} of 16 requests")
+    if len(res.done) != n_requests:
+        fail(f"served {len(res.done)} of {n_requests} requests")
     for c in res.done.values():
         if c.tokens.size == 0 or c.tokens.min() < 0 or c.tokens.max() >= vocab:
             fail(f"request {c.rid} produced out-of-vocabulary tokens")
@@ -1714,6 +1756,180 @@ def run_window_lane(dev):
 
 
 # ---------------------------------------------------------------------------
+# (j) Tensor-parallel serving: two ranks sharing the one card
+# ---------------------------------------------------------------------------
+
+# The main path's flags with --model-parallel 2 on a shortened seeded
+# trace (8 requests, prompts 96-192 tokens, generations 2-8), full width
+# and depth: phi3-medium-14b (its KV heads split, 5 a rank: the arena
+# head-sharded) and minicpm3-4b (its query heads split, 20 a rank; the
+# latent arena whole on each rank), each against a single-rank run of
+# the same trace on the same weights, run before it.
+# The smoke needs one card, so the two ranks share it and talk over
+# gloo (NCCL refuses two ranks on one device): no number here is a
+# tensor-parallel speed.
+_TP_TRACE = ["--continuous", "--paged", "--chunked-prefill", "--batch", "8",
+             "--n-requests", "8", "--arrival-rate", "0.5", "--prompt-len", "192",
+             "--gen", "8", "--max-len", "384", "--chunk-size", "16", "--block-size", "16",
+             "--kv-posit", "posit16", "--decode-kernel", "fused", "--temperature", "0",
+             "--seed", "0", "--device", "cuda"]
+TP_DEVICES = ["cuda:0", "cuda:0"]
+TP_RANKS = ["--model-parallel", "2", "--rank-devices", ",".join(TP_DEVICES)]
+TP_PATHS = {   # argv, the path's kernels, whether the KV heads split
+    "phi3-medium-14b": (["--arch", "phi3-medium-14b"] + _TP_TRACE, _DENSE_KERNELS, True),
+    "minicpm3-4b": (["--arch", "minicpm3-4b"] + _TP_TRACE, MAIN_PATHS["minicpm3-4b"][1], False),
+}
+TP_FORCED = 8      # greedy tokens of the teacher-forced check
+
+
+def tp_forced_rank(argv, devices, prompts, tokens):
+    """One rank of the teacher-forced check (``launch/mesh.spawn``): this
+    rank's shard of the served weights (``serve.rank_model``, as
+    ``serve --model-parallel`` draws it), ``tokens`` fed after
+    ``prompts``; returns its (B, n, V) logits as a host array."""
+    from repro_torch.launch import serve
+    from repro_torch.runtime.engine import Engine
+
+    args, mesh, cfg, params = serve.rank_model(argv, devices)
+    eng = Engine(cfg, params, max_len=256, paged=True, block_size=16,
+                 decode_kernel="fused", device=args.device, mesh=mesh)
+    return forced_logits(eng, prompts, tokens).cpu().numpy()
+
+
+def tp_single(argv, kernels, label):
+    """The single-rank run of a (j) trace through the user entry point:
+    exact launch counts; returns the result and what the ranks are held
+    to (tokens, admission and finish steps, schedule counters, launches,
+    cache report, arena bytes)."""
+    from repro_torch.compress import kvcache as kvc
+
+    res, counts, wall, steps, chunks = serve_main_path(argv)
+    check_served(res, 8)
+    report_served(label, res, counts, wall, steps, chunks)
+    check_main_counts(label, res, counts, steps, chunks, kernels)
+    sched = res.sched
+    ref = dict(done={r: (c.tokens.tolist(), c.admitted_step, c.finished_step)
+                     for r, c in res.done.items()},
+               stats={k: sched.stats[k] for k in TP_STATS}, counts=counts,
+               report=kvc.cache_report(sched.cache, sched.pool),
+               arena=sum(sched.cache[k].numel() * sched.cache[k].element_size()
+                         for k in kvc.arena_leaves(sched.cache)),
+               seconds=res.seconds, tokens=sum(len(c.tokens) for c in res.done.values()))
+    return res, ref
+
+
+TP_STATS = ("prefix_hits", "n_preempted", "n_cow", "n_chunks", "steps_run", "n_leaked")
+
+
+def tp_check_ranks(label, tp, ref, split, wall):
+    """Every rank of a sharded run (``serve.ShardedServeResult``) held to
+    the single rank's ``ref``: the schedule and its counters equal, no
+    leak, every rank's tokens identical, each rank's launches exactly the
+    single run's, the cache's bytes equal and, per device, the arena's
+    share plus the metadata where the KV heads split (the whole cache
+    where they do not).  Prints the run and returns its numbers."""
+    mp = len(tp.ranks)
+    r0 = tp.ranks[0]
+    single = ref["done"]
+    for rank, r in enumerate(tp.ranks):
+        got = {i: (c.tokens.tolist(), c.admitted_step, c.finished_step)
+               for i, c in r.done.items()}
+        if set(got) != set(single) or any(got[i][1:] != single[i][1:] for i in single) \
+                or any(r.stats[k] != ref["stats"][k] for k in TP_STATS):
+            fail(f"{label} rank {rank}'s schedule differs from the single rank's")
+        if any(got[i][0] != r0.done[i].tokens.tolist() for i in got):
+            fail(f"{label} rank {rank}'s tokens differ from rank 0's")
+        if any(r.launches[k] != ref["counts"][k] for k in r.launches):
+            fail(f"{label} rank {rank} launched {r.launches}, the single rank "
+                 f"{ {k: ref['counts'][k] for k in r.launches} }")
+        rep = ref["report"]
+        per_device = ref["arena"] // mp + rep["bytes"] - ref["arena"] if split \
+            else rep["bytes"]
+        if r.report["bytes"] != rep["bytes"] or r.report["per_device_bytes"] != per_device:
+            fail(f"{label} rank {rank}: cache bytes {r.report['bytes']:,}, per device "
+                 f"{r.report['per_device_bytes']:,}; want {rep['bytes']:,} and {per_device:,}")
+    useful = sum(len(c.tokens) for c in r0.done.values())
+    st = r0.stats
+    equal = sum(int(np.sum(np.asarray(r0.done[i].tokens) == np.asarray(single[i][0])))
+                for i in single)
+    whole = sum(r0.done[i].tokens.tolist() == single[i][0] for i in single)
+    print(f"{label} at --model-parallel {mp}, {mp} ranks sharing one card over "
+          f"{tp.backend}: not a tensor-parallel speed: "
+          f"{len(r0.done)} requests, {useful} tokens in {r0.seconds:.2f} s ({wall:.2f} s with "
+          f"the ranks' start), {useful / r0.seconds:.2f} tok/s; step wall p50 "
+          f"{st['step_wall_p50_ms']:.1f} ms p99 {st['step_wall_p99_ms']:.1f} ms over "
+          f"{st['n_chunks']} rounds; the single rank {ref['tokens']} tokens in "
+          f"{ref['seconds']:.2f} s")
+    print(f"{label} at --model-parallel {mp}: schedule equal on every rank ({ref['stats']}); "
+          f"tokens {equal} of {ref['tokens']} equal to the single rank's, {whole} of "
+          f"{len(single)} requests identical; every rank's streams identical; launches per "
+          f"rank {r0.launches} = the single rank's; KV per device "
+          f"{r0.report['per_device_bytes']:,} of {r0.report['bytes']:,} bytes (arena "
+          f"{ref['arena']:,}, {'head-sharded' if split else 'replicated'})")
+    return dict(mp=mp, backend=tp.backend, seconds=r0.seconds, wall=wall, tokens=useful,
+                p50=st["step_wall_p50_ms"], p99=st["step_wall_p99_ms"],
+                single_seconds=ref["seconds"], equal=equal, of=ref["tokens"],
+                per_device=r0.report["per_device_bytes"], bytes=r0.report["bytes"])
+
+
+def run_tp_path(dev, name):
+    """Phase (j) on one of ``TP_PATHS``: the single-rank run
+    (``tp_single``), then the same argv with ``TP_RANKS``, each rank held
+    to it (``tp_check_ranks``); and greedy tokens equal to the single
+    run's up to a flip at a near-tie, by the rule of
+    ``check_fused_equals_gather_full`` (8 ragged prompts, ``TP_FORCED``
+    greedy tokens of the single rank teacher-forced through both).
+    Returns ``(by_path launch counts, report)``."""
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import serve
+    from repro_torch.runtime.engine import Engine
+
+    argv, kernels, split = TP_PATHS[name]
+    res, ref = tp_single(argv, kernels, f"(j) {name} single rank")
+    eng = Engine(res.sched.engine.cfg, res.sched.engine.params, max_len=256, paged=True,
+                 block_size=16, decode_kernel="fused", device=dev)
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(1, eng.cfg.vocab, int(n)).tolist()
+               for n in rng.integers(64, 129, size=8)]
+    toks = eng.generate(prompts, TP_FORCED).tokens
+    want = forced_logits(eng, prompts, toks)
+    if not torch.equal(want.argmax(-1).cpu(), torch.as_tensor(toks, dtype=torch.int64)):
+        fail(f"the (j) {name} single rank's teacher-forced run does not reproduce its tokens")
+    want = want.cpu()
+    del res, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    tp = serve.main(argv + TP_RANKS)
+    report = tp_check_ranks(f"(j) {name}", tp, ref, split, time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    forced = M.spawn(tp_forced_rank, TP_DEVICES, (argv + TP_RANKS, TP_DEVICES, prompts, toks),
+                     timeout=600)
+    forced_wall = time.perf_counter() - t0
+    if not np.array_equal(forced[0], forced[1]):
+        fail(f"(j) {name}: the two ranks' teacher-forced logits differ")
+    got = torch.from_numpy(forced[0])
+    diff = (got - want).abs().amax(-1)
+    rel = float((diff / want.std(-1)).max())
+    top2 = want.topk(2, dim=-1).values
+    flips = got.argmax(-1) != want.argmax(-1)
+    margin = top2[..., 0] - top2[..., 1]
+    near_tie = bool((margin <= 2 * diff)[flips].all())
+    print(f"(j) {name}: mp 2 against the single rank, teacher-forced on 8 ragged prompts x "
+          f"{TP_FORCED} greedy tokens ({forced_wall:.1f} s with the ranks' start): logits max "
+          f"|diff| {float(diff.max()):.5f}, {rel:.5f} of the spread (limit {FORCED_TOL}), "
+          f"{int(flips.sum())} argmax flips, all at near-ties: {near_tie} (flip margins "
+          f"{[round(float(m), 5) for m in margin[flips]]})")
+    if rel > FORCED_TOL or not near_tie:
+        fail(f"(j) {name}: the sharded model disagrees with the single rank beyond bf16 "
+             "rounding")
+    by_path = {f"tp-{name}-rank{k}": {**{c: 0 for c in ref["counts"]}, **r.launches}
+               for k, r in enumerate(tp.ranks)}
+    return by_path, dict(report, rel=rel, flips=int(flips.sum()))
+
+
+# ---------------------------------------------------------------------------
 # Training, each phase in a process of its own (its memory freed at exit)
 # ---------------------------------------------------------------------------
 
@@ -2033,7 +2249,20 @@ def train_families_phase(dev):
     return out
 
 
-PHASES = {"train": train_phase, "train-families": train_families_phase}
+def tp_phase(dev):
+    """(j): every path of ``TP_PATHS``; returns the ranks' launch counts
+    and each path's numbers."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    counts, report = {}, {}
+    for name in TP_PATHS:
+        by_path, report[name] = run_tp_path(dev, name)
+        counts.update(by_path)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {"counts": counts, "report": report}
+
+
+PHASES = {"train": train_phase, "train-families": train_families_phase, "tp": tp_phase}
 
 
 def run_phase(name):
@@ -2706,6 +2935,9 @@ def run(pool):
     profile_write()
     del profile_write
     by_path["window"] = run_window_lane(dev)
+    # (j) tensor-parallel serving, two ranks on the card, in a process of
+    # its own as the training phases
+    by_path.update(run_phase_process("tp")["counts"])
     # training, each phase in its own process: (T) the main training
     # path, (T2) a step of each family
     trained = run_phase_process("train")

@@ -55,17 +55,29 @@ def _leaf_bytes(key, x):
     return actual, (x.numel() * 4 if key in CONTENT_LEAVES else actual)
 
 
-def cache_report(cache, pool=None) -> dict:
+def cache_report(cache, pool=None, shards=None) -> dict:
     """Actual vs f32-equivalent bytes and the compression ratio; with a
     ``pool``, also the physical/logical block counts and their peaks.
     Content leaves count 4 bytes per element in the f32 baseline,
-    bookkeeping counts as stored (a Python-int ``max_len`` as int32)."""
-    actual = f32 = 0
+    bookkeeping counts as stored (a Python-int ``max_len`` as int32).
+
+    ``per_device_bytes`` is the footprint on one device: ``bytes`` on a
+    single device.  Under tensor-parallel serving ``cache`` is one rank's
+    and ``shards`` (``Engine.cache_shards``) maps each split leaf to the
+    ranks it is split over: ``bytes`` then counts the whole cache, as the
+    reference counts the global array, and ``per_device_bytes`` this
+    rank's (the head-sharded arena's share plus the replicated
+    metadata)."""
+    shards = shards or {}
+    actual = f32 = local = 0
     for key, x in cache.items():
         a, f = _leaf_bytes(key, x)
-        actual += a
-        f32 += f
-    out = {"bytes": actual, "f32_bytes": f32, "ratio": f32 / max(actual, 1)}
+        n = shards.get(key, 1)
+        actual += a * n
+        f32 += f * n
+        local += a
+    out = {"bytes": actual, "f32_bytes": f32, "ratio": f32 / max(actual, 1),
+           "per_device_bytes": local}
     if pool is not None:
         out.update(
             physical_blocks=pool.in_use,

@@ -24,12 +24,13 @@ from repro_torch.launch.timing import kernel_alone_ms
 from repro_torch.models import layers as L
 
 
-def minicpm3_case(dev, kv: str = "posit16", seed: int = 4):
+def minicpm3_case(dev, kv: str = "posit16", seed: int = 4, h: int = 40):
     """Minicpm3-4b's full-width latent decode attention inputs: B 8 rows,
-    H 40 heads, rank 256, rope 32, block 16, W 64 table slots; ragged
+    H 40 heads (``h``: a rank's share under tensor parallelism, e.g. 20
+    at mp 2), rank 256, rope 32, block 16, W 64 table slots; ragged
     lens, sentinel tails, one all-masked row (its table is all
     sentinels).  Returns the kernel's arguments and the posit config."""
-    b, h, rank, rope, bs, w = 8, 40, 256, 32, 16, 64
+    b, rank, rope, bs, w = 8, 256, 32, 16, 64
     lens = [1000, 700, 512, 300, 900, 64, 1020, 0]
     nb = b * w
     gen = torch.Generator(device=dev).manual_seed(seed)

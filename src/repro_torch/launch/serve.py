@@ -67,11 +67,29 @@ internvl2-1b the visual prefix after them, as the reference does:
 
 ``--continuous`` and ``--paged`` need the transformer family and raise
 ``ValueError`` on the others, as the reference's do.
+
+``--model-parallel N`` serves tensor-parallel on N ranks, one process
+each (``launch/mesh.py``): every rank draws the weights from the same
+seed and keeps its shard of each layer (``runtime/sharding.py``), holds
+the arena's share of the KV heads, and runs the same scheduler; rank 0
+prints the report with a ``sharded:`` line (KV bytes per device of the
+total, the step wall).  ``--rank-devices`` lists the ranks' devices,
+by default one card a rank (NCCL), or N CPU ranks with ``--device cpu``
+(gloo); ranks that share a card, e.g. ``--rank-devices cuda:0,cuda:0``,
+talk over gloo.  The paged schedulers of the transformer family only:
+
+  python -m repro_torch.launch.serve --continuous --paged \\
+      --chunked-prefill --kv-posit posit16 --decode-kernel fused \\
+      --prefix-cache --model-parallel 2 --reduced --device cpu
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import io
+import os
+import sys
 import time
 
 import numpy as np
@@ -158,6 +176,24 @@ class ServeResult:
 
 
 @dataclasses.dataclass
+class RankResult:
+    """One rank's run of a tensor-parallel trace (picklable)."""
+    done: dict            # rid -> Completion
+    stats: dict           # Scheduler.stats
+    report: dict          # cache_report: bytes of the whole cache, per_device_bytes this rank's
+    launches: dict        # kernel launches of this rank's run
+    seconds: float        # wall time of the whole trace
+
+
+@dataclasses.dataclass
+class ShardedServeResult:
+    """``--model-parallel`` > 1: every rank's result, rank 0 first."""
+    ranks: list           # RankResult per rank
+    mesh: dict            # {"data": n, "model": mp}
+    backend: str          # the process group's backend
+
+
+@dataclasses.dataclass
 class OneShotResult:
     result: GenerationResult  # its (B, gen) tokens are what ``main`` returns
     engine: Engine
@@ -167,13 +203,13 @@ class OneShotResult:
     inputs: dict = dataclasses.field(default_factory=dict)   # ``frames``/``visual``
 
 
-def _build_engine(args, cfg, params, max_len):
+def _build_engine(args, cfg, params, max_len, mesh=None):
     return Engine(cfg, params, max_len=max_len,
                   temperature=args.temperature, seed=args.seed,
                   paged=args.paged, block_size=args.block_size,
                   n_blocks=args.n_blocks,
                   decode_kernel=None if args.decode_kernel == "gather"
-                  else args.decode_kernel, device=args.device)
+                  else args.decode_kernel, device=args.device, mesh=mesh)
 
 
 def run_oneshot(args, cfg, params) -> OneShotResult:
@@ -219,11 +255,11 @@ def run_oneshot(args, cfg, params) -> OneShotResult:
                          prefill_seconds=t_prefill, seconds=dt, inputs=kwargs)
 
 
-def run_continuous(args, cfg, params) -> ServeResult:
+def run_continuous(args, cfg, params, mesh=None) -> ServeResult:
     rng = np.random.default_rng(args.seed)
     max_len = args.max_len or (args.prompt_len + args.gen - 1 +
                                args.chunk_size)
-    engine = _build_engine(args, cfg, params, max_len)
+    engine = _build_engine(args, cfg, params, max_len, mesh)
     sched = Scheduler(engine, n_slots=args.batch, chunk_size=args.chunk_size,
                       prefix_cache=args.prefix_cache,
                       chunked_prefill=args.chunked_prefill)
@@ -244,7 +280,8 @@ def run_continuous(args, cfg, params) -> ServeResult:
     t0 = time.perf_counter()
     done, order = drive_trace(sched, trace, deadline_steps=deadlines)
     dt = time.perf_counter() - t0
-    rep = cache_report(sched.cache, sched.pool if sched.paged else None)
+    rep = cache_report(sched.cache, sched.pool if sched.paged else None,
+                       engine.cache_shards() if sched.paged else None)
 
     useful = sum(len(c.tokens) for c in done.values())
     lat = np.array(sorted(c.latency_steps for c in done.values()))
@@ -268,6 +305,15 @@ def run_continuous(args, cfg, params) -> ServeResult:
     print(f"  step wall p50 {st['step_wall_p50_ms']:.1f} ms p99 "
           f"{st['step_wall_p99_ms']:.1f} ms over {sched.n_chunks} rounds "
           f"(device {engine.device})")
+    if engine.tp is not None:
+        import torch.distributed as dist
+
+        print(f"  sharded: mesh {dict(zip(engine.mesh.mesh_dim_names, engine.mesh.shape))}; "
+              f"KV per device "
+              f"{rep['per_device_bytes']:,} of {rep['bytes']:,} bytes "
+              f"(model_parallel={engine.tp.size}, {dist.get_backend()}); step "
+              f"wall p50 {st['step_wall_p50_ms']:.1f} ms p99 "
+              f"{st['step_wall_p99_ms']:.1f} ms")
     if sched.chunked:
         print(f"  chunked prefill: {sched.prefill_tokens} prompt tokens "
               f"through the decode lane in {args.chunk_size}-token chunks; "
@@ -295,6 +341,69 @@ def run_continuous(args, cfg, params) -> ServeResult:
               f"{sched.peak_logical} blocks")
     return ServeResult(done=done, sched=sched, seconds=dt,
                        deadlines_met=met_of)
+
+
+def _serving_launches() -> dict:
+    from repro_torch.kernels import posit_codec, posit_paged_attn
+    return {**posit_codec.launches, **posit_paged_attn.launches}
+
+
+def rank_model(argv, devices):
+    """In a rank of ``--model-parallel`` over ``devices``: the parsed
+    ``argv`` (its device the rank's), the mesh, the config and this
+    rank's shard of the seeded weights, drawn a layer at a time; returns
+    ``(args, mesh, cfg, params)``."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.runtime import sharding
+
+    args = build_parser().parse_args(argv)
+    args.device = devices[dist.get_rank()]
+    mesh = make_host_mesh(args.model_parallel, torch.device(args.device).type)
+    cfg = model_config(args)
+    params = get_family(cfg).init_params(
+        cfg, seed=args.seed, device=args.device,
+        shard=lambda t, prefix: sharding.shard_params(t, mesh, cfg, prefix))
+    return args, mesh, cfg, params
+
+
+def _serve_rank(argv, devices) -> RankResult:
+    """One rank of ``--model-parallel``: its shard of the model, the
+    trace; only rank 0 prints."""
+    import torch.distributed as dist
+
+    args, mesh, cfg, params = rank_model(argv, devices)
+    quiet = contextlib.redirect_stdout(io.StringIO()) if dist.get_rank() \
+        else contextlib.nullcontext()
+    with quiet:
+        before = _serving_launches()
+        res = run_continuous(args, cfg, params, mesh)
+        after = _serving_launches()
+        sched = res.sched
+        rep = cache_report(sched.cache, sched.pool, sched.engine.cache_shards())
+    return RankResult(done=res.done, stats=sched.stats, report=rep,
+                      launches={k: after[k] - before[k] for k in after},
+                      seconds=res.seconds)
+
+
+def run_sharded(args, argv, timeout: float | None = None) -> ShardedServeResult:
+    """``--model-parallel`` > 1: spawn the ranks and join them (with no
+    deadline on the whole run unless ``timeout`` seconds are given: a
+    hung collective fails its rank at ``mesh.COLLECTIVE_TIMEOUT``)."""
+    from repro_torch.launch import mesh as M
+
+    n = args.model_parallel
+    devices = args.rank_devices.split(",") if args.rank_devices \
+        else M.default_devices(n, args.device)
+    if len(devices) != n:
+        raise ValueError(f"--rank-devices names {len(devices)} devices for "
+                         f"--model-parallel {n}")
+    cpu = all(torch.device(d).type == "cpu" for d in devices)
+    ranks = M.spawn(_serve_rank, devices, (list(argv), devices), timeout=timeout,
+                    threads=max(1, (os.cpu_count() or 1) // n) if cpu else 0)
+    return ShardedServeResult(ranks=ranks, mesh={"data": 1, "model": n},
+                              backend=M.backend_for(devices))
 
 
 def build_parser():
@@ -364,6 +473,17 @@ def build_parser():
                     help="0 = greedy; > 0 = softmax sampling")
     ap.add_argument("--seed", type=int, default=0,
                     help="seeds the weights, the trace and the sampler")
+    ap.add_argument("--model-parallel", type=int, default=1,
+                    help="tensor-parallel degree over a mesh of ranks: "
+                         "weights shard by the runtime/sharding rule table "
+                         "and the paged KV arena shards its head axis over "
+                         "'model', so per-device KV bytes drop ~linearly; "
+                         "token streams are identical to the single-device "
+                         "run (one process a rank; with --continuous --paged)")
+    ap.add_argument("--rank-devices", default="",
+                    help="with --model-parallel: the ranks' devices, comma "
+                         "separated (default: one card a rank, or the CPU "
+                         "with --device cpu); ranks sharing a card use gloo")
     ap.add_argument("--device", default="cuda")
     return ap
 
@@ -388,15 +508,26 @@ def check_mode(ap, args) -> None:
         ap.error("--deadline-ms requires --continuous")
     if args.decode_kernel == "fused" and not args.paged:
         ap.error("--decode-kernel fused requires --paged")
+    if args.model_parallel > 1:
+        family = configs.get_config(args.arch).family
+        if not (args.continuous and args.paged) or family != "transformer":
+            raise NotImplementedError(
+                "--model-parallel > 1 serves the paged schedulers "
+                "(--continuous --paged) of the transformer family; the one-shot "
+                "engine, the dense-cache scheduler and the other families wait "
+                "for ROADMAP.md Queue 1 item 6")
 
 
 def main(argv=None):
     """Run the command line; returns the one-shot path's (B, gen) token
     array, as the reference's ``main`` does, or the continuous run's
-    :class:`ServeResult`."""
+    :class:`ServeResult` (with ``--model-parallel`` > 1 a
+    :class:`ShardedServeResult`)."""
     ap = build_parser()
     args = ap.parse_args(argv)
     check_mode(ap, args)
+    if args.model_parallel > 1:
+        return run_sharded(args, sys.argv[1:] if argv is None else argv)
     cfg = model_config(args)
     params = get_family(cfg).init_params(cfg, seed=args.seed, device=args.device)
     if args.continuous:

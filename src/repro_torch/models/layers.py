@@ -801,17 +801,29 @@ def _moe_combine(ye, aux, cfg: ModelConfig):
     return (y_flat.view(b, sk // k, k, d) * gate_w[..., None].to(ye.dtype)).sum(2)
 
 
-def moe(p, x, cfg: ModelConfig):
+def moe(p, x, cfg: ModelConfig, experts=None):
     """x (B, S, D) -> (B, S, D): row-local top-k dispatch, then every
     expert's SwiGLU/GeGLU on its (B * cap) buffer rows as one batched
-    product over the experts, output in the compute dtype."""
+    product over the experts, output in the compute dtype.
+
+    ``experts=(first, n)`` (expert-parallel serving): ``p``'s expert
+    weights are experts ``first .. first+n-1`` only.  The router, the
+    dispatch and the capacity are the whole model's (every rank drops
+    the same choices); only these experts run, the others' outputs are
+    zero, and the result is this rank's partial sum of the combine."""
     b, s, d = x.shape
     xe, aux = _moe_dispatch(p, x, cfg)                            # (B, E, cap, D)
     e, cap = xe.shape[1], xe.shape[2]
+    if experts is not None:
+        first, e = experts
+        full, xe = xe, xe[:, first:first + e]
     wi, wg, wo = (maybe_dequant(p[key], cfg).to(x.dtype) for key in ("wi", "wg", "wo"))
     xf = xe.transpose(0, 1).reshape(e, b * cap, d)
     h = _act(torch.bmm(xf, wg), cfg) * torch.bmm(xf, wi)         # (E, B*cap, F)
     ye = torch.bmm(h, wo).reshape(e, b, cap, d).transpose(0, 1)   # (B, E, cap, D)
+    if experts is not None:
+        ye = torch.zeros_like(full).index_copy_(
+            1, torch.arange(first, first + e, device=x.device), ye)
     return _moe_combine(ye, aux, cfg)
 
 

@@ -33,6 +33,14 @@ two leaves in one launch (``posit_codec.dequantize_many``); the
 chunked-prefill arena read is one fused launch a layer; paged decode
 attention runs the fused kernel (dense/window or
 MLA latent) or the gather path (``cfg.paged_attn_kernel``).
+
+Tensor-parallel serving: ``prefill``, ``prefill_chunk`` and the paged
+decode step take ``tp`` (``runtime/collectives.TensorParallel``) and run
+on the rank-local config (``sharding.local_config``: this rank's heads
+and ``d_ff``) over this rank's shard of the weights and of the arena;
+``tp`` adds the all-reduces after attention's ``wo`` and the
+feed-forward, the vocabulary-parallel embedding and the gathered logits.
+With ``tp=None`` nothing changes.
 """
 from __future__ import annotations
 
@@ -76,7 +84,8 @@ def _init_attention(gen, cfg: ModelConfig, dt, dev):
     }
 
 
-def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda", dtype=None):
+def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda", dtype=None,
+                shard=None):
     """Random parameters from a seeded ``torch.Generator`` on ``device``.
 
     Every 2-D weight and the embedding are drawn in f32 and stored in
@@ -84,7 +93,14 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda", dtype=None):
     it anyway); training passes ``torch.float32`` for f32 master
     weights.  Norm scales stay f32.  ``params["layers"]`` is a list of
     per-layer dicts.
+
+    ``shard(subtree, prefix)`` (tensor-parallel serving, e.g.
+    ``sharding.shard_params`` on the rank's mesh) cuts each layer and
+    each top-level leaf to this rank's shard as soon as it is drawn, so
+    the rank holds one layer whole at most; every rank draws the same
+    stream, so the shards are those of the single-device weights.
     """
+    keep = shard or (lambda t, prefix: t)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
@@ -101,25 +117,28 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda", dtype=None):
             layer["moe"] = L.init_moe(gen, cfg, dtype=dt)
         else:
             layer["mlp"] = L.init_mlp(gen, cfg, dtype=dt)
-        layers.append(layer)
+        layers.append(keep(layer, f"layers/{len(layers)}"))
     embed = torch.randn((cfg.vocab, d), generator=gen, device=dev,
                         dtype=torch.float32) * 0.02
     params = {
-        "tok_embed": embed.to(dt),
+        "tok_embed": keep(embed.to(dt), "tok_embed"),
         "layers": layers,
         "final_norm": L.init_rms_norm(d, cfg, dev),
     }
+    del embed
     if not cfg.tie_embeddings:
-        params["lm_head"] = L.init_dense(gen, d, cfg.vocab, dtype=dt)
+        params["lm_head"] = keep(L.init_dense(gen, d, cfg.vocab, dtype=dt), "lm_head")
     return params
 
 
-def _embed(params, tokens, cfg: ModelConfig, visual=None):
+def _embed(params, tokens, cfg: ModelConfig, visual=None, tp=None):
     """Token embeddings (B, S, D); with ``visual`` (B, nv, D) on a config
     with visual tokens, the patch embeddings take the front of the
     sequence and the prompt's last nv embeddings drop, so the length
-    stays S (the reference's stub prefix)."""
-    x = params["tok_embed"][tokens].to(L.cdtype(cfg))
+    stays S (the reference's stub prefix).  Under a tensor-parallel plan
+    ``tp`` the lookup is vocabulary-parallel (``collectives``)."""
+    table = params["tok_embed"]
+    x = (table[tokens] if tp is None else tp.embed(table, tokens)).to(L.cdtype(cfg))
     if cfg.scale_embed:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
     if cfg.n_visual_tokens and visual is not None:
@@ -134,18 +153,36 @@ def _unembed_weight(params, cfg: ModelConfig):
     return L.maybe_dequant(params["lm_head"]["w"], cfg)
 
 
-def _block_mlp(lp, h, cfg: ModelConfig):
+def _logits(params, x, cfg: ModelConfig, tp=None):
+    """(..., D) final hidden states -> (..., V) f32 logits; under ``tp``
+    this rank's vocabulary columns gathered to full width."""
+    y = x @ _unembed_weight(params, cfg).to(x.dtype)
+    return y.to(torch.float32) if tp is None else tp.gather_vocab(y)
+
+
+def _row_parallel(y, tp, group: str):
+    """A product's partial sum over this rank's share of ``group``
+    (``"attn"``, ``"mlp"``, ``"moe"``), all-reduced under ``tp`` when
+    that group splits; else ``y`` itself."""
+    return tp.all_reduce(y) if tp is not None and getattr(tp, group) else y
+
+
+def _block_mlp(lp, h, cfg: ModelConfig, tp=None):
     """The feed-forward half of a block, dense or MoE (every position of
-    ``h`` routes, whatever its validity)."""
+    ``h`` routes, whatever its validity); under ``tp`` this rank's
+    ``d_ff`` columns or experts, then the all-reduce."""
     hn = L.rms_norm(lp["ln2"], h, cfg)
-    return h + (L.moe(lp["moe"], hn, cfg) if cfg.is_moe else L.mlp(lp["mlp"], hn, cfg))
+    if cfg.is_moe:
+        experts = None if tp is None else tp.expert_slice()
+        return h + _row_parallel(L.moe(lp["moe"], hn, cfg, experts=experts), tp, "moe")
+    return h + _row_parallel(L.mlp(lp["mlp"], hn, cfg), tp, "mlp")
 
 
 # ---------------------------------------------------------------------------
 # Whole-prompt attention (the unchunked prefill)
 # ---------------------------------------------------------------------------
 
-def _attn_forward(p, x, positions, cfg: ModelConfig, kv_mask):
+def _attn_forward(p, x, positions, cfg: ModelConfig, kv_mask, tp=None):
     """Causal self-attention over a whole (left-padded) prompt.  RoPE
     takes ``positions`` (B, S) (row-relative, negative on pad tokens);
     the causal mask runs on the padded coordinates and ``kv_mask``
@@ -168,7 +205,7 @@ def _attn_forward(p, x, positions, cfg: ModelConfig, kv_mask):
         out = L.flash_attention(q, k, v, causal=True, cfg=cfg, kv_mask=kv_mask,
                                 q_positions=q_pos)
         out = out.reshape(b, s, h * cfg.v_head_dim)
-        return L.dense(p["wo"], out, cfg), (c_kv, k_rope[:, :, 0, :])
+        return _wo(p, out, cfg, tp), (c_kv, k_rope[:, :, 0, :])
     q = L.dense(p["wq"], x, cfg).reshape(b, s, cfg.n_heads, cfg.head_dim)
     k = L.dense(p["wk"], x, cfg).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
     v = L.dense(p["wv"], x, cfg).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
@@ -177,13 +214,19 @@ def _attn_forward(p, x, positions, cfg: ModelConfig, kv_mask):
     out = L.flash_attention(q, k, v, causal=True, cfg=cfg, kv_mask=kv_mask,
                             q_positions=q_pos, window=cfg.sliding_window)
     out = out.reshape(b, s, cfg.n_heads * cfg.head_dim)
-    return L.dense(p["wo"], out, cfg), (k, v)
+    return _wo(p, out, cfg, tp), (k, v)
 
 
-def _block_forward(lp, x, positions, cfg: ModelConfig, kv_mask):
+def _wo(p, out, cfg: ModelConfig, tp):
+    """The attention's output projection; under ``tp`` this rank's heads'
+    rows, then the all-reduce."""
+    return _row_parallel(L.dense(p["wo"], out, cfg), tp, "attn")
+
+
+def _block_forward(lp, x, positions, cfg: ModelConfig, kv_mask, tp=None):
     a, kv = _attn_forward(lp["attn"], L.rms_norm(lp["ln1"], x, cfg), positions,
-                          cfg, kv_mask)
-    return _block_mlp(lp, x + a, cfg), kv
+                          cfg, kv_mask, tp)
+    return _block_mlp(lp, x + a, cfg, tp), kv
 
 
 # ---------------------------------------------------------------------------
@@ -373,7 +416,7 @@ def _ring_pack(kv, w: int):
 
 def prefill(params, tokens, cfg: ModelConfig, visual=None, *, max_len=None,
             prompt_lens=None, window_ring: bool = True, block_size: int = 0,
-            n_blocks: int = 0, block_tables=None):
+            n_blocks: int = 0, block_tables=None, tp=None):
     """Run whole prompts, return ``(cache, logits (B, V) f32)`` at the
     last position.
 
@@ -388,7 +431,8 @@ def prefill(params, tokens, cfg: ModelConfig, visual=None, *, max_len=None,
     arena blocks the tables name (``block_size``/``n_blocks`` size the
     arena; sentinel entries drop).  The KV values are the same in both
     layouts.  ``visual`` (B, nv, D) replaces the front of the embedded
-    sequence on a config with visual tokens (``_embed``)."""
+    sequence on a config with visual tokens (``_embed``).  ``tp``: this
+    rank's tensor-parallel plan, ``cfg`` then the rank-local config."""
     b, s = tokens.shape
     dev = tokens.device
     ml = s if max_len is None else int(max_len)
@@ -425,13 +469,12 @@ def prefill(params, tokens, cfg: ModelConfig, visual=None, *, max_len=None,
                     t = _ring_pack(t[None], cap)[0]
                 PT.signed_view(cache[key][li])[:, :t.shape[1]] = PT.signed_view(t)
 
-    x = _embed(params, tokens, cfg, visual)
+    x = _embed(params, tokens, cfg, visual, tp)
     for li, lp in enumerate(params["layers"]):
-        x, kv = _block_forward(lp, x, positions, cfg, kv_mask)
+        x, kv = _block_forward(lp, x, positions, cfg, kv_mask, tp)
         store(li, tuple(_maybe_quant_kv(t, cfg) for t in kv))
     x = L.rms_norm(params["final_norm"], x, cfg)
-    logits = x[:, -1, :] @ _unembed_weight(params, cfg).to(x.dtype)
-    return cache, logits.to(torch.float32)
+    return cache, _logits(params, x[:, -1, :], cfg, tp)
 
 
 def _chunk_virtual_tables(tables, lens, bs: int, window: int,
@@ -467,7 +510,7 @@ def _chunk_virtual_tables(tables, lens, bs: int, window: int,
 
 
 def prefill_chunk(params, cache, tokens, cfg: ModelConfig, n_valid, *,
-                  virtual_width: int, write_tables=None):
+                  virtual_width: int, write_tables=None, tp=None):
     """Append ``C`` prompt tokens per row to the paged cache.
 
     ``tokens`` (B, C): row b's next prompt tokens for positions
@@ -484,7 +527,8 @@ def prefill_chunk(params, cache, tokens, cfg: ModelConfig, n_valid, *,
     Fresh chunk KV (MLA: latents) is inserted into the gathered virtual
     buffer before attention (read pre-codec, as a whole-prompt prefill
     reads it) and KV blocks keep the fixed ``attn_chunk_kv`` grouping,
-    so every split of a prompt reduces in the same groups.
+    so every split of a prompt reduces in the same groups.  ``tp``: this
+    rank's tensor-parallel plan, ``cfg`` then the rank-local config.
     """
     b, c = tokens.shape
     dev = tokens.device
@@ -567,12 +611,12 @@ def prefill_chunk(params, cache, tokens, cfg: ModelConfig, n_valid, *,
         return out.reshape(b, c, cfg.n_heads * cfg.head_dim), (k_suf, v_suf)
 
     attend = attend_mla if cfg.mla else attend_dense
-    x = _embed(params, tokens, cfg)
+    x = _embed(params, tokens, cfg, tp=tp)
     fresh = ([], [])                        # each layer's chunk K/V
     for li, lp in enumerate(params["layers"]):
         out, new = attend(lp["attn"], L.rms_norm(lp["ln1"], x, cfg), li)
-        x = x + L.dense(lp["attn"]["wo"], out, cfg)
-        x = _block_mlp(lp, x, cfg)
+        x = x + _wo(lp["attn"], out, cfg, tp)
+        x = _block_mlp(lp, x, cfg, tp)
         for acc, t in zip(fresh, new):
             acc.append(t)
 
@@ -589,12 +633,11 @@ def prefill_chunk(params, cache, tokens, cfg: ModelConfig, n_valid, *,
     x = L.rms_norm(params["final_norm"], x, cfg)
     last_idx = (n_valid - 1).clamp(0, c - 1)
     last = x[torch.arange(b, device=dev), last_idx]          # (B, D)
-    logits = last @ _unembed_weight(params, cfg).to(x.dtype)
-    return new_cache, logits.to(torch.float32)
+    return new_cache, _logits(params, last, cfg, tp)
 
 
 def _decode_attn_dense_paged(p, x, k_arena, v_arena, tables, lens, slots,
-                             cfg: ModelConfig):
+                             cfg: ModelConfig, tp=None):
     """One layer of paged dense/GQA decode: write the row's new K/V at
     ``lens[b]`` (``slots`` from ``layers.paged_write_slots``), then attend
     straight off the block tables."""
@@ -611,11 +654,11 @@ def _decode_attn_dense_paged(p, x, k_arena, v_arena, tables, lens, slots,
         q, k_arena, v_arena, tables, lens, cfg=cfg, kv_posit=cfg.kv_posit,
         window=window, kernel=cfg.paged_attn_kernel)
     out = out.reshape(b, 1, cfg.n_heads * cfg.head_dim)
-    return L.dense(p["wo"], out, cfg)
+    return _wo(p, out, cfg, tp)
 
 
 def _decode_attn_mla_paged(p, x, c_arena, r_arena, tables, lens, slots,
-                           cfg: ModelConfig):
+                           cfg: ModelConfig, tp=None):
     """One layer of paged absorbed-matrix MLA decode: write the row's new
     latent and RoPE key at ``lens[b]``, absorb ``q_nope`` through ``wuk``
     into latent space, attend off the block tables, then apply ``wuv``.
@@ -644,14 +687,16 @@ def _decode_attn_mla_paged(p, x, c_arena, r_arena, tables, lens, slots,
         rank, h, cfg.v_head_dim)
     out = torch.einsum("bhr,rhv->bhv", ctx, wuv)
     out = out.reshape(b, 1, h * cfg.v_head_dim).to(x.dtype)
-    return L.dense(p["wo"], out, cfg)
+    return _wo(p, out, cfg, tp)
 
 
-def _decode_step_paged(params, cache, token, cfg: ModelConfig, active):
+def _decode_step_paged(params, cache, token, cfg: ModelConfig, active, tp=None):
     """Paged decode: every row writes at its own position ``lens[b]``;
     inactive rows' writes are dropped and their ``lens`` frozen, and so
     are writes past ``max_len``.  One set of write slots serves every
-    layer and both arena leaves."""
+    layer and both arena leaves.  ``tp``: this rank's tensor-parallel
+    plan, ``cfg`` then the rank-local config (the arena holds this
+    rank's heads, so the write and the read stay rank-local)."""
     b = token.shape[0]
     dev = token.device
     lens = cache["lens"].to(torch.int32)
@@ -664,15 +709,14 @@ def _decode_step_paged(params, cache, token, cfg: ModelConfig, active):
     slots = L.paged_write_slots(tables, lens, ok, n_blocks=nb, block_size=bs,
                                 window=_paged_window(cfg))
     attend = _decode_attn_mla_paged if cfg.mla else _decode_attn_dense_paged
-    x = _embed(params, token[:, None], cfg)
+    x = _embed(params, token[:, None], cfg, tp=tp)
     for li, lp in enumerate(params["layers"]):
         x = x + attend(lp["attn"], L.rms_norm(lp["ln1"], x, cfg),
-                       cache[k1][li], cache[k2][li], tables, lens, slots, cfg)
-        x = _block_mlp(lp, x, cfg)
+                       cache[k1][li], cache[k2][li], tables, lens, slots, cfg, tp)
+        x = _block_mlp(lp, x, cfg, tp)
     new_cache = dict(cache, lens=lens + adv)
     x = L.rms_norm(params["final_norm"], x, cfg)
-    logits = x[:, 0, :] @ _unembed_weight(params, cfg).to(x.dtype)
-    return logits.to(torch.float32), new_cache
+    return _logits(params, x[:, 0, :], cfg, tp), new_cache
 
 
 def _decode_attn_dense(p, x, k_cache, v_cache, pos: int, lens, slots,

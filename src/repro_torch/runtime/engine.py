@@ -23,7 +23,13 @@ the cache geometry and the sampler:
   blocks from a host-side ``kvcache.BlockPool``), with token streams
   identical to the linear layout's; a paged engine also serves chunked
   prefill through :meth:`Engine.mixed_step` (one prefill chunk for every
-  row, then ``n_steps`` masked decode steps).
+  row, then ``n_steps`` masked decode steps);
+* ``mesh=`` (a ``("data", "model")`` ``DeviceMesh`` from
+  ``launch.mesh``) serves tensor-parallel on the paged schedulers: each
+  rank keeps its shard of the weights (``runtime/sharding.py``), a
+  head-sharded arena and the rank-local config, and the forward adds
+  the collectives GSPMD inserts in the reference
+  (``runtime/collectives.py``); token streams are the single device's.
 
 PyTorch runs eagerly: the reference's one ``lax.scan`` per generation
 is a loop of decode steps here, and ``n_compiles`` counts the dispatch
@@ -55,6 +61,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.registry import get_family
+from repro_torch.runtime import sharding
 
 
 def sample_token(logits, gen: torch.Generator, temperature: float):
@@ -83,7 +90,7 @@ class Engine:
                  temperature: float = 0.0, seed: int = 0, pad_id: int = 0,
                  paged: bool = False, block_size: int = 16, n_blocks: int = 0,
                  sanitize: bool = False, decode_kernel: str = None,
-                 device="cuda"):
+                 device="cuda", mesh=None):
         """``paged=True`` takes the block-table layout: prefill allocates
         arena blocks per row from a ``BlockPool`` instead of reserving
         ``batch x max_len`` slots.  ``n_blocks`` sizes the shared arena
@@ -95,7 +102,17 @@ class Engine:
         engines only): ``'gather'`` (plain torch) or ``'fused'`` (the
         CUDA table-walk kernels); it threads through
         ``cfg.paged_attn_kernel``.  ``params`` must already live on
-        ``device``."""
+        ``device``.
+
+        ``mesh`` (a ``DeviceMesh`` with a ``"model"`` axis, e.g.
+        ``launch.mesh.make_host_mesh``) serves tensor-parallel: the
+        weights are cut to this rank's shard by the rule table (leaves
+        already at their local shape stay), ``self.cfg`` becomes the
+        rank-local config (this rank's heads and ``d_ff``), paged pool
+        caches hold this rank's KV heads (:meth:`init_cache`) and every
+        model call carries the plan ``self.tp``.  Paged engines of the
+        transformer family only; without a mesh, or with a ``"model"``
+        axis of size 1, nothing changes."""
         self.device = resolve_device(device)
         if decode_kernel is not None:
             if decode_kernel not in ("gather", "fused"):
@@ -112,8 +129,15 @@ class Engine:
             raise ValueError(
                 f"params live on {params['tok_embed'].device}, engine "
                 f"device is {self.device}")
-        self.cfg = cfg
-        self.params = params
+        self.mesh = mesh
+        self.tp = sharding.tensor_parallel(cfg, mesh)
+        if self.tp is not None and not paged:
+            raise NotImplementedError(
+                "tensor-parallel serving covers the paged schedulers only: the "
+                "one-shot engine and the dense-cache scheduler on linear caches "
+                "wait for ROADMAP.md Queue 1 item 6")
+        self.cfg = sharding.local_config(cfg, self.tp)
+        self.params = sharding.shard_params(params, mesh, cfg)
         self.max_len = int(max_len)
         self.temperature = float(temperature)
         self.pad_id = int(pad_id)
@@ -148,10 +172,29 @@ class Engine:
 
     def init_cache(self, n_slots: int):
         """Empty paged pool cache for ``n_slots`` rows on the engine's
-        device."""
+        device.  Under a mesh, only this rank's arena: the rank-local
+        config's KV heads (all of them where they do not split, and the
+        MLA latents whole), never the whole arena."""
         return T.init_paged_cache(
             self.cfg, n_slots, self.max_len, self.block_size,
             self.n_blocks or n_slots * self.table_width, device=self.device)
+
+    def cache_shards(self) -> dict:
+        """``{leaf: ranks it is split over}`` of this engine's paged cache
+        (``kvcache.cache_report``'s ``shards``): the dense arenas when
+        the KV heads split, nothing otherwise."""
+        return {"k": self.tp.size, "v": self.tp.size} if self.tp is not None \
+            and self.tp.kv else {}
+
+    def sample(self, logits):
+        """(B, V) f32 logits -> (B,) int32 tokens (:func:`sample_token`
+        with the engine's generator and temperature).  Under a mesh,
+        sampling at a temperature takes rank 0's draw on every rank;
+        greedy tokens are the argmax of logits every rank holds whole."""
+        tok = sample_token(logits, self.gen, self.temperature)
+        if self.tp is not None and self.temperature > 0.0:
+            tok = self.tp.broadcast(tok)
+        return tok
 
     # ------------------------------------------------------------------
     # prompt packing and prefill
@@ -232,6 +275,8 @@ class Engine:
             kw.update(block_tables=tables, block_size=self.block_size, n_blocks=nb)
         if ragged:
             kw["prompt_lens"] = torch.as_tensor(lens, device=dev)
+        if self.tp is not None:
+            kw["tp"] = self.tp
         self._dispatch_keys.add(key + (nb, b, s))
         cache, logits = self.fam.prefill(
             self.params, torch.as_tensor(tokens, dtype=torch.int64, device=dev),
@@ -248,9 +293,10 @@ class Engine:
         as the reference's traced scan relies on).  ``active`` reaches
         only the families that take it (``masked``)."""
         if self.cfg.family == "transformer":
-            step = T._decode_step_paged if "block_tables" in cache \
-                else T._decode_step_linear
-            return step(self.params, cache, tok, self.cfg, active)
+            if "block_tables" in cache:
+                return T._decode_step_paged(self.params, cache, tok, self.cfg, active,
+                                            tp=self.tp)
+            return T._decode_step_linear(self.params, cache, tok, self.cfg, active)
         if self.masked:
             return self.fam.decode_step(self.params, cache, tok, self.cfg,
                                         active=active)
@@ -287,7 +333,7 @@ class Engine:
         toks = torch.zeros((b, int(n_steps)), dtype=torch.int64, device=dev)
         for i in range(int(n_steps)):
             logits, cache = self._step(cache, tok, active_t)
-            tok = sample_token(logits, self.gen, self.temperature)
+            tok = self.sample(logits)
             toks[:, i] = tok
         return cache, toks
 
@@ -300,6 +346,10 @@ class Engine:
 
     def _generate(self, prompts, max_new_tokens: int, stepwise: bool, frames,
                   visual):
+        if self.tp is not None:
+            raise NotImplementedError(
+                "tensor-parallel serving covers the paged schedulers only: the "
+                "one-shot generate waits for ROADMAP.md Queue 1 item 6")
         tokens, _ = self.pack_prompts(prompts)
         self._check_fits(tokens.shape[1], max_new_tokens)
         cache, logits, lens = self.prefill(prompts, frames=frames, visual=visual,
@@ -390,7 +440,7 @@ class Engine:
             cache, chunk_logits = T.prefill_chunk(
                 self.params, cache, chunk_tokens, self.cfg,
                 torch.as_tensor(nv, device=dev), virtual_width=vw,
-                write_tables=write_tables)
+                write_tables=write_tables, tp=self.tp)
         toks = torch.zeros((b, int(n_steps)), dtype=torch.int64, device=dev)
         if act.any():
             tok = torch.as_tensor(np.asarray(tokens), dtype=torch.int64,
@@ -398,8 +448,8 @@ class Engine:
             active = torch.as_tensor(act, device=dev)
             for i in range(int(n_steps)):
                 logits, cache = T._decode_step_paged(
-                    self.params, cache, tok, self.cfg, active)
-                tok = sample_token(logits, self.gen, self.temperature)
+                    self.params, cache, tok, self.cfg, active, tp=self.tp)
+                tok = self.sample(logits)
                 toks[:, i] = tok
         return cache, chunk_logits, toks
 

@@ -60,6 +60,13 @@ equal the reference scheduler's in every mode.
 
 Time is counted in decode steps (the simulation clock); each round is
 also wall-timed (``stats['step_wall_p50_ms']``/``['step_wall_p99_ms']``).
+
+Under a tensor-parallel engine (``Engine(mesh=)``, the paged modes) every
+rank runs its own scheduler over its shard.  Its decisions read only host
+state and the sampled tokens, which are equal on every rank (the argmax
+of full-width logits, or rank 0's draw: ``Engine.sample``), so every
+rank reaches rank 0's schedule; the arenas are only ever addressed by
+block ids, which name one slice of KV heads on each rank.
 """
 from __future__ import annotations
 
@@ -73,7 +80,7 @@ import torch
 
 from repro_torch.compress import kvcache as kvc
 from repro_torch.models import transformer as T
-from .engine import Engine, sample_token
+from .engine import Engine
 
 
 @dataclasses.dataclass
@@ -410,8 +417,7 @@ class Scheduler:
             self._tables, device=self.engine.device))
 
     def _first_token(self, logits) -> int:
-        return int(sample_token(logits, self.engine.gen,
-                                self.engine.temperature)[0])
+        return int(self.engine.sample(logits)[0])
 
     def _admit_paged(self, req: Request, row: int):
         """Unchunked paged admission: a batch-1 linear prefill (the KV an

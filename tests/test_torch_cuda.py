@@ -228,11 +228,13 @@ def _mla_case(kv, b, h, w, layout="permuted"):
 
 @pytest.mark.parametrize("kv", [None, "bf16", "posit16", "posit8"])
 @pytest.mark.parametrize("b,h,w,layout", [(4, 12, 6, "identity"), (4, 12, 6, "permuted"),
-                                          (8, 40, 64, "permuted")],
-                         ids=["h12-w6-identity", "h12-w6", "minicpm3-h40-w64"])
+                                          (8, 40, 64, "permuted"), (8, 20, 64, "permuted")],
+                         ids=["h12-w6-identity", "h12-w6", "minicpm3-h40-w64",
+                              "minicpm3-mp2-h20-w64"])
 @pytest.mark.parametrize("chunk", [None, 1, 3], ids=["auto", "c1", "c3"])
 def test_paged_attention_mla_matches_plain_on_card(dev, kv, b, h, w, layout, chunk):
-    """H 12 (a partial last head group) and minicpm3-4b's H 40 at W 64;
+    """H 12 (a partial last head group), minicpm3-4b's H 40 at W 64 and a
+    rank's 20 of them under tensor parallelism at mp 2;
     the wrapper's own split and forced ones (a split per entry, and runs
     of 3, no divisor of W); a sentinel tail, a hole and an all-masked row
     (see :func:`_mla_case`)."""
@@ -866,16 +868,19 @@ def test_gemm_kernel_plans_and_scalar_paths_on_card(dev, plan, aligned):
 
 @pytest.mark.parametrize("kv", [None, "posit16", "posit8"])
 @pytest.mark.parametrize("g,r,d", [(16, 1, 256), (1, 48, 128), (8, 3, 64), (2, 7, 64),
-                                   (8, 6, 128)],
+                                   (8, 6, 128), (5, 4, 128), (1, 24, 128)],
                          ids=["gemma-g16-r1-d256", "granite34b-g1-r48", "granite-moe-g8-r3",
-                              "internvl-g2-r7", "dbrx-g8-r6"])
+                              "internvl-g2-r7", "dbrx-g8-r6", "phi3-mp2-g5-r4",
+                              "granite34b-mp2-g1-r24"])
 @pytest.mark.parametrize("chunk", [None, 1, 3], ids=["auto", "c1", "c3"])
 def test_paged_attention_arch_shapes_on_card(dev, kv, g, r, d, chunk):
     """``paged_attn.cu`` at the architectures' head shapes: head_dim 256
     (the ``Dv > 128`` instantiation), MQA's 48 query heads on one KV head
     (six head groups), and R 3, 6 and 7 (heads that do not fill a
-    warp's pairs), over several splits, sentinel runs and an all-masked
-    row; within 1e-5 of the plain version."""
+    warp's pairs), and a rank's heads under tensor parallelism at mp 2
+    (phi3's 5 KV heads of 4 query heads; granite-34b's 24 query heads on
+    its replicated KV head), over several splits, sentinel runs and an
+    all-masked row; within 1e-5 of the plain version."""
     args, pcfg = _split_case(kv, d, 16, 0, r, g=g)
     ref = K.paged_decode_attention_plain(*args, pcfg=pcfg, window=0)
     on = [t.to(dev) for t in args]
@@ -891,12 +896,14 @@ def test_paged_attention_arch_shapes_on_card(dev, kv, g, r, d, chunk):
 
 @pytest.mark.parametrize("cfg", [POSIT16, POSIT8], ids=["posit16", "posit8"])
 @pytest.mark.parametrize("src", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("feat", [(16, 256), (1, 128)], ids=["w4096-gemma", "w128-granite34b"])
+@pytest.mark.parametrize("feat", [(16, 256), (1, 128), (5, 128)],
+                         ids=["w4096-gemma", "w128-granite34b", "w640-phi3-mp2"])
 def test_paged_write_and_read_at_arch_widths_on_card(dev, cfg, src, feat):
     """The fused write (a decode step's K and V of 8 rows, one with a
     dropped slot; a prefill leaf of 4 layers x 64 rows) and the fused
-    read of a layer's two leaves at gemma's KV width 4 096 and
-    granite-34b's 128, bit for bit against their plain versions."""
+    read of a layer's two leaves at gemma's KV width 4 096,
+    granite-34b's 128 and a phi3 rank's 640 at mp 2 (5 of its 10 KV
+    heads), bit for bit against their plain versions."""
     rng = np.random.default_rng(cfg.nbits + feat[0])
     gen = torch.Generator(device=dev).manual_seed(feat[0])
     nb, bs, b, vw = 48, 16, 4, 8

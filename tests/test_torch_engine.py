@@ -482,9 +482,7 @@ def test_quantize_dequantize_cache_match_reference():
         _assert_same_cache(kvc.dequantize_cache(got, name),
                            jax.tree.map(np.asarray, RKV.dequantize_cache(want, name)))
         assert kvc.cache_bytes(got) == RKV.cache_bytes(want)
-        assert kvc.cache_report(got) == {
-            k: v for k, v in RKV.cache_report(want).items()
-            if k != "per_device_bytes"}
+        assert kvc.cache_report(got) == RKV.cache_report(want)
     with pytest.raises(ValueError, match="conv_state"):
         kvc.quantize_cache({"k": torch.zeros((4, 8)),
                             "conv_state": torch.zeros((4,))}, "posit16")

@@ -43,8 +43,8 @@ paths at full size and checks that every kernel of each path ran there:
   at full width and depth, its window replaced by 64 so that it wraps
   in the smoke's time (every decode step writes ring slot ``pos % 64``
   of every window layer and nothing else);
-- the paged sliding-window lane: phi3-medium-14b at full width and
-  depth on the chunked trace with ``sliding_window`` replaced by 128
+- the paged sliding-window lane: phi3-medium-14b at full width and 20
+  of its 40 layers on the chunked trace with ``sliding_window`` replaced by 128
   (``WINDOW_PATH``; the published config has none), exact launch counts,
   every decode read exactly the window, fused == gather on the served
   weights;
@@ -65,6 +65,19 @@ paths at full size and checks that every kernel of each path ran there:
   2 timed at the optimizer's leaves), and (T2) two steps of
   minicpm3-4b, granite-moe-3b-a800m, hymba-1.5b, rwkv6-7b (16 of 32
   layers) and whisper-tiny (``TRAIN_FAMILIES``);
+- (k) training across ranks, a process of its own (``--phase
+  train-ranks``), two ranks sharing the card over gloo (so no wall is
+  a multi-card speed): (k1) (T)'s gemma-7b, seed, data and schedule
+  through ``make_train_step`` on a ``(1, 2)`` mesh, every group split,
+  three steps held to (T)'s losses and gradient norms, rows 1 and 2
+  once a leaf a step on each rank; (k2) internvl2-1b at full width and
+  depth through the pod-compressed step on two pods of 4 x 512 (only
+  posit16 patterns on the pod wire, two bytes an element, from the
+  collectives' counter; non-zero error feedback; step 0's loss equal to
+  an uncompressed data-parallel step's; exact codec launches; rows 1 and
+  2 at the wire's leaves against their plain versions, timed); (k3) its
+  state after two steps restored on one rank bit for bit, the third
+  step from it giving the ranks' loss;
 - the PVU ISA (``posit_ew.cu``, ``posit_dot.cu``, ``posit_qgemm.cu``,
   ``posit_gemm.cu``): the paper's verification workload
   (``configs/pvu_resnet_conv.py``, the ResNet-18 first conv on 8 images
@@ -77,6 +90,7 @@ paths at full size and checks that every kernel of each path ran there:
     python3 chip_smoke.py --phase train            # (T) alone (kernels built)
     python3 chip_smoke.py --phase train-families   # (T2) alone
     python3 chip_smoke.py --phase tp               # (j) alone
+    python3 chip_smoke.py --phase train-ranks      # (k) alone
     python3 chip_smoke.py --ptxas  # only: -Xptxas -v (registers, shared
                                    # memory, spills) of paged_attn.cu,
                                    # paged_attn_mla.cu, posit_gemm.cu,
@@ -109,6 +123,7 @@ from __future__ import annotations
 
 import gc
 import json
+import math
 import multiprocessing
 import os
 import shutil
@@ -1652,9 +1667,11 @@ def check_hymba_ring(dev):
 # phi3-medium-14b's published config has no window, and the command line
 # no window flag: the lane replaces it by WINDOW (dataclasses.replace, as
 # check_hymba_ring does), so that every prompt of _TRACE (256-512 tokens)
-# outgrows the window; full width and depth
+# outgrows the window; full width, 20 of its 40 layers (the smoke's time:
+# the lane's reads are per layer, so half the depth checks the same ring)
 WINDOW = 128
-WINDOW_PATH = ("phi3-medium-14b-window", ["--arch", "phi3-medium-14b"] + _TRACE)
+WINDOW_PATH = ("phi3-medium-14b-window",
+               ["--arch", "phi3-medium-14b", "--n-layers", "20"] + _TRACE)
 
 
 def check_main_counts(name, res, counts, steps, chunks, kernels):
@@ -2029,15 +2046,15 @@ def _codec_at(x, m, plain_q, plain_dq):
         fail(f"the codec differs from its plain version at {tuple(x.shape)}")
     del q, d
     out = {}
-    for kind, fn, call, plain in (
-            ("quantize", lambda: C.quantize(x, POSIT16), C.quantize_call(x, POSIT16)[0],
+    for kind, t, fn, call, plain in (
+            ("quantize", x, lambda: C.quantize(x, POSIT16), C.quantize_call(x, POSIT16)[0],
              lambda: plain_q(x)),
-            ("dequantize", lambda: C.dequantize(m, POSIT16),
+            ("dequantize", m, lambda: C.dequantize(m, POSIT16),
              C.dequantize_call(m, POSIT16)[0], lambda: plain_dq(m))):
-        out[kind] = dict(shape=list(x.shape), ms=time_ms(fn, iters=5),
+        out[kind] = dict(shape=list(t.shape), ms=time_ms(fn, iters=5),
                          kernel_ms=kernel_alone_ms(call, n=10),
                          plain_ms=time_ms(plain, iters=1, warmup=1),
-                         bound_ms=x.numel() * 6 / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
+                         bound_ms=t.numel() * 6 / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
     return out
 
 
@@ -2063,10 +2080,15 @@ def train_phase(dev):
     try:
         reset_counts()
         torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        res = train.main(TRAIN_ARGV + ["--ckpt-dir", ckdir])
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        leaf_sq, update = [], adamw.update
+        adamw.update = _recording_update(leaf_sq)      # (k1)'s per-leaf norms
+        try:
+            t0 = time.perf_counter()
+            res = train.main(TRAIN_ARGV + ["--ckpt-dir", ckdir])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            adamw.update = update
         counts = read_counts()
         peak = torch.cuda.max_memory_allocated() / 2**30
         params, opt_state = res.state
@@ -2185,7 +2207,9 @@ def train_phase(dev):
         return dict(counts=counts, codec=codec, n_leaves=n_leaves, n_params=n_params,
                     n_mult=n_mult, step_p50_s=p50, step_max_s=float(walls.max()),
                     tokens_per_s=tokens / p50, mfu=mfu, peak_gib=peak, update_s=upd_s,
-                    save=save, restore_s=t_restore, losses=res.losses)
+                    save=save, restore_s=t_restore, losses=res.losses,
+                    grad_norms=res.grad_norms, walls=res.step_walls,
+                    leaf_sq=[r.tolist() for r in leaf_sq])
     finally:
         shutil.rmtree(ckdir, ignore_errors=True)
 
@@ -2262,7 +2286,399 @@ def tp_phase(dev):
     return {"counts": counts, "report": report}
 
 
-PHASES = {"train": train_phase, "train-families": train_families_phase, "tp": tp_phase}
+# ---------------------------------------------------------------------------
+# (k) training across ranks: two ranks sharing the one card over gloo
+# (NCCL refuses two ranks on one device), so no wall here is a
+# multi-card speed
+# ---------------------------------------------------------------------------
+
+RANK_DEVICES = ["cuda:0", "cuda:0"]
+RANK_STEPS = 3
+# (k1) against (T): bf16 compute, the row-parallel partials rounded to
+# bf16 before their f32 all-reduce, one rounding more than one device's
+# product.  The loss is a mean over 16 352 token losses and the norms
+# sum millions of squares, so those roundings average out: the sound
+# runs read at most 1.3e-5 (loss) and 2.9e-5 (global norm) relative,
+# and the limits are a few times that.  Steps 1-2 hardly move the
+# weights (the warm-up gives step i a rate of i/100 of 3e-4), so the
+# gradient norms carry the check of the backward: besides the global
+# one, those of the leaves below, each of its own group (a replicated
+# norm scale, the vocabulary-split tied embedding, the column-split
+# wq and wk, the row-split wo, an MLP weight, the final norm); a sound
+# run reads at most 1.7e-4 on them.  A gradient doubled, halved or left
+# partial moves its leaf's norm by a large fraction, far past the limit
+K1_LOSS_RTOL, K1_GNORM_RTOL, K1_LEAF_RTOL = 1e-4, 2e-4, 1e-3
+K1_LEAVES = ("tok_embed", "layers/0/ln1/scale", "layers/0/attn/wq/w", "layers/0/attn/wk/w",
+             "layers/0/attn/wo/w", "layers/7/mlp/wg/w", "final_norm/scale")
+# (k2) internvl2-1b at full width and depth, the compressed gate's
+# configuration: visual tokens off, posit16 on the pod wire, 2 pods of
+# 4 x 512 rows; (k3) restores its state after two steps on one rank
+POD_ARCH, POD_SEED, POD_BATCH, POD_SEQ, N_PODS = "internvl2-1b", 9, 8, 512, 2
+POD_REDUCED = False            # a CPU rehearsal shrinks (k2) to the reduced config
+# the same loss on other row groupings (pods of 4 rows, microbatches of
+# 2), each a mean over thousands of bf16 token losses: a sound run
+# reads 7.9e-8 relative, the limit leaves room for another GEMM tiling
+POD_LOSS_RTOL = 1e-5
+
+
+def _recording_update(record):
+    """``adamw.update`` that first appends, to ``record``, the f32 sum
+    of squares of each ``K1_LEAVES`` leaf's gradient (this rank's piece
+    of a split one), as one device tensor: no host sync in the step."""
+    from repro_torch import tree as TT
+    from repro_torch.optim import adamw
+    update = adamw.update
+
+    def recording(grads, *args, **kw):
+        named = dict(TT.leaves_with_paths(grads))
+        record.append(torch.stack([torch.sum(torch.square(named[p].float()))
+                                   for p in K1_LEAVES]))
+        return update(grads, *args, **kw)
+    return recording
+
+
+def _rank_device(devices):
+    import torch.distributed as dist
+    return torch.device(devices[dist.get_rank()])
+
+
+def _sync_peak(dev, reset=False):
+    """Peak device memory in GiB (0 on the CPU); ``reset`` starts anew."""
+    if dev.type != "cuda":
+        return 0.0
+    torch.cuda.synchronize(dev)
+    if reset:
+        torch.cuda.reset_peak_memory_stats(dev)
+    return torch.cuda.max_memory_allocated(dev) / 2**30
+
+
+def k1_rank(argv, devices, steps):
+    """(k1) one rank: (T)'s model, seed, data, schedule and moments
+    (``argv``, (T)'s command line) through ``make_train_step`` on a
+    ``(1, 2)`` mesh, every group split at 2.  Returns its losses,
+    gradient norms, step walls, launches, leaves and peak memory."""
+    from repro_torch import tree as TT
+    from repro_torch.data.pipeline import DataConfig, Pipeline
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import get_family
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import collectives, sharding, train_loop
+
+    dev = _rank_device(devices)
+    args = train.build_parser().parse_args(argv)
+    cfg = train.model_config(args)
+    mesh = make_mesh((1, 2), ("data", "model"), dev.type)
+    tp = sharding.tensor_parallel(cfg, mesh)
+    if not all((tp.attn, tp.kv, tp.mlp, tp.vocab)):
+        fail(f"(k1) a group of gemma-7b does not split at 2: {tp}")
+    reset_counts()
+    _sync_peak(dev, reset=True)
+    t0 = time.perf_counter()
+    params = get_family(cfg).init_params(
+        cfg, seed=0, device=dev, dtype=torch.float32,
+        shard=lambda t, prefix: sharding.shard_params(t, mesh, cfg, prefix))
+    opt_cfg = adamw.AdamWConfig(lr=args.lr, posit_moments=args.posit_moments)
+    opt = adamw.init(params, opt_cfg)
+    step = train_loop.make_train_step(cfg, opt_cfg, total_steps=args.steps, mesh=mesh)
+    pipe = Pipeline(DataConfig(source=args.data, path=args.corpus), cfg, args.batch,
+                    args.seq, device=dev)
+    collectives.wire.clear()
+    losses, gnorms, walls, leaf_sq, update = [], [], [], [], adamw.update
+    adamw.update = _recording_update(leaf_sq)
+    try:
+        for i in range(steps):
+            t1 = time.perf_counter()
+            params, opt, m = step(params, opt, pipe.batch_at(i), i)
+            losses.append(float(m["loss"]))
+            gnorms.append(float(m["grad_norm"]))
+            walls.append(time.perf_counter() - t1)
+    finally:
+        adamw.update = update
+    peak = _sync_peak(dev)
+    leaves = TT.leaves(params)
+    split = dict(zip((p for p, _ in TT.leaves_with_paths(params)),
+                     sharding.split_leaves(params, cfg, mesh)))
+    return dict(losses=losses, grad_norms=gnorms, walls=walls, counts=read_counts(),
+                leaf_sq=[r.tolist() for r in leaf_sq], leaf_split=[split[p] for p in K1_LEAVES],
+                n_leaves=len(leaves), n_params=sum(p.numel() for p in leaves),
+                wall=time.perf_counter() - t0, wire={"/".join(k): v for k, v in
+                                                     collectives.wire.items()},
+                peak_gib=peak)
+
+
+def _pod_config(reduced=False):
+    import dataclasses
+
+    from repro_torch import configs
+    cfg = configs.get_config(POD_ARCH)
+    if reduced:
+        cfg = cfg.reduced(compute_dtype="float32")
+    return dataclasses.replace(cfg, n_visual_tokens=0, fsdp=False,
+                               seq_shard_activations=False, grad_compress="posit16")
+
+
+def _state_bits_equal(a, b):
+    from repro_torch import tree as TT
+    la, lb = TT.leaves(a), TT.leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and x.shape == y.shape
+        and torch.equal(_bits(x).to(y.device), _bits(y)) for x, y in zip(la, lb))
+
+
+def k2_rank(ckdir, devices, steps, reduced=False):
+    """(k2) and (k3), one rank of pod 2: an uncompressed data-parallel
+    step 0's loss; ``steps`` pod-compressed steps (a rank a pod), the
+    state saved after two; rank 0 restores it, checks it bit for bit,
+    and after the ranks' last step runs that step on one device from
+    the restored state.  Returns the losses, walls, launches (init
+    and the steps; the save and restore launch nothing), the wire, the
+    error feedback's state and, on rank 0, rows 1 and 2 at the wire's
+    leaves and the restore's numbers."""
+    import torch.distributed as dist
+
+    from repro_torch import tree as TT
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.compress import gradient
+    from repro_torch.core.convert import f32_to_posit, posit_to_f32
+    from repro_torch.core.types import POSIT16
+    from repro_torch.data.pipeline import DataConfig, Pipeline
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import get_family
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import collectives, train_loop
+
+    dev = _rank_device(devices)
+    rank = dist.get_rank()
+    cfg = _pod_config(reduced)
+    _sync_peak(dev, reset=True)
+    params = get_family(cfg).init_params(cfg, seed=0, device=dev, dtype=torch.float32)
+    pipe = Pipeline(DataConfig(seed=POD_SEED), cfg, POD_BATCH, POD_SEQ, device=dev)
+
+    # the loss of an uncompressed data-parallel step 0 (data 2)
+    dp = make_mesh((2, 1), ("data", "model"), dev.type)
+    dp_loss, _ = train_loop.make_grad_fn(cfg, dp)(params, pipe.batch_at(0))
+    dp_loss = float(dp_loss)
+    for p in TT.leaves(params):
+        p.grad = None
+
+    mesh = make_mesh((N_PODS, 1, 1), ("pod", "data", "model"), dev.type)
+    opt_cfg = adamw.AdamWConfig(posit_moments=True)
+    reset_counts()
+    opt = adamw.init(params, opt_cfg)
+    ef = gradient.init_error_state(params)
+    step = train_loop.make_train_step(cfg, opt_cfg, n_pods=N_PODS, compressed=True,
+                                      mesh=mesh)
+    ckpt = Checkpointer(ckdir, keep=1, mesh=mesh)
+    collectives.wire.clear()
+    losses, gnorms, walls, out = [], [], [], {}
+    for i in range(steps):
+        if i == steps - 1:                     # (k3): the state after two steps
+            state = {"params": params, "opt": opt}
+            t1 = time.perf_counter()
+            ckpt.save(i, state)
+            out["save_s"] = time.perf_counter() - t1
+            if rank == 0:
+                t1 = time.perf_counter()
+                restored, at = Checkpointer(ckdir, keep=1).restore(i, state, device=dev)
+                out["restore_s"] = time.perf_counter() - t1
+                out["restored_equal"] = at == i and _state_bits_equal(restored, state)
+                out["save_bytes"] = ckpt.last_save.get("bytes")
+            dist.barrier()
+        batch = pipe.batch_at(i)
+        tiled = {k: v.reshape((N_PODS, POD_BATCH // N_PODS) + tuple(v.shape[1:]))
+                 for k, v in batch.items()}
+        t1 = time.perf_counter()
+        params, opt, ef, m = step(params, opt, ef, tiled, i)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+        walls.append(time.perf_counter() - t1)
+    peak = _sync_peak(dev)
+    out.update(losses=losses, grad_norms=gnorms, walls=walls, counts=read_counts(),
+               dp_loss=dp_loss, n_leaves=len(TT.leaves(params)),
+               n_elems=sum(p.numel() for p in TT.leaves(params)),
+               wire={"/".join(k): v for k, v in collectives.wire.items()},
+               ef_nonzero=any(bool(torch.any(e != 0)) for e in TT.leaves(ef)),
+               peak_gib=peak)
+    if rank == 0:
+        # rows 1 and 2 at the wire's leaves: the embedding's and an MLP
+        # weight's residual-fed gradient, and their gathered patterns
+        plain_q = _plain_codec(lambda x: f32_to_posit(x, POSIT16), POSIT16.storage_dtype)
+        plain_dq = _plain_codec(lambda p: posit_to_f32(p, POSIT16), torch.float32)
+        from repro_torch.kernels import posit_codec as C
+        codec = {}
+        for key, e, p in (("embedding", ef["tok_embed"], params["tok_embed"]),
+                          ("mlp_wi", ef["layers"][0]["mlp"]["wi"]["w"],
+                           params["layers"][0]["mlp"]["wi"]["w"])):
+            x = (e + p * 1e-3).contiguous()
+            q = C.quantize(x, POSIT16)
+            g = torch.stack([q, C.quantize((x * 0.5).contiguous(), POSIT16)])
+            codec[key] = _codec_at(x, g, plain_q, plain_dq)
+            del x, q, g
+        out["codec"] = codec
+        # (k3): the ranks' last step, on one device from the restored state
+        del params, opt, ef, state
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        one = train_loop.make_train_step(cfg, opt_cfg)
+        before = read_counts()
+        _, _, m = one(restored["params"], restored["opt"], pipe.batch_at(steps - 1),
+                      steps - 1)
+        out["restored_loss"] = float(m["loss"])
+        out["restored_counts"] = {k: v - before[k] for k, v in read_counts().items()}
+        del restored
+    dist.barrier()
+    return out
+
+
+def train_ranks_phase(dev):
+    """(k): (k1) tensor-parallel training of gemma-7b at (T)'s shape on
+    two ranks, then (k2) the pod-compressed step of internvl2-1b at full
+    width and depth on two pods and (k3) its elastic restore on one
+    rank.  Checks the ranks' launches, the wire and the restore; the
+    parent holds (k1) to (T) (``check_train_ranks``)."""
+    from repro_torch.launch import mesh as M
+
+    base = _roomiest_dir()
+    ckdir = tempfile.mkdtemp(prefix="chip_smoke_pods_", dir=base)
+    try:
+        t0 = time.perf_counter()
+        k1 = M.spawn(k1_rank, RANK_DEVICES, (TRAIN_ARGV, RANK_DEVICES, RANK_STEPS),
+                     timeout=900)
+        k1_wall = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        k2 = M.spawn(k2_rank, RANK_DEVICES, (ckdir, RANK_DEVICES, RANK_STEPS, POD_REDUCED),
+                     timeout=900)
+        k2_wall = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+
+    counts = {k: 0 for k in read_counts()}
+    n = k1[0]["n_leaves"]
+    for rank, r in enumerate(k1):
+        expect = {k: 0 for k in r["counts"]}
+        expect.update(posit_quantize=n * (1 + RANK_STEPS), posit_dequantize=n * RANK_STEPS)
+        if r["counts"] != expect:
+            fail(f"(k1) rank {rank} launched {r['counts']}, expected {expect}")
+        if r["losses"] != k1[0]["losses"] or r["grad_norms"] != k1[0]["grad_norms"]:
+            fail(f"(k1) rank {rank}'s losses or norms differ from rank 0's")
+        counts = {k: counts[k] + v for k, v in r["counts"].items()}
+    r0 = k1[0]
+    ar = {k: v for k, v in r0["wire"].items() if k.startswith("model/")}
+    print(f"(k1) gemma-7b at (T)'s shape on a (1, 2) mesh, two ranks sharing one card over "
+          f"gloo, not a multi-card speed: {RANK_STEPS} steps, losses "
+          f"{[round(x, 4) for x in r0['losses']]}, grad norms "
+          f"{[round(x, 4) for x in r0['grad_norms']]}; step walls "
+          f"{[round(x, 3) for x in r0['walls']]} s; {r0['n_params']:,} parameters a rank in "
+          f"{n} leaves; peak device memory per rank "
+          f"{[round(r['peak_gib'], 2) for r in k1]} GiB; {k1_wall:.1f} s with the ranks' "
+          f"start; launches per rank {r0['counts']}; collectives on 'model' (calls, bytes): "
+          f"{ar}; {CARD}")
+
+    n = k2[0]["n_leaves"]
+    for rank, r in enumerate(k2):
+        expect = {k: 0 for k in r["counts"]}
+        expect.update(posit_quantize=n * (1 + 2 * RANK_STEPS),
+                      posit_dequantize=n * 3 * RANK_STEPS)
+        if r["counts"] != expect:
+            fail(f"(k2) rank {rank} launched {r['counts']}, expected {expect} (a quantize "
+                 f"and a dequantize a leaf for the feedback, a dequantize a leaf of the "
+                 f"gathered patterns, the moments' pair)")
+        pod = {k: v for k, v in r["wire"].items() if k.startswith("pod/")}
+        want_bytes = RANK_STEPS * N_PODS * 2 * r["n_elems"]
+        if pod.get("pod/broadcast/grad/uint16", [0, 0])[1] != want_bytes \
+                or set(pod) != {"pod/broadcast/grad/uint16", "pod/all_reduce/loss/float32"}:
+            fail(f"(k2) rank {rank}: the pod wire carried {pod}, want only posit16 patterns "
+                 f"({want_bytes:,} bytes) and the loss")
+        if not r["ef_nonzero"] or not np.isfinite(r["losses"]).all():
+            fail(f"(k2) rank {rank}: error feedback zero or losses {r['losses']}")
+        if r["losses"] != k2[0]["losses"]:
+            fail(f"(k2) rank {rank}'s losses differ from rank 0's")
+        counts = {k: counts[k] + v for k, v in r["counts"].items()}
+    r0 = k2[0]
+    if abs(r0["losses"][0] - r0["dp_loss"]) > POD_LOSS_RTOL * r0["dp_loss"]:
+        fail(f"(k2) step 0's loss {r0['losses'][0]} against the data-parallel step's "
+             f"{r0['dp_loss']}")
+    per_step = r0["wire"]["pod/broadcast/grad/uint16"][1] / RANK_STEPS
+    print(f"(k2) {POD_ARCH} at full width, all {_pod_config(POD_REDUCED).n_layers} layers, "
+          f"{r0['n_elems']:,} parameters in {n} leaves, 2 pods of {POD_BATCH // N_PODS} x "
+          f"{POD_SEQ}, posit16 wire, posit16 moments: losses "
+          f"{[round(x, 6) for x in r0['losses']]} (an uncompressed data-parallel step 0: "
+          f"{r0['dp_loss']:.6f}, {abs(r0['losses'][0] - r0['dp_loss']) / r0['dp_loss']:.2e} "
+          f"relative, limit {POD_LOSS_RTOL}), grad norms "
+          f"{[round(x, 4) for x in r0['grad_norms']]}; step walls "
+          f"{[round(x, 3) for x in r0['walls']]} s; peak device memory per rank "
+          f"{[round(r['peak_gib'], 2) for r in k2]} GiB; {k2_wall:.1f} s with the ranks' "
+          f"start and (k3); the pod wire a step and a rank: {per_step:,.0f} bytes of "
+          f"posit16 patterns, 2 bytes an element (an f32 all-reduce would carry "
+          f"{2 * per_step:,.0f}); launches per rank {r0['counts']}; {CARD}")
+    for key, rr in r0["codec"].items():
+        for kind, t in rr.items():
+            print(f"(k2) posit_{kind} at the wire's {key} leaf {t['shape']}: "
+                  f"{t['ms']:.4f} ms, alone {t['kernel_ms']:.4f} ms (bound "
+                  f"{t['bound_ms']:.4f} ms by bytes, plain by chunks {t['plain_ms']:.2f} ms)")
+
+    # (k3)
+    if not r0["restored_equal"]:
+        fail("(k3) the restored state differs from the saved one")
+    want = {k: 0 for k in r0["restored_counts"]}
+    want.update(posit_quantize=n, posit_dequantize=n)
+    if r0["restored_counts"] != want:
+        fail(f"(k3) the one-device step launched {r0['restored_counts']}, expected {want}")
+    last = r0["losses"][-1]
+    print(f"(k3) the state after two steps ({r0['save_bytes']:,} bytes, saved in "
+          f"{r0['save_s']:.2f} s) restored on one rank in {r0['restore_s']:.2f} s, equal to "
+          f"the saved state bit for bit; the third step on one device from it: loss "
+          f"{r0['restored_loss']:.6f} against the ranks' {last:.6f} "
+          f"({abs(r0['restored_loss'] - last) / last:.2e} relative, limit {POD_LOSS_RTOL})")
+    if abs(r0["restored_loss"] - last) > POD_LOSS_RTOL * last:
+        fail(f"(k3) the restored step's loss {r0['restored_loss']} against {last}")
+    counts = {k: counts[k] + v for k, v in r0["restored_counts"].items()}
+    return dict(counts=counts, codec=r0["codec"], k1=[{k: v for k, v in r.items()}
+                                                      for r in k1],
+                k2={k: r0[k] for k in ("losses", "grad_norms", "walls", "dp_loss",
+                                       "restored_loss", "peak_gib", "n_elems")},
+                k1_wall=k1_wall, k2_wall=k2_wall, wire_bytes_per_step=per_step)
+
+
+def check_train_ranks(trained, ranked):
+    """(k1) against (T): each step's loss, gradient norm and the norms of
+    the ``K1_LEAVES`` gradients (a split leaf's squares summed over the
+    ranks, a replicated one's from rank 0) within ``K1_LOSS_RTOL``,
+    ``K1_GNORM_RTOL`` and ``K1_LEAF_RTOL``; the step walls and peak
+    memory beside (T)'s."""
+    ranks = ranked["k1"]
+    r0 = ranks[0]
+    for i in range(RANK_STEPS):
+        dl = abs(r0["losses"][i] - trained["losses"][i]) / trained["losses"][i]
+        dg = abs(r0["grad_norms"][i] - trained["grad_norms"][i]) / trained["grad_norms"][i]
+        print(f"(k1) step {i}: loss {r0['losses'][i]:.6f} against (T)'s "
+              f"{trained['losses'][i]:.6f} ({dl:.2e} relative, limit {K1_LOSS_RTOL}); grad "
+              f"norm {r0['grad_norms'][i]:.6f} against {trained['grad_norms'][i]:.6f} "
+              f"({dg:.2e}, limit {K1_GNORM_RTOL}); step wall {r0['walls'][i]:.3f} s "
+              f"against {trained['walls'][i]:.3f} s")
+        if dl > K1_LOSS_RTOL or dg > K1_GNORM_RTOL:
+            fail(f"(k1) step {i} differs from (T)'s beyond bf16 rounding")
+        worst = []
+        for j, path in enumerate(K1_LEAVES):
+            sq = sum(r["leaf_sq"][i][j] for r in ranks) if r0["leaf_split"][j] \
+                else r0["leaf_sq"][i][j]
+            got, want = math.sqrt(sq), math.sqrt(trained["leaf_sq"][i][j])
+            worst.append((abs(got - want) / want, path, got, want))
+        print(f"(k1) step {i}, gradient norms of single leaves against (T)'s (relative, "
+              f"limit {K1_LEAF_RTOL}): " + ", ".join(
+                  f"{p}{' (split)' if r0['leaf_split'][j] else ''} {g:.6g} vs {w:.6g} "
+                  f"({d:.2e})" for j, (d, p, g, w) in enumerate(worst)))
+        bad = [p for d, p, _, _ in worst if not d <= K1_LEAF_RTOL]
+        if bad:
+            fail(f"(k1) step {i}: the gradients of {bad} differ from (T)'s")
+    print(f"(k1) peak device memory per rank {[round(r['peak_gib'], 2) for r in ranks]}"
+          f" GiB against (T)'s {trained['peak_gib']:.2f} GiB on one rank")
+
+
+PHASES = {"train": train_phase, "train-families": train_families_phase, "tp": tp_phase,
+          "train-ranks": train_ranks_phase}
 
 
 def run_phase(name):
@@ -2943,6 +3359,10 @@ def run(pool):
     trained = run_phase_process("train")
     by_path["train"] = trained["counts"]
     by_path["train_families"] = run_phase_process("train-families")["counts"]
+    # (k) training across ranks, two ranks sharing the card
+    ranked = run_phase_process("train-ranks")
+    check_train_ranks(trained, ranked)
+    by_path["train_ranks"] = ranked["counts"]
     for kernel in ("posit_ew", "posit_dot", "posit_qgemm", "posit_gemm"):
         if not any(c[kernel] > 0 for p, c in by_path.items()
                    if p in ("conv", "dense", "cache")):
@@ -2954,6 +3374,7 @@ def run(pool):
         if row["name"] in ("posit_quantize", "posit_dequantize"):
             kind = row["name"].split("_")[1]
             row["train"] = {leaf: r[kind] for leaf, r in trained["codec"].items()}
+            row["wire"] = {leaf: r[kind] for leaf, r in ranked["codec"].items()}
         row["launches_by_path"] = {p: c[row["name"]] for p, c in by_path.items()}
         row["launches"] = sum(row["launches_by_path"].values())
     for row in rows:

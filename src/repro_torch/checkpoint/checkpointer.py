@@ -16,8 +16,15 @@ and each leaf's ``path``, ``dtype``, ``shape`` and ``codec``).
   bytes), quantized where they live (``csrc/posit_codec.cu``'s quantize
   on the card) before the host copy, and dequantized on restore.
 
-Elastic re-meshing (``restore(..., shardings=)``) needs several devices
-and is not ported.
+* Elastic: a checkpoint holds whole leaves and no record of the mesh
+  that wrote it.  Under a rank mesh (``mesh=``) a save gathers each
+  split leaf whole over its axes, bit for bit (``save(shardings=)``,
+  ``sharding.param_shardings``), rank 0 writes it in the single-device
+  format and leaf order, and every rank waits for the write (a save
+  under a mesh is blocking).  ``restore(..., shardings=)`` narrows each
+  whole leaf to this rank's piece of the mesh it is given, so a
+  checkpoint saved on one mesh restores on any other (or on one
+  device).
 """
 from __future__ import annotations
 
@@ -30,10 +37,12 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import tree as T
 from repro_torch.core.types import POSIT16, signed_view
 from repro_torch.kernels import posit_codec
+from repro_torch.runtime.sharding import unshard
 
 _SENTINEL = "checkpoint_complete.json"
 _FREE_MARGIN = 64 << 20          # bytes kept free beyond the checkpoint's
@@ -70,10 +79,11 @@ def _from_host(a: np.ndarray, dtype: str) -> torch.Tensor:
 
 class Checkpointer:
     def __init__(self, directory: str, keep: int = 3,
-                 posit_payload: bool = False):
+                 posit_payload: bool = False, mesh=None):
         self.dir = directory
         self.keep = keep
         self.posit_payload = posit_payload
+        self.mesh = mesh
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
         # the last save's bytes, host-copy and write seconds, and the
@@ -83,10 +93,24 @@ class Checkpointer:
         os.makedirs(directory, exist_ok=True)
 
     # ------------------------------------------------------------------
-    def save(self, step: int, tree, blocking: bool = False):
-        """Snapshot ``tree`` at ``step`` (async unless ``blocking``)."""
+    def save(self, step: int, tree, blocking: bool = False, shardings=None):
+        """Snapshot ``tree`` at ``step`` (async unless ``blocking``).
+        ``shardings`` (a tree of ``sharding.NamedSharding`` like
+        ``tree``): each leaf is this rank's piece, gathered whole before
+        the write; every rank of the mesh must call it."""
         self.wait()
         named = [(p, torch.as_tensor(x)) for p, x in T.leaves_with_paths(tree)]
+        if shardings is not None:
+            named = [(p, unshard(x, sh)) for (p, x), sh in zip(named, T.leaves(shardings))]
+        if self.mesh is not None:
+            if dist.get_rank() == 0:
+                self._write(step, named, blocking=True)
+            del named
+            dist.barrier()
+            return
+        self._write(step, named, blocking)
+
+    def _write(self, step: int, named, blocking: bool):
         stored = []
         for path, x in named:
             entry = {"path": path, "dtype": _dtype_name(x), "shape": list(x.shape),
@@ -160,12 +184,11 @@ class Checkpointer:
 
     def restore(self, step: int, tree_template, shardings=None, device=None):
         """Restore into the structure of ``tree_template``: each leaf on
-        ``device``, or on its template leaf's device.  Returns ``(tree,
+        ``device``, or on its template leaf's device.  ``shardings`` (a
+        tree like the template of ``sharding.NamedSharding``, or
+        ``None`` leaves for whole ones) narrows each whole leaf to this
+        rank's piece of its mesh: the elastic re-mesh.  Returns ``(tree,
         step)``."""
-        if shardings is not None:
-            raise NotImplementedError(
-                "restore(shardings=) re-lays a checkpoint out on a device mesh; "
-                "the port runs on one device")
         self.wait()
         final = os.path.join(self.dir, f"step_{step:08d}")
         with open(os.path.join(final, _SENTINEL)) as f:
@@ -175,15 +198,15 @@ class Checkpointer:
             raise ValueError(f"checkpoint of step {step} holds {len(meta['leaves'])} "
                              f"leaves, the template {len(templ)}")
         data = np.load(os.path.join(final, "arrays.npz"))
+        places = T.leaves(shardings) if shardings is not None else [None] * len(templ)
         out = []
-        for i, (entry, like) in enumerate(zip(meta["leaves"], templ)):
+        for i, (entry, like, sh) in enumerate(zip(meta["leaves"], templ, places)):
             dev = device if device is not None else torch.as_tensor(like).device
             arr = data[f"a{i}"]
-            if entry["codec"] == "posit16":
-                q = _from_host(arr, "uint16").to(dev)
-                out.append(posit_codec.dequantize(q, POSIT16))
-            else:
-                out.append(_from_host(arr, entry["dtype"]).to(dev))
+            posit = entry["codec"] == "posit16"
+            x = _from_host(arr, "uint16" if posit else entry["dtype"])
+            x = (x if sh is None else sh.shard(x)).to(dev)
+            out.append(posit_codec.dequantize(x, POSIT16) if posit else x)
         return T.unflatten(tree_template, out), meta["step"]
 
     # ------------------------------------------------------------------

@@ -9,7 +9,8 @@ Error-feedback compression (EF-SGD / EF21 style), as
 
 ``compress_with_feedback`` runs the codec kernels on the card
 (``kernels.posit_codec``: a quantize and a dequantize a leaf), their
-plain versions on the CPU.  Gradients cross the wire as posit16/posit8
+plain versions on the CPU; so does ``decompress`` (one dequantize a
+leaf, a pod-stacked ``(n_pods, ...)`` leaf included).  Gradients cross the wire as posit16/posit8
 patterns; the reductions a hierarchical cross-pod sync runs on them --
 ``combine_compressed``, ``scale_compressed``, ``mean_compressed`` --
 stay in the posit domain on the fused elementwise kernel
@@ -21,7 +22,6 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import softposit_ref
-from repro_torch.core.convert import posit_to_f32
 from repro_torch.core.types import POSIT8, POSIT16, PositConfig, to_storage
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import posit_codec
@@ -52,8 +52,10 @@ def compress_with_feedback(grads, error, name: str):
 
 
 def decompress(patterns, name: str):
+    """Patterns -> f32, leaf by leaf: row 2's kernel on a CUDA tensor
+    (one launch a leaf), its plain version on the CPU."""
     cfg = pcfg_of(name)
-    return tree_map(lambda q: posit_to_f32(q, cfg), patterns)
+    return tree_map(lambda q: posit_codec.dequantize(q.contiguous(), cfg), patterns)
 
 
 def scalar_pattern(value: float, cfg: PositConfig, device=None) -> torch.Tensor:

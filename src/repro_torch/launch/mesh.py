@@ -1,7 +1,10 @@
-"""Rank meshes and the rank launcher of tensor-parallel serving.
+"""Rank meshes and the rank launcher of serving and training across ranks.
 
 The port of ``repro/launch/mesh.py``'s ``make_host_mesh``: a
-``("data", "model")`` ``DeviceMesh`` over the process group's world.
+``("data", "model")`` ``DeviceMesh`` over the process group's world;
+and :func:`make_mesh`, the counterpart of ``jax.make_mesh(shape,
+names)`` as the reference's tests call it (``("pod", "data",
+"model")`` or ``("data", "model")``).
 Where the reference's mesh spans the devices of one process, each rank
 here is a process: :func:`spawn` starts them (``torch.multiprocessing``,
 the spawn method), gives each its device and joins them to one process
@@ -51,6 +54,23 @@ def make_host_mesh(model_parallel: int = 1, device_type: str = "cpu"):
             f"model_parallel={model_parallel} does not factor the {n}-rank "
             f"world; rounding down to model_parallel={mp}", stacklevel=2)
     return init_device_mesh(device_type, (n // mp, mp), mesh_dim_names=("data", "model"))
+
+
+def make_mesh(shape, names, device_type: str = "cpu"):
+    """A ``DeviceMesh`` of ``shape`` with axes ``names`` over the process
+    group's world, ranks laid out row-major (the last axis fastest, as
+    ``jax.make_mesh`` lays out devices).  ``device_type`` is the ranks'
+    device type."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    shape, names = tuple(int(n) for n in shape), tuple(names)
+    n = 1
+    for k in shape:
+        n *= k
+    if n != dist.get_world_size() or len(shape) != len(names):
+        raise ValueError(f"a mesh of shape {shape} over axes {names} needs "
+                         f"{n} ranks; the world has {dist.get_world_size()}")
+    return init_device_mesh(device_type, shape, mesh_dim_names=names)
 
 
 def backend_for(devices) -> str:

@@ -1,4 +1,4 @@
-"""Training launcher on one device.
+"""Training launcher on one device or data parallel over ranks.
 
 The port of ``repro/launch/train.py``: config -> data pipeline -> train
 step -> supervised loop with async checkpoints, auto-resume and the
@@ -9,18 +9,31 @@ and adds the port's own ``--device`` (default ``cuda``) and
 CPU-sized f32 model.  Parameters are f32 master weights drawn in f32
 (seed 0) and cast to the compute dtype at use; ``--posit-moments``
 keeps Adam's first moment as posit16 patterns on the codec kernels.
-There is no device mesh: one device holds the whole model.
+By default one device holds the whole model.  ``--rank-devices`` (e.g.
+``cuda:0,cuda:1`` or ``cpu,cpu``) spawns a rank a device
+(``launch/mesh.spawn``) over ``make_host_mesh()``, an ``(n, 1)``
+mesh: data parallel, as the reference trains over its host mesh of
+every device.  Each rank draws the same weights and the same global
+batches from the seeds, runs its rows and all-reduces the gradients;
+rank 0 prints and writes the checkpoints.  Model parallelism and the
+pod-compressed step have no flag, as in the reference: they are
+reached through ``runtime.train_loop.make_train_step(mesh=)``.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch gemma-7b \\
       --reduced --steps 300 --batch 8 --seq 128 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --arch gemma-7b \\
       --n-layers 8 --batch 8 --seq 512 --steps 8 --posit-moments --device cuda
+  PYTHONPATH=src python -m repro_torch.launch.train --arch gemma-7b \\
+      --reduced --steps 20 --batch 8 --seq 64 --rank-devices cpu,cpu
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import io
 import os
+import sys
 import tempfile
 import time
 
@@ -41,12 +54,13 @@ class TrainResult:
     losses: list            # each executed step's loss (replays included)
     grad_norms: list
     step_walls: list        # seconds a step: the batch, the step, the loss read
-    state: tuple            # the final (params, opt_state)
+    state: tuple            # the final (params, opt_state); None over ranks
     executed: int
     cfg: object
-    ckpt: Checkpointer
+    ckpt: Checkpointer      # None over ranks
     supervisor: TrainSupervisor
     watchdog: StragglerWatchdog
+    ranks: list = None      # over ranks: each rank's losses, grad norms, walls
 
 
 def build_parser():
@@ -69,6 +83,9 @@ def build_parser():
                     help="store Adam first moments in posit16")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--rank-devices", default=None,
+                    help="comma-separated devices, a data-parallel rank each "
+                         "(e.g. cuda:0,cuda:1 or cpu,cpu)")
     return ap
 
 
@@ -82,8 +99,45 @@ def model_config(args):
 
 
 def main(argv=None) -> TrainResult:
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = build_parser().parse_args(argv)
-    dev = resolve_device(args.device)
+    if args.rank_devices:
+        return _train_ranks(args, argv)
+    return _train(args, resolve_device(args.device))
+
+
+def _train_ranks(args, argv) -> TrainResult:
+    """``--rank-devices``: a rank a device, joined; rank 0's numbers."""
+    from repro_torch.launch import mesh as M
+
+    devices = args.rank_devices.split(",")
+    cpu = all(torch.device(d).type == "cpu" for d in devices)
+    ranks = M.spawn(_rank_main, devices, (argv, devices), timeout=None,
+                    threads=max(1, (os.cpu_count() or 1) // len(devices)) if cpu else 0)
+    r0 = ranks[0]
+    return TrainResult(r0["losses"], r0["grad_norms"], r0["step_walls"], None,
+                       r0["executed"], model_config(args), None, None, None, ranks)
+
+
+def _rank_main(argv, devices) -> dict:
+    """One data-parallel rank: its device, the ``(n, 1)`` host mesh, the
+    loop; only rank 0 prints."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    args = build_parser().parse_args(argv)
+    dev = resolve_device(devices[dist.get_rank()])
+    mesh = make_host_mesh(1, dev.type)
+    quiet = contextlib.redirect_stdout(io.StringIO()) if dist.get_rank() \
+        else contextlib.nullcontext()
+    with quiet:
+        res = _train(args, dev, mesh)
+    return {"losses": res.losses, "grad_norms": res.grad_norms,
+            "step_walls": res.step_walls, "executed": res.executed}
+
+
+def _train(args, dev, mesh=None) -> TrainResult:
     cfg = model_config(args)
     fam = get_family(cfg)
     opt_cfg = adamw.AdamWConfig(lr=args.lr, posit_moments=args.posit_moments)
@@ -92,9 +146,9 @@ def main(argv=None) -> TrainResult:
 
     params = fam.init_params(cfg, seed=0, device=dev, dtype=torch.float32)
     opt_state = adamw.init(params, opt_cfg)
-    step_fn = train_loop.make_train_step(cfg, opt_cfg, total_steps=args.steps)
+    step_fn = train_loop.make_train_step(cfg, opt_cfg, total_steps=args.steps, mesh=mesh)
 
-    ckpt = Checkpointer(args.ckpt_dir, keep=2)
+    ckpt = Checkpointer(args.ckpt_dir, keep=2, mesh=mesh)
     watchdog = StragglerWatchdog()
     supervisor = TrainSupervisor(ckpt, save_every=args.save_every,
                                  watchdog=watchdog)

@@ -214,16 +214,22 @@ def _forward(params, tokens, cfg: ModelConfig):
     return L.rms_norm(params["final_norm"], x, cfg)
 
 
-def train_loss(params, batch, cfg: ModelConfig):
-    """Next-token cross entropy; the meta tokens' positions carry no
-    loss.  A ``"mask"`` is ignored, as in the reference."""
-    tokens = batch["tokens"]
-    x = _forward(params, tokens, cfg)
-    labels, mask = L.next_token_labels(tokens)
+def loss_labels(batch, cfg: ModelConfig):
+    """``(labels, mask)`` of the next-token loss: the meta tokens'
+    positions off; a ``"mask"`` is ignored, as in the reference."""
+    labels, mask = L.next_token_labels(batch["tokens"])
     if cfg.n_meta_tokens:
         mask[:, :cfg.n_meta_tokens] = 0.0
+    return labels, mask
+
+
+def train_loss(params, batch, cfg: ModelConfig, *, denom=None):
+    """Next-token cross entropy over :func:`loss_labels`; ``denom``
+    divides the sum instead of the batch's own label count."""
+    x = _forward(params, batch["tokens"], cfg)
+    labels, mask = loss_labels(batch, cfg)
     w = params["lm_head"]["w"].to(x.dtype)
-    return L.chunked_xent(x, w, labels, mask, cfg.loss_chunk)
+    return L.chunked_xent(x, w, labels, mask, cfg.loss_chunk, denom=denom)
 
 
 def logits_fn(params, tokens, cfg: ModelConfig, visual=None):

@@ -853,21 +853,52 @@ def next_token_labels(tokens):
     return labels, mask
 
 
-def chunked_xent(x, w, labels, mask, loss_chunk: int):
+def chunked_xent(x, w, labels, mask, loss_chunk: int, *, denom=None, tp=None):
     """Mean next-token cross entropy over the unmasked positions, the
     vocabulary projection ``x @ w`` run ``loss_chunk`` positions at a
     time to bound the (B, chunk, V) f32 logits: the reference's
     ``chunk_loss`` under ``lax.map``, the chunks' sums added in order.
-    As there, positions past the last whole chunk are left out."""
+    As there, positions past the last whole chunk are left out.
+
+    ``denom`` (data parallelism) divides the sum instead of this call's
+    own label count: the count of the whole batch that this call's rows
+    are part of (:func:`xent_count`).  Under a tensor-parallel plan
+    ``tp`` whose vocabulary splits, ``w`` holds this rank's columns and
+    the loss is vocabulary-parallel: each chunk's maximum, sum of
+    exponentials and gold logit are all-reduced, and ``x`` enters the
+    column-parallel head through ``tp.enter``."""
     s = x.shape[1]
     ck = min(loss_chunk, s)
     labels = labels.to(torch.int64)
+    vocab_parallel = tp is not None and tp.vocab
+    if vocab_parallel:
+        x = tp.enter(x)
+        v0, n = tp._vocab_slice()
     losses, counts = [], []
     for c0 in range(0, (s // ck) * ck, ck):
         logits = (x[:, c0:c0 + ck] @ w).to(torch.float32)
-        logz = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, labels[:, c0:c0 + ck, None])[..., 0]
+        lab = labels[:, c0:c0 + ck]
+        if vocab_parallel:
+            m = tp.max(logits.amax(-1))
+            logz = m + torch.log(tp.reduce(torch.exp(logits - m[..., None]).sum(-1)))
+            local = lab - v0
+            inside = (local >= 0) & (local < n)
+            gold = torch.gather(logits, -1, local.clamp(0, n - 1)[..., None])[..., 0]
+            gold = tp.reduce(torch.where(inside, gold, torch.zeros_like(gold)))
+        else:
+            logz = torch.logsumexp(logits, dim=-1)
+            gold = torch.gather(logits, -1, lab[..., None])[..., 0]
         ms = mask[:, c0:c0 + ck]
         losses.append(((logz - gold) * ms).sum())
         counts.append(ms.sum())
-    return torch.stack(losses).sum() / torch.clamp(torch.stack(counts).sum(), min=1.0)
+    if denom is None:
+        denom = torch.clamp(torch.stack(counts).sum(), min=1.0)
+    return torch.stack(losses).sum() / denom
+
+
+def xent_count(mask, loss_chunk: int):
+    """The denominator :func:`chunked_xent` takes for ``mask``: its
+    labels in whole chunks, at least one."""
+    s = mask.shape[1]
+    ck = min(loss_chunk, s)
+    return torch.clamp(mask[:, :(s // ck) * ck].sum(), min=1.0)

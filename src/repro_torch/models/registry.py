@@ -1,7 +1,9 @@
 """Model family registry: one protocol over the four families.
 
 Each family module provides ``init_params(cfg, *, seed, device,
-dtype)``, ``train_loss(params, batch, cfg)``, ``logits_fn(params,
+dtype)``, ``train_loss(params, batch, cfg, *, denom=None)`` (the
+transformer's takes ``tp=`` too) and ``loss_labels(batch, cfg)``,
+``logits_fn(params,
 tokens, cfg, ...)``, ``init_cache(cfg, batch, max_len, *, device)``,
 ``prefill(params, tokens, cfg, ..., max_len=)`` and
 ``decode_step(params, cache, token, cfg, ...)``.

@@ -231,16 +231,23 @@ def _forward(params, tokens, cfg: ModelConfig, *, use_chunked=True):
     return L.layer_norm(params["ln_out"], x, cfg.norm_eps)
 
 
-def train_loss(params, batch, cfg: ModelConfig):
-    """Next-token cross entropy through the chunked WKV engine (the
-    sequence a multiple of ``cfg.wkv_chunk``)."""
-    tokens = batch["tokens"]
-    x = _forward(params, tokens, cfg)
-    labels, mask = L.next_token_labels(tokens)
+def loss_labels(batch, cfg: ModelConfig):
+    """``(labels, mask)`` of the next-token loss, the batch's ``"mask"``
+    applied."""
+    labels, mask = L.next_token_labels(batch["tokens"])
     if batch.get("mask") is not None:
         mask = mask * batch["mask"]
+    return labels, mask
+
+
+def train_loss(params, batch, cfg: ModelConfig, *, denom=None):
+    """Next-token cross entropy through the chunked WKV engine (the
+    sequence a multiple of ``cfg.wkv_chunk``); ``denom`` divides the sum
+    instead of the batch's own label count."""
+    x = _forward(params, batch["tokens"], cfg)
+    labels, mask = loss_labels(batch, cfg)
     w = params["lm_head"]["w"].to(x.dtype)
-    return L.chunked_xent(x, w, labels, mask, cfg.loss_chunk)
+    return L.chunked_xent(x, w, labels, mask, cfg.loss_chunk, denom=denom)
 
 
 def logits_fn(params, tokens, cfg: ModelConfig, visual=None):

@@ -41,6 +41,15 @@ and ``d_ff``) over this rank's shard of the weights and of the arena;
 ``tp`` adds the all-reduces after attention's ``wo`` and the
 feed-forward, the vocabulary-parallel embedding and the gathered logits.
 With ``tp=None`` nothing changes.
+
+Tensor-parallel training: ``train_loss`` takes ``tp`` too and runs the
+same blocks under autograd.  Each column-parallel region's input goes
+through ``tp.enter`` (identity forward, all-reduce backward): the
+input of ``wq``/``wk``/``wv`` (MQA: ``wq``'s, then the whole K and V, which
+every rank's heads read), MLA's query latent, KV latent and RoPE key,
+the MLP's and the MoE's input, and the head's; the row-parallel sums
+(``tp.reduce``) pass the gradient through.  The loss over a split
+vocabulary is vocabulary-parallel (``layers.chunked_xent``).
 """
 from __future__ import annotations
 
@@ -164,7 +173,13 @@ def _row_parallel(y, tp, group: str):
     """A product's partial sum over this rank's share of ``group``
     (``"attn"``, ``"mlp"``, ``"moe"``), all-reduced under ``tp`` when
     that group splits; else ``y`` itself."""
-    return tp.all_reduce(y) if tp is not None and getattr(tp, group) else y
+    return tp.reduce(y) if tp is not None and getattr(tp, group) else y
+
+
+def _enter(x, tp, group: str):
+    """``x`` as the input of ``group``'s column-parallel products: its
+    gradient all-reduced under ``tp`` when that group splits."""
+    return tp.enter(x) if tp is not None and getattr(tp, group) else x
 
 
 def _block_mlp(lp, h, cfg: ModelConfig, tp=None):
@@ -174,8 +189,9 @@ def _block_mlp(lp, h, cfg: ModelConfig, tp=None):
     hn = L.rms_norm(lp["ln2"], h, cfg)
     if cfg.is_moe:
         experts = None if tp is None else tp.expert_slice()
-        return h + _row_parallel(L.moe(lp["moe"], hn, cfg, experts=experts), tp, "moe")
-    return h + _row_parallel(L.mlp(lp["mlp"], hn, cfg), tp, "mlp")
+        return h + _row_parallel(L.moe(lp["moe"], _enter(hn, tp, "moe"), cfg,
+                                       experts=experts), tp, "moe")
+    return h + _row_parallel(L.mlp(lp["mlp"], _enter(hn, tp, "mlp"), cfg), tp, "mlp")
 
 
 # ---------------------------------------------------------------------------
@@ -193,22 +209,27 @@ def _attn_forward(p, x, positions, cfg: ModelConfig, kv_mask, tp=None):
     if cfg.mla:
         h, nope, rope = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
         q_lat = L.rms_norm(p["q_norm"], L.dense(p["wdq"], x, cfg), cfg)
-        q = L.dense(p["wuq"], q_lat, cfg).reshape(b, s, h, nope + rope)
+        q = L.dense(p["wuq"], _enter(q_lat, tp, "attn"), cfg).reshape(b, s, h, nope + rope)
         q_nope, q_rope = q.split([nope, rope], dim=-1)
         q = torch.cat([q_nope, L.apply_rope(q_rope, positions, cfg.rope_theta)], -1)
         c_kv, k_rope = L.dense(p["wdkv"], x, cfg).split([cfg.kv_lora_rank, rope], dim=-1)
         c_kv = L.rms_norm(p["kv_norm"], c_kv, cfg)
         k_rope = L.apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)
-        k_nope = L.dense(p["wuk"], c_kv, cfg).reshape(b, s, h, nope)
-        v = L.dense(p["wuv"], c_kv, cfg).reshape(b, s, h, cfg.v_head_dim)
-        k = torch.cat([k_nope, k_rope.expand(b, s, h, rope)], -1)
+        c_in = _enter(c_kv, tp, "attn")
+        k_nope = L.dense(p["wuk"], c_in, cfg).reshape(b, s, h, nope)
+        v = L.dense(p["wuv"], c_in, cfg).reshape(b, s, h, cfg.v_head_dim)
+        k = torch.cat([k_nope, _enter(k_rope, tp, "attn").expand(b, s, h, rope)], -1)
         out = L.flash_attention(q, k, v, causal=True, cfg=cfg, kv_mask=kv_mask,
                                 q_positions=q_pos)
         out = out.reshape(b, s, h * cfg.v_head_dim)
         return _wo(p, out, cfg, tp), (c_kv, k_rope[:, :, 0, :])
-    q = L.dense(p["wq"], x, cfg).reshape(b, s, cfg.n_heads, cfg.head_dim)
-    k = L.dense(p["wk"], x, cfg).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
-    v = L.dense(p["wv"], x, cfg).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    xq = _enter(x, tp, "attn")
+    xkv = xq if tp is not None and tp.kv else x
+    q = L.dense(p["wq"], xq, cfg).reshape(b, s, cfg.n_heads, cfg.head_dim)
+    k = L.dense(p["wk"], xkv, cfg).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    v = L.dense(p["wv"], xkv, cfg).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    if tp is not None and tp.attn and not tp.kv:       # MQA: every rank's heads read K, V
+        k, v = tp.enter(k), tp.enter(v)
     q = L.apply_rope(q, positions, cfg.rope_theta)
     k = L.apply_rope(k, positions, cfg.rope_theta)
     out = L.flash_attention(q, k, v, causal=True, cfg=cfg, kv_mask=kv_mask,
@@ -233,42 +254,53 @@ def _block_forward(lp, x, positions, cfg: ModelConfig, kv_mask, tp=None):
 # Training loss and full-sequence logits
 # ---------------------------------------------------------------------------
 
-def _train_block(lp, x, positions, cfg: ModelConfig):
-    return _block_forward(lp, x, positions, cfg, None)[0]
+def _train_block(lp, x, positions, cfg: ModelConfig, tp=None):
+    return _block_forward(lp, x, positions, cfg, None, tp)[0]
 
 
-def _run_layers(params, x, positions, cfg: ModelConfig):
+def _run_layers(params, x, positions, cfg: ModelConfig, tp=None):
     """Every layer over the whole (causal) sequence, each one
-    rematerialised in the backward pass under ``cfg.remat == "layer"``."""
+    rematerialised in the backward pass under ``cfg.remat == "layer"``
+    (a layer's forward collectives replay in its recompute, in the same
+    order on every rank)."""
     for lp in params["layers"]:
-        x = L.remat_layer(_train_block, cfg, lp, x, positions, cfg)
+        x = L.remat_layer(_train_block, cfg, lp, x, positions, cfg, tp)
     return x
 
 
-def _final_hidden(params, tokens, cfg: ModelConfig, visual=None):
+def _final_hidden(params, tokens, cfg: ModelConfig, visual=None, tp=None):
     tokens = tokens.to(torch.int64)
     positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
-    x = _run_layers(params, _embed(params, tokens, cfg, visual), positions, cfg)
+    x = _run_layers(params, _embed(params, tokens, cfg, visual, tp), positions, cfg, tp)
     return L.rms_norm(params["final_norm"], x, cfg)
 
 
-def train_loss(params, batch, cfg: ModelConfig):
-    """batch: ``{"tokens": (B, S) int, "mask": optional (B, S) f32,
-    "visual": optional (B, nv, D)}``.  Next-token cross entropy, the
-    vocabulary projection chunked over the sequence
-    (``layers.chunked_xent``); the visual prefix's positions carry no
-    loss."""
-    tokens = batch["tokens"]
-    s = tokens.shape[1]
-    assert s % min(cfg.loss_chunk, s) == 0
-    x = _final_hidden(params, tokens, cfg, batch.get("visual"))
-    labels, label_mask = L.next_token_labels(tokens)
+def loss_labels(batch, cfg: ModelConfig):
+    """``(labels, mask)`` of a batch's next-token loss: the batch's
+    ``"mask"`` applied, the visual prefix's positions off."""
+    labels, label_mask = L.next_token_labels(batch["tokens"])
     if batch.get("mask") is not None:
         label_mask = label_mask * batch["mask"]
     if cfg.n_visual_tokens:
         label_mask[:, :cfg.n_visual_tokens] = 0.0
+    return labels, label_mask
+
+
+def train_loss(params, batch, cfg: ModelConfig, *, tp=None, denom=None):
+    """batch: ``{"tokens": (B, S) int, "mask": optional (B, S) f32,
+    "visual": optional (B, nv, D)}``.  Next-token cross entropy, the
+    vocabulary projection chunked over the sequence
+    (``layers.chunked_xent``, which ``denom`` and ``tp`` reach); the
+    visual prefix's positions carry no loss.  Under ``tp`` the
+    parameters are this rank's shard and ``cfg`` the rank-local config
+    (``sharding.local_config``)."""
+    tokens = batch["tokens"]
+    s = tokens.shape[1]
+    assert s % min(cfg.loss_chunk, s) == 0
+    x = _final_hidden(params, tokens, cfg, batch.get("visual"), tp)
+    labels, label_mask = loss_labels(batch, cfg)
     w = _unembed_weight(params, cfg).to(x.dtype)
-    return L.chunked_xent(x, w, labels, label_mask, cfg.loss_chunk)
+    return L.chunked_xent(x, w, labels, label_mask, cfg.loss_chunk, denom=denom, tp=tp)
 
 
 def logits_fn(params, tokens, cfg: ModelConfig, visual=None):

@@ -152,14 +152,21 @@ def _decoder(params, tokens, enc_out, cfg: ModelConfig):
     return L.layer_norm(params["dec_ln"], x)
 
 
-def train_loss(params, batch, cfg: ModelConfig):
-    """batch: ``{"tokens": (B, S), "frames": (B, T_enc, D)}``; a
-    ``"mask"`` is ignored, as in the reference.  The head is tied."""
+def loss_labels(batch, cfg: ModelConfig):
+    """``(labels, mask)`` of the next-token loss; a ``"mask"`` is
+    ignored, as in the reference."""
+    return L.next_token_labels(batch["tokens"])
+
+
+def train_loss(params, batch, cfg: ModelConfig, *, denom=None):
+    """batch: ``{"tokens": (B, S), "frames": (B, T_enc, D)}``.  The head
+    is tied; ``denom`` divides the sum instead of the batch's own label
+    count."""
     tokens = batch["tokens"]
     x = _decoder(params, tokens, encode(params, batch["frames"], cfg), cfg)
-    labels, mask = L.next_token_labels(tokens)
+    labels, mask = loss_labels(batch, cfg)
     w = params["tok_embed"].T.to(x.dtype)
-    return L.chunked_xent(x, w, labels, mask, cfg.loss_chunk)
+    return L.chunked_xent(x, w, labels, mask, cfg.loss_chunk, denom=denom)
 
 
 def logits_fn(params, tokens, cfg: ModelConfig, frames=None):

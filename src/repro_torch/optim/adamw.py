@@ -12,6 +12,11 @@ The update runs leaf by leaf under ``torch.no_grad()`` and writes the
 parameters and ``v`` in place (the reference returns new arrays); each
 leaf's arithmetic is the reference's, operation for operation, in f32.
 Its transients are at most three f32 copies of the leaf being updated.
+
+Under tensor parallelism (``tp``, with ``split`` naming the leaves that
+``"model"`` splits) the gradient norm sums a split leaf's squares over
+the group and counts a replicated leaf once, so the clip scale is the
+single device's; every other step of the update is leaf-local.
 """
 from __future__ import annotations
 
@@ -62,13 +67,22 @@ def init(params, cfg: AdamWConfig):
     return {"m": m, "v": v, "count": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
-def global_norm(tree):
+def global_norm(tree, tp=None, split=None):
     """sqrt of the sum of every leaf's sum of squares, summed in leaf
-    order (the port's order, not ``jax.tree``'s: equal to rounding)."""
-    total = 0.0
-    for x in T.leaves(tree):
-        total = total + torch.sum(torch.square(x.to(_F32)))
-    return torch.sqrt(total)
+    order (the port's order, not ``jax.tree``'s: equal to rounding).
+    Under ``tp``, the squares of the leaves that ``split`` marks are
+    summed over the ``"model"`` group; the replicated ones count once."""
+    if tp is None:
+        total = 0.0
+        for x in T.leaves(tree):
+            total = total + torch.sum(torch.square(x.to(_F32)))
+        return torch.sqrt(total)
+    parts = [0.0, 0.0]
+    for x, s in zip(T.leaves(tree), split):
+        parts[bool(s)] = parts[bool(s)] + torch.sum(torch.square(x.to(_F32)))
+    dev = T.leaves(tree)[0].device
+    local = torch.as_tensor(parts[1], dtype=_F32, device=dev)
+    return torch.sqrt(parts[0] + tp.all_reduce(local, what="norm"))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,9 +99,10 @@ class Coefficients:
 
 @torch.no_grad()
 def coefficients(grads, state, cfg: AdamWConfig,
-                 lr_scale: Optional[torch.Tensor] = None) -> Coefficients:
+                 lr_scale: Optional[torch.Tensor] = None, *, tp=None,
+                 split=None) -> Coefficients:
     count = state["count"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, tp, split)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
     cf = count.to(_F32)
     bc1 = 1 - torch.pow(cfg.b1, cf)
@@ -125,10 +140,11 @@ def update_leaf(p, g, m, v, c: Coefficients, cfg: AdamWConfig):
 
 @torch.no_grad()
 def update(grads, state, params, cfg: AdamWConfig,
-           lr_scale: Optional[torch.Tensor] = None):
+           lr_scale: Optional[torch.Tensor] = None, *, tp=None, split=None):
     """Returns ``(params, new_state, {"grad_norm": ...})``; the
-    parameters and ``state["v"]`` are updated in place."""
-    c = coefficients(grads, state, cfg, lr_scale)
+    parameters and ``state["v"]`` are updated in place.  ``tp`` and
+    ``split``: :func:`global_norm` under tensor parallelism."""
+    c = coefficients(grads, state, cfg, lr_scale, tp=tp, split=split)
     new_m = [update_leaf(p, g, m, v, c, cfg) for p, g, m, v in zip(
         T.leaves(params), T.leaves(grads), T.leaves(state["m"]), T.leaves(state["v"]))]
     new_state = {"m": T.unflatten(state["m"], new_m), "v": state["v"], "count": c.count}

@@ -23,6 +23,34 @@ buffer; sums run in f32.  A group that does not split (``attn``,
 ``mlp``, ``moe``, ``vocab`` false) keeps its leaves whole on every rank
 and its collective is skipped.  Without a plan (``tp is None``) no
 function here is called: the single-device path is unchanged.
+
+Training runs the same forward under autograd, so each collective is a
+``torch.autograd.Function`` with the backward its forward needs:
+
+* :meth:`TensorParallel.reduce`, the row-parallel sum: all-reduce
+  forward, identity backward (the residual it feeds is replicated, so
+  every rank already holds the whole gradient; an all-reduce there, as
+  ``torch.distributed.nn.functional.all_reduce`` makes, would multiply
+  it by the group's size);
+* :meth:`TensorParallel.enter`, its partner at the input of each
+  column-parallel product: identity forward, all-reduce backward (each
+  rank's products see only its heads, columns or experts, so each holds
+  a part of the input's gradient);
+* the vocabulary-parallel embedding (a masked lookup, then ``reduce``)
+  and the vocabulary gather, whose backward is this rank's slice;
+* :meth:`TensorParallel.max`, with no gradient (the vocabulary-parallel
+  loss's stabilising maximum).
+
+Under ``torch.no_grad`` each is its forward alone, the serving path's
+collectives.  Beside the ``"model"`` group, :func:`all_reduce_axis`
+sums over any mesh axis (the data-parallel gradients, in f32),
+:func:`gather_axis` stacks one tensor from each rank of an axis bit for
+bit (the pod wire's patterns, a checkpoint's whole leaves) by a
+broadcast from each rank in turn of the tensor's bytes (gloo carries
+CUDA tensors only for ``all_reduce`` and ``broadcast``, and not every
+backend takes 16-bit integers).  Every collective made here is counted
+in :data:`wire` (calls and bytes by axis, kind and dtype) so that tests
+and the smoke can check what crossed which axis.
 """
 from __future__ import annotations
 
@@ -30,6 +58,62 @@ import dataclasses
 
 import torch
 import torch.distributed as dist
+
+# the collectives this module made since the last ``wire.clear()``:
+# (axis, op, what, dtype) -> [calls, bytes], bytes a rank's payload
+wire: dict = {}
+
+
+def _record(axis: str, op: str, what: str, t: torch.Tensor):
+    key = (axis, op, what, str(t.dtype).replace("torch.", ""))
+    entry = wire.setdefault(key, [0, 0])
+    entry[0] += 1
+    entry[1] += t.numel() * t.element_size()
+
+
+class _Reduce(torch.autograd.Function):
+    """All-reduce forward, identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        return tp.all_reduce(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Enter(torch.autograd.Function):
+    """Identity forward, all-reduce backward."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.tp.all_reduce(g, what="backward"), None
+
+
+class _GatherVocab(torch.autograd.Function):
+    """This rank's logit columns -> the full f32 logits; backward: this
+    rank's columns of the gradient."""
+
+    @staticmethod
+    def forward(ctx, y, tp):
+        ctx.tp, ctx.dtype = tp, y.dtype
+        v0, n = tp._vocab_slice()
+        full = y.new_zeros(tuple(y.shape[:-1]) + (tp.vocab_size,), dtype=torch.float32)
+        full[..., v0:v0 + n] = y.to(torch.float32)
+        dist.all_reduce(full, group=tp.group)
+        _record("model", "all_reduce", "logits", full)
+        return full
+
+    @staticmethod
+    def backward(ctx, g):
+        v0, n = ctx.tp._vocab_slice()
+        return g[..., v0:v0 + n].to(ctx.dtype), None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,12 +132,31 @@ class TensorParallel:
     vocab_size: int
     n_experts: int = 0
 
-    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
+    def all_reduce(self, x: torch.Tensor, what: str = "activation") -> torch.Tensor:
         """The sum of ``x`` over the group, in f32, back in ``x``'s dtype
-        (an f32 ``x`` is summed in place)."""
+        (an f32 ``x`` is summed in place).  No gradient: see
+        :meth:`reduce`."""
         y = x.to(torch.float32).contiguous()
         dist.all_reduce(y, group=self.group)
+        _record("model", "all_reduce", what, y)
         return y.to(x.dtype)
+
+    def reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """:meth:`all_reduce` with an identity backward: the sum after a
+        row-parallel product."""
+        return _Reduce.apply(x, self)
+
+    def enter(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` itself, whose gradient is all-reduced over the group in
+        the backward pass: the input of a column-parallel product."""
+        return _Enter.apply(x, self) if torch.is_grad_enabled() and x.requires_grad else x
+
+    def max(self, x: torch.Tensor) -> torch.Tensor:
+        """The elementwise maximum of ``x`` over the group (no gradient)."""
+        y = x.detach().to(torch.float32).contiguous()
+        dist.all_reduce(y, op=dist.ReduceOp.MAX, group=self.group)
+        _record("model", "all_reduce", "loss", y)
+        return y
 
     def _vocab_slice(self):
         n = self.vocab_size // self.size
@@ -71,19 +174,14 @@ class TensorParallel:
         rows = table[local.clamp(0, n - 1)]
         rows = torch.where(inside[..., None], rows, torch.zeros((), dtype=rows.dtype,
                                                                  device=rows.device))
-        return self.all_reduce(rows)
+        return self.reduce(rows)
 
     def gather_vocab(self, logits: torch.Tensor) -> torch.Tensor:
         """This rank's (..., V/size) logit columns -> the full (..., V)
         f32 logits on every rank (an all-reduce into zeros)."""
         if not self.vocab:
             return logits.to(torch.float32)
-        v0, n = self._vocab_slice()
-        full = logits.new_zeros(tuple(logits.shape[:-1]) + (self.vocab_size,),
-                                dtype=torch.float32)
-        full[..., v0:v0 + n] = logits.to(torch.float32)
-        dist.all_reduce(full, group=self.group)
-        return full
+        return _GatherVocab.apply(logits, self)
 
     def expert_slice(self):
         """``(first, count)`` of this rank's experts, or ``None`` when the
@@ -97,4 +195,55 @@ class TensorParallel:
         """``t`` as rank 0 of the group holds it, on every rank."""
         y = t.contiguous()
         dist.broadcast(y, group_src=0, group=self.group)
+        _record("model", "broadcast", "token", y)
         return y
+
+
+# ---------------------------------------------------------------------------
+# Any mesh axis: data-parallel sums and bitwise gathers
+# ---------------------------------------------------------------------------
+
+def axis_group(mesh, axis: str):
+    """``(group, rank, size)`` of ``mesh``'s ``axis`` for this rank."""
+    return mesh.get_group(axis), mesh.get_local_rank(axis), mesh.size(
+        mesh.mesh_dim_names.index(axis))
+
+
+def all_reduce_axis(t: torch.Tensor, mesh, axis: str, what: str = "grad") -> torch.Tensor:
+    """``t`` summed in place over ``mesh``'s ``axis`` (an f32 tensor: the
+    data-parallel gradients and losses)."""
+    if t.dtype != torch.float32 or not t.is_contiguous():
+        raise ValueError(f"all_reduce_axis sums contiguous f32 tensors, got {t.dtype}")
+    group, _, size = axis_group(mesh, axis)
+    if size > 1:
+        dist.all_reduce(t, group=group)
+        _record(axis, "all_reduce", what, t)
+    return t
+
+
+def _bytes_of(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous tensor's storage as a flat uint8 view."""
+    return t.reshape(-1).view(torch.uint8)
+
+
+def gather_axis(t: torch.Tensor, mesh, axis: str, what: str = "grad") -> torch.Tensor:
+    """``(size, *t.shape)``: each rank of ``mesh``'s ``axis`` contributes
+    its ``t``, bit for bit, whatever the dtype: a broadcast of its bytes
+    from each rank in turn, into the row that rank owns."""
+    group, rank, size = axis_group(mesh, axis)
+    out = torch.empty((size,) + tuple(t.shape), dtype=t.dtype, device=t.device)
+    for r in range(size):
+        row = out[r]
+        if r == rank:
+            row.copy_(t)
+        if size > 1:
+            dist.broadcast(_bytes_of(row), group_src=r, group=group)
+            _record(axis, "broadcast", what, row)
+    return out
+
+
+def gather_dim(t: torch.Tensor, dim: int, mesh, axis: str) -> torch.Tensor:
+    """The whole of a tensor that ``axis`` splits along ``dim`` into
+    equal contiguous pieces, bit for bit (:func:`gather_axis`)."""
+    stacked = gather_axis(t.contiguous(), mesh, axis, what="checkpoint")
+    return torch.cat(list(stacked.unbind(0)), dim=dim)

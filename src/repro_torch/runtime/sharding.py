@@ -25,6 +25,17 @@ flat features), whether the group splits; a group that does not split
 replicates every leaf of it (:func:`shard_params`), and the forward
 skips its collective.  Where ``"model"`` divides neither the KV heads
 nor is there one KV head, a layer's attention runs whole on every rank.
+
+Data parallelism (training): :func:`param_specs` with ``fsdp`` adds the
+reference's ZeRO axis (:func:`_add_fsdp_axis`; a spec only, as the
+reference's launcher runs no FSDP step either), :func:`batch_axes` and
+:func:`batch_specs` split a batch's rows over ``("pod", "data")``, and
+:func:`batch_rows` names the rows a rank holds, in the row-major order
+of those axes.  :func:`param_shardings` gives each leaf its
+:class:`NamedSharding`, the placement the port executes (the groups'
+whole-head decisions included), which ``Checkpointer.restore`` narrows
+a whole leaf by.  On the unstacked leaves the ZeRO axis can land on
+another dim than the reference's (``FSDP_DIVERGENCES``).
 """
 from __future__ import annotations
 
@@ -34,9 +45,10 @@ import re
 import torch
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.runtime.collectives import TensorParallel
+from repro_torch.runtime.collectives import TensorParallel, gather_dim
+from repro_torch.tree import leaves_with_paths
 
-M = "model"
+M, D = "model", "data"
 
 # first match wins; paths look like "layers/3/attn/wq/w" or "tok_embed"
 _TRANSFORMER_RULES = [
@@ -88,6 +100,11 @@ _TRANSFORMER_RULES = [
 # rules whose placement is not the reference's with its layer axis
 # dropped (ROADMAP.md, deliberate divergences)
 DIVERGENCES = (r"layers.*/wdq/w$", r"layers.*/wuq/w$")
+# fsdp on a per-layer leaf (ROADMAP.md, deliberate divergences): the
+# reference's stacked leaf takes "data" on its layer axis whenever the data
+# size divides the layer count; the port's unstacked leaf has no layer axis,
+# and ``_add_fsdp_axis`` takes its first free dim that the size divides
+FSDP_DIVERGENCES = (r"^(layers|enc_layers|dec_layers)/\d+/",)
 
 
 def match_for_path(path: str):
@@ -181,16 +198,17 @@ def model_group(mesh):
 
 
 def tensor_parallel(cfg: ModelConfig, mesh):
-    """The rank's :class:`TensorParallel` plan on ``mesh`` for ``cfg``
-    (transformer family), or ``None`` without a mesh or with a
-    ``"model"`` axis of size 1: then every path is the single-device
-    one."""
+    """The rank's :class:`TensorParallel` plan on ``mesh`` for ``cfg``,
+    or ``None`` without a mesh or with a ``"model"`` axis of size 1 (for
+    every family): then every path is the single-device one.  A larger
+    ``"model"`` axis covers the transformer family only."""
     if mesh is None or axis_sizes(mesh).get(M, 1) == 1:
         return None
     if cfg.family != "transformer":
         raise NotImplementedError(
-            f"tensor-parallel serving covers the transformer family only "
-            f"(got {cfg.family!r}; ROADMAP.md Queue 1 item 6)")
+            f"tensor parallelism (serving and training) covers the transformer "
+            f"family only (got {cfg.family!r} at 'model' "
+            f"{axis_sizes(mesh)[M]}; ROADMAP.md Queue 1 item 6)")
     group, rank, size = model_group(mesh)
     return TensorParallel(group=group, rank=rank, size=size, vocab_size=cfg.vocab,
                           n_experts=cfg.n_experts, **_split_groups(cfg, size))
@@ -273,3 +291,176 @@ def _global_shapes(cfg: ModelConfig) -> dict:
                 "layers/moe/wg": (e, d, fe), "layers/moe/wo": (e, fe, d)})
     return out
 
+
+
+def partial_grad_leaves(params, tp) -> list:
+    """For each leaf (walk order): whether it is replicated but each rank
+    holds only a part of its gradient, which must then be all-reduced
+    over ``"model"`` before the update.  The MoE router is the one: its
+    gates meet only this rank's experts in the combine.  Every other
+    replicated leaf sits outside the column-parallel regions (their
+    inputs go through ``TensorParallel.enter``) and gets its whole
+    gradient on every rank."""
+    paths = [p for p, _ in leaves_with_paths(params)]
+    if tp is None:
+        return [False] * len(paths)
+    return [bool(tp.moe and re.search(r"layers.*/moe/router/w$", p)) for p in paths]
+
+
+def split_leaves(params, cfg: ModelConfig, mesh) -> list:
+    """For each leaf (walk order): whether it is split over ``"model"``
+    (each rank holds a slice; its squares sum over the group in the
+    gradient norm)."""
+    named = leaves_with_paths(params)
+    if tensor_parallel(cfg, mesh) is None:
+        return [False] * len(named)
+    glob = _global_shapes(cfg)
+    return [M in leaf_spec(p, _global_shape(p, x.shape, glob), mesh, cfg) for p, x in named]
+
+
+# ---------------------------------------------------------------------------
+# Data parallelism: the ZeRO axis, batches over ("pod", "data")
+# ---------------------------------------------------------------------------
+
+def _add_fsdp_axis(spec: tuple, shape, n_data: int) -> tuple:
+    """ZeRO/FSDP: also split a leaf (and so its optimizer state) over
+    ``"data"`` on the first unsplit dim that ``n_data`` divides."""
+    dims = list(spec) + [None] * (len(shape) - len(spec))
+    for i, (d, n) in enumerate(zip(dims, shape)):
+        if d is None and n % n_data == 0 and n >= n_data:
+            dims[i] = D
+            return tuple(dims)
+    return tuple(spec)
+
+
+def param_specs(params, mesh=None, *, fsdp: bool = False, n_data: int = 1):
+    """A tree of specs shaped like ``params``: the rule table's, filtered
+    by ``mesh`` when given, with the ZeRO axis under ``fsdp``."""
+    def one(path, leaf):
+        shape = tuple(leaf.shape)
+        spec = spec_for_path(path, len(shape))
+        if mesh is not None:
+            spec = filter_spec(spec, shape, mesh)
+        if fsdp and n_data > 1:
+            spec = _add_fsdp_axis(spec, shape, n_data)
+        return spec
+    return _map_with_paths(one, params)
+
+
+def _map_with_paths(fn, tree, prefix: str = ""):
+    if isinstance(tree, dict):
+        return {k: _map_with_paths(fn, v, f"{prefix}/{k}" if prefix else str(k))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_with_paths(fn, v, f"{prefix}/{i}" if prefix else str(i))
+                          for i, v in enumerate(tree))
+    return fn(prefix, tree)
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A leaf's placement on a mesh: ``spec`` names, per dimension, the
+    mesh axis that splits it (``None``: replicated).  :meth:`shard`
+    takes this rank's piece of the whole leaf."""
+    mesh: object
+    spec: tuple
+
+    def shard(self, x: torch.Tensor) -> torch.Tensor:
+        for dim, axis in enumerate(self.spec):
+            if axis is None:
+                continue
+            if not isinstance(axis, str):
+                raise NotImplementedError(f"a dim split over several axes: {axis}")
+            size = axis_sizes(self.mesh)[axis]
+            n = x.shape[dim] // size
+            x = x.narrow(dim, self.mesh.get_local_rank(axis) * n, n)
+        return x.contiguous()
+
+
+def unshard(x: torch.Tensor, sh) -> torch.Tensor:
+    """A leaf whole: this rank's piece ``x`` gathered, bit for bit, along
+    each dim its :class:`NamedSharding` ``sh`` splits (``None``: ``x``
+    is whole already).  Every rank of the axes must call it."""
+    if sh is None:
+        return x
+    for dim, axis in enumerate(sh.spec):
+        if axis is not None:
+            x = gather_dim(x, dim, sh.mesh, axis)
+    return x
+
+
+def _global_shape(path: str, shape, glob: dict) -> tuple:
+    """A transformer leaf's whole shape from ``_global_shapes`` (its
+    path with the layer index and any prefix such as ``m/`` dropped), or
+    ``shape`` itself."""
+    bare = re.sub(r"/\d+/", "/", path)
+    for key, full in glob.items():
+        if bare == key or bare.endswith("/" + key):
+            return tuple(full)
+    return tuple(shape)
+
+
+def param_shardings(params, mesh, *, cfg: ModelConfig = None):
+    """A tree of :class:`NamedSharding` shaped like ``params`` (or an
+    optimizer state: the rules match its ``m/...`` and ``v/...`` paths
+    too).  With ``cfg`` and a ``"model"`` axis that splits, each leaf
+    gets the placement the port executes (``leaf_spec``, on its whole
+    shape), so a rank's shard of a whole leaf is the one its model
+    runs; otherwise the rule table's spec, filtered on the leaf's shape.
+    No leaf splits over ``"data"``: the port executes no FSDP step
+    (ROADMAP.md Queue 1 item 6)."""
+    tp = None if cfg is None else tensor_parallel(cfg, mesh)
+    glob = _global_shapes(cfg) if tp is not None else {}
+
+    def one(path, leaf):
+        shape = tuple(leaf.shape)
+        if tp is not None:
+            spec = leaf_spec(path, _global_shape(path, shape, glob), mesh, cfg)
+        else:
+            spec = filter_spec(spec_for_path(path, len(shape)), shape, mesh)
+        return NamedSharding(mesh, spec)
+    return _map_with_paths(one, params)
+
+
+def batch_axes(global_batch: int, mesh, axes=("pod", D)):
+    """The ``axes`` (by default ``("pod", "data")``) in ``mesh`` when
+    their product (> 1) divides ``global_batch``, else ``None``
+    (replicated: every rank holds the whole batch)."""
+    sizes = axis_sizes(mesh)
+    present = tuple(a for a in axes if a in sizes)
+    n = 1
+    for a in present:
+        n *= sizes[a]
+    if n > 1 and global_batch % n == 0:
+        return present
+    return None
+
+
+def batch_specs(batch, mesh) -> dict:
+    """Specs of a batch's leaves ``{"tokens": (B, S), ...}``: the rows
+    over :func:`batch_axes`, the rest replicated."""
+    return {k: (batch_axes(v.shape[0], mesh),) + (None,) * (len(v.shape) - 1)
+            for k, v in batch.items()}
+
+
+def batch_rows(global_batch: int, mesh, axes=("pod", D)) -> tuple:
+    """``(start, stop)``: the rows of a ``global_batch`` that this rank
+    holds where :func:`batch_axes` splits them over ``axes`` (the whole
+    batch where it replicates), rank-ordered row-major over the axes."""
+    split = batch_axes(global_batch, mesh, axes)
+    if split is None:
+        return 0, global_batch
+    sizes = axis_sizes(mesh)
+    n, idx = 1, 0
+    for a in split:
+        n *= sizes[a]
+        idx = idx * sizes[a] + mesh.get_local_rank(a)
+    per = global_batch // n
+    return idx * per, (idx + 1) * per
+
+
+def batch_slice(batch: dict, mesh) -> dict:
+    """This rank's rows of every leaf of ``batch`` (:func:`batch_rows`)."""
+    b = next(iter(batch.values())).shape[0]
+    r0, r1 = batch_rows(b, mesh)
+    return {k: v[r0:r1] for k, v in batch.items()}

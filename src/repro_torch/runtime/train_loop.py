@@ -1,4 +1,4 @@
-"""Train, serve and prefill step factories on one device.
+"""Train, serve and prefill step factories, on one device or a rank mesh.
 
 The port of ``repro/runtime/train_loop.py``.  The gradient is autograd
 over the families' ``train_loss`` (the reference differentiates its XLA
@@ -10,29 +10,76 @@ adds them, and are then scaled by ``1/accum``; the loss is the mean.
 The step then runs :func:`optim.adamw.update` on the cosine schedule's
 learning rate.
 
-The reference's pod-compressed step (``compressed=True`` with
-``n_pods`` > 1: posit16 gradients on a pod mesh's wire) needs a pod
-mesh, which one device does not have: it raises ``NotImplementedError``.
+Under a rank mesh (``mesh=``, ``launch/mesh.make_mesh``; one process a
+rank), where the reference lets GSPMD place a jitted step:
+
+* **the standard step**: every rank holds the global batch (the
+  pipeline draws it from its seed) and runs the rows that
+  ``("pod", "data")`` give it (``sharding.batch_rows``), through a
+  tensor-parallel plan where ``"model"`` > 1 (``sharding.
+  tensor_parallel``: the transformer family).  Microbatches are the
+  reference's global ones, rows ``[i B/accum, (i+1) B/accum)``; a rank
+  runs its part of each, and each part's loss sum divides by its
+  microbatch's global label count, so that the sum over the ranks is
+  the reference's mean.  The gradients are then summed in f32 over
+  ``"data"`` (and ``"pod"``), the MoE router's over ``"model"``
+  (``sharding.partial_grad_leaves``), and AdamW runs on every rank with
+  the single device's clip scale.
+* **the pod-compressed step** (``compressed=True``, ``n_pods`` > 1,
+  ``cfg.grad_compress``, a ``"pod"`` axis of ``n_pods``): the
+  reference's ``train_step(params, opt_state, ef_state, batch, step)``
+  on a pod-tiled batch ``(n_pods, B / n_pods, ...)``.  Each pod's
+  gradient comes from the standard machinery inside the pod (its rows
+  over ``"data"``, ``"model"`` as above, no microbatches, as the
+  reference's ``vmap`` of ``value_and_grad``), then error feedback
+  quantizes it (rows 1 and 2), the posit patterns alone cross
+  ``"pod"`` at their own two bytes an element (``collectives.
+  gather_axis``), row 2 decodes the gathered ``(n_pods, ...)`` leaf in
+  one launch, and the f32 mean over pods feeds AdamW.  ``ef_state`` is
+  this pod's residual, shaped like the rank's parameters.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch import tree as T
+from repro_torch.compress import gradient as gc
 from repro_torch.models import get_family
+from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import adamw
+from repro_torch.runtime import collectives as C
+from repro_torch.runtime import sharding
 
 
-def make_grad_fn(cfg: ModelConfig):
+def make_grad_fn(cfg: ModelConfig, mesh=None, *, axes=("pod", "data"), accum=None):
     """``grads_of(params, batch) -> (loss, grads)``: the mean loss (a 0-d
     f32 tensor) and a tree of f32 gradients shaped like ``params`` (the
-    parameters' ``.grad`` tensors, which the next call replaces)."""
+    parameters' ``.grad`` tensors, which the next call replaces), over
+    ``accum`` microbatches (default ``cfg.grad_accum``).
+
+    On a rank of ``mesh``: ``params`` is this rank's shard and ``batch``
+    the whole batch that ``axes`` split (every rank passes the same one);
+    the rank runs its rows of each microbatch, each part's loss sum
+    divided by its microbatch's label count, and the loss and gradients
+    are summed over the axes that split the rows (``sharding.
+    batch_axes``: none where they do not divide the batch, which every
+    rank then runs whole; the MoE router's over ``"model"`` too), so
+    that every rank holds one device's, its own slices of the split
+    leaves."""
     fam = get_family(cfg)
-    accum = max(1, cfg.grad_accum)
+    accum = max(1, cfg.grad_accum if accum is None else accum)
+    tp = None if mesh is None else sharding.tensor_parallel(cfg, mesh)
+    lcfg = sharding.local_config(cfg, tp)
+    sizes = {} if mesh is None else sharding.axis_sizes(mesh)
+    kw = {} if tp is None else {"tp": tp}
+    partial = None          # fixed by cfg and mesh: set on the first call
 
     def grads_of(params, batch):
+        nonlocal partial
         leaves = T.leaves(params)
+        if partial is None:
+            partial = sharding.partial_grad_leaves(params, tp)
         for p in leaves:
             p.grad = None
             p.requires_grad_(True)
@@ -40,49 +87,108 @@ def make_grad_fn(cfg: ModelConfig):
         if b % accum:
             raise ValueError(f"batch {b} is not a multiple of grad_accum {accum}")
         mb = b // accum
-        lsum = None
+        # the axes that split the rows (none where they do not divide the
+        # batch: every rank then runs it whole, and nothing is summed)
+        split = () if mesh is None else sharding.batch_axes(b, mesh, axes) or ()
+        r0, r1 = (0, b) if mesh is None else sharding.batch_rows(b, mesh, axes)
+        lsum = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
         for i in range(accum):
-            micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
-            loss = fam.train_loss(params, micro, cfg)
+            lo, hi = max(r0, i * mb), min(r1, (i + 1) * mb)
+            if lo >= hi:
+                continue
+            if mesh is not None:
+                micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
+                kw["denom"] = L.xent_count(fam.loss_labels(micro, cfg)[1], cfg.loss_chunk)
+            loss = fam.train_loss(params, {k: v[lo:hi] for k, v in batch.items()}, lcfg, **kw)
             loss.backward()
-            lsum = loss.detach() if lsum is None else lsum + loss.detach()
+            lsum = lsum + loss.detach()
         for p in leaves:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
             p.requires_grad_(False)
+        grads = [p.grad for p in leaves]
         if accum > 1:
-            for p in leaves:
-                p.grad.mul_(1.0 / accum)
+            for g in grads:
+                g.mul_(1.0 / accum)
             lsum = lsum * (1.0 / accum)
+        for a in split:
+            if sizes[a] > 1:
+                C.all_reduce_axis(lsum, mesh, a, what="loss")
+                for g in grads:
+                    C.all_reduce_axis(g, mesh, a)
+        for g, part in zip(grads, partial):
+            if part:
+                g.copy_(tp.all_reduce(g, what="grad"))
         return lsum, T.tree_map(lambda p: p.grad, params)
 
     return grads_of
 
 
+def pod_mean(gathered, wire: str):
+    """The f32 mean over pods of gathered ``(n_pods, ...)`` pattern
+    leaves (a tree or one leaf): one dequantize a leaf
+    (``gradient.decompress``), then the mean over axis 0, as the
+    reference's ``decompress(q_rep).mean(0)``."""
+    return T.tree_map(lambda t: t.mean(dim=0), gc.decompress(gathered, wire))
+
+
 def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
                     *, n_pods: int = 1, compressed: bool = False,
-                    total_steps: int = 10_000):
+                    total_steps: int = 10_000, mesh=None):
     """``train_step(params, opt_state, batch, step) -> (params,
     opt_state, {"loss", "grad_norm"})``; the parameters and ``v`` update
     in place, and each parameter's ``.grad`` is released after the
-    update."""
-    if compressed and n_pods > 1 and cfg.grad_compress:
+    update.  With ``mesh``, each rank passes its shard of the parameters
+    (``sharding.shard_params``) and of the optimizer state, and the
+    global batch.  The pod-compressed step (module docstring) is
+    ``train_step(params, opt_state, ef_state, batch, step) -> (params,
+    opt_state, ef_state, metrics)``."""
+    pod_step = compressed and n_pods > 1 and bool(cfg.grad_compress)
+    if pod_step and (mesh is None or sharding.axis_sizes(mesh).get("pod", 1) != n_pods):
         raise NotImplementedError(
-            "the pod-compressed train step needs a pod mesh (several devices); "
-            "it is not ported to one device")
-    grads_of = make_grad_fn(cfg)
+            f"the pod-compressed train step needs a pod mesh: a rank mesh whose "
+            f"'pod' axis has n_pods={n_pods} ranks (make_mesh)")
+    tp = None if mesh is None else sharding.tensor_parallel(cfg, mesh)
+    grads_of = make_grad_fn(cfg, mesh, axes=("data",), accum=1) if pod_step \
+        else make_grad_fn(cfg, mesh)
+    split = None            # fixed by cfg and mesh: set on the first step
 
-    def train_step(params, opt_state, batch, step):
-        loss, grads = grads_of(params, batch)
-        dev = loss.device
+    def update(params, opt_state, grads, step, dev):
+        nonlocal split
+        if split is None and tp is not None:
+            split = sharding.split_leaves(params, cfg, mesh)
         lr_scale = adamw.cosine_schedule(torch.tensor(int(step), device=dev),
                                          total=total_steps)
-        params, opt_state, metrics = adamw.update(grads, opt_state, params, opt_cfg,
-                                                  lr_scale)
-        del grads
+        return adamw.update(grads, opt_state, params, opt_cfg, lr_scale, tp=tp, split=split)
+
+    def release(params):
         for p in T.leaves(params):
             p.grad = None
-        return params, opt_state, {"loss": loss, **metrics}
+
+    if not pod_step:
+        def train_step(params, opt_state, batch, step):
+            loss, grads = grads_of(params, batch)
+            params, opt_state, metrics = update(params, opt_state, grads, step, loss.device)
+            del grads
+            release(params)
+            return params, opt_state, {"loss": loss, **metrics}
+
+        return train_step
+
+    wire = cfg.grad_compress
+
+    def train_step(params, opt_state, ef_state, batch, step):
+        pod = mesh.get_local_rank("pod")
+        loss, grads = grads_of(params, {k: v[pod] for k, v in batch.items()})
+        q, ef_state = gc.compress_with_feedback(grads, ef_state, wire)
+        del grads
+        release(params)
+        # leaf by leaf: the patterns cross "pod", row 2 decodes them
+        g_hat = T.tree_map(lambda t: pod_mean(C.gather_axis(t, mesh, "pod"), wire), q)
+        del q
+        loss = C.all_reduce_axis(loss.clone(), mesh, "pod", what="loss") / n_pods
+        params, opt_state, metrics = update(params, opt_state, g_hat, step, loss.device)
+        return params, opt_state, ef_state, {"loss": loss, **metrics}
 
     return train_step
 

@@ -1231,10 +1231,10 @@ def test_train_step_on_card_matches_cpu(dev, arch, monkeypatch):
     seen = {}
     update = adamw.update
 
-    def recording(grads, state, params, c, lr_scale=None):
+    def recording(grads, state, params, c, lr_scale=None, **kw):
         seen["grads"] = TT.tree_map(lambda g: g.detach().cpu().clone(), grads)
         seen["lr_scale"] = lr_scale.cpu()
-        return update(grads, state, params, c, lr_scale)
+        return update(grads, state, params, c, lr_scale, **kw)
 
     monkeypatch.setattr(adamw, "update", recording)
     params = _to(init(), dev)
@@ -1266,3 +1266,25 @@ def test_train_step_on_card_matches_cpu(dev, arch, monkeypatch):
         d = (signed_view(a).to(torch.int32) - signed_view(b).to(torch.int32)).abs()
         steps, same = max(steps, int(d.max())), min(same, float((d == 0).float().mean()))
     assert max(errs) <= 1e-6 and steps <= 1 and same >= 0.999, (max(errs), steps, same)
+
+
+@pytest.mark.parametrize("cfg", [POSIT16, POSIT8], ids=["posit16", "posit8"])
+def test_decompress_launches_the_dequantize_on_card(dev, cfg):
+    """``compress.gradient.decompress`` on the card: one launch of the
+    codec's dequantize a leaf, a pod-stacked ``(n_pods, ...)`` leaf
+    included, bit-equal to the plain version (NaR too)."""
+    from repro_torch.compress import gradient as gc
+
+    name = "posit16" if cfg is POSIT16 else "posit8"
+    rng = np.random.default_rng(7)
+    tree = {"w": rng.integers(0, 1 << cfg.nbits, (2, 96, 40)),
+            "b": np.append(rng.integers(0, 1 << cfg.nbits, 37), 1 << (cfg.nbits - 1))}
+    host = {k: torch.from_numpy(v.astype(np.int64)).to(cfg.storage_dtype)
+            for k, v in tree.items()}
+    before = posit_codec.launches["posit_dequantize"]
+    got = gc.decompress({k: v.to(dev) for k, v in host.items()}, name)
+    assert posit_codec.launches["posit_dequantize"] == before + len(host)
+    want = gc.decompress(host, name)
+    for k in host:
+        assert got[k].device.type == "cuda"
+        assert torch.equal(got[k].cpu().view(torch.int32), want[k].view(torch.int32))

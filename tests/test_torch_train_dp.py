@@ -1,0 +1,97 @@
+"""Data parallelism across gloo ranks on the CPU for the families that
+tensor parallelism does not cover, and the launcher's ranks.
+
+hymba-1.5b, rwkv6-7b and whisper-tiny reduced, f32, at data 2 x model
+1 (``make_train_step(mesh=)``, a process a rank, gloo) on the sharded
+gate's batch, against the reference's single-device jitted step on the
+same weights: the loss and each parameter after one step within 1e-4,
+each gradient within 1e-4 of its leaf's largest magnitude.  At a
+``"model"`` axis of 2 the three refuse, naming the ROADMAP item.
+``launch/train.py --rank-devices cpu,cpu`` gives the single-device
+launch's losses within 1e-5, and so does ``cpu,cpu,cpu`` on a batch
+that three ranks do not divide.
+"""
+import pytest
+
+import train_lanes as TL
+import train_ref
+from repro_torch import configs as TCFG
+from repro_torch.launch import train
+from repro_torch.optim import adamw
+from repro_torch.runtime import train_loop
+
+BY_WORLD = {2: ["hymba", "rwkv6", "whisper"]}
+LANES = BY_WORLD[2]
+
+
+@pytest.fixture(scope="module")
+def runs():
+    return train_ref.run_lanes(BY_WORLD)
+
+
+@pytest.mark.parametrize("lane", LANES)
+def test_data_parallel_step_matches_reference(runs, lane):
+    train_ref.check_step(runs["got"][lane], runs["ref"][lane])
+
+
+@pytest.mark.parametrize("lane", LANES)
+def test_data_parallel_gradients_match_reference(runs, lane):
+    train_ref.check_grads(runs["got"][lane]["grads"], runs["ref"][lane]["grads"])
+
+
+class _Mesh:
+    """A ``DeviceMesh`` stand-in: what the step's guard reads."""
+    mesh_dim_names = ("data", "model")
+
+    def __init__(self, data, mp):
+        self.shape_ = (data, mp)
+
+    def size(self, i=None):
+        return self.shape_[i]
+
+
+@pytest.mark.parametrize("lane", LANES)
+def test_other_families_refuse_model_parallel(lane):
+    cfg = TL.lane_config(TCFG, TL.LANES[lane]["arch"])
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+        train_loop.make_train_step(cfg, adamw.AdamWConfig(), mesh=_Mesh(1, 2))
+
+
+def test_launcher_rank_devices_matches_one_device(tmp_path):
+    """Two data-parallel ranks through the command line: rank 0's losses
+    and gradient norms are the single device's within 1e-5 (gemma-7b
+    reduced, grad_accum 4: each rank runs two of the four microbatches)."""
+    argv = ["--arch", "gemma-7b", "--reduced", "--device", "cpu", "--steps", "3",
+            "--batch", "8", "--seq", "64", "--log-every", "1", "--save-every", "2"]
+    one = train.main(argv + ["--ckpt-dir", str(tmp_path / "one")])
+    ranks = train.main(argv + ["--ckpt-dir", str(tmp_path / "ranks"),
+                               "--rank-devices", "cpu,cpu"])
+    assert ranks.executed == one.executed == 3 and len(ranks.ranks) == 2
+    for r in ranks.ranks:
+        assert r["losses"] == ranks.ranks[0]["losses"]
+    for a, b in zip(ranks.losses, one.losses):
+        assert abs(a - b) <= 1e-5 * abs(b), (ranks.losses, one.losses)
+    for a, b in zip(ranks.grad_norms, one.grad_norms):
+        assert abs(a - b) <= 1e-5 * abs(b)
+    assert sorted(p.name for p in (tmp_path / "ranks").iterdir()) == \
+        sorted(p.name for p in (tmp_path / "one").iterdir())
+
+
+def test_launcher_ranks_that_do_not_divide_the_batch_match_one_device(tmp_path):
+    """Three data-parallel ranks on a batch of 8: ``"data"`` does not
+    divide it, so (as the reference's ``batch_axes`` replicates it)
+    every rank runs the whole batch and no gradient is summed over the
+    ranks; rank 0's losses and gradient norms are the single device's
+    within 1e-5, not three times them."""
+    argv = ["--arch", "gemma-7b", "--reduced", "--device", "cpu", "--steps", "2",
+            "--batch", "8", "--seq", "64", "--log-every", "1", "--save-every", "100"]
+    one = train.main(argv + ["--ckpt-dir", str(tmp_path / "one")])
+    ranks = train.main(argv + ["--ckpt-dir", str(tmp_path / "ranks"),
+                               "--rank-devices", "cpu,cpu,cpu"])
+    assert ranks.executed == one.executed == 2 and len(ranks.ranks) == 3
+    for r in ranks.ranks:
+        assert r["losses"] == ranks.ranks[0]["losses"]
+    for a, b in zip(ranks.losses, one.losses):
+        assert abs(a - b) <= 1e-5 * abs(b), (ranks.losses, one.losses)
+    for a, b in zip(ranks.grad_norms, one.grad_norms):
+        assert abs(a - b) <= 1e-5 * abs(b), (ranks.grad_norms, one.grad_norms)

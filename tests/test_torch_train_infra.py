@@ -7,8 +7,9 @@ payload: the patterns on disk bit for bit, and what each package
 restores from the other's file; ``TrainSupervisor`` and
 ``StragglerWatchdog`` event lists equal on the same fail hook and step
 timings.  Then port-side mirrors of ``tests/test_data.py``,
-``tests/test_fault.py`` and ``tests/test_checkpoint.py`` (all but the
-re-mesh test: ``restore(shardings=)`` raises on one device).
+``tests/test_fault.py`` and ``tests/test_checkpoint.py`` (its re-mesh
+test across ranks is in ``tests/test_torch_train_elastic.py``; here
+``restore(shardings=)`` with whole placements on one device).
 """
 import json
 import os
@@ -313,10 +314,29 @@ def test_async_save_error_surfaces_at_wait(tmp_path, monkeypatch):
 
 
 def test_restore_with_shardings_is_not_ported(tmp_path):
+    """``restore(shardings=)`` narrows a leaf over one mesh axis a dim;
+    a placement that splits one dim over several axes (the reference's
+    ``("pod", "data")`` rows, say) is not ported and raises."""
+    from repro_torch.runtime.sharding import NamedSharding
+
     ck = Checkpointer(str(tmp_path), keep=1)
     ck.save(2, _tree(), blocking=True)
-    with pytest.raises(NotImplementedError, match="one device"):
-        ck.restore(2, _tree(), shardings={"w": None})
+    places = {"count": None, "layers": {"b": None,
+                                        "w": NamedSharding(None, (("data", "model"), None))}}
+    with pytest.raises(NotImplementedError, match="several axes"):
+        ck.restore(2, _tree(), shardings=places)
+
+
+def test_restore_with_whole_shardings_restores_whole_leaves(tmp_path):
+    """Whole placements (``None`` leaves) restore every leaf whole, as
+    the restore without them does."""
+    ck = Checkpointer(str(tmp_path), keep=1)
+    ck.save(2, _tree(), blocking=True)
+    whole, _ = ck.restore(2, _tree())
+    placed, step = ck.restore(2, _tree(), shardings=TT.tree_map(lambda _: None, _tree()))
+    assert step == 2
+    for a, b in zip(TT.leaves(placed), TT.leaves(whole)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
 
 
 # ---------------------------------------------------------------------------

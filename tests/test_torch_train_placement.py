@@ -1,0 +1,216 @@
+"""The data-parallel placement functions against the reference's
+``runtime/sharding.py``: ``param_specs(fsdp=True, n_data=)``,
+``batch_axes`` and ``batch_specs``, on every ``ARCH_ID``'s reduced
+parameters, with the reference's layer-stack axis mapped as
+``tests/test_torch_sharding.py`` maps it.  Where the reference's ZeRO
+axis lands on its layer-stack axis (the data size divides the layer
+count), the port's unstacked leaf takes its own first free dim instead:
+``sharding.FSDP_DIVERGENCES``, which ROADMAP.md lists, and the test
+names each such leaf.  Then the port's own: the rows a rank holds
+(row-major over ``("pod", "data")``, as the reference's batch spec
+places them), ``param_shardings`` (the executed placement under a
+``"model"`` axis that splits, on parameters and on the optimizer
+state), and the ``"model"`` guard: an axis of 1 for every family.
+"""
+import re
+
+import pytest
+import torch
+
+import jax
+from jax.sharding import PartitionSpec as P
+
+from repro import configs as RCFG
+from repro.models import get_family as ref_family
+from repro.runtime import sharding as RS
+from repro_torch import configs as TCFG
+from repro_torch import tree
+from repro_torch.models.registry import get_family
+from repro_torch.optim import adamw
+from repro_torch.runtime import sharding as S
+
+
+class _FakeMesh:
+    """Duck-typed mesh (``axis_names`` and ``shape``) as the reference's
+    tests use, with a rank's coordinates for ``batch_rows``."""
+
+    def __init__(self, **sizes):
+        self.axis_names = tuple(sizes)
+        self.shape = dict(sizes)
+        self.coords = {a: 0 for a in sizes}
+
+    def get_local_rank(self, name):
+        return self.coords[name]
+
+
+def _ref_leaves(arch):
+    cfg = RCFG.get_config(arch).reduced(compute_dtype="float32")
+    shapes = jax.eval_shape(lambda k: ref_family(cfg).init_params(k, cfg),
+                            jax.random.PRNGKey(0))
+    return shapes, {RS._path_str(p): tuple(x.shape)
+                    for p, x in jax.tree_util.tree_flatten_with_path(shapes)[0]}
+
+
+def _port_params(arch):
+    cfg = TCFG.get_config(arch).reduced(compute_dtype="float32")
+    return cfg, get_family(cfg).init_params(cfg, seed=0, device="cpu")
+
+
+def _specs(spec_tree, params) -> dict:
+    """``{path: spec}`` of a spec tree shaped like ``params`` (a spec is a
+    tuple, which the tree walk would descend into)."""
+    out = {}
+    for path, _ in tree.leaves_with_paths(params):
+        t = spec_tree
+        for k in path.split("/"):
+            t = t[int(k)] if isinstance(t, list) else t[k]
+        out[path] = t
+    return out
+
+
+def _stacked(path):
+    """The reference's path of a port leaf: the layer index dropped."""
+    return re.sub(r"/\d+(?=/|$)", "", path, count=1)
+
+
+@pytest.mark.parametrize("n_data", [2, 4])
+@pytest.mark.parametrize("arch", TCFG.ARCH_IDS)
+def test_fsdp_param_specs_are_the_reference_with_the_layer_axis_dropped(arch, n_data):
+    """At data 2 the reduced models' 2 layers take the reference's ZeRO
+    axis on their stack: every per-layer leaf diverges, as recorded; at
+    data 4 none does."""
+    mesh = _FakeMesh(data=n_data, model=2)
+    shapes, ref_shapes = _ref_leaves(arch)
+    ref_specs = {RS._path_str(p): tuple(s) for p, s in jax.tree_util.tree_flatten_with_path(
+        RS.param_specs(shapes, mesh, fsdp=True, n_data=n_data),
+        is_leaf=lambda x: isinstance(x, P))[0]}
+    cfg, params = _port_params(arch)
+    port = _specs(S.param_specs(params, mesh, fsdp=True, n_data=n_data), params)
+    shapes_port = {p: tuple(x.shape) for p, x in tree.leaves_with_paths(params)}
+    diverged, compared = [], []
+    for path, got in port.items():
+        rpath = _stacked(path)
+        want = ref_specs[rpath] + (None,) * (len(ref_shapes[rpath]) - len(ref_specs[rpath]))
+        hit = S.match_for_path(path)
+        if hit is not None and hit[0] in S.DIVERGENCES:     # MLA's query path
+            continue
+        compared.append(path)
+        if rpath != path:                          # a per-layer leaf
+            if want[0] == "data":
+                assert any(re.search(pat, path) for pat in S.FSDP_DIVERGENCES), path
+                assert cfg.n_layers % n_data == 0
+                unstacked = S.filter_spec(S.spec_for_path(path, len(shapes_port[path])),
+                                          shapes_port[path], mesh)
+                assert got == S._add_fsdp_axis(unstacked, shapes_port[path], n_data), path
+                diverged.append(path)
+                continue
+            want = want[1:]
+        assert got == want, (path, got, want)
+    n_layer_leaves = sum(_stacked(p) != p for p in compared)
+    assert len(diverged) == (n_layer_leaves if cfg.n_layers % n_data == 0 else 0), diverged
+
+
+@pytest.mark.parametrize("arch", TCFG.ARCH_IDS)
+def test_param_specs_without_fsdp_are_the_rule_table(arch):
+    mesh = _FakeMesh(data=2, model=2)
+    _, params = _port_params(arch)
+    shapes = dict(tree.leaves_with_paths(params))
+    for path, spec in _specs(S.param_specs(params, mesh), params).items():
+        shape = shapes[path].shape
+        assert spec == S.filter_spec(S.spec_for_path(path, len(shape)), shape, mesh)
+    assert S.param_specs(params, mesh, fsdp=True, n_data=1) == S.param_specs(params, mesh)
+
+
+MESHES = [dict(data=4, model=2), dict(pod=2, data=2, model=2), dict(data=1, model=8),
+          dict(pod=2, data=1, model=1), dict(model=4)]
+
+
+@pytest.mark.parametrize("sizes", MESHES, ids=lambda m: "x".join(f"{k}{v}" for k, v in m.items()))
+@pytest.mark.parametrize("batch", [1, 4, 6, 8])
+def test_batch_axes_and_specs_match_reference(sizes, batch):
+    mesh = _FakeMesh(**sizes)
+    want = RS.batch_axes(batch, mesh)
+    assert S.batch_axes(batch, mesh) == want
+    leaves = {"tokens": torch.zeros((batch, 16), dtype=torch.int32),
+              "frames": torch.zeros((batch, 8, 4))}
+    ref = RS.batch_specs({k: jax.ShapeDtypeStruct(tuple(v.shape), "float32")
+                          for k, v in leaves.items()}, mesh, None)
+    got = S.batch_specs(leaves, mesh)
+
+    def norm(spec):          # ``P`` keeps a one-axis tuple as the axis itself
+        return tuple(e[0] if isinstance(e, tuple) and len(e) == 1 else e for e in spec)
+    assert {k: tuple(v) for k, v in ref.items()} == {k: norm(v) for k, v in got.items()}
+
+
+@pytest.mark.parametrize("sizes", MESHES, ids=lambda m: "x".join(f"{k}{v}" for k, v in m.items()))
+def test_batch_rows_are_row_major_over_pod_and_data(sizes):
+    """Rank (p, d, m) holds block ``p * n_data + d`` of the rows, the
+    block the reference's ``P(("pod", "data"))`` gives that device;
+    every row is held, ``"model"`` ranks hold the same rows."""
+    mesh = _FakeMesh(**sizes)
+    n_pod, n_data = sizes.get("pod", 1), sizes.get("data", 1)
+    held = set()
+    for p in range(n_pod):
+        for d in range(n_data):
+            for m in range(sizes.get("model", 1)):
+                mesh.coords.update({k: v for k, v in (("pod", p), ("data", d), ("model", m))
+                                    if k in sizes})
+                r0, r1 = S.batch_rows(8, mesh)
+                per = 8 // (n_pod * n_data)
+                assert (r0, r1) == ((p * n_data + d) * per, (p * n_data + d + 1) * per)
+                held |= set(range(r0, r1))
+                rows = S.batch_slice({"tokens": torch.arange(8)[:, None]}, mesh)["tokens"]
+                assert rows[:, 0].tolist() == list(range(r0, r1))
+    assert held == set(range(8))
+    mesh.coords = {a: 0 for a in sizes}
+    assert S.batch_rows(6, _FakeMesh(data=4)) == (0, 6)      # 4 does not divide 6
+
+
+class _RankMesh(_FakeMesh):
+    """``sharding.tensor_parallel``'s view of a ``(1, mp)`` mesh."""
+    mesh_dim_names = ("data", "model")
+
+    def __init__(self, mp):
+        super().__init__(data=1, model=mp)
+
+    def size(self, i=None):
+        return (1, self.shape["model"])[i]
+
+    def get_group(self, name):
+        return None
+
+
+@pytest.mark.parametrize("arch", ["phi3-medium-14b", "minicpm3-4b", "granite-34b",
+                                  "granite-moe-3b-a800m", "gemma-7b"])
+def test_param_shardings_are_the_executed_placement(arch):
+    """With ``cfg`` and ``"model"`` 2: each leaf's spec is ``leaf_spec`` on
+    its whole shape, for parameters given whole or as a rank's shard and
+    for the optimizer state's ``m``/``v`` (``count`` whole), and a
+    shard is the whole leaf cut by that spec."""
+    cfg, params = _port_params(arch)
+    mesh = _RankMesh(2)
+    local = S.shard_params(params, mesh, cfg)
+    whole_specs = [S.leaf_spec(p, tuple(x.shape), mesh, cfg)
+                   for p, x in tree.leaves_with_paths(params)]
+    for t in (params, local):
+        got = [sh.spec for sh in tree.leaves(S.param_shardings(t, mesh, cfg=cfg))]
+        assert got == whole_specs
+    opt = adamw.init(local, adamw.AdamWConfig(posit_moments=True))
+    shard = S.param_shardings(opt, mesh, cfg=cfg)
+    assert [s.spec for s in tree.leaves(shard["m"])] == whole_specs
+    assert [s.spec for s in tree.leaves(shard["v"])] == whole_specs
+    assert shard["count"].spec == ()
+    assert any("model" in s for s in whole_specs)
+    for x, y, sh in zip(tree.leaves(params), tree.leaves(local),
+                        tree.leaves(S.param_shardings(params, mesh, cfg=cfg))):
+        assert torch.equal(sh.shard(x), y)
+    assert S.split_leaves(local, cfg, mesh) == ["model" in s for s in whole_specs]
+
+
+@pytest.mark.parametrize("arch", TCFG.ARCH_IDS)
+def test_model_axis_of_one_is_allowed_for_every_family(arch):
+    cfg = TCFG.get_config(arch).reduced(compute_dtype="float32")
+    assert S.tensor_parallel(cfg, _RankMesh(1)) is None
+    if cfg.family != "transformer":
+        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+            S.tensor_parallel(cfg, _RankMesh(2))

@@ -1,0 +1,226 @@
+"""Lanes of the training-across-ranks tests (a helper module, not a test
+file): each lane's architecture, mesh and batch, and the rank functions
+that ``launch/mesh.spawn`` runs.  The ranks import torch and
+``repro_torch`` only; the tests run the reference on the JAX side and
+hand the ranks its parameters as nested dicts of numpy arrays.
+
+Lanes (:func:`rank_lanes`): the reference's sharded-step gate
+(granite-moe-3b-a800m at data 4 x model 2, ``tests/test_distributed.py``),
+the dense GQA, MLA, MQA and tied-embedding lanes at data 2 x model 2,
+and hymba-1.5b, rwkv6-7b and whisper-tiny data parallel at data 2 x
+model 1; rank 0 returns the whole parameters after one step and the
+whole gradients of that step (gathered over the mesh,
+``sharding.unshard``) in the reference's layout.  :func:`rank_pods`
+runs the compressed gate (internvl2-1b at pod 2 x data 2 x model 2),
+:func:`rank_elastic` the elastic re-mesh's moves.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+BATCH, SEQ, SEED = 8, 32, 5
+LR = 1e-3
+
+LANES = {
+    "moe": dict(arch="granite-moe-3b-a800m", mesh=(4, 2)),
+    "gqa": dict(arch="phi3-medium-14b", mesh=(2, 2)),
+    "mla": dict(arch="minicpm3-4b", mesh=(2, 2)),
+    "mqa": dict(arch="granite-34b", mesh=(2, 2)),
+    "tied": dict(arch="gemma-7b", mesh=(2, 2)),
+    "hymba": dict(arch="hymba-1.5b", mesh=(2, 1)),
+    "rwkv6": dict(arch="rwkv6-7b", mesh=(2, 1)),
+    "whisper": dict(arch="whisper-tiny", mesh=(2, 1)),
+}
+
+# the reference's compressed-wire gate
+POD_ARCH, POD_SEED, POD_MESH = "internvl2-1b", 9, (2, 2, 2)
+
+
+def lane_config(configs, arch: str):
+    """The reduced f32 config of either package, as the gates build it."""
+    cfg = configs.get_config(arch).reduced(compute_dtype="float32")
+    return dataclasses.replace(cfg, fsdp=False, seq_shard_activations=False)
+
+
+def pod_config(configs):
+    """The compressed gate's config: internvl2-1b reduced, f32, no visual
+    tokens, posit16 on the wire."""
+    cfg = lane_config(configs, POD_ARCH)
+    return dataclasses.replace(cfg, batch_axes=("pod", "data"), grad_compress="posit16",
+                               n_visual_tokens=0)
+
+
+def _whole(tree, mesh, cfg):
+    """A rank's tree gathered whole over the mesh, in the reference's
+    layout (numpy)."""
+    from repro_torch import tree as TT
+    from repro_torch.runtime import sharding
+    from repro_torch.weights import params_to_jax
+
+    shards = TT.leaves(sharding.param_shardings(tree, mesh, cfg=cfg))
+    whole = [sharding.unshard(x, sh) for x, sh in zip(TT.leaves(tree), shards)]
+    return params_to_jax(TT.unflatten(tree, whole))
+
+
+def _rank_params(ref_params, cfg, mesh):
+    from repro_torch.runtime import sharding
+    from repro_torch.weights import params_from_jax
+
+    return sharding.shard_params(params_from_jax(ref_params, cfg, device="cpu"), mesh, cfg)
+
+
+def rank_lanes(lanes, ref_params) -> dict:
+    """One gloo rank: each lane of ``lanes`` (all of one world size) on a
+    ``("data", "model")`` mesh: the gradients of the reference gate's
+    batch, then one step.  Rank 0 returns ``{lane: {"loss", "grad_norm",
+    "grad_loss", "params", "grads"}}``; the others ``{lane: None}``."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch import tree as TT
+    from repro_torch.data.pipeline import DataConfig, Pipeline
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import train_loop
+
+    out = {}
+    for lane in lanes:
+        spec = LANES[lane]
+        cfg = lane_config(configs, spec["arch"])
+        mesh = make_mesh(spec["mesh"], ("data", "model"))
+        params = _rank_params(ref_params[spec["arch"]], cfg, mesh)
+        batch = Pipeline(DataConfig(seed=SEED), cfg, BATCH, SEQ, device="cpu").batch_at(0)
+        g_loss, grads = train_loop.make_grad_fn(cfg, mesh)(params, batch)
+        grads = _whole(TT.tree_map(torch.clone, grads), mesh, cfg)
+        opt_cfg = adamw.AdamWConfig(lr=LR)
+        opt = adamw.init(params, opt_cfg)
+        step = train_loop.make_train_step(cfg, opt_cfg, mesh=mesh)
+        params, opt, m = step(params, opt, batch, 0)
+        whole = _whole(params, mesh, cfg)
+        out[lane] = None if dist.get_rank() else dict(
+            loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+            grad_loss=float(g_loss), params=whole, grads=grads)
+    return out
+
+
+def rank_pods(ref_params) -> dict:
+    """One gloo rank of the compressed gate: internvl2-1b at pod 2 x
+    data 2 x model 2, one pod-compressed step on the pod-tiled batch
+    (seed 9).  Returns the loss, whether this rank's error feedback is
+    non-zero and the collectives on the wire; rank 0 the whole
+    parameters after the step too."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch import tree as TT
+    from repro_torch.compress import gradient as gc
+    from repro_torch.data.pipeline import DataConfig, Pipeline
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import collectives, train_loop
+
+    cfg = pod_config(configs)
+    mesh = make_mesh(POD_MESH, ("pod", "data", "model"))
+    params = _rank_params(ref_params, cfg, mesh)
+    opt_cfg = adamw.AdamWConfig(lr=LR)
+    opt = adamw.init(params, opt_cfg)
+    ef = gc.init_error_state(params)
+    batch = Pipeline(DataConfig(seed=POD_SEED), cfg, BATCH, SEQ, device="cpu").batch_at(0)
+    n_pods = POD_MESH[0]
+    tiled = {k: v.reshape((n_pods, BATCH // n_pods) + tuple(v.shape[1:]))
+             for k, v in batch.items()}
+    step = train_loop.make_train_step(cfg, opt_cfg, n_pods=n_pods, compressed=True,
+                                      mesh=mesh)
+    collectives.wire.clear()
+    params, opt, ef, m = step(params, opt, ef, tiled, 0)
+    wire = {"/".join(k): v for k, v in collectives.wire.items()}
+    n_elems = sum(p.numel() for p in TT.leaves(params))
+    whole = _whole(params, mesh, cfg)           # every rank of "model" takes part
+    return dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]), wire=wire,
+                n_elems=n_elems, ef_nonzero=any(bool(torch.any(e != 0)) for e in TT.leaves(ef)),
+                params=None if dist.get_rank() else whole)
+
+
+# ---------------------------------------------------------------------------
+# The elastic re-mesh (examples/elastic_restart.py's model and data)
+# ---------------------------------------------------------------------------
+
+ELASTIC_ARCH, ELASTIC_SEED, ELASTIC_BATCH, ELASTIC_SEQ = "gemma-7b", 17, 8, 64
+ELASTIC_STEPS = 2          # steps before the save; the next one continues
+
+
+def elastic_setup(configs):
+    """``(cfg, opt_cfg, pipeline)`` of the elastic lanes (posit16 moments,
+    so the optimizer state holds patterns as well as f32 leaves)."""
+    from repro_torch.data.pipeline import DataConfig, Pipeline
+    from repro_torch.optim import adamw
+
+    cfg = lane_config(configs, ELASTIC_ARCH)
+    return cfg, adamw.AdamWConfig(lr=1e-3, posit_moments=True), Pipeline(
+        DataConfig(seed=ELASTIC_SEED), cfg, ELASTIC_BATCH, ELASTIC_SEQ, device="cpu")
+
+
+def state_shardings(state, mesh, cfg):
+    """The placements of a ``{"params", "opt"}`` state on ``mesh``."""
+    from repro_torch.runtime import sharding
+    return {"params": sharding.param_shardings(state["params"], mesh, cfg=cfg),
+            "opt": sharding.param_shardings(state["opt"], mesh, cfg=cfg)}
+
+
+def bits(t):
+    """A tensor's bits as numpy (patterns and floats alike)."""
+    import torch
+
+    from repro_torch.core.types import signed_view
+    t = t.detach().cpu()
+    return (signed_view(t) if t.dtype == torch.uint16 else t.view(torch.int32)).numpy().copy()
+
+
+def rank_elastic(ref_params, dirs) -> dict:
+    """Two gloo ranks.  Train ``ELASTIC_STEPS`` steps at ``(data 2, model
+    1)`` and save to ``dirs["dp"]``, the same at ``(data 1, model 2)``
+    to ``dirs["tp"]``; then restore ``dirs["one"]`` (a single device's
+    checkpoint) at ``(data 1, model 2)`` and run the next step.  Each
+    rank returns, for ``"dp"`` and ``"tp"``, its losses and its state's
+    leaves (bits) with their specs at the save, and for ``"one"`` the
+    restored leaves (bits), their specs and the next step's loss."""
+    from repro_torch import configs
+    from repro_torch import tree as TT
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import train_loop
+
+    cfg, opt_cfg, pipe = elastic_setup(configs)
+    out = {}
+    for name, shape in (("dp", (2, 1)), ("tp", (1, 2))):
+        mesh = make_mesh(shape, ("data", "model"))
+        params = _rank_params(ref_params, cfg, mesh)
+        opt = adamw.init(params, opt_cfg)
+        step = train_loop.make_train_step(cfg, opt_cfg, mesh=mesh)
+        losses = []
+        for i in range(ELASTIC_STEPS):
+            params, opt, m = step(params, opt, pipe.batch_at(i), i)
+            losses.append(float(m["loss"]))
+        state = {"params": params, "opt": opt}
+        sh = state_shardings(state, mesh, cfg)
+        Checkpointer(dirs[name], keep=1, mesh=mesh).save(ELASTIC_STEPS, state, shardings=sh)
+        out[name] = dict(losses=losses, leaves=[bits(x) for x in TT.leaves(state)],
+                         specs=[s.spec for s in TT.leaves(sh)])
+
+    mesh = make_mesh((1, 2), ("data", "model"))
+    params = _rank_params(ref_params, cfg, mesh)
+    template = {"params": params, "opt": adamw.init(params, opt_cfg)}
+    sh = state_shardings(template, mesh, cfg)
+    state, step0 = Checkpointer(dirs["one"], keep=1).restore(ELASTIC_STEPS, template,
+                                                             shardings=sh)
+    leaves = [bits(x) for x in TT.leaves(state)]
+    step = train_loop.make_train_step(cfg, opt_cfg, mesh=mesh)
+    _, _, m = step(state["params"], state["opt"], pipe.batch_at(step0), step0)
+    out["one"] = dict(leaves=leaves, specs=[s.spec for s in TT.leaves(sh)],
+                      step=step0, loss=float(m["loss"]))
+    return out

@@ -1,0 +1,122 @@
+"""The reference's side of the training-across-ranks tests (a helper
+module, not a test file): its single-device jitted step and gradients on
+a lane of ``tests/train_lanes.py``, the rank spawns beside them, and
+the comparisons the test files share."""
+import concurrent.futures
+
+import numpy as np
+
+import jax
+import jax.numpy as jnp
+
+import train_lanes as TL
+from repro import configs as RCFG
+from repro.data.pipeline import DataConfig as RDataConfig
+from repro.data.pipeline import Pipeline as RPipeline
+from repro.models import get_family as ref_family
+from repro.optim import adamw as ref_adamw
+from repro.runtime import train_loop as ref_train_loop
+from repro_torch.launch import mesh as M
+
+SPAWN_TIMEOUT = 300
+
+
+def ref_grads(rc, fam):
+    """The gradient of the reference's step, as its ``_grads_of`` takes
+    it: a scan over the microbatches, the sum scaled by ``1/accum``."""
+    accum = max(1, rc.grad_accum)
+
+    def grads(params, batch):
+        micro = jax.tree.map(lambda x: x.reshape((accum, x.shape[0] // accum) + x.shape[1:]),
+                             batch)
+
+        def one(gsum, mbatch):
+            g = jax.grad(lambda p: fam.train_loss(p, mbatch, rc))(params)
+            return jax.tree.map(lambda a, b: a + b.astype(jnp.float32), gsum, g), None
+
+        zeros = jax.tree.map(lambda p: jnp.zeros(p.shape, jnp.float32), params)
+        gsum, _ = jax.lax.scan(one, zeros, micro)
+        return jax.tree.map(lambda g: g * (1.0 / accum), gsum)
+    return grads
+
+
+def ref_lane(lane, params):
+    rc = TL.lane_config(RCFG, TL.LANES[lane]["arch"])
+    fam = ref_family(rc)
+    batch = RPipeline(RDataConfig(seed=TL.SEED), rc, global_batch=TL.BATCH,
+                      seq_len=TL.SEQ).batch_at(0)
+    opt_cfg = ref_adamw.AdamWConfig(lr=TL.LR)
+    p1, _, m1 = jax.jit(ref_train_loop.make_train_step(rc, opt_cfg))(
+        params, ref_adamw.init(params, opt_cfg), batch, jnp.asarray(0))
+    grads = jax.jit(ref_grads(rc, fam))(params, batch)
+    return {"loss": float(m1["loss"]), "grad_norm": float(m1["grad_norm"]),
+            "params": jax.tree.map(np.asarray, p1), "grads": jax.tree.map(np.asarray, grads)}
+
+
+def init_params(lanes) -> tuple:
+    """The reference's seeded parameters of each lane, and the same as
+    numpy trees keyed by architecture (what the ranks take)."""
+    ref_params, np_params = {}, {}
+    for lane in lanes:
+        arch = TL.LANES[lane]["arch"]
+        rc = TL.lane_config(RCFG, arch)
+        ref_params[lane] = ref_family(rc).init_params(jax.random.PRNGKey(0), rc)
+        np_params[arch] = jax.tree.map(np.asarray, ref_params[lane])
+    return ref_params, np_params
+
+
+def run_lanes(by_world: dict) -> dict:
+    """``{"ref": {lane: ...}, "got": {lane: rank 0's result}}``: one
+    spawn of ``TL.rank_lanes`` a world size, side by side, while the
+    reference runs every lane in this process."""
+    lanes = [lane for group in by_world.values() for lane in group]
+    ref_params, np_params = init_params(lanes)
+    with concurrent.futures.ThreadPoolExecutor(len(by_world)) as pool:
+        spawns = {n: pool.submit(M.spawn, TL.rank_lanes, ["cpu"] * n, (group, np_params),
+                                 timeout=SPAWN_TIMEOUT, threads=1)
+                  for n, group in by_world.items()}
+        ref = {lane: ref_lane(lane, ref_params[lane]) for lane in lanes}
+        got = {}
+        for n, fut in spawns.items():
+            ranks = fut.result()
+            assert all(r[lane] is None for r in ranks[1:] for lane in by_world[n])
+            got.update(ranks[0])
+    return {"ref": ref, "got": got}
+
+
+def walk(tree, path=()):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from walk(tree[k], path + (k,))
+    else:
+        yield path, np.asarray(tree)
+
+
+def lookup(tree, path):
+    for k in path:
+        tree = tree[k]
+    return np.asarray(tree)
+
+
+def check_step(got, want):
+    """The gate's bounds: the loss and every parameter after one step
+    within 1e-4 of the reference's single-device step."""
+    assert abs(got["loss"] - want["loss"]) < 1e-4, (got["loss"], want["loss"])
+    assert abs(got["grad_loss"] - want["loss"]) < 1e-4
+    np.testing.assert_allclose(got["grad_norm"], want["grad_norm"], rtol=1e-5)
+    n = 0
+    for path, w in walk(want["params"]):
+        g = lookup(got["params"], path)
+        assert g.shape == w.shape, path
+        assert float(np.abs(g - w).max()) < 1e-4, path
+        n += 1
+    assert n == len(list(walk(got["params"])))
+
+
+def check_grads(got, want):
+    """Every leaf's gradient within 1e-4 of its largest magnitude."""
+    for path, w in walk(want):
+        g = lookup(got, path)
+        scale = max(float(np.abs(w).max()), 1e-30)
+        assert float(np.abs(g - w).max()) <= 1e-4 * scale, (path, float(np.abs(g - w).max()),
+                                                             scale)

@@ -10,10 +10,11 @@ paths at full size and checks that every kernel of each path ran there:
   phi3-medium-14b (dense GQA lane, ``paged_attn.cu``) and minicpm3-4b
   (MLA lane, ``paged_attn_mla.cu``) with prefix caching and deadlines
   on a shared-prefix trace, on an arena small enough that deadlines
-  preempt; then on the same trace the rest of the transformer family:
+  preempt (minicpm3 at 31 of its 62 layers); then on the same trace the
+  rest of the transformer family:
   granite-moe-3b-a800m (the MoE feed-forward on every chunk and decode
-  step, full width and depth), gemma-7b (head_dim 256, full width and
-  depth), granite-34b (MQA, 48 query heads on one KV head, full width,
+  step, full width, 8 of 32 layers), gemma-7b (head_dim 256, full width,
+  14 of 28 layers), granite-34b (MQA, 48 query heads on one KV head, full width,
   24 of 88 layers) and dbrx-132b (16 experts top 4, posit8 KV, full
   width, 4 of 40 layers), each with exact launch counts, and on gemma
   and granite-34b the fused decode kernel against the gather path on
@@ -26,13 +27,13 @@ paths at full size and checks that every kernel of each path ran there:
   decode token; ``generate`` ==
   ``generate_stepwise`` and two ragged rows against their singleton
   generations on the card), the dense-cache scheduler on minicpm3-4b
-  (the MLA linear lane, compaction) and the unchunked paged scheduler
+  (the MLA linear lane, compaction; 16 of 62 layers) and the unchunked paged scheduler
   on phi3-medium-14b, each with exact launch counts per prefill and
   decode step and the schedule pinned on the CPU; the one-shot
   engine on internvl2-1b with its visual prefix (full width and depth);
   and the other three families through the one-shot engine at full
-  width and depth: hymba-1.5b (ring caches on its 29 window layers,
-  full ones on its 3 global layers, SSM state; its prefill a decode step
+  width: hymba-1.5b (16 of 32 layers: ring caches on its window layers,
+  full ones on its global layers 0 and 15, SSM state; its prefill a decode step
   a prompt token, so one fused write and one dequantize a layer and a
   prompt token), rwkv6-7b (15 GB of bf16 weights, the recurrent state,
   no posit kernel) and whisper-tiny (1 500 encoder frames from the seed
@@ -43,7 +44,7 @@ paths at full size and checks that every kernel of each path ran there:
   at full width and depth, its window replaced by 64 so that it wraps
   in the smoke's time (every decode step writes ring slot ``pos % 64``
   of every window layer and nothing else);
-- the paged sliding-window lane: phi3-medium-14b at full width and 20
+- the paged sliding-window lane: phi3-medium-14b at full width and 10
   of its 40 layers on the chunked trace with ``sliding_window`` replaced by 128
   (``WINDOW_PATH``; the published config has none), exact launch counts,
   every decode read exactly the window, fused == gather on the served
@@ -51,20 +52,31 @@ paths at full size and checks that every kernel of each path ran there:
 - (j) tensor-parallel serving (``TP_PATHS``): ``serve --model-parallel
   2`` with two ranks sharing the one card over gloo, phi3-medium-14b
   (its KV heads split, the arena head-sharded) and minicpm3-4b (its
-  query heads split, the latent arena whole) at full width and depth on
-  a shortened trace, each against a single-rank run of the same trace
+  query heads split, the latent arena whole) at full width, 10 of phi3's
+  40 layers and 16 of minicpm3's 62, on a shortened trace, each against
+  a single-rank run of the same trace
   on the same weights: the schedule equal, each rank's launches exactly
   the single run's, the cache's bytes per device, and greedy tokens
   equal up to flips at near-ties (teacher-forced through both);
+- (l) tensor-parallel serving on linear caches and the other families
+  (``TPL_PATHS``, ``--phase tp-linear``): ``serve --model-parallel``
+  with its ranks sharing the card over gloo, the one-shot engine on
+  phi3-medium-14b (KV heads split), rwkv6-7b (heads and the wkv state
+  split), whisper-tiny (self and cross K/V split) at mp 2 and hymba-1.5b
+  at mp 5 (five ranks: attention, KV and SSM heads split), and the
+  dense-cache scheduler on minicpm3-4b at mp 2 (compactions), full width
+  on shortened prompts, generations and depth (``TPL_CUTS``), each
+  against a single-rank run of the same argv held as (j) holds its paths
+  (the teacher-forced check in f32 on rwkv6 and hymba);
 - training, each phase in a process of its own (``--phase train``,
   ``--phase train-families``): (T) ``launch/train.py`` on gemma-7b at
-  full width, 8 of its 28 layers, ``--posit-moments`` (the codec's
+  full width, 2 of its 28 layers, ``--posit-moments`` (the codec's
   quantize and dequantize once a leaf a step, exactly; the supervisor's
   final checkpoint restored bit for bit; one AdamW update on the real
   leaves on the kernels against the plain codec, bit for bit; rows 1 and
   2 timed at the optimizer's leaves), and (T2) two steps of
-  minicpm3-4b, granite-moe-3b-a800m, hymba-1.5b, rwkv6-7b (16 of 32
-  layers) and whisper-tiny (``TRAIN_FAMILIES``);
+  minicpm3-4b (31 of 62 layers), granite-moe-3b-a800m, hymba-1.5b (16
+  of 32), rwkv6-7b (8 of 32) and whisper-tiny (``TRAIN_FAMILIES``);
 - (k) training across ranks, a process of its own (``--phase
   train-ranks``), two ranks sharing the card over gloo (so no wall is
   a multi-card speed): (k1) (T)'s gemma-7b, seed, data and schedule
@@ -90,6 +102,7 @@ paths at full size and checks that every kernel of each path ran there:
     python3 chip_smoke.py --phase train            # (T) alone (kernels built)
     python3 chip_smoke.py --phase train-families   # (T2) alone
     python3 chip_smoke.py --phase tp               # (j) alone
+    python3 chip_smoke.py --phase tp-linear        # (l) alone
     python3 chip_smoke.py --phase train-ranks      # (k) alone
     python3 chip_smoke.py --ptxas  # only: -Xptxas -v (registers, shared
                                    # memory, spills) of paged_attn.cu,
@@ -105,7 +118,8 @@ included, the MLA kernel at a rank's 20 heads, and the fused write and
 read on every served lane's leaves (``LANES``, a rank's arena at mp 2
 included) against their plain versions,
 and checks and times the codec's quantize and dequantize at the shapes
-the ISA phases and the linear lanes of every family give them (the
+the ISA phases and the linear lanes of every family give them, a rank's
+shapes in (l) included (the
 dequantize in its job form, a layer's two leaves a launch, beside the
 launches PR 19's linear read made for the same values), the fused write
 as the paged and the linear decode lanes launch it (hymba's ring and
@@ -175,8 +189,9 @@ _TRACE = [
     "--decode-kernel", "fused", "--temperature", "0", "--seed", "0",
     "--device", "cuda",
 ]
-# the main path, two lanes at full width and depth, bf16 weights, the
-# reference's command line for the chunked paged scheduler.  The
+# the main path, two lanes at full width, bf16 weights, the reference's
+# command line for the chunked paged scheduler: phi3 at full depth,
+# minicpm3 at 31 of its 62 layers (cut so that the smoke fits its time).  The
 # minicpm3 trace shares half of every prompt; a quarter of its requests
 # carry a 5 s deadline (500 decode steps) and the rest are best-effort,
 # and its 200-block arena (of a worst case 512) makes deadline requests
@@ -187,15 +202,17 @@ MAIN_PATHS = {
     "phi3-medium-14b": (["--arch", "phi3-medium-14b"] + _TRACE,
                         ("posit_paged_write", "posit_paged_read",
                          "paged_decode_attention")),
-    "minicpm3-4b": (["--arch", "minicpm3-4b", "--prefix-cache",
+    "minicpm3-4b": (["--arch", "minicpm3-4b", "--n-layers", "31", "--prefix-cache",
                      "--prefix-share", "0.5", "--deadline-ms", "5000",
                      "--deadline-share", "0.25", "--n-blocks", "200"] + _TRACE,
                     ("posit_paged_write", "posit_paged_read",
                      "paged_decode_attention_mla")),
 }
 # The rest of the transformer family on the same trace and kernels (the
-# MoE feed-forward launches no posit kernel).  granite-moe-3b-a800m and
-# gemma-7b at full width and depth (3.4 B and 8.5 B parameters in bf16);
+# MoE feed-forward launches no posit kernel).  granite-moe-3b-a800m at
+# full width with 8 of its 32 layers (its 40 experts top 8 in every
+# layer) and gemma-7b at full width with 14 of its 28 layers (both cut so
+# that the smoke fits its time);
 # granite-34b at full width with 24 of its 88 layers (all 88 in bf16,
 # some 93 GB with the port's three-matrix MLP, leave no room on an
 # 80 GB card); dbrx-132b at full width with 4 of its 40 layers (6.3 GB of
@@ -203,8 +220,9 @@ MAIN_PATHS = {
 _DENSE_KERNELS = ("posit_paged_write", "posit_paged_read", "paged_decode_attention")
 _TRACE8 = ["posit8" if a == "posit16" else a for a in _TRACE]
 MAIN_PATHS.update({
-    "granite-moe-3b-a800m": (["--arch", "granite-moe-3b-a800m"] + _TRACE, _DENSE_KERNELS),
-    "gemma-7b": (["--arch", "gemma-7b"] + _TRACE, _DENSE_KERNELS),
+    "granite-moe-3b-a800m": (["--arch", "granite-moe-3b-a800m", "--n-layers", "8"] + _TRACE,
+                             _DENSE_KERNELS),
+    "gemma-7b": (["--arch", "gemma-7b", "--n-layers", "14"] + _TRACE, _DENSE_KERNELS),
     "granite-34b": (["--arch", "granite-34b", "--n-layers", "24"] + _TRACE, _DENSE_KERNELS),
     "dbrx-132b": (["--arch", "dbrx-132b", "--n-layers", "4"] + _TRACE8, _DENSE_KERNELS),
 })
@@ -217,7 +235,8 @@ FUSED_GATHER_PATHS = ("gemma-7b", "granite-34b")
 # depth, through the reference's command line: (a) the one-shot engine on
 # phi3-medium-14b (a ragged batch of 8 prompts, a linear posit16 cache);
 # (b) the dense-cache scheduler on minicpm3-4b (the MLA linear lane, with
-# compaction); (c) the unchunked paged scheduler on phi3-medium-14b, on
+# compaction; 16 of its 62 layers, cut so that the smoke fits its time);
+# (c) the unchunked paged scheduler on phi3-medium-14b, on
 # the trace flags of (b).  Each kernel's launches must be exactly L (the
 # model's layers) times the per-prefill and per-decode-step counts given
 # here, and every other kernel must stay unlaunched.
@@ -231,7 +250,8 @@ _LINEAR_KERNELS = {"posit_quantize": (2, 0), "posit_paged_write": (0, 1),
 LINEAR_PATHS = {
     "phi3-medium-14b-oneshot": (["--arch", "phi3-medium-14b", "--ragged"] + _LINEAR_ARGS,
                                 _LINEAR_KERNELS),
-    "minicpm3-4b-dense": (["--arch", "minicpm3-4b"] + _UNCHUNKED, _LINEAR_KERNELS),
+    "minicpm3-4b-dense": (["--arch", "minicpm3-4b", "--n-layers", "16"] + _UNCHUNKED,
+                          _LINEAR_KERNELS),
     "phi3-medium-14b-unchunked": (
         ["--arch", "phi3-medium-14b", "--paged", "--block-size", "16",
          "--decode-kernel", "fused"] + _UNCHUNKED,
@@ -242,11 +262,12 @@ LINEAR_PATHS = {
     "internvl2-1b-oneshot": (["--arch", "internvl2-1b"] + _LINEAR_ARGS, _LINEAR_KERNELS),
 }
 # The other three families through the one-shot engine, full width and
-# depth, posit16 KV, prompts of equal length (the reference refuses ragged
-# batches outside the transformer family).  A count's third entry is per
+# depth (hymba: 16 of its 32 layers, its global layers 0 and 15, cut so
+# that the smoke fits its time), posit16 KV, prompts of equal length (the
+# reference refuses ragged batches outside the transformer family).  A count's third entry is per
 # prompt token: hymba-1.5b's prefill is a decode step a prompt token, one
-# fused write and one dequantize a layer each (its 29 ring layers of
-# 1 024 slots and 3 global ones); rwkv6-7b (15 GB of bf16 weights, a
+# fused write and one dequantize a layer each (ring layers of 1 024
+# slots and global ones); rwkv6-7b (15 GB of bf16 weights, a
 # 512-token prompt: a multiple of its WKV chunk, 16) launches no posit
 # kernel; whisper-tiny (448 is its decoder context, 1 500 encoder frames
 # from the seed) quantizes each decoder layer's K, V and cross K, V at
@@ -256,7 +277,8 @@ _FAMILY_ARGS = ["--batch", "8", "--gen", "32", "--kv-posit", "posit16", "--tempe
                 "--seed", "0", "--device", "cuda"]
 LINEAR_PATHS.update({
     "hymba-1.5b-oneshot": (
-        ["--arch", "hymba-1.5b", "--prompt-len", "128", "--max-len", "1024"] + _FAMILY_ARGS,
+        ["--arch", "hymba-1.5b", "--n-layers", "16", "--prompt-len", "128", "--max-len", "1024"]
+        + _FAMILY_ARGS,
         {"posit_paged_write": (0, 1, 1), "posit_dequantize": (0, 1, 1)}),
     "rwkv6-7b-oneshot": (
         ["--arch", "rwkv6-7b", "--prompt-len", "512", "--max-len", "1024"] + _FAMILY_ARGS, {}),
@@ -378,7 +400,12 @@ def codec_shapes(dev):
     families: whisper-tiny's cross K (8, 1 500, 6, 64) quantized at
     prefill; a layer's K and V read at decode in both output forms,
     hymba-1.5b's ring (8, 1 024, 5, 64), whisper-tiny's self leaves
-    (8, 448, 6, 64) and cross leaves (8, 1 500, 6, 64)."""
+    (8, 448, 6, 64) and cross leaves (8, 1 500, 6, 64).  A rank's linear
+    shapes in (l): phi3's prefill KV at 5 of 10 KV heads (8, 256, 5, 128)
+    and whisper's cross K at 3 of 6 (8, 1 500, 3, 64) quantized; a
+    layer's read, bf16-rounded, of phi3's K+V (8, 1 024, 5, 128),
+    whisper's cross leaves (8, 1 500, 3, 64) and hymba's ring at mp 5,
+    one KV head (8, 1 024, 1, 64)."""
     from repro_torch.core.types import POSIT16, POSIT32, signed_view
     from repro_torch.kernels import posit_codec as C
 
@@ -393,7 +420,9 @@ def codec_shapes(dev):
     for key, shape in (("phi3_linear_prefill", (8, 512, 10, 128)),
                        ("mla_prefill_latent", (1, 512, 256)),
                        ("mla_prefill_rope", (1, 512, 32)),
-                       ("whisper_cross_k", (8, 1500, 6, 64))):
+                       ("whisper_cross_k", (8, 1500, 6, 64)),
+                       ("phi3_linear_prefill_mp2", (8, 256, 5, 128)),
+                       ("whisper_cross_k_mp2", (8, 1500, 3, 64))):
         quant[key] = (POSIT16, torch.randn(shape, generator=gen, device=dev))
 
     def leaf(cfg, shape):
@@ -416,6 +445,11 @@ def codec_shapes(dev):
         leaves = [leaf(POSIT16, shape) for _ in range(2)]
         dequant[key + "_bf16"] = (POSIT16, leaves, torch.bfloat16)
         dequant[key + "_f32"] = (POSIT16, leaves, None)
+    # a rank's linear read in (l), bf16-rounded as the card serves it
+    for key, shape in (("phi3_linear_decode_kv_mp2", (8, 1024, 5, 128)),
+                       ("whisper_cross_kv_mp2", (8, 1500, 3, 64)),
+                       ("hymba_ring_kv_mp5", (8, 1024, 1, 64))):
+        dequant[key] = (POSIT16, [leaf(POSIT16, shape) for _ in range(2)], torch.bfloat16)
     return quant, dequant
 
 
@@ -865,13 +899,19 @@ def write_case(dev, cfg, lane, seed):
 # the linear decode lanes' fused write: (leaf slots T, frontier, ring,
 # per-slot feature shape); phi3's K and V of one layer (and past a wrap of
 # a 48-slot ring, and past the capacity: every write dropped), hymba-1.5b's
-# ring past its wrap, whisper-tiny's self leaves
+# ring past its wrap, whisper-tiny's self leaves; and a rank's in (l):
+# phi3's at 5 KV heads, hymba's ring at mp 5 (one KV head), whisper's self
+# leaves at 3 heads
 LINEAR_WRITES = {"phi3": (1024, 700, False, (10, 128)),
                  "phi3_ring48": (48, 1000, True, (10, 128)),
                  "phi3_past_capacity": (1024, 1024, False, (10, 128)),
                  "hymba_ring": (1024, 1500, True, (5, 64)),
-                 "whisper_self": (448, 300, False, (6, 64))}
-LINEAR_WRITES_TIMED = ("phi3", "hymba_ring", "whisper_self")
+                 "whisper_self": (448, 300, False, (6, 64)),
+                 "phi3_mp2": (1024, 700, False, (5, 128)),
+                 "hymba_ring_mp5": (1024, 1500, True, (1, 64)),
+                 "whisper_self_mp2": (448, 300, False, (3, 64))}
+LINEAR_WRITES_TIMED = ("phi3", "hymba_ring", "whisper_self", "phi3_mp2", "hymba_ring_mp5",
+                       "whisper_self_mp2")
 
 
 def check_linear_write(dev):
@@ -1478,11 +1518,12 @@ def check_linear_counts(name, counts, expect, n_layers, n):
 FORCED_TOL = 0.25
 
 
-def forced_logits(eng, prompts, tokens):
-    """(B, n, V) logits of a prefill and n - 1 decode steps fed ``tokens``
+def forced_logits(eng, prompts, tokens, **inputs):
+    """(B, n, V) logits of a prefill (with whisper's ``frames`` or a
+    visual prefix in ``inputs``) and n - 1 decode steps fed ``tokens``
     (B, n) in place of their own samples."""
     n = tokens.shape[1]
-    cache, logits, _ = eng.prefill(prompts, reserve_tokens=n - 1)
+    cache, logits, _ = eng.prefill(prompts, reserve_tokens=n - 1, **inputs)
     tok = torch.as_tensor(tokens, dtype=torch.int64, device=eng.device)
     out = [logits]
     for j in range(n - 1):
@@ -1667,11 +1708,12 @@ def check_hymba_ring(dev):
 # phi3-medium-14b's published config has no window, and the command line
 # no window flag: the lane replaces it by WINDOW (dataclasses.replace, as
 # check_hymba_ring does), so that every prompt of _TRACE (256-512 tokens)
-# outgrows the window; full width, 20 of its 40 layers (the smoke's time:
-# the lane's reads are per layer, so half the depth checks the same ring)
+# outgrows the window; full width, 10 of its 40 layers (the smoke's time:
+# the lane's reads are per layer, so a quarter of the depth checks the
+# same ring)
 WINDOW = 128
 WINDOW_PATH = ("phi3-medium-14b-window",
-               ["--arch", "phi3-medium-14b", "--n-layers", "20"] + _TRACE)
+               ["--arch", "phi3-medium-14b", "--n-layers", "10"] + _TRACE)
 
 
 def check_main_counts(name, res, counts, steps, chunks, kernels):
@@ -1778,7 +1820,8 @@ def run_window_lane(dev):
 
 # The main path's flags with --model-parallel 2 on a shortened seeded
 # trace (8 requests, prompts 96-192 tokens, generations 2-8), full width
-# and depth: phi3-medium-14b (its KV heads split, 5 a rank: the arena
+# (depth cut so that the smoke fits its time: 10 of phi3's 40 layers, 16
+# of minicpm3's 62): phi3-medium-14b (its KV heads split, 5 a rank: the arena
 # head-sharded) and minicpm3-4b (its query heads split, 20 a rank; the
 # latent arena whole on each rank), each against a single-rank run of
 # the same trace on the same weights, run before it.
@@ -1793,8 +1836,10 @@ _TP_TRACE = ["--continuous", "--paged", "--chunked-prefill", "--batch", "8",
 TP_DEVICES = ["cuda:0", "cuda:0"]
 TP_RANKS = ["--model-parallel", "2", "--rank-devices", ",".join(TP_DEVICES)]
 TP_PATHS = {   # argv, the path's kernels, whether the KV heads split
-    "phi3-medium-14b": (["--arch", "phi3-medium-14b"] + _TP_TRACE, _DENSE_KERNELS, True),
-    "minicpm3-4b": (["--arch", "minicpm3-4b"] + _TP_TRACE, MAIN_PATHS["minicpm3-4b"][1], False),
+    "phi3-medium-14b": (["--arch", "phi3-medium-14b", "--n-layers", "10"] + _TP_TRACE,
+                        _DENSE_KERNELS, True),
+    "minicpm3-4b": (["--arch", "minicpm3-4b", "--n-layers", "16"] + _TP_TRACE,
+                    MAIN_PATHS["minicpm3-4b"][1], False),
 }
 TP_FORCED = 8      # greedy tokens of the teacher-forced check
 
@@ -1946,32 +1991,323 @@ def run_tp_path(dev, name):
     return by_path, dict(report, rel=rel, flips=int(flips.sum()))
 
 
+# (l) tensor-parallel serving on linear caches and on the other families
+# (``--phase tp-linear``, a process of its own): ``serve --model-parallel``'s
+# ranks sharing the one card over gloo, so no wall here is a multi-card
+# speed.  Full width, depth cut (``TPL_CUTS``); each path against a single-rank run of
+# the same argv on the same weights, run before it: the one-shot engine
+# on phi3-medium-14b (8 ragged prompts, its KV heads split, 5 a rank),
+# the dense-cache scheduler on minicpm3-4b (its query heads split, the
+# latents whole; compactions), the one-shot engine on rwkv6-7b (its 64
+# heads split: the time mix and the wkv state), whisper-tiny (its 6
+# heads split, self and cross K/V) and hymba-1.5b at mp 5, five ranks
+# (25 heads, 5 KV heads and 25 SSM heads split; its MLP and vocabulary
+# do not divide).  Prompts and generations are shorter than paths
+# (a)-(g)'s so that the phase fits the smoke's time: each cut is
+# printed (``TPL_CUTS``).  The teacher-forced check runs in the path's
+# dtype: bf16 on the transformer and whisper; f32 on rwkv6 and hymba,
+# whose bf16 logits drift from the single rank's with depth by the
+# rounding of the split's sums alone (one device that rounds its
+# row-parallel partial sums and sums its split norms' statistics as the
+# ranks do gives their logits bit for bit:
+# ``tests/test_torch_tp_families.py::test_bf16_drift_is_the_split_sums_rounding``),
+# past ``FORCED_TOL`` at full depth.
+_TPL_ARGS = ["--batch", "8", "--kv-posit", "posit16", "--temperature", "0", "--seed", "0",
+             "--device", "cuda"]
+TPL_PATHS = {   # argv, the ranks, the cache leaves that split, the forced check's dtype
+    "phi3-medium-14b-oneshot": (["--arch", "phi3-medium-14b", "--n-layers", "10", "--ragged",
+                                 "--prompt-len", "128", "--gen", "8", "--max-len", "1024"]
+                                + _TPL_ARGS, 2, ("k", "v"), "bfloat16"),
+    "minicpm3-4b-dense": (["--arch", "minicpm3-4b", "--n-layers", "16", "--continuous",
+                           "--n-requests", "6", "--arrival-rate", "0.5", "--chunk-size", "8",
+                           "--prompt-len", "128", "--gen", "8"] + _TPL_ARGS, 2, (),
+                          "bfloat16"),
+    "rwkv6-7b-oneshot": (["--arch", "rwkv6-7b", "--n-layers", "8", "--prompt-len", "64",
+                          "--gen", "8"] + _TPL_ARGS, 2, ("wkv",), "float32"),
+    "whisper-tiny-oneshot": (["--arch", "whisper-tiny", "--prompt-len", "64", "--gen", "8",
+                              "--max-len", "448"] + _TPL_ARGS, 2, ("k", "v", "ck", "cv"),
+                             "bfloat16"),
+    "hymba-1.5b-oneshot": (["--arch", "hymba-1.5b", "--n-layers", "16", "--prompt-len", "4",
+                            "--gen", "2", "--max-len", "1024"] + _TPL_ARGS, 5,
+                           ("k_swa", "v_swa", "k_glb", "v_glb", "ssm"), "float32"),
+}
+TPL_CUTS = ("paths (a), (b), (f), (g) and (e) run prompts of 512, 512, 512, 384 and 128 "
+            "tokens and 32 generated, (b) 16 requests, every layer; (l) runs 128, 128 (6 "
+            "requests, chunk 8), 64, 64 and 4, 8 generated (hymba's 2), and phi3 10 of its 40 "
+            "layers, minicpm3 16 of 62, rwkv6 8 of 32, hymba 16 of 32 (global layers 0 and "
+            "15), whisper all")
+TPL_DEVICE = "cuda:0"   # every rank's device
+
+
+def tpl_ranks(name):
+    """The argv of an (l) path's ranks and their devices."""
+    argv, mp = TPL_PATHS[name][:2]
+    devices = [TPL_DEVICE] * mp
+    return argv + ["--model-parallel", str(mp), "--rank-devices", ",".join(devices)], devices
+
+
+def tpl_forced_model(argv, dtype, devices=None):
+    """The (l) path's config and weights for the teacher-forced check:
+    ``serve.rank_model``'s draw (the whole model with ``devices`` None),
+    in f32 weights and compute when ``dtype`` is ``"float32"``; returns
+    ``(args, mesh, cfg, params)``."""
+    import dataclasses
+
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.registry import get_family
+    from repro_torch.runtime import sharding
+
+    args = serve.build_parser().parse_args(argv)
+    mesh = None
+    if devices is not None:
+        import torch.distributed as dist
+        args.device = devices[dist.get_rank()]
+        mesh = make_host_mesh(args.model_parallel, torch.device(args.device).type)
+    cfg = dataclasses.replace(serve.model_config(args), compute_dtype=dtype)
+    params = get_family(cfg).init_params(
+        cfg, seed=args.seed, device=args.device,
+        dtype=torch.float32 if dtype == "float32" else None,
+        shard=None if mesh is None else
+        (lambda t, prefix: sharding.shard_params(t, mesh, cfg, prefix)))
+    return args, mesh, cfg, params
+
+
+def tpl_rank(paths, devices):
+    """One rank of the (l) paths at one mesh size (``launch/mesh.spawn``),
+    for each ``(argv, job)`` of ``paths`` in turn: what ``serve
+    --model-parallel``'s ranks run, ``serve.rank_model`` then
+    ``serve.serve_on_rank``; then, on the same weights (on f32 weights
+    drawn the same way where ``job`` asks for f32), a linear engine of
+    the job's ``max_len`` fed the job's tokens after its prompts.
+    Returns, for each path, the rank's ``RankResult``, its (B, n, V)
+    logits as a host array and its wall."""
+    from repro_torch.launch import serve
+    from repro_torch.runtime.engine import Engine
+
+    out = []
+    for argv, (prompts, tokens, inputs, max_len, dtype) in paths:
+        t0 = time.perf_counter()
+        args, mesh, cfg, params = serve.rank_model(argv, devices)
+        res = serve.serve_on_rank(args, mesh, cfg, params)
+        if dtype != cfg.compute_dtype:
+            del params
+            gc.collect()
+            torch.cuda.empty_cache()
+            args, mesh, cfg, params = tpl_forced_model(argv, dtype, devices)
+        eng = Engine(cfg, params, max_len=max_len, device=args.device, mesh=mesh)
+        kw = {k: torch.as_tensor(v, device=args.device) for k, v in inputs.items()}
+        out.append((res, forced_logits(eng, prompts, tokens, **kw).cpu().numpy(),
+                    time.perf_counter() - t0))
+        del eng, params, kw
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+TPL_STATS = ("n_chunks", "steps_run", "n_admitted", "n_compactions", "n_leaked")
+
+
+
+def tpl_single(name):
+    """The single-rank run of an (l) path through the user entry point
+    (``serve_linear_path``): exact launch counts; returns what the ranks
+    are held to (tokens, the schedule, launches, the cache's bytes and
+    its split leaves' bytes, walls), the teacher-forced job of the path
+    (its prompts: the one-shot batch, or 8 ragged prompts from a seed on
+    the dense path; the single rank's greedy tokens; the inputs; the
+    engine's length; the dtype) and the single rank's forced logits."""
+    from repro_torch.compress import kvcache as kvc
+    from repro_torch.runtime.engine import Engine
+
+    argv, mp, split, dtype = TPL_PATHS[name]
+    res, counts, wall, n, oneshot = serve_linear_path(argv)
+    engine = oneshot.engine if oneshot else res.sched.engine
+    check_linear_counts(name, counts, LINEAR_PATHS[name][1], engine.cfg.n_layers, n)
+    if oneshot is not None:
+        prompts, inputs = oneshot.prompts, oneshot.inputs
+        cache, tokens, max_len = oneshot.result.cache, res, engine.max_len
+        ref = dict(tokens=res.tolist(), seconds=oneshot.seconds,
+                   prefill_seconds=oneshot.prefill_seconds, report=oneshot.report)
+    else:
+        check_served(res, int(argv[argv.index("--n-requests") + 1]))
+        if res.sched.n_compactions < 1:
+            fail(f"the (l) {name} path reached no compaction")
+        cache, max_len = res.sched.cache, 256
+        ref = dict(done={r: (c.tokens.tolist(), c.admitted_step, c.finished_step)
+                         for r, c in res.done.items()},
+                   stats={k: res.sched.stats[k] for k in TPL_STATS}, seconds=res.seconds,
+                   report=kvc.cache_report(cache))
+        rng = np.random.default_rng(11)
+        prompts = [rng.integers(1, engine.cfg.vocab, int(k)).tolist()
+                   for k in rng.integers(64, 129, size=8)]
+        inputs = {}
+        tokens = Engine(engine.cfg, engine.params, max_len=max_len,
+                        device=engine.device).generate(prompts, 8).tokens
+    ref.update(counts=counts, wall=wall, split_bytes=sum(
+        cache[k].numel() * cache[k].element_size() for k in split))
+    toks = np.asarray(tokens)
+    cfg, params = engine.cfg, engine.params
+    del res, oneshot, cache, engine
+    if dtype != cfg.compute_dtype:
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        _, _, cfg, params = tpl_forced_model(argv, dtype)
+    eng = Engine(cfg, params, max_len=max_len, device=params["tok_embed"].device)
+    want = forced_logits(eng, prompts, toks, **inputs)
+    if dtype == "bfloat16" and not torch.equal(want.argmax(-1).cpu(),
+                                               torch.as_tensor(toks, dtype=torch.int64)):
+        fail(f"the (l) {name} single rank's teacher-forced run does not reproduce its tokens")
+    job = (prompts, toks, {k: v.cpu().numpy() for k, v in inputs.items()}, max_len, dtype)
+    return ref, job, want.cpu()
+
+
+def tpl_check_ranks(name, ref, ranks, backend, wall):
+    """Each rank of an (l) path held to the single rank's ``ref``: its
+    tokens (one-shot; every rank's identical) or its schedule (the
+    dense-cache scheduler: admissions, finishes, rounds, compactions;
+    every rank's tokens identical), launches exactly the single run's,
+    the cache's bytes equal and per device the split leaves' share.
+    Returns the ranks' launches and the path's numbers."""
+    _, mp, split, _ = TPL_PATHS[name]
+    label = f"(l) {name}"
+    if "done" in ref:
+        single = ref["done"]
+        for rank, r in enumerate(ranks):
+            got = {i: (c.tokens.tolist(), c.admitted_step, c.finished_step)
+                   for i, c in r.done.items()}
+            if set(got) != set(single) or any(got[i][1:] != single[i][1:] for i in single) \
+                    or any(r.stats[k] != ref["stats"][k] for k in TPL_STATS):
+                fail(f"{label} rank {rank}'s schedule differs from the single rank's")
+            if any(got[i][0] != ranks[0].done[i].tokens.tolist() for i in got):
+                fail(f"{label} rank {rank}'s tokens differ from rank 0's")
+        streams = [ranks[0].done[i].tokens.tolist() for i in sorted(single)]
+        want = [single[i][0] for i in sorted(single)]
+    else:
+        if any(not np.array_equal(r.tokens, ranks[0].tokens) for r in ranks):
+            fail(f"{label}: the ranks' tokens differ")
+        streams, want = ranks[0].tokens.tolist(), ref["tokens"]
+    equal = sum(int(np.sum(np.asarray(a) == np.asarray(b))) for a, b in zip(streams, want))
+    total = sum(len(b) for b in want)
+    rep = ref["report"]
+    per_device = rep["bytes"] - ref["split_bytes"] + ref["split_bytes"] // mp
+    for rank, r in enumerate(ranks):
+        if any(r.launches[k] != ref["counts"][k] for k in r.launches):
+            fail(f"{label} rank {rank} launched {r.launches}, the single rank "
+                 f"{ {k: ref['counts'][k] for k in r.launches} }")
+        if r.report["bytes"] != rep["bytes"] or r.report["per_device_bytes"] != per_device:
+            fail(f"{label} rank {rank}: cache bytes {r.report['bytes']:,}, per device "
+                 f"{r.report['per_device_bytes']:,}; want {rep['bytes']:,} and {per_device:,}")
+    r0 = ranks[0]
+    oneshot = "tokens" in ref
+    what = f"generate, prefill report {r0.prefill_seconds:.2f} s" if oneshot else "the trace"
+    schedule = "" if oneshot else f"; schedule equal on every rank {ref['stats']}"
+    print(f"{label} at --model-parallel {mp}, {mp} ranks sharing one card over {backend}: "
+          f"not a tensor-parallel speed: {total} tokens, {r0.seconds:.2f} s ({what}; "
+          f"{wall:.2f} s with the weights' draw and the forced check); the single rank "
+          f"{ref['seconds']:.2f} s ({ref['wall']:.2f} s with init)")
+    print(f"{label}: greedy tokens {equal} of {total} equal to the single rank's; every "
+          f"rank's identical{schedule}; launches per rank {r0.launches} = the single "
+          f"rank's; KV per device "
+          f"{r0.report['per_device_bytes']:,} of {r0.report['bytes']:,} bytes (split leaves "
+          f"{', '.join(split) or 'none'}: {ref['split_bytes']:,} bytes over {mp})")
+    by_path = {f"tpl-{name}-rank{k}": {**{c: 0 for c in ref["counts"]}, **r.launches}
+               for k, r in enumerate(ranks)}
+    return by_path, dict(mp=mp, backend=backend, seconds=r0.seconds, wall=wall,
+                         single_seconds=ref["seconds"], single_wall=ref["wall"], equal=equal,
+                         of=total, per_device=r0.report["per_device_bytes"],
+                         bytes=r0.report["bytes"])
+
+
+def tpl_check_forced(name, want, got_ranks):
+    """Every rank's teacher-forced logits identical, and within
+    ``FORCED_TOL`` of the single rank's spread, flips only at near-ties
+    (the rule of ``run_tp_path``), in the path's dtype."""
+    dtype = TPL_PATHS[name][3]
+    if not all(np.array_equal(got_ranks[0], g) for g in got_ranks[1:]):
+        fail(f"(l) {name}: the ranks' teacher-forced logits differ")
+    got = torch.from_numpy(got_ranks[0])
+    diff = (got - want).abs().amax(-1)
+    rel = float((diff / want.std(-1)).max())
+    top2 = want.topk(2, dim=-1).values
+    flips = got.argmax(-1) != want.argmax(-1)
+    margin = top2[..., 0] - top2[..., 1]
+    near_tie = bool((margin <= 2 * diff)[flips].all())
+    print(f"(l) {name}: against the single rank, teacher-forced in {dtype} on "
+          f"{want.shape[0]} prompts x {want.shape[1]} greedy tokens: logits max |diff| "
+          f"{float(diff.max()):.6f}, {rel:.6f} of the spread (limit {FORCED_TOL}), "
+          f"{int(flips.sum())} argmax flips, all at near-ties: {near_tie}")
+    if rel > FORCED_TOL or not near_tie:
+        fail(f"(l) {name}: the sharded model disagrees with the single rank beyond "
+             f"{dtype} rounding")
+    return dict(rel=rel, flips=int(flips.sum()), forced_dtype=dtype)
+
+
+def tp_linear_phase(dev):
+    """(l): for each mesh size of ``TPL_PATHS``, the single rank of each
+    of its paths, then one launch of the ranks for all of them
+    (``tpl_rank``: each path's serve run and teacher-forced check).
+    Returns the ranks' launch counts and each path's numbers."""
+    from repro_torch.launch import mesh as M
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(f"(l) cuts: {TPL_CUTS}")
+    t_phase = time.perf_counter()
+    counts, report = {}, {}
+    for mp in sorted({p[1] for p in TPL_PATHS.values()}):
+        names = [n for n, p in TPL_PATHS.items() if p[1] == mp]
+        singles = {}
+        for name in names:
+            singles[name] = tpl_single(name)
+            gc.collect()
+            torch.cuda.empty_cache()
+        devices = tpl_ranks(names[0])[1]
+        t0 = time.perf_counter()
+        out = M.spawn(tpl_rank, devices, ([(tpl_ranks(n)[0], singles[n][1]) for n in names],
+                                          devices), timeout=900)
+        print(f"(l) the ranks at mp {mp}: {time.perf_counter() - t0:.1f} s for "
+              f"{', '.join(names)}, their start included")
+        for i, name in enumerate(names):
+            ref, _, want = singles[name]
+            by_path, report[name] = tpl_check_ranks(
+                name, ref, [r[i][0] for r in out], M.backend_for(devices), out[0][i][2])
+            counts.update(by_path)
+            report[name].update(tpl_check_forced(name, want, [r[i][1] for r in out]))
+        del out, singles
+        gc.collect()
+    print(f"(l) took {time.perf_counter() - t_phase:.1f} s")
+    return {"counts": counts, "report": report}
+
+
 # ---------------------------------------------------------------------------
 # Training, each phase in a process of its own (its memory freed at exit)
 # ---------------------------------------------------------------------------
 
 # (T) the main training path through the user entry point: gemma-7b at
-# full width, 8 of its 28 layers (3.0 B parameters: f32 weights,
-# gradients and v, posit16 m: 42 GB), grad_accum 4 from its config
-# (microbatches of 2 x 512), synthetic data, the supervisor's checkpoint
-# of the final step (30 GB)
+# full width, 2 of its 28 layers (1.3 B parameters, the tied embedding's
+# 0.79 B among them: f32 weights, gradients and v, posit16 m: some 19 GB;
+# cut from 8 layers so that the smoke, phase (l) included, fits its
+# time; (k1) follows it), grad_accum 4 from its config (microbatches of
+# 2 x 512), synthetic data, the supervisor's checkpoint of the final step
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 8, 8, 512
-TRAIN_ARGV = ["--arch", "gemma-7b", "--n-layers", "8", "--batch", str(TRAIN_BATCH),
+TRAIN_ARGV = ["--arch", "gemma-7b", "--n-layers", "2", "--batch", str(TRAIN_BATCH),
               "--seq", str(TRAIN_SEQ), "--steps", str(TRAIN_STEPS), "--posit-moments",
               "--log-every", "1", "--device", "cuda"]
 BF16_DENSE_FLOPS = 989.4e12    # H100 SXM data sheet: bf16 dense tensor-core peak
 PLAIN_CHUNK = 1 << 25          # elements a chunk of the plain codec on the card
 # (T2) one family a process-local run of two train steps at full width:
 # arch -> (layers, 0 = all; batch; sequence).  rwkv6-7b's 32 layers are
-# 7.6 B parameters, 106 GB of f32 training state: 16 layers (4.1 B,
-# 57 GB); the others fit whole.  hymba's sequence is a multiple of its
+# 7.6 B parameters, 106 GB of f32 training state: 8 layers; minicpm3-4b
+# at 31 of 62, hymba-1.5b at 16 of 32 (so that the smoke fits its time);
+# the others whole.  hymba's sequence is a multiple of its
 # SSD chunk (64) beyond its 128 meta tokens, rwkv6's of its WKV chunk
 # (16); whisper's is its decoder context, 448, with 1 500 seeded frames
 TRAIN_FAMILIES = {
-    "minicpm3-4b": (0, 8, 512),
+    "minicpm3-4b": (31, 8, 512),
     "granite-moe-3b-a800m": (0, 8, 512),
-    "hymba-1.5b": (0, 8, 512),
-    "rwkv6-7b": (16, 8, 512),
+    "hymba-1.5b": (16, 8, 512),
+    "rwkv6-7b": (8, 8, 512),
     "whisper-tiny": (0, 8, 448),
 }
 PHASE_TAG = "PHASE_RESULT "
@@ -2308,8 +2644,9 @@ RANK_STEPS = 3
 # run reads at most 1.7e-4 on them.  A gradient doubled, halved or left
 # partial moves its leaf's norm by a large fraction, far past the limit
 K1_LOSS_RTOL, K1_GNORM_RTOL, K1_LEAF_RTOL = 1e-4, 2e-4, 1e-3
+_LAST = int(TRAIN_ARGV[TRAIN_ARGV.index("--n-layers") + 1]) - 1    # (T)'s last layer
 K1_LEAVES = ("tok_embed", "layers/0/ln1/scale", "layers/0/attn/wq/w", "layers/0/attn/wk/w",
-             "layers/0/attn/wo/w", "layers/7/mlp/wg/w", "final_norm/scale")
+             "layers/0/attn/wo/w", f"layers/{_LAST}/mlp/wg/w", "final_norm/scale")
 # (k2) internvl2-1b at full width and depth, the compressed gate's
 # configuration: visual tokens off, posit16 on the pod wire, 2 pods of
 # 4 x 512 rows; (k3) restores its state after two steps on one rank
@@ -2678,7 +3015,7 @@ def check_train_ranks(trained, ranked):
 
 
 PHASES = {"train": train_phase, "train-families": train_families_phase, "tp": tp_phase,
-          "train-ranks": train_ranks_phase}
+          "tp-linear": tp_linear_phase, "train-ranks": train_ranks_phase}
 
 
 def run_phase(name):
@@ -3354,6 +3691,8 @@ def run(pool):
     # (j) tensor-parallel serving, two ranks on the card, in a process of
     # its own as the training phases
     by_path.update(run_phase_process("tp")["counts"])
+    # (l) tensor-parallel serving on linear caches and the other families
+    by_path.update(run_phase_process("tp-linear")["counts"])
     # training, each phase in its own process: (T) the main training
     # path, (T2) a step of each family
     trained = run_phase_process("train")

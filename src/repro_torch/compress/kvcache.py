@@ -66,8 +66,9 @@ def cache_report(cache, pool=None, shards=None) -> dict:
     and ``shards`` (``Engine.cache_shards``) maps each split leaf to the
     ranks it is split over: ``bytes`` then counts the whole cache, as the
     reference counts the global array, and ``per_device_bytes`` this
-    rank's (the head-sharded arena's share plus the replicated
-    metadata)."""
+    rank's (the share of each head-sharded leaf -- a paged arena, a
+    linear cache's K/V, a recurrent state -- plus every whole leaf and
+    the metadata)."""
     shards = shards or {}
     actual = f32 = local = 0
     for key, x in cache.items():
@@ -165,7 +166,9 @@ def compact(cache, target_len=None):
     """Move the shared write frontier to ``target_len`` (default:
     ``max(lens)``), rolling every time leaf so each row's content still
     ends at the frontier.  ``lens`` and ``max_len`` are unchanged.
-    Returns a new dict (the rolled leaves are new tensors)."""
+    Returns a new dict (the rolled leaves are new tensors).  A rank's
+    share of a head-sharded cache compacts the same way: the roll is on
+    the time axis, and every rank's ``lens`` and frontier are the same."""
     from repro_torch.models import layers as L
 
     _reject_paged(cache, "compact")

@@ -69,18 +69,22 @@ internvl2-1b the visual prefix after them, as the reference does:
 ``ValueError`` on the others, as the reference's do.
 
 ``--model-parallel N`` serves tensor-parallel on N ranks, one process
-each (``launch/mesh.py``): every rank draws the weights from the same
-seed and keeps its shard of each layer (``runtime/sharding.py``), holds
-the arena's share of the KV heads, and runs the same scheduler; rank 0
-prints the report with a ``sharded:`` line (KV bytes per device of the
-total, the step wall).  ``--rank-devices`` lists the ranks' devices,
-by default one card a rank (NCCL), or N CPU ranks with ``--device cpu``
-(gloo); ranks that share a card, e.g. ``--rank-devices cuda:0,cuda:0``,
-talk over gloo.  The paged schedulers of the transformer family only:
+each (``launch/mesh.py``), in every mode and family the single device
+serves: every rank draws the weights from the same seed and keeps its
+shard of each layer (``runtime/sharding.py``), holds its share of the
+cache's KV and state heads, and runs the same engine or scheduler; rank
+0 prints the report with a ``sharded:`` line (KV bytes per device of
+the total, the walls).  The one-shot ``main`` returns rank 0's tokens
+after checking that every rank's are identical.  ``--rank-devices``
+lists the ranks' devices, by default one card a rank (NCCL), or N CPU
+ranks with ``--device cpu`` (gloo); ranks that share a card, e.g.
+``--rank-devices cuda:0,cuda:0``, talk over gloo:
 
   python -m repro_torch.launch.serve --continuous --paged \\
       --chunked-prefill --kv-posit posit16 --decode-kernel fused \\
       --prefix-cache --model-parallel 2 --reduced --device cpu
+  python -m repro_torch.launch.serve --arch rwkv6-7b --prompt-len 16 \\
+      --model-parallel 2 --reduced --device cpu
 """
 from __future__ import annotations
 
@@ -177,12 +181,15 @@ class ServeResult:
 
 @dataclasses.dataclass
 class RankResult:
-    """One rank's run of a tensor-parallel trace (picklable)."""
-    done: dict            # rid -> Completion
-    stats: dict           # Scheduler.stats
+    """One rank's run of a tensor-parallel trace or one-shot batch
+    (picklable)."""
+    done: dict            # rid -> Completion ({} one-shot)
+    stats: dict           # Scheduler.stats ({} one-shot)
     report: dict          # cache_report: bytes of the whole cache, per_device_bytes this rank's
     launches: dict        # kernel launches of this rank's run
-    seconds: float        # wall time of the whole trace
+    seconds: float        # wall time of the whole trace (one-shot: generate)
+    tokens: np.ndarray = None     # one-shot: the (B, gen) tokens
+    prefill_seconds: float = 0.0  # one-shot: the reported prefill
 
 
 @dataclasses.dataclass
@@ -201,6 +208,7 @@ class OneShotResult:
     prefill_seconds: float    # the reported prefill alone
     seconds: float            # generate: prefill and every decode step
     inputs: dict = dataclasses.field(default_factory=dict)   # ``frames``/``visual``
+    report: dict = None       # cache_report of the reported prefill's cache
 
 
 def _build_engine(args, cfg, params, max_len, mesh=None):
@@ -212,7 +220,7 @@ def _build_engine(args, cfg, params, max_len, mesh=None):
                   else args.decode_kernel, device=args.device, mesh=mesh)
 
 
-def run_oneshot(args, cfg, params) -> OneShotResult:
+def run_oneshot(args, cfg, params, mesh=None) -> OneShotResult:
     """Prefill a batch of prompts (the cache report), then generate."""
     rng = np.random.default_rng(args.seed)
     if args.ragged:
@@ -231,19 +239,21 @@ def run_oneshot(args, cfg, params) -> OneShotResult:
             (args.batch, cfg.n_visual_tokens, cfg.d_model)), dtype=torch.float32,
             device=args.device)
     max_len = args.max_len or (args.prompt_len + args.gen)
-    engine = _build_engine(args, cfg, params, max_len)
+    engine = _build_engine(args, cfg, params, max_len, mesh)
 
     t0 = time.perf_counter()
     cache, _, lens = engine.prefill(prompts, reserve_tokens=args.gen - 1, **kwargs)
     if engine.device.type == "cuda":
         torch.cuda.synchronize()
     t_prefill = time.perf_counter() - t0
-    rep = cache_report(cache)
+    rep = cache_report(cache, None, engine.cache_shards())
     del cache
     print(f"prefill: {args.batch} prompts (lens {lens.tolist()}) in "
           f"{t_prefill:.2f}s; cache bytes = {rep['bytes']:,} of "
           f"{rep['f32_bytes']:,} f32-equiv ({rep['ratio']:.2f}x, "
           f"kv_posit={cfg.kv_posit}, max_len={max_len})")
+    if engine.tp is not None:
+        print(_sharded_line(engine, rep, f"prefill {t_prefill:.2f}s"))
     t0 = time.perf_counter()
     res = engine.generate(prompts, args.gen, **kwargs)
     dt = time.perf_counter() - t0
@@ -252,7 +262,16 @@ def run_oneshot(args, cfg, params) -> OneShotResult:
           f"included; device {engine.device})")
     print("generated ids:\n", res.tokens)
     return OneShotResult(result=res, engine=engine, prompts=prompts,
-                         prefill_seconds=t_prefill, seconds=dt, inputs=kwargs)
+                         prefill_seconds=t_prefill, seconds=dt, inputs=kwargs, report=rep)
+
+
+def _sharded_line(engine, rep, walls: str) -> str:
+    """The report's ``sharded:`` line of a tensor-parallel engine."""
+    import torch.distributed as dist
+
+    return (f"  sharded: mesh {dict(zip(engine.mesh.mesh_dim_names, engine.mesh.shape))}; "
+            f"KV per device {rep['per_device_bytes']:,} of {rep['bytes']:,} bytes "
+            f"(model_parallel={engine.tp.size}, {dist.get_backend()}); {walls}")
 
 
 def run_continuous(args, cfg, params, mesh=None) -> ServeResult:
@@ -281,7 +300,7 @@ def run_continuous(args, cfg, params, mesh=None) -> ServeResult:
     done, order = drive_trace(sched, trace, deadline_steps=deadlines)
     dt = time.perf_counter() - t0
     rep = cache_report(sched.cache, sched.pool if sched.paged else None,
-                       engine.cache_shards() if sched.paged else None)
+                       engine.cache_shards())
 
     useful = sum(len(c.tokens) for c in done.values())
     lat = np.array(sorted(c.latency_steps for c in done.values()))
@@ -306,14 +325,8 @@ def run_continuous(args, cfg, params, mesh=None) -> ServeResult:
           f"{st['step_wall_p99_ms']:.1f} ms over {sched.n_chunks} rounds "
           f"(device {engine.device})")
     if engine.tp is not None:
-        import torch.distributed as dist
-
-        print(f"  sharded: mesh {dict(zip(engine.mesh.mesh_dim_names, engine.mesh.shape))}; "
-              f"KV per device "
-              f"{rep['per_device_bytes']:,} of {rep['bytes']:,} bytes "
-              f"(model_parallel={engine.tp.size}, {dist.get_backend()}); step "
-              f"wall p50 {st['step_wall_p50_ms']:.1f} ms p99 "
-              f"{st['step_wall_p99_ms']:.1f} ms")
+        print(_sharded_line(engine, rep, f"step wall p50 {st['step_wall_p50_ms']:.1f} ms "
+                                         f"p99 {st['step_wall_p99_ms']:.1f} ms"))
     if sched.chunked:
         print(f"  chunked prefill: {sched.prefill_tokens} prompt tokens "
               f"through the decode lane in {args.chunk_size}-token chunks; "
@@ -370,21 +383,44 @@ def rank_model(argv, devices):
 
 def _serve_rank(argv, devices) -> RankResult:
     """One rank of ``--model-parallel``: its shard of the model, the
-    trace; only rank 0 prints."""
+    trace or the one-shot batch; only rank 0 prints."""
+    return serve_on_rank(*rank_model(argv, devices))
+
+
+def serve_on_rank(args, mesh, cfg, params) -> RankResult:
+    """The trace or the one-shot batch of ``args`` on this rank's shard
+    ``params`` (:func:`rank_model`); only rank 0 prints."""
     import torch.distributed as dist
 
-    args, mesh, cfg, params = rank_model(argv, devices)
     quiet = contextlib.redirect_stdout(io.StringIO()) if dist.get_rank() \
         else contextlib.nullcontext()
     with quiet:
         before = _serving_launches()
+        if not args.continuous:
+            res = run_oneshot(args, cfg, params, mesh)
+            after = _serving_launches()
+            return RankResult(done={}, stats={}, report=res.report,
+                              launches={k: after[k] - before[k] for k in after},
+                              seconds=res.seconds, tokens=res.result.tokens,
+                              prefill_seconds=res.prefill_seconds)
         res = run_continuous(args, cfg, params, mesh)
         after = _serving_launches()
         sched = res.sched
-        rep = cache_report(sched.cache, sched.pool, sched.engine.cache_shards())
+        rep = cache_report(sched.cache, sched.pool if sched.paged else None,
+                           sched.engine.cache_shards())
     return RankResult(done=res.done, stats=sched.stats, report=rep,
                       launches={k: after[k] - before[k] for k in after},
                       seconds=res.seconds)
+
+
+def sharded_tokens(res: ShardedServeResult) -> np.ndarray:
+    """A sharded one-shot run's (B, gen) tokens: rank 0's, after checking
+    that every rank's are identical."""
+    toks = res.ranks[0].tokens
+    for r, rank in enumerate(res.ranks):
+        if not np.array_equal(rank.tokens, toks):
+            raise RuntimeError(f"tensor-parallel rank {r}'s tokens differ from rank 0's")
+    return toks
 
 
 def run_sharded(args, argv, timeout: float | None = None) -> ShardedServeResult:
@@ -476,10 +512,11 @@ def build_parser():
     ap.add_argument("--model-parallel", type=int, default=1,
                     help="tensor-parallel degree over a mesh of ranks: "
                          "weights shard by the runtime/sharding rule table "
-                         "and the paged KV arena shards its head axis over "
-                         "'model', so per-device KV bytes drop ~linearly; "
-                         "token streams are identical to the single-device "
-                         "run (one process a rank; with --continuous --paged)")
+                         "and the KV caches (paged or linear) and recurrent "
+                         "states shard their head axis over 'model', so "
+                         "per-device KV bytes drop ~linearly; token streams "
+                         "are identical to the single-device run (one "
+                         "process a rank; every mode and family)")
     ap.add_argument("--rank-devices", default="",
                     help="with --model-parallel: the ranks' devices, comma "
                          "separated (default: one card a rank, or the CPU "
@@ -508,27 +545,26 @@ def check_mode(ap, args) -> None:
         ap.error("--deadline-ms requires --continuous")
     if args.decode_kernel == "fused" and not args.paged:
         ap.error("--decode-kernel fused requires --paged")
-    if args.model_parallel > 1:
-        family = configs.get_config(args.arch).family
-        if not (args.continuous and args.paged) or family != "transformer":
-            raise NotImplementedError(
-                "--model-parallel > 1 serves the paged schedulers "
-                "(--continuous --paged) of the transformer family; the one-shot "
-                "engine, the dense-cache scheduler and the other families wait "
-                "for ROADMAP.md Queue 1 item 6")
 
 
 def main(argv=None):
     """Run the command line; returns the one-shot path's (B, gen) token
-    array, as the reference's ``main`` does, or the continuous run's
+    array, as the reference's ``main`` does (with ``--model-parallel`` >
+    1 rank 0's, every rank's checked identical), or the continuous run's
     :class:`ServeResult` (with ``--model-parallel`` > 1 a
     :class:`ShardedServeResult`)."""
     ap = build_parser()
     args = ap.parse_args(argv)
     check_mode(ap, args)
-    if args.model_parallel > 1:
-        return run_sharded(args, sys.argv[1:] if argv is None else argv)
     cfg = model_config(args)
+    if args.model_parallel > 1:
+        if (args.continuous or args.paged) and cfg.family != "transformer":
+            # what every rank's engine or scheduler would raise, raised once
+            raise ValueError(
+                "--continuous and --paged need the transformer family's per-row "
+                f"decode positions (got family={cfg.family!r})")
+        res = run_sharded(args, sys.argv[1:] if argv is None else argv)
+        return res if args.continuous else sharded_tokens(res)
     params = get_family(cfg).init_params(cfg, seed=args.seed, device=args.device)
     if args.continuous:
         return run_continuous(args, cfg, params)

@@ -23,6 +23,19 @@ over the prompt, as in the reference; the meta tokens are not read on
 this path (the reference's serving path does not read them either).
 The SSD step runs in plain PyTorch, as the reference's runs in plain
 ``jnp``.  Cache writes are in place.
+
+Tensor-parallel serving: ``prefill`` and ``decode_step`` take ``tp``
+(``runtime/collectives.TensorParallel``) and run on the rank-local config
+(``sharding.local_config``) over this rank's shard.  Where the mixer
+splits, a rank runs attention head i and SSM head i together (``_merge``
+adds their features): its query heads, its KV heads (whole where there
+is one), its SSM heads' share of ``in_proj``'s ``xs``, ``gate`` and
+``dt`` columns (``B`` and ``C`` whole) and of the whole ``A_log``,
+``dt_bias`` and ``D``; ``attn_norm`` and ``ssm_norm`` normalise over
+every rank's features (f32 sums all-reduced); ``wo`` is row-parallel.
+The ring, the global KV and the SSM state hold this rank's heads.  The
+MLP splits on ``d_ff``, the embedding and head on the vocabulary, each
+where its size divides.
 """
 from __future__ import annotations
 
@@ -38,11 +51,15 @@ from .config import ModelConfig
 _F32 = torch.float32
 
 
-def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda", dtype=None):
+def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda", dtype=None,
+                shard=None):
     """Random parameters from a seeded ``torch.Generator`` on ``device``:
     weights drawn in f32 and stored in ``dtype`` (default the compute
     dtype; training passes ``torch.float32``), norm scales, ``A_log``,
-    ``dt_bias`` and ``D`` f32 (the forward reads them in f32)."""
+    ``dt_bias`` and ``D`` f32 (the forward reads them in f32).
+    ``shard(subtree, prefix)`` cuts each layer and top-level leaf to this
+    rank's shard as it is drawn (``transformer.init_params``)."""
+    keep = shard or (lambda t, prefix: t)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
@@ -51,8 +68,8 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda", dtype=None):
     hs, p_dim, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
     d_in = hs * p_dim
     layers = []
-    for _ in range(cfg.n_layers):
-        layers.append({
+    for i in range(cfg.n_layers):
+        layers.append(keep({
             "ln1": L.init_rms_norm(d, cfg, dev),
             "ln2": L.init_rms_norm(d, cfg, dev),
             # attention branch
@@ -69,17 +86,17 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda", dtype=None):
             # merge + mlp
             "wo": L.init_dense(gen, d_in, d, dtype=dt),
             "mlp": L.init_mlp(gen, cfg, dtype=dt),
-        })
+        }, f"layers/{i}"))
 
     def normal(shape):
         return (torch.randn(shape, generator=gen, device=dev, dtype=_F32)
                 * 0.02).to(dt)
 
     params = {
-        "tok_embed": normal((cfg.vocab, d)),
+        "tok_embed": keep(normal((cfg.vocab, d)), "tok_embed"),
         "layers": layers,
         "final_norm": L.init_rms_norm(d, cfg, dev),
-        "lm_head": L.init_dense(gen, d, cfg.vocab, dtype=dt),
+        "lm_head": keep(L.init_dense(gen, d, cfg.vocab, dtype=dt), "lm_head"),
     }
     if cfg.n_meta_tokens:
         params["meta_tokens"] = normal((cfg.n_meta_tokens, d))
@@ -100,18 +117,25 @@ def ssd_step(x, b_in, c_in, dt, a_log, h):
     return y, h
 
 
-def _split_ssm_proj(p, x, cfg: ModelConfig):
+def _heads_of(v, cfg: ModelConfig, tp):
+    """This rank's SSM heads of a whole per-head vector (``A_log``,
+    ``dt_bias``, ``D``); ``tp`` the plan where the mixer splits."""
+    h = cfg.ssm_heads
+    return v if tp is None else v.narrow(0, tp.rank * h, h)
+
+
+def _split_ssm_proj(p, x, cfg: ModelConfig, tp=None):
     hs, p_dim, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
     d_in = hs * p_dim
     z = L.dense(p["in_proj"], x, cfg)
     xs, gate, b_in, c_in, dt = torch.split(z, [d_in, d_in, n, n, hs], dim=-1)
-    dt = dt.to(_F32) + p["dt_bias"][None, None, :]
+    dt = dt.to(_F32) + _heads_of(p["dt_bias"], cfg, tp)[None, None, :]
     dt = torch.logaddexp(dt, torch.zeros_like(dt))            # softplus
     return xs, gate, b_in.to(_F32), c_in.to(_F32), dt
 
 
-def _merge(p, attn_out, ssm_out, cfg: ModelConfig):
-    return L.dense(p["wo"], 0.5 * (attn_out + ssm_out), cfg)
+def _merge(p, attn_out, ssm_out, cfg: ModelConfig, tp=None):
+    return L.dense_row(p["wo"], 0.5 * (attn_out + ssm_out), cfg, tp)
 
 
 # ---------------------------------------------------------------------------
@@ -266,10 +290,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device="cuda"):
     }
 
 
-def decode_step(params, cache, token, cfg: ModelConfig, active=None):
+def decode_step(params, cache, token, cfg: ModelConfig, active=None, tp=None):
     """token (B,) -> (logits (B, V) f32, cache).  Every row writes at the
     shared frontier ``len``; ``active`` (B,) bool freezes inactive rows'
-    ``lens``.  A global layer's write past its capacity raises here."""
+    ``lens``.  A global layer's write past its capacity raises here.
+    ``tp``: this rank's tensor-parallel plan, ``cfg`` then the rank-local
+    config."""
     pos = int(cache["len"])
     b = token.shape[0]
     dev = token.device
@@ -283,7 +309,9 @@ def decode_step(params, cache, token, cfg: ModelConfig, active=None):
                                      device=dev)
     positions = torch.full((b, 1), pos, dtype=torch.int64, device=dev)
     hd, g = cfg.head_dim, cfg.n_kv_heads
-    h = params["tok_embed"][token][:, None, :].to(L.cdtype(cfg))
+    mix, ff = L.split_plan(tp, "attn"), L.split_plan(tp, "mlp")
+    table = params["tok_embed"]
+    h = (table[token] if tp is None else tp.embed(table, token))[:, None, :].to(L.cdtype(cfg))
     for li, lp in enumerate(params["layers"]):
         xin = L.rms_norm(lp["ln1"], h, cfg)
         q = L.dense(lp["wq"], xin, cfg).reshape(b, 1, cfg.n_heads, hd)
@@ -302,22 +330,23 @@ def decode_step(params, cache, token, cfg: ModelConfig, active=None):
             T._write_kv([(kc, k[:, 0]), (vc, v[:, 0])], ring_slots, cfg)
             att = L.decode_attention(q, kc, vc, pos + 1, cfg=cfg,
                                      kv_posit=cfg.kv_posit, ring=True)
-        att = L.rms_norm(lp["attn_norm"], att.reshape(b, 1, cfg.n_heads * hd), cfg)
+        att = L.rms_norm(lp["attn_norm"], att.reshape(b, 1, cfg.n_heads * hd), cfg, mix)
 
-        xs, gate, b_in, c_in, dt = _split_ssm_proj(lp, xin, cfg)
+        xs, gate, b_in, c_in, dt = _split_ssm_proj(lp, xin, cfg, mix)
         xh = xs[:, 0].reshape(b, cfg.ssm_heads, cfg.ssm_head_dim).to(_F32)
-        y, hnew = ssd_step(xh, b_in[:, 0], c_in[:, 0], dt[:, 0], lp["A_log"],
-                           cache["ssm"][li])
+        y, hnew = ssd_step(xh, b_in[:, 0], c_in[:, 0], dt[:, 0],
+                           _heads_of(lp["A_log"], cfg, mix), cache["ssm"][li])
         cache["ssm"][li] = hnew
-        y = y + lp["D"][None, :, None] * xh
+        y = y + _heads_of(lp["D"], cfg, mix)[None, :, None] * xh
         y = y.reshape(b, 1, -1).to(h.dtype) * F.silu(gate)
-        y = L.rms_norm(lp["ssm_norm"], y, cfg)
+        y = L.rms_norm(lp["ssm_norm"], y, cfg, mix)
 
-        h = h + _merge(lp, att, y, cfg)
-        h = h + L.mlp(lp["mlp"], L.rms_norm(lp["ln2"], h, cfg), cfg)
+        h = h + _merge(lp, att, y, cfg, mix)
+        h = h + L.mlp(lp["mlp"], L.rms_norm(lp["ln2"], h, cfg), cfg, ff)
 
     h = L.rms_norm(params["final_norm"], h, cfg)
-    logits = h[:, 0, :] @ params["lm_head"]["w"].to(h.dtype)
+    y = h[:, 0, :] @ params["lm_head"]["w"].to(h.dtype)
+    logits = y if tp is None else tp.gather_vocab(y)
     new_cache = dict(cache, len=pos + 1)
     if "lens" in cache:
         adv = torch.ones((b,), dtype=torch.int32, device=dev) if active is None \
@@ -326,12 +355,13 @@ def decode_step(params, cache, token, cfg: ModelConfig, active=None):
     return logits.to(_F32), new_cache
 
 
-def prefill(params, tokens, cfg: ModelConfig, visual=None, *, max_len=None):
+def prefill(params, tokens, cfg: ModelConfig, visual=None, *, max_len=None, tp=None):
     """``decode_step`` over the prompt (the hybrid caches' layouts differ
     per layer), as the reference's prefill.  ``max_len`` preallocates
     decode headroom (default: the window, or the prompt and one more);
     ``visual`` is accepted for the protocol and ignored.  Returns
-    ``(cache, logits (B, V) f32)`` at the last position."""
+    ``(cache, logits (B, V) f32)`` at the last position.  ``tp`` as in
+    :func:`decode_step`."""
     del visual
     b, s = tokens.shape
     ml = max(s + 1, cfg.sliding_window or s + 1) if max_len is None \
@@ -341,5 +371,5 @@ def prefill(params, tokens, cfg: ModelConfig, visual=None, *, max_len=None):
     cache = init_cache(cfg, b, ml, device=tokens.device)
     logits = None
     for t in range(s):
-        logits, cache = decode_step(params, cache, tokens[:, t], cfg)
+        logits, cache = decode_step(params, cache, tokens[:, t], cfg, tp=tp)
     return cache, logits

@@ -22,6 +22,12 @@ the reference scatters with ``mode="drop"``, the port computes which
 writes land first and scatters only those; reads through sentinel
 entries clamp into block ``nb - 1`` and are masked by ``paged_apos``.
 Cache writes are in place.
+
+Tensor parallelism (``runtime/collectives.TensorParallel``): ``dense_row``
+is a row-parallel ``dense`` (the all-reduce, then the bias once),
+``mlp`` takes the plan where ``d_ff`` splits, and ``rms_norm`` and
+``layer_norm`` normalise over features split across the ranks;
+``split_plan`` gives a call the plan where its group splits.
 """
 from __future__ import annotations
 
@@ -97,12 +103,44 @@ def init_dense(gen: torch.Generator, d_in: int, d_out: int, *,
     return p
 
 
-def rms_norm(p, x, cfg: ModelConfig):
+def split_plan(tp, group: str):
+    """``tp`` (``runtime/collectives.TensorParallel``) where its ``group``
+    (``"attn"``, ``"mlp"``, ...) splits, else ``None``: the plan a
+    call on that group's rank-local share takes."""
+    return tp if tp is not None and getattr(tp, group) else None
+
+
+def dense_row(p, x, cfg: ModelConfig, tp=None):
+    """A row-parallel ``dense``: under ``tp`` this rank's rows' partial
+    product, the all-reduce, then the bias once; ``dense`` without."""
+    if tp is None:
+        return dense(p, x, cfg)
+    y = tp.reduce(dense({"w": p["w"]}, x, cfg))
+    return y + p["b"].to(y.dtype) if "b" in p else y
+
+
+def _feature_mean(x, tp):
+    """The mean over the last axis, whose features split over ``tp``'s
+    ranks when it is given (the f32 sums all-reduced)."""
+    if tp is None:
+        return torch.mean(x, dim=-1, keepdim=True)
+    return tp.feature_sum(torch.sum(x, dim=-1, keepdim=True)) / (x.shape[-1] * tp.size)
+
+
+def _local_features(v, n: int, tp):
+    """This rank's ``n`` features of a whole per-feature vector ``v``."""
+    return v if tp is None else v.narrow(0, tp.rank * n, n)
+
+
+def rms_norm(p, x, cfg: ModelConfig, tp=None):
+    """RMS norm over the last axis; under ``tp`` the features split over
+    its ranks (``x`` this rank's share, ``p`` whole): the mean square is
+    the group's, the scale this rank's slice."""
     dt = x.dtype
     x = x.to(torch.float32)
-    var = torch.mean(x * x, dim=-1, keepdim=True)
+    var = _feature_mean(x * x, tp)
     x = x * torch.rsqrt(var + cfg.norm_eps)
-    w = p["scale"].to(torch.float32)
+    w = _local_features(p["scale"].to(torch.float32), x.shape[-1], tp)
     if cfg.norm_plus_one:
         w = 1.0 + w
     return (x * w).to(dt)
@@ -113,13 +151,16 @@ def init_rms_norm(d: int, cfg: ModelConfig, device):
     return {"scale": init((d,), dtype=torch.float32, device=device)}
 
 
-def layer_norm(p, x, eps: float = 1e-5):
+def layer_norm(p, x, eps: float = 1e-5, tp=None):
+    """Layer norm over the last axis, the mean first, then the squared
+    deviations; under ``tp`` split features as in :func:`rms_norm`."""
     dt = x.dtype
     x = x.to(torch.float32)
-    mu = torch.mean(x, dim=-1, keepdim=True)
-    var = torch.mean((x - mu) ** 2, dim=-1, keepdim=True)
+    n = x.shape[-1]
+    mu = _feature_mean(x, tp)
+    var = _feature_mean((x - mu) ** 2, tp)
     y = (x - mu) * torch.rsqrt(var + eps)
-    return (y * p["scale"] + p["bias"]).to(dt)
+    return (y * _local_features(p["scale"], n, tp) + _local_features(p["bias"], n, tp)).to(dt)
 
 
 def init_layer_norm(d: int, device):
@@ -705,9 +746,11 @@ def _act(gate, cfg: ModelConfig):
     return F.gelu(gate, approximate="tanh") if cfg.act == "gelu" else F.silu(gate)
 
 
-def mlp(p, x, cfg: ModelConfig):
+def mlp(p, x, cfg: ModelConfig, tp=None):
+    """The gated MLP; under ``tp`` (where ``d_ff`` splits) this rank's
+    columns, ``wo``'s rows, then the all-reduce."""
     gate = dense(p["wg"], x, cfg)
-    return dense(p["wo"], _act(gate, cfg) * dense(p["wi"], x, cfg), cfg)
+    return dense_row(p["wo"], _act(gate, cfg) * dense(p["wi"], x, cfg), cfg, tp)
 
 
 # ---------------------------------------------------------------------------

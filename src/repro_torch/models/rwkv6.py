@@ -17,6 +17,19 @@ H, N, N) f32 and the token-shift carries ``tm_x``/``cm_x`` (L, B, D),
 stored f32 holding values rounded to the compute dtype, with the
 frontier ``len`` a Python int. Decode updates the state in place. Layers
 run in a Python loop over a list of per-layer parameter dicts.
+
+Tensor-parallel serving: ``prefill`` and ``decode_step`` take ``tp``
+(``runtime/collectives.TensorParallel``) and run on the rank-local config
+(``sharding.local_config``) over this rank's shard.  Where the heads
+split, the time mix runs this rank's heads (``wr``/``wk``/``wv``/``wg``
+by columns, ``wo`` by rows, then the all-reduce), the ``wkv`` state
+holds them, and ``w0``, ``u``, ``wl_b``'s columns and ``ln_x`` (whole on
+every rank) are sliced to them; ``ln_x`` normalises over every head's
+output (its f32 sums all-reduced).  Where ``d_ff`` splits, the channel
+mix runs ``cm_wk``'s columns and ``cm_wv``'s rows, all-reduced before
+the gate of ``cm_wr`` (whole).  The token-shift carries replicate; the
+embedding and the head are vocabulary-parallel where the vocabulary
+splits.
 """
 from __future__ import annotations
 
@@ -36,11 +49,15 @@ def _heads(cfg: ModelConfig):
     return h, n, h * n
 
 
-def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda", dtype=None):
+def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda", dtype=None,
+                shard=None):
     """Random parameters from a seeded ``torch.Generator`` on ``device``:
     weights and mixing coefficients drawn in f32 and stored in ``dtype``
     (default the compute dtype; training passes ``torch.float32``), the
-    layer norms, ``w0`` and ``u`` f32 (the forward reads them in f32)."""
+    layer norms, ``w0`` and ``u`` f32 (the forward reads them in f32).
+    ``shard(subtree, prefix)`` cuts each layer and top-level leaf to this
+    rank's shard as it is drawn (``transformer.init_params``)."""
+    keep = shard or (lambda t, prefix: t)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
@@ -57,8 +74,8 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda", dtype=None):
         return torch.zeros(shape, dtype=dt, device=dev)
 
     layers = []
-    for _ in range(cfg.n_layers):
-        layers.append({
+    for i in range(cfg.n_layers):
+        layers.append(keep({
             "ln1": L.init_layer_norm(d, dev),
             "ln2": L.init_layer_norm(d, dev),
             # token-shift mixing coefficients + data-dependent LoRA
@@ -83,13 +100,13 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda", dtype=None):
             "cm_wk": L.init_dense(gen, d, ff, dtype=dt),
             "cm_wv": L.init_dense(gen, ff, d, dtype=dt),
             "cm_wr": L.init_dense(gen, d, d, dtype=dt),
-        })
+        }, f"layers/{i}"))
     return {
-        "tok_embed": normal((cfg.vocab, d), 0.02),
+        "tok_embed": keep(normal((cfg.vocab, d), 0.02), "tok_embed"),
         "ln0": L.init_layer_norm(d, dev),
         "layers": layers,
         "ln_out": L.init_layer_norm(d, dev),
-        "lm_head": L.init_dense(gen, d, cfg.vocab, dtype=dt),
+        "lm_head": keep(L.init_dense(gen, d, cfg.vocab, dtype=dt), "lm_head"),
     }
 
 
@@ -159,9 +176,13 @@ def _token_shift(x, prev):
     return torch.cat([prev[:, None, :], x[:, :-1, :]], dim=1)
 
 
-def _time_mix(p, x, prev_x, wkv_state, cfg: ModelConfig, *, use_chunked):
+def _time_mix(p, x, prev_x, wkv_state, cfg: ModelConfig, *, use_chunked, tp=None):
+    """``tp``: the plan where the heads split (``layers.split_plan``),
+    ``cfg`` the rank-local config; the whole per-feature leaves are
+    sliced to this rank's heads."""
     b, s, _ = x.shape
     h, n, d_att = _heads(cfg)
+    r0 = 0 if tp is None else tp.rank
     xx = _token_shift(x, prev_x)
     sx = xx - x
     xxx = x + sx * p["maa_x"].to(x.dtype)
@@ -176,12 +197,13 @@ def _time_mix(p, x, prev_x, wkv_state, cfg: ModelConfig, *, use_chunked):
     vv = L.dense(p["wv"], xv, cfg).reshape(b, s, h, n)
     gg = F.silu(L.dense(p["wg"], xg, cfg))
 
-    dlog = p["w0"].to(_F32) + (torch.tanh(xw @ p["wl_a"].to(x.dtype))
-                               @ p["wl_b"].to(x.dtype)).to(_F32)
+    w0, wl_b = p["w0"].narrow(0, r0 * d_att, d_att), p["wl_b"].narrow(1, r0 * d_att, d_att)
+    dlog = w0.to(_F32) + (torch.tanh(xw @ p["wl_a"].to(x.dtype))
+                          @ wl_b.to(x.dtype)).to(_F32)
     w = torch.exp(-torch.exp(dlog)).reshape(b, s, h, n)       # in (0,1)
 
     rr32, kk32, vv32 = (t.to(_F32) for t in (rr, kk, vv))
-    u = p["u"].to(_F32)
+    u = p["u"].narrow(0, r0 * h, h).to(_F32)
     if use_chunked:
         out, wkv_state = wkv_chunked(rr32, kk32, vv32, w, u, wkv_state,
                                      cfg.wkv_chunk)
@@ -189,18 +211,19 @@ def _time_mix(p, x, prev_x, wkv_state, cfg: ModelConfig, *, use_chunked):
         out, wkv_state = wkv_scan(rr32, kk32, vv32, w, u, wkv_state)
 
     out = out.reshape(b, s, d_att)
-    out = L.layer_norm(p["ln_x"], out, cfg.norm_eps).to(x.dtype)
-    out = L.dense(p["wo"], out * gg, cfg)
+    out = L.layer_norm(p["ln_x"], out, cfg.norm_eps, tp).to(x.dtype)
+    out = L.dense_row(p["wo"], out * gg, cfg, tp)
     return out, x[:, -1, :], wkv_state
 
 
-def _channel_mix(p, x, prev_x, cfg: ModelConfig):
+def _channel_mix(p, x, prev_x, cfg: ModelConfig, tp=None):
+    """``tp``: the plan where ``d_ff`` splits (``layers.split_plan``)."""
     xx = _token_shift(x, prev_x)
     sx = xx - x
     xk = x + sx * p["cm_maa_k"].to(x.dtype)
     xr = x + sx * p["cm_maa_r"].to(x.dtype)
     kk = torch.square(F.relu(L.dense(p["cm_wk"], xk, cfg)))
-    out = torch.sigmoid(L.dense(p["cm_wr"], xr, cfg)) * L.dense(p["cm_wv"], kk, cfg)
+    out = torch.sigmoid(L.dense(p["cm_wr"], xr, cfg)) * L.dense_row(p["cm_wv"], kk, cfg, tp)
     return out, x[:, -1, :]
 
 
@@ -276,61 +299,65 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device="cuda"):
     }
 
 
-def _embed(params, tokens, cfg: ModelConfig):
-    x = params["tok_embed"][tokens].to(L.cdtype(cfg))
+def _embed(params, tokens, cfg: ModelConfig, tp=None):
+    table = params["tok_embed"]
+    x = (table[tokens] if tp is None else tp.embed(table, tokens)).to(L.cdtype(cfg))
     return L.layer_norm(params["ln0"], x, cfg.norm_eps)
 
 
-def _logits(params, x, cfg: ModelConfig):
+def _logits(params, x, cfg: ModelConfig, tp=None):
     x = L.layer_norm(params["ln_out"], x, cfg.norm_eps)
-    return (x @ params["lm_head"]["w"].to(x.dtype)).to(_F32)
+    y = x @ params["lm_head"]["w"].to(x.dtype)
+    return y.to(_F32) if tp is None else tp.gather_vocab(y)
 
 
-def decode_step(params, cache, token, cfg: ModelConfig):
+def decode_step(params, cache, token, cfg: ModelConfig, tp=None):
     """token (B,) -> (logits (B, V) f32, cache): one step of the scan
-    recurrence, the state leaves updated in place."""
-    x = _embed(params, token[:, None], cfg)
+    recurrence, the state leaves updated in place.  ``tp``: this rank's
+    tensor-parallel plan, ``cfg`` then the rank-local config."""
+    x = _embed(params, token[:, None], cfg, tp)
     for li, lp in enumerate(params["layers"]):
         a, tm_new, wkv_s = _time_mix(
             lp, L.layer_norm(lp["ln1"], x, cfg.norm_eps),
             cache["tm_x"][li].to(x.dtype), cache["wkv"][li], cfg,
-            use_chunked=False)
+            use_chunked=False, tp=L.split_plan(tp, "attn"))
         x = x + a
         c, cm_new = _channel_mix(
             lp, L.layer_norm(lp["ln2"], x, cfg.norm_eps),
-            cache["cm_x"][li].to(x.dtype), cfg)
+            cache["cm_x"][li].to(x.dtype), cfg, L.split_plan(tp, "mlp"))
         x = x + c
         cache["wkv"][li] = wkv_s
         cache["tm_x"][li] = tm_new.to(_F32)
         cache["cm_x"][li] = cm_new.to(_F32)
-    return _logits(params, x[:, 0, :], cfg), dict(cache, len=int(cache["len"]) + 1)
+    return _logits(params, x[:, 0, :], cfg, tp), dict(cache, len=int(cache["len"]) + 1)
 
 
-def prefill(params, tokens, cfg: ModelConfig, visual=None, *, max_len=None):
+def prefill(params, tokens, cfg: ModelConfig, visual=None, *, max_len=None, tp=None):
     """The prompt's forward pass threading the recurrent state (the
     chunked WKV engine; the prompt length must be a multiple of
     ``cfg.wkv_chunk``).  ``visual`` and ``max_len`` are accepted for the
     protocol and ignored: there is no cache to preallocate and decode
     never runs out of capacity.  Returns ``(cache, logits (B, V) f32)``
-    at the last position."""
+    at the last position.  ``tp`` as in :func:`decode_step`."""
     del visual, max_len
     b, s = tokens.shape
     h, n, _ = _heads(cfg)
-    x = _embed(params, tokens, cfg)
+    x = _embed(params, tokens, cfg, tp)
     zeros_prev = torch.zeros((b, cfg.d_model), dtype=x.dtype, device=x.device)
     zero_state = torch.zeros((b, h, n, n), dtype=_F32, device=x.device)
     wkv, tm_x, cm_x = [], [], []
     for lp in params["layers"]:
         a, tm_new, wkv_s = _time_mix(
             lp, L.layer_norm(lp["ln1"], x, cfg.norm_eps), zeros_prev,
-            zero_state, cfg, use_chunked=True)
+            zero_state, cfg, use_chunked=True, tp=L.split_plan(tp, "attn"))
         x = x + a
         c, cm_new = _channel_mix(
-            lp, L.layer_norm(lp["ln2"], x, cfg.norm_eps), zeros_prev, cfg)
+            lp, L.layer_norm(lp["ln2"], x, cfg.norm_eps), zeros_prev, cfg,
+            L.split_plan(tp, "mlp"))
         x = x + c
         wkv.append(wkv_s)
         tm_x.append(tm_new.to(_F32))
         cm_x.append(cm_new.to(_F32))
     cache = {"wkv": torch.stack(wkv), "tm_x": torch.stack(tm_x),
              "cm_x": torch.stack(cm_x), "len": s}
-    return cache, _logits(params, x[:, -1, :], cfg)
+    return cache, _logits(params, x[:, -1, :], cfg, tp)

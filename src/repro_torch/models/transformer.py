@@ -34,10 +34,12 @@ chunked-prefill arena read is one fused launch a layer; paged decode
 attention runs the fused kernel (dense/window or
 MLA latent) or the gather path (``cfg.paged_attn_kernel``).
 
-Tensor-parallel serving: ``prefill``, ``prefill_chunk`` and the paged
-decode step take ``tp`` (``runtime/collectives.TensorParallel``) and run
-on the rank-local config (``sharding.local_config``: this rank's heads
-and ``d_ff``) over this rank's shard of the weights and of the arena;
+Tensor-parallel serving: ``prefill``, ``prefill_chunk`` and the decode
+steps (paged and linear) take ``tp`` (``runtime/collectives.
+TensorParallel``) and run on the rank-local config (``sharding.
+local_config``: this rank's heads and ``d_ff``) over this rank's shard
+of the weights and of the cache (K/V by KV heads; MQA's one KV head and
+MLA's latents whole on every rank);
 ``tp`` adds the all-reduces after attention's ``wo`` and the
 feed-forward, the vocabulary-parallel embedding and the gathered logits.
 With ``tp=None`` nothing changes.
@@ -752,7 +754,7 @@ def _decode_step_paged(params, cache, token, cfg: ModelConfig, active, tp=None):
 
 
 def _decode_attn_dense(p, x, k_cache, v_cache, pos: int, lens, slots,
-                       cfg: ModelConfig):
+                       cfg: ModelConfig, tp=None):
     """One layer of linear dense/GQA decode: write every row's new K/V
     at the shared frontier ``pos`` (``slots`` from
     ``layers.linear_write_slots``: ``pos % T`` on a ring), then attend
@@ -768,11 +770,11 @@ def _decode_attn_dense(p, x, k_cache, v_cache, pos: int, lens, slots,
     out = L.decode_attention(
         q, k_cache, v_cache, pos + 1, cfg=cfg, kv_posit=cfg.kv_posit,
         window=cfg.sliding_window or 0, start=pos - lens, ring=ring)
-    return L.dense(p["wo"], out.reshape(b, 1, cfg.n_heads * cfg.head_dim), cfg)
+    return _wo(p, out.reshape(b, 1, cfg.n_heads * cfg.head_dim), cfg, tp)
 
 
 def _decode_attn_mla(p, x, c_cache, r_cache, pos: int, lens, slots,
-                     cfg: ModelConfig):
+                     cfg: ModelConfig, tp=None):
     """One layer of linear absorbed-matrix MLA decode: write the new
     latent and RoPE key at ``pos``, dequantize the whole latent cache and
     attend in latent space with a plain softmax (the reference's own
@@ -808,7 +810,7 @@ def _decode_attn_mla(p, x, c_cache, r_cache, pos: int, lens, slots,
         rank, h, cfg.v_head_dim)
     out = torch.einsum("bhr,rhv->bhv", ctx, wuv)
     out = out.reshape(b, 1, h * cfg.v_head_dim).to(x.dtype)
-    return L.dense(p["wo"], out, cfg)
+    return _wo(p, out, cfg, tp)
 
 
 def _decode_lens(cache, pos: int, batch: int, device):
@@ -818,11 +820,14 @@ def _decode_lens(cache, pos: int, batch: int, device):
     return lens.to(torch.int32)
 
 
-def _decode_step_linear(params, cache, token, cfg: ModelConfig, active):
+def _decode_step_linear(params, cache, token, cfg: ModelConfig, active, tp=None):
     """Linear decode: every row writes at the shared frontier ``len``,
     which always advances; inactive rows' ``lens`` stay frozen (their
     outputs are discarded).  One set of write slots serves every layer
-    and both leaves: one fused write launch a layer on posit KV."""
+    and both leaves: one fused write launch a layer on posit KV.  ``tp``:
+    this rank's tensor-parallel plan, ``cfg`` then the rank-local config
+    (the cache holds this rank's KV heads, or all of them where they do
+    not split, and MLA's latents whole)."""
     b = token.shape[0]
     dev = token.device
     pos = int(cache["len"])
@@ -834,18 +839,17 @@ def _decode_step_linear(params, cache, token, cfg: ModelConfig, active):
     slots = L.linear_write_slots(b, cap, pos, ring=not cfg.mla and _is_ring(cfg, cap),
                                  device=dev)
     attend = _decode_attn_mla if cfg.mla else _decode_attn_dense
-    x = _embed(params, token[:, None], cfg)
+    x = _embed(params, token[:, None], cfg, tp=tp)
     for li, lp in enumerate(params["layers"]):
         x = x + attend(lp["attn"], L.rms_norm(lp["ln1"], x, cfg),
-                       cache[k1][li], cache[k2][li], pos, lens, slots, cfg)
-        x = _block_mlp(lp, x, cfg)
+                       cache[k1][li], cache[k2][li], pos, lens, slots, cfg, tp)
+        x = _block_mlp(lp, x, cfg, tp)
     new_cache = dict(cache, len=pos + 1, lens=lens + adv)
     x = L.rms_norm(params["final_norm"], x, cfg)
-    logits = x[:, 0, :] @ _unembed_weight(params, cfg).to(x.dtype)
-    return logits.to(torch.float32), new_cache
+    return _logits(params, x[:, 0, :], cfg, tp), new_cache
 
 
-def decode_step(params, cache, token, cfg: ModelConfig, active=None):
+def decode_step(params, cache, token, cfg: ModelConfig, active=None, tp=None):
     """token (B,) -> (logits (B, V) f32, cache).
 
     ``active`` (B,) bool marks rows holding a live request; inactive rows
@@ -853,7 +857,8 @@ def decode_step(params, cache, token, cfg: ModelConfig, active=None):
     paged cache (a ``block_tables`` leaf) writes every row at its own
     ``lens[b]``; a linear cache writes every row at the shared frontier
     ``len``, which always advances.  A write past the capacity raises
-    here, before the step (a ring never runs out)."""
+    here, before the step (a ring never runs out).  ``tp``: this rank's
+    tensor-parallel plan, ``cfg`` then the rank-local config."""
     if "block_tables" not in cache:
         k1 = arena_keys(cfg)[0]
         cap = cache[k1].shape[2]
@@ -861,10 +866,10 @@ def decode_step(params, cache, token, cfg: ModelConfig, active=None):
             L.check_cache_capacity(cache["len"], cap, "MLA latent cache")
         elif not _is_ring(cfg, cap):
             L.check_cache_capacity(cache["len"], cap)
-        return _decode_step_linear(params, cache, token, cfg, active)
+        return _decode_step_linear(params, cache, token, cfg, active, tp)
     live = torch.ones_like(cache["lens"], dtype=torch.bool) if active is None \
         else torch.as_tensor(active, device=cache["lens"].device).to(torch.bool)
     if bool(live.any()):
         top = int(cache["lens"][live].max())
         L.check_cache_capacity(top, int(cache["max_len"]), "paged KV cache")
-    return _decode_step_paged(params, cache, token, cfg, active)
+    return _decode_step_paged(params, cache, token, cfg, active, tp)

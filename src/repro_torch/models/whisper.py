@@ -18,6 +18,17 @@ quantizes each decoder layer's self and cross K and V through the codec
 each decode layer writes its self K and V with one fused write launch,
 then reads the self leaves and the cross leaves with one dequantize
 launch each (``layers.decode_attention``).  Cache writes are in place.
+
+Tensor-parallel serving: ``encode``, ``prefill`` and ``decode_step``
+take ``tp`` (``runtime/collectives.TensorParallel``) and run on the
+rank-local config (``sharding.local_config``) over this rank's shard:
+the encoder's and decoder's self and cross attention on this rank's
+heads (``wq``/``wv`` biases with their columns), the MLP on its
+``d_ff`` columns, each row-parallel ``wo`` all-reduced before its bias
+is added once.  Every rank encodes the frames to the whole encoder
+output and computes its own heads' cross K and V from it; ``k``/``v``
+and ``ck``/``cv`` hold this rank's KV heads.  The tied head is
+vocabulary-parallel where the vocabulary splits.
 """
 from __future__ import annotations
 
@@ -59,16 +70,22 @@ def _init_mlp(gen, cfg: ModelConfig, dt):
     }
 
 
-def _mlp(p, x, cfg: ModelConfig):
-    return L.dense(p["wo"], F.gelu(L.dense(p["wi"], x, cfg), approximate="tanh"), cfg)
+def _mlp(p, x, cfg: ModelConfig, tp=None):
+    """``tp``: the plan where ``d_ff`` splits (``layers.split_plan``)."""
+    return L.dense_row(p["wo"], F.gelu(L.dense(p["wi"], x, cfg), approximate="tanh"),
+                       cfg, tp)
 
 
-def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda", dtype=None):
+def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda", dtype=None,
+                shard=None):
     """Random parameters from a seeded ``torch.Generator`` on ``device``:
     weights, dense biases and embeddings drawn in f32 and stored in
     ``dtype`` (default the compute dtype; training passes
     ``torch.float32``), the layer norms f32.  ``enc_layers`` and
-    ``dec_layers`` are lists of per-layer dicts."""
+    ``dec_layers`` are lists of per-layer dicts.  ``shard(subtree,
+    prefix)`` cuts each layer and top-level leaf to this rank's shard as
+    it is drawn (``transformer.init_params``)."""
+    keep = shard or (lambda t, prefix: t)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
@@ -80,17 +97,19 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda", dtype=None):
                 * scale).to(dt)
 
     n_enc = cfg.encoder_layers or cfg.n_layers
-    enc = [{"ln1": L.init_layer_norm(d, dev), "attn": _init_attn(gen, cfg, dt),
-            "ln2": L.init_layer_norm(d, dev), "mlp": _init_mlp(gen, cfg, dt)}
-           for _ in range(n_enc)]
-    dec = [{"ln1": L.init_layer_norm(d, dev), "self": _init_attn(gen, cfg, dt),
-            "ln_x": L.init_layer_norm(d, dev), "cross": _init_attn(gen, cfg, dt),
-            "ln2": L.init_layer_norm(d, dev), "mlp": _init_mlp(gen, cfg, dt)}
-           for _ in range(cfg.n_layers)]
+    enc = [keep({"ln1": L.init_layer_norm(d, dev), "attn": _init_attn(gen, cfg, dt),
+                 "ln2": L.init_layer_norm(d, dev), "mlp": _init_mlp(gen, cfg, dt)},
+                f"enc_layers/{i}")
+           for i in range(n_enc)]
+    dec = [keep({"ln1": L.init_layer_norm(d, dev), "self": _init_attn(gen, cfg, dt),
+                 "ln_x": L.init_layer_norm(d, dev), "cross": _init_attn(gen, cfg, dt),
+                 "ln2": L.init_layer_norm(d, dev), "mlp": _init_mlp(gen, cfg, dt)},
+                f"dec_layers/{i}")
+           for i in range(cfg.n_layers)]
     return {
         "enc_layers": enc,
         "enc_ln": L.init_layer_norm(d, dev),
-        "tok_embed": normal((cfg.vocab, d), 0.02),
+        "tok_embed": keep(normal((cfg.vocab, d), 0.02), "tok_embed"),
         "pos_embed": normal((4096 * 8, d), 0.01),
         "dec_layers": dec,
         "dec_ln": L.init_layer_norm(d, dev),
@@ -105,22 +124,23 @@ def _qkv(p, x, cfg: ModelConfig):
     return q, k, v
 
 
-def encode(params, frames, cfg: ModelConfig):
+def encode(params, frames, cfg: ModelConfig, tp=None):
     """frames: (B, T_enc, d) precomputed embeddings (the conv stub's
-    output) -> the encoder's output (B, T_enc, d)."""
+    output) -> the encoder's output (B, T_enc, d), whole on every rank
+    under ``tp``."""
     x = frames.to(L.cdtype(cfg))
     x = x + _sinusoids(x.shape[1], cfg.d_model, x.device).to(x.dtype)[None]
     for lp in params["enc_layers"]:
-        x = L.remat_layer(_enc_layer, cfg, lp, x, cfg)
+        x = L.remat_layer(_enc_layer, cfg, lp, x, cfg, tp)
     return L.layer_norm(params["enc_ln"], x)
 
 
-def _enc_layer(lp, x, cfg: ModelConfig):
+def _enc_layer(lp, x, cfg: ModelConfig, tp=None):
     b, t_enc, _ = x.shape
     q, k, v = _qkv(lp["attn"], L.layer_norm(lp["ln1"], x), cfg)
     a = L.flash_attention(q, k, v, causal=False, cfg=cfg).reshape(b, t_enc, -1)
-    x = x + L.dense(lp["attn"]["wo"], a, cfg)
-    return x + _mlp(lp["mlp"], L.layer_norm(lp["ln2"], x), cfg)
+    x = x + L.dense_row(lp["attn"]["wo"], a, cfg, L.split_plan(tp, "attn"))
+    return x + _mlp(lp["mlp"], L.layer_norm(lp["ln2"], x), cfg, L.split_plan(tp, "mlp"))
 
 
 def _dec_layer(lp, x, enc_out, cfg: ModelConfig):
@@ -175,9 +195,15 @@ def logits_fn(params, tokens, cfg: ModelConfig, frames=None):
     return (x @ params["tok_embed"].T.to(x.dtype)).to(_F32)
 
 
-def _logits(params, x):
+def _logits(params, x, tp=None):
     x = L.layer_norm(params["dec_ln"], x)
-    return (x @ params["tok_embed"].T.to(x.dtype)).to(_F32)   # the tied head
+    y = x @ params["tok_embed"].T.to(x.dtype)                  # the tied head
+    return y.to(_F32) if tp is None else tp.gather_vocab(y)
+
+
+def _embed(params, tokens, cfg: ModelConfig, tp=None):
+    table = params["tok_embed"]
+    return (table[tokens] if tp is None else tp.embed(table, tokens)).to(L.cdtype(cfg))
 
 
 # ---------------------------------------------------------------------------
@@ -203,33 +229,35 @@ def _stack(leaves):
     return torch.stack([PT.signed_view(t) for t in leaves]).view(leaves[0].dtype)
 
 
-def prefill(params, tokens, cfg: ModelConfig, frames=None, *, max_len=None):
+def prefill(params, tokens, cfg: ModelConfig, frames=None, *, max_len=None, tp=None):
     """Encode the frames, compute every decoder layer's cross-attention K
     and V once, and run the prompt through the decoder caching its
     self-attention K and V; returns ``(cache, logits (B, V) f32)`` at the
     last position.  ``max_len`` preallocates decode headroom on the
-    self-attention cache (default: the prompt's length)."""
+    self-attention cache (default: the prompt's length).  ``tp``: this
+    rank's tensor-parallel plan, ``cfg`` then the rank-local config."""
     b, s = tokens.shape
     ml = s if max_len is None else int(max_len)
     if ml < s:
         raise ValueError(f"prefill max_len={ml} < prompt length {s}")
-    enc_out = encode(params, frames, cfg)
+    heads, ff = L.split_plan(tp, "attn"), L.split_plan(tp, "mlp")
+    enc_out = encode(params, frames, cfg, tp)
     t_enc = enc_out.shape[1]
     g, hd = cfg.n_kv_heads, cfg.head_dim
-    x = params["tok_embed"][tokens].to(L.cdtype(cfg))
+    x = _embed(params, tokens, cfg, tp)
     x = x + params["pos_embed"][:s].to(x.dtype)[None]
     stored = ([], [], [], [])                        # k, v, ck, cv per layer
     for lp in params["dec_layers"]:
         q, k, v = _qkv(lp["self"], L.layer_norm(lp["ln1"], x), cfg)
         a = L.flash_attention(q, k, v, causal=True, cfg=cfg)
-        x = x + L.dense(lp["self"]["wo"], a.reshape(b, s, -1), cfg)
+        x = x + L.dense_row(lp["self"]["wo"], a.reshape(b, s, -1), cfg, heads)
         xin = L.layer_norm(lp["ln_x"], x)
         q = L.dense(lp["cross"]["wq"], xin, cfg).reshape(b, s, cfg.n_heads, hd)
         ek = L.dense(lp["cross"]["wk"], enc_out, cfg).reshape(b, t_enc, g, hd)
         ev = L.dense(lp["cross"]["wv"], enc_out, cfg).reshape(b, t_enc, g, hd)
         c = L.flash_attention(q, ek, ev, causal=False, cfg=cfg)
-        x = x + L.dense(lp["cross"]["wo"], c.reshape(b, s, -1), cfg)
-        x = x + _mlp(lp["mlp"], L.layer_norm(lp["ln2"], x), cfg)
+        x = x + L.dense_row(lp["cross"]["wo"], c.reshape(b, s, -1), cfg, heads)
+        x = x + _mlp(lp["mlp"], L.layer_norm(lp["ln2"], x), cfg, ff)
         for acc, t in zip(stored, (k, v, ek, ev)):
             acc.append(T._maybe_quant_kv(t, cfg))
     ks, vs, cks, cvs = (_stack(acc) for acc in stored)
@@ -238,18 +266,19 @@ def prefill(params, tokens, cfg: ModelConfig, frames=None, *, max_len=None):
              "ck": cks, "cv": cvs, "len": s,
              "lens": torch.full((b,), s, dtype=torch.int32, device=dev),
              "max_len": ml}
-    return cache, _logits(params, x[:, -1, :])
+    return cache, _logits(params, x[:, -1, :], tp)
 
 
-def decode_step(params, cache, token, cfg: ModelConfig):
+def decode_step(params, cache, token, cfg: ModelConfig, tp=None):
     """token (B,) -> (logits (B, V) f32, cache): every row writes its
     self K and V at the shared frontier ``len`` (a write past the
     capacity raises here), then attends over the self cache and the
-    whole cross cache."""
+    whole cross cache.  ``tp`` as in :func:`prefill`."""
     pos = int(cache["len"])
     b = token.shape[0]
     L.check_cache_capacity(pos, cache["k"].shape[2], "decoder self-attention cache")
-    x = params["tok_embed"][token][:, None, :].to(L.cdtype(cfg))
+    heads, ff = L.split_plan(tp, "attn"), L.split_plan(tp, "mlp")
+    x = _embed(params, token, cfg, tp)[:, None, :]
     x = x + params["pos_embed"][pos].to(x.dtype)
     slots = L.linear_write_slots(b, cache["k"].shape[2], pos, ring=False,
                                  device=token.device)
@@ -258,15 +287,15 @@ def decode_step(params, cache, token, cfg: ModelConfig):
         kc, vc = cache["k"][li], cache["v"][li]
         T._write_kv([(kc, k[:, 0]), (vc, v[:, 0])], slots, cfg)
         a = L.decode_attention(q, kc, vc, pos + 1, cfg=cfg, kv_posit=cfg.kv_posit)
-        x = x + L.dense(lp["self"]["wo"], a.reshape(b, 1, -1), cfg)
+        x = x + L.dense_row(lp["self"]["wo"], a.reshape(b, 1, -1), cfg, heads)
         xin = L.layer_norm(lp["ln_x"], x)
         q = L.dense(lp["cross"]["wq"], xin, cfg).reshape(
             b, 1, cfg.n_heads, cfg.head_dim)
         ck, cv = cache["ck"][li], cache["cv"][li]
         c = L.decode_attention(q, ck, cv, ck.shape[1], cfg=cfg, kv_posit=cfg.kv_posit)
-        x = x + L.dense(lp["cross"]["wo"], c.reshape(b, 1, -1), cfg)
-        x = x + _mlp(lp["mlp"], L.layer_norm(lp["ln2"], x), cfg)
+        x = x + L.dense_row(lp["cross"]["wo"], c.reshape(b, 1, -1), cfg, heads)
+        x = x + _mlp(lp["mlp"], L.layer_norm(lp["ln2"], x), cfg, ff)
     new_cache = dict(cache, len=pos + 1)
     if "lens" in cache:
         new_cache["lens"] = cache["lens"] + 1
-    return _logits(params, x[:, 0, :]), new_cache
+    return _logits(params, x[:, 0, :], tp), new_cache

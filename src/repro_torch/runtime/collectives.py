@@ -6,7 +6,11 @@ explicit, over the ``"model"`` process group of the mesh
 (``torch.distributed``):
 
 * an all-reduce after each row-parallel product: attention ``wo``, the
-  MLP's ``wo``, and the MoE's combine of this rank's experts;
+  MLP's ``wo``, and the MoE's combine of this rank's experts (rwkv6's
+  ``wo`` and ``cm_wv``, hymba's ``wo``, whisper's ``wo``s, whose bias is
+  added once, after it);
+* the f32 sums of a norm over features split across the ranks
+  (rwkv6's ``ln_x``, hymba's ``attn_norm`` and ``ssm_norm``);
 * the vocabulary-parallel embedding: a masked local lookup, then an
   all-reduce (each token's row is non-zero on one rank only, so the sum
   is exact);
@@ -39,7 +43,12 @@ Training runs the same forward under autograd, so each collective is a
 * the vocabulary-parallel embedding (a masked lookup, then ``reduce``)
   and the vocabulary gather, whose backward is this rank's slice;
 * :meth:`TensorParallel.max`, with no gradient (the vocabulary-parallel
-  loss's stabilising maximum).
+  loss's stabilising maximum);
+* :meth:`TensorParallel.feature_sum`, the f32 sums of a norm over split
+  features (rwkv6's ``ln_x`` over its heads' outputs, hymba's
+  ``attn_norm`` and ``ssm_norm``): all-reduce forward and backward,
+  since its result feeds each rank's own features, so each rank holds a
+  part of its gradient (unlike ``reduce``'s replicated residual).
 
 Under ``torch.no_grad`` each is its forward alone, the serving path's
 collectives.  Beside the ``"model"`` group, :func:`all_reduce_axis`
@@ -96,6 +105,19 @@ class _Enter(torch.autograd.Function):
         return ctx.tp.all_reduce(g, what="backward"), None
 
 
+class _FeatureSum(torch.autograd.Function):
+    """All-reduce forward, all-reduce backward."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return tp.all_reduce(x, what="norm")
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.tp.all_reduce(g, what="backward"), None
+
+
 class _GatherVocab(torch.autograd.Function):
     """This rank's logit columns -> the full f32 logits; backward: this
     rank's columns of the gradient."""
@@ -124,9 +146,10 @@ class TensorParallel:
     group: object
     rank: int
     size: int
-    attn: bool          # query heads (and ``wo``'s input) split
-    kv: bool            # K/V heads split: the arena is head-sharded
-    mlp: bool           # the dense MLP's ``d_ff`` splits
+    attn: bool          # query heads (and ``wo``'s input) split; rwkv6's time-mix
+                        # heads, hymba's attention and SSM heads together
+    kv: bool            # K/V heads split: the KV caches are head-sharded
+    mlp: bool           # the dense MLP's ``d_ff`` splits (rwkv6's channel mix)
     moe: bool           # experts split
     vocab: bool         # the embedding's rows and the head's columns split
     vocab_size: int
@@ -150,6 +173,12 @@ class TensorParallel:
         """``x`` itself, whose gradient is all-reduced over the group in
         the backward pass: the input of a column-parallel product."""
         return _Enter.apply(x, self) if torch.is_grad_enabled() and x.requires_grad else x
+
+    def feature_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """``x``, this rank's f32 partial sums over its share of a norm's
+        features, summed over the group; the gradient is all-reduced too
+        (the sum feeds every rank's own features)."""
+        return _FeatureSum.apply(x, self)
 
     def max(self, x: torch.Tensor) -> torch.Tensor:
         """The elementwise maximum of ``x`` over the group (no gradient)."""

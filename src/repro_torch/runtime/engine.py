@@ -25,11 +25,12 @@ the cache geometry and the sampler:
   prefill through :meth:`Engine.mixed_step` (one prefill chunk for every
   row, then ``n_steps`` masked decode steps);
 * ``mesh=`` (a ``("data", "model")`` ``DeviceMesh`` from
-  ``launch.mesh``) serves tensor-parallel on the paged schedulers: each
-  rank keeps its shard of the weights (``runtime/sharding.py``), a
-  head-sharded arena and the rank-local config, and the forward adds
-  the collectives GSPMD inserts in the reference
-  (``runtime/collectives.py``); token streams are the single device's.
+  ``launch.mesh``) serves tensor-parallel in every mode and family:
+  each rank keeps its shard of the weights (``runtime/sharding.py``),
+  its heads' share of the cache (``sharding.cache_split_leaves``) and
+  the rank-local config, and the forward adds the collectives GSPMD
+  inserts in the reference (``runtime/collectives.py``); token streams
+  are the single device's.
 
 PyTorch runs eagerly: the reference's one ``lax.scan`` per generation
 is a loop of decode steps here, and ``n_compiles`` counts the dispatch
@@ -108,11 +109,11 @@ class Engine:
         ``launch.mesh.make_host_mesh``) serves tensor-parallel: the
         weights are cut to this rank's shard by the rule table (leaves
         already at their local shape stay), ``self.cfg`` becomes the
-        rank-local config (this rank's heads and ``d_ff``), paged pool
-        caches hold this rank's KV heads (:meth:`init_cache`) and every
-        model call carries the plan ``self.tp``.  Paged engines of the
-        transformer family only; without a mesh, or with a ``"model"``
-        axis of size 1, nothing changes."""
+        rank-local config (this rank's heads and ``d_ff``), caches hold
+        this rank's KV heads and recurrent-state heads (:meth:`init_cache`,
+        :meth:`cache_shards`) and every model call carries the plan
+        ``self.tp``.  Any family, paged or linear; without a mesh, or
+        with a ``"model"`` axis of size 1, nothing changes."""
         self.device = resolve_device(device)
         if decode_kernel is not None:
             if decode_kernel not in ("gather", "fused"):
@@ -131,11 +132,6 @@ class Engine:
                 f"device is {self.device}")
         self.mesh = mesh
         self.tp = sharding.tensor_parallel(cfg, mesh)
-        if self.tp is not None and not paged:
-            raise NotImplementedError(
-                "tensor-parallel serving covers the paged schedulers only: the "
-                "one-shot engine and the dense-cache scheduler on linear caches "
-                "wait for ROADMAP.md Queue 1 item 6")
         self.cfg = sharding.local_config(cfg, self.tp)
         self.params = sharding.shard_params(params, mesh, cfg)
         self.max_len = int(max_len)
@@ -171,20 +167,25 @@ class Engine:
         return len(self._dispatch_keys)
 
     def init_cache(self, n_slots: int):
-        """Empty paged pool cache for ``n_slots`` rows on the engine's
-        device.  Under a mesh, only this rank's arena: the rank-local
-        config's KV heads (all of them where they do not split, and the
-        MLA latents whole), never the whole arena."""
+        """Empty cache for ``n_slots`` rows on the engine's device: the
+        paged pool cache, or the family's linear cache of ``max_len``.
+        Under a mesh, only this rank's share: the rank-local config's KV
+        and state heads (all of them where they do not split, and the MLA
+        latents whole), never the whole cache."""
+        if not self.paged:
+            return self.fam.init_cache(self.cfg, n_slots, self.max_len,
+                                       device=self.device)
         return T.init_paged_cache(
             self.cfg, n_slots, self.max_len, self.block_size,
             self.n_blocks or n_slots * self.table_width, device=self.device)
 
     def cache_shards(self) -> dict:
-        """``{leaf: ranks it is split over}`` of this engine's paged cache
-        (``kvcache.cache_report``'s ``shards``): the dense arenas when
-        the KV heads split, nothing otherwise."""
-        return {"k": self.tp.size, "v": self.tp.size} if self.tp is not None \
-            and self.tp.kv else {}
+        """``{leaf: ranks it is split over}`` of this engine's caches
+        (``kvcache.cache_report``'s ``shards``): the K/V leaves where the
+        KV heads split, the recurrent state where the heads split
+        (``sharding.cache_split_leaves``), nothing on one device."""
+        return {k: self.tp.size
+                for k in sharding.cache_split_leaves(self.cfg.family, self.tp)}
 
     def sample(self, logits):
         """(B, V) f32 logits -> (B,) int32 tokens (:func:`sample_token`
@@ -293,14 +294,12 @@ class Engine:
         as the reference's traced scan relies on).  ``active`` reaches
         only the families that take it (``masked``)."""
         if self.cfg.family == "transformer":
-            if "block_tables" in cache:
-                return T._decode_step_paged(self.params, cache, tok, self.cfg, active,
-                                            tp=self.tp)
-            return T._decode_step_linear(self.params, cache, tok, self.cfg, active)
+            step = T._decode_step_paged if "block_tables" in cache else T._decode_step_linear
+            return step(self.params, cache, tok, self.cfg, active, tp=self.tp)
         if self.masked:
             return self.fam.decode_step(self.params, cache, tok, self.cfg,
-                                        active=active)
-        return self.fam.decode_step(self.params, cache, tok, self.cfg)
+                                        active=active, tp=self.tp)
+        return self.fam.decode_step(self.params, cache, tok, self.cfg, tp=self.tp)
 
     def decode_chunk(self, cache, tokens, n_steps: int, *, active=None):
         """Advance every row by ``n_steps`` decode steps; returns
@@ -346,10 +345,6 @@ class Engine:
 
     def _generate(self, prompts, max_new_tokens: int, stepwise: bool, frames,
                   visual):
-        if self.tp is not None:
-            raise NotImplementedError(
-                "tensor-parallel serving covers the paged schedulers only: the "
-                "one-shot generate waits for ROADMAP.md Queue 1 item 6")
         tokens, _ = self.pack_prompts(prompts)
         self._check_fits(tokens.shape[1], max_new_tokens)
         cache, logits, lens = self.prefill(prompts, frames=frames, visual=visual,
@@ -357,15 +352,15 @@ class Engine:
         b = tokens.shape[0]
         self._dispatch_keys.add(("step", b) if stepwise
                                 else ("generate", int(max_new_tokens), b))
-        tok = sample_token(logits, self.gen, self.temperature)
+        tok = self.sample(logits)
         out = [tok]
         for _ in range(max_new_tokens - 1):
             if stepwise:
                 step_logits, cache = self.fam.decode_step(self.params, cache, tok,
-                                                          self.cfg)
+                                                          self.cfg, tp=self.tp)
             else:
                 step_logits, cache = self._step(cache, tok)
-            tok = sample_token(step_logits, self.gen, self.temperature)
+            tok = self.sample(step_logits)
             out.append(tok)
         return GenerationResult(
             tokens=torch.stack(out, dim=1).cpu().numpy().astype(np.int32),

@@ -61,12 +61,15 @@ equal the reference scheduler's in every mode.
 Time is counted in decode steps (the simulation clock); each round is
 also wall-timed (``stats['step_wall_p50_ms']``/``['step_wall_p99_ms']``).
 
-Under a tensor-parallel engine (``Engine(mesh=)``, the paged modes) every
+Under a tensor-parallel engine (``Engine(mesh=)``, every mode) every
 rank runs its own scheduler over its shard.  Its decisions read only host
 state and the sampled tokens, which are equal on every rank (the argmax
 of full-width logits, or rank 0's draw: ``Engine.sample``), so every
-rank reaches rank 0's schedule; the arenas are only ever addressed by
-block ids, which name one slice of KV heads on each rank.
+rank reaches rank 0's schedule: the same admissions, block ids and, in
+the dense-cache mode, compactions (from the host-side ``lens`` and
+frontier).  The arenas are only ever addressed by block ids, which name
+one slice of KV heads on each rank; the dense cache's rows and frontier
+are the same on every rank, its leaves this rank's KV heads.
 """
 from __future__ import annotations
 
@@ -174,11 +177,11 @@ class Scheduler:
                 "chunked_prefill=True needs Engine(paged=True): chunks write "
                 "through per-row block tables")
         self._frontier = 0             # host mirror of a linear cache's len
+        self.n_compactions = 0         # moves of that frontier (dense-cache mode)
         if self.paged:
             self._init_pool()
         else:
-            self.cache = T.init_cache(engine.cfg, self.n_slots, engine.max_len,
-                                      device=engine.device)
+            self.cache = engine.init_cache(self.n_slots)
         self.prefill_tokens = 0        # tokens run through prefill
         self.prefix_hits = 0           # admissions that borrowed blocks
         self.prefix_matched_tokens = 0  # prompt tokens served from cache
@@ -302,11 +305,14 @@ class Scheduler:
         if self.paged:
             d.update(peak_committed=self.peak_committed,
                      peak_logical=self.peak_logical)
+        else:
+            d.update(n_compactions=self.n_compactions)
         return d
 
     def _set_frontier(self, target: int):
         """Dense-cache mode: move the shared frontier (``kvcache.compact``)."""
         if target != self._frontier:
+            self.n_compactions += 1
             self.cache = kvc.compact(self.cache, target)
             self._frontier = int(target)
 

@@ -17,6 +17,29 @@ table is the reference's, first match wins, with two changes:
   ``q_norm``, an RMS norm over the whole query latent.  The port keeps
   ``wdq`` (and ``q_norm``) whole on every rank and splits ``wuq`` by
   heads, so the query heads are rank-local with no collective.
+* **rwkv6's ``cm_wr``** (``DIVERGENCES``).  The reference splits it on
+  its output, but the channel mix multiplies ``sigmoid(cm_wr x)`` by
+  ``cm_wv``'s row-parallel partial sum, so a split output would need a
+  gather after the sum.  The port keeps ``cm_wr`` whole on every rank
+  and all-reduces ``cm_wv``'s product, as an MLP's.
+
+Beyond the table, what each rank executes (:func:`leaf_spec`): hymba's
+``in_proj`` packs ``[xs | gate | B | C | dt]`` in its columns, and a rank
+takes its SSM heads' share of ``xs``, ``gate`` and ``dt`` and the whole
+of ``B`` and ``C`` (:class:`Segments`, not one contiguous slice).  Leaves
+the table keeps whole but that feed split features (rwkv6's ``w0``,
+``u``, ``wl_b``'s columns and ``ln_x``; hymba's ``A_log``, ``dt_bias``,
+``D``, ``attn_norm`` and ``ssm_norm``) stay whole on every rank, and
+the forward slices this rank's heads out of them.
+
+Caches: :func:`cache_specs` is the reference's (the sequence axis of KV
+caches over ``"model"``), which the reference's dry run alone applies;
+its serving engine places no linear cache and GSPMD follows the
+head-split ``wk``/``wv``.  The port's engine splits every KV cache by
+its KV heads (``(.., G, hd)``), as its paged arenas, and the recurrent
+states by heads (``(L, B, H, ...)``): :func:`cache_split_leaves`; the
+leaves whose ``"model"`` placement differs from ``cache_specs``' are
+``CACHE_DIVERGENCES``.
 
 :func:`filter_spec` replicates a dimension the mesh axis does not
 divide, as the reference's does.  :func:`tensor_parallel` then decides
@@ -45,7 +68,7 @@ import re
 import torch
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.runtime.collectives import TensorParallel, gather_dim
+from repro_torch.runtime.collectives import TensorParallel, gather_axis, gather_dim
 from repro_torch.tree import leaves_with_paths
 
 M, D = "model", "data"
@@ -71,8 +94,9 @@ _TRANSFORMER_RULES = [
     (r"layers.*/moe/router/w$", (None, None)),
     (r"layers.*/moe/(wi|wg)$", (M, None, None)),
     (r"layers.*/moe/wo$", (M, None, None)),
-    # rwkv
-    (r"layers.*/(wr|wk|wv|wg|cm_wk|cm_wr)/w$", (None, M)),
+    # rwkv (the channel mix's receptance whole: DIVERGENCES)
+    (r"layers.*/cm_wr/w$", (None, None)),
+    (r"layers.*/(wr|wk|wv|wg|cm_wk)/w$", (None, M)),
     (r"layers.*/(cm_wv)/w$", (M, None)),
     (r"layers.*/tm_w1$", (None, None)),
     (r"layers.*/tm_w2$", (None, None, None)),
@@ -99,7 +123,7 @@ _TRANSFORMER_RULES = [
 
 # rules whose placement is not the reference's with its layer axis
 # dropped (ROADMAP.md, deliberate divergences)
-DIVERGENCES = (r"layers.*/wdq/w$", r"layers.*/wuq/w$")
+DIVERGENCES = (r"layers.*/wdq/w$", r"layers.*/wuq/w$", r"layers.*/cm_wr/w$")
 # fsdp on a per-layer leaf (ROADMAP.md, deliberate divergences): the
 # reference's stacked leaf takes "data" on its layer axis whenever the data
 # size divides the layer count; the port's unstacked leaf has no layer axis,
@@ -134,13 +158,28 @@ def axis_sizes(mesh) -> dict:
     return {n: int(mesh.shape[n]) for n in mesh.axis_names}
 
 
+def _entry_size(entry, sizes: dict):
+    """The ranks a spec entry (an axis or a tuple of axes) spans, or
+    ``None`` when the mesh lacks one of its axes."""
+    names = entry if isinstance(entry, tuple) else (entry,)
+    if any(a not in sizes for a in names):
+        return None
+    n = 1
+    for a in names:
+        n *= sizes[a]
+    return n
+
+
 def filter_spec(spec: tuple, shape, mesh) -> tuple:
     """Replicate any spec axis that the mesh lacks or whose size does
     not divide the dimension."""
     sizes = axis_sizes(mesh)
     dims = tuple(spec) + (None,) * (len(shape) - len(spec))
-    return tuple(e if e is not None and e in sizes and n % sizes[e] == 0 else None
-                 for e, n in zip(dims, shape))
+    out = []
+    for e, n in zip(dims, shape):
+        k = None if e is None else _entry_size(e, sizes)
+        out.append(e if k and n % k == 0 else None)
+    return tuple(out)
 
 
 def paged_cache_specs(cache: dict, mesh, cfg: ModelConfig) -> dict:
@@ -158,35 +197,106 @@ def paged_cache_specs(cache: dict, mesh, cfg: ModelConfig) -> dict:
     return out
 
 
+def cache_specs(cache: dict, mesh, cfg: ModelConfig, *, seq_axis_shard: bool = False) -> dict:
+    """The reference's specs of a linear KV or state cache: the sequence
+    axis of K/V (``(L, B, T, G, hd)``) and of the MLA latents over
+    ``"model"`` (with ``seq_axis_shard`` over ``("model", "data")``), the
+    recurrent states (``wkv``, ``ssm``: ``(L, B, H, ...)``) by heads, the
+    batch over ``("pod", "data")`` where it divides, the rest whole.
+    The engine places its caches by heads (:func:`cache_split_leaves`)."""
+    sizes = axis_sizes(mesh)
+    t_axes = (M, D) if seq_axis_shard and D in sizes else M
+    out = {}
+    for key, x in cache.items():
+        shape = tuple(x.shape) if isinstance(x, torch.Tensor) else ()
+        nd = len(shape)
+        if key == "len" or nd == 0:
+            out[key] = ()
+            continue
+        b = batch_axes(shape[1], mesh) if nd > 1 else None
+        if b is not None and len(b) == 1:       # one axis by its name, as a PartitionSpec
+            b = b[0]
+        if key in _KV_LEAVES:
+            spec = (None, b, t_axes, None, None)
+        elif key in ("c_kv", "k_rope"):
+            spec = (None, b, t_axes, None)
+        elif key in ("wkv", "ssm"):
+            spec = (None, b, M, None, None)
+        elif key in ("tm_x", "cm_x"):
+            spec = (None, b, None)
+        else:
+            spec = (None,) * nd
+        out[key] = filter_spec(spec, shape, mesh)
+    return out
+
+
+# K/V leaves (L, B, T, G, hd) of every family's linear cache (the paged
+# arenas are (L, nb, bs, G, hd)): the engine splits their head axis
+_KV_LEAVES = ("k", "v", "k_swa", "v_swa", "k_glb", "v_glb", "ck", "cv")
+# the leaves whose "model" placement in the engine is not cache_specs'
+# (ROADMAP.md, deliberate divergences): K/V by heads, not by sequence;
+# MLA's latents whole, not by sequence
+CACHE_DIVERGENCES = _KV_LEAVES + ("c_kv", "k_rope")
+
+
+def cache_split_leaves(family: str, tp) -> tuple:
+    """The cache leaves a rank of plan ``tp`` holds a share of, on their
+    head axis: K/V where the KV heads split (never MLA's latents), the
+    recurrent state where the heads split."""
+    if tp is None:
+        return ()
+    kv = {"transformer": ("k", "v"), "hymba": ("k_swa", "v_swa", "k_glb", "v_glb"),
+          "whisper": ("k", "v", "ck", "cv")}.get(family, ())
+    state = {"hymba": ("ssm",), "rwkv6": ("wkv",)}.get(family, ())
+    return (kv if tp.kv else ()) + (state if tp.attn else ())
+
+
 # ---------------------------------------------------------------------------
 # The tensor-parallel plan and each rank's shard
 # ---------------------------------------------------------------------------
 
 def _split_groups(cfg: ModelConfig, mp: int) -> dict:
     """Which groups of leaves split ``mp`` ways, decided on whole heads,
-    experts and vocabulary rows."""
-    h, g = cfg.n_heads, cfg.n_kv_heads
-    if cfg.mla:
+    experts and vocabulary rows.  ``attn`` is the attention's query
+    heads (rwkv6: the time mix's heads and its state; hymba: the
+    attention and SSM heads together, since ``_merge`` adds head i's
+    features of both), ``kv`` its K/V heads, ``mlp`` the MLP's ``d_ff``
+    (rwkv6: the channel mix's)."""
+    h, g, fam = cfg.n_heads, cfg.n_kv_heads, cfg.family
+    if fam == "rwkv6":
+        attn, kv = h % mp == 0, False          # no KV cache
+    elif cfg.mla:
         attn, kv = h % mp == 0, False          # the latent arena replicates
     else:
         kv = g % mp == 0
         attn = h % mp == 0 and (kv or g == 1)   # MQA: q heads only
+        if fam == "hymba":
+            attn = attn and cfg.ssm_heads % mp == 0
+            kv = kv and attn
     return {"attn": attn, "kv": kv, "mlp": not cfg.is_moe and cfg.d_ff % mp == 0,
             "moe": cfg.is_moe and cfg.n_experts % mp == 0, "vocab": cfg.vocab % mp == 0}
 
 
-def _group_of(path: str):
-    """The split group a leaf belongs to (None: never splits)."""
+def _group_of(path: str, cfg: ModelConfig):
+    """The split group a leaf of ``cfg``'s family belongs to (None:
+    never splits)."""
     if re.search(r"(tok_embed|lm_head/w)$", path):
         return "vocab"
-    if re.search(r"layers.*/attn/(wk|wv)/w$", path):
-        return "kv"
-    if re.search(r"layers.*/attn/(wq|wo|wuq|wuk|wuv)/w$", path):
-        return "attn"
-    if re.search(r"layers.*/mlp/(wi|wg|wo)/w$", path):
-        return "mlp"
-    if re.search(r"layers.*/moe/(wi|wg|wo)$", path):
-        return "moe"
+    if cfg.family == "rwkv6":
+        groups = ((r"layers/\d+/(wr|wk|wv|wg|wo)/w$", "attn"),
+                  (r"layers/\d+/(cm_wk|cm_wv)/w$", "mlp"))
+    elif cfg.family == "hymba":
+        groups = ((r"layers/\d+/(wk|wv)/w$", "kv"),
+                  (r"layers/\d+/(wq|in_proj|wo)/w$", "attn"),
+                  (r"layers/\d+/mlp/(wi|wg|wo)/w$", "mlp"))
+    else:              # the transformer; whisper's biases split with their columns
+        groups = ((r"layers.*/(attn|self|cross)/(wk|wv)/[wb]$", "kv"),
+                  (r"layers.*/(attn|self|cross)/(wq|wo|wuq|wuk|wuv)/[wb]$", "attn"),
+                  (r"layers.*/mlp/(wi|wg|wo)/[wb]$", "mlp"),
+                  (r"layers.*/moe/(wi|wg|wo)$", "moe"))
+    for pat, group in groups:
+        if re.search(pat, path):
+            return group
     return None
 
 
@@ -198,52 +308,106 @@ def model_group(mesh):
 
 
 def tensor_parallel(cfg: ModelConfig, mesh):
-    """The rank's :class:`TensorParallel` plan on ``mesh`` for ``cfg``,
-    or ``None`` without a mesh or with a ``"model"`` axis of size 1 (for
-    every family): then every path is the single-device one.  A larger
-    ``"model"`` axis covers the transformer family only."""
+    """The rank's :class:`TensorParallel` plan on ``mesh`` for ``cfg``
+    (any family), or ``None`` without a mesh or with a ``"model"`` axis
+    of size 1: then every path is the single-device one."""
     if mesh is None or axis_sizes(mesh).get(M, 1) == 1:
         return None
-    if cfg.family != "transformer":
-        raise NotImplementedError(
-            f"tensor parallelism (serving and training) covers the transformer "
-            f"family only (got {cfg.family!r} at 'model' "
-            f"{axis_sizes(mesh)[M]}; ROADMAP.md Queue 1 item 6)")
     group, rank, size = model_group(mesh)
     return TensorParallel(group=group, rank=rank, size=size, vocab_size=cfg.vocab,
                           n_experts=cfg.n_experts, **_split_groups(cfg, size))
 
 
 def local_config(cfg: ModelConfig, tp) -> ModelConfig:
-    """The rank-local config: the head counts and ``d_ff`` of this rank's
-    shard (vocabulary and expert counts stay global: the logits are
-    gathered to full width and every rank routes over every expert)."""
+    """The rank-local config: the head counts (hymba's SSM heads too)
+    and ``d_ff`` of this rank's shard (vocabulary and expert counts stay
+    global: the logits are gathered to full width and every rank routes
+    over every expert)."""
     if tp is None:
         return cfg
     n = tp.size
-    return dataclasses.replace(
-        cfg, n_heads=cfg.n_heads // n if tp.attn else cfg.n_heads,
-        n_kv_heads=cfg.n_kv_heads // n if tp.kv else cfg.n_kv_heads,
-        d_ff=cfg.d_ff // n if tp.mlp else cfg.d_ff)
+    over = dict(n_heads=cfg.n_heads // n if tp.attn else cfg.n_heads,
+                n_kv_heads=cfg.n_kv_heads // n if tp.kv else cfg.n_kv_heads,
+                d_ff=cfg.d_ff // n if tp.mlp else cfg.d_ff)
+    if cfg.family == "hymba" and tp.attn:
+        over["ssm_heads"] = cfg.ssm_heads // n
+    return dataclasses.replace(cfg, **over)
+
+
+@dataclasses.dataclass(frozen=True)
+class Segments:
+    """A spec entry: a dim of whole segments ``sizes`` that splits over
+    ``axis`` segment by segment, each segment where ``split`` says so
+    into equal contiguous pieces, whole on every rank where it does not.
+    A rank's share is its pieces in segment order (hymba's ``in_proj``
+    columns ``[xs | gate | B | C | dt]``: xs, gate and dt by SSM heads,
+    B and C whole)."""
+    sizes: tuple
+    split: tuple
+    axis: str = M
+
+    def local_size(self, n: int) -> int:
+        return sum(s // n if sp else s for s, sp in zip(self.sizes, self.split))
+
+    def take(self, x: torch.Tensor, dim: int, rank: int, n: int) -> torch.Tensor:
+        """Rank ``rank``'s share (of ``n``) of the whole ``x`` along ``dim``."""
+        pieces, off = [], 0
+        for s, sp in zip(self.sizes, self.split):
+            k = s // n if sp else s
+            pieces.append(x.narrow(dim, off + (rank * k if sp else 0), k))
+            off += s
+        return torch.cat(pieces, dim)
+
+    def join(self, stacked: torch.Tensor, dim: int) -> torch.Tensor:
+        """The whole leaf from ``stacked`` (n, ...), every rank's share
+        of it along ``dim`` (a whole segment from rank 0's)."""
+        n, parts, off = stacked.shape[0], [], 0
+        for s, sp in zip(self.sizes, self.split):
+            k = s // n if sp else s
+            piece = stacked.narrow(dim + 1, off, k)
+            parts += list(piece.unbind(0)) if sp else [piece[0]]
+            off += k
+        return torch.cat(parts, dim)
+
+
+def _in_proj_segments(cfg: ModelConfig) -> Segments:
+    d_in = cfg.ssm_heads * cfg.ssm_head_dim
+    n = cfg.ssm_state
+    return Segments((d_in, d_in, n, n, cfg.ssm_heads), (True, True, False, False, True))
 
 
 def leaf_spec(path: str, shape, mesh, cfg: ModelConfig) -> tuple:
     """A leaf's placement: the rule table's spec, filtered by
-    divisibility, and replicated whole when its group does not split."""
-    spec = filter_spec(spec_for_path(path, len(shape)), shape, mesh)
-    group = _group_of(path)
+    divisibility, and replicated whole when its group does not split;
+    hymba's ``in_proj`` columns by :class:`Segments`."""
+    group = _group_of(path, cfg)
     mp = axis_sizes(mesh).get(M, 1)
     if group is None or not _split_groups(cfg, mp)[group]:
         return (None,) * len(shape)
-    return spec
+    if cfg.family == "hymba" and re.search(r"in_proj/w$", path):
+        return (None, _in_proj_segments(cfg))
+    return filter_spec(spec_for_path(path, len(shape)), shape, mesh)
+
+
+def _split_dim(spec: tuple):
+    """``(dim, entry)`` of the spec's split dim (``"model"`` or
+    :class:`Segments`), or ``(None, None)``."""
+    for dim, e in enumerate(spec):
+        if e == M or isinstance(e, Segments):
+            return dim, e
+    return None, None
 
 
 def _local(x: torch.Tensor, spec: tuple, rank: int, size: int, global_shape) -> torch.Tensor:
-    """The rank's contiguous slice along the spec's ``"model"`` dim; a
-    leaf already at its local size is kept."""
-    if M not in spec:
+    """The rank's share along the spec's split dim (a contiguous slice,
+    or :class:`Segments`' pieces); a leaf already at its local size is
+    kept."""
+    dim, entry = _split_dim(spec)
+    if dim is None:
         return x
-    dim = spec.index(M)
+    if isinstance(entry, Segments):
+        n = entry.local_size(size)
+        return x if x.shape[dim] == n else entry.take(x, dim, rank, size).contiguous()
     n = global_shape[dim] // size
     if x.shape[dim] == n:
         return x
@@ -272,10 +436,35 @@ def shard_params(params, mesh, cfg: ModelConfig, prefix: str = ""):
 
 
 def _global_shapes(cfg: ModelConfig) -> dict:
-    """Global leaf shapes of the transformer's parameters, keyed by path
-    with the layer index removed (``layers/attn/wq/w``)."""
+    """Global shapes of the leaves of ``cfg``'s parameters that can
+    split, keyed by path with the layer index removed
+    (``layers/attn/wq/w``)."""
     d, h, g, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    f = cfg.d_ff
     out = {"tok_embed": (cfg.vocab, d), "lm_head/w": (d, cfg.vocab)}
+    if cfg.family == "rwkv6":
+        da = h * hd
+        out.update({f"layers/{k}/w": (d, da) for k in ("wr", "wk", "wv", "wg")})
+        out.update({"layers/wo/w": (da, d), "layers/cm_wk/w": (d, f),
+                    "layers/cm_wv/w": (f, d)})
+        return out
+    if cfg.family == "hymba":
+        d_in = cfg.ssm_heads * cfg.ssm_head_dim
+        out.update({"layers/wq/w": (d, h * hd), "layers/wk/w": (d, g * hd),
+                    "layers/wv/w": (d, g * hd), "layers/wo/w": (d_in, d),
+                    "layers/in_proj/w": (d, 2 * d_in + 2 * cfg.ssm_state + cfg.ssm_heads),
+                    "layers/mlp/wi/w": (d, f), "layers/mlp/wg/w": (d, f),
+                    "layers/mlp/wo/w": (f, d)})
+        return out
+    if cfg.family == "whisper":
+        for stack in ("enc_layers/attn", "dec_layers/self", "dec_layers/cross"):
+            out.update({f"{stack}/wq/w": (d, h * hd), f"{stack}/wq/b": (h * hd,),
+                        f"{stack}/wk/w": (d, g * hd), f"{stack}/wv/w": (d, g * hd),
+                        f"{stack}/wv/b": (g * hd,), f"{stack}/wo/w": (h * hd, d)})
+        for stack in ("enc_layers", "dec_layers"):
+            out.update({f"{stack}/mlp/wi/w": (d, f), f"{stack}/mlp/wi/b": (f,),
+                        f"{stack}/mlp/wo/w": (f, d)})
+        return out
     if cfg.mla:
         qh = cfg.qk_nope_dim + cfg.qk_rope_dim
         out.update({"layers/attn/wuq/w": (cfg.q_lora_rank, h * qh),
@@ -285,7 +474,7 @@ def _global_shapes(cfg: ModelConfig) -> dict:
     else:
         out.update({"layers/attn/wq/w": (d, h * hd), "layers/attn/wk/w": (d, g * hd),
                     "layers/attn/wv/w": (d, g * hd), "layers/attn/wo/w": (h * hd, d)})
-    f, e, fe = cfg.d_ff, cfg.n_experts, cfg.d_ff_expert
+    e, fe = cfg.n_experts, cfg.d_ff_expert
     out.update({"layers/mlp/wi/w": (d, f), "layers/mlp/wg/w": (d, f),
                 "layers/mlp/wo/w": (f, d), "layers/moe/wi": (e, d, fe),
                 "layers/moe/wg": (e, d, fe), "layers/moe/wo": (e, fe, d)})
@@ -369,6 +558,10 @@ class NamedSharding:
         for dim, axis in enumerate(self.spec):
             if axis is None:
                 continue
+            if isinstance(axis, Segments):
+                x = axis.take(x, dim, self.mesh.get_local_rank(axis.axis),
+                              axis_sizes(self.mesh)[axis.axis])
+                continue
             if not isinstance(axis, str):
                 raise NotImplementedError(f"a dim split over several axes: {axis}")
             size = axis_sizes(self.mesh)[axis]
@@ -384,13 +577,16 @@ def unshard(x: torch.Tensor, sh) -> torch.Tensor:
     if sh is None:
         return x
     for dim, axis in enumerate(sh.spec):
-        if axis is not None:
+        if isinstance(axis, Segments):
+            x = axis.join(gather_axis(x.contiguous(), sh.mesh, axis.axis, what="checkpoint"),
+                          dim)
+        elif axis is not None:
             x = gather_dim(x, dim, sh.mesh, axis)
     return x
 
 
 def _global_shape(path: str, shape, glob: dict) -> tuple:
-    """A transformer leaf's whole shape from ``_global_shapes`` (its
+    """A leaf's whole shape from ``_global_shapes`` (its
     path with the layer index and any prefix such as ``m/`` dropped), or
     ``shape`` itself."""
     bare = re.sub(r"/\d+/", "/", path)

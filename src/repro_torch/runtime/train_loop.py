@@ -17,7 +17,8 @@ rank), where the reference lets GSPMD place a jitted step:
   pipeline draws it from its seed) and runs the rows that
   ``("pod", "data")`` give it (``sharding.batch_rows``), through a
   tensor-parallel plan where ``"model"`` > 1 (``sharding.
-  tensor_parallel``: the transformer family).  Microbatches are the
+  tensor_parallel``; in training the transformer family's only:
+  :func:`check_model_axis`).  Microbatches are the
   reference's global ones, rows ``[i B/accum, (i+1) B/accum)``; a rank
   runs its part of each, and each part's loss sum divides by its
   microbatch's global label count, so that the sum over the ranks is
@@ -52,6 +53,20 @@ from repro_torch.runtime import collectives as C
 from repro_torch.runtime import sharding
 
 
+def check_model_axis(cfg: ModelConfig, mesh) -> None:
+    """Training splits a model over ``"model"`` for the transformer
+    family only: hymba's, rwkv6's and whisper's forwards run sharded (the
+    serving path), but the leaves they keep whole on every rank and slice
+    locally get only a part of their gradient on each rank, and nothing
+    yet all-reduces it (ROADMAP.md Queue 1 item 6.2)."""
+    if mesh is not None and cfg.family != "transformer" \
+            and sharding.axis_sizes(mesh).get("model", 1) > 1:
+        raise NotImplementedError(
+            f"training at 'model' {sharding.axis_sizes(mesh)['model']} covers the "
+            f"transformer family only (got {cfg.family!r}): the partial gradients "
+            "of its locally sliced leaves wait for ROADMAP.md Queue 1 item 6.2")
+
+
 def make_grad_fn(cfg: ModelConfig, mesh=None, *, axes=("pod", "data"), accum=None):
     """``grads_of(params, batch) -> (loss, grads)``: the mean loss (a 0-d
     f32 tensor) and a tree of f32 gradients shaped like ``params`` (the
@@ -67,6 +82,7 @@ def make_grad_fn(cfg: ModelConfig, mesh=None, *, axes=("pod", "data"), accum=Non
     rank then runs whole; the MoE router's over ``"model"`` too), so
     that every rank holds one device's, its own slices of the split
     leaves."""
+    check_model_axis(cfg, mesh)
     fam = get_family(cfg)
     accum = max(1, cfg.grad_accum if accum is None else accum)
     tp = None if mesh is None else sharding.tensor_parallel(cfg, mesh)
@@ -143,6 +159,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
     global batch.  The pod-compressed step (module docstring) is
     ``train_step(params, opt_state, ef_state, batch, step) -> (params,
     opt_state, ef_state, metrics)``."""
+    check_model_axis(cfg, mesh)
     pod_step = compressed and n_pods > 1 and bool(cfg.grad_compress)
     if pod_step and (mesh is None or sharding.axis_sizes(mesh).get("pod", 1) != n_pods):
         raise NotImplementedError(

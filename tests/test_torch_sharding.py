@@ -6,11 +6,16 @@ with no spawn: every parameter path of every architecture matches a
 rule; each placement is the reference's with its layer-stack axis
 dropped (the port's per-layer lists are unstacked), except the
 deliberate divergences ``sharding.DIVERGENCES`` that ROADMAP.md lists
-(MLA's query path); ``filter_spec`` and ``paged_cache_specs`` pin the
-same goldens; ``make_host_mesh`` rounds a non-dividing degree down with
-the warning.  Beyond the reference: the per-group split decisions (whole
-heads, experts, vocabulary rows), the shards of every transformer lane
-reassembling the single-device weights, and the identity at mp 1.
+(MLA's query path, rwkv6's ``cm_wr``); ``filter_spec``,
+``paged_cache_specs`` and ``cache_specs`` (every ``ARCH_ID``'s linear
+cache) pin the same goldens, and the engine's head-split caches differ
+from ``cache_specs`` only on ``CACHE_DIVERGENCES``; ``make_host_mesh``
+rounds a non-dividing degree down with the warning.  Beyond the
+reference: the per-group split decisions (whole heads, experts,
+vocabulary rows; hymba's attention and SSM heads together), the shards
+of every transformer lane and of hymba, rwkv6 and whisper reassembling
+the single-device weights (hymba's segmented ``in_proj`` through
+``unshard``, bit for bit), and the identity at mp 1.
 """
 import dataclasses
 import re
@@ -102,10 +107,16 @@ def test_placement_is_the_reference_with_the_layer_axis_dropped(arch):
             diverged.add(pat)
             continue
         assert got == want, (path, got, want)
-    if TCFG.get_config(arch).mla:
-        assert diverged == set(S.DIVERGENCES)
+    cfg = TCFG.get_config(arch)
+    want = {r"layers.*/wdq/w$", r"layers.*/wuq/w$"} if cfg.mla else \
+        {r"layers.*/cm_wr/w$"} if cfg.family == "rwkv6" else set()
+    assert diverged == want and want <= set(S.DIVERGENCES)
+    if cfg.mla:
         assert S.spec_for_path("layers/0/attn/wdq/w", 2) == (None, None)
         assert S.spec_for_path("layers/0/attn/wuq/w", 2) == (None, "model")
+    if cfg.family == "rwkv6":
+        assert S.spec_for_path("layers/0/cm_wr/w", 2) == (None, None)
+        assert S.spec_for_path("layers/0/cm_wk/w", 2) == (None, "model")
 
 
 def test_match_for_path_can_miss():
@@ -241,9 +252,32 @@ def test_no_mesh_changes_nothing():
 
 
 def test_other_families_refuse_a_mesh():
-    cfg = TCFG.get_config("rwkv6-7b").reduced(compute_dtype="float32")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        S.tensor_parallel(cfg, _RankMesh(2, 0))
+    """hymba, rwkv6 and whisper take a mesh since tensor parallelism
+    covers them: their groups split on whole heads (hymba's attention and
+    SSM heads together, and only where its KV heads divide or are one),
+    ``d_ff`` and vocabulary rows, at full width as at reduced."""
+    full = {a: TCFG.get_config(a) for a in ("hymba-1.5b", "rwkv6-7b", "whisper-tiny")}
+    cases = [  # config, mp, the split groups
+        (_lane_cfg("rwkv6-7b"), 2, dict(attn=True, kv=False, mlp=True, vocab=True)),
+        (full["rwkv6-7b"], 2, dict(attn=True, kv=False, mlp=True, vocab=True)),
+        (_lane_cfg("whisper-tiny"), 2, dict(attn=True, kv=True, mlp=True, vocab=True)),
+        (full["whisper-tiny"], 2, dict(attn=True, kv=True, mlp=True, vocab=False)),
+        (_lane_cfg("hymba-1.5b"), 2, dict(attn=True, kv=True, mlp=True, vocab=True)),
+        # 2 KV heads at mp 4: attention and SSM heads whole, MLP and vocabulary split
+        (_lane_cfg("hymba-1.5b"), 4, dict(attn=False, kv=False, mlp=True, vocab=True)),
+        # full width: 25 heads, 5 KV heads, 25 SSM heads split at mp 5 (not
+        # its MLP, 5 504, nor its vocabulary, 32 001); at mp 2 the MLP only
+        (full["hymba-1.5b"], 5, dict(attn=True, kv=True, mlp=False, vocab=False)),
+        (full["hymba-1.5b"], 2, dict(attn=False, kv=False, mlp=True, vocab=False)),
+        # one KV head: the SSM and query heads split, K/V whole
+        (_lane_cfg("hymba-1.5b", n_kv_heads=1), 2, dict(attn=True, kv=False, mlp=True)),
+    ]
+    for cfg, mp, want in cases:
+        tp = S.tensor_parallel(cfg, _RankMesh(mp, 0))
+        assert {k: getattr(tp, k) for k in want} == want, (cfg.name, mp)
+        local = S.local_config(cfg, tp)
+        if cfg.family == "hymba":
+            assert local.ssm_heads == (cfg.ssm_heads // mp if tp.attn else cfg.ssm_heads)
 
 
 @pytest.mark.parametrize("lane", LANE_CFGS)
@@ -288,3 +322,148 @@ def test_cache_report_counts_the_whole_cache_and_one_rank():
     assert two["per_device_bytes"] == one["bytes"] - arena // 2
     assert two["f32_bytes"] == one["f32_bytes"]
     np.testing.assert_allclose(two["ratio"], one["ratio"])
+
+
+FAMILIES = {"hymba": ("hymba-1.5b", {}), "rwkv6": ("rwkv6-7b", {}),
+            "whisper": ("whisper-tiny", {}), "hymba-mqa": ("hymba-1.5b", {"n_kv_heads": 1})}
+
+
+def _gather_stub(shards):
+    """A stand-in for ``collectives.gather_axis`` over stand-in ranks: the
+    ranks' pieces of the leaf being gathered, stacked (the one-rank view
+    of what the broadcasts deliver)."""
+    def gather_axis(t, mesh, axis, what="grad"):
+        pieces = [p for p in shards if p.shape == t.shape and torch.equal(p, t)]
+        assert pieces, "the gathered piece is not a rank's"
+        i = next(i for i, p in enumerate(shards) if p is pieces[0])
+        assert i == mesh.rank
+        return torch.stack(shards)
+    return gather_axis
+
+
+@pytest.mark.parametrize("lane", FAMILIES)
+@pytest.mark.parametrize("mp", [2, 4])
+def test_family_shards_reassemble_the_weights(lane, mp, monkeypatch):
+    """hymba, rwkv6 and whisper: each rank's shard of each leaf is its
+    piece along the executed placement (hymba's ``in_proj`` by
+    :class:`Segments`: its SSM heads' xs, gate and dt, B and C whole);
+    ``unshard`` of every rank's piece gives the whole leaf bit for bit;
+    shapes are the rank-local config's; ``init_params(shard=)`` draws the
+    slice of the single-device draw; leaves whose group does not split
+    stay whole."""
+    arch, over = FAMILIES[lane]
+    cfg = _lane_cfg(arch, **over)
+    fam = get_family(cfg)
+    params = fam.init_params(cfg, seed=3, device="cpu")
+    meshes = [_RankMesh(mp, r) for r in range(mp)]
+    shards = [S.shard_params(params, m, cfg) for m in meshes]
+    tp = S.tensor_parallel(cfg, meshes[1])
+    local_shapes = {p: tuple(x.shape) for p, x in tree.leaves_with_paths(
+        fam.init_params(S.local_config(cfg, tp), seed=3, device="cpu"))}
+    n_split = 0
+    for (path, full), *parts in zip(tree.leaves_with_paths(params),
+                                    *(tree.leaves(s) for s in shards)):
+        spec = S.leaf_spec(path, tuple(full.shape), meshes[0], cfg)
+        sh = S.NamedSharding(meshes[1], spec)
+        torch.testing.assert_close(sh.shard(full), parts[1], rtol=0, atol=0)
+        if all(e is None for e in spec):
+            assert all(p is full for p in parts), path
+            continue
+        n_split += 1
+        monkeypatch.setattr(S, "gather_axis", _gather_stub(parts))
+        monkeypatch.setattr(S, "gather_dim", lambda t, dim, mesh, axis, _p=parts:
+                            torch.cat(_p, dim))
+        whole = S.unshard(parts[1], sh)
+        assert whole.dtype == full.dtype and torch.equal(whole, full), path
+        if not re.search(r"(tok_embed|lm_head/w)$", path):
+            assert tuple(parts[1].shape) == local_shapes[path], path
+    assert n_split > 0
+    drawn = fam.init_params(cfg, seed=3, device="cpu", shard=lambda t, prefix: S.shard_params(
+        t, meshes[1], cfg, prefix))
+    for a, b in zip(tree.leaves(drawn), tree.leaves(shards[1])):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert tree.leaves(S.shard_params(shards[1], meshes[1], cfg)) == tree.leaves(shards[1])
+
+
+def test_in_proj_segments():
+    """hymba's ``in_proj`` (d, 2 d_in + 2 n + hs) at mp 2: a rank holds
+    its half of xs, gate and dt and the whole B and C, in that order."""
+    cfg = _lane_cfg("hymba-1.5b")
+    d_in, n, hs = cfg.ssm_heads * cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_heads
+    spec = S.leaf_spec("layers/0/in_proj/w", (cfg.d_model, 2 * d_in + 2 * n + hs),
+                       _RankMesh(2, 0), cfg)
+    seg = spec[1]
+    assert spec[0] is None and isinstance(seg, S.Segments)
+    cols = torch.arange(2 * d_in + 2 * n + hs)[None, :]
+    h = d_in // 2
+    want = torch.cat([torch.arange(h, d_in), torch.arange(d_in + h, 2 * d_in),
+                      torch.arange(2 * d_in, 2 * d_in + 2 * n),
+                      torch.arange(2 * d_in + 2 * n + hs // 2, 2 * d_in + 2 * n + hs)])
+    assert torch.equal(seg.take(cols, 1, 1, 2)[0], want)
+    assert seg.local_size(2) == want.numel()
+    stacked = torch.stack([seg.take(cols, 1, r, 2) for r in range(2)])
+    assert torch.equal(seg.join(stacked, 1), cols)
+    assert not S.split_leaves({"layers": [{"in_proj": {"w": torch.zeros(1, 1)}}]},
+                              _lane_cfg("phi3-medium-14b"), None)[0]
+
+
+def _ref_cache(cache):
+    """A port cache as the reference's ``cache_specs`` walks it: shapes,
+    Python ints as 0-d arrays."""
+    return {k: (jax.ShapeDtypeStruct(tuple(x.shape), np.float32) if isinstance(x, torch.Tensor)
+                else np.int32(x)) for k, x in cache.items()}
+
+
+def _model_dim(spec):
+    """The dim of a spec that ``"model"`` splits (alone or with another
+    axis), or None."""
+    return next((i for i, e in enumerate(spec)
+                 if e == "model" or (isinstance(e, tuple) and "model" in e)), None)
+
+
+def _engine_cache_specs(cache, cfg):
+    """The engine's placement of ``cache`` at mp 2: each leaf of
+    ``cache_split_leaves`` on its head axis (K/V ``(.., G, hd)``, the
+    states ``(L, B, H, ...)``), every other leaf whole."""
+    split = S.cache_split_leaves(cfg.family, S.tensor_parallel(cfg, _RankMesh(2, 0)))
+    out = {}
+    for key, x in cache.items():
+        spec = [None] * (x.dim() if isinstance(x, torch.Tensor) else 0)
+        if key in split:
+            spec[2 if key in ("wkv", "ssm") else 3] = "model"
+        out[key] = tuple(spec)
+    return out
+
+
+class _CacheMesh(_FakeMesh):
+    shape = {"data": 2, "model": 2}
+
+
+@pytest.mark.parametrize("arch", TCFG.ARCH_IDS)
+@pytest.mark.parametrize("seq", [False, True])
+def test_cache_specs_are_the_reference(arch, seq):
+    """``cache_specs`` on every ``ARCH_ID``'s linear cache equals the
+    reference's (the sequence axis over ``"model"``, the states by heads,
+    the batch over ``"data"``); the engine's own placement moves
+    ``"model"`` only on ``CACHE_DIVERGENCES`` (K/V to their heads, MLA's
+    latents whole), and each leaf it splits holds the rank-local
+    config's share."""
+    cfg = _lane_cfg(arch)
+    fam = get_family(cfg)
+    cache = fam.init_cache(cfg, 4, 32, device="cpu")
+    mesh = _CacheMesh()
+    got = S.cache_specs(cache, mesh, cfg, seq_axis_shard=seq)
+    want = RS.cache_specs(_ref_cache(cache), mesh, cfg, seq_axis_shard=seq)
+    assert set(got) == set(want)
+    for key in cache:
+        assert got[key] == tuple(want[key]), (key, got[key], want[key])
+    engine = _engine_cache_specs(cache, cfg)
+    moved = {k for k in cache if _model_dim(engine[k]) != _model_dim(got[k])}
+    assert moved <= set(S.CACHE_DIVERGENCES)
+    assert moved == {k for k in cache if k in S.CACHE_DIVERGENCES and cache[k].dim() > 0}
+    local = fam.init_cache(S.local_config(cfg, S.tensor_parallel(cfg, _RankMesh(2, 0))), 4, 32,
+                           device="cpu")
+    for key, x in cache.items():
+        if isinstance(x, torch.Tensor):
+            shape = [n // 2 if e == "model" else n for n, e in zip(x.shape, engine[key])]
+            assert list(local[key].shape) == shape, key

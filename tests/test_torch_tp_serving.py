@@ -16,6 +16,11 @@ the preemption run on the gather path and the fused kernel) and, at mp
 chunked scheduler, the window, MLA, MQA and MoE lanes on the unchunked
 paged one too; at mp 4 the dense lane, whose 2 KV heads do not divide.  The ranks' spawns run
 while the reference runs, each with its own deadline and rendezvous.
+Every mode runs under a mesh, and is held here too: the one-shot
+engine on a linear and a paged cache (every rank's tokens the whole
+model's), and ``serve --model-parallel 2`` on every ``ARCH_ID`` (the
+one-shot mode, and the dense-cache scheduler on the transformer family)
+against ``--model-parallel 1``.
 """
 import concurrent.futures
 import re
@@ -122,9 +127,16 @@ def test_ranks_agree_when_sampling(runs):
 
 
 def test_uncovered_modes_raise_under_a_mesh(runs):
+    """Every mode runs under a mesh: the one-shot
+    ``generate`` on a linear engine and on a paged one gives every rank
+    the tokens of the whole model on one rank."""
     for rank in runs[2]:
-        for mode, msg in rank["_refusals"].items():
-            assert "Queue 1 item 6" in msg, (mode, msg)
+        modes = rank["_linear_modes"]
+        want = modes[("linear", False)]
+        assert modes[("paged", False)] == want
+        for layout in ("linear", "paged"):
+            assert modes[(layout, True)] == want, layout
+        assert modes == runs[2][0]["_linear_modes"]
 
 
 def test_serve_model_parallel_matches_single_rank(capfd):
@@ -154,12 +166,41 @@ def test_serve_model_parallel_matches_single_rank(capfd):
     assert total / 2 < per_dev < total / 2 + 1024
 
 
+def _every_arch_argv():
+    """The command line's one-shot mode on every ``ARCH_ID`` and its
+    dense-cache scheduler on the transformer family, reduced."""
+    out = []
+    for arch in TCFG.ARCH_IDS:
+        base = ["--arch", arch, "--reduced", "--device", "cpu", "--batch", "2",
+                "--prompt-len", "8", "--gen", "4", "--kv-posit", "posit16"]
+        out.append(base)
+        if TCFG.get_config(arch).family == "transformer":
+            out.append(base + ["--continuous", "--n-requests", "3", "--chunk-size", "4"])
+    return out
+
+
 def test_serve_refuses_uncovered_modes():
-    base = ["--reduced", "--device", "cpu", "--model-parallel", "2"]
-    for argv in (base, base + ["--continuous"],
-                 base + ["--continuous", "--paged", "--arch", "rwkv6-7b"]):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-            serve.main(argv)
+    """``serve --model-parallel 2`` runs the one-shot mode on every
+    ``ARCH_ID`` and the dense-cache scheduler on the transformer family
+    (each rank as ``main``'s ranks run, ``serve._serve_rank``, in one
+    launch), every rank with the tokens of ``--model-parallel 1``; the
+    modes the reference refuses outside the transformer family raise its
+    ``ValueError`` before any rank starts."""
+    argvs = _every_arch_argv()
+    ranks = M.spawn(tp_lanes.serve_every_arch, ["cpu", "cpu"], (argvs,),
+                    timeout=SPAWN_TIMEOUT, threads=1)
+    for i, argv in enumerate(argvs):
+        one = serve.main(argv)
+        for rank in ranks:
+            got = rank[i]
+            if "--continuous" in argv:
+                assert got == {r: c.tokens.tolist() for r, c in one.done.items()}, argv
+            else:
+                assert got == one.tolist(), argv
+    base = ["--reduced", "--device", "cpu", "--model-parallel", "2", "--arch", "rwkv6-7b"]
+    for extra in (["--continuous"], ["--continuous", "--paged"], ["--paged"]):
+        with pytest.raises(ValueError, match="transformer family"):
+            serve.main(base + extra)
 
 
 def test_a_failing_rank_fails_the_launch():

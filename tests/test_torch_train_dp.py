@@ -53,7 +53,7 @@ class _Mesh:
 @pytest.mark.parametrize("lane", LANES)
 def test_other_families_refuse_model_parallel(lane):
     cfg = TL.lane_config(TCFG, TL.LANES[lane]["arch"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6.2"):
         train_loop.make_train_step(cfg, adamw.AdamWConfig(), mesh=_Mesh(1, 2))
 
 

@@ -10,7 +10,8 @@ names each such leaf.  Then the port's own: the rows a rank holds
 (row-major over ``("pod", "data")``, as the reference's batch spec
 places them), ``param_shardings`` (the executed placement under a
 ``"model"`` axis that splits, on parameters and on the optimizer
-state), and the ``"model"`` guard: an axis of 1 for every family.
+state), and the ``"model"`` guard: an axis of 1 for every family, and
+training at 2 for the transformer family only.
 """
 import re
 
@@ -28,6 +29,7 @@ from repro_torch import tree
 from repro_torch.models.registry import get_family
 from repro_torch.optim import adamw
 from repro_torch.runtime import sharding as S
+from repro_torch.runtime import train_loop
 
 
 class _FakeMesh:
@@ -179,6 +181,9 @@ class _RankMesh(_FakeMesh):
     def get_group(self, name):
         return None
 
+    def get_local_rank(self, name):
+        return 0
+
 
 @pytest.mark.parametrize("arch", ["phi3-medium-14b", "minicpm3-4b", "granite-34b",
                                   "granite-moe-3b-a800m", "gemma-7b"])
@@ -209,8 +214,16 @@ def test_param_shardings_are_the_executed_placement(arch):
 
 @pytest.mark.parametrize("arch", TCFG.ARCH_IDS)
 def test_model_axis_of_one_is_allowed_for_every_family(arch):
+    """A ``"model"`` axis of 1 trains every family; at 2 every family has
+    a serving plan, and training refuses the families other than the
+    transformer (their locally sliced leaves' partial gradients)."""
     cfg = TCFG.get_config(arch).reduced(compute_dtype="float32")
     assert S.tensor_parallel(cfg, _RankMesh(1)) is None
+    train_loop.check_model_axis(cfg, _RankMesh(1))
+    tp = S.tensor_parallel(cfg, _RankMesh(2))
+    assert tp.size == 2 and tp.vocab and (tp.attn or tp.moe)
     if cfg.family != "transformer":
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-            S.tensor_parallel(cfg, _RankMesh(2))
+        with pytest.raises(NotImplementedError, match="Queue 1 item 6.2"):
+            train_loop.check_model_axis(cfg, _RankMesh(2))
+    else:
+        train_loop.check_model_axis(cfg, _RankMesh(2))

@@ -13,7 +13,10 @@ The rest are the attention lanes at reduced size on the main path's
 flags (posit16 KV, fused decode): dense GQA, the paged window, MLA, MQA,
 MoE (an odd vocabulary, so the embedding and head replicate) and tied
 embeddings (gemma-7b), and the unchunked paged scheduler on the window,
-MLA, MQA and MoE lanes.
+MLA, MQA and MoE lanes.  ``_linear_modes`` and :func:`serve_every_arch`
+run the modes beside the paged schedulers under a mesh: the one-shot engine on a linear
+and a paged cache, and ``serve --model-parallel 2``'s ranks on every
+``ARCH_ID``.
 """
 from __future__ import annotations
 
@@ -139,7 +142,8 @@ def rank_lanes(lanes, ref_params, model_parallel: int) -> dict:
     ``model_parallel`` mesh, from the reference's parameters
     (``ref_params[param_key(lane)]``, nested dicts of numpy arrays); returns
     ``{lane: result}`` with each lane's ``cache_report`` and, under
-    ``"_refusals"``, the modes this slice does not cover."""
+    ``"_linear_modes"``, the one-shot tokens of the linear and the paged
+    engine under the mesh and on this rank alone."""
     from repro_torch import configs
     from repro_torch.compress.kvcache import cache_report
     from repro_torch.launch.mesh import make_host_mesh
@@ -161,25 +165,33 @@ def rank_lanes(lanes, ref_params, model_parallel: int) -> dict:
         res["local_heads"] = (eng.cfg.n_heads, eng.cfg.n_kv_heads)
         res["leak_report"] = sorted(sched.leak_report())
         out[lane] = res
-    out["_refusals"] = _refusals(Engine, cfg, params, mesh)
+    out["_linear_modes"] = _linear_modes(Engine, cfg, params, mesh)
     return out
 
 
-def _refusals(Engine, cfg, params, mesh) -> dict:
-    """Modes outside this slice raise ``NotImplementedError`` under a
-    mesh: the linear engine (the dense-cache scheduler and the one-shot
-    engine) and the one-shot ``generate`` on a paged engine."""
-    got = {}
-    for name, fn in (
-            ("linear", lambda: Engine(cfg, params, max_len=32, device="cpu", mesh=mesh)),
-            ("generate", lambda: Engine(cfg, params, max_len=32, paged=True, device="cpu",
-                                        mesh=mesh).generate([[1, 2, 3]], 4))):
-        try:
-            fn()
-            got[name] = "no error"
-        except NotImplementedError as e:
-            got[name] = str(e)
-    return got
+def _linear_modes(Engine, cfg, params, mesh) -> dict:
+    """The one-shot ``generate`` on a linear and on a paged engine, under
+    the mesh and without it (this rank alone, the whole weights): its
+    tokens by ``(layout, sharded)``."""
+    prompts = [[5, 3, 9, 2], [7, 1, 4]]
+    return {(layout, m is not None): Engine(cfg, params, max_len=32, paged=layout == "paged",
+                                            device="cpu", mesh=m).generate(prompts, 6)
+            .tokens.tolist()
+            for layout in ("linear", "paged") for m in (mesh, None)}
+
+
+def serve_every_arch(argvs) -> list:
+    """One gloo rank of ``serve --model-parallel 2`` on each of ``argvs``
+    (``serve._serve_rank``, what ``main``'s ranks run): the one-shot
+    tokens, or ``{rid: tokens}`` of a trace."""
+    from repro_torch.launch import serve
+
+    out = []
+    for argv in argvs:
+        res = serve._serve_rank(list(argv) + ["--model-parallel", "2"], ["cpu", "cpu"])
+        out.append(res.tokens.tolist() if res.tokens is not None
+                   else {r: c.tokens.tolist() for r, c in res.done.items()})
+    return out
 
 
 def fails_on_rank_1():

@@ -90,6 +90,18 @@ paths at full size and checks that every kernel of each path ran there:
   2 at the wire's leaves against their plain versions, timed); (k3) its
   state after two steps restored on one rank bit for bit, the third
   step from it giving the ranks' loss;
+- (m) training of the other families across ranks, a process of its own
+  (``--phase train-model``, ``TM_LAUNCHES``): rwkv6-7b (2 of 32 layers)
+  and whisper-tiny (all layers) at "model" 2 in one launch of two ranks,
+  hymba-1.5b (2 of 32 layers) at "model" 5 in one of five, all sharing
+  the card over gloo, full width, 3 steps of 8 x 512 with posit16
+  moments, each held to a one-device run of the same config in the
+  phase: losses, global gradient norms and the gradient norms of every
+  partial leaf (those a rank holds whole but slices to its heads, summed
+  over "model" once a step, in calls and bytes on the wire) and of
+  ``TM_LEAVES``; rwkv6 and hymba in f32 (``TM_F32``: their bf16 drift is
+  the split sums' rounding), rows 1 and 2 once a leaf a step per rank
+  and timed at a rank's embedding moment;
 - the PVU ISA (``posit_ew.cu``, ``posit_dot.cu``, ``posit_qgemm.cu``,
   ``posit_gemm.cu``): the paper's verification workload
   (``configs/pvu_resnet_conv.py``, the ResNet-18 first conv on 8 images
@@ -104,6 +116,7 @@ paths at full size and checks that every kernel of each path ran there:
     python3 chip_smoke.py --phase tp               # (j) alone
     python3 chip_smoke.py --phase tp-linear        # (l) alone
     python3 chip_smoke.py --phase train-ranks      # (k) alone
+    python3 chip_smoke.py --phase train-model      # (m) alone
     python3 chip_smoke.py --ptxas  # only: -Xptxas -v (registers, shared
                                    # memory, spills) of paged_attn.cu,
                                    # paged_attn_mla.cu, posit_gemm.cu,
@@ -3014,8 +3027,294 @@ def check_train_ranks(trained, ranked):
           f" GiB against (T)'s {trained['peak_gib']:.2f} GiB on one rank")
 
 
+# ---------------------------------------------------------------------------
+# (m) training of hymba, rwkv6 and whisper across ranks at "model" > 1
+# (the partial gradients of the leaves a rank holds whole but slices),
+# ranks sharing the one card over gloo, so no wall here is a multi-card
+# speed
+# ---------------------------------------------------------------------------
+
+TM_STEPS, TM_BATCH, TM_SEQ = 3, 8, 512
+# one spawn a "model" size: size -> {arch: layers, 0 = all}.  rwkv6-7b at
+# 2: 32 of 64 heads and half of d_ff a rank, the vocabulary split, 2 of
+# 32 layers; whisper-tiny at 2: 3 of 6 heads, all 4 + 4 layers, the tied
+# head whole (51 865 is odd); hymba-1.5b at 5: 5 of 25 attention and SSM
+# heads and 1 of 5 KV heads a rank, layers 0 (global) and 1 (a window
+# layer), its MLP and vocabulary whole (5 504 and 32 001 are not
+# multiples of 5)
+TM_LAUNCHES = {2: {"rwkv6-7b": 2, "whisper-tiny": 0}, 5: {"hymba-1.5b": 2}}
+TM_DEVICE = "cuda:0"           # every rank's device
+TM_REDUCED = False             # a CPU rehearsal shrinks every config to the reduced f32 one
+# the archs held in f32 compute, whisper in its bf16.  In bf16 rwkv6's and
+# hymba's ranks drift from one device past (k1)'s limits (global norm
+# 4.8e-4 and 3.6e-4, the per-head leaves u, A_log and dt_bias 2.9e-3 to
+# 6.5e-3, loss 2.3e-5 at most): rounding, no more than bf16 itself moves
+# one device's gradients from f32 (tests/test_torch_train_ranks.py::
+# test_bf16_gradient_drift_is_rounding); in f32 they agree within 3e-6
+TM_F32 = ("rwkv6-7b", "hymba-1.5b")
+# (m) against one device on the same config, depth, seed and data: loss,
+# global gradient norm and leaf gradient norms, relative.  bf16 (whisper)
+# keeps (k1)'s limits: it read 6.7e-6, 1.1e-4 and 6.4e-4 on the held
+# leaves (margins 15x, 1.8x, 1.6x).  f32 read at most 8.3e-8, 2.7e-7 and
+# 2.7e-6 on all three families: limits 1e-5, 1e-5 and 1e-4 (margins 120x,
+# 37x, 37x), where a leaf summed once too often or left partial is off by
+# a large fraction of itself
+TM_LIMITS = {"bfloat16": (1e-4, 2e-4, 1e-3), "float32": (1e-5, 1e-5, 1e-4)}
+# the gradient norms held to one device's: every partial leaf
+# (``sharding.partial_grad_leaves``) and these, of their own groups (a
+# replicated leaf that must not be summed, rwkv6's cm_wr among them; split
+# leaves, their squares summed over the ranks; the residual's norms)
+TM_LEAVES = {
+    "rwkv6-7b": ("tok_embed", "layers/0/cm_wr/w", "layers/0/wl_a", "layers/0/tm_w1",
+                 "layers/0/maa_wkvrg", "layers/0/wr/w", "layers/0/wo/w", "layers/1/cm_wv/w",
+                 "layers/1/ln1/scale"),
+    "whisper-tiny": ("tok_embed", "pos_embed", "enc_layers/0/attn/wq/w",
+                     "enc_layers/0/attn/wq/b", "enc_layers/0/attn/wo/b",
+                     "dec_layers/0/cross/wk/w", "dec_layers/0/cross/wv/b",
+                     "dec_layers/3/mlp/wi/w", "dec_layers/0/ln_x/scale"),
+    "hymba-1.5b": ("tok_embed", "meta_tokens", "layers/0/wq/w", "layers/0/wk/w",
+                   "layers/1/wo/w", "layers/1/mlp/wi/w", "layers/0/ln1/scale"),
+}
+# rows 1 and 2 at a rank's shape of each family's largest leaf (its m)
+TM_CODEC_LEAF = "tok_embed"
+
+
+def _tm_config(arch, f32=()):
+    import dataclasses
+
+    from repro_torch import configs
+    layers = next(launch[arch] for launch in TM_LAUNCHES.values() if arch in launch)
+    cfg = configs.get_config(arch)
+    if TM_REDUCED:
+        cfg = cfg.reduced(compute_dtype="float32")
+    if arch in f32:
+        cfg = dataclasses.replace(cfg, compute_dtype="float32")
+    return dataclasses.replace(cfg, n_layers=layers or cfg.n_layers, fsdp=False,
+                               seq_shard_activations=False)
+
+
+def _tm_squares(grads, split, n):
+    """(leaves, 2) f32 on the device: each gradient leaf's sum of squares
+    over the part this rank holds a slice of (``sharding.split_leaves``;
+    a ``Segments`` leaf's split segments) and over the part it holds
+    whole."""
+    from repro_torch import tree as TT
+    rows = []
+    for g, s in zip(TT.leaves(grads), split):
+        sq = [torch.zeros((), dtype=torch.float32, device=g.device)] * 2
+        for piece, sp in (s[1].pieces(g, s[0], n) if isinstance(s, tuple) else [(g, s)]):
+            sq[bool(sp)] = sq[bool(sp)] + torch.sum(torch.square(piece.float()))
+        rows.append(torch.stack([sq[1], sq[0]]))
+    return torch.stack(rows)
+
+
+def tm_train(arch, dev, steps, mesh=None, f32=()):
+    """(m) one run of ``arch``: ``steps`` steps of ``make_train_step`` on
+    one device or, with ``mesh``, on this rank of it (its shard drawn as
+    the weights are, posit16 moments).  Returns the losses, norms, walls,
+    launches, every gradient leaf's squares (``_tm_squares``) a step, the
+    partial leaves and their bytes, the wire and the peak memory; on
+    rank 0 of a mesh, rows 1 and 2 at ``TM_CODEC_LEAF``'s m.  ``f32``:
+    the archs run in f32 compute."""
+    import torch.distributed as dist
+
+    from repro_torch import tree as TT
+    from repro_torch.core.convert import f32_to_posit, posit_to_f32
+    from repro_torch.core.types import POSIT16
+    from repro_torch.data.pipeline import DataConfig, Pipeline
+    from repro_torch.models import get_family
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import collectives, sharding, train_loop
+
+    cfg = _tm_config(arch, f32)
+    tp = None if mesh is None else sharding.tensor_parallel(cfg, mesh)
+    reset_counts()
+    _sync_peak(dev, reset=True)
+    collectives.wire.clear()
+    t0 = time.perf_counter()
+    shard = None if mesh is None else (
+        lambda t, prefix: sharding.shard_params(t, mesh, cfg, prefix))
+    params = get_family(cfg).init_params(cfg, seed=0, device=dev, dtype=torch.float32,
+                                         shard=shard)
+    opt_cfg = adamw.AdamWConfig(posit_moments=True)
+    opt = adamw.init(params, opt_cfg)
+    step = train_loop.make_train_step(cfg, opt_cfg, total_steps=steps, mesh=mesh)
+    pipe = Pipeline(DataConfig(), cfg, TM_BATCH, TM_SEQ, device=dev)
+    named = TT.leaves_with_paths(params)
+    split = [False] * len(named) if mesh is None else sharding.split_leaves(params, cfg, mesh)
+    partial = sharding.partial_grad_leaves(params, cfg, tp)
+    n = 1 if tp is None else tp.size
+    partial_bytes = 0                  # f32 gradients: a whole leaf, or its whole segments
+    for (_, p), part in zip(named, partial):
+        if part is True:
+            partial_bytes += p.numel() * 4
+        elif part:
+            partial_bytes += sum(x.numel() * 4 for x, sp in part[1].pieces(p, part[0], n)
+                                 if not sp)
+    record, update = [], adamw.update
+
+    def recording(grads, *args, **kw):
+        record.append(_tm_squares(grads, split, n))
+        return update(grads, *args, **kw)
+
+    adamw.update = recording
+    losses, gnorms, walls = [], [], []
+    try:
+        for i in range(steps):
+            t1 = time.perf_counter()
+            params, opt, m = step(params, opt, pipe.batch_at(i), i)
+            losses.append(float(m["loss"]))
+            gnorms.append(float(m["grad_norm"]))
+            walls.append(time.perf_counter() - t1)
+    finally:
+        adamw.update = update
+    peak = _sync_peak(dev)
+    out = dict(losses=losses, grad_norms=gnorms, walls=walls, counts=read_counts(),
+               n_leaves=len(named), n_params=sum(p.numel() for _, p in named),
+               squares=[r.tolist() for r in record], paths=[p for p, _ in named],
+               partial=[p for (p, _), part in zip(named, partial) if part],
+               partial_bytes=partial_bytes, peak_gib=peak, wall=time.perf_counter() - t0,
+               wire={"/".join(k): v for k, v in collectives.wire.items()})
+    if mesh is not None and dist.get_rank() == 0:
+        x = dict(TT.leaves_with_paths(opt["v"]))[TM_CODEC_LEAF].contiguous()
+        pats = dict(TT.leaves_with_paths(opt["m"]))[TM_CODEC_LEAF].contiguous()
+        out["codec"] = {f"{arch} {TM_CODEC_LEAF}": _codec_at(
+            x, pats, _plain_codec(lambda t: f32_to_posit(t, POSIT16), POSIT16.storage_dtype),
+            _plain_codec(lambda t: posit_to_f32(t, POSIT16), torch.float32))}
+        del x, pats
+    del params, opt, step
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    if mesh is not None:
+        dist.barrier()
+    return out
+
+
+def tm_rank(archs, devices, steps, f32=()):
+    """(m) one rank: each of ``archs`` on a ``(1, ranks)`` mesh
+    (``tm_train``)."""
+    from repro_torch.launch.mesh import make_mesh
+
+    dev = _rank_device(devices)
+    mesh = make_mesh((1, len(devices)), ("data", "model"), dev.type)
+    return {arch: tm_train(arch, dev, steps, mesh, f32) for arch in archs}
+
+
+def _tm_leaf_norms(run, ranks=None):
+    """``{path: [norm a step]}`` from ``tm_train``'s squares: one
+    device's, or the ranks' (a split part's squares summed over them, a
+    whole part's from rank 0)."""
+    rows = run["squares"] if ranks is None else [
+        [[sum(r["squares"][i][j][0] for r in ranks), run["squares"][i][j][1]]
+         for j in range(len(run["paths"]))] for i in range(len(run["squares"]))]
+    return {p: [math.sqrt(rows[i][j][0] + rows[i][j][1]) for i in range(len(rows))]
+            for j, p in enumerate(run["paths"])}
+
+
+def check_train_model(arch, one, ranks, wall):
+    """(m) one arch: the ranks' launches exact (a quantize a leaf at init
+    and a step, a dequantize a leaf a step) and losses equal; the
+    ``"model"`` all-reduces of the gradient one a partial leaf a step,
+    of its bytes; each step's loss, global gradient norm and the norms
+    of the partial leaves and ``TM_LEAVES`` against one device's."""
+    r0, mp = ranks[0], len(ranks)
+    for rank, r in enumerate(ranks):
+        expect = {k: 0 for k in r["counts"]}
+        expect.update(posit_quantize=r["n_leaves"] * (1 + TM_STEPS),
+                      posit_dequantize=r["n_leaves"] * TM_STEPS)
+        if r["counts"] != expect:
+            fail(f"(m) {arch} rank {rank} launched {r['counts']}, expected {expect}")
+        if r["losses"] != r0["losses"] or r["grad_norms"] != r0["grad_norms"]:
+            fail(f"(m) {arch} rank {rank}'s losses or norms differ from rank 0's")
+        grad = r["wire"].get("model/all_reduce/grad/float32", [0, 0])
+        want = [len(r["partial"]) * TM_STEPS, r["partial_bytes"] * TM_STEPS]
+        if grad != want:
+            fail(f"(m) {arch} rank {rank}: the partial gradients' all-reduces {grad}, want "
+                 f"{want} ({len(r['partial'])} leaves of {r['partial_bytes']:,} bytes a step)")
+    if one["paths"] != r0["paths"]:
+        fail(f"(m) {arch}: the ranks' leaves are not one device's")
+    ar = {k: v for k, v in r0["wire"].items() if k.startswith("model/")}
+    cfg = _tm_config(arch, TM_F32)
+    print(f"(m) {arch} at full width, {cfg.n_layers} layers, {cfg.compute_dtype}, 'model' {mp} "
+          f"({mp} ranks sharing one card over gloo, not a multi-card speed), batch "
+          f"{TM_BATCH} x {TM_SEQ}, posit16 moments: losses "
+          f"{[round(x, 4) for x in r0['losses']]}, grad norms "
+          f"{[round(x, 4) for x in r0['grad_norms']]}; step walls "
+          f"{[round(x, 3) for x in r0['walls']]} s against one device's "
+          f"{[round(x, 3) for x in one['walls']]} s; {r0['n_params']:,} parameters a rank "
+          f"({one['n_params']:,} on one device) in {r0['n_leaves']} leaves; peak device "
+          f"memory per rank {[round(r['peak_gib'], 2) for r in ranks]} GiB (one device "
+          f"{one['peak_gib']:.2f}); {wall:.1f} s with the ranks' start; launches per rank "
+          f"{ {k: v for k, v in r0['counts'].items() if v} }; partial leaves "
+          f"{len(r0['partial'])} ({r0['partial_bytes']:,} bytes a step); collectives on "
+          f"'model' (calls, bytes): {ar}; {CARD}")
+    got_l, want_l = _tm_leaf_norms(r0, ranks), _tm_leaf_norms(one)
+    held = list(r0["partial"]) + [p for p in TM_LEAVES[arch] if p not in r0["partial"]]
+    loss_tol, gnorm_tol, leaf_tol = TM_LIMITS[cfg.compute_dtype]
+    for i in range(TM_STEPS):
+        dl = abs(r0["losses"][i] - one["losses"][i]) / one["losses"][i]
+        dg = abs(r0["grad_norms"][i] - one["grad_norms"][i]) / one["grad_norms"][i]
+        worst = sorted(((abs(got_l[p][i] - want_l[p][i]) / want_l[p][i], p)
+                        for p in got_l if want_l[p][i] > 0), reverse=True)
+        leaf = {p: abs(got_l[p][i] - want_l[p][i]) / want_l[p][i] for p in held}
+        print(f"(m) {arch} step {i}: loss {r0['losses'][i]:.6f} against one device's "
+              f"{one['losses'][i]:.6f} ({dl:.2e} relative, limit {loss_tol}); grad norm "
+              f"{r0['grad_norms'][i]:.6f} against {one['grad_norms'][i]:.6f} ({dg:.2e}, limit "
+              f"{gnorm_tol}); leaf gradient norms (limit {leaf_tol}): partial "
+              f"{max((leaf[p] for p in r0['partial']), default=0.0):.2e} at most, "
+              + ", ".join(f"{p} {leaf[p]:.2e}" for p in TM_LEAVES[arch])
+              + f"; of all {len(worst)} leaves the worst {worst[0][1]} {worst[0][0]:.2e}")
+        if dl > loss_tol or dg > gnorm_tol:
+            fail(f"(m) {arch} step {i} differs from one device's beyond rounding")
+        bad = [p for p in held if not leaf[p] <= leaf_tol]
+        if bad:
+            fail(f"(m) {arch} step {i}: the gradients of {bad} differ from one device's")
+
+
+def train_model_phase(dev):
+    """(m): each arch of ``TM_LAUNCHES`` on one device, then each launch's
+    ranks (one spawn a launch), held to the one-device runs
+    (``check_train_model``).  Returns the launches (the one-device runs'
+    and the ranks'), rows 1 and 2 at ``TM_CODEC_LEAF`` and the walls."""
+    from repro_torch.launch import mesh as M
+
+    t_phase = time.perf_counter()
+    counts = {k: 0 for k in read_counts()}
+    one, codec, out = {}, {}, {}
+    for launch in TM_LAUNCHES.values():
+        for arch in launch:
+            one[arch] = tm_train(arch, dev, TM_STEPS, f32=TM_F32)
+            counts = {k: counts[k] + v for k, v in one[arch]["counts"].items()}
+    for mp, launch in TM_LAUNCHES.items():
+        devices = [TM_DEVICE] * mp
+        t0 = time.perf_counter()
+        res = M.spawn(tm_rank, devices, (list(launch), devices, TM_STEPS, TM_F32),
+                      timeout=900)
+        wall = time.perf_counter() - t0
+        for arch in launch:
+            ranks = [r[arch] for r in res]
+            check_train_model(arch, one[arch], ranks, wall)
+            codec.update(ranks[0]["codec"])
+            for r in ranks:
+                counts = {k: counts[k] + v for k, v in r["counts"].items()}
+            out[arch] = dict(one={k: one[arch][k] for k in ("losses", "grad_norms", "walls",
+                                                            "peak_gib")},
+                             ranks={k: ranks[0][k] for k in ("losses", "grad_norms", "walls")},
+                             peak_gib=[r["peak_gib"] for r in ranks], wall=wall)
+    for key, rr in codec.items():
+        for kind, t in rr.items():
+            print(f"(m) posit_{kind} at {key}'s m on a rank {t['shape']}: {t['ms']:.4f} ms, "
+                  f"alone {t['kernel_ms']:.4f} ms (bound {t['bound_ms']:.4f} ms by bytes, "
+                  f"plain by chunks {t['plain_ms']:.2f} ms)")
+    wall = time.perf_counter() - t_phase
+    print(f"(m) phase wall {wall:.1f} s, the one-device runs and the ranks' start included")
+    return dict(counts=counts, codec=codec, archs=out, wall=wall)
+
+
 PHASES = {"train": train_phase, "train-families": train_families_phase, "tp": tp_phase,
-          "tp-linear": tp_linear_phase, "train-ranks": train_ranks_phase}
+          "tp-linear": tp_linear_phase, "train-ranks": train_ranks_phase,
+          "train-model": train_model_phase}
 
 
 def run_phase(name):
@@ -3702,6 +4001,9 @@ def run(pool):
     ranked = run_phase_process("train-ranks")
     check_train_ranks(trained, ranked)
     by_path["train_ranks"] = ranked["counts"]
+    # (m) hymba, rwkv6 and whisper trained across ranks at "model" > 1
+    modeled = run_phase_process("train-model")
+    by_path["train_model"] = modeled["counts"]
     for kernel in ("posit_ew", "posit_dot", "posit_qgemm", "posit_gemm"):
         if not any(c[kernel] > 0 for p, c in by_path.items()
                    if p in ("conv", "dense", "cache")):
@@ -3714,6 +4016,7 @@ def run(pool):
             kind = row["name"].split("_")[1]
             row["train"] = {leaf: r[kind] for leaf, r in trained["codec"].items()}
             row["wire"] = {leaf: r[kind] for leaf, r in ranked["codec"].items()}
+            row["train_model"] = {leaf: r[kind] for leaf, r in modeled["codec"].items()}
         row["launches_by_path"] = {p: c[row["name"]] for p, c in by_path.items()}
         row["launches"] = sum(row["launches_by_path"].values())
     for row in rows:

@@ -15,9 +15,9 @@ By default one device holds the whole model.  ``--rank-devices`` (e.g.
 mesh: data parallel, as the reference trains over its host mesh of
 every device.  Each rank draws the same weights and the same global
 batches from the seeds, runs its rows and all-reduces the gradients;
-rank 0 prints and writes the checkpoints.  Model parallelism and the
-pod-compressed step have no flag, as in the reference: they are
-reached through ``runtime.train_loop.make_train_step(mesh=)``.
+rank 0 prints and writes the checkpoints.  Model parallelism (every
+family) and the pod-compressed step have no flag, as in the reference:
+they are reached through ``runtime.train_loop.make_train_step(mesh=)``.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch gemma-7b \\
       --reduced --steps 300 --batch 8 --seq 128 --device cpu

@@ -36,6 +36,14 @@ every rank's features (f32 sums all-reduced); ``wo`` is row-parallel.
 The ring, the global KV and the SSM state hold this rank's heads.  The
 MLP splits on ``d_ff``, the embedding and head on the vocabulary, each
 where its size divides.
+
+Tensor-parallel training: ``train_loss`` takes ``tp`` too and runs the
+same layers under autograd, the inputs of ``wq``/``wk``/``wv``,
+``in_proj`` and the MLP through ``layers.enter``.  ``A_log``,
+``dt_bias``, ``D``, ``attn_norm``, ``ssm_norm`` and the ``B`` and ``C``
+columns of ``in_proj`` then hold only this rank's heads' part of their
+gradient, which the train step all-reduces
+(``sharding.partial_grad_leaves``).
 """
 from __future__ import annotations
 
@@ -180,50 +188,64 @@ def ssd_chunked(x, b_in, c_in, dt, a_log, h0, chunk: int):
     return y, hprev
 
 
-def _ssm_branch_full(p, x, cfg: ModelConfig, h0=None):
+def _ssm_branch_full(p, x, cfg: ModelConfig, h0=None, tp=None):
+    """``tp``: the plan where the mixer splits; ``in_proj``'s input
+    enters its column-parallel product (``B`` and ``C`` are whole on
+    every rank but feed only this rank's heads)."""
     bsz, s, _ = x.shape
     hs, p_dim, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
-    xs, gate, b_in, c_in, dt = _split_ssm_proj(p, x, cfg)
+    xs, gate, b_in, c_in, dt = _split_ssm_proj(p, L.enter(x, tp), cfg, tp)
     xh = xs.reshape(bsz, s, hs, p_dim).to(_F32)
     if h0 is None:
         h0 = torch.zeros((bsz, hs, p_dim, n), dtype=_F32, device=x.device)
-    y, hfin = ssd_chunked(xh, b_in, c_in, dt, p["A_log"], h0, min(cfg.wkv_chunk, s))
-    y = y + p["D"][None, None, :, None] * xh
+    y, hfin = ssd_chunked(xh, b_in, c_in, dt, _heads_of(p["A_log"], cfg, tp), h0,
+                          min(cfg.wkv_chunk, s))
+    y = y + _heads_of(p["D"], cfg, tp)[None, None, :, None] * xh
     y = y.reshape(bsz, s, hs * p_dim).to(x.dtype) * F.silu(gate)
-    return L.rms_norm(p["ssm_norm"], y, cfg), hfin
+    return L.rms_norm(p["ssm_norm"], y, cfg, tp), hfin
 
 
-def _attn_branch_full(p, x, positions, cfg: ModelConfig, *, is_global):
+def _attn_branch_full(p, x, positions, cfg: ModelConfig, *, is_global, tp=None):
+    """``tp``: the plan where the mixer splits; the input enters ``wq``
+    (and ``wk``/``wv`` where the KV heads split; one whole KV head's K
+    and V enter instead, as every rank's heads read them)."""
     bsz, s, _ = x.shape
     hd = cfg.head_dim
-    q = L.dense(p["wq"], x, cfg).reshape(bsz, s, cfg.n_heads, hd)
-    k = L.dense(p["wk"], x, cfg).reshape(bsz, s, cfg.n_kv_heads, hd)
-    v = L.dense(p["wv"], x, cfg).reshape(bsz, s, cfg.n_kv_heads, hd)
+    xq = L.enter(x, tp)
+    xkv = xq if tp is not None and tp.kv else x
+    q = L.dense(p["wq"], xq, cfg).reshape(bsz, s, cfg.n_heads, hd)
+    k = L.dense(p["wk"], xkv, cfg).reshape(bsz, s, cfg.n_kv_heads, hd)
+    v = L.dense(p["wv"], xkv, cfg).reshape(bsz, s, cfg.n_kv_heads, hd)
+    if tp is not None and not tp.kv:
+        k, v = tp.enter(k), tp.enter(v)
     q = L.apply_rope(q, positions, cfg.rope_theta)
     k = L.apply_rope(k, positions, cfg.rope_theta)
     window = 0 if is_global else cfg.sliding_window
     out = L.flash_attention(q, k, v, causal=True, cfg=cfg, window=window)
     out = out.reshape(bsz, s, cfg.n_heads * hd)
-    return L.rms_norm(p["attn_norm"], out, cfg), (k, v)
+    return L.rms_norm(p["attn_norm"], out, cfg, tp), (k, v)
 
 
-def _train_layer(lp, h, positions, cfg: ModelConfig, is_global: bool):
+def _train_layer(lp, h, positions, cfg: ModelConfig, is_global: bool, tp=None):
+    mix, ff = L.split_plan(tp, "attn"), L.split_plan(tp, "mlp")
     xin = L.rms_norm(lp["ln1"], h, cfg)
-    a, _ = _attn_branch_full(lp, xin, positions, cfg, is_global=is_global)
-    m, _ = _ssm_branch_full(lp, xin, cfg)
-    h = h + _merge(lp, a, m, cfg)
-    return h + L.mlp(lp["mlp"], L.rms_norm(lp["ln2"], h, cfg), cfg)
+    a, _ = _attn_branch_full(lp, xin, positions, cfg, is_global=is_global, tp=mix)
+    m, _ = _ssm_branch_full(lp, xin, cfg, tp=mix)
+    h = h + _merge(lp, a, m, cfg, mix)
+    return h + L.mlp(lp["mlp"], L.enter(L.rms_norm(lp["ln2"], h, cfg), ff), cfg, ff)
 
 
-def _forward(params, tokens, cfg: ModelConfig):
+def _forward(params, tokens, cfg: ModelConfig, tp=None):
     """The whole sequence, the meta tokens in place of its first
     ``n_meta_tokens`` embeddings (the length stays S); global layers
     attend over everything, the others over ``sliding_window``.  Window
     layers are rematerialised in the backward pass under ``cfg.remat ==
     "layer"`` (the reference scans them under ``jax.checkpoint``) and
-    global layers are not.  Returns the final norm's output."""
+    global layers are not.  Returns the final norm's output.  ``tp``:
+    this rank's plan, ``cfg`` then the rank-local config."""
     bsz, s0 = tokens.shape
-    x = params["tok_embed"][tokens.to(torch.int64)].to(L.cdtype(cfg))
+    table, tokens = params["tok_embed"], tokens.to(torch.int64)
+    x = (table[tokens] if tp is None else tp.embed(table, tokens)).to(L.cdtype(cfg))
     if cfg.n_meta_tokens:
         meta = params["meta_tokens"][None].to(x.dtype).expand(
             bsz, cfg.n_meta_tokens, cfg.d_model)
@@ -232,9 +254,9 @@ def _forward(params, tokens, cfg: ModelConfig):
     glb = set(cfg.global_layers)
     for li, lp in enumerate(params["layers"]):
         if li in glb:
-            x = _train_layer(lp, x, positions, cfg, True)
+            x = _train_layer(lp, x, positions, cfg, True, tp)
         else:
-            x = L.remat_layer(_train_layer, cfg, lp, x, positions, cfg, False)
+            x = L.remat_layer(_train_layer, cfg, lp, x, positions, cfg, False, tp)
     return L.rms_norm(params["final_norm"], x, cfg)
 
 
@@ -247,13 +269,16 @@ def loss_labels(batch, cfg: ModelConfig):
     return labels, mask
 
 
-def train_loss(params, batch, cfg: ModelConfig, *, denom=None):
+def train_loss(params, batch, cfg: ModelConfig, *, tp=None, denom=None):
     """Next-token cross entropy over :func:`loss_labels`; ``denom``
-    divides the sum instead of the batch's own label count."""
-    x = _forward(params, batch["tokens"], cfg)
+    divides the sum instead of the batch's own label count.  Under
+    ``tp`` the parameters are this rank's shard, ``cfg`` the rank-local
+    config and the loss vocabulary-parallel where the vocabulary
+    splits."""
+    x = _forward(params, batch["tokens"], cfg, tp)
     labels, mask = loss_labels(batch, cfg)
     w = params["lm_head"]["w"].to(x.dtype)
-    return L.chunked_xent(x, w, labels, mask, cfg.loss_chunk, denom=denom)
+    return L.chunked_xent(x, w, labels, mask, cfg.loss_chunk, denom=denom, tp=tp)
 
 
 def logits_fn(params, tokens, cfg: ModelConfig, visual=None):

@@ -27,7 +27,8 @@ Tensor parallelism (``runtime/collectives.TensorParallel``): ``dense_row``
 is a row-parallel ``dense`` (the all-reduce, then the bias once),
 ``mlp`` takes the plan where ``d_ff`` splits, and ``rms_norm`` and
 ``layer_norm`` normalise over features split across the ranks;
-``split_plan`` gives a call the plan where its group splits.
+``split_plan`` gives a call the plan where its group splits, and
+``enter`` marks a column-parallel product's input for training.
 """
 from __future__ import annotations
 
@@ -108,6 +109,13 @@ def split_plan(tp, group: str):
     (``"attn"``, ``"mlp"``, ...) splits, else ``None``: the plan a
     call on that group's rank-local share takes."""
     return tp if tp is not None and getattr(tp, group) else None
+
+
+def enter(x, tp=None):
+    """``x`` as the input of a column-parallel product under ``tp`` (its
+    gradient all-reduced in the backward pass, ``TensorParallel.enter``);
+    ``x`` itself without a plan."""
+    return x if tp is None else tp.enter(x)
 
 
 def dense_row(p, x, cfg: ModelConfig, tp=None):

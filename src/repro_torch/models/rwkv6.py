@@ -30,6 +30,13 @@ mix runs ``cm_wk``'s columns and ``cm_wv``'s rows, all-reduced before
 the gate of ``cm_wr`` (whole).  The token-shift carries replicate; the
 embedding and the head are vocabulary-parallel where the vocabulary
 splits.
+
+Tensor-parallel training: ``train_loss`` takes ``tp`` too and runs the
+same layers under autograd, the inputs of the column-parallel products
+through ``layers.enter``.  ``w0``, ``u``, ``wl_b`` and ``ln_x`` then hold
+only this rank's heads' part of their gradient, which the train step
+all-reduces (``sharding.partial_grad_leaves``); every other leaf gets
+its own slice's or its whole gradient.
 """
 from __future__ import annotations
 
@@ -179,7 +186,10 @@ def _token_shift(x, prev):
 def _time_mix(p, x, prev_x, wkv_state, cfg: ModelConfig, *, use_chunked, tp=None):
     """``tp``: the plan where the heads split (``layers.split_plan``),
     ``cfg`` the rank-local config; the whole per-feature leaves are
-    sliced to this rank's heads."""
+    sliced to this rank's heads.  The inputs of ``wr``/``wk``/``wv``/
+    ``wg`` and of ``wl_b``'s columns enter their column-parallel
+    products (``layers.enter``), so that the mixing leaves before them
+    get their whole gradient on every rank."""
     b, s, _ = x.shape
     h, n, d_att = _heads(cfg)
     r0 = 0 if tp is None else tp.rank
@@ -192,14 +202,14 @@ def _time_mix(p, x, prev_x, wkv_state, cfg: ModelConfig, *, use_chunked, tp=None
     mods = mods + p["maa_wkvrg"][:, None, None, :].to(x.dtype)
     xw, xk, xv, xr, xg = (x + sx * m for m in mods.unbind(0))
 
-    rr = L.dense(p["wr"], xr, cfg).reshape(b, s, h, n)
-    kk = L.dense(p["wk"], xk, cfg).reshape(b, s, h, n)
-    vv = L.dense(p["wv"], xv, cfg).reshape(b, s, h, n)
-    gg = F.silu(L.dense(p["wg"], xg, cfg))
+    rr = L.dense(p["wr"], L.enter(xr, tp), cfg).reshape(b, s, h, n)
+    kk = L.dense(p["wk"], L.enter(xk, tp), cfg).reshape(b, s, h, n)
+    vv = L.dense(p["wv"], L.enter(xv, tp), cfg).reshape(b, s, h, n)
+    gg = F.silu(L.dense(p["wg"], L.enter(xg, tp), cfg))
 
     w0, wl_b = p["w0"].narrow(0, r0 * d_att, d_att), p["wl_b"].narrow(1, r0 * d_att, d_att)
-    dlog = w0.to(_F32) + (torch.tanh(xw @ p["wl_a"].to(x.dtype))
-                          @ wl_b.to(x.dtype)).to(_F32)
+    lora = L.enter(torch.tanh(xw @ p["wl_a"].to(x.dtype)), tp)
+    dlog = w0.to(_F32) + (lora @ wl_b.to(x.dtype)).to(_F32)
     w = torch.exp(-torch.exp(dlog)).reshape(b, s, h, n)       # in (0,1)
 
     rr32, kk32, vv32 = (t.to(_F32) for t in (rr, kk, vv))
@@ -217,12 +227,15 @@ def _time_mix(p, x, prev_x, wkv_state, cfg: ModelConfig, *, use_chunked, tp=None
 
 
 def _channel_mix(p, x, prev_x, cfg: ModelConfig, tp=None):
-    """``tp``: the plan where ``d_ff`` splits (``layers.split_plan``)."""
+    """``tp``: the plan where ``d_ff`` splits (``layers.split_plan``).
+    ``cm_wr`` is whole on every rank and its input replicated; its gate
+    multiplies ``cm_wv``'s product after the all-reduce, so it gets its
+    whole gradient on every rank."""
     xx = _token_shift(x, prev_x)
     sx = xx - x
     xk = x + sx * p["cm_maa_k"].to(x.dtype)
     xr = x + sx * p["cm_maa_r"].to(x.dtype)
-    kk = torch.square(F.relu(L.dense(p["cm_wk"], xk, cfg)))
+    kk = torch.square(F.relu(L.dense(p["cm_wk"], L.enter(xk, tp), cfg)))
     out = torch.sigmoid(L.dense(p["cm_wr"], xr, cfg)) * L.dense_row(p["cm_wv"], kk, cfg, tp)
     return out, x[:, -1, :]
 
@@ -231,26 +244,30 @@ def _channel_mix(p, x, prev_x, cfg: ModelConfig, tp=None):
 # training loss and full-sequence logits
 # ---------------------------------------------------------------------------
 
-def _train_layer(lp, x, zeros_prev, zero_state, cfg: ModelConfig, use_chunked):
+def _train_layer(lp, x, zeros_prev, zero_state, cfg: ModelConfig, use_chunked, tp=None):
     a, _, _ = _time_mix(lp, L.layer_norm(lp["ln1"], x, cfg.norm_eps), zeros_prev,
-                        zero_state, cfg, use_chunked=use_chunked)
+                        zero_state, cfg, use_chunked=use_chunked,
+                        tp=L.split_plan(tp, "attn"))
     x = x + a
-    c, _ = _channel_mix(lp, L.layer_norm(lp["ln2"], x, cfg.norm_eps), zeros_prev, cfg)
+    c, _ = _channel_mix(lp, L.layer_norm(lp["ln2"], x, cfg.norm_eps), zeros_prev, cfg,
+                        L.split_plan(tp, "mlp"))
     return x + c
 
 
-def _forward(params, tokens, cfg: ModelConfig, *, use_chunked=True):
+def _forward(params, tokens, cfg: ModelConfig, *, use_chunked=True, tp=None):
     """The whole sequence from a zero state, each layer rematerialised
-    in the backward pass under ``cfg.remat == "layer"``; returns the
-    final layer norm's output (B, S, D)."""
+    in the backward pass under ``cfg.remat == "layer"`` (its forward
+    collectives replay in the recompute, in the same order on every
+    rank); returns the final layer norm's output (B, S, D).  ``tp``:
+    this rank's plan, ``cfg`` then the rank-local config."""
     b = tokens.shape[0]
     h, n, _ = _heads(cfg)
-    x = _embed(params, tokens.to(torch.int64), cfg)
+    x = _embed(params, tokens.to(torch.int64), cfg, tp)
     zeros_prev = torch.zeros((b, cfg.d_model), dtype=x.dtype, device=x.device)
     zero_state = torch.zeros((b, h, n, n), dtype=_F32, device=x.device)
     for lp in params["layers"]:
         x = L.remat_layer(_train_layer, cfg, lp, x, zeros_prev, zero_state, cfg,
-                          use_chunked)
+                          use_chunked, tp)
     return L.layer_norm(params["ln_out"], x, cfg.norm_eps)
 
 
@@ -263,14 +280,16 @@ def loss_labels(batch, cfg: ModelConfig):
     return labels, mask
 
 
-def train_loss(params, batch, cfg: ModelConfig, *, denom=None):
+def train_loss(params, batch, cfg: ModelConfig, *, tp=None, denom=None):
     """Next-token cross entropy through the chunked WKV engine (the
     sequence a multiple of ``cfg.wkv_chunk``); ``denom`` divides the sum
-    instead of the batch's own label count."""
-    x = _forward(params, batch["tokens"], cfg)
+    instead of the batch's own label count.  Under ``tp`` the
+    parameters are this rank's shard, ``cfg`` the rank-local config and
+    the loss vocabulary-parallel where the vocabulary splits."""
+    x = _forward(params, batch["tokens"], cfg, tp=tp)
     labels, mask = loss_labels(batch, cfg)
     w = params["lm_head"]["w"].to(x.dtype)
-    return L.chunked_xent(x, w, labels, mask, cfg.loss_chunk, denom=denom)
+    return L.chunked_xent(x, w, labels, mask, cfg.loss_chunk, denom=denom, tp=tp)
 
 
 def logits_fn(params, tokens, cfg: ModelConfig, visual=None):

@@ -29,6 +29,14 @@ is added once.  Every rank encodes the frames to the whole encoder
 output and computes its own heads' cross K and V from it; ``k``/``v``
 and ``ck``/``cv`` hold this rank's KV heads.  The tied head is
 vocabulary-parallel where the vocabulary splits.
+
+Tensor-parallel training: ``train_loss`` takes ``tp`` too and runs the
+same layers under autograd: the layer norms' outputs enter the
+column-parallel ``wq``/``wk``/``wv`` and MLP ``wi`` (``layers.enter``),
+and so does the encoder's output before each cross ``wk``/``wv``; the
+row-parallel ``wo``s add their bias once after the sum.  No leaf is
+whole on a rank yet sliced there, so every gradient is this rank's
+slice's or the whole one.
 """
 from __future__ import annotations
 
@@ -116,11 +124,24 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda", dtype=None,
     }
 
 
-def _qkv(p, x, cfg: ModelConfig):
+def _qkv(p, x, cfg: ModelConfig, tp=None, kv_in=None):
+    """This rank's query heads from ``x`` and K/V heads from ``kv_in``
+    (default ``x``).  ``tp``: the plan where the heads split; in training
+    the inputs enter their column-parallel products (one whole KV
+    head's K and V enter instead, as every rank's heads read them)."""
     b, s, _ = x.shape
-    q = L.dense(p["wq"], x, cfg).reshape(b, s, cfg.n_heads, cfg.head_dim)
-    k = L.dense(p["wk"], x, cfg).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
-    v = L.dense(p["wv"], x, cfg).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    xq = L.enter(x, tp)
+    kv_split = tp is not None and tp.kv
+    if kv_in is None:
+        xkv = xq if kv_split else x
+    else:
+        xkv = L.enter(kv_in, tp) if kv_split else kv_in
+    t = xkv.shape[1]
+    q = L.dense(p["wq"], xq, cfg).reshape(b, s, cfg.n_heads, cfg.head_dim)
+    k = L.dense(p["wk"], xkv, cfg).reshape(b, t, cfg.n_kv_heads, cfg.head_dim)
+    v = L.dense(p["wv"], xkv, cfg).reshape(b, t, cfg.n_kv_heads, cfg.head_dim)
+    if tp is not None and not kv_split:
+        k, v = tp.enter(k), tp.enter(v)
     return q, k, v
 
 
@@ -137,38 +158,37 @@ def encode(params, frames, cfg: ModelConfig, tp=None):
 
 def _enc_layer(lp, x, cfg: ModelConfig, tp=None):
     b, t_enc, _ = x.shape
-    q, k, v = _qkv(lp["attn"], L.layer_norm(lp["ln1"], x), cfg)
+    heads, ff = L.split_plan(tp, "attn"), L.split_plan(tp, "mlp")
+    q, k, v = _qkv(lp["attn"], L.layer_norm(lp["ln1"], x), cfg, heads)
     a = L.flash_attention(q, k, v, causal=False, cfg=cfg).reshape(b, t_enc, -1)
-    x = x + L.dense_row(lp["attn"]["wo"], a, cfg, L.split_plan(tp, "attn"))
-    return x + _mlp(lp["mlp"], L.layer_norm(lp["ln2"], x), cfg, L.split_plan(tp, "mlp"))
+    x = x + L.dense_row(lp["attn"]["wo"], a, cfg, heads)
+    return x + _mlp(lp["mlp"], L.enter(L.layer_norm(lp["ln2"], x), ff), cfg, ff)
 
 
-def _dec_layer(lp, x, enc_out, cfg: ModelConfig):
+def _dec_layer(lp, x, enc_out, cfg: ModelConfig, tp=None):
     """One decoder layer over the whole sequence: causal self-attention,
-    cross-attention to ``enc_out``, the MLP."""
+    cross-attention to ``enc_out``, the MLP.  ``tp``: this rank's plan,
+    ``cfg`` then the rank-local config."""
     b, s, _ = x.shape
-    g, hd = cfg.n_kv_heads, cfg.head_dim
-    q, k, v = _qkv(lp["self"], L.layer_norm(lp["ln1"], x), cfg)
+    heads, ff = L.split_plan(tp, "attn"), L.split_plan(tp, "mlp")
+    q, k, v = _qkv(lp["self"], L.layer_norm(lp["ln1"], x), cfg, heads)
     a = L.flash_attention(q, k, v, causal=True, cfg=cfg)
-    x = x + L.dense(lp["self"]["wo"], a.reshape(b, s, -1), cfg)
-    q = L.dense(lp["cross"]["wq"], L.layer_norm(lp["ln_x"], x), cfg).reshape(
-        b, s, cfg.n_heads, hd)
-    ek = L.dense(lp["cross"]["wk"], enc_out, cfg).reshape(b, enc_out.shape[1], g, hd)
-    ev = L.dense(lp["cross"]["wv"], enc_out, cfg).reshape(b, enc_out.shape[1], g, hd)
+    x = x + L.dense_row(lp["self"]["wo"], a.reshape(b, s, -1), cfg, heads)
+    q, ek, ev = _qkv(lp["cross"], L.layer_norm(lp["ln_x"], x), cfg, heads, kv_in=enc_out)
     c = L.flash_attention(q, ek, ev, causal=False, cfg=cfg)
-    x = x + L.dense(lp["cross"]["wo"], c.reshape(b, s, -1), cfg)
-    return x + _mlp(lp["mlp"], L.layer_norm(lp["ln2"], x), cfg)
+    x = x + L.dense_row(lp["cross"]["wo"], c.reshape(b, s, -1), cfg, heads)
+    return x + _mlp(lp["mlp"], L.enter(L.layer_norm(lp["ln2"], x), ff), cfg, ff)
 
 
-def _decoder(params, tokens, enc_out, cfg: ModelConfig):
+def _decoder(params, tokens, enc_out, cfg: ModelConfig, tp=None):
     """The decoder over whole sequences (training and ``logits_fn``),
     each layer rematerialised in the backward pass under ``cfg.remat ==
     "layer"``; returns the final layer norm's output (B, S, D)."""
     s = tokens.shape[1]
-    x = params["tok_embed"][tokens.to(torch.int64)].to(L.cdtype(cfg))
+    x = _embed(params, tokens.to(torch.int64), cfg, tp)
     x = x + params["pos_embed"][:s].to(x.dtype)[None]
     for lp in params["dec_layers"]:
-        x = L.remat_layer(_dec_layer, cfg, lp, x, enc_out, cfg)
+        x = L.remat_layer(_dec_layer, cfg, lp, x, enc_out, cfg, tp)
     return L.layer_norm(params["dec_ln"], x)
 
 
@@ -178,15 +198,17 @@ def loss_labels(batch, cfg: ModelConfig):
     return L.next_token_labels(batch["tokens"])
 
 
-def train_loss(params, batch, cfg: ModelConfig, *, denom=None):
+def train_loss(params, batch, cfg: ModelConfig, *, tp=None, denom=None):
     """batch: ``{"tokens": (B, S), "frames": (B, T_enc, D)}``.  The head
     is tied; ``denom`` divides the sum instead of the batch's own label
-    count."""
+    count.  Under ``tp`` the parameters are this rank's shard, ``cfg``
+    the rank-local config and the tied head vocabulary-parallel where
+    the vocabulary splits."""
     tokens = batch["tokens"]
-    x = _decoder(params, tokens, encode(params, batch["frames"], cfg), cfg)
+    x = _decoder(params, tokens, encode(params, batch["frames"], cfg, tp), cfg, tp)
     labels, mask = loss_labels(batch, cfg)
     w = params["tok_embed"].T.to(x.dtype)
-    return L.chunked_xent(x, w, labels, mask, cfg.loss_chunk, denom=denom)
+    return L.chunked_xent(x, w, labels, mask, cfg.loss_chunk, denom=denom, tp=tp)
 
 
 def logits_fn(params, tokens, cfg: ModelConfig, frames=None):

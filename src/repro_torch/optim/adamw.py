@@ -15,8 +15,9 @@ Its transients are at most three f32 copies of the leaf being updated.
 
 Under tensor parallelism (``tp``, with ``split`` naming the leaves that
 ``"model"`` splits) the gradient norm sums a split leaf's squares over
-the group and counts a replicated leaf once, so the clip scale is the
-single device's; every other step of the update is leaf-local.
+the group and counts a replicated leaf once (hymba's ``in_proj``
+segment by segment), so the clip scale is the single device's; every
+other step of the update is leaf-local.
 """
 from __future__ import annotations
 
@@ -70,8 +71,10 @@ def init(params, cfg: AdamWConfig):
 def global_norm(tree, tp=None, split=None):
     """sqrt of the sum of every leaf's sum of squares, summed in leaf
     order (the port's order, not ``jax.tree``'s: equal to rounding).
-    Under ``tp``, the squares of the leaves that ``split`` marks are
-    summed over the ``"model"`` group; the replicated ones count once."""
+    Under ``tp``, the squares of the leaves that ``split`` marks
+    (``sharding.split_leaves``) are summed over the ``"model"`` group;
+    the replicated ones count once, and so do the whole segments of a
+    leaf marked ``(dim, Segments)``, whose split segments sum."""
     if tp is None:
         total = 0.0
         for x in T.leaves(tree):
@@ -79,7 +82,9 @@ def global_norm(tree, tp=None, split=None):
         return torch.sqrt(total)
     parts = [0.0, 0.0]
     for x, s in zip(T.leaves(tree), split):
-        parts[bool(s)] = parts[bool(s)] + torch.sum(torch.square(x.to(_F32)))
+        pieces = s[1].pieces(x, s[0], tp.size) if isinstance(s, tuple) else [(x, s)]
+        for piece, sp in pieces:
+            parts[bool(sp)] = parts[bool(sp)] + torch.sum(torch.square(piece.to(_F32)))
     dev = T.leaves(tree)[0].device
     local = torch.as_tensor(parts[1], dtype=_F32, device=dev)
     return torch.sqrt(parts[0] + tp.all_reduce(local, what="norm"))

@@ -30,7 +30,10 @@ of ``B`` and ``C`` (:class:`Segments`, not one contiguous slice).  Leaves
 the table keeps whole but that feed split features (rwkv6's ``w0``,
 ``u``, ``wl_b``'s columns and ``ln_x``; hymba's ``A_log``, ``dt_bias``,
 ``D``, ``attn_norm`` and ``ssm_norm``) stay whole on every rank, and
-the forward slices this rank's heads out of them.
+the forward slices this rank's heads out of them; in training each rank
+then holds a part of their gradient, and of the gradient of ``in_proj``'s
+whole ``B`` and ``C``, which the train step all-reduces
+(:func:`partial_grad_leaves`).
 
 Caches: :func:`cache_specs` is the reference's (the sequence axis of KV
 caches over ``"model"``), which the reference's dry run alone applies;
@@ -349,6 +352,20 @@ class Segments:
     def local_size(self, n: int) -> int:
         return sum(s // n if sp else s for s, sp in zip(self.sizes, self.split))
 
+    def pieces(self, x: torch.Tensor, dim: int, n: int) -> list:
+        """A rank's share ``x`` (of ``n``) along ``dim`` as ``[(view,
+        split)]``: runs of adjacent segments that split (this rank's
+        pieces) or stay whole, in order."""
+        runs, off = [], 0                  # [start, length, split]
+        for s, sp in zip(self.sizes, self.split):
+            k = s // n if sp else s
+            if runs and runs[-1][2] == sp:
+                runs[-1][1] += k
+            else:
+                runs.append([off, k, sp])
+            off += k
+        return [(x.narrow(dim, start, k), sp) for start, k, sp in runs]
+
     def take(self, x: torch.Tensor, dim: int, rank: int, n: int) -> torch.Tensor:
         """Rank ``rank``'s share (of ``n``) of the whole ``x`` along ``dim``."""
         pieces, off = [], 0
@@ -482,29 +499,58 @@ def _global_shapes(cfg: ModelConfig) -> dict:
 
 
 
-def partial_grad_leaves(params, tp) -> list:
+# leaves every rank holds whole but uses a slice of (this rank's heads)
+# where their group splits: each rank holds a part of their gradient
+_PARTIAL = {
+    "transformer": ((r"layers.*/moe/router/w$", "moe"),),
+    "rwkv6": ((r"^layers/\d+/(w0|u|wl_b|ln_x/scale|ln_x/bias)$", "attn"),),
+    "hymba": ((r"^layers/\d+/(A_log|dt_bias|D|attn_norm/scale|ssm_norm/scale)$", "attn"),),
+}
+
+
+def partial_grad_leaves(params, cfg: ModelConfig, tp) -> list:
     """For each leaf (walk order): whether it is replicated but each rank
     holds only a part of its gradient, which must then be all-reduced
-    over ``"model"`` before the update.  The MoE router is the one: its
-    gates meet only this rank's experts in the combine.  Every other
-    replicated leaf sits outside the column-parallel regions (their
-    inputs go through ``TensorParallel.enter``) and gets its whole
-    gradient on every rank."""
-    paths = [p for p, _ in leaves_with_paths(params)]
+    over ``"model"`` before the update: ``True`` for the whole leaf,
+    ``(dim, Segments)`` for the whole segments of a :class:`Segments`
+    leaf (its split segments are this rank's own), else ``False``.  A
+    leaf is partial only where its group splits: the MoE router (its
+    gates meet only this rank's experts in the combine); rwkv6's
+    ``w0``, ``u``, ``wl_b`` and ``ln_x``; hymba's ``A_log``, ``dt_bias``,
+    ``D``, ``attn_norm``, ``ssm_norm`` and the ``B`` and ``C`` columns of
+    ``in_proj`` (each sliced to this rank's heads, or feeding only
+    them).  Every other replicated leaf sits outside the column-parallel
+    regions (their inputs go through ``TensorParallel.enter``) and gets
+    its whole gradient on every rank, rwkv6's ``cm_wr`` included: its
+    input is replicated and its gate multiplies ``cm_wv``'s product
+    after the all-reduce."""
+    named = leaves_with_paths(params)
     if tp is None:
-        return [False] * len(paths)
-    return [bool(tp.moe and re.search(r"layers.*/moe/router/w$", p)) for p in paths]
+        return [False] * len(named)
+    rules = _PARTIAL.get(cfg.family, ())
+
+    def partial(path):
+        if cfg.family == "hymba" and tp.attn and re.search(r"in_proj/w$", path):
+            return (1, _in_proj_segments(cfg))
+        return any(getattr(tp, group) and re.search(pat, path) for pat, group in rules)
+    return [partial(p) for p, _ in named]
 
 
 def split_leaves(params, cfg: ModelConfig, mesh) -> list:
-    """For each leaf (walk order): whether it is split over ``"model"``
-    (each rank holds a slice; its squares sum over the group in the
-    gradient norm)."""
+    """For each leaf (walk order): ``True`` where it is split over
+    ``"model"`` (each rank holds a slice; its squares sum over the group
+    in the gradient norm), ``(dim, Segments)`` for a :class:`Segments`
+    leaf (its split segments' squares sum over the group, its whole
+    ones count once), else ``False``."""
     named = leaves_with_paths(params)
     if tensor_parallel(cfg, mesh) is None:
         return [False] * len(named)
     glob = _global_shapes(cfg)
-    return [M in leaf_spec(p, _global_shape(p, x.shape, glob), mesh, cfg) for p, x in named]
+
+    def split(path, shape):
+        dim, entry = _split_dim(leaf_spec(path, _global_shape(path, shape, glob), mesh, cfg))
+        return (dim, entry) if isinstance(entry, Segments) else dim is not None
+    return [split(p, x.shape) for p, x in named]
 
 
 # ---------------------------------------------------------------------------

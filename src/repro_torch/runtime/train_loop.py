@@ -17,15 +17,16 @@ rank), where the reference lets GSPMD place a jitted step:
   pipeline draws it from its seed) and runs the rows that
   ``("pod", "data")`` give it (``sharding.batch_rows``), through a
   tensor-parallel plan where ``"model"`` > 1 (``sharding.
-  tensor_parallel``; in training the transformer family's only:
-  :func:`check_model_axis`).  Microbatches are the
+  tensor_parallel``, every family).  Microbatches are the
   reference's global ones, rows ``[i B/accum, (i+1) B/accum)``; a rank
   runs its part of each, and each part's loss sum divides by its
   microbatch's global label count, so that the sum over the ranks is
   the reference's mean.  The gradients are then summed in f32 over
-  ``"data"`` (and ``"pod"``), the MoE router's over ``"model"``
-  (``sharding.partial_grad_leaves``), and AdamW runs on every rank with
-  the single device's clip scale.
+  ``"data"`` (and ``"pod"``), those of the leaves each rank holds whole
+  but uses a slice of over ``"model"`` (``sharding.partial_grad_leaves``:
+  the MoE router, rwkv6's per-head leaves, hymba's, and the whole ``B``
+  and ``C`` columns of its ``in_proj``), and AdamW runs on every rank
+  with the single device's clip scale.
 * **the pod-compressed step** (``compressed=True``, ``n_pods`` > 1,
   ``cfg.grad_compress``, a ``"pod"`` axis of ``n_pods``): the
   reference's ``train_step(params, opt_state, ef_state, batch, step)``
@@ -53,20 +54,6 @@ from repro_torch.runtime import collectives as C
 from repro_torch.runtime import sharding
 
 
-def check_model_axis(cfg: ModelConfig, mesh) -> None:
-    """Training splits a model over ``"model"`` for the transformer
-    family only: hymba's, rwkv6's and whisper's forwards run sharded (the
-    serving path), but the leaves they keep whole on every rank and slice
-    locally get only a part of their gradient on each rank, and nothing
-    yet all-reduces it (ROADMAP.md Queue 1 item 6.2)."""
-    if mesh is not None and cfg.family != "transformer" \
-            and sharding.axis_sizes(mesh).get("model", 1) > 1:
-        raise NotImplementedError(
-            f"training at 'model' {sharding.axis_sizes(mesh)['model']} covers the "
-            f"transformer family only (got {cfg.family!r}): the partial gradients "
-            "of its locally sliced leaves wait for ROADMAP.md Queue 1 item 6.2")
-
-
 def make_grad_fn(cfg: ModelConfig, mesh=None, *, axes=("pod", "data"), accum=None):
     """``grads_of(params, batch) -> (loss, grads)``: the mean loss (a 0-d
     f32 tensor) and a tree of f32 gradients shaped like ``params`` (the
@@ -79,10 +66,9 @@ def make_grad_fn(cfg: ModelConfig, mesh=None, *, axes=("pod", "data"), accum=Non
     divided by its microbatch's label count, and the loss and gradients
     are summed over the axes that split the rows (``sharding.
     batch_axes``: none where they do not divide the batch, which every
-    rank then runs whole; the MoE router's over ``"model"`` too), so
+    rank then runs whole; the partial leaves' over ``"model"`` too), so
     that every rank holds one device's, its own slices of the split
     leaves."""
-    check_model_axis(cfg, mesh)
     fam = get_family(cfg)
     accum = max(1, cfg.grad_accum if accum is None else accum)
     tp = None if mesh is None else sharding.tensor_parallel(cfg, mesh)
@@ -95,7 +81,7 @@ def make_grad_fn(cfg: ModelConfig, mesh=None, *, axes=("pod", "data"), accum=Non
         nonlocal partial
         leaves = T.leaves(params)
         if partial is None:
-            partial = sharding.partial_grad_leaves(params, tp)
+            partial = sharding.partial_grad_leaves(params, cfg, tp)
         for p in leaves:
             p.grad = None
             p.requires_grad_(True)
@@ -133,8 +119,12 @@ def make_grad_fn(cfg: ModelConfig, mesh=None, *, axes=("pod", "data"), accum=Non
                 for g in grads:
                     C.all_reduce_axis(g, mesh, a)
         for g, part in zip(grads, partial):
-            if part:
+            if part is True:
                 g.copy_(tp.all_reduce(g, what="grad"))
+            elif part:          # (dim, Segments): the split segments are this rank's own
+                for piece, split in part[1].pieces(g, part[0], tp.size):
+                    if not split:
+                        piece.copy_(tp.all_reduce(piece, what="grad"))
         return lsum, T.tree_map(lambda p: p.grad, params)
 
     return grads_of
@@ -159,7 +149,6 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
     global batch.  The pod-compressed step (module docstring) is
     ``train_step(params, opt_state, ef_state, batch, step) -> (params,
     opt_state, ef_state, metrics)``."""
-    check_model_axis(cfg, mesh)
     pod_step = compressed and n_pods > 1 and bool(cfg.grad_compress)
     if pod_step and (mesh is None or sharding.axis_sizes(mesh).get("pod", 1) != n_pods):
         raise NotImplementedError(

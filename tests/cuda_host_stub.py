@@ -2,20 +2,27 @@
 compile with ``g++`` and run on the host.
 
 A launch runs each CTA in turn (grid.x fastest, then grid.y) as
-``blockDim.x`` ``std::thread``s; ``__syncthreads`` is a barrier of the
-CTA's threads; a warp shuffle goes through an exchange array between two
-barriers of the warp's threads; dynamic shared memory is one buffer
-(filled with a junk pattern before every CTA) and static ``__shared__``
-arrays are function statics (one CTA runs at a time); ``__ldg`` is a
-plain load, ``__byte_perm`` a byte select.  A 16-byte load or store
-(``uint4``) at an address that is not a multiple of 16, which faults on
-the card, makes the launch return ``cudaErrorMisalignedAddress``.  The sources copy with
-``memcpy`` where the card runs ``cp.async``.  The kernels' C entry
-points then take CPU tensors' addresses.  Keep shapes small: a thread
-per CUDA thread.
+``blockDim.x`` fibers (``ucontext``) on the calling thread, each with its
+own stack: a fiber runs until it blocks at a barrier, then the next one
+that can run does, in thread order.  ``__syncthreads`` is a barrier of
+the CTA's fibers; a warp shuffle goes through an exchange array between
+two barriers of the warp's fibers; a barrier that can never complete
+(a fiber that returned while others wait) ends the launch with
+``cudaErrorLaunchFailure``, where the card would hang.  Dynamic shared
+memory is one buffer (filled with a junk pattern before every CTA) and
+static ``__shared__`` arrays are function statics (one CTA runs at a
+time); ``__ldg`` is a plain load, ``__byte_perm`` a byte select.  A
+16-byte load or store (``uint4``) at an address that is not a multiple
+of 16, which faults on the card, makes the launch return
+``cudaErrorMisalignedAddress``.  The sources copy with ``memcpy`` where
+the card runs ``cp.async``.  The kernels' C entry points then take CPU
+tensors' addresses.  The order in which fibers run between barriers is
+one of those the card may take; a race that only another order shows
+is out of its reach.  Keep shapes small: a fiber per CUDA thread.
 
 Shared by the host runs of the kernels (``test_torch_ew_dot_host.py``,
-``test_torch_quantize_host.py``); not a test module.
+``test_torch_quantize_host.py``, ``test_torch_dequantize_host.py``); not
+a test module.
 """
 import ctypes
 import re
@@ -24,13 +31,14 @@ from pathlib import Path
 
 STUB = r"""
 #pragma once
+#include <ucontext.h>
+
 #include <atomic>
-#include <barrier>
 #include <cstddef>
 #include <cstdint>
 #include <cstring>
+#include <functional>
 #include <memory>
-#include <thread>
 #include <vector>
 
 #define __global__
@@ -62,25 +70,59 @@ struct alignas(16) uint4 {
 };
 inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) { return {a, b, c, d}; }
 typedef struct CUstream_st* cudaStream_t;
-enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaErrorMisalignedAddress = 716 };
+enum cudaError_t {
+  cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaErrorMisalignedAddress = 716,
+  cudaErrorLaunchFailure = 719
+};
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 
-inline thread_local dim3 threadIdx, blockIdx;
+// the running fiber's coordinates, set before it resumes
+inline dim3 threadIdx, blockIdx;
 inline dim3 blockDim, gridDim;
 
 namespace emu {
 inline cudaError_t last_error = cudaSuccess;
-inline std::barrier<>* cta_bar = nullptr;
-inline std::vector<std::unique_ptr<std::barrier<>>> warp_bars;
+struct Fiber {
+  ucontext_t ctx;
+  std::unique_ptr<char[]> stack;
+  bool done = false;
+};
+constexpr size_t kStack = 1 << 18;
+inline ucontext_t sched;
+inline std::vector<Fiber> fibers;
+inline unsigned cur = 0;
+inline std::function<void()> body;
+inline unsigned long long progress = 0;  // arrivals, releases and fibers finished
+inline unsigned cta_count = 0, cta_gen = 0;
+inline unsigned warp_count[32], warp_gen[32];
 inline uint32_t xchg[1024];
 alignas(16) inline unsigned char smem[1 << 17];
 
+// a barrier of n fibers: the last to arrive moves the generation on and
+// runs on; the others yield until it has moved
+inline void barrier(unsigned& count, unsigned& gen, unsigned n) {
+  const unsigned g = gen;
+  ++progress;
+  if (++count == n) {
+    count = 0;
+    ++gen;
+    return;
+  }
+  while (gen == g) swapcontext(&fibers[cur].ctx, &sched);
+}
+
+inline void run_body() {
+  body();
+  fibers[cur].done = true;
+  ++progress;
+}
+
 inline uint32_t shfl_xor(uint32_t v, int off) {
-  const unsigned t = threadIdx.x;
+  const unsigned t = threadIdx.x, w = t / 32;
   xchg[t] = v;
-  warp_bars[t / 32]->arrive_and_wait();
+  barrier(warp_count[w], warp_gen[w], 32);
   const uint32_t r = xchg[(t & ~31u) | ((t & 31u) ^ static_cast<unsigned>(off))];
-  warp_bars[t / 32]->arrive_and_wait();
+  barrier(warp_count[w], warp_gen[w], 32);
   return r;
 }
 
@@ -94,23 +136,47 @@ void launch(dim3 grid, dim3 block, size_t smem_bytes, cudaStream_t, F fn) {
   gridDim = grid;
   blockDim = block;
   misaligned = false;
-  std::barrier<> bar(block.x);
-  cta_bar = &bar;
-  warp_bars.clear();
-  for (unsigned w = 0; w < block.x / 32; ++w) warp_bars.push_back(std::make_unique<std::barrier<>>(32));
-  for (unsigned by = 0; by < grid.y; ++by)
-    for (unsigned bx = 0; bx < grid.x; ++bx) {
+  body = fn;
+  if (fibers.size() < block.x) fibers.resize(block.x);
+  for (unsigned t = 0; t < block.x; ++t)
+    if (!fibers[t].stack) fibers[t].stack.reset(new char[kStack]);
+  bool hung = false;
+  for (unsigned by = 0; by < grid.y && !hung; ++by)
+    for (unsigned bx = 0; bx < grid.x && !hung; ++bx) {
       memset(smem, 0xA5, sizeof(smem));
-      std::vector<std::thread> ts;
-      for (unsigned t = 0; t < block.x; ++t)
-        ts.emplace_back([&, t, bx, by] { threadIdx = {t, 0, 0}; blockIdx = {bx, by, 0}; fn(); });
-      for (auto& th : ts) th.join();
+      cta_count = 0;
+      for (unsigned w = 0; w < 32; ++w) warp_count[w] = 0;
+      for (unsigned t = 0; t < block.x; ++t) {
+        Fiber& f = fibers[t];
+        getcontext(&f.ctx);
+        f.ctx.uc_stack.ss_sp = f.stack.get();
+        f.ctx.uc_stack.ss_size = kStack;
+        f.ctx.uc_link = &sched;
+        makecontext(&f.ctx, run_body, 0);
+        f.done = false;
+      }
+      for (unsigned left = block.x; left > 0;) {
+        const unsigned long long before = progress;
+        for (unsigned t = 0; t < block.x; ++t) {
+          if (fibers[t].done) continue;
+          cur = t;
+          threadIdx = {t, 0, 0};
+          blockIdx = {bx, by, 0};
+          swapcontext(&sched, &fibers[t].ctx);
+          if (fibers[t].done) --left;
+        }
+        if (left > 0 && progress == before) {  // every fiber waits on a barrier that cannot complete
+          hung = true;
+          break;
+        }
+      }
     }
-  last_error = misaligned ? cudaErrorMisalignedAddress : cudaSuccess;
+  last_error = hung ? cudaErrorLaunchFailure
+                    : misaligned ? cudaErrorMisalignedAddress : cudaSuccess;
 }
 }  // namespace emu
 
-inline void __syncthreads() { emu::cta_bar->arrive_and_wait(); }
+inline void __syncthreads() { emu::barrier(emu::cta_count, emu::cta_gen, blockDim.x); }
 template <class T> inline T __ldg(const T* p) { return *p; }
 inline uint4 __ldg(const uint4* p) {  // a 16-byte load
   emu::check16(p);

@@ -1,24 +1,20 @@
-"""Data parallelism across gloo ranks on the CPU for the families that
-tensor parallelism does not cover, and the launcher's ranks.
+"""Data parallelism across gloo ranks on the CPU for hymba, rwkv6 and
+whisper, and the launcher's ranks.
 
 hymba-1.5b, rwkv6-7b and whisper-tiny reduced, f32, at data 2 x model
 1 (``make_train_step(mesh=)``, a process a rank, gloo) on the sharded
 gate's batch, against the reference's single-device jitted step on the
 same weights: the loss and each parameter after one step within 1e-4,
-each gradient within 1e-4 of its leaf's largest magnitude.  At a
-``"model"`` axis of 2 the three refuse, naming the ROADMAP item.
+each gradient within 1e-4 of its leaf's largest magnitude (the three at
+``"model"`` > 1: ``tests/test_torch_train_ranks.py``).
 ``launch/train.py --rank-devices cpu,cpu`` gives the single-device
 launch's losses within 1e-5, and so does ``cpu,cpu,cpu`` on a batch
 that three ranks do not divide.
 """
 import pytest
 
-import train_lanes as TL
 import train_ref
-from repro_torch import configs as TCFG
 from repro_torch.launch import train
-from repro_torch.optim import adamw
-from repro_torch.runtime import train_loop
 
 BY_WORLD = {2: ["hymba", "rwkv6", "whisper"]}
 LANES = BY_WORLD[2]
@@ -37,24 +33,6 @@ def test_data_parallel_step_matches_reference(runs, lane):
 @pytest.mark.parametrize("lane", LANES)
 def test_data_parallel_gradients_match_reference(runs, lane):
     train_ref.check_grads(runs["got"][lane]["grads"], runs["ref"][lane]["grads"])
-
-
-class _Mesh:
-    """A ``DeviceMesh`` stand-in: what the step's guard reads."""
-    mesh_dim_names = ("data", "model")
-
-    def __init__(self, data, mp):
-        self.shape_ = (data, mp)
-
-    def size(self, i=None):
-        return self.shape_[i]
-
-
-@pytest.mark.parametrize("lane", LANES)
-def test_other_families_refuse_model_parallel(lane):
-    cfg = TL.lane_config(TCFG, TL.LANES[lane]["arch"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6.2"):
-        train_loop.make_train_step(cfg, adamw.AdamWConfig(), mesh=_Mesh(1, 2))
 
 
 def test_launcher_rank_devices_matches_one_device(tmp_path):

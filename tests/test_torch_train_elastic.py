@@ -12,7 +12,13 @@ reduced (tied embeddings), f32, posit16 moments, the example's data
 Each move restores leaves (or shards) bit-equal to what was saved, each
 shard the whole leaf cut as its spec says (cut here, independently of
 the port's narrowing), and the next step from the restored state gives
-the loss of an uninterrupted single-device run within 1e-5.  Weights
+the loss of an uninterrupted single-device run within 1e-5.  Then
+hymba-1.5b (reduced, f32, posit16 moments) trained two steps at ``(data
+1, model 2)``, where its ``in_proj`` is a ``Segments`` leaf (a rank's
+share of ``xs``, ``gate`` and ``dt``, the whole ``B`` and ``C``): the
+ranks' losses are one device's within 1e-5, the save restores whole on
+one device with each rank's leaves its cut bit for bit, segments
+included, and restores onto a ``(data 1, model 4)`` placement.  Weights
 come from the reference's ``init_params``.
 """
 import numpy as np
@@ -28,6 +34,7 @@ from repro_torch import configs as TCFG
 from repro_torch import tree as TT
 from repro_torch.checkpoint.checkpointer import Checkpointer
 from repro_torch.launch import mesh as M
+from repro_torch.models import get_family
 from repro_torch.optim import adamw
 from repro_torch.runtime import sharding, train_loop
 from repro_torch.weights import params_from_jax
@@ -40,9 +47,13 @@ def runs(tmp_path_factory):
     """An uninterrupted single-device run (its state saved after two
     steps to ``one``), then the ranks' moves."""
     base = tmp_path_factory.mktemp("elastic")
-    dirs = {k: str(base / k) for k in ("one", "dp", "tp")}
-    rc = TL.lane_config(RCFG, TL.ELASTIC_ARCH)
-    np_params = jax.tree.map(np.asarray, ref_family(rc).init_params(jax.random.PRNGKey(0), rc))
+    dirs = {k: str(base / k) for k in ("one", "dp", "tp", "segments")}
+    by_arch = {}
+    for arch in (TL.ELASTIC_ARCH, TL.SEGMENTS_ARCH):
+        rc = TL.lane_config(RCFG, arch)
+        by_arch[arch] = jax.tree.map(np.asarray,
+                                     ref_family(rc).init_params(jax.random.PRNGKey(0), rc))
+    np_params = by_arch[TL.ELASTIC_ARCH]
     cfg, opt_cfg, pipe = TL.elastic_setup(TCFG)
     params = params_from_jax(np_params, cfg, device="cpu")
     opt = adamw.init(params, opt_cfg)
@@ -55,18 +66,37 @@ def runs(tmp_path_factory):
             saved = [TL.bits(x) for x in TT.leaves(state)]
         params, opt, m = step(params, opt, pipe.batch_at(i), i)
         losses.append(float(m["loss"]))
-    ranks = M.spawn(TL.rank_elastic, ["cpu", "cpu"], (np_params, dirs), timeout=300,
+    ranks = M.spawn(TL.rank_elastic, ["cpu", "cpu"], (by_arch, dirs), timeout=300,
                     threads=1)
-    return dict(dirs=dirs, losses=losses, saved=saved, ranks=ranks, np_params=np_params)
+    # hymba on one device, for the ranks' losses under "model" 2
+    cfg, opt_cfg, pipe = TL.elastic_setup(TCFG, TL.SEGMENTS_ARCH)
+    params = params_from_jax(by_arch[TL.SEGMENTS_ARCH], cfg, device="cpu")
+    opt = adamw.init(params, opt_cfg)
+    step = train_loop.make_train_step(cfg, opt_cfg)
+    seg_losses = []
+    for i in range(TL.ELASTIC_STEPS):
+        params, opt, m = step(params, opt, pipe.batch_at(i), i)
+        seg_losses.append(float(m["loss"]))
+    return dict(dirs=dirs, losses=losses, saved=saved, ranks=ranks, np_params=np_params,
+                by_arch=by_arch, seg_losses=seg_losses)
 
 
 def _cut(whole, spec, mesh_shape, rank):
     """Rank ``rank``'s piece of a whole leaf (numpy) on a row-major
-    ``("data", "model")`` mesh of ``mesh_shape``."""
+    ``("data", "model")`` mesh of ``mesh_shape``; a ``Segments`` dim cut
+    segment by segment (a split one into equal pieces, a whole one
+    kept)."""
     coords = {"data": rank // mesh_shape[1], "model": rank % mesh_shape[1]}
     sizes = dict(zip(("data", "model"), mesh_shape))
     for dim, axis in enumerate(spec):
-        if axis is not None:
+        if isinstance(axis, sharding.Segments):
+            bounds = np.cumsum((0,) + tuple(axis.sizes))
+            parts = [np.take(whole, range(lo, hi), axis=dim) for lo, hi in
+                     zip(bounds[:-1], bounds[1:])]
+            whole = np.concatenate(
+                [np.split(p, sizes[axis.axis], axis=dim)[coords[axis.axis]] if sp else p
+                 for p, sp in zip(parts, axis.split)], axis=dim)
+        elif axis is not None:
             whole = np.split(whole, sizes[axis], axis=dim)[coords[axis]]
     return whole
 
@@ -145,3 +175,76 @@ def test_elastic_remesh_restore(tmp_path):
     assert torch.equal(restored["w"], t["w"])
     split = {"w": sharding.NamedSharding(_Mesh(), ("data", None))}
     assert torch.equal(ck.restore(2, t, shardings=split)[0]["w"], t["w"])
+
+
+class _ModelMesh:
+    """Rank ``rank`` of a ``(data 1, model n)`` mesh, as a restore's
+    placement reads it (no collective)."""
+    mesh_dim_names = ("data", "model")
+
+    def __init__(self, n, rank):
+        self.n, self.rank = n, rank
+
+    def size(self, i=None):
+        return (1, self.n)[i]
+
+    def get_group(self, name):
+        return None
+
+    def get_local_rank(self, name):
+        return 0 if name == "data" else self.rank
+
+
+def _segments_template():
+    cfg, opt_cfg, _ = TL.elastic_setup(TCFG, TL.SEGMENTS_ARCH)
+    params = get_family(cfg).init_params(cfg, seed=0, device="cpu", dtype=torch.float32)
+    return cfg, {"params": params, "opt": adamw.init(params, opt_cfg)}
+
+
+def test_segments_ranks_train_as_one_device(runs):
+    """hymba at ``(data 1, model 2)``: each rank's losses are one
+    device's within 1e-5 (its partial gradients summed over "model")."""
+    for r in runs["ranks"]:
+        np.testing.assert_allclose(r["segments"]["losses"], runs["seg_losses"], rtol=1e-5)
+
+
+def test_segments_checkpoint_restores_on_one_device(runs):
+    """The save under ``"model"`` 2 holds whole leaves: restored on one
+    device, each leaf cut by a rank's spec is that rank's leaf bit for
+    bit, ``in_proj``'s segments (and its moments') included."""
+    cfg, template = _segments_template()
+    state, step0 = Checkpointer(runs["dirs"]["segments"], keep=1).restore(
+        TL.ELASTIC_STEPS, template)
+    assert step0 == TL.ELASTIC_STEPS
+    whole = [TL.bits(x) for x in TT.leaves(state)]
+    paths = [p for p, _ in TT.leaves_with_paths(state)]
+    for rank, r in enumerate(runs["ranks"]):
+        got = r["segments"]
+        assert len(got["leaves"]) == len(whole)
+        for path, w, piece, spec in zip(paths, whole, got["leaves"], got["specs"]):
+            np.testing.assert_array_equal(_cut(w, spec, TL.SEGMENTS_MESH, rank), piece,
+                                          err_msg=path)
+    segs = [p for p, spec in zip(paths, runs["ranks"][0]["segments"]["specs"])
+            if any(isinstance(e, sharding.Segments) for e in spec)]
+    assert len(segs) == 3 * cfg.n_layers      # in_proj, its m and its v, a layer
+
+
+def test_segments_checkpoint_restores_onto_another_mesh(runs):
+    """The same save restored onto ``(data 1, model 4)``, where the
+    reduced hymba's heads do not split (2 KV heads) but its MLP and
+    vocabulary do: each of the four ranks' leaves is the whole leaf cut
+    by its spec there, bit for bit, and ``in_proj`` is whole."""
+    cfg, template = _segments_template()
+    ck = Checkpointer(runs["dirs"]["segments"], keep=1)
+    whole = [TL.bits(x) for x in TT.leaves(ck.restore(TL.ELASTIC_STEPS, template)[0])]
+    for rank in range(4):
+        mesh = _ModelMesh(4, rank)
+        sh = TL.state_shardings(template, mesh, cfg)
+        specs = [s.spec for s in TT.leaves(sh)]
+        state, _ = ck.restore(TL.ELASTIC_STEPS, template, shardings=sh)
+        for (path, x), w, spec in zip(TT.leaves_with_paths(state), whole, specs):
+            np.testing.assert_array_equal(_cut(w, spec, (1, 4), rank), TL.bits(x),
+                                          err_msg=path)
+            if path.endswith("in_proj/w"):
+                assert spec == (None, None)
+        assert any("model" in spec for spec in specs)

@@ -10,8 +10,11 @@ names each such leaf.  Then the port's own: the rows a rank holds
 (row-major over ``("pod", "data")``, as the reference's batch spec
 places them), ``param_shardings`` (the executed placement under a
 ``"model"`` axis that splits, on parameters and on the optimizer
-state), and the ``"model"`` guard: an axis of 1 for every family, and
-training at 2 for the transformer family only.
+state), a train step for every family at a ``"model"`` axis of 1 and
+of 2, the leaves whose gradient a rank holds only a part of
+(``partial_grad_leaves``) and the leaves it holds a slice of
+(``split_leaves``, hymba's ``in_proj`` segment by segment), and the
+gradient norm over such shares.
 """
 import re
 
@@ -214,16 +217,99 @@ def test_param_shardings_are_the_executed_placement(arch):
 
 @pytest.mark.parametrize("arch", TCFG.ARCH_IDS)
 def test_model_axis_of_one_is_allowed_for_every_family(arch):
-    """A ``"model"`` axis of 1 trains every family; at 2 every family has
-    a serving plan, and training refuses the families other than the
-    transformer (their locally sliced leaves' partial gradients)."""
+    """A ``"model"`` axis of 1 trains every family on the single-device
+    path; at 2 every family has a plan, and its train step builds (the
+    partial gradients of the leaves a rank slices are summed:
+    ``sharding.partial_grad_leaves``)."""
     cfg = TCFG.get_config(arch).reduced(compute_dtype="float32")
     assert S.tensor_parallel(cfg, _RankMesh(1)) is None
-    train_loop.check_model_axis(cfg, _RankMesh(1))
+    train_loop.make_train_step(cfg, adamw.AdamWConfig(), mesh=_RankMesh(1))
     tp = S.tensor_parallel(cfg, _RankMesh(2))
     assert tp.size == 2 and tp.vocab and (tp.attn or tp.moe)
-    if cfg.family != "transformer":
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6.2"):
-            train_loop.check_model_axis(cfg, _RankMesh(2))
-    else:
-        train_loop.check_model_axis(cfg, _RankMesh(2))
+    train_loop.make_train_step(cfg, adamw.AdamWConfig(), mesh=_RankMesh(2))
+
+
+# the leaves of a layer whose gradient each rank holds a part of where
+# their group splits (``sharding.partial_grad_leaves``)
+_PARTIAL = {"hymba-1.5b": ("A_log", "D", "attn_norm/scale", "dt_bias", "in_proj/w",
+                           "ssm_norm/scale"),
+            "rwkv6-7b": ("ln_x/bias", "ln_x/scale", "u", "w0", "wl_b"),
+            "granite-moe-3b-a800m": ("moe/router/w",)}
+
+
+@pytest.mark.parametrize("arch,mp", [("hymba-1.5b", 2), ("hymba-1.5b", 4), ("rwkv6-7b", 2),
+                                     ("whisper-tiny", 2), ("granite-moe-3b-a800m", 2),
+                                     ("gemma-7b", 2)])
+def test_partial_and_split_leaves(arch, mp):
+    """Per family and mesh: the partial leaves are the per-head leaves a
+    rank slices (and the MoE router), and only where their group splits
+    (hymba at 4 splits no heads: none); none of them is split.  A split
+    leaf is one ``leaf_spec`` splits; hymba's ``in_proj`` is ``(1,
+    Segments)`` in both lists where its heads split (its ``xs``, ``gate``
+    and ``dt`` columns a rank's own, its ``B`` and ``C`` whole and partial)."""
+    cfg, params = _port_params(arch)
+    mesh = _RankMesh(mp)
+    tp = S.tensor_parallel(cfg, mesh)
+    local = S.shard_params(params, mesh, cfg)
+    paths = [p for p, _ in tree.leaves_with_paths(local)]
+    partial = dict(zip(paths, S.partial_grad_leaves(local, cfg, tp)))
+    split = dict(zip(paths, S.split_leaves(local, cfg, mesh)))
+    heads = tp.attn or cfg.family == "transformer"
+    want = {f"layers/{i}/{leaf}" for i in range(cfg.n_layers)
+            for leaf in _PARTIAL.get(arch, ())} if heads else set()
+    assert {p for p, v in partial.items() if v} == want
+    for path, x in tree.leaves_with_paths(params):
+        spec = S.leaf_spec(path, tuple(x.shape), mesh, cfg)
+        seg = [e for e in spec if isinstance(e, S.Segments)]
+        if seg:
+            assert split[path] == partial[path] == (1, seg[0])
+            assert [sp for _, sp in seg[0].pieces(dict(tree.leaves_with_paths(local))[path],
+                                                  1, mp)] == [True, False, True]
+        else:
+            assert split[path] is ("model" in spec), path
+            assert not (split[path] and partial[path]), path
+    assert (arch == "hymba-1.5b" and mp == 4) == (not any(split.values()) or not tp.attn)
+
+
+class _SumTP:
+    """A ``TensorParallel`` stand-in for the gradient norm of two ranks'
+    shares: it records each rank's local sum, then returns their total."""
+    size = 2
+
+    def __init__(self, total=None):
+        self.total, self.seen = total, []
+
+    def all_reduce(self, x, what="activation"):
+        self.seen.append(x.clone())
+        return x if self.total is None else self.total.clone()
+
+
+def test_global_norm_of_segments_leaves_is_the_whole_leafs():
+    """The gradient norm over two ranks' shares of hymba's ``in_proj``
+    (``Segments``), a split leaf and a replicated one: the split segments'
+    and the split leaf's squares summed over the ranks, the whole ``B`` and
+    ``C`` columns and the replicated leaf counted once, equals one
+    device's norm of the whole leaves."""
+    cfg = TCFG.get_config("hymba-1.5b").reduced(compute_dtype="float32")
+    seg = S._in_proj_segments(cfg)
+    gen = torch.Generator().manual_seed(3)
+    whole = {"a": torch.randn(7, generator=gen),
+             "in_proj": torch.randn(cfg.d_model, sum(seg.sizes), generator=gen),
+             "wq": torch.randn(cfg.d_model, 64, generator=gen)}
+    shares = [{"a": whole["a"], "in_proj": seg.take(whole["in_proj"], 1, r, 2),
+               "wq": whole["wq"].narrow(1, 32 * r, 32)} for r in range(2)]
+    split = [False, (1, seg), True]
+    rec = _SumTP()
+    for share in shares:
+        adamw.global_norm(share, rec, split)
+    total = rec.seen[0] + rec.seen[1]
+    want = adamw.global_norm(whole)
+    for share in shares:
+        got = adamw.global_norm(share, _SumTP(total), split)
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+    # counting B and C on each rank as split would add them twice
+    wrong, rec = [False, True, True], _SumTP()
+    for share in shares:
+        adamw.global_norm(share, rec, wrong)
+    doubled = adamw.global_norm(shares[0], _SumTP(rec.seen[0] + rec.seen[1]), wrong)
+    assert float(doubled) > float(want) * (1 + 1e-3)

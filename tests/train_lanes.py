@@ -7,10 +7,14 @@ hand the ranks its parameters as nested dicts of numpy arrays.
 Lanes (:func:`rank_lanes`): the reference's sharded-step gate
 (granite-moe-3b-a800m at data 4 x model 2, ``tests/test_distributed.py``),
 the dense GQA, MLA, MQA and tied-embedding lanes at data 2 x model 2,
-and hymba-1.5b, rwkv6-7b and whisper-tiny data parallel at data 2 x
-model 1; rank 0 returns the whole parameters after one step and the
-whole gradients of that step (gathered over the mesh,
-``sharding.unshard``) in the reference's layout.  :func:`rank_pods`
+hymba-1.5b, rwkv6-7b and whisper-tiny data parallel at data 2 x model 1
+and tensor parallel at data 2 x model 2 (every group split), and
+hymba-1.5b at data 1 x model 4 (its 2 KV heads leave only the MLP and
+the vocabulary split); rank 0 returns the whole parameters after one
+step and the whole gradients of that step (gathered over the mesh,
+``sharding.unshard``) in the reference's layout, and every rank the
+leaves whose gradients it all-reduced over ``"model"`` and those
+all-reduces (the ``wire`` counter).  :func:`rank_pods`
 runs the compressed gate (internvl2-1b at pod 2 x data 2 x model 2),
 :func:`rank_elastic` the elastic re-mesh's moves.
 """
@@ -32,7 +36,15 @@ LANES = {
     "hymba": dict(arch="hymba-1.5b", mesh=(2, 1)),
     "rwkv6": dict(arch="rwkv6-7b", mesh=(2, 1)),
     "whisper": dict(arch="whisper-tiny", mesh=(2, 1)),
+    "hymba-tp": dict(arch="hymba-1.5b", mesh=(2, 2)),
+    "rwkv6-tp": dict(arch="rwkv6-7b", mesh=(2, 2)),
+    "whisper-tp": dict(arch="whisper-tiny", mesh=(2, 2)),
+    "hymba-mlp": dict(arch="hymba-1.5b", mesh=(1, 4)),
 }
+
+# lanes whose gradients the ranks also take in bf16 (their drift from one
+# device's bf16 gradients against bf16's own rounding)
+DRIFT_LANES = ("hymba-tp", "rwkv6-tp")
 
 # the reference's compressed-wire gate
 POD_ARCH, POD_SEED, POD_MESH = "internvl2-1b", 9, (2, 2, 2)
@@ -75,7 +87,11 @@ def rank_lanes(lanes, ref_params) -> dict:
     """One gloo rank: each lane of ``lanes`` (all of one world size) on a
     ``("data", "model")`` mesh: the gradients of the reference gate's
     batch, then one step.  Rank 0 returns ``{lane: {"loss", "grad_norm",
-    "grad_loss", "params", "grads"}}``; the others ``{lane: None}``."""
+    "grad_loss", "params", "grads", "partial", "grad_wire"}}``; the others
+    ``{lane: {"partial", "grad_wire"}}``: the paths of the leaves whose
+    gradients the rank all-reduces over ``"model"``
+    (``sharding.partial_grad_leaves``) and the ``"model"`` all-reduces of
+    gradients that the gradients' call made (calls, bytes)."""
     import torch
     import torch.distributed as dist
 
@@ -84,7 +100,7 @@ def rank_lanes(lanes, ref_params) -> dict:
     from repro_torch.data.pipeline import DataConfig, Pipeline
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.optim import adamw
-    from repro_torch.runtime import train_loop
+    from repro_torch.runtime import collectives, sharding, train_loop
 
     out = {}
     for lane in lanes:
@@ -93,17 +109,50 @@ def rank_lanes(lanes, ref_params) -> dict:
         mesh = make_mesh(spec["mesh"], ("data", "model"))
         params = _rank_params(ref_params[spec["arch"]], cfg, mesh)
         batch = Pipeline(DataConfig(seed=SEED), cfg, BATCH, SEQ, device="cpu").batch_at(0)
+        partial = [p for (p, _), part in zip(TT.leaves_with_paths(params),
+                                             sharding.partial_grad_leaves(
+                                                 params, cfg, sharding.tensor_parallel(cfg, mesh)))
+                   if part]
+        collectives.wire.clear()
         g_loss, grads = train_loop.make_grad_fn(cfg, mesh)(params, batch)
+        grad_wire = list(collectives.wire.get(("model", "all_reduce", "grad", "float32"),
+                                              [0, 0]))
         grads = _whole(TT.tree_map(torch.clone, grads), mesh, cfg)
+        bf16 = None
+        if lane in DRIFT_LANES:
+            bcfg = dataclasses.replace(cfg, compute_dtype="bfloat16")
+            _, g16 = train_loop.make_grad_fn(bcfg, mesh)(params, batch)
+            bf16 = _whole(TT.tree_map(torch.clone, g16), mesh, bcfg)
         opt_cfg = adamw.AdamWConfig(lr=LR)
         opt = adamw.init(params, opt_cfg)
         step = train_loop.make_train_step(cfg, opt_cfg, mesh=mesh)
         params, opt, m = step(params, opt, batch, 0)
         whole = _whole(params, mesh, cfg)
-        out[lane] = None if dist.get_rank() else dict(
-            loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
-            grad_loss=float(g_loss), params=whole, grads=grads)
+        out[lane] = dict(partial=partial, grad_wire=grad_wire)
+        if dist.get_rank() == 0:
+            out[lane].update(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+                             grad_loss=float(g_loss), params=whole, grads=grads,
+                             bf16_grads=bf16)
     return out
+
+
+def one_device_grads(np_params, arch: str, dtype: str):
+    """The port's single-device gradients of the gate's batch at compute
+    ``dtype`` (f32 master weights ``np_params``), in the reference's
+    layout (numpy)."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch import tree as TT
+    from repro_torch.data.pipeline import DataConfig, Pipeline
+    from repro_torch.runtime import train_loop
+    from repro_torch.weights import params_from_jax, params_to_jax
+
+    cfg = dataclasses.replace(lane_config(configs, arch), compute_dtype=dtype)
+    params = params_from_jax(np_params, cfg, device="cpu")      # f32 masters
+    batch = Pipeline(DataConfig(seed=SEED), cfg, BATCH, SEQ, device="cpu").batch_at(0)
+    _, grads = train_loop.make_grad_fn(cfg)(params, batch)
+    return params_to_jax(TT.tree_map(torch.clone, grads))
 
 
 def rank_pods(ref_params) -> dict:
@@ -151,15 +200,17 @@ def rank_pods(ref_params) -> dict:
 
 ELASTIC_ARCH, ELASTIC_SEED, ELASTIC_BATCH, ELASTIC_SEQ = "gemma-7b", 17, 8, 64
 ELASTIC_STEPS = 2          # steps before the save; the next one continues
+# hymba's save under "model" 2: its in_proj is a Segments leaf there
+SEGMENTS_ARCH, SEGMENTS_MESH = "hymba-1.5b", (1, 2)
 
 
-def elastic_setup(configs):
+def elastic_setup(configs, arch=ELASTIC_ARCH):
     """``(cfg, opt_cfg, pipeline)`` of the elastic lanes (posit16 moments,
     so the optimizer state holds patterns as well as f32 leaves)."""
     from repro_torch.data.pipeline import DataConfig, Pipeline
     from repro_torch.optim import adamw
 
-    cfg = lane_config(configs, ELASTIC_ARCH)
+    cfg = lane_config(configs, arch)
     return cfg, adamw.AdamWConfig(lr=1e-3, posit_moments=True), Pipeline(
         DataConfig(seed=ELASTIC_SEED), cfg, ELASTIC_BATCH, ELASTIC_SEQ, device="cpu")
 
@@ -180,14 +231,17 @@ def bits(t):
     return (signed_view(t) if t.dtype == torch.uint16 else t.view(torch.int32)).numpy().copy()
 
 
-def rank_elastic(ref_params, dirs) -> dict:
+def rank_elastic(np_params, dirs) -> dict:
     """Two gloo ranks.  Train ``ELASTIC_STEPS`` steps at ``(data 2, model
     1)`` and save to ``dirs["dp"]``, the same at ``(data 1, model 2)``
     to ``dirs["tp"]``; then restore ``dirs["one"]`` (a single device's
-    checkpoint) at ``(data 1, model 2)`` and run the next step.  Each
-    rank returns, for ``"dp"`` and ``"tp"``, its losses and its state's
-    leaves (bits) with their specs at the save, and for ``"one"`` the
-    restored leaves (bits), their specs and the next step's loss."""
+    checkpoint) at ``(data 1, model 2)`` and run the next step; then
+    train hymba ``ELASTIC_STEPS`` steps at ``SEGMENTS_MESH`` and save to
+    ``dirs["segments"]``.  ``np_params``: the reference's weights by
+    architecture.  Each rank returns, for ``"dp"``, ``"tp"`` and
+    ``"segments"``, its losses and its state's leaves (bits) with their
+    specs at the save, and for ``"one"`` the restored leaves (bits),
+    their specs and the next step's loss."""
     from repro_torch import configs
     from repro_torch import tree as TT
     from repro_torch.checkpoint.checkpointer import Checkpointer
@@ -196,6 +250,7 @@ def rank_elastic(ref_params, dirs) -> dict:
     from repro_torch.runtime import train_loop
 
     cfg, opt_cfg, pipe = elastic_setup(configs)
+    ref_params = np_params[ELASTIC_ARCH]
     out = {}
     for name, shape in (("dp", (2, 1)), ("tp", (1, 2))):
         mesh = make_mesh(shape, ("data", "model"))
@@ -223,4 +278,19 @@ def rank_elastic(ref_params, dirs) -> dict:
     _, _, m = step(state["params"], state["opt"], pipe.batch_at(step0), step0)
     out["one"] = dict(leaves=leaves, specs=[s.spec for s in TT.leaves(sh)],
                       step=step0, loss=float(m["loss"]))
+
+    cfg, opt_cfg, pipe = elastic_setup(configs, SEGMENTS_ARCH)
+    mesh = make_mesh(SEGMENTS_MESH, ("data", "model"))
+    params = _rank_params(np_params[SEGMENTS_ARCH], cfg, mesh)
+    opt = adamw.init(params, opt_cfg)
+    step = train_loop.make_train_step(cfg, opt_cfg, mesh=mesh)
+    losses = []
+    for i in range(ELASTIC_STEPS):
+        params, opt, m = step(params, opt, pipe.batch_at(i), i)
+        losses.append(float(m["loss"]))
+    state = {"params": params, "opt": opt}
+    sh = state_shardings(state, mesh, cfg)
+    Checkpointer(dirs["segments"], keep=1, mesh=mesh).save(ELASTIC_STEPS, state, shardings=sh)
+    out["segments"] = dict(losses=losses, leaves=[bits(x) for x in TT.leaves(state)],
+                           specs=[s.spec for s in TT.leaves(sh)])
     return out

@@ -54,34 +54,45 @@ def ref_lane(lane, params):
 
 
 def init_params(lanes) -> tuple:
-    """The reference's seeded parameters of each lane, and the same as
-    numpy trees keyed by architecture (what the ranks take)."""
-    ref_params, np_params = {}, {}
+    """The reference's seeded parameters of each lane (drawn once an
+    architecture), and the same as numpy trees keyed by architecture
+    (what the ranks take)."""
+    ref_params, np_params, by_arch = {}, {}, {}
     for lane in lanes:
         arch = TL.LANES[lane]["arch"]
-        rc = TL.lane_config(RCFG, arch)
-        ref_params[lane] = ref_family(rc).init_params(jax.random.PRNGKey(0), rc)
-        np_params[arch] = jax.tree.map(np.asarray, ref_params[lane])
+        if arch not in by_arch:
+            rc = TL.lane_config(RCFG, arch)
+            by_arch[arch] = ref_family(rc).init_params(jax.random.PRNGKey(0), rc)
+            np_params[arch] = jax.tree.map(np.asarray, by_arch[arch])
+        ref_params[lane] = by_arch[arch]
     return ref_params, np_params
 
 
 def run_lanes(by_world: dict) -> dict:
-    """``{"ref": {lane: ...}, "got": {lane: rank 0's result}}``: one
-    spawn of ``TL.rank_lanes`` a world size, side by side, while the
-    reference runs every lane in this process."""
+    """``{"ref": {lane: ...}, "got": {lane: rank 0's result}, "ranks":
+    {lane: [every rank's result]}, "params": {arch: the weights}}``: one spawn of ``TL.rank_lanes`` a
+    world size, side by side, while the reference runs every lane's
+    architecture once in this process (its single-device step does not
+    depend on the lane's mesh)."""
     lanes = [lane for group in by_world.values() for lane in group]
     ref_params, np_params = init_params(lanes)
     with concurrent.futures.ThreadPoolExecutor(len(by_world)) as pool:
         spawns = {n: pool.submit(M.spawn, TL.rank_lanes, ["cpu"] * n, (group, np_params),
                                  timeout=SPAWN_TIMEOUT, threads=1)
                   for n, group in by_world.items()}
-        ref = {lane: ref_lane(lane, ref_params[lane]) for lane in lanes}
-        got = {}
+        by_arch = {}
+        for lane in lanes:
+            arch = TL.LANES[lane]["arch"]
+            if arch not in by_arch:
+                by_arch[arch] = ref_lane(lane, ref_params[lane])
+        ref = {lane: by_arch[TL.LANES[lane]["arch"]] for lane in lanes}
+        got, every = {}, {}
         for n, fut in spawns.items():
             ranks = fut.result()
-            assert all(r[lane] is None for r in ranks[1:] for lane in by_world[n])
+            assert all("params" not in r[lane] for r in ranks[1:] for lane in by_world[n])
             got.update(ranks[0])
-    return {"ref": ref, "got": got}
+            every.update({lane: [r[lane] for r in ranks] for lane in by_world[n]})
+    return {"ref": ref, "got": got, "ranks": every, "params": np_params}
 
 
 def walk(tree, path=()):

@@ -10,12 +10,12 @@ paths at full size and checks that every kernel of each path ran there:
   phi3-medium-14b (dense GQA lane, ``paged_attn.cu``) and minicpm3-4b
   (MLA lane, ``paged_attn_mla.cu``) with prefix caching and deadlines
   on a shared-prefix trace, on an arena small enough that deadlines
-  preempt (minicpm3 at 31 of its 62 layers); then on the same trace the
+  preempt (minicpm3 at 16 of its 62 layers); then on the same trace the
   rest of the transformer family:
   granite-moe-3b-a800m (the MoE feed-forward on every chunk and decode
-  step, full width, 8 of 32 layers), gemma-7b (head_dim 256, full width,
-  14 of 28 layers), granite-34b (MQA, 48 query heads on one KV head, full width,
-  24 of 88 layers) and dbrx-132b (16 experts top 4, posit8 KV, full
+  step, full width, 4 of 32 layers), gemma-7b (head_dim 256, full width,
+  8 of 28 layers), granite-34b (MQA, 48 query heads on one KV head, full width,
+  12 of 88 layers) and dbrx-132b (16 experts top 4, posit8 KV, full
   width, 4 of 40 layers), each with exact launch counts, and on gemma
   and granite-34b the fused decode kernel against the gather path on
   the served weights;
@@ -75,15 +75,15 @@ paths at full size and checks that every kernel of each path ran there:
   final checkpoint restored bit for bit; one AdamW update on the real
   leaves on the kernels against the plain codec, bit for bit; rows 1 and
   2 timed at the optimizer's leaves), and (T2) two steps of
-  minicpm3-4b (31 of 62 layers), granite-moe-3b-a800m, hymba-1.5b (16
-  of 32), rwkv6-7b (8 of 32) and whisper-tiny (``TRAIN_FAMILIES``);
+  minicpm3-4b (16 of 62 layers), granite-moe-3b-a800m, hymba-1.5b (8
+  of 32), rwkv6-7b (4 of 32) and whisper-tiny (``TRAIN_FAMILIES``);
 - (k) training across ranks, a process of its own (``--phase
   train-ranks``), two ranks sharing the card over gloo (so no wall is
   a multi-card speed): (k1) (T)'s gemma-7b, seed, data and schedule
   through ``make_train_step`` on a ``(1, 2)`` mesh, every group split,
   three steps held to (T)'s losses and gradient norms, rows 1 and 2
-  once a leaf a step on each rank; (k2) internvl2-1b at full width and
-  depth through the pod-compressed step on two pods of 4 x 512 (only
+  once a leaf a step on each rank; (k2) internvl2-1b at full width (8
+  of its 24 layers) through the pod-compressed step on two pods of 4 x 512 (only
   posit16 patterns on the pod wire, two bytes an element, from the
   collectives' counter; non-zero error feedback; step 0's loss equal to
   an uncompressed data-parallel step's; exact codec launches; rows 1 and
@@ -102,6 +102,18 @@ paths at full size and checks that every kernel of each path ran there:
   ``TM_LEAVES``; rwkv6 and hymba in f32 (``TM_F32``: their bf16 drift is
   the split sums' rounding), rows 1 and 2 once a leaf a step per rank
   and timed at a rank's embedding moment;
+- (n) the sequence layout across ranks, a process of its own (``--phase
+  train-seq``, the configs' ``seq_shard_activations`` kept on): (n1)
+  (T)'s gemma-7b at "model" 2, every group split (Megatron-SP with the
+  vocabulary-parallel head), held to (T) as (k1) is; (n2) internvl2-1b
+  at "model" 4 in f32 (``TN_LAUNCHES``: 4 of 24 layers), its 14 heads
+  context-parallel, its visual prefix, its loss on each rank's positions
+  (the 151 655-row vocabulary whole); (n3) hymba-1.5b at "model" 2 in
+  f32 (2 of 32 layers), its 25 heads context-parallel; (n2) and (n3)
+  held to one-device runs as (m) holds its families; each lane's
+  sequence collectives by kind, its peak memory per rank and rows 1
+  and 2 once a leaf a step.  (m) and (n) run side by side, two processes
+  on the one card (their walls are each other's neighbours);
 - the PVU ISA (``posit_ew.cu``, ``posit_dot.cu``, ``posit_qgemm.cu``,
   ``posit_gemm.cu``): the paper's verification workload
   (``configs/pvu_resnet_conv.py``, the ResNet-18 first conv on 8 images
@@ -117,6 +129,7 @@ paths at full size and checks that every kernel of each path ran there:
     python3 chip_smoke.py --phase tp-linear        # (l) alone
     python3 chip_smoke.py --phase train-ranks      # (k) alone
     python3 chip_smoke.py --phase train-model      # (m) alone
+    python3 chip_smoke.py --phase train-seq        # (n) alone
     python3 chip_smoke.py --ptxas  # only: -Xptxas -v (registers, shared
                                    # memory, spills) of paged_attn.cu,
                                    # paged_attn_mla.cu, posit_gemm.cu,
@@ -204,7 +217,7 @@ _TRACE = [
 ]
 # the main path, two lanes at full width, bf16 weights, the reference's
 # command line for the chunked paged scheduler: phi3 at full depth,
-# minicpm3 at 31 of its 62 layers (cut so that the smoke fits its time).  The
+# minicpm3 at 16 of its 62 layers (cut so that the smoke fits its time).  The
 # minicpm3 trace shares half of every prompt; a quarter of its requests
 # carry a 5 s deadline (500 decode steps) and the rest are best-effort,
 # and its 200-block arena (of a worst case 512) makes deadline requests
@@ -215,7 +228,7 @@ MAIN_PATHS = {
     "phi3-medium-14b": (["--arch", "phi3-medium-14b"] + _TRACE,
                         ("posit_paged_write", "posit_paged_read",
                          "paged_decode_attention")),
-    "minicpm3-4b": (["--arch", "minicpm3-4b", "--n-layers", "31", "--prefix-cache",
+    "minicpm3-4b": (["--arch", "minicpm3-4b", "--n-layers", "16", "--prefix-cache",
                      "--prefix-share", "0.5", "--deadline-ms", "5000",
                      "--deadline-share", "0.25", "--n-blocks", "200"] + _TRACE,
                     ("posit_paged_write", "posit_paged_read",
@@ -223,20 +236,20 @@ MAIN_PATHS = {
 }
 # The rest of the transformer family on the same trace and kernels (the
 # MoE feed-forward launches no posit kernel).  granite-moe-3b-a800m at
-# full width with 8 of its 32 layers (its 40 experts top 8 in every
-# layer) and gemma-7b at full width with 14 of its 28 layers (both cut so
+# full width with 4 of its 32 layers (its 40 experts top 8 in every
+# layer) and gemma-7b at full width with 8 of its 28 layers (both cut so
 # that the smoke fits its time);
-# granite-34b at full width with 24 of its 88 layers (all 88 in bf16,
+# granite-34b at full width with 12 of its 88 layers (all 88 in bf16,
 # some 93 GB with the port's three-matrix MLP, leave no room on an
-# 80 GB card); dbrx-132b at full width with 4 of its 40 layers (6.3 GB of
+# 80 GB card; 12 so that the smoke fits its time); dbrx-132b at full width with 4 of its 40 layers (6.3 GB of
 # bf16 experts a layer) and posit8 KV, as its serving config asks.
 _DENSE_KERNELS = ("posit_paged_write", "posit_paged_read", "paged_decode_attention")
 _TRACE8 = ["posit8" if a == "posit16" else a for a in _TRACE]
 MAIN_PATHS.update({
-    "granite-moe-3b-a800m": (["--arch", "granite-moe-3b-a800m", "--n-layers", "8"] + _TRACE,
+    "granite-moe-3b-a800m": (["--arch", "granite-moe-3b-a800m", "--n-layers", "4"] + _TRACE,
                              _DENSE_KERNELS),
-    "gemma-7b": (["--arch", "gemma-7b", "--n-layers", "14"] + _TRACE, _DENSE_KERNELS),
-    "granite-34b": (["--arch", "granite-34b", "--n-layers", "24"] + _TRACE, _DENSE_KERNELS),
+    "gemma-7b": (["--arch", "gemma-7b", "--n-layers", "8"] + _TRACE, _DENSE_KERNELS),
+    "granite-34b": (["--arch", "granite-34b", "--n-layers", "12"] + _TRACE, _DENSE_KERNELS),
     "dbrx-132b": (["--arch", "dbrx-132b", "--n-layers", "4"] + _TRACE8, _DENSE_KERNELS),
 })
 # paths whose fused decode kernel is held to the gather path on the
@@ -2311,40 +2324,62 @@ BF16_DENSE_FLOPS = 989.4e12    # H100 SXM data sheet: bf16 dense tensor-core pea
 PLAIN_CHUNK = 1 << 25          # elements a chunk of the plain codec on the card
 # (T2) one family a process-local run of two train steps at full width:
 # arch -> (layers, 0 = all; batch; sequence).  rwkv6-7b's 32 layers are
-# 7.6 B parameters, 106 GB of f32 training state: 8 layers; minicpm3-4b
-# at 31 of 62, hymba-1.5b at 16 of 32 (so that the smoke fits its time);
+# 7.6 B parameters, 106 GB of f32 training state: 4 layers; minicpm3-4b
+# at 16 of 62, hymba-1.5b at 8 of 32 (so that the smoke fits its time);
 # the others whole.  hymba's sequence is a multiple of its
 # SSD chunk (64) beyond its 128 meta tokens, rwkv6's of its WKV chunk
 # (16); whisper's is its decoder context, 448, with 1 500 seeded frames
 TRAIN_FAMILIES = {
-    "minicpm3-4b": (31, 8, 512),
+    "minicpm3-4b": (16, 8, 512),
     "granite-moe-3b-a800m": (0, 8, 512),
-    "hymba-1.5b": (16, 8, 512),
-    "rwkv6-7b": (8, 8, 512),
+    "hymba-1.5b": (8, 8, 512),
+    "rwkv6-7b": (4, 8, 512),
     "whisper-tiny": (0, 8, 448),
 }
 PHASE_TAG = "PHASE_RESULT "
 
 
-def run_phase_process(phase, timeout=900):
-    """``chip_smoke.py --phase <phase>`` in a child process: its lines
-    echoed, its result (the line tagged ``PHASE_TAG``) returned; a
-    non-zero exit fails the smoke."""
+def start_phase_process(phase):
+    """Start ``chip_smoke.py --phase <phase>`` in a child process, its
+    output into a temporary file; returns the handle
+    :func:`finish_phase_process` takes."""
     gc.collect()
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--phase", phase],
-                          stdout=subprocess.PIPE, text=True, timeout=timeout)
+    out = tempfile.TemporaryFile(mode="w+")
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--phase", phase],
+                            stdout=out, text=True)
+    return phase, proc, out, time.perf_counter()
+
+
+def finish_phase_process(handle, timeout=900):
+    """Wait for a started phase: its lines echoed, its result (the line
+    tagged ``PHASE_TAG``) returned; a non-zero exit or no result fails
+    the smoke."""
+    phase, proc, out, t0 = handle
+    try:
+        rc = proc.wait(timeout=max(1.0, timeout - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        fail(f"the {phase} phase ran past {timeout} s")
+    out.seek(0)
     result = None
-    for line in proc.stdout.splitlines():
+    for line in out.read().splitlines():
         if line.startswith(PHASE_TAG):
             result = json.loads(line[len(PHASE_TAG):])
         else:
             print(line)
+    out.close()
     print(f"phase {phase}: its process took {time.perf_counter() - t0:.1f} s", flush=True)
-    if proc.returncode != 0 or result is None:
-        fail(f"the {phase} phase exited {proc.returncode}")
+    if rc != 0 or result is None:
+        fail(f"the {phase} phase exited {rc}")
     return result
+
+
+def run_phase_process(phase, timeout=900):
+    """``chip_smoke.py --phase <phase>`` in a child process, waited for
+    (:func:`start_phase_process`, :func:`finish_phase_process`)."""
+    return finish_phase_process(start_phase_process(phase), timeout)
 
 
 def _roomiest_dir():
@@ -2660,10 +2695,12 @@ K1_LOSS_RTOL, K1_GNORM_RTOL, K1_LEAF_RTOL = 1e-4, 2e-4, 1e-3
 _LAST = int(TRAIN_ARGV[TRAIN_ARGV.index("--n-layers") + 1]) - 1    # (T)'s last layer
 K1_LEAVES = ("tok_embed", "layers/0/ln1/scale", "layers/0/attn/wq/w", "layers/0/attn/wk/w",
              "layers/0/attn/wo/w", f"layers/{_LAST}/mlp/wg/w", "final_norm/scale")
-# (k2) internvl2-1b at full width and depth, the compressed gate's
-# configuration: visual tokens off, posit16 on the pod wire, 2 pods of
-# 4 x 512 rows; (k3) restores its state after two steps on one rank
+# (k2) internvl2-1b at full width, 8 of its 24 layers (cut so that the
+# smoke fits its time), the compressed gate's configuration: visual
+# tokens off, posit16 on the pod wire, 2 pods of 4 x 512 rows; (k3)
+# restores its state after two steps on one rank
 POD_ARCH, POD_SEED, POD_BATCH, POD_SEQ, N_PODS = "internvl2-1b", 9, 8, 512, 2
+POD_LAYERS = 8
 POD_REDUCED = False            # a CPU rehearsal shrinks (k2) to the reduced config
 # the same loss on other row groupings (pods of 4 rows, microbatches of
 # 2), each a mean over thousands of bf16 token losses: a sound run
@@ -2702,11 +2739,15 @@ def _sync_peak(dev, reset=False):
     return torch.cuda.max_memory_allocated(dev) / 2**30
 
 
-def k1_rank(argv, devices, steps):
+def k1_rank(argv, devices, steps, seq=False):
     """(k1) one rank: (T)'s model, seed, data, schedule and moments
     (``argv``, (T)'s command line) through ``make_train_step`` on a
     ``(1, 2)`` mesh, every group split at 2.  Returns its losses,
-    gradient norms, step walls, launches, leaves and peak memory."""
+    gradient norms, step walls, launches, leaves and peak memory.
+    ``seq`` ((n1)): the config's ``seq_shard_activations`` kept on, the
+    sequence layout."""
+    import dataclasses
+
     from repro_torch import tree as TT
     from repro_torch.data.pipeline import DataConfig, Pipeline
     from repro_torch.launch import train
@@ -2717,10 +2758,10 @@ def k1_rank(argv, devices, steps):
 
     dev = _rank_device(devices)
     args = train.build_parser().parse_args(argv)
-    cfg = train.model_config(args)
+    cfg = dataclasses.replace(train.model_config(args), seq_shard_activations=seq)
     mesh = make_mesh((1, 2), ("data", "model"), dev.type)
-    tp = sharding.tensor_parallel(cfg, mesh)
-    if not all((tp.attn, tp.kv, tp.mlp, tp.vocab)):
+    tp = sharding.tensor_parallel(cfg, mesh, seq=seq)
+    if not all((tp.attn, tp.kv, tp.mlp, tp.vocab)) or tp.seq != seq:
         fail(f"(k1) a group of gemma-7b does not split at 2: {tp}")
     reset_counts()
     _sync_peak(dev, reset=True)
@@ -2752,7 +2793,7 @@ def k1_rank(argv, devices, steps):
     return dict(losses=losses, grad_norms=gnorms, walls=walls, counts=read_counts(),
                 leaf_sq=[r.tolist() for r in leaf_sq], leaf_split=[split[p] for p in K1_LEAVES],
                 n_leaves=len(leaves), n_params=sum(p.numel() for p in leaves),
-                wall=time.perf_counter() - t0, wire={"/".join(k): v for k, v in
+                wall=time.perf_counter() - t0, wire={"/".join(k): list(v) for k, v in
                                                      collectives.wire.items()},
                 peak_gib=peak)
 
@@ -2762,8 +2803,8 @@ def _pod_config(reduced=False):
 
     from repro_torch import configs
     cfg = configs.get_config(POD_ARCH)
-    if reduced:
-        cfg = cfg.reduced(compute_dtype="float32")
+    cfg = cfg.reduced(compute_dtype="float32") if reduced else dataclasses.replace(
+        cfg, n_layers=POD_LAYERS)
     return dataclasses.replace(cfg, n_visual_tokens=0, fsdp=False,
                                seq_shard_activations=False, grad_compress="posit16")
 
@@ -2951,7 +2992,7 @@ def train_ranks_phase(dev):
         fail(f"(k2) step 0's loss {r0['losses'][0]} against the data-parallel step's "
              f"{r0['dp_loss']}")
     per_step = r0["wire"]["pod/broadcast/grad/uint16"][1] / RANK_STEPS
-    print(f"(k2) {POD_ARCH} at full width, all {_pod_config(POD_REDUCED).n_layers} layers, "
+    print(f"(k2) {POD_ARCH} at full width, {_pod_config(POD_REDUCED).n_layers} layers, "
           f"{r0['n_elems']:,} parameters in {n} leaves, 2 pods of {POD_BATCH // N_PODS} x "
           f"{POD_SEQ}, posit16 wire, posit16 moments: losses "
           f"{[round(x, 6) for x in r0['losses']]} (an uncompressed data-parallel step 0: "
@@ -2992,38 +3033,39 @@ def train_ranks_phase(dev):
                 k1_wall=k1_wall, k2_wall=k2_wall, wire_bytes_per_step=per_step)
 
 
-def check_train_ranks(trained, ranked):
+def check_train_ranks(trained, ranked, label="(k1)"):
     """(k1) against (T): each step's loss, gradient norm and the norms of
     the ``K1_LEAVES`` gradients (a split leaf's squares summed over the
     ranks, a replicated one's from rank 0) within ``K1_LOSS_RTOL``,
     ``K1_GNORM_RTOL`` and ``K1_LEAF_RTOL``; the step walls and peak
-    memory beside (T)'s."""
+    memory beside (T)'s.  ``label``: the lane held ((n1) under the
+    sequence layout, its ranks ``ranked["k1"]`` too)."""
     ranks = ranked["k1"]
     r0 = ranks[0]
     for i in range(RANK_STEPS):
         dl = abs(r0["losses"][i] - trained["losses"][i]) / trained["losses"][i]
         dg = abs(r0["grad_norms"][i] - trained["grad_norms"][i]) / trained["grad_norms"][i]
-        print(f"(k1) step {i}: loss {r0['losses'][i]:.6f} against (T)'s "
+        print(f"{label} step {i}: loss {r0['losses'][i]:.6f} against (T)'s "
               f"{trained['losses'][i]:.6f} ({dl:.2e} relative, limit {K1_LOSS_RTOL}); grad "
               f"norm {r0['grad_norms'][i]:.6f} against {trained['grad_norms'][i]:.6f} "
               f"({dg:.2e}, limit {K1_GNORM_RTOL}); step wall {r0['walls'][i]:.3f} s "
               f"against {trained['walls'][i]:.3f} s")
         if dl > K1_LOSS_RTOL or dg > K1_GNORM_RTOL:
-            fail(f"(k1) step {i} differs from (T)'s beyond bf16 rounding")
+            fail(f"{label} step {i} differs from (T)'s beyond bf16 rounding")
         worst = []
         for j, path in enumerate(K1_LEAVES):
             sq = sum(r["leaf_sq"][i][j] for r in ranks) if r0["leaf_split"][j] \
                 else r0["leaf_sq"][i][j]
             got, want = math.sqrt(sq), math.sqrt(trained["leaf_sq"][i][j])
             worst.append((abs(got - want) / want, path, got, want))
-        print(f"(k1) step {i}, gradient norms of single leaves against (T)'s (relative, "
+        print(f"{label} step {i}, gradient norms of single leaves against (T)'s (relative, "
               f"limit {K1_LEAF_RTOL}): " + ", ".join(
                   f"{p}{' (split)' if r0['leaf_split'][j] else ''} {g:.6g} vs {w:.6g} "
                   f"({d:.2e})" for j, (d, p, g, w) in enumerate(worst)))
         bad = [p for d, p, _, _ in worst if not d <= K1_LEAF_RTOL]
         if bad:
-            fail(f"(k1) step {i}: the gradients of {bad} differ from (T)'s")
-    print(f"(k1) peak device memory per rank {[round(r['peak_gib'], 2) for r in ranks]}"
+            fail(f"{label} step {i}: the gradients of {bad} differ from (T)'s")
+    print(f"{label} peak device memory per rank {[round(r['peak_gib'], 2) for r in ranks]}"
           f" GiB against (T)'s {trained['peak_gib']:.2f} GiB on one rank")
 
 
@@ -3074,23 +3116,28 @@ TM_LEAVES = {
                      "dec_layers/3/mlp/wi/w", "dec_layers/0/ln_x/scale"),
     "hymba-1.5b": ("tok_embed", "meta_tokens", "layers/0/wq/w", "layers/0/wk/w",
                    "layers/1/wo/w", "layers/1/mlp/wi/w", "layers/0/ln1/scale"),
+    "internvl2-1b": ("tok_embed", "layers/0/attn/wq/w", "layers/0/mlp/wi/w",
+                     "layers/1/mlp/wo/w", "layers/0/ln1/scale", "final_norm/scale"),
 }
 # rows 1 and 2 at a rank's shape of each family's largest leaf (its m)
 TM_CODEC_LEAF = "tok_embed"
 
 
-def _tm_config(arch, f32=()):
+def _tm_config(arch, f32=(), seq=False):
+    """(m)'s config of ``arch`` (``TM_LAUNCHES``' depth); ``seq``: (n)'s
+    (``TN_LAUNCHES``' depth, the sequence layout's flag kept on)."""
     import dataclasses
 
     from repro_torch import configs
-    layers = next(launch[arch] for launch in TM_LAUNCHES.values() if arch in launch)
+    launches = TN_LAUNCHES if seq else TM_LAUNCHES
+    layers = next(launch[arch] for launch in launches.values() if arch in launch)
     cfg = configs.get_config(arch)
     if TM_REDUCED:
         cfg = cfg.reduced(compute_dtype="float32")
     if arch in f32:
         cfg = dataclasses.replace(cfg, compute_dtype="float32")
     return dataclasses.replace(cfg, n_layers=layers or cfg.n_layers, fsdp=False,
-                               seq_shard_activations=False)
+                               seq_shard_activations=seq)
 
 
 def _tm_squares(grads, split, n):
@@ -3108,14 +3155,15 @@ def _tm_squares(grads, split, n):
     return torch.stack(rows)
 
 
-def tm_train(arch, dev, steps, mesh=None, f32=()):
+def tm_train(arch, dev, steps, mesh=None, f32=(), seq=False):
     """(m) one run of ``arch``: ``steps`` steps of ``make_train_step`` on
     one device or, with ``mesh``, on this rank of it (its shard drawn as
     the weights are, posit16 moments).  Returns the losses, norms, walls,
     launches, every gradient leaf's squares (``_tm_squares``) a step, the
     partial leaves and their bytes, the wire and the peak memory; on
     rank 0 of a mesh, rows 1 and 2 at ``TM_CODEC_LEAF``'s m.  ``f32``:
-    the archs run in f32 compute."""
+    the archs run in f32 compute; ``seq``: (n)'s config
+    (``_tm_config``)."""
     import torch.distributed as dist
 
     from repro_torch import tree as TT
@@ -3126,8 +3174,8 @@ def tm_train(arch, dev, steps, mesh=None, f32=()):
     from repro_torch.optim import adamw
     from repro_torch.runtime import collectives, sharding, train_loop
 
-    cfg = _tm_config(arch, f32)
-    tp = None if mesh is None else sharding.tensor_parallel(cfg, mesh)
+    cfg = _tm_config(arch, f32, seq)
+    tp = None if mesh is None else sharding.tensor_parallel(cfg, mesh, seq=seq)
     reset_counts()
     _sync_peak(dev, reset=True)
     collectives.wire.clear()
@@ -3174,7 +3222,7 @@ def tm_train(arch, dev, steps, mesh=None, f32=()):
                squares=[r.tolist() for r in record], paths=[p for p, _ in named],
                partial=[p for (p, _), part in zip(named, partial) if part],
                partial_bytes=partial_bytes, peak_gib=peak, wall=time.perf_counter() - t0,
-               wire={"/".join(k): v for k, v in collectives.wire.items()})
+               wire={"/".join(k): list(v) for k, v in collectives.wire.items()})
     if mesh is not None and dist.get_rank() == 0:
         x = dict(TT.leaves_with_paths(opt["v"]))[TM_CODEC_LEAF].contiguous()
         pats = dict(TT.leaves_with_paths(opt["m"]))[TM_CODEC_LEAF].contiguous()
@@ -3191,14 +3239,14 @@ def tm_train(arch, dev, steps, mesh=None, f32=()):
     return out
 
 
-def tm_rank(archs, devices, steps, f32=()):
+def tm_rank(archs, devices, steps, f32=(), seq=False):
     """(m) one rank: each of ``archs`` on a ``(1, ranks)`` mesh
     (``tm_train``)."""
     from repro_torch.launch.mesh import make_mesh
 
     dev = _rank_device(devices)
     mesh = make_mesh((1, len(devices)), ("data", "model"), dev.type)
-    return {arch: tm_train(arch, dev, steps, mesh, f32) for arch in archs}
+    return {arch: tm_train(arch, dev, steps, mesh, f32, seq) for arch in archs}
 
 
 def _tm_leaf_norms(run, ranks=None):
@@ -3212,31 +3260,33 @@ def _tm_leaf_norms(run, ranks=None):
             for j, p in enumerate(run["paths"])}
 
 
-def check_train_model(arch, one, ranks, wall):
+def check_train_model(arch, one, ranks, wall, seq=False):
     """(m) one arch: the ranks' launches exact (a quantize a leaf at init
     and a step, a dequantize a leaf a step) and losses equal; the
     ``"model"`` all-reduces of the gradient one a partial leaf a step,
     of its bytes; each step's loss, global gradient norm and the norms
-    of the partial leaves and ``TM_LEAVES`` against one device's."""
+    of the partial leaves and ``TM_LEAVES`` against one device's.
+    ``seq``: an arch of (n), its config ``_tm_config``'s with ``seq``."""
+    label = "(n)" if seq else "(m)"
     r0, mp = ranks[0], len(ranks)
     for rank, r in enumerate(ranks):
         expect = {k: 0 for k in r["counts"]}
         expect.update(posit_quantize=r["n_leaves"] * (1 + TM_STEPS),
                       posit_dequantize=r["n_leaves"] * TM_STEPS)
         if r["counts"] != expect:
-            fail(f"(m) {arch} rank {rank} launched {r['counts']}, expected {expect}")
+            fail(f"{label} {arch} rank {rank} launched {r['counts']}, expected {expect}")
         if r["losses"] != r0["losses"] or r["grad_norms"] != r0["grad_norms"]:
-            fail(f"(m) {arch} rank {rank}'s losses or norms differ from rank 0's")
+            fail(f"{label} {arch} rank {rank}'s losses or norms differ from rank 0's")
         grad = r["wire"].get("model/all_reduce/grad/float32", [0, 0])
         want = [len(r["partial"]) * TM_STEPS, r["partial_bytes"] * TM_STEPS]
         if grad != want:
-            fail(f"(m) {arch} rank {rank}: the partial gradients' all-reduces {grad}, want "
+            fail(f"{label} {arch} rank {rank}: the partial gradients' all-reduces {grad}, want "
                  f"{want} ({len(r['partial'])} leaves of {r['partial_bytes']:,} bytes a step)")
     if one["paths"] != r0["paths"]:
-        fail(f"(m) {arch}: the ranks' leaves are not one device's")
+        fail(f"{label} {arch}: the ranks' leaves are not one device's")
     ar = {k: v for k, v in r0["wire"].items() if k.startswith("model/")}
-    cfg = _tm_config(arch, TM_F32)
-    print(f"(m) {arch} at full width, {cfg.n_layers} layers, {cfg.compute_dtype}, 'model' {mp} "
+    cfg = _tm_config(arch, TN_F32 if seq else TM_F32, seq)
+    print(f"{label} {arch} at full width, {cfg.n_layers} layers, {cfg.compute_dtype}, 'model' {mp} "
           f"({mp} ranks sharing one card over gloo, not a multi-card speed), batch "
           f"{TM_BATCH} x {TM_SEQ}, posit16 moments: losses "
           f"{[round(x, 4) for x in r0['losses']]}, grad norms "
@@ -3258,7 +3308,7 @@ def check_train_model(arch, one, ranks, wall):
         worst = sorted(((abs(got_l[p][i] - want_l[p][i]) / want_l[p][i], p)
                         for p in got_l if want_l[p][i] > 0), reverse=True)
         leaf = {p: abs(got_l[p][i] - want_l[p][i]) / want_l[p][i] for p in held}
-        print(f"(m) {arch} step {i}: loss {r0['losses'][i]:.6f} against one device's "
+        print(f"{label} {arch} step {i}: loss {r0['losses'][i]:.6f} against one device's "
               f"{one['losses'][i]:.6f} ({dl:.2e} relative, limit {loss_tol}); grad norm "
               f"{r0['grad_norms'][i]:.6f} against {one['grad_norms'][i]:.6f} ({dg:.2e}, limit "
               f"{gnorm_tol}); leaf gradient norms (limit {leaf_tol}): partial "
@@ -3266,10 +3316,10 @@ def check_train_model(arch, one, ranks, wall):
               + ", ".join(f"{p} {leaf[p]:.2e}" for p in TM_LEAVES[arch])
               + f"; of all {len(worst)} leaves the worst {worst[0][1]} {worst[0][0]:.2e}")
         if dl > loss_tol or dg > gnorm_tol:
-            fail(f"(m) {arch} step {i} differs from one device's beyond rounding")
+            fail(f"{label} {arch} step {i} differs from one device's beyond rounding")
         bad = [p for p in held if not leaf[p] <= leaf_tol]
         if bad:
-            fail(f"(m) {arch} step {i}: the gradients of {bad} differ from one device's")
+            fail(f"{label} {arch} step {i}: the gradients of {bad} differ from one device's")
 
 
 def train_model_phase(dev):
@@ -3312,9 +3362,119 @@ def train_model_phase(dev):
     return dict(counts=counts, codec=codec, archs=out, wall=wall)
 
 
+# ---------------------------------------------------------------------------
+# (n) the sequence layout across ranks: the configs' seq_shard_activations
+# (Megatron-SP residuals, context-parallel attention) as explicit
+# collectives, ranks sharing the one card over gloo, so no wall here is a
+# multi-card speed
+# ---------------------------------------------------------------------------
+
+# one spawn a "model" size: size -> {arch: layers}.  At 2, (n1) runs
+# first in the same ranks (gemma-7b as (T), every group split); hymba-1.5b
+# at 2: 25 heads do not split, so its attention branch is context-parallel,
+# its MLP splits (5 504) and its vocabulary (32 001) does not; layers 0
+# (global) and 1 (a window layer), as (m).  internvl2-1b at 4: 14 heads
+# and 2 KV heads do not split (context-parallel attention), d_ff 4 864
+# does, the 151 655-row tied vocabulary does not (each rank's loss on its
+# own positions); 4 of 24 layers, cut so that the phase fits its time,
+# its 256 visual tokens the whole of rank 0's 128 positions and half of
+# rank 1's
+TN_LAUNCHES = {2: {"hymba-1.5b": 2}, 4: {"internvl2-1b": 4}}
+TN_F32 = ("hymba-1.5b", "internvl2-1b")    # (m)'s f32 limits
+# the sequence collectives each lane must show on the wire
+TN_KINDS = {"gemma-7b": ("seq_gather", "seq_scatter"), "internvl2-1b": ("seq_gather",
+                                                                       "seq_scatter"),
+            "hymba-1.5b": ("seq_gather_replicated",)}
+
+
+def _seq_wire(arch, wire):
+    """A run's ``"model"`` sequence collectives and their backward
+    all-reduces, ``{what: [calls, bytes]}``; fails where a kind of
+    ``TN_KINDS`` is missing (the layout did not run)."""
+    got = {k.split("/")[2]: v for k, v in wire.items()
+           if k.startswith("model/all_reduce/seq_") or k == "model/all_reduce/backward/float32"}
+    missing = [k for k in TN_KINDS[arch] if k not in got]
+    if missing:
+        fail(f"(n) {arch}: no {missing} on the wire {wire}: the sequence layout did not run")
+    return got
+
+
+def tn_rank(devices, steps):
+    """(n) one rank: at "model" 2, (n1) (``k1_rank`` under the sequence
+    layout) then hymba-1.5b; at 4, internvl2-1b (``tm_rank``)."""
+    out = tm_rank(list(TN_LAUNCHES[len(devices)]), devices, steps, TN_F32, seq=True)
+    if len(devices) == 2:
+        out["n1"] = k1_rank(TRAIN_ARGV, devices, steps, seq=True)
+    return out
+
+
+def train_seq_phase(dev):
+    """(n): (n2) and (n3) on one device, then each launch's ranks (one
+    spawn a "model" size), held to the one-device runs
+    (``check_train_model``); (n1)'s ranks are returned for the parent to
+    hold to (T) (``check_train_ranks``).  Checks each lane's launches
+    and that its sequence collectives ran."""
+    from repro_torch.launch import mesh as M
+
+    t_phase = time.perf_counter()
+    counts = {k: 0 for k in read_counts()}
+    one, codec, out = {}, {}, {}
+    for launch in TN_LAUNCHES.values():
+        for arch in launch:
+            one[arch] = tm_train(arch, dev, TM_STEPS, f32=TN_F32, seq=True)
+            counts = {k: counts[k] + v for k, v in one[arch]["counts"].items()}
+    for mp, launch in TN_LAUNCHES.items():
+        devices = [TM_DEVICE] * mp
+        t0 = time.perf_counter()
+        res = M.spawn(tn_rank, devices, (devices, TM_STEPS), timeout=900)
+        wall = time.perf_counter() - t0
+        for arch in launch:
+            ranks = [r[arch] for r in res]
+            check_train_model(arch, one[arch], ranks, wall, seq=True)
+            codec.update(ranks[0]["codec"])
+            for r in ranks:
+                counts = {k: counts[k] + v for k, v in r["counts"].items()}
+            out[arch] = dict(one={k: one[arch][k] for k in ("losses", "grad_norms", "walls",
+                                                            "peak_gib")},
+                             ranks={k: ranks[0][k] for k in ("losses", "grad_norms", "walls")},
+                             peak_gib=[r["peak_gib"] for r in ranks], wall=wall,
+                             wire=_seq_wire(arch, ranks[0]["wire"]))
+            print(f"(n) {arch}: sequence collectives on 'model' of rank 0 over {TM_STEPS} "
+                  f"steps (calls, bytes): {out[arch]['wire']}")
+        if mp == 2:
+            n1 = [r["n1"] for r in res]
+            n = n1[0]["n_leaves"]
+            for rank, r in enumerate(n1):
+                expect = {k: 0 for k in r["counts"]}
+                expect.update(posit_quantize=n * (1 + TM_STEPS), posit_dequantize=n * TM_STEPS)
+                if r["counts"] != expect:
+                    fail(f"(n1) rank {rank} launched {r['counts']}, expected {expect}")
+                if r["losses"] != n1[0]["losses"] or r["grad_norms"] != n1[0]["grad_norms"]:
+                    fail(f"(n1) rank {rank}'s losses or norms differ from rank 0's")
+                counts = {k: counts[k] + v for k, v in r["counts"].items()}
+            out["n1"] = dict(ranks=n1, wall=wall, wire=_seq_wire("gemma-7b", n1[0]["wire"]))
+            print(f"(n1) gemma-7b at (T)'s shape, 'model' 2 under the sequence layout, two "
+                  f"ranks sharing one card over gloo, not a multi-card speed: losses "
+                  f"{[round(x, 4) for x in n1[0]['losses']]}, grad norms "
+                  f"{[round(x, 4) for x in n1[0]['grad_norms']]}; step walls "
+                  f"{[round(x, 3) for x in n1[0]['walls']]} s; peak device memory per rank "
+                  f"{[round(r['peak_gib'], 2) for r in n1]} GiB; launches per rank "
+                  f"{ {k: v for k, v in n1[0]['counts'].items() if v} }; sequence "
+                  f"collectives on 'model' of rank 0 over {TM_STEPS} steps (calls, bytes): "
+                  f"{out['n1']['wire']}; {CARD}")
+    for key, rr in codec.items():
+        for kind, t in rr.items():
+            print(f"(n) posit_{kind} at {key}'s m on a rank {t['shape']}: {t['ms']:.4f} ms, "
+                  f"alone {t['kernel_ms']:.4f} ms (bound {t['bound_ms']:.4f} ms by bytes, "
+                  f"plain by chunks {t['plain_ms']:.2f} ms)")
+    wall = time.perf_counter() - t_phase
+    print(f"(n) phase wall {wall:.1f} s, the one-device runs and the ranks' start included")
+    return dict(counts=counts, codec=codec, archs=out, wall=wall)
+
+
 PHASES = {"train": train_phase, "train-families": train_families_phase, "tp": tp_phase,
           "tp-linear": tp_linear_phase, "train-ranks": train_ranks_phase,
-          "train-model": train_model_phase}
+          "train-model": train_model_phase, "train-seq": train_seq_phase}
 
 
 def run_phase(name):
@@ -4001,9 +4161,24 @@ def run(pool):
     ranked = run_phase_process("train-ranks")
     check_train_ranks(trained, ranked)
     by_path["train_ranks"] = ranked["counts"]
-    # (m) hymba, rwkv6 and whisper trained across ranks at "model" > 1
+    # (m) hymba, rwkv6 and whisper trained across ranks at "model" > 1,
+    # and (n) the sequence layout across ranks, side by side: two
+    # processes on the one card, whose ranks already share it over gloo
+    # (no wall of theirs is a speed); (n1) held to (T) as (k1) is
+    seq_handle = start_phase_process("train-seq")
     modeled = run_phase_process("train-model")
     by_path["train_model"] = modeled["counts"]
+    seqd = finish_phase_process(seq_handle)
+    n1 = seqd["archs"]["n1"]["ranks"]
+    check_train_ranks(trained, {"k1": n1}, label="(n1)")
+    print(f"(n1) peak device memory per rank {[round(r['peak_gib'], 2) for r in n1]} GiB "
+          f"against (k1)'s {[round(r['peak_gib'], 2) for r in ranked['k1']]} GiB under the "
+          f"head layout; 'model' wire a rank over {RANK_STEPS} steps, (n1) "
+          f"{sum(v[1] for k, v in n1[0]['wire'].items() if k.startswith('model/')):,} bytes "
+          f"against (k1)'s "
+          f"{sum(v[1] for k, v in ranked['k1'][0]['wire'].items() if k.startswith('model/')):,}"
+          f"; {CARD}")
+    by_path["train_seq"] = seqd["counts"]
     for kernel in ("posit_ew", "posit_dot", "posit_qgemm", "posit_gemm"):
         if not any(c[kernel] > 0 for p, c in by_path.items()
                    if p in ("conv", "dense", "cache")):
@@ -4017,6 +4192,7 @@ def run(pool):
             row["train"] = {leaf: r[kind] for leaf, r in trained["codec"].items()}
             row["wire"] = {leaf: r[kind] for leaf, r in ranked["codec"].items()}
             row["train_model"] = {leaf: r[kind] for leaf, r in modeled["codec"].items()}
+            row["train_seq"] = {leaf: r[kind] for leaf, r in seqd["codec"].items()}
         row["launches_by_path"] = {p: c[row["name"]] for p, c in by_path.items()}
         row["launches"] = sum(row["launches_by_path"].values())
     for row in rows:

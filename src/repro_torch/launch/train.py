@@ -18,6 +18,10 @@ batches from the seeds, runs its rows and all-reduces the gradients;
 rank 0 prints and writes the checkpoints.  Model parallelism (every
 family) and the pod-compressed step have no flag, as in the reference:
 they are reached through ``runtime.train_loop.make_train_step(mesh=)``.
+So is the sequence layout (Megatron-SP residuals and context-parallel
+attention), which that step takes under a ``"model"`` axis from the
+config's ``seq_shard_activations``; this launcher turns the flag off, as
+the reference's does.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch gemma-7b \\
       --reduced --steps 300 --batch 8 --seq 128 --device cpu

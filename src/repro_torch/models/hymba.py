@@ -44,8 +44,21 @@ same layers under autograd, the inputs of ``wq``/``wk``/``wv``,
 columns of ``in_proj`` then hold only this rank's heads' part of their
 gradient, which the train step all-reduces
 (``sharding.partial_grad_leaves``).
+
+The sequence layout (``tp.seq``, the reference's
+``_attn_context_parallel``) changes the attention branch alone, and only
+where its heads do not split: the queries of this rank's positions
+against the keys and values of the whole sequence (the window or global
+mask on absolute positions), ``attn_norm`` on those positions, then
+``tp.seq_gather_replicated`` back to the whole sequence before the
+merge.  The SSM branch, the merge, the MLP and the residual stay whole
+on every rank, as in the reference (it sets no residual constraint in
+hymba); the branch's input enters through ``tp.enter``, since each
+rank's queries give a part of its gradient.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 import torch.nn.functional as F
@@ -205,31 +218,41 @@ def _ssm_branch_full(p, x, cfg: ModelConfig, h0=None, tp=None):
     return L.rms_norm(p["ssm_norm"], y, cfg, tp), hfin
 
 
-def _attn_branch_full(p, x, positions, cfg: ModelConfig, *, is_global, tp=None):
+def _attn_branch_full(p, x, positions, cfg: ModelConfig, *, is_global, tp=None, cp=None):
     """``tp``: the plan where the mixer splits; the input enters ``wq``
     (and ``wk``/``wv`` where the KV heads split; one whole KV head's K
-    and V enter instead, as every rank's heads read them)."""
+    and V enter instead, as every rank's heads read them).  ``cp``: the
+    plan of a context-parallel branch (the sequence layout, the heads
+    whole): the queries of this rank's positions against every key, the
+    normalised output gathered back to the whole sequence."""
     bsz, s, _ = x.shape
     hd = cfg.head_dim
-    xq = L.enter(x, tp)
+    q_pos = positions.expand(bsz, s)
+    if cp is not None:
+        x = cp.enter(x)
+        p0, sq = cp.positions(s)
+        xq, q_pos = cp.seq_slice(x), q_pos[:, p0:p0 + sq]
+    else:
+        xq, sq = L.enter(x, tp), s
     xkv = xq if tp is not None and tp.kv else x
-    q = L.dense(p["wq"], xq, cfg).reshape(bsz, s, cfg.n_heads, hd)
+    q = L.dense(p["wq"], xq, cfg).reshape(bsz, sq, cfg.n_heads, hd)
     k = L.dense(p["wk"], xkv, cfg).reshape(bsz, s, cfg.n_kv_heads, hd)
     v = L.dense(p["wv"], xkv, cfg).reshape(bsz, s, cfg.n_kv_heads, hd)
     if tp is not None and not tp.kv:
         k, v = tp.enter(k), tp.enter(v)
-    q = L.apply_rope(q, positions, cfg.rope_theta)
+    q = L.apply_rope(q, q_pos, cfg.rope_theta)
     k = L.apply_rope(k, positions, cfg.rope_theta)
     window = 0 if is_global else cfg.sliding_window
-    out = L.flash_attention(q, k, v, causal=True, cfg=cfg, window=window)
-    out = out.reshape(bsz, s, cfg.n_heads * hd)
-    return L.rms_norm(p["attn_norm"], out, cfg, tp), (k, v)
+    out = L.flash_attention(q, k, v, causal=True, cfg=cfg, window=window, q_positions=q_pos)
+    out = L.rms_norm(p["attn_norm"], out.reshape(bsz, sq, cfg.n_heads * hd), cfg, tp)
+    return (out if cp is None else cp.seq_gather_replicated(out)), (k, v)
 
 
 def _train_layer(lp, h, positions, cfg: ModelConfig, is_global: bool, tp=None):
     mix, ff = L.split_plan(tp, "attn"), L.split_plan(tp, "mlp")
+    cp = tp if tp is not None and tp.seq and mix is None else None
     xin = L.rms_norm(lp["ln1"], h, cfg)
-    a, _ = _attn_branch_full(lp, xin, positions, cfg, is_global=is_global, tp=mix)
+    a, _ = _attn_branch_full(lp, xin, positions, cfg, is_global=is_global, tp=mix, cp=cp)
     m, _ = _ssm_branch_full(lp, xin, cfg, tp=mix)
     h = h + _merge(lp, a, m, cfg, mix)
     return h + L.mlp(lp["mlp"], L.enter(L.rms_norm(lp["ln2"], h, cfg), ff), cfg, ff)
@@ -278,6 +301,8 @@ def train_loss(params, batch, cfg: ModelConfig, *, tp=None, denom=None):
     x = _forward(params, batch["tokens"], cfg, tp)
     labels, mask = loss_labels(batch, cfg)
     w = params["lm_head"]["w"].to(x.dtype)
+    if tp is not None and tp.seq:           # the residual, and so the head's input, is whole
+        tp = dataclasses.replace(tp, seq=False)
     return L.chunked_xent(x, w, labels, mask, cfg.loss_chunk, denom=denom, tp=tp)
 
 

@@ -917,13 +917,32 @@ def chunked_xent(x, w, labels, mask, loss_chunk: int, *, denom=None, tp=None):
     ``tp`` whose vocabulary splits, ``w`` holds this rank's columns and
     the loss is vocabulary-parallel: each chunk's maximum, sum of
     exponentials and gold logit are all-reduced, and ``x`` enters the
-    column-parallel head through ``tp.enter``."""
+    column-parallel head through ``tp.enter``.
+
+    Under the sequence layout (``tp.seq``) ``x`` holds this rank's
+    positions and ``labels``/``mask`` the whole sequence's.  Where the
+    vocabulary splits, the head takes the whole sequence
+    (``tp.seq_gather``) and the loss stays vocabulary-parallel; where it
+    does not, each rank's loss covers its own positions (those of whole
+    chunks of the whole sequence, in chunks that divide its share) and
+    the sums are added over the group (``tp.reduce``)."""
+    labels = labels.to(torch.int64)
+    seq = tp is not None and tp.seq
+    vocab_parallel = tp is not None and tp.vocab
+    if seq and vocab_parallel:
+        x = tp.seq_gather(x)
+    elif vocab_parallel:
+        x = tp.enter(x)
     s = x.shape[1]
     ck = min(loss_chunk, s)
-    labels = labels.to(torch.int64)
-    vocab_parallel = tp is not None and tp.vocab
+    if seq and not vocab_parallel:
+        whole = labels.shape[1]
+        p0, own = tp.positions(whole)
+        ck = min(loss_chunk, whole)
+        kept = torch.arange(p0, p0 + own, device=mask.device) < (whole // ck) * ck
+        labels, mask = labels[:, p0:p0 + own], mask[:, p0:p0 + own] * kept
+        ck = _pick_chunk(own, ck)
     if vocab_parallel:
-        x = tp.enter(x)
         v0, n = tp._vocab_slice()
     losses, counts = [], []
     for c0 in range(0, (s // ck) * ck, ck):
@@ -942,9 +961,14 @@ def chunked_xent(x, w, labels, mask, loss_chunk: int, *, denom=None, tp=None):
         ms = mask[:, c0:c0 + ck]
         losses.append(((logz - gold) * ms).sum())
         counts.append(ms.sum())
+    total = torch.stack(losses).sum()
+    if seq and not vocab_parallel:
+        total = tp.reduce(total, what="loss")
+        if denom is None:
+            denom = torch.clamp(tp.all_reduce(torch.stack(counts).sum(), what="loss"), min=1.0)
     if denom is None:
         denom = torch.clamp(torch.stack(counts).sum(), min=1.0)
-    return torch.stack(losses).sum() / denom
+    return total / denom
 
 
 def xent_count(mask, loss_chunk: int):

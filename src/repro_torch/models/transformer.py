@@ -52,6 +52,25 @@ every rank's heads read), MLA's query latent, KV latent and RoPE key,
 the MLP's and the MoE's input, and the head's; the row-parallel sums
 (``tp.reduce``) pass the gradient through.  The loss over a split
 vocabulary is vocabulary-parallel (``layers.chunked_xent``).
+
+The sequence layout (``tp.seq``: ``make_train_step(mesh=)`` on a config
+with ``seq_shard_activations``, the reference's ``_sp_constraint`` and
+``_attn_context_parallel`` as explicit collectives): between blocks a
+rank holds its contiguous ``S/size`` positions of the residual (B,
+S/size, D), and ``ln1``, ``ln2`` and ``final_norm`` run on them.  A
+region that splits takes ``tp.seq_gather`` of its input in place of
+``enter`` and ends in ``tp.seq_scatter`` in place of ``reduce``: the
+attention where its heads split, the MLP where ``d_ff`` does, the
+vocabulary-parallel embedding (a masked lookup of every position) and
+head.  An attention whose heads do not split is context-parallel: the
+queries of the rank's positions against the keys and values of the
+whole sequence (``ln1``'s output gathered), the causal mask and window
+on absolute positions, ``wo`` on the rank's positions.  An MLP that
+does not split, the embedding and the loss over a whole vocabulary run
+on the rank's positions alone.  A MoE layer always routes the whole
+sequence (its capacity and drop order are the whole call's): it takes
+the gathered input and ends in ``seq_scatter`` where its experts split,
+in ``seq_slice`` where they do not.
 """
 from __future__ import annotations
 
@@ -147,14 +166,39 @@ def _embed(params, tokens, cfg: ModelConfig, visual=None, tp=None):
     with visual tokens, the patch embeddings take the front of the
     sequence and the prompt's last nv embeddings drop, so the length
     stays S (the reference's stub prefix).  Under a tensor-parallel plan
-    ``tp`` the lookup is vocabulary-parallel (``collectives``)."""
+    ``tp`` the lookup is vocabulary-parallel (``collectives``); under its
+    sequence layout, this rank's positions (:func:`_embed_seq`)."""
     table = params["tok_embed"]
+    if tp is not None and tp.seq:
+        return _embed_seq(table, tokens, cfg, visual, tp)
     x = (table[tokens] if tp is None else tp.embed(table, tokens)).to(L.cdtype(cfg))
     if cfg.scale_embed:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
     if cfg.n_visual_tokens and visual is not None:
         nv = cfg.n_visual_tokens
         x = torch.cat([visual.to(x.dtype), x[:, :x.shape[1] - nv]], dim=1)
+    return x
+
+
+def _embed_seq(table, tokens, cfg: ModelConfig, visual, tp):
+    """:func:`_embed`'s sequence at this rank's positions (B, S/size, D):
+    over a split vocabulary, every position's masked lookup of this
+    rank's rows reduce-scattered; over a whole one, the lookup of the
+    rank's own positions.  The visual prefix then takes the front."""
+    s = tokens.shape[1]
+    p0, n = tp.positions(s)
+    nv = cfg.n_visual_tokens if cfg.n_visual_tokens and visual is not None else 0
+    src = (torch.arange(s, device=tokens.device) - nv).clamp(min=0)   # each position's token
+    if tp.vocab:
+        x = tp.seq_scatter(tp._vocab_rows(table, tokens[:, src]))
+    else:
+        x = table[tokens[:, src[p0:p0 + n]]]
+    x = x.to(L.cdtype(cfg))
+    if cfg.scale_embed:
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
+    front = min(max(nv - p0, 0), n)
+    if front:
+        x = torch.cat([visual[:, p0:p0 + front].to(x.dtype), x[:, front:]], dim=1)
     return x
 
 
@@ -187,8 +231,11 @@ def _enter(x, tp, group: str):
 def _block_mlp(lp, h, cfg: ModelConfig, tp=None):
     """The feed-forward half of a block, dense or MoE (every position of
     ``h`` routes, whatever its validity); under ``tp`` this rank's
-    ``d_ff`` columns or experts, then the all-reduce."""
+    ``d_ff`` columns or experts, then the all-reduce (under the sequence
+    layout, :func:`_ff_seq`)."""
     hn = L.rms_norm(lp["ln2"], h, cfg)
+    if tp is not None and tp.seq:
+        return h + _ff_seq(lp, hn, cfg, tp)
     if cfg.is_moe:
         experts = None if tp is None else tp.expert_slice()
         return h + _row_parallel(L.moe(lp["moe"], _enter(hn, tp, "moe"), cfg,
@@ -196,24 +243,46 @@ def _block_mlp(lp, h, cfg: ModelConfig, tp=None):
     return h + _row_parallel(L.mlp(lp["mlp"], _enter(hn, tp, "mlp"), cfg), tp, "mlp")
 
 
+def _ff_seq(lp, hn, cfg: ModelConfig, tp):
+    """The feed-forward under the sequence layout, ``hn`` this rank's
+    positions: a MoE routes the gathered whole sequence (its capacity is
+    the whole call's) and keeps this rank's positions of the sum over
+    the experts' ranks, or of its own whole sum; a split MLP runs its
+    columns over the gathered sequence, reduce-scattered; a whole one
+    runs on the rank's positions."""
+    if cfg.is_moe:
+        y = L.moe(lp["moe"], tp.seq_gather(hn), cfg, experts=tp.expert_slice())
+        return tp.seq_scatter(y) if tp.moe else tp.seq_slice(y)
+    if tp.mlp:
+        return tp.seq_scatter(L.mlp(lp["mlp"], tp.seq_gather(hn), cfg))
+    return L.mlp(lp["mlp"], hn, cfg)
+
+
 # ---------------------------------------------------------------------------
 # Whole-prompt attention (the unchunked prefill)
 # ---------------------------------------------------------------------------
 
-def _attn_forward(p, x, positions, cfg: ModelConfig, kv_mask, tp=None):
+def _attn_forward(p, x, positions, cfg: ModelConfig, kv_mask, tp=None, q_rows=None):
     """Causal self-attention over a whole (left-padded) prompt.  RoPE
     takes ``positions`` (B, S) (row-relative, negative on pad tokens);
     the causal mask runs on the padded coordinates and ``kv_mask``
     (B, S) drops each row's pad keys.  Returns ``(out, (K, V))`` with
-    the layer's fresh KV (MLA: the latent and its RoPE key)."""
+    the layer's fresh KV (MLA: the latent and its RoPE key).
+    ``q_rows`` (context-parallel training, no ``tp``): ``(xq,
+    q_positions)``, the queries' own rows (B, Sq, D) and their absolute
+    positions (B, Sq), against the keys and values of the whole ``x``;
+    ``out`` is then the queries' (B, Sq, D)."""
     b, s, _ = x.shape
-    q_pos = torch.arange(s, device=x.device)[None, :].expand(b, s)
+    xq_in, q_pos = q_rows if q_rows is not None else (
+        x, torch.arange(s, device=x.device)[None, :].expand(b, s))
+    q_rope_pos = positions if q_rows is None else q_pos
+    sq = xq_in.shape[1]
     if cfg.mla:
         h, nope, rope = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
-        q_lat = L.rms_norm(p["q_norm"], L.dense(p["wdq"], x, cfg), cfg)
-        q = L.dense(p["wuq"], _enter(q_lat, tp, "attn"), cfg).reshape(b, s, h, nope + rope)
+        q_lat = L.rms_norm(p["q_norm"], L.dense(p["wdq"], xq_in, cfg), cfg)
+        q = L.dense(p["wuq"], _enter(q_lat, tp, "attn"), cfg).reshape(b, sq, h, nope + rope)
         q_nope, q_rope = q.split([nope, rope], dim=-1)
-        q = torch.cat([q_nope, L.apply_rope(q_rope, positions, cfg.rope_theta)], -1)
+        q = torch.cat([q_nope, L.apply_rope(q_rope, q_rope_pos, cfg.rope_theta)], -1)
         c_kv, k_rope = L.dense(p["wdkv"], x, cfg).split([cfg.kv_lora_rank, rope], dim=-1)
         c_kv = L.rms_norm(p["kv_norm"], c_kv, cfg)
         k_rope = L.apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)
@@ -223,21 +292,38 @@ def _attn_forward(p, x, positions, cfg: ModelConfig, kv_mask, tp=None):
         k = torch.cat([k_nope, _enter(k_rope, tp, "attn").expand(b, s, h, rope)], -1)
         out = L.flash_attention(q, k, v, causal=True, cfg=cfg, kv_mask=kv_mask,
                                 q_positions=q_pos)
-        out = out.reshape(b, s, h * cfg.v_head_dim)
+        out = out.reshape(b, sq, h * cfg.v_head_dim)
         return _wo(p, out, cfg, tp), (c_kv, k_rope[:, :, 0, :])
-    xq = _enter(x, tp, "attn")
+    xq = _enter(xq_in, tp, "attn")
     xkv = xq if tp is not None and tp.kv else x
-    q = L.dense(p["wq"], xq, cfg).reshape(b, s, cfg.n_heads, cfg.head_dim)
+    q = L.dense(p["wq"], xq, cfg).reshape(b, sq, cfg.n_heads, cfg.head_dim)
     k = L.dense(p["wk"], xkv, cfg).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
     v = L.dense(p["wv"], xkv, cfg).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
     if tp is not None and tp.attn and not tp.kv:       # MQA: every rank's heads read K, V
         k, v = tp.enter(k), tp.enter(v)
-    q = L.apply_rope(q, positions, cfg.rope_theta)
+    q = L.apply_rope(q, q_rope_pos, cfg.rope_theta)
     k = L.apply_rope(k, positions, cfg.rope_theta)
     out = L.flash_attention(q, k, v, causal=True, cfg=cfg, kv_mask=kv_mask,
                             q_positions=q_pos, window=cfg.sliding_window)
-    out = out.reshape(b, s, cfg.n_heads * cfg.head_dim)
+    out = out.reshape(b, sq, cfg.n_heads * cfg.head_dim)
     return _wo(p, out, cfg, tp), (k, v)
+
+
+def _attn_seq(p, hn, cfg: ModelConfig, tp):
+    """Attention under the sequence layout: ``hn`` this rank's positions
+    (B, S/size, D) -> their output.  Heads that split (Megatron-SP): the
+    gathered whole sequence through this rank's heads, ``wo``'s partial
+    sums reduce-scattered.  Heads that do not (context parallel): the
+    queries of the rank's positions against the keys and values of the
+    gathered sequence, ``wo`` on the rank's positions."""
+    b, n, _ = hn.shape
+    whole = torch.arange(n * tp.size, device=hn.device)[None, :]
+    xg = tp.seq_gather(hn)
+    if tp.attn:
+        return tp.seq_scatter(_attn_forward(p, xg, whole, cfg, None)[0])
+    p0, _ = tp.positions(n * tp.size)
+    mine = whole[:, p0:p0 + n].expand(b, n)
+    return _attn_forward(p, xg, whole, cfg, None, q_rows=(hn, mine))[0]
 
 
 def _wo(p, out, cfg: ModelConfig, tp):
@@ -257,6 +343,9 @@ def _block_forward(lp, x, positions, cfg: ModelConfig, kv_mask, tp=None):
 # ---------------------------------------------------------------------------
 
 def _train_block(lp, x, positions, cfg: ModelConfig, tp=None):
+    if tp is not None and tp.seq:
+        x = x + _attn_seq(lp["attn"], L.rms_norm(lp["ln1"], x, cfg), cfg, tp)
+        return _block_mlp(lp, x, cfg, tp)
     return _block_forward(lp, x, positions, cfg, None, tp)[0]
 
 
@@ -295,7 +384,8 @@ def train_loss(params, batch, cfg: ModelConfig, *, tp=None, denom=None):
     (``layers.chunked_xent``, which ``denom`` and ``tp`` reach); the
     visual prefix's positions carry no loss.  Under ``tp`` the
     parameters are this rank's shard and ``cfg`` the rank-local config
-    (``sharding.local_config``)."""
+    (``sharding.local_config``); under its sequence layout ``"model"``
+    must divide S (``TensorParallel.positions`` raises otherwise)."""
     tokens = batch["tokens"]
     s = tokens.shape[1]
     assert s % min(cfg.loss_chunk, s) == 0

@@ -50,6 +50,33 @@ Training runs the same forward under autograd, so each collective is a
   since its result feeds each rank's own features, so each rank holds a
   part of its gradient (unlike ``reduce``'s replicated residual).
 
+Under the sequence layout (``TensorParallel.seq``: the training forward
+of the transformer family and hymba where the config sets
+``seq_shard_activations``, the reference's Megatron-SP residual and
+context-parallel attention) a rank holds its contiguous ``S/size``
+positions of dim 1 (B, S, ...), and four more move them:
+
+* :meth:`TensorParallel.seq_gather`, the input of a region that splits
+  over ``"model"`` (or that every rank runs whole but whose gradient
+  each holds a part of): the whole sequence from each rank's slice, an
+  all-reduce into zeros; backward, a reduce-scatter (an all-reduce,
+  then this rank's slice);
+* :meth:`TensorParallel.seq_scatter`, in place of ``reduce`` after a
+  row-parallel product: a reduce-scatter; backward, a gather;
+* :meth:`TensorParallel.seq_gather_replicated`, the input of a
+  computation every rank runs whole and identically, with its whole
+  gradient (hymba's merge): a gather; backward, this rank's slice of
+  the gradient, not a sum (a sum would multiply it by the group's
+  size, ``reduce``'s trap);
+* :meth:`TensorParallel.seq_slice`, this rank's positions of a tensor
+  whose gradient is a part on each rank (the output of a region entered
+  by ``seq_gather``): a slice, whose gradient autograd places into
+  zeros.  It moves nothing, so ``wire`` does not list it.
+
+A gather and a reduce-scatter are full-size all-reduces here (gloo
+carries CUDA tensors for ``all_reduce`` and ``broadcast`` alone), so the
+layout moves more bytes than the head layout, not fewer.
+
 Under ``torch.no_grad`` each is its forward alone, the serving path's
 collectives.  Beside the ``"model"`` group, :func:`all_reduce_axis`
 sums over any mesh axis (the data-parallel gradients, in f32),
@@ -84,12 +111,12 @@ class _Reduce(torch.autograd.Function):
     """All-reduce forward, identity backward."""
 
     @staticmethod
-    def forward(ctx, x, tp):
-        return tp.all_reduce(x)
+    def forward(ctx, x, tp, what):
+        return tp.all_reduce(x, what=what)
 
     @staticmethod
     def backward(ctx, g):
-        return g, None
+        return g, None, None
 
 
 class _Enter(torch.autograd.Function):
@@ -138,6 +165,37 @@ class _GatherVocab(torch.autograd.Function):
         return g[..., v0:v0 + n].to(ctx.dtype), None
 
 
+class _SeqGather(torch.autograd.Function):
+    """This rank's positions -> the whole sequence; backward: the sum over
+    the group, this rank's positions (``replicated``: this rank's
+    positions of the gradient alone)."""
+
+    @staticmethod
+    def forward(ctx, x, tp, replicated):
+        ctx.tp, ctx.replicated = tp, replicated
+        return tp._gather_seq(x, "seq_gather_replicated" if replicated else "seq_gather")
+
+    @staticmethod
+    def backward(ctx, g):
+        if not ctx.replicated:
+            g = ctx.tp.all_reduce(g, what="backward")
+        return ctx.tp._own_positions(g).contiguous(), None, None
+
+
+class _SeqScatter(torch.autograd.Function):
+    """The sum over the group, this rank's positions; backward: the
+    gradient of the whole sequence, gathered."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return tp._own_positions(tp.all_reduce(x, what="seq_scatter")).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.tp._gather_seq(g, "backward"), None
+
+
 @dataclasses.dataclass(frozen=True)
 class TensorParallel:
     """One rank's tensor-parallel plan: the ``"model"`` group, this
@@ -154,6 +212,8 @@ class TensorParallel:
     vocab: bool         # the embedding's rows and the head's columns split
     vocab_size: int
     n_experts: int = 0
+    seq: bool = False   # the sequence layout: a rank's residual is its positions
+                        # (training only; ``sharding.tensor_parallel(seq=)``)
 
     def all_reduce(self, x: torch.Tensor, what: str = "activation") -> torch.Tensor:
         """The sum of ``x`` over the group, in f32, back in ``x``'s dtype
@@ -164,10 +224,10 @@ class TensorParallel:
         _record("model", "all_reduce", what, y)
         return y.to(x.dtype)
 
-    def reduce(self, x: torch.Tensor) -> torch.Tensor:
+    def reduce(self, x: torch.Tensor, what: str = "activation") -> torch.Tensor:
         """:meth:`all_reduce` with an identity backward: the sum after a
         row-parallel product."""
-        return _Reduce.apply(x, self)
+        return _Reduce.apply(x, self, what)
 
     def enter(self, x: torch.Tensor) -> torch.Tensor:
         """``x`` itself, whose gradient is all-reduced over the group in
@@ -191,19 +251,73 @@ class TensorParallel:
         n = self.vocab_size // self.size
         return self.rank * n, n
 
+    def positions(self, s: int):
+        """``(first, count)`` of this rank's positions of a sequence of
+        ``s`` (the sequence layout)."""
+        if s % self.size:
+            raise ValueError(f"the sequence layout needs 'model' {self.size} to divide "
+                             f"the sequence length {s}")
+        n = s // self.size
+        return self.rank * n, n
+
+    def _own_positions(self, x: torch.Tensor) -> torch.Tensor:
+        p0, n = self.positions(x.shape[1])
+        return x.narrow(1, p0, n)
+
+    def _gather_seq(self, x: torch.Tensor, what: str) -> torch.Tensor:
+        """Every rank's (B, n, ...) positions -> the whole (B, n size, ...)
+        sequence in ``x``'s dtype: an f32 all-reduce into zeros (exact:
+        one rank holds each position)."""
+        n = x.shape[1]
+        full = x.new_zeros((x.shape[0], n * self.size) + tuple(x.shape[2:]),
+                           dtype=torch.float32)
+        full.narrow(1, self.rank * n, n).copy_(x)
+        dist.all_reduce(full, group=self.group)
+        _record("model", "all_reduce", what, full)
+        return full.to(x.dtype)
+
+    def seq_gather(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's positions (B, S/size, ...) -> the whole sequence, as
+        the input of a region whose gradient each rank holds a part of
+        (its heads, columns or experts, or its queries): the gradient is
+        summed over the group, this rank's positions kept."""
+        return _SeqGather.apply(x, self, False)
+
+    def seq_gather_replicated(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's positions -> the whole sequence, as the input of a
+        computation every rank runs whole and identically: the gradient
+        is already whole on each rank, and this rank keeps its
+        positions of it."""
+        return _SeqGather.apply(x, self, True)
+
+    def seq_scatter(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's partial sum over the whole sequence (a row-parallel
+        product) -> the group's sum at this rank's positions; the
+        gradient is gathered to the whole sequence."""
+        return _SeqScatter.apply(x, self)
+
+    def seq_slice(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's positions of a whole-sequence ``x`` (no collective;
+        the gradient is the slice's, zero elsewhere)."""
+        return self._own_positions(x)
+
+    def _vocab_rows(self, table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+        """This rank's part of the embedding rows of ``tokens``: its own
+        vocabulary rows, zero for the others."""
+        v0, n = self._vocab_slice()
+        local = tokens - v0
+        inside = (local >= 0) & (local < n)
+        rows = table[local.clamp(0, n - 1)]
+        return torch.where(inside[..., None], rows, torch.zeros((), dtype=rows.dtype,
+                                                                 device=rows.device))
+
     def embed(self, table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
         """Rows of the full embedding for ``tokens``, from this rank's
         ``table`` of vocabulary rows: a masked local lookup, then an
         all-reduce (exact: one rank holds each row)."""
         if not self.vocab:
             return table[tokens]
-        v0, n = self._vocab_slice()
-        local = tokens - v0
-        inside = (local >= 0) & (local < n)
-        rows = table[local.clamp(0, n - 1)]
-        rows = torch.where(inside[..., None], rows, torch.zeros((), dtype=rows.dtype,
-                                                                 device=rows.device))
-        return self.reduce(rows)
+        return self.reduce(self._vocab_rows(table, tokens))
 
     def gather_vocab(self, logits: torch.Tensor) -> torch.Tensor:
         """This rank's (..., V/size) logit columns -> the full (..., V)

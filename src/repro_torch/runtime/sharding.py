@@ -52,6 +52,12 @@ replicates every leaf of it (:func:`shard_params`), and the forward
 skips its collective.  Where ``"model"`` divides neither the KV heads
 nor is there one KV head, a layer's attention runs whole on every rank.
 
+The sequence layout (training only, ``tensor_parallel(seq=True)``)
+places no leaf differently: it changes which activations a rank holds
+(its positions of the residual, the gathered sequence inside a split
+region) and so which leaves' gradients are partial
+(:func:`partial_grad_leaves`).
+
 Data parallelism (training): :func:`param_specs` with ``fsdp`` adds the
 reference's ZeRO axis (:func:`_add_fsdp_axis`; a spec only, as the
 reference's launcher runs no FSDP step either), :func:`batch_axes` and
@@ -310,15 +316,26 @@ def model_group(mesh):
         mesh.mesh_dim_names.index(M))
 
 
-def tensor_parallel(cfg: ModelConfig, mesh):
+# the families whose training forward reads ``seq_shard_activations``
+SEQ_FAMILIES = ("transformer", "hymba")
+
+
+def tensor_parallel(cfg: ModelConfig, mesh, seq: bool = False):
     """The rank's :class:`TensorParallel` plan on ``mesh`` for ``cfg``
     (any family), or ``None`` without a mesh or with a ``"model"`` axis
-    of size 1: then every path is the single-device one."""
+    of size 1: then every path is the single-device one.  ``seq`` (the
+    training step passes ``cfg.seq_shard_activations``; serving never
+    does) turns on the sequence layout in the families that have one
+    (``SEQ_FAMILIES``): the transformer's residual holds a rank's
+    positions between blocks (Megatron-SP), and an attention whose heads
+    do not split is context-parallel there and in hymba."""
     if mesh is None or axis_sizes(mesh).get(M, 1) == 1:
         return None
     group, rank, size = model_group(mesh)
     return TensorParallel(group=group, rank=rank, size=size, vocab_size=cfg.vocab,
-                          n_experts=cfg.n_experts, **_split_groups(cfg, size))
+                          n_experts=cfg.n_experts,
+                          seq=bool(seq) and cfg.family in SEQ_FAMILIES,
+                          **_split_groups(cfg, size))
 
 
 def local_config(cfg: ModelConfig, tp) -> ModelConfig:
@@ -508,6 +525,11 @@ _PARTIAL = {
 }
 
 
+# hymba's context-parallel attention branch (the sequence layout where
+# its heads do not split): each rank's queries see every key
+_HYMBA_CP = r"^layers/\d+/(wq/w|wk/w|wv/w|attn_norm/scale)$"
+
+
 def partial_grad_leaves(params, cfg: ModelConfig, tp) -> list:
     """For each leaf (walk order): whether it is replicated but each rank
     holds only a part of its gradient, which must then be all-reduced
@@ -523,13 +545,29 @@ def partial_grad_leaves(params, cfg: ModelConfig, tp) -> list:
     regions (their inputs go through ``TensorParallel.enter``) and gets
     its whole gradient on every rank, rwkv6's ``cm_wr`` included: its
     input is replicated and its gate multiplies ``cm_wv``'s product
-    after the all-reduce."""
+    after the all-reduce.
+
+    Under the sequence layout (``tp.seq``) the transformer's every leaf
+    that does not split is partial: the norms, an attention, MLP or MoE
+    that does not split and the embedding and head over a whole
+    vocabulary run on this rank's positions alone, and the whole leaves
+    inside a split region (the router, MQA's ``wk``/``wv``, MLA's
+    ``wdq``, ``q_norm``, ``wdkv`` and ``kv_norm``) on the gathered
+    sequence for this rank's heads or experts alone.  Hymba keeps its
+    residual whole; where its heads do not split, its context-parallel
+    attention branch makes ``wq``, ``wk``, ``wv`` and ``attn_norm``
+    partial (each rank's queries are its own positions')."""
     named = leaves_with_paths(params)
     if tp is None:
         return [False] * len(named)
     rules = _PARTIAL.get(cfg.family, ())
+    if tp.seq and cfg.family == "hymba" and not tp.attn:
+        rules = rules + ((_HYMBA_CP, "seq"),)
 
     def partial(path):
+        if tp.seq and cfg.family == "transformer":
+            group = _group_of(path, cfg)
+            return group is None or not getattr(tp, group)
         if cfg.family == "hymba" and tp.attn and re.search(r"in_proj/w$", path):
             return (1, _in_proj_segments(cfg))
         return any(getattr(tp, group) and re.search(pat, path) for pat, group in rules)

@@ -26,7 +26,12 @@ rank), where the reference lets GSPMD place a jitted step:
   but uses a slice of over ``"model"`` (``sharding.partial_grad_leaves``:
   the MoE router, rwkv6's per-head leaves, hymba's, and the whole ``B``
   and ``C`` columns of its ``in_proj``), and AdamW runs on every rank
-  with the single device's clip scale.
+  with the single device's clip scale.  Where ``cfg.seq_shard_activations``
+  is set and ``"model"`` divides a call's sequence, the plan takes the
+  sequence layout (``sharding.tensor_parallel(seq=True)``: the
+  transformer's Megatron-SP residual and context-parallel attention,
+  hymba's context-parallel attention), whose partial leaves are
+  all-reduced the same way; elsewhere the head layout runs.
 * **the pod-compressed step** (``compressed=True``, ``n_pods`` > 1,
   ``cfg.grad_compress``, a ``"pod"`` axis of ``n_pods``): the
   reference's ``train_step(params, opt_state, ef_state, batch, step)``
@@ -41,6 +46,8 @@ rank), where the reference lets GSPMD place a jitted step:
   this pod's residual, shaped like the rank's parameters.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -71,17 +78,22 @@ def make_grad_fn(cfg: ModelConfig, mesh=None, *, axes=("pod", "data"), accum=Non
     leaves."""
     fam = get_family(cfg)
     accum = max(1, cfg.grad_accum if accum is None else accum)
-    tp = None if mesh is None else sharding.tensor_parallel(cfg, mesh)
-    lcfg = sharding.local_config(cfg, tp)
+    seq_tp = None if mesh is None else sharding.tensor_parallel(
+        cfg, mesh, seq=cfg.seq_shard_activations)
+    lcfg = sharding.local_config(cfg, seq_tp)
     sizes = {} if mesh is None else sharding.axis_sizes(mesh)
-    kw = {} if tp is None else {"tp": tp}
-    partial = None          # fixed by cfg and mesh: set on the first call
+    partials = {}           # the partial leaves of each layout, fixed by cfg and mesh
 
     def grads_of(params, batch):
-        nonlocal partial
         leaves = T.leaves(params)
-        if partial is None:
-            partial = sharding.partial_grad_leaves(params, cfg, tp)
+        tp = seq_tp
+        if tp is not None and tp.seq and batch["tokens"].shape[1] % tp.size:
+            tp = dataclasses.replace(tp, seq=False)      # "model" must divide S
+        kw = {} if tp is None else {"tp": tp}
+        layout = tp is not None and tp.seq
+        if layout not in partials:
+            partials[layout] = sharding.partial_grad_leaves(params, cfg, tp)
+        partial = partials[layout]
         for p in leaves:
             p.grad = None
             p.requires_grad_(True)

@@ -17,7 +17,14 @@ model 2 on the dense GQA (phi3), MLA (minicpm3), MQA (granite-34b) and
 tied-embedding (gemma) lanes, on hymba-1.5b, rwkv6-7b and whisper-tiny
 (every group split: the leaves a rank holds whole but slices to its
 heads get their gradient all-reduced over ``"model"``), and on hymba at
-data 1 x model 4, where only its MLP and vocabulary split.  In bf16
+data 1 x model 4, where only its MLP and vocabulary split.  The
+sequence layout (``seq_shard_activations`` kept on, the reference's
+Megatron-SP residual and context-parallel attention as the port's
+explicit collectives) is held to the same single-device step: the
+transformer lanes and the MoE gate with every group split, phi3 at
+model 4 (context-parallel attention, with and without a window),
+internvl2-1b there with its visual prefix and a whole vocabulary, and
+hymba at model 4; its collectives are counted against the code.  In bf16
 hymba's and rwkv6's ranks drift from one device's bf16 gradients by the
 split sums' rounding: no more than bf16's own rounding moves one
 device's gradients from f32.  The lanes' rank code is in
@@ -29,17 +36,36 @@ import pytest
 import train_lanes as TL
 import train_ref
 
-BY_WORLD = {8: ["moe"], 4: ["gqa", "mla", "mqa", "tied", "hymba-tp", "rwkv6-tp",
-                            "whisper-tp", "hymba-mlp"]}
+SEQ_LANES = ["gqa-sp", "mla-sp", "mqa-sp", "tied-sp", "gqa-cp", "window-cp", "visual-cp",
+             "hymba-cp"]
+BY_WORLD = {8: ["moe", "moe-sp"], 4: ["gqa", "mla", "mqa", "tied", "hymba-tp", "rwkv6-tp",
+                                      "whisper-tp", "hymba-mlp"] + SEQ_LANES}
 LANES = [lane for lanes in BY_WORLD.values() for lane in lanes]
 # the leaves each rank all-reduces the gradient of over "model", a layer
 # (the reduced configs have 2): rwkv6's per-head leaves, hymba's per-head
 # leaves and its in_proj (the B and C columns), none where the heads do
-# not split (hymba at 4) and none in whisper
+# not split (hymba at 4) and none in whisper.  Under the sequence layout
+# every transformer leaf that does not split: the norms, MQA's wk/wv, MLA's
+# query and KV latents with their norms, the router, a context-parallel
+# attention's every projection; hymba's context-parallel attention branch
+_SP_NORMS = ["ln1/scale", "ln2/scale"]
+_CP_ATTN = ["attn/wk/w", "attn/wo/w", "attn/wq/w", "attn/wv/w"] + _SP_NORMS
 PARTIAL = {"hymba-tp": ["A_log", "D", "attn_norm/scale", "dt_bias", "in_proj/w",
                         "ssm_norm/scale"],
            "rwkv6-tp": ["ln_x/bias", "ln_x/scale", "u", "w0", "wl_b"],
-           "whisper-tp": [], "hymba-mlp": []}
+           "whisper-tp": [], "hymba-mlp": [],
+           "gqa-sp": _SP_NORMS, "tied-sp": _SP_NORMS,
+           "mla-sp": ["attn/kv_norm/scale", "attn/q_norm/scale", "attn/wdkv/w",
+                      "attn/wdq/w"] + _SP_NORMS,
+           "mqa-sp": ["attn/wk/w", "attn/wv/w"] + _SP_NORMS,
+           "moe-sp": _SP_NORMS + ["moe/router/w"],
+           "gqa-cp": _CP_ATTN, "window-cp": _CP_ATTN, "visual-cp": _CP_ATTN,
+           "hymba-cp": ["attn_norm/scale", "wk/w", "wq/w", "wv/w"]}
+# the top-level leaves among them: the final norm under the transformer's
+# sequence layout, and the tied embedding whose vocabulary stays whole
+PARTIAL_TOP = {lane: ["final_norm/scale"] for lane in SEQ_LANES + ["moe-sp"]
+               if lane != "hymba-cp"}
+PARTIAL_TOP["visual-cp"] = ["final_norm/scale", "tok_embed"]
 
 
 @pytest.fixture(scope="module")
@@ -66,7 +92,8 @@ def test_partial_gradients_are_all_reduced_once(runs, lane):
     """Every rank all-reduces the gradient of exactly the partial leaves,
     once a step each (hymba's ``in_proj``: its whole segments only,
     ``B`` and ``C``: ``2 ssm_state`` columns)."""
-    want = sorted(f"layers/{i}/{leaf}" for i in range(2) for leaf in PARTIAL[lane])
+    want = sorted([f"layers/{i}/{leaf}" for i in range(2) for leaf in PARTIAL[lane]]
+                  + PARTIAL_TOP.get(lane, []))
     for r in runs["ranks"][lane]:
         assert sorted(r["partial"]) == want
         assert r["grad_wire"][0] == len(want)
@@ -100,3 +127,64 @@ def test_bf16_gradient_drift_is_rounding(runs, lane):
         assert drift <= 2 * own, (path, drift / scale, own / scale)
         rounding.append(own / scale)
     assert max(rounding) > 1e-3          # bf16 rounding there is, and the drift is its size
+
+
+def seq_wire(lane) -> dict:
+    """The sequence layout's collectives on one rank in the gradients'
+    call, ``{"model/all_reduce/<what>/float32": [calls, bytes]}``, worked
+    out from the code.  A rank runs ``grad_accum / data`` microbatches of
+    ``BATCH / grad_accum`` rows (whole microbatches: the data ranks take
+    rows in order).  A transformer call: the embedding's reduce-scatter
+    and the head's gather where the vocabulary splits; a layer's
+    attention gather (context parallel: for the keys and values) and
+    reduce-scatter where its heads split; its feed-forward's gather (a
+    MoE always, an MLP where ``d_ff`` splits) and reduce-scatter (where
+    the experts or ``d_ff`` split).  Each layer is rematerialised, and
+    the replay stops at its last saved tensor: it repeats every gather
+    and the attention's reduce-scatter, never the feed-forward's.  Each
+    forward gather or reduce-scatter has one backward all-reduce.  Every
+    one moves an f32 (rows, S, d_model) tensor.  Hymba: one replicated
+    gather of the attention branch's (rows, S, heads x head_dim) output a
+    layer, again in the replay of each window layer; its backward is a
+    slice, while the branch's input enters (one all-reduce a layer)
+    beside the MLP's and the head's, as with the head layout."""
+    from repro_torch import configs
+    from repro_torch.runtime.sharding import _split_groups
+
+    cfg = TL.config_of(configs, lane)
+    data, mp = TL.LANES[lane]["mesh"]
+    g = _split_groups(cfg, mp)
+    n = cfg.n_layers
+    calls, rows = cfg.grad_accum // data, TL.BATCH // cfg.grad_accum
+    if cfg.family == "hymba":
+        width = cfg.n_heads * cfg.head_dim
+        per = {"seq_gather_replicated": n + n - len(cfg.global_layers),
+               "backward": n + n * g["mlp"] + g["vocab"]}
+        widths = {"seq_gather_replicated": width, "backward": cfg.d_model}
+    else:
+        ff_gather, ff_scatter = cfg.is_moe or g["mlp"], g["moe"] if cfg.is_moe else g["mlp"]
+        fwd_gather = g["vocab"] + n * (1 + ff_gather)
+        fwd_scatter = g["vocab"] + n * (g["attn"] + ff_scatter)
+        per = {"seq_gather": fwd_gather + n * (1 + ff_gather),
+               "seq_scatter": fwd_scatter + n * g["attn"],
+               "backward": fwd_gather + fwd_scatter}
+        widths = dict.fromkeys(per, cfg.d_model)
+    return {f"model/all_reduce/{what}/float32": [calls * k, calls * k * rows * TL.SEQ
+                                                  * widths[what] * 4]
+            for what, k in per.items() if k}
+
+
+@pytest.mark.parametrize("lane", LANES)
+def test_sequence_layout_collectives_are_pinned(runs, lane):
+    """Every rank of a lane whose config keeps ``seq_shard_activations``
+    makes exactly the sequence collectives worked out from the code
+    (``seq_wire``: calls and bytes by ``what``), and no rank of a lane
+    whose flag is off makes any (the head layout runs there)."""
+    for r in runs["ranks"][lane]:
+        seq = {k: v for k, v in r["wire"].items() if "/seq_" in k}
+        if not TL.LANES[lane].get("seq"):
+            assert not seq, seq
+            continue
+        want = seq_wire(lane)
+        got = {k: v for k, v in r["wire"].items() if k in seq or k in want}
+        assert got == want, (got, want)

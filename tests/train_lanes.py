@@ -10,7 +10,13 @@ the dense GQA, MLA, MQA and tied-embedding lanes at data 2 x model 2,
 hymba-1.5b, rwkv6-7b and whisper-tiny data parallel at data 2 x model 1
 and tensor parallel at data 2 x model 2 (every group split), and
 hymba-1.5b at data 1 x model 4 (its 2 KV heads leave only the MLP and
-the vocabulary split); rank 0 returns the whole parameters after one
+the vocabulary split); and the sequence layout (the config's
+``seq_shard_activations`` kept on): Megatron-SP on the four transformer
+lanes at data 2 x model 2 and on the MoE gate's, context-parallel
+attention at data 1 x model 4 on phi3 (its 2 KV heads do not divide 4),
+on phi3 with an 8-token window, on internvl2-1b with its visual prefix
+and a 250-row vocabulary (the head whole: the loss on a rank's
+positions) and on hymba-1.5b; rank 0 returns the whole parameters after one
 step and the whole gradients of that step (gathered over the mesh,
 ``sharding.unshard``) in the reference's layout, and every rank the
 leaves whose gradients it all-reduced over ``"model"`` and those
@@ -40,6 +46,17 @@ LANES = {
     "rwkv6-tp": dict(arch="rwkv6-7b", mesh=(2, 2)),
     "whisper-tp": dict(arch="whisper-tiny", mesh=(2, 2)),
     "hymba-mlp": dict(arch="hymba-1.5b", mesh=(1, 4)),
+    # the sequence layout
+    "gqa-sp": dict(arch="phi3-medium-14b", mesh=(2, 2), seq=True),
+    "mla-sp": dict(arch="minicpm3-4b", mesh=(2, 2), seq=True),
+    "mqa-sp": dict(arch="granite-34b", mesh=(2, 2), seq=True),
+    "tied-sp": dict(arch="gemma-7b", mesh=(2, 2), seq=True),
+    "moe-sp": dict(arch="granite-moe-3b-a800m", mesh=(4, 2), seq=True),
+    "gqa-cp": dict(arch="phi3-medium-14b", mesh=(1, 4), seq=True),
+    "window-cp": dict(arch="phi3-medium-14b", mesh=(1, 4), seq=True,
+                      over=dict(sliding_window=8)),
+    "visual-cp": dict(arch="internvl2-1b", mesh=(1, 4), seq=True, over=dict(vocab=250)),
+    "hymba-cp": dict(arch="hymba-1.5b", mesh=(1, 4), seq=True),
 }
 
 # lanes whose gradients the ranks also take in bf16 (their drift from one
@@ -50,10 +67,27 @@ DRIFT_LANES = ("hymba-tp", "rwkv6-tp")
 POD_ARCH, POD_SEED, POD_MESH = "internvl2-1b", 9, (2, 2, 2)
 
 
-def lane_config(configs, arch: str):
-    """The reduced f32 config of either package, as the gates build it."""
-    cfg = configs.get_config(arch).reduced(compute_dtype="float32")
-    return dataclasses.replace(cfg, fsdp=False, seq_shard_activations=False)
+def lane_config(configs, arch: str, seq: bool = False, **over):
+    """The reduced f32 config of either package, as the gates build it
+    (``over``: fields changed on the reduced config; ``seq``: the
+    sequence layout's flag kept)."""
+    cfg = configs.get_config(arch).reduced(compute_dtype="float32", **over)
+    return dataclasses.replace(cfg, fsdp=False, seq_shard_activations=seq)
+
+
+def config_of(configs, lane: str):
+    """A lane's config in either package."""
+    spec = LANES[lane]
+    return lane_config(configs, spec["arch"], spec.get("seq", False), **spec.get("over", {}))
+
+
+def ref_key(lane: str) -> str:
+    """The key of a lane's weights and reference run: its architecture
+    and changed fields (the flag changes neither: the reference's
+    single-device step is the same with it on,
+    ``tests/test_torch_train_seq.py``)."""
+    spec = LANES[lane]
+    return spec["arch"] + "".join(f"/{k}={v}" for k, v in sorted(spec.get("over", {}).items()))
 
 
 def pod_config(configs):
@@ -90,8 +124,9 @@ def rank_lanes(lanes, ref_params) -> dict:
     "grad_loss", "params", "grads", "partial", "grad_wire"}}``; the others
     ``{lane: {"partial", "grad_wire"}}``: the paths of the leaves whose
     gradients the rank all-reduces over ``"model"``
-    (``sharding.partial_grad_leaves``) and the ``"model"`` all-reduces of
-    gradients that the gradients' call made (calls, bytes)."""
+    (``sharding.partial_grad_leaves``), the ``"model"`` all-reduces of
+    gradients that the gradients' call made (calls, bytes) and that
+    call's whole ``wire`` (``"axis/op/what/dtype"`` keys)."""
     import torch
     import torch.distributed as dist
 
@@ -105,18 +140,18 @@ def rank_lanes(lanes, ref_params) -> dict:
     out = {}
     for lane in lanes:
         spec = LANES[lane]
-        cfg = lane_config(configs, spec["arch"])
+        cfg = config_of(configs, lane)
         mesh = make_mesh(spec["mesh"], ("data", "model"))
-        params = _rank_params(ref_params[spec["arch"]], cfg, mesh)
+        params = _rank_params(ref_params[ref_key(lane)], cfg, mesh)
         batch = Pipeline(DataConfig(seed=SEED), cfg, BATCH, SEQ, device="cpu").batch_at(0)
+        tp = sharding.tensor_parallel(cfg, mesh, seq=cfg.seq_shard_activations)
         partial = [p for (p, _), part in zip(TT.leaves_with_paths(params),
-                                             sharding.partial_grad_leaves(
-                                                 params, cfg, sharding.tensor_parallel(cfg, mesh)))
+                                             sharding.partial_grad_leaves(params, cfg, tp))
                    if part]
         collectives.wire.clear()
         g_loss, grads = train_loop.make_grad_fn(cfg, mesh)(params, batch)
-        grad_wire = list(collectives.wire.get(("model", "all_reduce", "grad", "float32"),
-                                              [0, 0]))
+        wire = {"/".join(k): list(v) for k, v in collectives.wire.items()}
+        grad_wire = wire.get("model/all_reduce/grad/float32", [0, 0])
         grads = _whole(TT.tree_map(torch.clone, grads), mesh, cfg)
         bf16 = None
         if lane in DRIFT_LANES:
@@ -128,7 +163,7 @@ def rank_lanes(lanes, ref_params) -> dict:
         step = train_loop.make_train_step(cfg, opt_cfg, mesh=mesh)
         params, opt, m = step(params, opt, batch, 0)
         whole = _whole(params, mesh, cfg)
-        out[lane] = dict(partial=partial, grad_wire=grad_wire)
+        out[lane] = dict(partial=partial, grad_wire=grad_wire, wire=wire)
         if dist.get_rank() == 0:
             out[lane].update(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
                              grad_loss=float(g_loss), params=whole, grads=grads,

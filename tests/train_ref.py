@@ -3,6 +3,7 @@ module, not a test file): its single-device jitted step and gradients on
 a lane of ``tests/train_lanes.py``, the rank spawns beside them, and
 the comparisons the test files share."""
 import concurrent.futures
+import dataclasses
 
 import numpy as np
 
@@ -41,7 +42,7 @@ def ref_grads(rc, fam):
 
 
 def ref_lane(lane, params):
-    rc = TL.lane_config(RCFG, TL.LANES[lane]["arch"])
+    rc = dataclasses.replace(TL.config_of(RCFG, lane), seq_shard_activations=False)
     fam = ref_family(rc)
     batch = RPipeline(RDataConfig(seed=TL.SEED), rc, global_batch=TL.BATCH,
                       seq_len=TL.SEQ).batch_at(0)
@@ -54,38 +55,37 @@ def ref_lane(lane, params):
 
 
 def init_params(lanes) -> tuple:
-    """The reference's seeded parameters of each lane (drawn once an
-    architecture), and the same as numpy trees keyed by architecture
-    (what the ranks take)."""
-    ref_params, np_params, by_arch = {}, {}, {}
+    """The reference's seeded parameters of each lane (drawn once a
+    ``TL.ref_key``: an architecture and its changed fields), and the
+    same as numpy trees by that key (what the ranks take)."""
+    ref_params, np_params, by_key = {}, {}, {}
     for lane in lanes:
-        arch = TL.LANES[lane]["arch"]
-        if arch not in by_arch:
-            rc = TL.lane_config(RCFG, arch)
-            by_arch[arch] = ref_family(rc).init_params(jax.random.PRNGKey(0), rc)
-            np_params[arch] = jax.tree.map(np.asarray, by_arch[arch])
-        ref_params[lane] = by_arch[arch]
+        key = TL.ref_key(lane)
+        if key not in by_key:
+            rc = TL.config_of(RCFG, lane)
+            by_key[key] = ref_family(rc).init_params(jax.random.PRNGKey(0), rc)
+            np_params[key] = jax.tree.map(np.asarray, by_key[key])
+        ref_params[lane] = by_key[key]
     return ref_params, np_params
 
 
 def run_lanes(by_world: dict) -> dict:
     """``{"ref": {lane: ...}, "got": {lane: rank 0's result}, "ranks":
-    {lane: [every rank's result]}, "params": {arch: the weights}}``: one spawn of ``TL.rank_lanes`` a
+    {lane: [every rank's result]}, "params": {key: the weights}}``: one spawn of ``TL.rank_lanes`` a
     world size, side by side, while the reference runs every lane's
-    architecture once in this process (its single-device step does not
-    depend on the lane's mesh)."""
+    ``TL.ref_key`` once in this process (its single-device step does not
+    depend on the lane's mesh or layout)."""
     lanes = [lane for group in by_world.values() for lane in group]
     ref_params, np_params = init_params(lanes)
     with concurrent.futures.ThreadPoolExecutor(len(by_world)) as pool:
         spawns = {n: pool.submit(M.spawn, TL.rank_lanes, ["cpu"] * n, (group, np_params),
                                  timeout=SPAWN_TIMEOUT, threads=1)
                   for n, group in by_world.items()}
-        by_arch = {}
+        by_key = {}
         for lane in lanes:
-            arch = TL.LANES[lane]["arch"]
-            if arch not in by_arch:
-                by_arch[arch] = ref_lane(lane, ref_params[lane])
-        ref = {lane: by_arch[TL.LANES[lane]["arch"]] for lane in lanes}
+            if TL.ref_key(lane) not in by_key:
+                by_key[TL.ref_key(lane)] = ref_lane(lane, ref_params[lane])
+        ref = {lane: by_key[TL.ref_key(lane)] for lane in lanes}
         got, every = {}, {}
         for n, fut in spawns.items():
             ranks = fut.result()

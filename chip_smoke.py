@@ -7,10 +7,10 @@ paths at full size and checks that every kernel of each path ran there:
   write kernel ``posit_paged_write.cu`` and read back by the chunked
   prefill through the fused read ``posit_paged_read.cu``, fused paged
   decode attention):
-  phi3-medium-14b (dense GQA lane, ``paged_attn.cu``) and minicpm3-4b
-  (MLA lane, ``paged_attn_mla.cu``) with prefix caching and deadlines
-  on a shared-prefix trace, on an arena small enough that deadlines
-  preempt (minicpm3 at 16 of its 62 layers); then on the same trace the
+  phi3-medium-14b (dense GQA lane, ``paged_attn.cu``; all 40 layers)
+  and minicpm3-4b (MLA lane, ``paged_attn_mla.cu``) with prefix
+  caching and deadlines on a shared-prefix trace, on an arena small
+  enough that deadlines preempt (minicpm3 at 16 of its 62 layers); then on the same trace the
   rest of the transformer family:
   granite-moe-3b-a800m (the MoE feed-forward on every chunk and decode
   step, full width, 4 of 32 layers), gemma-7b (head_dim 256, full width,
@@ -20,15 +20,15 @@ paths at full size and checks that every kernel of each path ran there:
   and granite-34b the fused decode kernel against the gather path on
   the served weights;
 - the one-shot engine and the two unchunked schedulers at full width
-  and depth (``LINEAR_PATHS``): the one-shot engine on phi3-medium-14b
-  (a ragged batch on a linear posit16 cache: the codec's quantize at
+  (``LINEAR_PATHS``): the one-shot engine on phi3-medium-14b (all
+  40 layers; a ragged batch on a linear posit16 cache: the codec's quantize at
   every prefill, its dequantize of the whole cache at every decode
   step, a layer's two leaves in one launch, the fused write for the
   decode token; ``generate`` ==
   ``generate_stepwise`` and two ragged rows against their singleton
   generations on the card), the dense-cache scheduler on minicpm3-4b
   (the MLA linear lane, compaction; 16 of 62 layers) and the unchunked paged scheduler
-  on phi3-medium-14b, each with exact launch counts per prefill and
+  on phi3-medium-14b (40 layers), each with exact launch counts per prefill and
   decode step and the schedule pinned on the CPU; the one-shot
   engine on internvl2-1b with its visual prefix (full width and depth);
   and the other three families through the one-shot engine at full
@@ -74,15 +74,23 @@ paths at full size and checks that every kernel of each path ran there:
   quantize and dequantize once a leaf a step, exactly; the supervisor's
   final checkpoint restored bit for bit; one AdamW update on the real
   leaves on the kernels against the plain codec, bit for bit; rows 1 and
-  2 timed at the optimizer's leaves), and (T2) two steps of
-  minicpm3-4b (16 of 62 layers), granite-moe-3b-a800m, hymba-1.5b (8
-  of 32), rwkv6-7b (4 of 32) and whisper-tiny (``TRAIN_FAMILIES``);
+  2 timed at the optimizer's leaves), and (T2), beside (j), two steps of
+  minicpm3-4b (16 of 62 layers), granite-moe-3b-a800m (16 of 32),
+  hymba-1.5b (8 of 32), rwkv6-7b (4 of 32) and whisper-tiny
+  (``TRAIN_FAMILIES``);
 - (k) training across ranks, a process of its own (``--phase
-  train-ranks``), two ranks sharing the card over gloo (so no wall is
-  a multi-card speed): (k1) (T)'s gemma-7b, seed, data and schedule
+  train-ranks``, beside the linear paths after (a) and (c), hymba's ring
+  and the window lane), two ranks sharing the card over gloo (so no wall is a
+  multi-card speed): (k1) (T)'s gemma-7b, seed, data and schedule
   through ``make_train_step`` on a ``(1, 2)`` mesh, every group split,
   three steps held to (T)'s losses and gradient norms, rows 1 and 2
-  once a leaf a step on each rank; (k2) internvl2-1b at full width (8
+  once a leaf a step on each rank; then (o3) on the same two ranks:
+  the same model, seed and data through ``make_train_step`` with the
+  config's ``fsdp`` kept on, on a ``(2, 1)`` mesh (``O3_STEPS`` steps:
+  each rank holds half of every leaf and of its posit16 ``m`` and f32
+  ``v``, gathers a layer's leaves inside the layer and reduce-scatters
+  their gradients), held to (T) as (k1) is, its bytes a rank against
+  (T)'s and its peak memory printed; (k2) internvl2-1b at full width (4
   of its 24 layers) through the pod-compressed step on two pods of 4 x 512 (only
   posit16 patterns on the pod wire, two bytes an element, from the
   collectives' counter; non-zero error feedback; step 0's loss equal to
@@ -114,6 +122,16 @@ paths at full size and checks that every kernel of each path ran there:
   sequence collectives by kind, its peak memory per rank and rows 1
   and 2 once a leaf a step.  (m) and (n) run side by side, two processes
   on the one card (their walls are each other's neighbours);
+- (o) context-parallel prefill in sharded serving, a process of its own
+  (``--phase cp``, ``O_PATHS``) beside (l): ``serve --model-parallel 4``,
+  four ranks sharing the card over gloo, phi3-medium-14b (10 of its 40
+  layers; its 40 heads and 10 KV heads do not split at 4) on the chunked
+  and the unchunked paged schedulers and internvl2-1b (all 24 layers,
+  14 heads) one-shot with its visual prefix: every prefill's and chunk's
+  attention runs a rank's quarter of the query rows against the whole
+  K/V and gathers the rows, once a layer; each path held to a
+  single-rank run as (l) holds its paths, the gathers and a rank's rows
+  counted, no gather in a decode step;
 - the PVU ISA (``posit_ew.cu``, ``posit_dot.cu``, ``posit_qgemm.cu``,
   ``posit_gemm.cu``): the paper's verification workload
   (``configs/pvu_resnet_conv.py``, the ResNet-18 first conv on 8 images
@@ -130,6 +148,7 @@ paths at full size and checks that every kernel of each path ran there:
     python3 chip_smoke.py --phase train-ranks      # (k) alone
     python3 chip_smoke.py --phase train-model      # (m) alone
     python3 chip_smoke.py --phase train-seq        # (n) alone
+    python3 chip_smoke.py --phase cp               # (o1), (o2) alone
     python3 chip_smoke.py --ptxas  # only: -Xptxas -v (registers, shared
                                    # memory, spills) of paged_attn.cu,
                                    # paged_attn_mla.cu, posit_gemm.cu,
@@ -161,6 +180,7 @@ non-zero at once.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -216,8 +236,8 @@ _TRACE = [
     "--device", "cuda",
 ]
 # the main path, two lanes at full width, bf16 weights, the reference's
-# command line for the chunked paged scheduler: phi3 at full depth,
-# minicpm3 at 16 of its 62 layers (cut so that the smoke fits its time).  The
+# command line for the chunked paged scheduler: phi3 at its full 40
+# layers, minicpm3 at 16 of its 62 (cut so that the smoke fits its time).  The
 # minicpm3 trace shares half of every prompt; a quarter of its requests
 # carry a 5 s deadline (500 decode steps) and the rest are best-effort,
 # and its 200-block arena (of a worst case 512) makes deadline requests
@@ -259,11 +279,11 @@ FUSED_GATHER_PATHS = ("gemma-7b", "granite-34b")
 
 # The one-shot engine and the two unchunked schedulers, full width and
 # depth, through the reference's command line: (a) the one-shot engine on
-# phi3-medium-14b (a ragged batch of 8 prompts, a linear posit16 cache);
-# (b) the dense-cache scheduler on minicpm3-4b (the MLA linear lane, with
-# compaction; 16 of its 62 layers, cut so that the smoke fits its time);
-# (c) the unchunked paged scheduler on phi3-medium-14b, on
-# the trace flags of (b).  Each kernel's launches must be exactly L (the
+# phi3-medium-14b (a ragged batch of 8 prompts, a linear posit16 cache;
+# all 40 layers); (b) the dense-cache scheduler on minicpm3-4b (the
+# MLA linear lane, with compaction; 16 of its 62 layers); (c) the
+# unchunked paged scheduler on phi3-medium-14b (all 40 layers), on the
+# trace flags of (b); minicpm3's depth cut so that the smoke fits its time.  Each kernel's launches must be exactly L (the
 # model's layers) times the per-prefill and per-decode-step counts given
 # here, and every other kernel must stay unlaunched.
 _LINEAR_ARGS = ["--batch", "8", "--prompt-len", "512", "--gen", "32", "--max-len", "1024",
@@ -273,9 +293,11 @@ _UNCHUNKED = ["--continuous", "--n-requests", "16", "--arrival-rate", "0.5",
               "--chunk-size", "16"] + _LINEAR_ARGS
 _LINEAR_KERNELS = {"posit_quantize": (2, 0), "posit_paged_write": (0, 1),
                    "posit_dequantize": (0, 1)}
+# the linear paths that run alone on the card (the rest beside (k))
+ALONE_LINEAR = ("phi3-medium-14b-oneshot", "phi3-medium-14b-unchunked")
 LINEAR_PATHS = {
-    "phi3-medium-14b-oneshot": (["--arch", "phi3-medium-14b", "--ragged"] + _LINEAR_ARGS,
-                                _LINEAR_KERNELS),
+    "phi3-medium-14b-oneshot": (["--arch", "phi3-medium-14b", "--ragged"]
+                                + _LINEAR_ARGS, _LINEAR_KERNELS),
     "minicpm3-4b-dense": (["--arch", "minicpm3-4b", "--n-layers", "16"] + _UNCHUNKED,
                           _LINEAR_KERNELS),
     "phi3-medium-14b-unchunked": (
@@ -1585,13 +1607,14 @@ def check_ragged_rows(name, eng, prompts, tokens, lens):
                  "generation beyond bf16 rounding")
 
 
-def run_linear_paths(dev):
-    """Paths (a)-(c) of ``LINEAR_PATHS``: launch counts, outputs, the
-    pinned schedules, and on the one-shot path ``generate`` ==
+def run_linear_paths(dev, names):
+    """The paths ``names`` of ``LINEAR_PATHS``: launch counts, outputs,
+    the pinned schedules, and on the one-shot path ``generate`` ==
     ``generate_stepwise`` and two ragged rows against their singleton
     generations, on the card.  Returns each path's launch counts."""
     by_path = {}
-    for name, (argv, expect) in LINEAR_PATHS.items():
+    for name in names:
+        argv, expect = LINEAR_PATHS[name]
         res, counts, wall, n, oneshot = serve_linear_path(argv)
         cfg_layers = (oneshot.engine if oneshot else res.sched.engine).cfg.n_layers
         check_linear_counts(name, counts, expect, cfg_layers, n)
@@ -2249,25 +2272,8 @@ def tpl_check_ranks(name, ref, ranks, backend, wall):
 def tpl_check_forced(name, want, got_ranks):
     """Every rank's teacher-forced logits identical, and within
     ``FORCED_TOL`` of the single rank's spread, flips only at near-ties
-    (the rule of ``run_tp_path``), in the path's dtype."""
-    dtype = TPL_PATHS[name][3]
-    if not all(np.array_equal(got_ranks[0], g) for g in got_ranks[1:]):
-        fail(f"(l) {name}: the ranks' teacher-forced logits differ")
-    got = torch.from_numpy(got_ranks[0])
-    diff = (got - want).abs().amax(-1)
-    rel = float((diff / want.std(-1)).max())
-    top2 = want.topk(2, dim=-1).values
-    flips = got.argmax(-1) != want.argmax(-1)
-    margin = top2[..., 0] - top2[..., 1]
-    near_tie = bool((margin <= 2 * diff)[flips].all())
-    print(f"(l) {name}: against the single rank, teacher-forced in {dtype} on "
-          f"{want.shape[0]} prompts x {want.shape[1]} greedy tokens: logits max |diff| "
-          f"{float(diff.max()):.6f}, {rel:.6f} of the spread (limit {FORCED_TOL}), "
-          f"{int(flips.sum())} argmax flips, all at near-ties: {near_tie}")
-    if rel > FORCED_TOL or not near_tie:
-        fail(f"(l) {name}: the sharded model disagrees with the single rank beyond "
-             f"{dtype} rounding")
-    return dict(rel=rel, flips=int(flips.sum()), forced_dtype=dtype)
+    (:func:`_check_forced`), in the path's dtype."""
+    return _check_forced(f"(l) {name}", TPL_PATHS[name][3], want, got_ranks)
 
 
 def tp_linear_phase(dev):
@@ -2306,6 +2312,286 @@ def tp_linear_phase(dev):
     return {"counts": counts, "report": report}
 
 
+# (o) context-parallel prefill in sharded serving (``--phase cp``, a
+# process of its own, run beside (l)): ``serve --model-parallel 4``'s ranks
+# sharing the one card over gloo, so no wall here is a tensor-parallel
+# speed.  At "model" 4 neither phi3-medium-14b's 40 heads and 10 KV heads
+# nor internvl2-1b's 14 heads split, and both configs set
+# ``seq_shard_activations``: each rank attends its quarter of every
+# prompt's (or chunk's) query rows against the whole K/V and the rows are
+# gathered, once a layer a prefill.  (o1) phi3 at full width, 10 of its
+# 40 layers (as (j)), on (j)'s chunked trace and on the unchunked paged
+# scheduler with the same requests; (o2) internvl2-1b at full width and
+# depth, one-shot, its 256 visual tokens, 8 prompts of 512 and 8 tokens
+# generated (the linear path (d) generates 32).  Each path is held to a
+# single-rank run of the same argv, run before it: the schedule, every
+# rank's tokens identical, launches per rank exactly the single rank's
+# (K/V and the caches whole on every rank), the gathers counted, and a
+# teacher-forced check in bf16 through the whole-prompt prefill.
+_O_TRACE = ["--batch", "8", "--n-requests", "8", "--arrival-rate", "0.5", "--prompt-len",
+            "192", "--gen", "8", "--max-len", "384", "--chunk-size", "16", "--block-size", "16",
+            "--kv-posit", "posit16", "--decode-kernel", "fused", "--temperature", "0",
+            "--seed", "0", "--device", "cuda"]
+O_PATHS = {   # argv, the single run's launch check
+    "phi3-medium-14b-chunked": (TP_PATHS["phi3-medium-14b"][0], "main"),
+    "phi3-medium-14b-unchunked": (["--arch", "phi3-medium-14b", "--n-layers", "10",
+                                   "--continuous", "--paged"] + _O_TRACE,
+                                  LINEAR_PATHS["phi3-medium-14b-unchunked"][1]),
+    "internvl2-1b-oneshot": (["--arch", "internvl2-1b", "--batch", "8", "--prompt-len", "512",
+                              "--gen", "8", "--max-len", "1024", "--kv-posit", "posit16",
+                              "--temperature", "0", "--seed", "0", "--device", "cuda"],
+                             _LINEAR_KERNELS),
+}
+O_DEVICES = ["cuda:0"] * 4
+O_RANKS = ["--model-parallel", "4", "--rank-devices", ",".join(O_DEVICES)]
+O_CUTS = ("(o1) phi3 10 of its 40 layers, 8 requests of 96-192 tokens, 8 generated; (o2) "
+          "internvl2-1b every layer, 8 prompts of 512, 8 generated")
+_CP_KEY = ("model", "all_reduce", "cp_prefill", "float32")
+_CP_CALLS = ("prefill", "prefill_chunk", "_decode_step_paged", "_decode_step_linear")
+
+
+@contextlib.contextmanager
+def cp_counted():
+    """``{name: [gathers]}`` for each call of the transformer's prefills
+    and decode steps under the block (the ``cp_prefill`` all-reduces it
+    made), and ``"rows"``: each context-parallel call's ``(rows of the
+    prompt or chunk, this rank's query rows)``."""
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime import collectives as C
+
+    calls = {name: [] for name in _CP_CALLS + ("rows",)}
+    saved = {name: getattr(T, name) for name in _CP_CALLS}
+    rows_of = C.TensorParallel.cp_rows
+
+    def counted(name, fn):
+        def call(*args, **kw):
+            before = C.wire.get(_CP_KEY, [0, 0])[0]
+            out = fn(*args, **kw)
+            calls[name].append(C.wire.get(_CP_KEY, [0, 0])[0] - before)
+            return out
+        return call
+
+    def rows(self, s, device):
+        out = rows_of(self, s, device)
+        calls["rows"].append((int(s), int(out[1])))
+        return out
+
+    for name, fn in saved.items():
+        setattr(T, name, counted(name, fn))
+    C.TensorParallel.cp_rows = rows
+    try:
+        yield calls
+    finally:
+        for name, fn in saved.items():
+            setattr(T, name, fn)
+        C.TensorParallel.cp_rows = rows_of
+
+
+def o_single(name):
+    """The single-rank run of an (o) path through the user entry point,
+    its exact launch counts, and the teacher-forced job of the ranks
+    (prompts, the single rank's greedy tokens, inputs, the engine's
+    length) with the single rank's forced logits."""
+    from repro_torch.compress import kvcache as kvc
+    from repro_torch.runtime.engine import Engine
+
+    argv, check = O_PATHS[name]
+    if check == "main":
+        res, counts, wall, steps, chunks = serve_main_path(argv)
+        check_main_counts(f"(o) {name}", res, counts, steps, chunks, _DENSE_KERNELS)
+        oneshot = None
+    else:
+        res, counts, wall, n, oneshot = serve_linear_path(argv)
+        engine = oneshot.engine if oneshot else res.sched.engine
+        check_linear_counts(f"(o) {name}", counts, check, engine.cfg.n_layers, n)
+    if oneshot is not None:
+        engine = oneshot.engine
+        prompts, inputs, toks = oneshot.prompts, oneshot.inputs, np.asarray(res)
+        ref = dict(tokens=res.tolist(), seconds=oneshot.seconds)
+    else:
+        check_served(res, 8)
+        engine = res.sched.engine
+        ref = dict(done={r: (c.tokens.tolist(), c.admitted_step, c.finished_step)
+                         for r, c in res.done.items()},
+                   stats={k: res.sched.stats[k] for k in TPL_STATS if k in res.sched.stats},
+                   seconds=res.seconds, report=kvc.cache_report(res.sched.cache,
+                                                                res.sched.pool))
+        rng = np.random.default_rng(11)
+        prompts = [rng.integers(1, engine.cfg.vocab, int(k)).tolist()
+                   for k in rng.integers(64, 129, size=8)]
+        inputs = {}
+        toks = np.asarray(Engine(engine.cfg, engine.params, max_len=256,
+                                 device=engine.device).generate(prompts, 8).tokens)
+    ref.update(counts=counts, wall=wall, n_layers=engine.cfg.n_layers,
+               heads=(engine.cfg.n_heads, engine.cfg.n_kv_heads))
+    eng = Engine(engine.cfg, engine.params, max_len=engine.max_len if oneshot else 256,
+                 device=engine.device)
+    want = forced_logits(eng, prompts, toks, **inputs)
+    if not torch.equal(want.argmax(-1).cpu(), torch.as_tensor(toks, dtype=torch.int64)):
+        fail(f"the (o) {name} single rank's teacher-forced run does not reproduce its tokens")
+    job = (prompts, toks, {k: v.cpu().numpy() for k, v in inputs.items()}, eng.max_len)
+    del res, oneshot, engine, eng
+    return ref, job, want.cpu()
+
+
+def o_rank(paths, devices):
+    """One rank of the (o) paths (``launch/mesh.spawn``): for each ``(argv,
+    job)`` what ``serve --model-parallel``'s ranks run, its context-parallel
+    gathers counted (:func:`cp_counted`), then the job's teacher-forced
+    logits through a linear engine on the same weights.  Returns, for
+    each path, the ``RankResult``, the counts, the logits and the wall."""
+    from repro_torch.launch import serve
+    from repro_torch.runtime.engine import Engine
+
+    out = []
+    for argv, (prompts, tokens, inputs, max_len) in paths:
+        t0 = time.perf_counter()
+        args, mesh, cfg, params = serve.rank_model(argv, devices)
+        with cp_counted() as calls:
+            res = serve.serve_on_rank(args, mesh, cfg, params)
+        eng = Engine(cfg, params, max_len=max_len, device=args.device, mesh=mesh)
+        kw = {k: torch.as_tensor(v, device=args.device) for k, v in inputs.items()}
+        with cp_counted() as forced_calls:
+            logits = forced_logits(eng, prompts, tokens, **kw).cpu().numpy()
+        out.append((res, dict(serve=calls, forced=forced_calls, cp=bool(eng.tp.cp),
+                              heads=(eng.cfg.n_heads, eng.cfg.n_kv_heads)),
+                    logits, time.perf_counter() - t0))
+        del eng, params, kw
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def o_check_cp(label, calls, n_layers, mp):
+    """Every prefill and prefill chunk gathered its rows once a layer,
+    every decode step none, each rank's rows a ``1/mp`` share (rounded
+    up) of the prompt's or chunk's; returns the distinct ``(rows, the
+    rank's)`` pairs."""
+    prefills = calls["prefill"] + calls["prefill_chunk"]
+    decodes = calls["_decode_step_paged"] + calls["_decode_step_linear"]
+    if not prefills or set(prefills) != {n_layers} or set(decodes) - {0}:
+        fail(f"{label}: context-parallel gathers per call {calls}, want {n_layers} a "
+             f"prefill or chunk and none a decode step")
+    rows = sorted(set(map(tuple, calls["rows"])))
+    # a whole-prompt prefill picks its rows in each layer, a chunk once
+    if len(calls["rows"]) != n_layers * len(calls["prefill"]) + len(calls["prefill_chunk"]) \
+            or any(n != -(-s // mp) for s, n in rows):
+        fail(f"{label}: a rank's query rows {rows}, want a {mp}th of each prefill's")
+    return rows
+
+
+def _check_forced(label, dtype, want, got_ranks):
+    """Every rank's teacher-forced logits identical, and within
+    ``FORCED_TOL`` of the single rank's spread, flips only at near-ties
+    (the rule of ``run_tp_path``)."""
+    if not all(np.array_equal(got_ranks[0], g) for g in got_ranks[1:]):
+        fail(f"{label}: the ranks' teacher-forced logits differ")
+    got = torch.from_numpy(got_ranks[0])
+    diff = (got - want).abs().amax(-1)
+    rel = float((diff / want.std(-1)).max())
+    top2 = want.topk(2, dim=-1).values
+    flips = got.argmax(-1) != want.argmax(-1)
+    margin = top2[..., 0] - top2[..., 1]
+    near_tie = bool((margin <= 2 * diff)[flips].all())
+    print(f"{label}: against the single rank, teacher-forced in {dtype} on "
+          f"{want.shape[0]} prompts x {want.shape[1]} greedy tokens: logits max |diff| "
+          f"{float(diff.max()):.6f}, {rel:.6f} of the spread (limit {FORCED_TOL}), "
+          f"{int(flips.sum())} argmax flips, all at near-ties: {near_tie}")
+    if rel > FORCED_TOL or not near_tie:
+        fail(f"{label}: the sharded model disagrees with the single rank beyond "
+             f"{dtype} rounding")
+    return dict(rel=rel, flips=int(flips.sum()), forced_dtype=dtype)
+
+
+def o_check_ranks(name, ref, ranks, wall):
+    """An (o) path's ranks held to the single rank's ``ref``: the schedule
+    (or the one-shot tokens) on every rank, every rank's tokens identical,
+    launches exactly the single rank's, the whole cache on every rank
+    (the KV heads do not split), the gathers and rows of every call.
+    Returns the ranks' launches and the path's numbers."""
+    label = f"(o) {name}"
+    mp = len(ranks)
+    results = [r[0] for r in ranks]
+    r0 = results[0]
+    if "done" in ref:
+        single = ref["done"]
+        for rank, r in enumerate(results):
+            got = {i: (c.tokens.tolist(), c.admitted_step, c.finished_step)
+                   for i, c in r.done.items()}
+            if set(got) != set(single) or any(got[i][1:] != single[i][1:] for i in single) \
+                    or any(r.stats[k] != v for k, v in ref["stats"].items()):
+                fail(f"{label} rank {rank}'s schedule differs from the single rank's")
+            if any(got[i][0] != r0.done[i].tokens.tolist() for i in got):
+                fail(f"{label} rank {rank}'s tokens differ from rank 0's")
+            if r.report["per_device_bytes"] != ref["report"]["bytes"]:
+                fail(f"{label} rank {rank}: cache per device {r.report['per_device_bytes']:,}"
+                     f", want the whole {ref['report']['bytes']:,}")
+        streams = [r0.done[i].tokens.tolist() for i in sorted(single)]
+        want = [single[i][0] for i in sorted(single)]
+    else:
+        if any(not np.array_equal(r.tokens, r0.tokens) for r in results):
+            fail(f"{label}: the ranks' tokens differ")
+        streams, want = r0.tokens.tolist(), ref["tokens"]
+    equal = sum(int(np.sum(np.asarray(a) == np.asarray(b))) for a, b in zip(streams, want))
+    total = sum(len(b) for b in want)
+    rows = None
+    for rank, (r, info, _, _) in enumerate(ranks):
+        if any(r.launches[k] != ref["counts"][k] for k in r.launches):
+            fail(f"{label} rank {rank} launched {r.launches}, the single rank "
+                 f"{ {k: ref['counts'][k] for k in r.launches} }")
+        if not info["cp"] or tuple(info["heads"]) != ref["heads"]:
+            fail(f"{label} rank {rank}: no context-parallel prefill, or heads "
+                 f"{info['heads']} split (the whole model's {ref['heads']})")
+        rows = o_check_cp(label, info["serve"], ref["n_layers"], mp)
+        o_check_cp(f"{label} (teacher-forced)", info["forced"], ref["n_layers"], mp)
+    info = ranks[0][1]
+    n_calls = {k: len(v) for k, v in info["serve"].items() if v and k != "rows"}
+    print(f"{label} at --model-parallel {mp}, {mp} ranks sharing one card over gloo: not a "
+          f"tensor-parallel speed: {total} tokens in {r0.seconds:.2f} s ({ranks[0][3]:.2f} s "
+          f"with the weights' draw and the forced check; {wall:.2f} s the launch); the single "
+          f"rank {ref['seconds']:.2f} s ({ref['wall']:.2f} s with init); {CARD}")
+    print(f"{label}: greedy tokens {equal} of {total} equal to the single rank's; every "
+          f"rank's identical; launches per rank {r0.launches} = the single rank's; heads "
+          f"per rank {info['heads']} (whole); calls {n_calls}, each prefill or chunk "
+          f"{ref['n_layers']} 'cp_prefill' gathers, each decode step none; a rank's query "
+          f"rows (of the prompt or chunk, the rank's): {rows}")
+    by_path = {f"o-{name}-rank{k}": {**{c: 0 for c in ref["counts"]}, **r.launches}
+               for k, r in enumerate(results)}
+    return by_path, dict(mp=mp, seconds=r0.seconds, wall=ranks[0][3],
+                         single_seconds=ref["seconds"], equal=equal, of=total,
+                         rows=rows, calls=n_calls)
+
+
+def cp_phase(dev):
+    """(o): the single rank of each ``O_PATHS`` path, then one launch of
+    four ranks for all of them (``o_rank``).  Returns the ranks' launch
+    counts and each path's numbers."""
+    from repro_torch.launch import mesh as M
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(f"(o) cuts: {O_CUTS}")
+    t_phase = time.perf_counter()
+    singles = {}
+    for name in O_PATHS:
+        singles[name] = o_single(name)
+        gc.collect()
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out = M.spawn(o_rank, O_DEVICES, ([(O_PATHS[n][0] + O_RANKS, singles[n][1])
+                                       for n in O_PATHS], O_DEVICES), timeout=900)
+    wall = time.perf_counter() - t0
+    print(f"(o) the four ranks: {wall:.1f} s for {', '.join(O_PATHS)}, their start included")
+    counts, report = {}, {}
+    for i, name in enumerate(O_PATHS):
+        ref, _, want = singles[name]
+        by_path, report[name] = o_check_ranks(name, ref, [r[i] for r in out], wall)
+        counts.update(by_path)
+        report[name].update(_check_forced(f"(o) {name}", "bfloat16", want,
+                                          [r[i][2] for r in out]))
+    print(f"(o) took {time.perf_counter() - t_phase:.1f} s")
+    return {"counts": counts, "report": report}
+
+
 # ---------------------------------------------------------------------------
 # Training, each phase in a process of its own (its memory freed at exit)
 # ---------------------------------------------------------------------------
@@ -2325,13 +2611,13 @@ PLAIN_CHUNK = 1 << 25          # elements a chunk of the plain codec on the card
 # (T2) one family a process-local run of two train steps at full width:
 # arch -> (layers, 0 = all; batch; sequence).  rwkv6-7b's 32 layers are
 # 7.6 B parameters, 106 GB of f32 training state: 4 layers; minicpm3-4b
-# at 16 of 62, hymba-1.5b at 8 of 32 (so that the smoke fits its time);
-# the others whole.  hymba's sequence is a multiple of its
+# at 16 of 62, hymba-1.5b at 8 of 32, granite-moe-3b-a800m at 16 of 32 (so
+# that the smoke fits its time); the others whole.  hymba's sequence is a multiple of its
 # SSD chunk (64) beyond its 128 meta tokens, rwkv6's of its WKV chunk
 # (16); whisper's is its decoder context, 448, with 1 500 seeded frames
 TRAIN_FAMILIES = {
     "minicpm3-4b": (16, 8, 512),
-    "granite-moe-3b-a800m": (0, 8, 512),
+    "granite-moe-3b-a800m": (16, 8, 512),
     "hymba-1.5b": (8, 8, 512),
     "rwkv6-7b": (4, 8, 512),
     "whisper-tiny": (0, 8, 448),
@@ -2695,12 +2981,12 @@ K1_LOSS_RTOL, K1_GNORM_RTOL, K1_LEAF_RTOL = 1e-4, 2e-4, 1e-3
 _LAST = int(TRAIN_ARGV[TRAIN_ARGV.index("--n-layers") + 1]) - 1    # (T)'s last layer
 K1_LEAVES = ("tok_embed", "layers/0/ln1/scale", "layers/0/attn/wq/w", "layers/0/attn/wk/w",
              "layers/0/attn/wo/w", f"layers/{_LAST}/mlp/wg/w", "final_norm/scale")
-# (k2) internvl2-1b at full width, 8 of its 24 layers (cut so that the
+# (k2) internvl2-1b at full width, 4 of its 24 layers (cut so that the
 # smoke fits its time), the compressed gate's configuration: visual
 # tokens off, posit16 on the pod wire, 2 pods of 4 x 512 rows; (k3)
 # restores its state after two steps on one rank
 POD_ARCH, POD_SEED, POD_BATCH, POD_SEQ, N_PODS = "internvl2-1b", 9, 8, 512, 2
-POD_LAYERS = 8
+POD_LAYERS = 4
 POD_REDUCED = False            # a CPU rehearsal shrinks (k2) to the reduced config
 # the same loss on other row groupings (pods of 4 rows, microbatches of
 # 2), each a mean over thousands of bf16 token losses: a sound run
@@ -2739,13 +3025,15 @@ def _sync_peak(dev, reset=False):
     return torch.cuda.max_memory_allocated(dev) / 2**30
 
 
-def k1_rank(argv, devices, steps, seq=False):
+def k1_rank(argv, devices, steps, seq=False, fsdp=False):
     """(k1) one rank: (T)'s model, seed, data, schedule and moments
     (``argv``, (T)'s command line) through ``make_train_step`` on a
     ``(1, 2)`` mesh, every group split at 2.  Returns its losses,
     gradient norms, step walls, launches, leaves and peak memory.
     ``seq`` ((n1)): the config's ``seq_shard_activations`` kept on, the
-    sequence layout."""
+    sequence layout.  ``fsdp`` ((o3)): the config's ``fsdp`` kept on, on
+    a ``(2, 1)`` mesh: each rank holds its pieces of the parameters and
+    moments (their bytes returned beside the whole model's)."""
     import dataclasses
 
     from repro_torch import tree as TT
@@ -2758,17 +3046,18 @@ def k1_rank(argv, devices, steps, seq=False):
 
     dev = _rank_device(devices)
     args = train.build_parser().parse_args(argv)
-    cfg = dataclasses.replace(train.model_config(args), seq_shard_activations=seq)
-    mesh = make_mesh((1, 2), ("data", "model"), dev.type)
+    cfg = dataclasses.replace(train.model_config(args), seq_shard_activations=seq, fsdp=fsdp)
+    mesh = make_mesh((2, 1) if fsdp else (1, 2), ("data", "model"), dev.type)
     tp = sharding.tensor_parallel(cfg, mesh, seq=seq)
-    if not all((tp.attn, tp.kv, tp.mlp, tp.vocab)) or tp.seq != seq:
+    if not fsdp and (not all((tp.attn, tp.kv, tp.mlp, tp.vocab)) or tp.seq != seq):
         fail(f"(k1) a group of gemma-7b does not split at 2: {tp}")
     reset_counts()
     _sync_peak(dev, reset=True)
     t0 = time.perf_counter()
     params = get_family(cfg).init_params(
         cfg, seed=0, device=dev, dtype=torch.float32,
-        shard=lambda t, prefix: sharding.shard_params(t, mesh, cfg, prefix))
+        shard=lambda t, prefix: sharding.shard_params(t, mesh, cfg, prefix, fsdp=fsdp))
+    params = sharding.shard_params(params, mesh, cfg, fsdp=fsdp)   # the leaves drawn whole
     opt_cfg = adamw.AdamWConfig(lr=args.lr, posit_moments=args.posit_moments)
     opt = adamw.init(params, opt_cfg)
     step = train_loop.make_train_step(cfg, opt_cfg, total_steps=args.steps, mesh=mesh)
@@ -2788,14 +3077,77 @@ def k1_rank(argv, devices, steps, seq=False):
         adamw.update = update
     peak = _sync_peak(dev)
     leaves = TT.leaves(params)
-    split = dict(zip((p for p, _ in TT.leaves_with_paths(params)),
-                     sharding.split_leaves(params, cfg, mesh)))
-    return dict(losses=losses, grad_norms=gnorms, walls=walls, counts=read_counts(),
+    marks = [d is not None for d in sharding.fsdp_dims(params, mesh, cfg)] if fsdp \
+        else sharding.split_leaves(params, cfg, mesh)
+    split = dict(zip((p for p, _ in TT.leaves_with_paths(params)), marks))
+    state = None
+    if fsdp:
+        def nbytes(tree):
+            return sum(x.numel() * x.element_size() for x in TT.leaves(tree))
+        n_whole = sum(math.prod(s) for s in sharding.whole_shapes(cfg).values())
+        embed = params["tok_embed"]
+        state = dict(params=nbytes(params), m=nbytes(opt["m"]), v=nbytes(opt["v"]),
+                     whole=dict(params=4 * n_whole, m=(2 if opt_cfg.posit_moments else 4)
+                                * n_whole, v=4 * n_whole),
+                     split=sum(marks), embed=list(embed.shape))
+    return dict(losses=losses, grad_norms=gnorms, walls=walls, counts=read_counts(), state=state,
                 leaf_sq=[r.tolist() for r in leaf_sq], leaf_split=[split[p] for p in K1_LEAVES],
                 n_leaves=len(leaves), n_params=sum(p.numel() for p in leaves),
                 wall=time.perf_counter() - t0, wire={"/".join(k): list(v) for k, v in
                                                      collectives.wire.items()},
                 peak_gib=peak)
+
+
+# (o3): (T)'s gemma-7b under FSDP at "data" 2, one step: its leaves cross
+# gloo whole once a use, the 256 000-row embedding's 3.1 GB twice a step,
+# so a step takes 20-30 s on the shared card.  One step holds the loss,
+# the gradient norms and the launches of an update on the pieces to (T)'s;
+# the update's values against the reference's are held on the CPU
+# (tests/test_torch_train_dp.py, tests/test_torch_train_ranks.py)
+O3_STEPS = 1
+
+
+def k1_o3_rank(argv, devices, steps):
+    """(k1), then (o3) in the same two ranks: (T)'s model under FSDP on a
+    ``(2, 1)`` mesh of the same process group (``k1_rank(fsdp=True)``,
+    ``O3_STEPS`` steps)."""
+    k1 = k1_rank(argv, devices, steps)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return k1, k1_rank(argv, devices, O3_STEPS, fsdp=True)
+
+
+def check_o3(o3):
+    """(o3)'s ranks: launches exactly a quantize a leaf at init and a
+    quantize and a dequantize a leaf a step (rows 1 and 2 on the pieces),
+    the same losses and norms on both ranks, and each rank's parameter,
+    ``m`` and ``v`` bytes half the whole model's on the leaves that split
+    (every leaf of gemma-7b splits at data 2).  Prints the bytes."""
+    n = o3[0]["n_leaves"]
+    for rank, r in enumerate(o3):
+        expect = {k: 0 for k in r["counts"]}
+        expect.update(posit_quantize=n * (1 + O3_STEPS), posit_dequantize=n * O3_STEPS)
+        if r["counts"] != expect:
+            fail(f"(o3) rank {rank} launched {r['counts']}, expected {expect}")
+        if r["losses"] != o3[0]["losses"] or r["grad_norms"] != o3[0]["grad_norms"]:
+            fail(f"(o3) rank {rank}'s losses or norms differ from rank 0's")
+        st = r["state"]
+        if st["split"] != n or any(2 * st[k] != st["whole"][k] for k in ("params", "m", "v")):
+            fail(f"(o3) rank {rank} holds {st}: not half of every leaf")
+    r0 = o3[0]
+    st = r0["state"]
+    print(f"(o3) gemma-7b at (T)'s shape under FSDP on a (2, 1) mesh, (k)'s two ranks "
+          f"sharing one card over gloo, not a multi-card speed: {O3_STEPS} "
+          f"step{'s' * (O3_STEPS != 1)}, losses "
+          f"{[round(x, 4) for x in r0['losses']]}, grad norms "
+          f"{[round(x, 4) for x in r0['grad_norms']]}; step walls "
+          f"{[round(x, 3) for x in r0['walls']]} s; {r0['wall']:.1f} s with the draw; "
+          f"{st['split']} of {n} leaves split over 'data' (tok_embed's piece {st['embed']}); "
+          f"bytes a rank: parameters {st['params']:,}, m {st['m']:,}, v {st['v']:,} against "
+          f"(T)'s {st['whole']['params']:,}, {st['whole']['m']:,}, {st['whole']['v']:,}; peak "
+          f"device memory per rank {[round(r['peak_gib'], 2) for r in o3]} GiB; launches per "
+          f"rank {r0['counts']}; 'data' wire (calls, bytes) "
+          f"{ {k: v for k, v in r0['wire'].items() if k.startswith('data/')} }; {CARD}")
 
 
 def _pod_config(reduced=False):
@@ -2935,8 +3287,9 @@ def train_ranks_phase(dev):
     ckdir = tempfile.mkdtemp(prefix="chip_smoke_pods_", dir=base)
     try:
         t0 = time.perf_counter()
-        k1 = M.spawn(k1_rank, RANK_DEVICES, (TRAIN_ARGV, RANK_DEVICES, RANK_STEPS),
-                     timeout=900)
+        pairs = M.spawn(k1_o3_rank, RANK_DEVICES, (TRAIN_ARGV, RANK_DEVICES, RANK_STEPS),
+                        timeout=900)
+        k1, o3 = [p[0] for p in pairs], [p[1] for p in pairs]
         k1_wall = time.perf_counter() - t0
         t0 = time.perf_counter()
         k2 = M.spawn(k2_rank, RANK_DEVICES, (ckdir, RANK_DEVICES, RANK_STEPS, POD_REDUCED),
@@ -2955,6 +3308,9 @@ def train_ranks_phase(dev):
         if r["losses"] != k1[0]["losses"] or r["grad_norms"] != k1[0]["grad_norms"]:
             fail(f"(k1) rank {rank}'s losses or norms differ from rank 0's")
         counts = {k: counts[k] + v for k, v in r["counts"].items()}
+    check_o3(o3)
+    for r in o3:
+        counts = {k: counts[k] + v for k, v in r["counts"].items()}
     r0 = k1[0]
     ar = {k: v for k, v in r0["wire"].items() if k.startswith("model/")}
     print(f"(k1) gemma-7b at (T)'s shape on a (1, 2) mesh, two ranks sharing one card over "
@@ -2964,7 +3320,7 @@ def train_ranks_phase(dev):
           f"{[round(x, 3) for x in r0['walls']]} s; {r0['n_params']:,} parameters a rank in "
           f"{n} leaves; peak device memory per rank "
           f"{[round(r['peak_gib'], 2) for r in k1]} GiB; {k1_wall:.1f} s with the ranks' "
-          f"start; launches per rank {r0['counts']}; collectives on 'model' (calls, bytes): "
+          f"start and (o3); launches per rank {r0['counts']}; collectives on 'model' (calls, bytes): "
           f"{ar}; {CARD}")
 
     n = k2[0]["n_leaves"]
@@ -3027,7 +3383,7 @@ def train_ranks_phase(dev):
         fail(f"(k3) the restored step's loss {r0['restored_loss']} against {last}")
     counts = {k: counts[k] + v for k, v in r0["restored_counts"].items()}
     return dict(counts=counts, codec=r0["codec"], k1=[{k: v for k, v in r.items()}
-                                                      for r in k1],
+                                                      for r in k1], o3=o3,
                 k2={k: r0[k] for k in ("losses", "grad_norms", "walls", "dp_loss",
                                        "restored_loss", "peak_gib", "n_elems")},
                 k1_wall=k1_wall, k2_wall=k2_wall, wire_bytes_per_step=per_step)
@@ -3042,7 +3398,7 @@ def check_train_ranks(trained, ranked, label="(k1)"):
     sequence layout, its ranks ``ranked["k1"]`` too)."""
     ranks = ranked["k1"]
     r0 = ranks[0]
-    for i in range(RANK_STEPS):
+    for i in range(len(r0["losses"])):
         dl = abs(r0["losses"][i] - trained["losses"][i]) / trained["losses"][i]
         dg = abs(r0["grad_norms"][i] - trained["grad_norms"][i]) / trained["grad_norms"][i]
         print(f"{label} step {i}: loss {r0['losses'][i]:.6f} against (T)'s "
@@ -3474,7 +3830,7 @@ def train_seq_phase(dev):
 
 PHASES = {"train": train_phase, "train-families": train_families_phase, "tp": tp_phase,
           "tp-linear": tp_linear_phase, "train-ranks": train_ranks_phase,
-          "train-model": train_model_phase, "train-seq": train_seq_phase}
+          "train-model": train_model_phase, "train-seq": train_seq_phase, "cp": cp_phase}
 
 
 def run_phase(name):
@@ -4140,26 +4496,40 @@ def run(pool):
         torch.cuda.empty_cache()
     ew_row["bias_vadd"] = ew_bias
     rows.append(ew_row)
-    by_path.update(run_linear_paths(dev))
+    # (a) and (c), phi3 at 40 layers, alone on the card; then (k) training
+    # across ranks, (o3) included, in a process of its own beside the other
+    # linear paths, hymba's ring and the window lane (their walls carry its
+    # load; the main process holds 18 GiB at most there, (o3)'s ranks 44)
+    by_path.update(run_linear_paths(dev, ALONE_LINEAR))
+    ranks_handle = start_phase_process("train-ranks")
+    by_path.update(run_linear_paths(dev, [n for n in LINEAR_PATHS if n not in ALONE_LINEAR]))
     check_hymba_ring(dev)
     gc.collect()
     torch.cuda.empty_cache()
+    by_path["window"] = run_window_lane(dev)
+    ranked = finish_phase_process(ranks_handle)
     profile_write()
     del profile_write
-    by_path["window"] = run_window_lane(dev)
     # (j) tensor-parallel serving, two ranks on the card, in a process of
-    # its own as the training phases
+    # its own as the training phases; beside it (T2) a step of each family
+    # (two processes on the one card: their walls carry each other's load;
+    # (k) would not fit beside (j), its (o3) holding some 44 GB)
+    families_handle = start_phase_process("train-families")
     by_path.update(run_phase_process("tp")["counts"])
-    # (l) tensor-parallel serving on linear caches and the other families
+    by_path["train_families"] = finish_phase_process(families_handle)["counts"]
+    # (l) tensor-parallel serving on linear caches and the other families,
+    # beside (o) context-parallel prefill at "model" 4: two processes on
+    # the one card, whose ranks already share it over gloo
+    cp_handle = start_phase_process("cp")
     by_path.update(run_phase_process("tp-linear")["counts"])
+    by_path.update(finish_phase_process(cp_handle)["counts"])
     # training, each phase in its own process: (T) the main training
-    # path, (T2) a step of each family
+    # path alone; (k) training across ranks and (o3) FSDP on the same two
+    # ranks (run above), held to (T)
     trained = run_phase_process("train")
     by_path["train"] = trained["counts"]
-    by_path["train_families"] = run_phase_process("train-families")["counts"]
-    # (k) training across ranks, two ranks sharing the card
-    ranked = run_phase_process("train-ranks")
     check_train_ranks(trained, ranked)
+    check_train_ranks(trained, {"k1": ranked["o3"]}, label="(o3)")
     by_path["train_ranks"] = ranked["counts"]
     # (m) hymba, rwkv6 and whisper trained across ranks at "model" > 1,
     # and (n) the sequence layout across ranks, side by side: two

@@ -92,7 +92,6 @@ import argparse
 import contextlib
 import dataclasses
 import io
-import os
 import sys
 import time
 
@@ -437,7 +436,7 @@ def run_sharded(args, argv, timeout: float | None = None) -> ShardedServeResult:
                          f"--model-parallel {n}")
     cpu = all(torch.device(d).type == "cpu" for d in devices)
     ranks = M.spawn(_serve_rank, devices, (list(argv), devices), timeout=timeout,
-                    threads=max(1, (os.cpu_count() or 1) // n) if cpu else 0)
+                    threads=max(1, torch.get_num_threads() // n) if cpu else 0)
     return ShardedServeResult(ranks=ranks, mesh={"data": 1, "model": n},
                               backend=M.backend_for(devices))
 

@@ -117,7 +117,7 @@ def _train_ranks(args, argv) -> TrainResult:
     devices = args.rank_devices.split(",")
     cpu = all(torch.device(d).type == "cpu" for d in devices)
     ranks = M.spawn(_rank_main, devices, (argv, devices), timeout=None,
-                    threads=max(1, (os.cpu_count() or 1) // len(devices)) if cpu else 0)
+                    threads=max(1, torch.get_num_threads() // len(devices)) if cpu else 0)
     r0 = ranks[0]
     return TrainResult(r0["losses"], r0["grad_norms"], r0["step_walls"], None,
                        r0["executed"], model_config(args), None, None, None, ranks)

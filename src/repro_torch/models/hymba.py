@@ -277,7 +277,7 @@ def _forward(params, tokens, cfg: ModelConfig, tp=None):
     glb = set(cfg.global_layers)
     for li, lp in enumerate(params["layers"]):
         if li in glb:
-            x = _train_layer(lp, x, positions, cfg, True, tp)
+            x = _train_layer(L.gathered(lp), x, positions, cfg, True, tp)
         else:
             x = L.remat_layer(_train_layer, cfg, lp, x, positions, cfg, False, tp)
     return L.rms_norm(params["final_norm"], x, cfg)

@@ -32,6 +32,9 @@ is a row-parallel ``dense`` (the all-reduce, then the bias once),
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
+import functools
 from typing import Optional
 
 import torch
@@ -882,16 +885,49 @@ def moe(p, x, cfg: ModelConfig, experts=None):
 # Training: layer rematerialisation and the chunked vocabulary loss
 # ---------------------------------------------------------------------------
 
-def remat_layer(fn, cfg: ModelConfig, *args):
-    """``fn(*args)``; under autograd with ``cfg.remat == "layer"`` its
-    activations are recomputed in the backward pass instead of kept
-    (``torch.utils.checkpoint``, the reference's ``jax.checkpoint``
-    around each scanned layer).  A MoE layer recomputes its dispatch
-    too: the reference keeps the MoE output (``moe_out``) instead, the
-    same values either way."""
+# the train step's FSDP gather of a layer's parameters (``layer_gather``)
+_LAYER_GATHER = contextvars.ContextVar("layer_gather", default=None)
+
+
+@contextlib.contextmanager
+def layer_gather(gather):
+    """Within the block, :func:`remat_layer` (and :func:`gathered`)
+    pass a layer's parameters through ``gather`` (the FSDP step's whole
+    leaves from this rank's pieces) inside the layer, so that under
+    ``cfg.remat == "layer"`` the gather reruns in the recompute and the
+    whole copies live no longer than the layer's forward."""
+    token = _LAYER_GATHER.set(gather)
+    try:
+        yield
+    finally:
+        _LAYER_GATHER.reset(token)
+
+
+def gathered(lp):
+    """A layer's parameters through the active :func:`layer_gather`
+    (themselves outside one)."""
+    gather = _LAYER_GATHER.get()
+    return lp if gather is None else gather(lp)
+
+
+def _run_gathered(fn, gather, lp, *rest):
+    return fn(gather(lp), *rest)
+
+
+def remat_layer(fn, cfg: ModelConfig, lp, *args):
+    """``fn(lp, *args)``, ``lp`` a layer's parameters (through the active
+    :func:`layer_gather`, inside ``fn``'s recompute); under autograd with
+    ``cfg.remat == "layer"`` its activations are recomputed in the
+    backward pass instead of kept (``torch.utils.checkpoint``, the
+    reference's ``jax.checkpoint`` around each scanned layer).  A MoE
+    layer recomputes its dispatch too: the reference keeps the MoE
+    output (``moe_out``) instead, the same values either way."""
+    gather = _LAYER_GATHER.get()
+    if gather is not None:
+        fn = functools.partial(_run_gathered, fn, gather)
     if cfg.remat == "layer" and torch.is_grad_enabled():
-        return checkpoint(fn, *args, use_reentrant=False)
-    return fn(*args)
+        return checkpoint(fn, lp, *args, use_reentrant=False)
+    return fn(lp, *args)
 
 
 def next_token_labels(tokens):

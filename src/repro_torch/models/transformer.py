@@ -42,7 +42,15 @@ of the weights and of the cache (K/V by KV heads; MQA's one KV head and
 MLA's latents whole on every rank);
 ``tp`` adds the all-reduces after attention's ``wo`` and the
 feed-forward, the vocabulary-parallel embedding and the gathered logits.
-With ``tp=None`` nothing changes.
+With ``tp=None`` nothing changes.  Context-parallel prefill (``tp.cp``:
+the engine's plan where ``seq_shard_activations`` is set and the
+attention's heads do not split, the reference's ``_attn_context_parallel``
+in its prefills): ``prefill`` and ``prefill_chunk`` run each rank's
+contiguous share of the prompt's or chunk's query rows (padded up to a
+multiple of ``"model"``, the pad rows dropped) against the K/V of every
+row, which each rank computes and stores whole, and gather the rows'
+outputs over ``"model"`` (:func:`_cp_project`); norms, residual and the
+feed-forward stay whole, and decode is unchanged.
 
 Tensor-parallel training: ``train_loss`` takes ``tp`` too and runs the
 same blocks under autograd.  Each column-parallel region's input goes
@@ -262,21 +270,26 @@ def _ff_seq(lp, hn, cfg: ModelConfig, tp):
 # Whole-prompt attention (the unchunked prefill)
 # ---------------------------------------------------------------------------
 
-def _attn_forward(p, x, positions, cfg: ModelConfig, kv_mask, tp=None, q_rows=None):
+def _attn_forward(p, x, positions, cfg: ModelConfig, kv_mask, tp=None, q_rows=None,
+                  project=True):
     """Causal self-attention over a whole (left-padded) prompt.  RoPE
     takes ``positions`` (B, S) (row-relative, negative on pad tokens);
     the causal mask runs on the padded coordinates and ``kv_mask``
     (B, S) drops each row's pad keys.  Returns ``(out, (K, V))`` with
     the layer's fresh KV (MLA: the latent and its RoPE key).
-    ``q_rows`` (context-parallel training, no ``tp``): ``(xq,
-    q_positions)``, the queries' own rows (B, Sq, D) and their absolute
-    positions (B, Sq), against the keys and values of the whole ``x``;
-    ``out`` is then the queries' (B, Sq, D)."""
+    ``q_rows`` (context parallelism): ``(xq, q_positions, q_rope)``, the
+    queries' own rows (B, Sq, D), their padded coordinates (B, Sq) and
+    their RoPE positions (B, Sq), against the keys and values of the
+    whole ``x``; ``out`` is then the queries' (B, Sq, D).  ``project``
+    false returns ``out`` before ``wo`` (B, Sq, H dv)."""
     b, s, _ = x.shape
-    xq_in, q_pos = q_rows if q_rows is not None else (
-        x, torch.arange(s, device=x.device)[None, :].expand(b, s))
-    q_rope_pos = positions if q_rows is None else q_pos
+    if q_rows is None:
+        ar = torch.arange(s, device=x.device)[None, :].expand(b, s)
+        xq_in, q_pos, q_rope_pos = x, ar, positions
+    else:
+        xq_in, q_pos, q_rope_pos = q_rows
     sq = xq_in.shape[1]
+    out_of = (lambda o: _wo(p, o, cfg, tp)) if project else (lambda o: o)
     if cfg.mla:
         h, nope, rope = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
         q_lat = L.rms_norm(p["q_norm"], L.dense(p["wdq"], xq_in, cfg), cfg)
@@ -293,7 +306,7 @@ def _attn_forward(p, x, positions, cfg: ModelConfig, kv_mask, tp=None, q_rows=No
         out = L.flash_attention(q, k, v, causal=True, cfg=cfg, kv_mask=kv_mask,
                                 q_positions=q_pos)
         out = out.reshape(b, sq, h * cfg.v_head_dim)
-        return _wo(p, out, cfg, tp), (c_kv, k_rope[:, :, 0, :])
+        return out_of(out), (c_kv, k_rope[:, :, 0, :])
     xq = _enter(xq_in, tp, "attn")
     xkv = xq if tp is not None and tp.kv else x
     q = L.dense(p["wq"], xq, cfg).reshape(b, sq, cfg.n_heads, cfg.head_dim)
@@ -306,7 +319,35 @@ def _attn_forward(p, x, positions, cfg: ModelConfig, kv_mask, tp=None, q_rows=No
     out = L.flash_attention(q, k, v, causal=True, cfg=cfg, kv_mask=kv_mask,
                             q_positions=q_pos, window=cfg.sliding_window)
     out = out.reshape(b, sq, cfg.n_heads * cfg.head_dim)
-    return _wo(p, out, cfg, tp), (k, v)
+    return out_of(out), (k, v)
+
+
+def _attn_cp(p, hn, positions, cfg: ModelConfig, kv_mask, tp):
+    """Context-parallel prefill attention (``tp.cp``): this rank's query
+    rows of the whole prompt (``TensorParallel.cp_rows``) against the
+    K/V of every row, which each rank computes whole (its cache holds
+    them all); the rows' outputs gathered over ``"model"``
+    (:func:`_cp_project`).  Returns ``(out (B, S, D), (K, V))``."""
+    b, s, _ = hn.shape
+    rows, n = tp.cp_rows(s, hn.device)
+    q_rows = (hn[:, rows], rows[None, :].expand(b, n), positions[:, rows])
+    out, kv = _attn_forward(p, hn, positions, cfg, kv_mask, tp, q_rows=q_rows,
+                            project=False)
+    return _cp_project(p, out, cfg, tp, s), kv
+
+
+def _cp_project(p, out, cfg: ModelConfig, tp, s: int):
+    """``wo`` of the attention's rows ``out`` (B, n, H dv), as the
+    residual's whole (B, s, D): under context-parallel prefill each
+    rank's rows gathered over ``"model"`` after ``wo`` where ``d_model``
+    is no wider than ``H dv`` (the published configs: equal widths, and
+    ``wo`` then runs on the rank's rows alone), before it otherwise, so
+    that the gather moves the narrower of the two; else ``_wo``."""
+    if tp is None or not tp.cp:
+        return _wo(p, out, cfg, tp)
+    if cfg.d_model <= out.shape[-1]:
+        return tp.cp_gather(_wo(p, out, cfg, tp), s)
+    return _wo(p, tp.cp_gather(out, s), cfg, tp)
 
 
 def _attn_seq(p, hn, cfg: ModelConfig, tp):
@@ -323,7 +364,7 @@ def _attn_seq(p, hn, cfg: ModelConfig, tp):
         return tp.seq_scatter(_attn_forward(p, xg, whole, cfg, None)[0])
     p0, _ = tp.positions(n * tp.size)
     mine = whole[:, p0:p0 + n].expand(b, n)
-    return _attn_forward(p, xg, whole, cfg, None, q_rows=(hn, mine))[0]
+    return _attn_forward(p, xg, whole, cfg, None, q_rows=(hn, mine, mine))[0]
 
 
 def _wo(p, out, cfg: ModelConfig, tp):
@@ -333,8 +374,8 @@ def _wo(p, out, cfg: ModelConfig, tp):
 
 
 def _block_forward(lp, x, positions, cfg: ModelConfig, kv_mask, tp=None):
-    a, kv = _attn_forward(lp["attn"], L.rms_norm(lp["ln1"], x, cfg), positions,
-                          cfg, kv_mask, tp)
+    attend = _attn_cp if tp is not None and tp.cp else _attn_forward
+    a, kv = attend(lp["attn"], L.rms_norm(lp["ln1"], x, cfg), positions, cfg, kv_mask, tp)
     return _block_mlp(lp, x + a, cfg, tp), kv
 
 
@@ -652,7 +693,11 @@ def prefill_chunk(params, cache, tokens, cfg: ModelConfig, n_valid, *,
     buffer before attention (read pre-codec, as a whole-prompt prefill
     reads it) and KV blocks keep the fixed ``attn_chunk_kv`` grouping,
     so every split of a prompt reduces in the same groups.  ``tp``: this
-    rank's tensor-parallel plan, ``cfg`` then the rank-local config.
+    rank's tensor-parallel plan, ``cfg`` then the rank-local config;
+    under context-parallel prefill (``tp.cp``) each rank's queries are
+    its share of the chunk's rows (``TensorParallel.cp_rows``), against
+    the whole virtual buffer, and every rank still computes, inserts and
+    writes the whole chunk's K/V.
     """
     b, c = tokens.shape
     dev = tokens.device
@@ -675,6 +720,8 @@ def prefill_chunk(params, cache, tokens, cfg: ModelConfig, n_valid, *,
     apos = torch.arange(t_len, device=dev)[None, :]
     kv_mask = (apos < lens_after[:, None]) & (apos >= low_pos[:, None])
     bidx = torch.arange(b, device=dev)[:, None]
+    rows = tp.cp_rows(c, dev)[0] if tp is not None and tp.cp else slice(None)
+    q_at = positions[:, rows]                     # the queries' positions
 
     def load(li):
         # both leaves of layer li, (B, T, ...) each, zero where not
@@ -696,10 +743,11 @@ def prefill_chunk(params, cache, tokens, cfg: ModelConfig, n_valid, *,
 
     def attend_mla(at, hn, li):
         h, nope, rope = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
-        q_lat = L.rms_norm(at["q_norm"], L.dense(at["wdq"], hn, cfg), cfg)
-        q = L.dense(at["wuq"], q_lat, cfg).reshape(b, c, h, nope + rope)
+        nq = q_at.shape[1]
+        q_lat = L.rms_norm(at["q_norm"], L.dense(at["wdq"], hn[:, rows], cfg), cfg)
+        q = L.dense(at["wuq"], q_lat, cfg).reshape(b, nq, h, nope + rope)
         q_nope, q_rope = q.split([nope, rope], dim=-1)
-        q = torch.cat([q_nope, L.apply_rope(q_rope, positions,
+        q = torch.cat([q_nope, L.apply_rope(q_rope, q_at,
                                             cfg.rope_theta)], -1)
         c_suf, r_suf = L.dense(at["wdkv"], hn, cfg).split(
             [cfg.kv_lora_rank, rope], dim=-1)
@@ -715,31 +763,31 @@ def prefill_chunk(params, cache, tokens, cfg: ModelConfig, n_valid, *,
         k = torch.cat([k_nope, r_all[:, :, None, :].expand(
             b, t_len, h, rope)], -1)
         out = L.flash_attention(q, k, v, causal=True, cfg=cfg, kv_mask=kv_mask,
-                                q_positions=positions)
-        return out.reshape(b, c, h * cfg.v_head_dim), (c_suf, r_suf)
+                                q_positions=q_at)
+        return out.reshape(b, nq, h * cfg.v_head_dim), (c_suf, r_suf)
 
     def attend_dense(at, hn, li):
-        q = L.dense(at["wq"], hn, cfg).reshape(b, c, cfg.n_heads, cfg.head_dim)
+        nq = q_at.shape[1]
+        q = L.dense(at["wq"], hn[:, rows], cfg).reshape(b, nq, cfg.n_heads, cfg.head_dim)
         k_suf = L.dense(at["wk"], hn, cfg).reshape(b, c, cfg.n_kv_heads,
                                                    cfg.head_dim)
         v_suf = L.dense(at["wv"], hn, cfg).reshape(b, c, cfg.n_kv_heads,
                                                    cfg.head_dim)
-        q = L.apply_rope(q, positions, cfg.rope_theta)
+        q = L.apply_rope(q, q_at, cfg.rope_theta)
         k_suf = L.apply_rope(k_suf, positions, cfg.rope_theta)
         k_ctx, v_ctx = load(li)
         k = insert(k_ctx, k_suf)
         v = insert(v_ctx, v_suf)
         out = L.flash_attention(q, k, v, causal=True, cfg=cfg, kv_mask=kv_mask,
-                                q_positions=positions,
-                                window=cfg.sliding_window)
-        return out.reshape(b, c, cfg.n_heads * cfg.head_dim), (k_suf, v_suf)
+                                q_positions=q_at, window=cfg.sliding_window)
+        return out.reshape(b, nq, cfg.n_heads * cfg.head_dim), (k_suf, v_suf)
 
     attend = attend_mla if cfg.mla else attend_dense
     x = _embed(params, tokens, cfg, tp=tp)
     fresh = ([], [])                        # each layer's chunk K/V
     for li, lp in enumerate(params["layers"]):
         out, new = attend(lp["attn"], L.rms_norm(lp["ln1"], x, cfg), li)
-        x = x + _wo(lp["attn"], out, cfg, tp)
+        x = x + _cp_project(lp["attn"], out, cfg, tp, c)
         x = _block_mlp(lp, x, cfg, tp)
         for acc, t in zip(fresh, new):
             acc.append(t)

@@ -17,7 +17,10 @@ Under tensor parallelism (``tp``, with ``split`` naming the leaves that
 ``"model"`` splits) the gradient norm sums a split leaf's squares over
 the group and counts a replicated leaf once (hymba's ``in_proj``
 segment by segment), so the clip scale is the single device's; every
-other step of the update is leaf-local.
+other step of the update is leaf-local.  Under FSDP (``shards``) the
+parameters, gradients, ``m`` and ``v`` are a rank's pieces of the leaves
+that ``"data"`` splits: the norm sums their squares over ``"data"`` as
+well, and the update is elementwise on the piece.
 """
 from __future__ import annotations
 
@@ -68,26 +71,41 @@ def init(params, cfg: AdamWConfig):
     return {"m": m, "v": v, "count": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
-def global_norm(tree, tp=None, split=None):
+def global_norm(tree, tp=None, split=None, shards=None):
     """sqrt of the sum of every leaf's sum of squares, summed in leaf
     order (the port's order, not ``jax.tree``'s: equal to rounding).
     Under ``tp``, the squares of the leaves that ``split`` marks
     (``sharding.split_leaves``) are summed over the ``"model"`` group;
     the replicated ones count once, and so do the whole segments of a
-    leaf marked ``(dim, Segments)``, whose split segments sum."""
-    if tp is None:
+    leaf marked ``(dim, Segments)``, whose split segments sum.  Under
+    FSDP (``shards``, ``collectives.DataShards``) the squares of the
+    pieces that ``"data"`` splits are summed over ``"data"`` too."""
+    if tp is None and shards is None:
         total = 0.0
         for x in T.leaves(tree):
             total = total + torch.sum(torch.square(x.to(_F32)))
         return torch.sqrt(total)
-    parts = [0.0, 0.0]
-    for x, s in zip(T.leaves(tree), split):
+    leaves = T.leaves(tree)
+    split = split or [False] * len(leaves)
+    dims = shards.dims if shards is not None else [None] * len(leaves)
+    parts = {}          # (split over "model", over "data") -> the sum of squares
+    for x, s, d in zip(leaves, split, dims):
         pieces = s[1].pieces(x, s[0], tp.size) if isinstance(s, tuple) else [(x, s)]
         for piece, sp in pieces:
-            parts[bool(sp)] = parts[bool(sp)] + torch.sum(torch.square(piece.to(_F32)))
-    dev = T.leaves(tree)[0].device
-    local = torch.as_tensor(parts[1], dtype=_F32, device=dev)
-    return torch.sqrt(parts[0] + tp.all_reduce(local, what="norm"))
+            key = (bool(sp), d is not None)
+            parts[key] = parts.get(key, 0.0) + torch.sum(torch.square(piece.to(_F32)))
+    dev = leaves[0].device
+
+    def local(key):
+        return torch.as_tensor(parts.get(key, 0.0), dtype=_F32, device=dev)
+    if shards is None:
+        return torch.sqrt(local((False, False)) + tp.all_reduce(local((True, False)),
+                                                                 what="norm"))
+    by_data = shards.all_reduce(torch.stack([local((False, True)), local((True, True))]))
+    by_model = torch.stack([local((True, False)), by_data[1]])
+    if tp is not None:
+        by_model = tp.all_reduce(by_model, what="norm")
+    return torch.sqrt(local((False, False)) + by_data[0] + by_model.sum())
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,9 +123,9 @@ class Coefficients:
 @torch.no_grad()
 def coefficients(grads, state, cfg: AdamWConfig,
                  lr_scale: Optional[torch.Tensor] = None, *, tp=None,
-                 split=None) -> Coefficients:
+                 split=None, shards=None) -> Coefficients:
     count = state["count"] + 1
-    gnorm = global_norm(grads, tp, split)
+    gnorm = global_norm(grads, tp, split, shards)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
     cf = count.to(_F32)
     bc1 = 1 - torch.pow(cfg.b1, cf)
@@ -145,11 +163,13 @@ def update_leaf(p, g, m, v, c: Coefficients, cfg: AdamWConfig):
 
 @torch.no_grad()
 def update(grads, state, params, cfg: AdamWConfig,
-           lr_scale: Optional[torch.Tensor] = None, *, tp=None, split=None):
+           lr_scale: Optional[torch.Tensor] = None, *, tp=None, split=None,
+           shards=None):
     """Returns ``(params, new_state, {"grad_norm": ...})``; the
-    parameters and ``state["v"]`` are updated in place.  ``tp`` and
-    ``split``: :func:`global_norm` under tensor parallelism."""
-    c = coefficients(grads, state, cfg, lr_scale, tp=tp, split=split)
+    parameters and ``state["v"]`` are updated in place.  ``tp``,
+    ``split`` and ``shards``: :func:`global_norm` under tensor
+    parallelism and FSDP (each leaf a rank's piece, updated as it is)."""
+    c = coefficients(grads, state, cfg, lr_scale, tp=tp, split=split, shards=shards)
     new_m = [update_leaf(p, g, m, v, c, cfg) for p, g, m, v in zip(
         T.leaves(params), T.leaves(grads), T.leaves(state["m"]), T.leaves(state["v"]))]
     new_state = {"m": T.unflatten(state["m"], new_m), "v": state["v"], "count": c.count}

@@ -77,6 +77,18 @@ A gather and a reduce-scatter are full-size all-reduces here (gloo
 carries CUDA tensors for ``all_reduce`` and ``broadcast`` alone), so the
 layout moves more bytes than the head layout, not fewer.
 
+Context-parallel prefill (``TensorParallel.cp``, serving): each rank
+attends its share of a prompt's or chunk's query rows
+(:meth:`TensorParallel.cp_rows`) and :meth:`TensorParallel.cp_gather`
+gathers the rows' outputs, the same all-reduce into zeros, once a layer.
+
+FSDP (``cfg.fsdp`` in the train step, :class:`DataShards`): a leaf that
+``"data"`` splits is gathered whole before its layer uses it (a
+broadcast of each rank's piece over ``"data"``, again in a
+rematerialised layer's recompute), and its gradient is reduce-scattered
+in the backward pass (an all-reduce and this rank's piece), in place of
+the data-parallel all-reduce of that leaf's gradient.
+
 Under ``torch.no_grad`` each is its forward alone, the serving path's
 collectives.  Beside the ``"model"`` group, :func:`all_reduce_axis`
 sums over any mesh axis (the data-parallel gradients, in f32),
@@ -94,6 +106,8 @@ import dataclasses
 
 import torch
 import torch.distributed as dist
+
+from repro_torch.tree import tree_map
 
 # the collectives this module made since the last ``wire.clear()``:
 # (axis, op, what, dtype) -> [calls, bytes], bytes a rank's payload
@@ -214,6 +228,8 @@ class TensorParallel:
     n_experts: int = 0
     seq: bool = False   # the sequence layout: a rank's residual is its positions
                         # (training only; ``sharding.tensor_parallel(seq=)``)
+    cp: bool = False    # context-parallel prefill: a rank's query rows of a
+                        # prompt or chunk (serving only; ``tensor_parallel(serve=)``)
 
     def all_reduce(self, x: torch.Tensor, what: str = "activation") -> torch.Tensor:
         """The sum of ``x`` over the group, in f32, back in ``x``'s dtype
@@ -296,6 +312,21 @@ class TensorParallel:
         gradient is gathered to the whole sequence."""
         return _SeqScatter.apply(x, self)
 
+    def cp_rows(self, s: int, device):
+        """``(rows, n)``: this rank's ``n = ceil(s / size)`` contiguous
+        query rows of a prefill of ``s`` (context-parallel prefill), the
+        pad rows past the end clamped to row ``s - 1`` (their outputs are
+        dropped by :meth:`cp_gather`)."""
+        n = -(-s // self.size)
+        rows = torch.arange(self.rank * n, (self.rank + 1) * n, device=device)
+        return rows.clamp(max=s - 1), n
+
+    def cp_gather(self, y: torch.Tensor, s: int) -> torch.Tensor:
+        """Every rank's (B, n, F) rows of :meth:`cp_rows` -> the whole
+        (B, s, F), the pad rows dropped: an f32 all-reduce into zeros
+        (exact), on ``wire`` as ``cp_prefill``.  No gradient: serving."""
+        return self._gather_seq(y, "cp_prefill")[:, :s]
+
     def seq_slice(self, x: torch.Tensor) -> torch.Tensor:
         """This rank's positions of a whole-sequence ``x`` (no collective;
         the gradient is the slice's, zero elsewhere)."""
@@ -362,6 +393,83 @@ def all_reduce_axis(t: torch.Tensor, mesh, axis: str, what: str = "grad") -> tor
         dist.all_reduce(t, group=group)
         _record(axis, "all_reduce", what, t)
     return t
+
+
+class _FsdpGather(torch.autograd.Function):
+    """A leaf's ``"data"`` pieces -> the whole leaf; backward: the whole
+    gradient summed over ``"data"`` and this rank's piece of it (a
+    reduce-scatter; this rank's piece alone where every rank ran the
+    whole batch)."""
+
+    @staticmethod
+    def forward(ctx, piece, shards, dim):
+        ctx.shards, ctx.dim = shards, dim
+        return shards.gather(piece, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        sh = ctx.shards
+        if sh.rows_split:
+            # a copy: the all-reduce is in place, and autograd's buffer is its own
+            g = g.to(torch.float32, memory_format=torch.contiguous_format, copy=True)
+            dist.all_reduce(g, group=sh.group)
+            _record("data", "all_reduce", "fsdp_scatter", g)
+        n = g.shape[ctx.dim] // sh.size
+        return g.narrow(ctx.dim, sh.rank * n, n).contiguous(), None, None
+
+
+@dataclasses.dataclass(frozen=True)
+class DataShards:
+    """FSDP over the mesh's ``"data"`` axis in the train step: each leaf
+    that ``"data"`` splits (``dims``, per leaf in walk order: its dim or
+    ``None``; ``sharding.fsdp_dims``) is held as this rank's piece,
+    gathered whole where it is used (:meth:`whole`, an autograd
+    collective whose backward reduce-scatters the gradient).
+    ``rows_split``: whether the step's batch rows split over ``"data"``
+    (else every rank runs the whole batch, holds the whole gradient and
+    keeps its piece of it, with no sum)."""
+    group: object
+    rank: int
+    size: int
+    dims: tuple
+    rows_split: bool = True
+
+    def gather(self, piece: torch.Tensor, dim: int) -> torch.Tensor:
+        """Every rank's piece along ``dim`` -> the whole leaf, bit for bit:
+        a broadcast of each rank's piece in turn (half the bytes of an
+        all-reduce into zeros on two ranks), on ``wire`` as
+        ``fsdp_gather``."""
+        n = piece.shape[dim]
+        shape = list(piece.shape)
+        shape[dim] = n * self.size
+        full = piece.new_empty(shape)
+        buf = piece.contiguous()
+        for r in range(self.size):
+            src = buf if r == self.rank else torch.empty_like(buf)
+            dist.broadcast(_bytes_of(src), group_src=r, group=self.group)
+            _record("data", "broadcast", "fsdp_gather", src)
+            full.narrow(dim, r * n, n).copy_(src)
+        return full
+
+    def whole(self, tree, by_id: dict, seen: set = None):
+        """``tree`` with each piece that ``by_id`` (``{id(leaf): dim}``)
+        names gathered whole, under autograd; other leaves as they are.
+        The ids of the gathered pieces are added to ``seen``."""
+        def one(t):
+            dim = by_id.get(id(t))
+            if dim is None:
+                return t
+            if seen is not None:
+                seen.add(id(t))
+            return _FsdpGather.apply(t, self, dim)
+        return tree_map(one, tree)
+
+    def all_reduce(self, t: torch.Tensor, what: str = "norm") -> torch.Tensor:
+        """The f32 sum of ``t`` over ``"data"`` (no gradient)."""
+        y = t.to(torch.float32).contiguous()
+        dist.all_reduce(y, group=self.group)
+        _record("data", "all_reduce", what, y)
+        return y
 
 
 def _bytes_of(t: torch.Tensor) -> torch.Tensor:

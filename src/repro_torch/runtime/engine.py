@@ -113,7 +113,10 @@ class Engine:
         this rank's KV heads and recurrent-state heads (:meth:`init_cache`,
         :meth:`cache_shards`) and every model call carries the plan
         ``self.tp``.  Any family, paged or linear; without a mesh, or
-        with a ``"model"`` axis of size 1, nothing changes."""
+        with a ``"model"`` axis of size 1, nothing changes.  Where the
+        config's ``seq_shard_activations`` is set and the transformer's
+        attention heads do not split, prefill attention is
+        context-parallel (``sharding.context_parallel_prefill``)."""
         self.device = resolve_device(device)
         if decode_kernel is not None:
             if decode_kernel not in ("gather", "fused"):
@@ -131,7 +134,7 @@ class Engine:
                 f"params live on {params['tok_embed'].device}, engine "
                 f"device is {self.device}")
         self.mesh = mesh
-        self.tp = sharding.tensor_parallel(cfg, mesh)
+        self.tp = sharding.tensor_parallel(cfg, mesh, serve=True)
         self.cfg = sharding.local_config(cfg, self.tp)
         self.params = sharding.shard_params(params, mesh, cfg)
         self.max_len = int(max_len)

@@ -59,19 +59,26 @@ region) and so which leaves' gradients are partial
 (:func:`partial_grad_leaves`).
 
 Data parallelism (training): :func:`param_specs` with ``fsdp`` adds the
-reference's ZeRO axis (:func:`_add_fsdp_axis`; a spec only, as the
-reference's launcher runs no FSDP step either), :func:`batch_axes` and
+reference's ZeRO axis (:func:`_add_fsdp_axis`), :func:`batch_axes` and
 :func:`batch_specs` split a batch's rows over ``("pod", "data")``, and
 :func:`batch_rows` names the rows a rank holds, in the row-major order
 of those axes.  :func:`param_shardings` gives each leaf its
 :class:`NamedSharding`, the placement the port executes (the groups'
-whole-head decisions included), which ``Checkpointer.restore`` narrows
-a whole leaf by.  On the unstacked leaves the ZeRO axis can land on
-another dim than the reference's (``FSDP_DIVERGENCES``).
+whole-head decisions included; with ``fsdp``, the ZeRO axis on the
+leaf's whole shape, :func:`whole_shapes`), which ``Checkpointer.restore``
+narrows a whole leaf by; :func:`shard_params` with ``fsdp`` cuts each
+rank's pieces, which the FSDP train step runs on (:func:`fsdp_dims`).
+On the unstacked leaves the ZeRO axis can land on another dim than the
+reference's (``FSDP_DIVERGENCES``).
+
+Serving's context-parallel prefill (:func:`context_parallel_prefill`)
+places no leaf differently either: the attention's leaves stay whole on
+every rank, as they do wherever its heads do not split.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import re
 
 import torch
@@ -320,7 +327,7 @@ def model_group(mesh):
 SEQ_FAMILIES = ("transformer", "hymba")
 
 
-def tensor_parallel(cfg: ModelConfig, mesh, seq: bool = False):
+def tensor_parallel(cfg: ModelConfig, mesh, seq: bool = False, serve: bool = False):
     """The rank's :class:`TensorParallel` plan on ``mesh`` for ``cfg``
     (any family), or ``None`` without a mesh or with a ``"model"`` axis
     of size 1: then every path is the single-device one.  ``seq`` (the
@@ -328,14 +335,38 @@ def tensor_parallel(cfg: ModelConfig, mesh, seq: bool = False):
     does) turns on the sequence layout in the families that have one
     (``SEQ_FAMILIES``): the transformer's residual holds a rank's
     positions between blocks (Megatron-SP), and an attention whose heads
-    do not split is context-parallel there and in hymba."""
+    do not split is context-parallel there and in hymba.
+
+    ``serve`` (the engine passes it) turns on context-parallel prefill
+    (:func:`context_parallel_prefill`); the residual stays whole, as the
+    reference's prefill has no sequence constraint."""
     if mesh is None or axis_sizes(mesh).get(M, 1) == 1:
         return None
     group, rank, size = model_group(mesh)
+    groups = _split_groups(cfg, size)
     return TensorParallel(group=group, rank=rank, size=size, vocab_size=cfg.vocab,
                           n_experts=cfg.n_experts,
                           seq=bool(seq) and cfg.family in SEQ_FAMILIES,
-                          **_split_groups(cfg, size))
+                          cp=bool(serve) and context_parallel_prefill(cfg, size),
+                          **groups)
+
+
+def context_parallel_prefill(cfg: ModelConfig, mp: int) -> bool:
+    """Whether serving's prefill attention is context-parallel at
+    ``"model"`` ``mp``: the reference's ``_attn_context_parallel`` (q's
+    sequence over ``"model"``, K/V replicated), which its engine reaches
+    from the whole-prompt and the chunked prefill alike where the
+    config's ``seq_shard_activations`` is set.  The port takes it in the
+    transformer family (MLA included) where the attention's heads do not
+    split (``_split_groups``' ``attn``): where they split, the head
+    layout runs, which moves no activation.  Each rank then runs the
+    attention of its contiguous share of the prompt's (or chunk's) query
+    rows against the whole K/V, and the rows are gathered over
+    ``"model"``.  hymba's prefill is a loop of decode steps that never
+    reaches a whole-sequence attention, rwkv6 has no attention and
+    whisper's config leaves the flag off: none of them takes it."""
+    return (cfg.seq_shard_activations and cfg.family == "transformer" and mp > 1
+            and not _split_groups(cfg, mp)["attn"])
 
 
 def local_config(cfg: ModelConfig, tp) -> ModelConfig:
@@ -448,72 +479,47 @@ def _local(x: torch.Tensor, spec: tuple, rank: int, size: int, global_shape) -> 
     return x.narrow(dim, rank * n, n).contiguous()
 
 
-def shard_params(params, mesh, cfg: ModelConfig, prefix: str = ""):
+def shard_params(params, mesh, cfg: ModelConfig, prefix: str = "", fsdp: bool = False):
     """This rank's local tensors of a parameter tree (or of the subtree
     at ``prefix``, e.g. ``layers/3``): a contiguous slice along each
-    split leaf's ``"model"`` dim, the whole leaf where it replicates.
-    Idempotent: leaves already at their local shape stay as they are.
-    Identity without a mesh or with a ``"model"`` axis of size 1."""
-    if tensor_parallel(cfg, mesh) is None:
+    split leaf's ``"model"`` dim, the whole leaf where it replicates;
+    with ``fsdp`` (the training step's ``cfg.fsdp``) and a ``"data"``
+    axis > 1, then this rank's piece along the dim that ``"data"``
+    splits (:func:`param_shardings`).  Idempotent: leaves already at
+    their local shape stay as they are.  Identity without a mesh or
+    with ``"model"`` (and under ``fsdp`` ``"data"``) of size 1."""
+    if mesh is None:
         return params
-    _, rank, size = model_group(mesh)
-    glob = _global_shapes(cfg)
+    if tensor_parallel(cfg, mesh) is not None:
+        _, rank, size = model_group(mesh)
+        shapes = whole_shapes(cfg)
 
-    def walk(t, path):
-        if isinstance(t, dict):
-            return {k: walk(v, f"{path}/{k}" if path else k) for k, v in t.items()}
-        if isinstance(t, list):
-            return [walk(v, f"{path}/{i}") for i, v in enumerate(t)]
-        shape = glob.get(re.sub(r"/\d+/", "/", path), tuple(t.shape))
-        return _local(t, leaf_spec(path, shape, mesh, cfg), rank, size, shape)
-    return walk(params, prefix)
+        def walk(t, path):
+            if isinstance(t, dict):
+                return {k: walk(v, f"{path}/{k}" if path else k) for k, v in t.items()}
+            if isinstance(t, list):
+                return [walk(v, f"{path}/{i}") for i, v in enumerate(t)]
+            shape = _whole_leaf_shape(path, t.shape, shapes)
+            return _local(t, leaf_spec(path, shape, mesh, cfg), rank, size, shape)
+        params = walk(params, prefix)
+    if not fsdp or axis_sizes(mesh).get(D, 1) == 1:
+        return params
+    place, shapes = _placer(mesh, cfg, True), whole_shapes(cfg)
+    n = axis_sizes(mesh)[D]
 
-
-def _global_shapes(cfg: ModelConfig) -> dict:
-    """Global shapes of the leaves of ``cfg``'s parameters that can
-    split, keyed by path with the layer index removed
-    (``layers/attn/wq/w``)."""
-    d, h, g, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    f = cfg.d_ff
-    out = {"tok_embed": (cfg.vocab, d), "lm_head/w": (d, cfg.vocab)}
-    if cfg.family == "rwkv6":
-        da = h * hd
-        out.update({f"layers/{k}/w": (d, da) for k in ("wr", "wk", "wv", "wg")})
-        out.update({"layers/wo/w": (da, d), "layers/cm_wk/w": (d, f),
-                    "layers/cm_wv/w": (f, d)})
-        return out
-    if cfg.family == "hymba":
-        d_in = cfg.ssm_heads * cfg.ssm_head_dim
-        out.update({"layers/wq/w": (d, h * hd), "layers/wk/w": (d, g * hd),
-                    "layers/wv/w": (d, g * hd), "layers/wo/w": (d_in, d),
-                    "layers/in_proj/w": (d, 2 * d_in + 2 * cfg.ssm_state + cfg.ssm_heads),
-                    "layers/mlp/wi/w": (d, f), "layers/mlp/wg/w": (d, f),
-                    "layers/mlp/wo/w": (f, d)})
-        return out
-    if cfg.family == "whisper":
-        for stack in ("enc_layers/attn", "dec_layers/self", "dec_layers/cross"):
-            out.update({f"{stack}/wq/w": (d, h * hd), f"{stack}/wq/b": (h * hd,),
-                        f"{stack}/wk/w": (d, g * hd), f"{stack}/wv/w": (d, g * hd),
-                        f"{stack}/wv/b": (g * hd,), f"{stack}/wo/w": (h * hd, d)})
-        for stack in ("enc_layers", "dec_layers"):
-            out.update({f"{stack}/mlp/wi/w": (d, f), f"{stack}/mlp/wi/b": (f,),
-                        f"{stack}/mlp/wo/w": (f, d)})
-        return out
-    if cfg.mla:
-        qh = cfg.qk_nope_dim + cfg.qk_rope_dim
-        out.update({"layers/attn/wuq/w": (cfg.q_lora_rank, h * qh),
-                    "layers/attn/wuk/w": (cfg.kv_lora_rank, h * cfg.qk_nope_dim),
-                    "layers/attn/wuv/w": (cfg.kv_lora_rank, h * cfg.v_head_dim),
-                    "layers/attn/wo/w": (h * cfg.v_head_dim, d)})
-    else:
-        out.update({"layers/attn/wq/w": (d, h * hd), "layers/attn/wk/w": (d, g * hd),
-                    "layers/attn/wv/w": (d, g * hd), "layers/attn/wo/w": (h * hd, d)})
-    e, fe = cfg.n_experts, cfg.d_ff_expert
-    out.update({"layers/mlp/wi/w": (d, f), "layers/mlp/wg/w": (d, f),
-                "layers/mlp/wo/w": (f, d), "layers/moe/wi": (e, d, fe),
-                "layers/moe/wg": (e, d, fe), "layers/moe/wo": (e, fe, d)})
-    return out
-
+    def piece(path, t):
+        # this rank's piece along the dim "data" splits, where the leaf is
+        # whole along it (the leaf itself where it splits nothing, or is a
+        # piece already)
+        spec = place(path, tuple(t.shape))
+        if D not in spec:
+            return t
+        dim = spec.index(D)
+        whole = _whole_leaf_shape(path, t.shape, shapes)[dim]
+        if t.shape[dim] != whole:
+            return t
+        return t.narrow(dim, mesh.get_local_rank(D) * (whole // n), whole // n).contiguous()
+    return _map_with_paths(piece, params, prefix)
 
 
 # leaves every rank holds whole but uses a slice of (this rank's heads)
@@ -583,10 +589,11 @@ def split_leaves(params, cfg: ModelConfig, mesh) -> list:
     named = leaves_with_paths(params)
     if tensor_parallel(cfg, mesh) is None:
         return [False] * len(named)
-    glob = _global_shapes(cfg)
+    shapes = whole_shapes(cfg)
 
     def split(path, shape):
-        dim, entry = _split_dim(leaf_spec(path, _global_shape(path, shape, glob), mesh, cfg))
+        dim, entry = _split_dim(leaf_spec(path, _whole_leaf_shape(path, shape, shapes),
+                                          mesh, cfg))
         return (dim, entry) if isinstance(entry, Segments) else dim is not None
     return [split(p, x.shape) for p, x in named]
 
@@ -669,37 +676,88 @@ def unshard(x: torch.Tensor, sh) -> torch.Tensor:
     return x
 
 
-def _global_shape(path: str, shape, glob: dict) -> tuple:
-    """A leaf's whole shape from ``_global_shapes`` (its
-    path with the layer index and any prefix such as ``m/`` dropped), or
-    ``shape`` itself."""
-    bare = re.sub(r"/\d+/", "/", path)
-    for key, full in glob.items():
-        if bare == key or bare.endswith("/" + key):
-            return tuple(full)
-    return tuple(shape)
-
-
-def param_shardings(params, mesh, *, cfg: ModelConfig = None):
+def param_shardings(params, mesh, *, cfg: ModelConfig = None, fsdp: bool = False):
     """A tree of :class:`NamedSharding` shaped like ``params`` (or an
     optimizer state: the rules match its ``m/...`` and ``v/...`` paths
     too).  With ``cfg`` and a ``"model"`` axis that splits, each leaf
     gets the placement the port executes (``leaf_spec``, on its whole
     shape), so a rank's shard of a whole leaf is the one its model
     runs; otherwise the rule table's spec, filtered on the leaf's shape.
-    No leaf splits over ``"data"``: the port executes no FSDP step
-    (ROADMAP.md Queue 1 item 6)."""
-    tp = None if cfg is None else tensor_parallel(cfg, mesh)
-    glob = _global_shapes(cfg) if tp is not None else {}
+    ``fsdp`` (the reference's keyword; the training step passes
+    ``cfg.fsdp``) with a ``"data"`` axis > 1 adds ``"data"`` on the dim
+    :func:`_add_fsdp_axis` picks from the leaf's whole shape
+    (:func:`whole_shapes` of ``cfg``, so ``params`` may hold whole
+    leaves, a rank's shards or its FSDP pieces of any data size); a leaf
+    that ``"data"`` divides nowhere stays replicated over it."""
+    place = _placer(mesh, cfg, fsdp)
+    return _map_with_paths(lambda path, leaf: NamedSharding(
+        mesh, place(path, tuple(leaf.shape))), params)
 
-    def one(path, leaf):
-        shape = tuple(leaf.shape)
+
+def _placer(mesh, cfg, fsdp: bool):
+    """``place(path, shape)``: :func:`param_shardings`' spec of a leaf."""
+    tp = None if cfg is None else tensor_parallel(cfg, mesh)
+    n_data = axis_sizes(mesh).get(D, 1) if fsdp else 1
+    shapes = whole_shapes(cfg) if cfg is not None and (tp is not None or n_data > 1) else {}
+
+    def place(path, shape):
+        whole = _whole_leaf_shape(path, shape, shapes)
         if tp is not None:
-            spec = leaf_spec(path, _global_shape(path, shape, glob), mesh, cfg)
+            spec = leaf_spec(path, whole, mesh, cfg)
         else:
             spec = filter_spec(spec_for_path(path, len(shape)), shape, mesh)
-        return NamedSharding(mesh, spec)
-    return _map_with_paths(one, params)
+        if n_data > 1:
+            spec = _add_fsdp_axis(spec, whole, n_data)
+        return spec
+    return place
+
+
+def fsdp_dims(params, mesh, cfg: ModelConfig) -> list:
+    """For each leaf of a rank's FSDP pieces ``params`` (walk order): the
+    dim that ``"data"`` splits (:func:`param_shardings` with ``fsdp``),
+    or ``None``.  Raises where a split leaf is not at its piece's size
+    (a leaf that :func:`shard_params` with ``fsdp`` did not cut)."""
+    shapes, n = whole_shapes(cfg), axis_sizes(mesh).get(D, 1)
+    out = []
+    for (path, x), (_, sh) in zip(leaves_with_paths(params),
+                                  leaves_with_paths(param_shardings(params, mesh, cfg=cfg,
+                                                                    fsdp=True))):
+        dim = sh.spec.index(D) if D in sh.spec else None
+        if dim is not None and x.shape[dim] * n != _whole_leaf_shape(path, x.shape,
+                                                                     shapes)[dim]:
+            raise ValueError(f"FSDP: {path} {tuple(x.shape)} is not this rank's piece "
+                             "(sharding.shard_params with fsdp)")
+        out.append(dim)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def whole_shapes(cfg: ModelConfig) -> dict:
+    """``{path: shape}`` of every leaf of ``cfg``'s parameters, whole:
+    the family's ``init_params`` run under ``FakeTensorMode`` (shapes
+    alone: nothing is drawn or allocated; its imports cost a second or
+    two once a process).  The one source of whole shapes for the
+    ``"model"`` and the FSDP placements: neither a rank's shard nor an
+    FSDP piece can name its whole leaf (a dim of 3 is a whole leaf's or
+    half of 6's)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.models import get_family
+    with FakeTensorMode():
+        params = get_family(cfg).init_params(cfg, seed=0, device="cpu", dtype=torch.float32)
+    return {path: tuple(x.shape) for path, x in leaves_with_paths(params)}
+
+
+def _whole_leaf_shape(path: str, shape, shapes: dict) -> tuple:
+    """The whole shape of the parameter whose path ends ``path`` (an
+    optimizer state's ``m/...``, a state's ``params/...``), or
+    ``shape`` where none does (``count``)."""
+    parts = path.split("/")
+    for i in range(len(parts)):
+        hit = shapes.get("/".join(parts[i:]))
+        if hit is not None:
+            return hit
+    return tuple(shape)
 
 
 def batch_axes(global_batch: int, mesh, axes=("pod", D)):

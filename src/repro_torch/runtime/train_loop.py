@@ -32,6 +32,15 @@ rank), where the reference lets GSPMD place a jitted step:
   transformer's Megatron-SP residual and context-parallel attention,
   hymba's context-parallel attention), whose partial leaves are
   all-reduced the same way; elsewhere the head layout runs.
+* **FSDP** (``cfg.fsdp`` with ``"data"`` > 1; ``sharding.shard_params(
+  fsdp=True)`` gives each rank its pieces, and ``adamw.init`` on them
+  the optimizer's): a leaf that ``"data"`` splits is gathered whole
+  before its use (``collectives.DataShards``: the top-level leaves a
+  microbatch, a layer's inside the layer through ``layers.layer_gather``,
+  so again in its recompute) and its gradient is reduce-scattered in the
+  backward pass in place of the ``"data"`` all-reduce; every rank of
+  the row axes must take part in as many microbatches.  The update runs
+  on the pieces, the gradient norm summing them over ``"data"``.
 * **the pod-compressed step** (``compressed=True``, ``n_pods`` > 1,
   ``cfg.grad_compress``, a ``"pod"`` axis of ``n_pods``): the
   reference's ``train_step(params, opt_state, ef_state, batch, step)``
@@ -48,6 +57,7 @@ rank), where the reference lets GSPMD place a jitted step:
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
@@ -83,6 +93,7 @@ def make_grad_fn(cfg: ModelConfig, mesh=None, *, axes=("pod", "data"), accum=Non
     lcfg = sharding.local_config(cfg, seq_tp)
     sizes = {} if mesh is None else sharding.axis_sizes(mesh)
     partials = {}           # the partial leaves of each layout, fixed by cfg and mesh
+    fsdp = {}               # the FSDP plan by whether the rows split, fixed likewise
 
     def grads_of(params, batch):
         leaves = T.leaves(params)
@@ -105,6 +116,13 @@ def make_grad_fn(cfg: ModelConfig, mesh=None, *, axes=("pod", "data"), accum=Non
         # batch: every rank then runs it whole, and nothing is summed)
         split = () if mesh is None else sharding.batch_axes(b, mesh, axes) or ()
         r0, r1 = (0, b) if mesh is None else sharding.batch_rows(b, mesh, axes)
+        rows_split = "data" in split
+        if rows_split not in fsdp:
+            fsdp[rows_split] = data_shards(params, cfg, mesh, rows_split)
+        shards = fsdp[rows_split]
+        if shards is not None:
+            _check_even_parts(b, mb, split, sizes)
+            by_id = {id(p): d for p, d in zip(leaves, shards.dims) if d is not None}
         lsum = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
         for i in range(accum):
             lo, hi = max(r0, i * mb), min(r1, (i + 1) * mb)
@@ -113,7 +131,16 @@ def make_grad_fn(cfg: ModelConfig, mesh=None, *, axes=("pod", "data"), accum=Non
             if mesh is not None:
                 micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
                 kw["denom"] = L.xent_count(fam.loss_labels(micro, cfg)[1], cfg.loss_chunk)
-            loss = fam.train_loss(params, {k: v[lo:hi] for k, v in batch.items()}, lcfg, **kw)
+            rows = {k: v[lo:hi] for k, v in batch.items()}
+            if shards is None:
+                loss = fam.train_loss(params, rows, lcfg, **kw)
+            else:       # the top-level leaves whole now, each layer's inside it
+                seen = set()
+                gather = functools.partial(shards.whole, by_id=by_id, seen=seen)
+                view = {k: v if isinstance(v, list) else gather(v) for k, v in params.items()}
+                with L.layer_gather(gather):
+                    loss = fam.train_loss(view, rows, lcfg, **kw)
+                _check_gathered(params, by_id, seen)
             loss.backward()
             lsum = lsum + loss.detach()
         for p in leaves:
@@ -125,11 +152,14 @@ def make_grad_fn(cfg: ModelConfig, mesh=None, *, axes=("pod", "data"), accum=Non
             for g in grads:
                 g.mul_(1.0 / accum)
             lsum = lsum * (1.0 / accum)
+        pieces = [False] * len(grads) if shards is None else [d is not None
+                                                              for d in shards.dims]
         for a in split:
             if sizes[a] > 1:
                 C.all_reduce_axis(lsum, mesh, a, what="loss")
-                for g in grads:
-                    C.all_reduce_axis(g, mesh, a)
+                for g, piece in zip(grads, pieces):
+                    if not (piece and a == "data"):     # reduce-scattered in backward
+                        C.all_reduce_axis(g, mesh, a)
         for g, part in zip(grads, partial):
             if part is True:
                 g.copy_(tp.all_reduce(g, what="grad"))
@@ -140,6 +170,40 @@ def make_grad_fn(cfg: ModelConfig, mesh=None, *, axes=("pod", "data"), accum=Non
         return lsum, T.tree_map(lambda p: p.grad, params)
 
     return grads_of
+
+
+def data_shards(params, cfg: ModelConfig, mesh, rows_split: bool = True):
+    """The FSDP plan (``collectives.DataShards``) of a rank's ``params``
+    where ``cfg.fsdp`` is set and the mesh's ``"data"`` axis is > 1
+    (``sharding.fsdp_dims``: each leaf's split dim), else ``None``."""
+    if mesh is None or not cfg.fsdp or sharding.axis_sizes(mesh).get("data", 1) == 1:
+        return None
+    group, rank, size = C.axis_group(mesh, "data")
+    return C.DataShards(group, rank, size, tuple(sharding.fsdp_dims(params, mesh, cfg)),
+                        rows_split)
+
+
+def _check_gathered(params, by_id: dict, seen: set):
+    """Every FSDP piece must have gone through the layer gather: a layer
+    loop that bypasses ``layers.remat_layer`` and ``layers.gathered``
+    would run on the pieces themselves."""
+    if len(seen) < len(by_id):
+        missed = [p for p, x in T.leaves_with_paths(params) if id(x) in by_id.keys() - seen]
+        raise RuntimeError(f"FSDP: the forward pass used the pieces of {missed} ungathered "
+                           "(a layer loop outside layers.remat_layer / layers.gathered)")
+
+
+def _check_even_parts(b: int, mb: int, split, sizes: dict):
+    """FSDP's gathers run inside every microbatch a rank takes part in,
+    so every rank of the row axes must take part in as many."""
+    n = 1
+    for a in split:
+        n *= sizes[a]
+    per = b // n
+    parts = {len({r // mb for r in range(i * per, (i + 1) * per)}) for i in range(n)}
+    if len(parts) > 1:
+        raise ValueError(f"FSDP: the ranks' rows of a batch of {b} meet different numbers "
+                         f"of microbatches of {mb} rows")
 
 
 def pod_mean(gathered, wire: str):
@@ -166,18 +230,20 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
         raise NotImplementedError(
             f"the pod-compressed train step needs a pod mesh: a rank mesh whose "
             f"'pod' axis has n_pods={n_pods} ranks (make_mesh)")
+    if pod_step and cfg.fsdp:
+        raise NotImplementedError("the pod-compressed train step under FSDP")
     tp = None if mesh is None else sharding.tensor_parallel(cfg, mesh)
     grads_of = make_grad_fn(cfg, mesh, axes=("data",), accum=1) if pod_step \
         else make_grad_fn(cfg, mesh)
-    split = None            # fixed by cfg and mesh: set on the first step
+    norm = {}               # fixed by cfg and mesh: set on the first step
 
     def update(params, opt_state, grads, step, dev):
-        nonlocal split
-        if split is None and tp is not None:
-            split = sharding.split_leaves(params, cfg, mesh)
+        if not norm:
+            norm.update(split=None if tp is None else sharding.split_leaves(params, cfg, mesh),
+                        shards=data_shards(params, cfg, mesh))
         lr_scale = adamw.cosine_schedule(torch.tensor(int(step), device=dev),
                                          total=total_steps)
-        return adamw.update(grads, opt_state, params, opt_cfg, lr_scale, tp=tp, split=split)
+        return adamw.update(grads, opt_state, params, opt_cfg, lr_scale, tp=tp, **norm)
 
     def release(params):
         for p in T.leaves(params):

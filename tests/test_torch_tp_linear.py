@@ -36,15 +36,17 @@ from repro.runtime.scheduler import Scheduler as RefScheduler
 from repro_torch.launch import mesh as M
 
 ONESHOT2 = ["dense", "window", "mla", "mqa", "moe", "tied", "visual"]
-ONESHOT4 = ["dense"]
-DENSE2 = list(TL.DENSE)
+# at mp 4 the heads of these lanes do not split: context-parallel prefill
+ONESHOT4 = ["dense", "window", "mla6", "visual"]
+DENSE2 = ["dense-sched", "mla-sched"]
+DENSE4 = ["dense-sched", "mla6-sched"]
 SPAWN_TIMEOUT = 300
 LOGIT_TOL = 1e-4
 
 
 @pytest.fixture(scope="module")
 def runs():
-    lanes = ONESHOT2 + DENSE2
+    lanes = ONESHOT2 + ONESHOT4 + DENSE2 + DENSE4
     np_params, ref_params = {}, {}
     for lane in lanes:
         key = TL.param_key(lane)
@@ -58,17 +60,17 @@ def runs():
                           ({"oneshot": ONESHOT2, "dense": DENSE2, "sampled": True},
                            np_params, 2), timeout=SPAWN_TIMEOUT, threads=1)
         mp4 = pool.submit(M.spawn, TL.rank_run, ["cpu"] * 4,
-                          ({"oneshot": ONESHOT4}, np_params, 4),
+                          ({"oneshot": ONESHOT4, "dense": DENSE4}, np_params, 4),
                           timeout=SPAWN_TIMEOUT, threads=1)
         ref = {}
-        for lane in ONESHOT2:
+        for lane in dict.fromkeys(ONESHOT2 + ONESHOT4):
             rc = TL.lane_config(RCFG, lane)
             prompts, kw = TL.inputs(rc, lane)
             res = RefEngine(rc, ref_params[TL.param_key(lane)], max_len=TL.MAX_LEN).generate(
                 prompts, TL.GEN, **{k: jax.numpy.asarray(v) for k, v in kw.items()})
             ref[lane] = {"tokens": np.asarray(res.tokens).tolist(),
                          "logits": np.asarray(res.prefill_logits)}
-        for lane in DENSE2:
+        for lane in dict.fromkeys(DENSE2 + DENSE4):
             rc = TL.lane_config(RCFG, lane)
             ref[lane] = TL.run_dense(RefScheduler(
                 RefEngine(rc, ref_params[TL.param_key(lane)], max_len=TL.SCHED["max_len"]),
@@ -117,18 +119,42 @@ def test_per_device_bytes_are_the_split_share(runs, lane, mp):
             assert rep["per_device_bytes"] == rep["bytes"]
 
 
-@pytest.mark.parametrize("lane", DENSE2)
-def test_dense_cache_scheduler_matches_reference(runs, lane):
+DENSE_CASES = [(lane, 2) for lane in DENSE2] + [(lane, 4) for lane in DENSE4]
+
+
+@pytest.mark.parametrize("lane,mp", DENSE_CASES,
+                         ids=[f"{ln}-mp{mp}" if mp != 2 else ln for ln, mp in DENSE_CASES])
+def test_dense_cache_scheduler_matches_reference(runs, lane, mp):
     want = runs["ref"][lane]
     assert len(want["moves"]) >= 1
     assert any(b < a for a, b in want["moves"])       # a pull-back, not only raises
     cfg = TL.lane_config(RCFG, lane)
-    for rank, got in enumerate(r[lane] for r in runs[2]):
+    for rank, got in enumerate(r[lane] for r in runs[mp]):
         for key in ("tokens", "admitted", "finished", "moves"):
             assert got[key] == want[key], (rank, key)
         assert got["lens"] == [0] * TL.SCHED["n_slots"]
         if not cfg.mla:
-            assert got["local_kv"] == (cfg.n_kv_heads // 2,) * 2
+            g = cfg.n_kv_heads
+            assert got["local_kv"] == (g // mp if g % mp == 0 else g,) * 2
+
+
+@pytest.mark.parametrize("lane,mp", CASES + DENSE_CASES,
+                         ids=IDS + [f"{ln}-mp{mp}" for ln, mp in DENSE_CASES])
+def test_context_parallel_prefill_is_pinned(runs, lane, mp):
+    """At mp 4 the lanes' heads do not split and their configs keep
+    ``seq_shard_activations``: every prefill's attention is
+    context-parallel, one gather of its rows over ``"model"`` a layer and
+    a call (a ragged prompt of 14, an uneven length at 4, and the
+    dense-cache scheduler's prompts and quanta), and no decode step
+    gathers; at mp 2 the heads split and nothing is gathered."""
+    cfg = TL.lane_config(RCFG, lane)
+    for got in (r[lane] for r in runs[mp]):
+        assert got["cp"] is (mp == 4)
+        calls = got["cp_calls"]
+        prefills = calls["prefill"] + calls["prefill_chunk"]
+        assert prefills and set(prefills) == {cfg.n_layers if mp == 4 else 0}, calls
+        decodes = calls["_decode_step_paged"] + calls["_decode_step_linear"]
+        assert decodes and set(decodes) == {0}, calls
 
 
 def test_ranks_agree_when_sampling(runs):

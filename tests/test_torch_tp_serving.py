@@ -27,6 +27,7 @@ import re
 
 import numpy as np
 import pytest
+import torch
 
 import jax
 
@@ -40,18 +41,29 @@ from repro_torch.launch import mesh as M
 from repro_torch.launch import serve
 from repro_torch.models import transformer as T
 
-LANES2 = list(tp_lanes.LANES)
+LANES2 = [lane for lane in tp_lanes.LANES if lane not in tp_lanes.CP_LANES]
 SPAWN_TIMEOUT = 300
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two torch threads in this process (the ranks it spawns take one
+    each, ``serve``'s a share of these two)."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(saved)
 
 
 @pytest.fixture(scope="module")
 def runs():
     """The reference's single-device runs and the ranks' results: mp 2
     on every lane (and the sampled one), mp 4 on ``MP4``."""
-    keys = {tp_lanes.param_key(lane) for lane in LANES2}
+    lanes = LANES2 + list(tp_lanes.CP_LANES)
+    keys = {tp_lanes.param_key(lane) for lane in lanes}
     ref_params, np_params = {}, {}
     for key in sorted(keys):
-        lane = next(ln for ln in LANES2 if tp_lanes.param_key(ln) == key)
+        lane = next(ln for ln in lanes if tp_lanes.param_key(ln) == key)
         rc = tp_lanes.lane_config(RCFG, lane)
         ref_params[key] = get_family(rc).init_params(jax.random.PRNGKey(0), rc)
         np_params[key] = jax.tree.map(np.asarray, ref_params[key])
@@ -62,7 +74,7 @@ def runs():
         mp4 = pool.submit(M.spawn, tp_lanes.rank_lanes, ["cpu"] * 4,
                           (MP4, np_params, 4), timeout=SPAWN_TIMEOUT, threads=1)
         ref = {}
-        for lane in LANES2:          # the reference decodes on its gather path
+        for lane in lanes:           # the reference decodes on its gather path
             if lane == "preempt-fused":
                 ref[lane] = ref["preempt"]
                 continue
@@ -75,9 +87,10 @@ def runs():
 
 
 # at mp 4: the identity script's 4 KV heads split one a rank; the dense
-# lane's 2 KV heads do not divide, so its attention runs whole on every
-# rank and only the MLP and the vocabulary split
-MP4 = ["identity", "dense"]
+# lane's 2 KV heads do not divide, so its attention's heads stay whole on
+# every rank, its prefill is context-parallel, and only the MLP and the
+# vocabulary split; so too the context-parallel lanes
+MP4 = ["identity", "dense"] + list(tp_lanes.CP_LANES)
 CASES = [(lane, 2) for lane in LANES2] + [(lane, 4) for lane in MP4]
 
 
@@ -117,6 +130,25 @@ def test_arena_bytes_per_device(runs, lane, mp):
             assert rep["per_device_bytes"] == rep["bytes"]
         if (lane, mp) == ("identity", 4):
             assert rep["per_device_bytes"] < rep["bytes"] / 2   # the reference's check
+
+
+@pytest.mark.parametrize("lane,mp", CASES, ids=[f"{ln}-mp{mp}" for ln, mp in CASES])
+def test_context_parallel_prefill_is_pinned(runs, lane, mp):
+    """Where the heads do not split (the dense and context-parallel lanes
+    at mp 4), every whole-prompt prefill and prefill chunk gathers its
+    query rows' outputs once a layer and no decode step gathers; where
+    they split, nothing is gathered."""
+    cfg = tp_lanes.lane_config(TCFG, lane)
+    cp = mp == 4 and lane != "identity"
+    for got in (r[lane] for r in runs[mp]):
+        assert got["cp"] is cp
+        calls = got["cp_calls"]
+        prefills = calls["prefill"] + calls["prefill_chunk"]
+        assert prefills and set(prefills) == {cfg.n_layers if cp else 0}, calls
+        if lane in tp_lanes.CP_LANES:
+            chunked = "chunked_prefill" in tp_lanes.LANES[lane]["sched"]
+            assert bool(calls["prefill_chunk"]) is chunked, calls
+        assert set(calls["_decode_step_paged"]) == {0}, calls
 
 
 def test_ranks_agree_when_sampling(runs):

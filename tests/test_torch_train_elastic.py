@@ -9,6 +9,9 @@ reduced (tied embeddings), f32, posit16 moments, the example's data
 -> ``(data 1, model 2)``.  A save under a mesh writes whole leaves
 (gathered over ``"model"``) in the single-device format; a restore with
 ``shardings=`` (``sharding.param_shardings``) gives each rank its piece.
+A fourth move trains under FSDP at ``(data 2, model 1)`` (each rank
+holds half of every leaf and of its posit16 ``m`` and f32 ``v``) and its
+save restores on one device and onto FSDP at ``(data 4, model 1)``.
 Each move restores leaves (or shards) bit-equal to what was saved, each
 shard the whole leaf cut as its spec says (cut here, independently of
 the port's narrowing), and the next step from the restored state gives
@@ -21,6 +24,8 @@ one device with each rank's leaves its cut bit for bit, segments
 included, and restores onto a ``(data 1, model 4)`` placement.  Weights
 come from the reference's ``init_params``.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -39,7 +44,17 @@ from repro_torch.optim import adamw
 from repro_torch.runtime import sharding, train_loop
 from repro_torch.weights import params_from_jax
 
-MESHES = {"dp": (2, 1), "tp": (1, 2)}
+MESHES = {"dp": (2, 1), "tp": (1, 2), "fsdp": (2, 1)}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two torch threads in this process (the ranks it spawns take one
+    each, ``serve``'s a share of these two)."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(saved)
 
 
 @pytest.fixture(scope="module")
@@ -47,7 +62,7 @@ def runs(tmp_path_factory):
     """An uninterrupted single-device run (its state saved after two
     steps to ``one``), then the ranks' moves."""
     base = tmp_path_factory.mktemp("elastic")
-    dirs = {k: str(base / k) for k in ("one", "dp", "tp", "segments")}
+    dirs = {k: str(base / k) for k in ("one", "dp", "tp", "fsdp", "segments")}
     by_arch = {}
     for arch in (TL.ELASTIC_ARCH, TL.SEGMENTS_ARCH):
         rc = TL.lane_config(RCFG, arch)
@@ -130,8 +145,9 @@ def test_mesh_checkpoint_restores_on_one_device(runs, name):
         for i, (w, piece, spec) in enumerate(zip(whole, got["leaves"], got["specs"])):
             np.testing.assert_array_equal(_cut(w, spec, MESHES[name], rank), piece,
                                           err_msg=str(i))
-    if name == "tp":     # the split leaves really are split
-        assert any("model" in spec for spec in runs["ranks"][0][name]["specs"])
+    if name != "dp":     # the split leaves really are split
+        axis = {"tp": "model", "fsdp": "data"}[name]
+        assert any(axis in spec for spec in runs["ranks"][0][name]["specs"])
     _, _, m = train_loop.make_train_step(cfg, opt_cfg)(
         state["params"], state["opt"], pipe.batch_at(step0), step0)
     assert abs(float(m["loss"]) - runs["losses"][-1]) <= 1e-5 * runs["losses"][-1]
@@ -175,6 +191,47 @@ def test_elastic_remesh_restore(tmp_path):
     assert torch.equal(restored["w"], t["w"])
     split = {"w": sharding.NamedSharding(_Mesh(), ("data", None))}
     assert torch.equal(ck.restore(2, t, shardings=split)[0]["w"], t["w"])
+
+
+class _DataMesh:
+    """Rank ``rank`` of a ``(data n, model 1)`` mesh, as a restore's
+    placement reads it (no collective)."""
+    mesh_dim_names = ("data", "model")
+
+    def __init__(self, n, rank):
+        self.n, self.rank = n, rank
+
+    def size(self, i=None):
+        return (self.n, 1)[i]
+
+    def get_group(self, name):
+        return None
+
+    def get_local_rank(self, name):
+        return self.rank if name == "data" else 0
+
+
+def test_fsdp_checkpoint_restores_onto_data_4(runs):
+    """The save under FSDP at data 2 restored onto FSDP at ``(data 4,
+    model 1)``: each of the four ranks' leaves, posit16 ``m`` included,
+    is the whole leaf cut by its spec there, bit for bit, and every leaf
+    that 4 divides somewhere is a quarter."""
+    cfg, _, _, template = _one_device(runs)
+    cfg = dataclasses.replace(cfg, fsdp=True)
+    ck = Checkpointer(runs["dirs"]["fsdp"], keep=1)
+    whole_state = ck.restore(TL.ELASTIC_STEPS, template)[0]
+    whole = [TL.bits(x) for x in TT.leaves(whole_state)]
+    for rank in range(4):
+        sh = TL.state_shardings(template, _DataMesh(4, rank), cfg)
+        specs = [s.spec for s in TT.leaves(sh)]
+        state, _ = ck.restore(TL.ELASTIC_STEPS, template, shardings=sh)
+        for (path, x), w, spec in zip(TT.leaves_with_paths(state), whole, specs):
+            np.testing.assert_array_equal(_cut(w, spec, (4, 1), rank), TL.bits(x),
+                                          err_msg=path)
+            if "data" in spec:
+                assert x.numel() * 4 == w.size, path
+        assert any(p.startswith("opt/m/") and "data" in spec and x.dtype == torch.uint16
+                   for (p, x), spec in zip(TT.leaves_with_paths(state), specs))
 
 
 class _ModelMesh:

@@ -313,3 +313,64 @@ def test_global_norm_of_segments_leaves_is_the_whole_leafs():
         adamw.global_norm(share, rec, wrong)
     doubled = adamw.global_norm(shares[0], _SumTP(rec.seen[0] + rec.seen[1]), wrong)
     assert float(doubled) > float(want) * (1 + 1e-3)
+
+
+class _DataModelMesh(_FakeMesh):
+    """Rank ``(d, m)`` of a ``(data, model)`` mesh, as the placement reads
+    it (no process group)."""
+    mesh_dim_names = ("data", "model")
+
+    def __init__(self, data, model, d=0, m=0):
+        super().__init__(data=data, model=model)
+        self.coords = {"data": d, "model": m}
+
+    def size(self, i=None):
+        return (self.shape["data"], self.shape["model"])[i]
+
+    def get_group(self, name):
+        return None
+
+
+@pytest.mark.parametrize("arch", TCFG.ARCH_IDS)
+def test_whole_shapes_are_the_parameters(arch):
+    """``whole_shapes`` (the family's init under ``FakeTensorMode``) names
+    every leaf of the parameters with its shape."""
+    cfg, params = _port_params(arch)
+    assert S.whole_shapes(cfg) == {p: tuple(x.shape) for p, x in tree.leaves_with_paths(params)}
+
+
+@pytest.mark.parametrize("data,model", [(2, 1), (2, 2), (4, 1)])
+@pytest.mark.parametrize("arch", ["phi3-medium-14b", "minicpm3-4b", "granite-moe-3b-a800m",
+                                  "rwkv6-7b"])
+def test_fsdp_pieces_and_their_placement(arch, data, model):
+    """Under ``fsdp`` each rank's piece of each leaf (``shard_params``) is
+    the whole leaf cut by its spec (``param_shardings``), which is the same
+    from the whole tree, a rank's ``"model"`` shards and its pieces, and
+    for the optimizer state's ``m`` and ``v``; ``"data"`` lands on a dim
+    ``"model"`` leaves free; ``shard_params`` is idempotent, and
+    ``fsdp_dims`` refuses a leaf left whole."""
+    cfg, params = _port_params(arch)
+    for d in range(data):
+        for m in range(model):
+            mesh = _DataModelMesh(data, model, d, m)
+            local = S.shard_params(params, mesh, cfg)
+            pieces = S.shard_params(params, mesh, cfg, fsdp=True)
+            specs = [s.spec for s in tree.leaves(S.param_shardings(params, mesh, cfg=cfg,
+                                                                   fsdp=True))]
+            for t in (local, pieces):
+                assert [s.spec for s in tree.leaves(S.param_shardings(
+                    t, mesh, cfg=cfg, fsdp=True))] == specs
+            assert sum("data" in s for s in specs) > len(specs) // 2
+            for x, y, spec in zip(tree.leaves(params), tree.leaves(pieces), specs):
+                assert torch.equal(S.NamedSharding(mesh, spec).shard(x), y)
+                assert list(spec).count("data") <= 1
+            assert all(torch.equal(a, b) for a, b in zip(
+                tree.leaves(S.shard_params(pieces, mesh, cfg, fsdp=True)), tree.leaves(pieces)))
+            assert S.fsdp_dims(pieces, mesh, cfg) == [
+                s.index("data") if "data" in s else None for s in specs]
+            opt = adamw.init(pieces, adamw.AdamWConfig(posit_moments=True))
+            shard = S.param_shardings(opt, mesh, cfg=cfg, fsdp=True)
+            assert [s.spec for s in tree.leaves(shard["m"])] == specs
+            assert [s.spec for s in tree.leaves(shard["v"])] == specs
+    with pytest.raises(ValueError, match="not this rank's piece"):
+        S.fsdp_dims(S.shard_params(params, mesh, cfg), mesh, cfg)

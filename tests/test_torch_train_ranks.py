@@ -24,7 +24,12 @@ explicit collectives) is held to the same single-device step: the
 transformer lanes and the MoE gate with every group split, phi3 at
 model 4 (context-parallel attention, with and without a window),
 internvl2-1b there with its visual prefix and a whole vocabulary, and
-hymba at model 4; its collectives are counted against the code.  In bf16
+hymba at model 4; its collectives are counted against the code.  FSDP
+(the configs' ``fsdp`` kept on) at data 2 x model 2 on the dense, MLA,
+MoE and rwkv6 lanes, and with the sequence layout on the tied lane, is
+held to the same step, its pieces, gathers and reduce-scatters counted
+(``train_ref.check_fsdp``), and beside its data-parallel twin on the
+same mesh and layout: the loss bit for bit, the step within 1e-6.  In bf16
 hymba's and rwkv6's ranks drift from one device's bf16 gradients by the
 split sums' rounding: no more than bf16's own rounding moves one
 device's gradients from f32.  The lanes' rank code is in
@@ -32,14 +37,16 @@ device's gradients from f32.  The lanes' rank code is in
 """
 import numpy as np
 import pytest
+import torch
 
 import train_lanes as TL
 import train_ref
 
 SEQ_LANES = ["gqa-sp", "mla-sp", "mqa-sp", "tied-sp", "gqa-cp", "window-cp", "visual-cp",
              "hymba-cp"]
+FSDP_LANES = ["gqa-fsdp-tp", "mla-fsdp-tp", "moe-fsdp-tp", "rwkv6-fsdp-tp", "tied-sp-fsdp"]
 BY_WORLD = {8: ["moe", "moe-sp"], 4: ["gqa", "mla", "mqa", "tied", "hymba-tp", "rwkv6-tp",
-                                      "whisper-tp", "hymba-mlp"] + SEQ_LANES}
+                                      "whisper-tp", "hymba-mlp"] + SEQ_LANES + FSDP_LANES}
 LANES = [lane for lanes in BY_WORLD.values() for lane in lanes]
 # the leaves each rank all-reduces the gradient of over "model", a layer
 # (the reduced configs have 2): rwkv6's per-head leaves, hymba's per-head
@@ -60,12 +67,24 @@ PARTIAL = {"hymba-tp": ["A_log", "D", "attn_norm/scale", "dt_bias", "in_proj/w",
            "mqa-sp": ["attn/wk/w", "attn/wv/w"] + _SP_NORMS,
            "moe-sp": _SP_NORMS + ["moe/router/w"],
            "gqa-cp": _CP_ATTN, "window-cp": _CP_ATTN, "visual-cp": _CP_ATTN,
-           "hymba-cp": ["attn_norm/scale", "wk/w", "wq/w", "wv/w"]}
+           "hymba-cp": ["attn_norm/scale", "wk/w", "wq/w", "wv/w"],
+           "moe-fsdp-tp": ["moe/router/w"],
+           "rwkv6-fsdp-tp": ["ln_x/bias", "ln_x/scale", "u", "w0", "wl_b"]}
 # the top-level leaves among them: the final norm under the transformer's
 # sequence layout, and the tied embedding whose vocabulary stays whole
 PARTIAL_TOP = {lane: ["final_norm/scale"] for lane in SEQ_LANES + ["moe-sp"]
                if lane != "hymba-cp"}
 PARTIAL_TOP["visual-cp"] = ["final_norm/scale", "tok_embed"]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two torch threads in this process (its one-device gradients; the
+    ranks it spawns take one each)."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(saved)
 
 
 @pytest.fixture(scope="module")
@@ -127,6 +146,18 @@ def test_bf16_gradient_drift_is_rounding(runs, lane):
         assert drift <= 2 * own, (path, drift / scale, own / scale)
         rounding.append(own / scale)
     assert max(rounding) > 1e-3          # bf16 rounding there is, and the drift is its size
+
+
+@pytest.mark.parametrize("lane", FSDP_LANES)
+def test_fsdp_pieces_and_collectives(runs, lane):
+    """FSDP at data 2 x model 2: each rank holds its pieces and makes the
+    gathers and reduce-scatters of ``train_ref.check_fsdp``."""
+    train_ref.check_fsdp(lane, runs["ranks"][lane])
+
+
+@pytest.mark.parametrize("lane", FSDP_LANES)
+def test_fsdp_step_is_the_data_parallel_step(runs, lane):
+    train_ref.check_fsdp_twin(runs["got"][lane])
 
 
 def seq_wire(lane) -> dict:

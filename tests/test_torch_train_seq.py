@@ -8,7 +8,9 @@
 * Serving never takes the layout: ``Engine(mesh=)`` and the schedulers
   over it build their plan with ``seq`` false for a config whose flag is
   on, while the training step's plan takes it in the families that have
-  one.
+  one.  Serving's plan takes context-parallel prefill instead, exactly
+  where the flag is on, the family is the transformer and the heads do
+  not split.
 * The partial leaves under the layout: in the transformer, exactly the
   leaves that do not split over ``"model"``; in hymba, the
   context-parallel attention branch's, where its heads do not split.
@@ -95,6 +97,34 @@ def test_serving_plans_keep_the_head_layout(paged):
     sched = Scheduler(eng, n_slots=2, chunk_size=4, chunked_prefill=paged)
     assert not sched.engine.tp.seq
     assert S.tensor_parallel(cfg, mesh, seq=cfg.seq_shard_activations).seq
+
+
+@pytest.mark.parametrize("mp", [1, 2, 4])
+@pytest.mark.parametrize("flag", [True, False])
+@pytest.mark.parametrize("arch", ["phi3-medium-14b", "minicpm3-4b", "granite-34b",
+                                  "internvl2-1b", "hymba-1.5b", "rwkv6-7b", "whisper-tiny"])
+def test_serving_takes_context_parallel_prefill_where_heads_do_not_split(arch, flag, mp):
+    """The engine's plan (``serve=True``) takes context-parallel prefill
+    exactly where the config's flag is set, the family is the
+    transformer, ``"model"`` > 1 and the attention's heads do not split
+    (at 4: the reduced phi3's and internvl2-1b's 4 heads over 2 KV heads,
+    minicpm3's MLA with 6 heads); the training plan never does, and its
+    ``seq`` is unchanged."""
+    over = {"n_heads": 6} if arch == "minicpm3-4b" else {}
+    cfg = dataclasses.replace(TCFG.get_config(arch).reduced(compute_dtype="float32", **over),
+                              seq_shard_activations=flag)
+    tp = S.tensor_parallel(cfg, _RankMesh(mp), serve=True)
+    if mp == 1:
+        assert tp is None
+        return
+    want = flag and cfg.family == "transformer" and not S._split_groups(cfg, mp)["attn"]
+    assert tp.cp is want and not tp.seq
+    # at 4 the heads of phi3, minicpm3 (6) and internvl2-1b do not split;
+    # granite-34b's 4 query heads over its one KV head do
+    assert want is (flag and mp == 4 and arch in ("phi3-medium-14b", "minicpm3-4b",
+                                                   "internvl2-1b"))
+    train = S.tensor_parallel(cfg, _RankMesh(mp), seq=flag)
+    assert not train.cp and train.seq is (flag and cfg.family in S.SEQ_FAMILIES)
 
 
 @pytest.mark.parametrize("arch,seq", [("phi3-medium-14b", True), ("hymba-1.5b", True),

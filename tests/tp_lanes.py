@@ -13,13 +13,17 @@ The rest are the attention lanes at reduced size on the main path's
 flags (posit16 KV, fused decode): dense GQA, the paged window, MLA, MQA,
 MoE (an odd vocabulary, so the embedding and head replicate) and tied
 embeddings (gemma-7b), and the unchunked paged scheduler on the window,
-MLA, MQA and MoE lanes.  ``_linear_modes`` and :func:`serve_every_arch`
+MLA, MQA and MoE lanes; ``CP_LANES``, context-parallel prefill at mp 4 on
+the window lane and on MLA with 6 heads, chunked and unchunked, at
+chunk and prompt lengths that 4 does not divide (:func:`cp_calls`
+counts each call's gathers).  ``_linear_modes`` and :func:`serve_every_arch`
 run the modes beside the paged schedulers under a mesh: the one-shot engine on a linear
 and a paged cache, and ``serve --model-parallel 2``'s ranks on every
 ``ARCH_ID``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -65,6 +69,17 @@ LANES = {
 for _lane in ("window", "mla", "mqa", "moe"):        # the unchunked paged scheduler
     LANES[f"{_lane}-unchunked"] = dict(
         LANES[_lane], trace="two-lengths", sched=dict(n_slots=3, chunk_size=4))
+# context-parallel prefill at mp 4 (heads that do not split there): the
+# window lane and MLA with 6 heads, on chunks of 3 and 6 rows and on the
+# unchunked scheduler's prompts of 13 and 9, none a multiple of 4
+LANES["cp-window"] = dict(LANES["window"], sched=dict(n_slots=3, chunk_size=3,
+                                                      chunked_prefill=True))
+LANES["cp-mla6"] = dict(LANES["mla"], cfg=dict(_MAIN, n_heads=6), trace="long",
+                        sched=dict(n_slots=3, chunk_size=6, chunked_prefill=True))
+for _lane in ("cp-window", "cp-mla6"):
+    LANES[f"{_lane}-unchunked"] = dict(
+        LANES[_lane], trace="two-lengths", sched=dict(n_slots=3, chunk_size=4))
+CP_LANES = ("cp-window", "cp-mla6", "cp-window-unchunked", "cp-mla6-unchunked")
 # sampling at a temperature: every rank must emit rank 0's draws
 SAMPLED = dict(LANES["dense"], engine=dict(LANES["dense"]["engine"], temperature=0.7))
 
@@ -109,6 +124,39 @@ def _trace(name: str, vocab: int):
         return prompts, [9, 6, 8, 10], [None] * 4, None
     prompts = [list(map(int, rng.integers(1, vocab, size=n))) for n in (13, 7, 17, 10, 15)]
     return prompts, [9, 6, 8, 10, 7], [None] * 5, None
+
+
+CP_CALLS = ("prefill", "prefill_chunk", "_decode_step_paged", "_decode_step_linear")
+
+
+@contextlib.contextmanager
+def cp_calls():
+    """``{name: [gathers]}``: for each call of the transformer's whole-prompt
+    prefill, prefill chunk and decode steps (``CP_CALLS``) under the
+    block, the context-parallel gathers (``cp_prefill`` on the ``wire``
+    counter) that it made."""
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime import collectives as C
+
+    key = ("model", "all_reduce", "cp_prefill", "float32")
+    calls = {name: [] for name in CP_CALLS}
+    saved = {name: getattr(T, name) for name in CP_CALLS}
+
+    def counted(name, fn):
+        def call(*args, **kw):
+            before = C.wire.get(key, [0, 0])[0]
+            out = fn(*args, **kw)
+            calls[name].append(C.wire.get(key, [0, 0])[0] - before)
+            return out
+        return call
+
+    for name, fn in saved.items():
+        setattr(T, name, counted(name, fn))
+    try:
+        yield calls
+    finally:
+        for name, fn in saved.items():
+            setattr(T, name, fn)
 
 
 def run_lane(lane: str, cfg, params, Engine, Scheduler, spec=None, **engine_kw) -> dict:
@@ -157,12 +205,15 @@ def rank_lanes(lanes, ref_params, model_parallel: int) -> dict:
         spec = SAMPLED if lane == "sampled" else LANES[lane]
         cfg = lane_config(configs, lane)
         params = params_from_jax(ref_params[param_key(lane)], cfg, device="cpu")
-        res = run_lane(lane, cfg, params, Engine, Scheduler, spec=spec, device="cpu",
-                       mesh=mesh)
+        with cp_calls() as calls:
+            res = run_lane(lane, cfg, params, Engine, Scheduler, spec=spec, device="cpu",
+                           mesh=mesh)
+        res["cp_calls"] = calls
         sched = res.pop("sched")
         eng = sched.engine
         res["report"] = cache_report(sched.cache, sched.pool, eng.cache_shards())
         res["local_heads"] = (eng.cfg.n_heads, eng.cfg.n_kv_heads)
+        res["cp"] = bool(eng.tp.cp)
         res["leak_report"] = sorted(sched.leak_report())
         out[lane] = res
     out["_linear_modes"] = _linear_modes(Engine, cfg, params, mesh)

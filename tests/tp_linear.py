@@ -29,6 +29,8 @@ ONESHOT = {
     "dense": dict(arch=PHI3, cfg=_KV),
     "window": dict(arch=PHI3, cfg=dict(_KV, sliding_window=8, attn_chunk_kv=8)),
     "mla": dict(arch=MLA, cfg=_KV),
+    # 6 heads: split at mp 2, context-parallel prefill at mp 4
+    "mla6": dict(arch=MLA, cfg=dict(_KV, n_heads=6)),
     "mqa": dict(arch=MQA, cfg=_KV),
     "moe": dict(arch=MOE, cfg=_KV),
     "tied": dict(arch="gemma-7b", cfg=_KV),
@@ -38,7 +40,8 @@ ONESHOT = {
     "whisper": dict(arch="whisper-tiny", cfg=_KV),
 }
 # the dense-cache scheduler's lanes
-DENSE = {"dense-sched": dict(arch=PHI3, cfg=_KV), "mla-sched": dict(arch=MLA, cfg=_KV)}
+DENSE = {"dense-sched": dict(arch=PHI3, cfg=_KV), "mla-sched": dict(arch=MLA, cfg=_KV),
+         "mla6-sched": dict(arch=MLA, cfg=dict(_KV, n_heads=6))}
 GEN, MAX_LEN = 8, 32
 # a temperature: every rank must emit rank 0's draws, whatever its own seed
 SAMPLED = dict(lane="dense", temperature=0.7)
@@ -63,7 +66,9 @@ def lane_config(configs, lane: str):
 
 def param_key(lane: str) -> str:
     """Lanes that share this key share their weights."""
-    return spec_of(lane)["arch"]
+    spec = spec_of(lane)
+    heads = spec["cfg"].get("n_heads")
+    return spec["arch"] + (f",h={heads}" if heads else "")
 
 
 def perturb(tree, seed: int = 7):
@@ -137,11 +142,15 @@ def _torch_inputs(kw):
 def _oneshot(Engine, cfg, params, lane, mesh, **engine_kw) -> dict:
     from repro_torch.compress.kvcache import _leaf_bytes, cache_report
 
+    import tp_lanes
+
     prompts, kw = inputs(cfg, lane)
     eng = Engine(cfg, params, max_len=MAX_LEN, device="cpu", mesh=mesh, **engine_kw)
-    res = eng.generate(prompts, GEN, **_torch_inputs(kw))
-    step = eng.generate_stepwise(prompts, GEN, **_torch_inputs(kw))
+    with tp_lanes.cp_calls() as calls:
+        res = eng.generate(prompts, GEN, **_torch_inputs(kw))
+        step = eng.generate_stepwise(prompts, GEN, **_torch_inputs(kw))
     return {"tokens": res.tokens.tolist(), "stepwise": step.tokens.tolist(),
+            "cp": bool(eng.tp is not None and eng.tp.cp), "cp_calls": calls,
             "logits": res.prefill_logits,
             "report": cache_report(res.cache, None, eng.cache_shards()),
             "shards": eng.cache_shards(),
@@ -258,11 +267,16 @@ def rank_run(jobs: dict, np_params: dict, mp: int) -> dict:
         cfg = lane_config(configs, lane)
         out[lane] = _oneshot(Engine, cfg, params_of(lane, cfg), lane, mesh)
     for lane in jobs.get("dense", ()):
+        import tp_lanes
+
         cfg = lane_config(configs, lane)
         sched = Scheduler(Engine(cfg, params_of(lane, cfg), max_len=SCHED["max_len"],
                                  device="cpu", mesh=mesh),
                           n_slots=SCHED["n_slots"], chunk_size=SCHED["chunk_size"])
-        out[lane] = dict(run_dense(sched), lens=sched.cache["lens"].tolist(),
+        with tp_lanes.cp_calls() as calls:
+            res = run_dense(sched)
+        out[lane] = dict(res, lens=sched.cache["lens"].tolist(), cp_calls=calls,
+                         cp=bool(sched.engine.tp.cp),
                          local_kv=tuple(sched.cache[k].shape[3] for k in ("k", "v")
                                         if k in sched.cache))
     if jobs.get("sampled"):

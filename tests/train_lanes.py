@@ -57,6 +57,16 @@ LANES = {
                       over=dict(sliding_window=8)),
     "visual-cp": dict(arch="internvl2-1b", mesh=(1, 4), seq=True, over=dict(vocab=250)),
     "hymba-cp": dict(arch="hymba-1.5b", mesh=(1, 4), seq=True),
+    # FSDP (the configs' fsdp kept on): data 2, and data 2 x model 2
+    "gqa-fsdp": dict(arch="phi3-medium-14b", mesh=(2, 1), fsdp=True),
+    "mla-fsdp": dict(arch="minicpm3-4b", mesh=(2, 1), fsdp=True),
+    "moe-fsdp": dict(arch="granite-moe-3b-a800m", mesh=(2, 1), fsdp=True),
+    "rwkv6-fsdp": dict(arch="rwkv6-7b", mesh=(2, 1), fsdp=True),
+    "gqa-fsdp-tp": dict(arch="phi3-medium-14b", mesh=(2, 2), fsdp=True),
+    "mla-fsdp-tp": dict(arch="minicpm3-4b", mesh=(2, 2), fsdp=True),
+    "moe-fsdp-tp": dict(arch="granite-moe-3b-a800m", mesh=(2, 2), fsdp=True),
+    "rwkv6-fsdp-tp": dict(arch="rwkv6-7b", mesh=(2, 2), fsdp=True),
+    "tied-sp-fsdp": dict(arch="gemma-7b", mesh=(2, 2), seq=True, fsdp=True),
 }
 
 # lanes whose gradients the ranks also take in bf16 (their drift from one
@@ -67,18 +77,19 @@ DRIFT_LANES = ("hymba-tp", "rwkv6-tp")
 POD_ARCH, POD_SEED, POD_MESH = "internvl2-1b", 9, (2, 2, 2)
 
 
-def lane_config(configs, arch: str, seq: bool = False, **over):
+def lane_config(configs, arch: str, seq: bool = False, fsdp: bool = False, **over):
     """The reduced f32 config of either package, as the gates build it
-    (``over``: fields changed on the reduced config; ``seq``: the
-    sequence layout's flag kept)."""
+    (``over``: fields changed on the reduced config; ``seq`` and
+    ``fsdp``: the sequence layout's and FSDP's flags kept)."""
     cfg = configs.get_config(arch).reduced(compute_dtype="float32", **over)
-    return dataclasses.replace(cfg, fsdp=False, seq_shard_activations=seq)
+    return dataclasses.replace(cfg, fsdp=fsdp, seq_shard_activations=seq)
 
 
 def config_of(configs, lane: str):
     """A lane's config in either package."""
     spec = LANES[lane]
-    return lane_config(configs, spec["arch"], spec.get("seq", False), **spec.get("over", {}))
+    return lane_config(configs, spec["arch"], spec.get("seq", False), spec.get("fsdp", False),
+                       **spec.get("over", {}))
 
 
 def ref_key(lane: str) -> str:
@@ -105,7 +116,7 @@ def _whole(tree, mesh, cfg):
     from repro_torch.runtime import sharding
     from repro_torch.weights import params_to_jax
 
-    shards = TT.leaves(sharding.param_shardings(tree, mesh, cfg=cfg))
+    shards = TT.leaves(sharding.param_shardings(tree, mesh, cfg=cfg, fsdp=cfg.fsdp))
     whole = [sharding.unshard(x, sh) for x, sh in zip(TT.leaves(tree), shards)]
     return params_to_jax(TT.unflatten(tree, whole))
 
@@ -114,7 +125,8 @@ def _rank_params(ref_params, cfg, mesh):
     from repro_torch.runtime import sharding
     from repro_torch.weights import params_from_jax
 
-    return sharding.shard_params(params_from_jax(ref_params, cfg, device="cpu"), mesh, cfg)
+    return sharding.shard_params(params_from_jax(ref_params, cfg, device="cpu"), mesh, cfg,
+                                 fsdp=cfg.fsdp)
 
 
 def rank_lanes(lanes, ref_params) -> dict:
@@ -164,11 +176,49 @@ def rank_lanes(lanes, ref_params) -> dict:
         params, opt, m = step(params, opt, batch, 0)
         whole = _whole(params, mesh, cfg)
         out[lane] = dict(partial=partial, grad_wire=grad_wire, wire=wire)
+        if cfg.fsdp:
+            out[lane]["fsdp"] = _fsdp_layout(params, opt, mesh, cfg, ref_params[ref_key(lane)])
+            twin = _data_parallel_step(ref_params[ref_key(lane)], cfg, mesh, batch, opt_cfg)
         if dist.get_rank() == 0:
             out[lane].update(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
                              grad_loss=float(g_loss), params=whole, grads=grads,
                              bf16_grads=bf16)
+            if cfg.fsdp:
+                out[lane]["twin"] = twin
     return out
+
+
+def _data_parallel_step(np_params, cfg, mesh, batch, opt_cfg) -> dict:
+    """An FSDP lane's twin: the same step on the same mesh with ``fsdp``
+    off (data parallelism alone); its loss, norm and whole parameters."""
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import train_loop
+
+    dcfg = dataclasses.replace(cfg, fsdp=False)
+    params = _rank_params(np_params, dcfg, mesh)
+    step = train_loop.make_train_step(dcfg, opt_cfg, mesh=mesh)
+    params, _, m = step(params, adamw.init(params, opt_cfg), batch, 0)
+    return dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+                params=_whole(params, mesh, dcfg))
+
+
+def _fsdp_layout(params, opt, mesh, cfg, np_params) -> dict:
+    """A rank's FSDP pieces: ``{"leaves": [(path, split dim or None,
+    piece bytes, the bytes of the leaf as "model" alone places it)],
+    "m", "v": bytes of the optimizer's pieces}``."""
+    from repro_torch import tree as TT
+    from repro_torch.runtime import sharding
+    from repro_torch.weights import params_from_jax
+
+    local = sharding.shard_params(params_from_jax(np_params, cfg, device="cpu"), mesh, cfg)
+    dims = sharding.fsdp_dims(params, mesh, cfg)
+
+    def nbytes(tree):
+        return sum(x.numel() * x.element_size() for x in TT.leaves(tree))
+    return {"leaves": [(path, d, x.numel() * x.element_size(), y.numel() * y.element_size())
+                       for (path, x), y, d in zip(TT.leaves_with_paths(params),
+                                                  TT.leaves(local), dims)],
+            "m": nbytes(opt["m"]), "v": nbytes(opt["v"])}
 
 
 def one_device_grads(np_params, arch: str, dtype: str):
@@ -251,10 +301,11 @@ def elastic_setup(configs, arch=ELASTIC_ARCH):
 
 
 def state_shardings(state, mesh, cfg):
-    """The placements of a ``{"params", "opt"}`` state on ``mesh``."""
+    """The placements of a ``{"params", "opt"}`` state on ``mesh`` (its
+    FSDP pieces too where ``cfg.fsdp``)."""
     from repro_torch.runtime import sharding
-    return {"params": sharding.param_shardings(state["params"], mesh, cfg=cfg),
-            "opt": sharding.param_shardings(state["opt"], mesh, cfg=cfg)}
+    return {key: sharding.param_shardings(state[key], mesh, cfg=cfg, fsdp=cfg.fsdp)
+            for key in ("params", "opt")}
 
 
 def bits(t):
@@ -269,12 +320,13 @@ def bits(t):
 def rank_elastic(np_params, dirs) -> dict:
     """Two gloo ranks.  Train ``ELASTIC_STEPS`` steps at ``(data 2, model
     1)`` and save to ``dirs["dp"]``, the same at ``(data 1, model 2)``
-    to ``dirs["tp"]``; then restore ``dirs["one"]`` (a single device's
+    to ``dirs["tp"]`` and under FSDP at ``(data 2, model 1)`` to
+    ``dirs["fsdp"]``; then restore ``dirs["one"]`` (a single device's
     checkpoint) at ``(data 1, model 2)`` and run the next step; then
     train hymba ``ELASTIC_STEPS`` steps at ``SEGMENTS_MESH`` and save to
     ``dirs["segments"]``.  ``np_params``: the reference's weights by
-    architecture.  Each rank returns, for ``"dp"``, ``"tp"`` and
-    ``"segments"``, its losses and its state's leaves (bits) with their
+    architecture.  Each rank returns, for ``"dp"``, ``"tp"``, ``"fsdp"``
+    and ``"segments"``, its losses and its state's leaves (bits) with their
     specs at the save, and for ``"one"`` the restored leaves (bits),
     their specs and the next step's loss."""
     from repro_torch import configs
@@ -287,8 +339,9 @@ def rank_elastic(np_params, dirs) -> dict:
     cfg, opt_cfg, pipe = elastic_setup(configs)
     ref_params = np_params[ELASTIC_ARCH]
     out = {}
-    for name, shape in (("dp", (2, 1)), ("tp", (1, 2))):
+    for name, shape in (("dp", (2, 1)), ("tp", (1, 2)), ("fsdp", (2, 1))):
         mesh = make_mesh(shape, ("data", "model"))
+        cfg = dataclasses.replace(cfg, fsdp=name == "fsdp")
         params = _rank_params(ref_params, cfg, mesh)
         opt = adamw.init(params, opt_cfg)
         step = train_loop.make_train_step(cfg, opt_cfg, mesh=mesh)
@@ -302,6 +355,7 @@ def rank_elastic(np_params, dirs) -> dict:
         out[name] = dict(losses=losses, leaves=[bits(x) for x in TT.leaves(state)],
                          specs=[s.spec for s in TT.leaves(sh)])
 
+    cfg = dataclasses.replace(cfg, fsdp=False)
     mesh = make_mesh((1, 2), ("data", "model"))
     params = _rank_params(ref_params, cfg, mesh)
     template = {"params": params, "opt": adamw.init(params, opt_cfg)}

@@ -131,3 +131,52 @@ def check_grads(got, want):
         scale = max(float(np.abs(w).max()), 1e-30)
         assert float(np.abs(g - w).max()) <= 1e-4 * scale, (path, float(np.abs(g - w).max()),
                                                              scale)
+
+
+def check_fsdp(lane, ranks):
+    """Every rank of an FSDP lane: each leaf that ``"data"`` splits is
+    held as its ``1/n_data`` piece (the rank's parameter, ``m`` and ``v``
+    bytes the whole bytes less ``1 - 1/n_data`` of the split leaves'),
+    and the gradients' call made, for each microbatch the rank runs, one
+    gather of each split leaf per use (the top-level leaves once, a
+    layer's twice: its forward and its rematerialised recompute), one
+    reduce-scatter of each, and no ``"data"`` all-reduce of their
+    gradients (the other leaves' one each)."""
+    from repro_torch import configs as TCFG
+
+    cfg = TL.config_of(TCFG, lane)
+    n_data = TL.LANES[lane]["mesh"][0]
+    parts = cfg.grad_accum // n_data
+    assert cfg.remat == "layer" and parts >= 1
+    for r in ranks:
+        lay = r["fsdp"]["leaves"]
+        split = [(path, local) for path, d, _, local in lay if d is not None]
+        assert split
+        for path, d, piece, local in lay:
+            assert piece == (local // n_data if d is not None else local), path
+        whole = sum(local for *_, local in lay)
+        params = sum(piece for _, _, piece, _ in lay)
+        assert params == whole - sum(b for _, b in split) * (n_data - 1) // n_data
+        assert r["fsdp"]["m"] == r["fsdp"]["v"] == params          # f32 moments
+        top = sum(b for path, b in split if not path.startswith("layers/"))
+        layer = sum(b for path, b in split if path.startswith("layers/"))
+        n_top = sum(1 for path, _ in split if not path.startswith("layers/"))
+        wire = r["wire"]
+        assert wire["data/broadcast/fsdp_gather/float32"] == [     # a broadcast a rank
+            n_data * parts * (n_top + 2 * (len(split) - n_top)), parts * (top + 2 * layer)]
+        assert wire["data/all_reduce/fsdp_scatter/float32"] == [
+            parts * len(split), parts * (top + layer)]
+        assert wire.get("data/all_reduce/grad/float32", [0, 0])[0] == len(lay) - len(split)
+
+
+def check_fsdp_twin(got):
+    """An FSDP lane against its data-parallel twin (the same step on the
+    same mesh with ``fsdp`` off): the same forward (the loss bit for
+    bit), and the step within 1e-6, not bit-equal (the gradients' sums
+    over the microbatches and the ranks, and the norm's, run in another
+    order)."""
+    twin = got["twin"]
+    assert got["loss"] == twin["loss"]
+    np.testing.assert_allclose(got["grad_norm"], twin["grad_norm"], rtol=1e-6)
+    for path, w in walk(twin["params"]):
+        assert float(np.abs(lookup(got["params"], path) - w).max()) <= 1e-6, path

@@ -132,6 +132,22 @@ paths at full size and checks that every kernel of each path ran there:
   K/V and gathers the rows, once a layer; each path held to a
   single-rank run as (l) holds its paths, the gathers and a rank's rows
   counted, no gather in a decode step;
+- (o4) the pod-compressed step under FSDP, a process of its own
+  (``--phase pod-fsdp``) beside (T): granite-moe-3b-a800m (its
+  published config sets both ``fsdp`` and ``grad_compress``) at full
+  width, 1 of its 32 layers, pod 2 x data 2, four ranks sharing the
+  card over gloo, run deterministic:
+  one step without FSDP and one with it on the same batch; every rank's
+  pieces, residuals and pod patterns under FSDP equal the first step's
+  cut to them bit for bit, its parameter and residual bytes and its pod
+  wire half, rows 1 and 2 launched exactly;
+- (p) the dry run on the card, a process of its own (``--phase
+  dryrun``) beside the kernel checks, the ISA phases and the main
+  paths: (p1) (T)'s own step predicted on fake tensors of a ``1x1``
+  fake mesh (``launch/dryrun.trace_step``) and then run: FLOPs, argument
+  bytes and launches equal, the counted peak within ``P1_PEAK_RTOL`` of
+  ``max_memory_allocated``; (p2) ``P2_CELLS`` traced on fake CUDA
+  tensors at their production meshes (counted, not measured);
 - the PVU ISA (``posit_ew.cu``, ``posit_dot.cu``, ``posit_qgemm.cu``,
   ``posit_gemm.cu``): the paper's verification workload
   (``configs/pvu_resnet_conv.py``, the ResNet-18 first conv on 8 images
@@ -149,6 +165,8 @@ paths at full size and checks that every kernel of each path ran there:
     python3 chip_smoke.py --phase train-model      # (m) alone
     python3 chip_smoke.py --phase train-seq        # (n) alone
     python3 chip_smoke.py --phase cp               # (o1), (o2) alone
+    python3 chip_smoke.py --phase pod-fsdp         # (o4) alone
+    python3 chip_smoke.py --phase dryrun           # (p) alone
     python3 chip_smoke.py --ptxas  # only: -Xptxas -v (registers, shared
                                    # memory, spills) of paged_attn.cu,
                                    # paged_attn_mla.cu, posit_gemm.cu,
@@ -3828,9 +3846,328 @@ def train_seq_phase(dev):
     return dict(counts=counts, codec=codec, archs=out, wall=wall)
 
 
+# ---------------------------------------------------------------------------
+# (o4) the pod-compressed train step under FSDP, four ranks sharing the one
+# card over gloo (so no wall here is a multi-card speed)
+# ---------------------------------------------------------------------------
+
+# granite-moe-3b-a800m sets both fsdp and grad_compress in its published
+# config: full width, 1 of its 32 layers (0.17 B parameters; each rank
+# holds f32 weights, gradients, v and residuals and posit16 m, some 6 GB
+# at its peak without FSDP, so that four ranks fit beside (T)'s 29 GB:
+# minicpm3-4b at 2 layers peaked 15.3 GiB a rank and ran the card out of
+# memory there); pod 2 x data 2, one step of 2 pods of 4 x 512 rows with
+# fsdp off, then one with it on.  The ranks run with
+# ``torch.use_deterministic_algorithms`` (and cuBLAS's fixed workspace):
+# two runs compared bit for bit must not differ by the card's atomics.
+# Without it a run on the card found the pieces and the pod patterns
+# equal but the residuals differing in their last bits: the MoE dispatch
+# gathers each token's 8 choices, and that gather's backward scatter-adds
+# them with atomics in no fixed order
+O4_ARCH, O4_LAYERS, O4_SEED, O4_BATCH, O4_SEQ = "granite-moe-3b-a800m", 1, 9, 8, 512
+O4_MESH = (2, 2, 1)
+O4_DEVICES = ["cuda:0"] * 4
+O4_REDUCED = False             # a CPU rehearsal shrinks (o4) to the reduced config
+
+
+def _o4_config(fsdp, reduced=False):
+    import dataclasses
+
+    from repro_torch import configs
+    cfg = configs.get_config(O4_ARCH)
+    if not (cfg.fsdp and cfg.grad_compress):
+        fail(f"(o4) {O4_ARCH}'s published config does not set fsdp and grad_compress")
+    cfg = cfg.reduced(compute_dtype="float32") if reduced else dataclasses.replace(
+        cfg, n_layers=O4_LAYERS)
+    return dataclasses.replace(cfg, fsdp=fsdp, seq_shard_activations=False)
+
+
+def _o4_step(cfg, mesh, dev, batch):
+    """One pod-compressed step of ``cfg`` on this rank: its parameters,
+    residuals and the patterns it put on the pod wire after the step,
+    with its launches, wall, peak memory and wire."""
+    from repro_torch.compress import gradient
+    from repro_torch.models import get_family
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import collectives, sharding, train_loop
+
+    _sync_peak(dev, reset=True)
+    reset_counts()
+    params = sharding.shard_params(
+        get_family(cfg).init_params(cfg, seed=0, device=dev, dtype=torch.float32), mesh, cfg,
+        fsdp=cfg.fsdp)
+    opt_cfg = adamw.AdamWConfig(posit_moments=True)
+    opt = adamw.init(params, opt_cfg)
+    ef = gradient.init_error_state(params)
+    step = train_loop.make_train_step(cfg, opt_cfg, n_pods=O4_MESH[0], compressed=True,
+                                      mesh=mesh)
+    tiled = {k: v.reshape((O4_MESH[0], O4_BATCH // O4_MESH[0]) + tuple(v.shape[1:]))
+             for k, v in batch.items()}
+    sent, gather = [], collectives.gather_axis
+
+    def recording(t, mesh, axis, what="grad"):
+        out = gather(t, mesh, axis, what)
+        if axis == "pod":
+            sent.append(_clone(out))
+        return out
+    collectives.wire.clear()
+    train_loop.C.gather_axis = recording
+    t0 = time.perf_counter()
+    try:
+        params, opt, ef, m = step(params, opt, ef, tiled, 0)
+        loss = float(m["loss"])
+    finally:
+        train_loop.C.gather_axis = gather
+    wall = time.perf_counter() - t0
+    return dict(params=params, ef=ef, sent=sent, loss=loss, wall=wall, counts=read_counts(),
+                peak_gib=_sync_peak(dev), wire={"/".join(k): list(v)
+                                                for k, v in collectives.wire.items()})
+
+
+def o4_rank(devices, reduced=False):
+    """(o4) one rank of pod 2 x data 2: the pod-compressed step without
+    FSDP, its results cut to the pieces this rank holds under FSDP, then
+    the same step under FSDP; returns whether the pieces, the residuals
+    and the pod wire's patterns are the cut ones bit for bit, their
+    bytes, the launches, walls, peaks and wires of both."""
+    from repro_torch import tree as TT
+    from repro_torch.data.pipeline import DataConfig, Pipeline
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.runtime import sharding
+
+    dev = _rank_device(devices)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    mesh = make_mesh(O4_MESH, ("pod", "data", "model"), dev.type)
+    cfg, fcfg = _o4_config(False, reduced), _o4_config(True, reduced)
+    batch = Pipeline(DataConfig(seed=O4_SEED), cfg, O4_BATCH, O4_SEQ, device=dev).batch_at(0)
+    rank, n = mesh.get_local_rank("data"), O4_MESH[1]
+
+    def nbytes(tree):
+        return sum(x.numel() * x.element_size() for x in TT.leaves(tree))
+    base = _o4_step(cfg, mesh, dev, batch)
+    dims = [sh.spec.index("data") if "data" in sh.spec else None for sh in TT.leaves(
+        sharding.param_shardings(base["params"], mesh, cfg=fcfg, fsdp=True))]
+
+    def cut(x, d, lead=0):
+        if d is None:
+            return _clone(x)
+        k = x.shape[d + lead] // n
+        return _clone(x.narrow(d + lead, rank * k, k))
+    want = dict(params=[cut(x, d) for x, d in zip(TT.leaves(base["params"]), dims)],
+                ef=[cut(x, d) for x, d in zip(TT.leaves(base["ef"]), dims)],
+                sent=[cut(x, d, 1) for x, d in zip(base["sent"], dims)])
+    whole_bytes = dict(params=nbytes(base["params"]), ef=nbytes(base["ef"]))
+    for k in ("params", "ef", "sent"):
+        base.pop(k)
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    got = _o4_step(fcfg, mesh, dev, batch)
+    differ = []
+    for k in ("params", "ef", "sent"):
+        for i, (a, b) in enumerate(zip(TT.leaves(got[k]) if k != "sent" else got[k], want[k])):
+            if a.shape != b.shape or not torch.equal(_bits(a), _bits(b)):
+                rel = float((a.float() - b.float()).abs().max() / b.float().abs().max().clamp(
+                    min=1e-30)) if a.shape == b.shape and a.is_floating_point() else None
+                differ.append(f"{k}:{i} (relative {rel})")
+    out = dict(base=base, fsdp={k: got[k] for k in ("loss", "wall", "counts", "peak_gib",
+                                                     "wire")},
+               differ=differ, n_leaves=len(dims), n_split=sum(d is not None for d in dims),
+               bytes=dict(whole=whole_bytes, fsdp=dict(params=nbytes(got["params"]),
+                                                       ef=nbytes(got["ef"]))))
+    return out
+
+
+def pod_fsdp_phase(dev):
+    """(o4): four ranks of ``o4_rank``; fails unless every rank's pieces,
+    residuals and pod patterns under FSDP are the step's without FSDP
+    cut to them, bit for bit, its parameter and residual bytes half,
+    its pod wire half and posit16 alone, and rows 1 and 2 launched
+    exactly (a quantize a leaf for the moments' init, then a quantize
+    and a dequantize a leaf for the feedback, a dequantize a leaf of the
+    gathered patterns and the moments' pair, in each step)."""
+    from repro_torch.launch import mesh as M
+
+    t0 = time.perf_counter()
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    ranks = M.spawn(o4_rank, O4_DEVICES, (O4_DEVICES, O4_REDUCED), timeout=900)
+    wall = time.perf_counter() - t0
+    counts = {k: 0 for k in read_counts()}
+    for r_i, r in enumerate(ranks):
+        n = r["n_leaves"]
+        if r["differ"]:
+            fail(f"(o4) rank {r_i}: under FSDP {r['differ'][:8]} differ from the step "
+                 f"without FSDP cut to the rank's pieces")
+        if r["n_split"] != n or any(2 * r["bytes"]["fsdp"][k] != r["bytes"]["whole"][k]
+                                    for k in ("params", "ef")):
+            fail(f"(o4) rank {r_i}: bytes {r['bytes']}, {r['n_split']} of {n} leaves split")
+        for run in (r["base"], r["fsdp"]):
+            expect = {k: 0 for k in run["counts"]}
+            expect.update(posit_quantize=3 * n, posit_dequantize=3 * n)
+            if run["counts"] != expect:
+                fail(f"(o4) rank {r_i} launched {run['counts']}, expected {expect}")
+            counts = {k: counts[k] + v for k, v in run["counts"].items()}
+            pod = {k for k in run["wire"] if k.startswith("pod/")}
+            if pod != {"pod/broadcast/grad/uint16", "pod/all_reduce/loss/float32"}:
+                fail(f"(o4) rank {r_i}: the pod wire carried {pod}")
+        half = r["fsdp"]["wire"]["pod/broadcast/grad/uint16"][1]
+        if 2 * half != r["base"]["wire"]["pod/broadcast/grad/uint16"][1]:
+            fail(f"(o4) rank {r_i}: the FSDP pod wire {half:,} bytes is not half of "
+                 f"{r['base']['wire']['pod/broadcast/grad/uint16'][1]:,}")
+        if r["fsdp"]["loss"] != r["base"]["loss"] or not math.isfinite(r["fsdp"]["loss"]):
+            fail(f"(o4) rank {r_i}: loss {r['fsdp']['loss']} against {r['base']['loss']}")
+    r0 = ranks[0]
+    print(f"(o4) {O4_ARCH} at full width, {_o4_config(True, O4_REDUCED).n_layers} layers, pod "
+          f"2 x data 2, four ranks sharing one card over gloo, not a multi-card speed: one "
+          f"pod-compressed step without and with FSDP, loss {r0['fsdp']['loss']:.6f} both; the "
+          f"FSDP pieces, residuals and pod patterns equal the other step's cut to them bit for "
+          f"bit on every rank; bytes a rank: parameters {r0['bytes']['fsdp']['params']:,} and "
+          f"residuals {r0['bytes']['fsdp']['ef']:,} against {r0['bytes']['whole']['params']:,} "
+          f"and {r0['bytes']['whole']['ef']:,}; the pod wire a rank "
+          f"{r0['fsdp']['wire']['pod/broadcast/grad/uint16'][1]:,} bytes of posit16 patterns "
+          f"against {r0['base']['wire']['pod/broadcast/grad/uint16'][1]:,}; step walls per "
+          f"rank without / with FSDP {[round(r['base']['wall'], 3) for r in ranks]} / "
+          f"{[round(r['fsdp']['wall'], 3) for r in ranks]} s; peak device memory per rank "
+          f"{[round(r['base']['peak_gib'], 2) for r in ranks]} / "
+          f"{[round(r['fsdp']['peak_gib'], 2) for r in ranks]} GiB; launches per rank and step "
+          f"{r0['fsdp']['counts']['posit_quantize']} quantize, "
+          f"{r0['fsdp']['counts']['posit_dequantize']} dequantize; {wall:.1f} s with the "
+          f"ranks' start; {CARD}")
+    return dict(counts=counts, wall=wall, ranks=[{k: r[k] for k in ("bytes", "n_leaves")}
+                                                 | {"walls": [r["base"]["wall"],
+                                                              r["fsdp"]["wall"]],
+                                                    "peaks": [r["base"]["peak_gib"],
+                                                              r["fsdp"]["peak_gib"]]}
+                                                 for r in ranks])
+
+
+# ---------------------------------------------------------------------------
+# (p) the dry run on the card: (p1) (T)'s step predicted on fake tensors and
+# then run; (p2) production cells traced on the card's own build
+# ---------------------------------------------------------------------------
+
+# (p1)'s predicted peak against torch.cuda.max_memory_allocated(): the
+# prediction (the rank's argument bytes and the live fake storages' peak)
+# leaves out the caching allocator's 512-byte rounding and the cuBLAS
+# workspaces it hands out; fixed before the first call on the card
+P1_PEAK_RTOL = 0.10
+P2_CELLS = (("phi3-medium-14b", "train_4k", True), ("minicpm3-4b", "decode_32k", False),
+            ("dbrx-132b", "decode_32k", False), ("hymba-1.5b", "long_500k", False))
+
+
+def _p1_config():
+    import dataclasses
+
+    from repro_torch import configs
+    n = int(TRAIN_ARGV[TRAIN_ARGV.index("--n-layers") + 1])
+    return dataclasses.replace(configs.get_config("gemma-7b"), n_layers=n)
+
+
+def p1_check(dev):
+    """(p1): (T)'s step (gemma-7b at (T)'s depth, ``TRAIN_BATCH`` x
+    ``TRAIN_SEQ``, its ``grad_accum``, posit16 moments) predicted on fake
+    tensors of a ``1x1`` fake mesh, then run for real on the card: the
+    FLOPs (``FlopCounterMode``), the argument bytes and the launches must
+    equal the prediction's, and the peak lie within ``P1_PEAK_RTOL`` of
+    ``torch.cuda.max_memory_allocated()``."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.data.pipeline import DataConfig, Pipeline
+    from repro_torch.launch import dryrun, specs
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import get_family
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import sharding, train_loop
+
+    cfg = _p1_config()
+    opt_cfg = adamw.AdamWConfig(posit_moments=True)
+    sharding.whole_shapes(cfg)
+    t0 = time.perf_counter()
+    mesh = M.fake_mesh((1, 1), ("data", "model"), dev.type)
+    try:
+        with specs.fake_mode():
+            fp = specs.params_shape(cfg, device=dev.type)
+            fopt = adamw.init(fp, opt_cfg)
+            fb = specs.materialize({"tokens": specs.TensorSpec((TRAIN_BATCH, TRAIN_SEQ),
+                                                               torch.int32)}, dev.type)
+            args = (fp, fopt, fb, 0)
+            pred, _ = dryrun.trace_step(train_loop.make_train_step(cfg, opt_cfg, mesh=mesh),
+                                        args)
+            pred_args = dryrun._nbytes(args)
+    finally:
+        torch.distributed.destroy_process_group()
+    trace_s = time.perf_counter() - t0
+    pred_peak = pred_args + pred["temp_bytes"]
+
+    params = get_family(cfg).init_params(cfg, seed=0, device=dev, dtype=torch.float32)
+    opt = adamw.init(params, opt_cfg)
+    batch = Pipeline(DataConfig(), cfg, TRAIN_BATCH, TRAIN_SEQ, device=dev).batch_at(0)
+    real_args = dryrun._nbytes((params, opt, batch))
+    step = train_loop.make_train_step(cfg, opt_cfg)
+    reset_counts()
+    _sync_peak(dev, reset=True)
+    t1 = time.perf_counter()
+    with FlopCounterMode(display=False) as fc:
+        params, opt, m = step(params, opt, batch, 0)
+        loss = float(m["loss"])
+    wall = time.perf_counter() - t1
+    real_peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    counts = read_counts()
+    launches = {k: v for k, v in counts.items() if v}
+    gap = (real_peak - pred_peak) / real_peak if real_peak else 0.0
+    print(f"(p1) (T)'s step, gemma-7b {cfg.n_layers} layers, {TRAIN_BATCH} x {TRAIN_SEQ}, "
+          f"grad_accum {cfg.grad_accum}, posit16 moments: counted on a fake trace "
+          f"({trace_s:.1f} s) against the real step ({wall:.2f} s, loss {loss:.4f}): FLOPs "
+          f"{pred['flops']:,} counted vs {int(fc.get_total_flops()):,} by FlopCounterMode; "
+          f"argument bytes {pred_args:,} counted vs {real_args:,}; launches {pred['launches']} "
+          f"counted vs {launches}; peak {pred_peak:,} bytes counted vs {real_peak:,} "
+          f"max_memory_allocated ({gap:+.4f} of it, limit {P1_PEAK_RTOL}); {CARD}")
+    if pred["flops"] != int(fc.get_total_flops()) or pred_args != real_args \
+            or pred["launches"] != launches:
+        fail("(p1) the fake trace's FLOPs, argument bytes or launches differ from the step's")
+    if not math.isfinite(loss) or abs(gap) > P1_PEAK_RTOL:
+        fail(f"(p1) the predicted peak is {gap:+.4f} of the measured one")
+    del params, opt, batch
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return dict(counts=counts, flops=pred["flops"], args=pred_args, pred_peak=pred_peak,
+                real_peak=real_peak, gap=gap, trace_s=trace_s, wall=wall)
+
+
+def dryrun_phase(dev):
+    """(p): (p1), then (p2) the ``P2_CELLS`` at their production meshes
+    traced on fake tensors of the card's own build (``launch/dryrun``):
+    each cell's counted peak against the card's 80 GB, FLOPs, collective
+    bytes a chip and dominant term."""
+    from repro_torch.launch import dryrun
+
+    t0 = time.perf_counter()
+    p1 = p1_check(dev)
+    cells = {}
+    for arch, shape, multi in P2_CELLS:
+        rec = dryrun.run_cell(arch, shape, multi, out_dir=None)
+        if not rec["ok"] or rec["fake_device"] != dev.type:
+            fail(f"(p2) {arch} {shape} was not traced on fake {dev.type} tensors")
+        colls = sum(rec["collectives_per_chip"].values())
+        print(f"(p2) {arch} x {shape} x {rec['mesh']}, counted on a fake trace "
+              f"({rec['trace_s']} s): peak {rec['memory']['peak_bytes_per_device'] / 1e9:.2f} GB"
+              f" a device against the card's 80 GB (fits {rec['fits']}), "
+              f"{rec['cost']['flops_per_chip']:.4e} FLOPs and {colls:,} collective bytes a "
+              f"chip, dominant {rec['roofline']['dominant']}, launches {rec['launches']}"
+              f"{', compressed' if rec.get('compressed') else ''}; {CARD}")
+        cells[f"{arch}|{shape}|{rec['mesh']}"] = {k: rec[k] for k in (
+            "memory", "cost", "collectives_per_chip", "roofline", "launches", "fits",
+            "trace_s")}
+    wall = time.perf_counter() - t0
+    print(f"(p) phase wall {wall:.1f} s")
+    return dict(counts=p1.pop("counts"), p1=p1, cells=cells, wall=wall)
+
+
 PHASES = {"train": train_phase, "train-families": train_families_phase, "tp": tp_phase,
           "tp-linear": tp_linear_phase, "train-ranks": train_ranks_phase,
-          "train-model": train_model_phase, "train-seq": train_seq_phase, "cp": cp_phase}
+          "train-model": train_model_phase, "train-seq": train_seq_phase, "cp": cp_phase,
+          "pod-fsdp": pod_fsdp_phase, "dryrun": dryrun_phase}
 
 
 def run_phase(name):
@@ -4440,6 +4777,10 @@ def run(pool):
     _build.build_all()
     print(f"kernels built in {time.perf_counter() - t0:.2f} s "
           f"({', '.join(_build.SOURCES)})")
+    # (p) the dry run, in a process of its own beside the kernel checks, the
+    # ISA phases and the main paths: (p1)'s real step holds some 29 GB for
+    # a few seconds, (p2) traces on the host's cores alone
+    dry_handle = start_phase_process("dryrun")
 
     check_codec(dev)
     rows = time_codec(dev)
@@ -4496,6 +4837,7 @@ def run(pool):
         torch.cuda.empty_cache()
     ew_row["bias_vadd"] = ew_bias
     rows.append(ew_row)
+    by_path["dryrun_p1"] = finish_phase_process(dry_handle)["counts"]
     # (a) and (c), phi3 at 40 layers, alone on the card; then (k) training
     # across ranks, (o3) included, in a process of its own beside the other
     # linear paths, hymba's ring and the window lane (their walls carry its
@@ -4526,8 +4868,12 @@ def run(pool):
     # training, each phase in its own process: (T) the main training
     # path alone; (k) training across ranks and (o3) FSDP on the same two
     # ranks (run above), held to (T)
+    # beside it, (o4) the pod-compressed step under FSDP (four ranks, some
+    # 25 GB together beside (T)'s 29)
+    o4_handle = start_phase_process("pod-fsdp")
     trained = run_phase_process("train")
     by_path["train"] = trained["counts"]
+    by_path["pod_fsdp"] = finish_phase_process(o4_handle)["counts"]
     check_train_ranks(trained, ranked)
     check_train_ranks(trained, {"k1": ranked["o3"]}, label="(o3)")
     by_path["train_ranks"] = ranked["counts"]

@@ -27,6 +27,16 @@ that are not resident.
 
 On a CPU tensor the wrappers run the plain versions (``core.convert``);
 on a CUDA tensor they launch the kernel or raise.
+
+The quantize, the job-form dequantize and the fused write go through
+``torch.library`` operators (``repro_torch::posit_quantize``,
+``repro_torch::posit_dequantize``, ``repro_torch::posit_paged_write``,
+the last declaring its in-place arena writes), each with three
+implementations: the kernel on the card, the plain version on the CPU,
+and a fake one that gives the outputs' shapes and dtypes, so that a step
+can be traced on fake tensors (``launch/dryrun.py``, which counts
+the operators' calls: a call is a launch on the card).  Only the card's
+implementations add to :data:`launches`.
 """
 from __future__ import annotations
 
@@ -35,12 +45,13 @@ import ctypes
 import torch
 
 from repro_torch.core.convert import f32_to_posit, posit_to_f32
-from repro_torch.core.types import PositConfig, signed_view
+from repro_torch.core.types import CONFIGS, PositConfig, signed_view
 
 from . import _build
 
 launches = {"posit_quantize": 0, "posit_dequantize": 0,
             "posit_paged_write": 0, "posit_paged_read": 0}
+_BY_BITS = {(c.nbits, c.es): c for c in CONFIGS}
 
 
 def quantize_plain(x: torch.Tensor, cfg: PositConfig) -> torch.Tensor:
@@ -118,14 +129,49 @@ def _dequantize_call(leaves, cfg: PositConfig, round_to):
     return (lambda: lib.posit_dequantize(*args)), outs
 
 
-def quantize(x: torch.Tensor, cfg: PositConfig) -> torch.Tensor:
-    """f32 tensor -> posit patterns (``cfg.storage_dtype``), same shape."""
-    if x.device.type == "cpu":
-        return quantize_plain(x, cfg)
-    call, out = _quantize_call(x, cfg)
+@torch.library.custom_op("repro_torch::posit_quantize", mutates_args=(), device_types="cpu")
+def _quantize_op(x: torch.Tensor, nbits: int, es: int) -> torch.Tensor:
+    return quantize_plain(x, _BY_BITS[nbits, es])
+
+
+@_quantize_op.register_kernel("cuda")
+def _quantize_cuda(x, nbits, es):
+    call, out = _quantize_call(x, _BY_BITS[nbits, es])
     _build.check(call(), "posit_quantize")
     launches["posit_quantize"] += 1
     return out
+
+
+@_quantize_op.register_fake
+def _quantize_fake(x, nbits, es):
+    return x.new_empty(x.shape, dtype=_BY_BITS[nbits, es].storage_dtype)
+
+
+def quantize(x: torch.Tensor, cfg: PositConfig) -> torch.Tensor:
+    """f32 tensor -> posit patterns (``cfg.storage_dtype``), same shape."""
+    return _quantize_op(x, cfg.nbits, cfg.es)
+
+
+@torch.library.custom_op("repro_torch::posit_dequantize", mutates_args=(),
+                         device_types="cpu")
+def _dequantize_op(leaves: list[torch.Tensor], nbits: int, es: int,
+                   round_bf16: bool) -> list[torch.Tensor]:
+    return dequantize_many_plain(leaves, _BY_BITS[nbits, es],
+                                 torch.bfloat16 if round_bf16 else None)
+
+
+@_dequantize_op.register_kernel("cuda")
+def _dequantize_cuda(leaves, nbits, es, round_bf16):
+    call, outs = _dequantize_call(leaves, _BY_BITS[nbits, es],
+                                  torch.bfloat16 if round_bf16 else None)
+    _build.check(call(), "posit_dequantize")
+    launches["posit_dequantize"] += 1
+    return outs
+
+
+@_dequantize_op.register_fake
+def _dequantize_fake(leaves, nbits, es, round_bf16):
+    return [p.new_empty(p.shape, dtype=torch.float32) for p in leaves]
 
 
 def dequantize_many(leaves, cfg: PositConfig, round_to=None):
@@ -137,12 +183,8 @@ def dequantize_many(leaves, cfg: PositConfig, round_to=None):
     On CUDA tensors: one launch of ``csrc/posit_codec.cu``'s dequantize
     for all leaves (1 to 4, contiguous, on one device).  The first
     leaf's device chooses the path."""
-    if leaves[0].device.type == "cpu":
-        return dequantize_many_plain(leaves, cfg, round_to)
-    call, outs = _dequantize_call(leaves, cfg, round_to)
-    _build.check(call(), "posit_dequantize")
-    launches["posit_dequantize"] += 1
-    return outs
+    _check_round_to(round_to)
+    return _dequantize_op(list(leaves), cfg.nbits, cfg.es, round_to is not None)
 
 
 def dequantize(p: torch.Tensor, cfg: PositConfig) -> torch.Tensor:
@@ -179,7 +221,7 @@ _FLOAT_KINDS = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_JOBS = 128
 
 
-def scatter_slots(jobs, slots: torch.Tensor) -> None:
+def scatter_slots(jobs, slots: torch.Tensor, dense: bool = False) -> None:
     """The masked scatter of the paged write, in place: row r of each
     job's ``rows`` goes to flat slot ``slots[r]`` of its ``arena``.
 
@@ -187,15 +229,19 @@ def scatter_slots(jobs, slots: torch.Tensor) -> None:
     (nb, bs, *feat), ``rows`` (R, *feat) of the arena's dtype; every leaf
     has the same nb * bs slots.  ``slots`` (R,) int64 is row r's flat
     slot ``block * bs + offset``; a negative slot (or one past
-    ``nb * bs``) drops the row's write (one host sync for all jobs)."""
+    ``nb * bs``) drops the row's write (one host sync for all jobs).
+    ``dense``: the caller knows every slot is in range (a linear write,
+    whose capacity the host has checked), so the mask and its host sync
+    are skipped."""
     if not jobs:
         return
     n_slots = jobs[0][0].shape[0] * jobs[0][0].shape[1]
-    keep = torch.nonzero((slots >= 0) & (slots < n_slots))[:, 0]
-    dst = slots[keep]
+    keep = None if dense else torch.nonzero((slots >= 0) & (slots < n_slots))[:, 0]
+    dst = slots if dense else slots[keep]
     for arena, rows in jobs:
         flat = signed_view(arena).view(n_slots, -1)
-        flat[dst] = signed_view(rows).reshape(rows.shape[0], -1)[keep]
+        src = signed_view(rows).reshape(rows.shape[0], -1)
+        flat[dst] = src if dense else src[keep]
 
 
 def paged_write_plain(jobs, slots: torch.Tensor, cfg: PositConfig) -> None:
@@ -278,11 +324,27 @@ def paged_write(jobs, slots: torch.Tensor, cfg: PositConfig) -> None:
     128 jobs), posit16 or posit8 (es 2); dropped rows are skipped on the
     device, with no host sync.  The arenas' device chooses the path;
     sources and ``slots`` must lie on it."""
-    if _check_devices(jobs, slots).type == "cpu":
-        paged_write_plain(jobs, slots, cfg)
-        return
-    _build.check(_paged_write_call(jobs, slots, cfg)(), "posit_paged_write")
+    _check_devices(jobs, slots)
+    _paged_write_op([a for a, _ in jobs], [x for _, x in jobs], slots, cfg.nbits, cfg.es)
+
+
+@torch.library.custom_op("repro_torch::posit_paged_write", mutates_args=("arenas",),
+                         device_types="cpu")
+def _paged_write_op(arenas: list[torch.Tensor], srcs: list[torch.Tensor],
+                    slots: torch.Tensor, nbits: int, es: int) -> None:
+    paged_write_plain(list(zip(arenas, srcs)), slots, _BY_BITS[nbits, es])
+
+
+@_paged_write_op.register_kernel("cuda")
+def _paged_write_cuda(arenas, srcs, slots, nbits, es):
+    call = _paged_write_call(list(zip(arenas, srcs)), slots, _BY_BITS[nbits, es])
+    _build.check(call(), "posit_paged_write")
     launches["posit_paged_write"] += 1
+
+
+@_paged_write_op.register_fake
+def _paged_write_fake(arenas, srcs, slots, nbits, es):
+    return None
 
 
 def paged_write_call(jobs, slots: torch.Tensor, cfg: PositConfig, floor: bool = False):

@@ -73,6 +73,27 @@ def make_mesh(shape, names, device_type: str = "cpu"):
     return init_device_mesh(device_type, shape, mesh_dim_names=names)
 
 
+def fake_mesh(shape, names, device_type: str = "cuda"):
+    """A mesh of ``shape`` over axes ``names`` at its full world size in
+    this one process, as rank 0 of a fake process group: the dry run's
+    ``16x16`` (``("data", "model")``, 256 ranks) or ``2x16x16``
+    (``("pod", "data", "model")``, 512).  The collectives then run on
+    fake tensors and move nothing.  Uses ``FakeStore`` and the ``"fake"``
+    backend of ``torch.testing._internal.distributed.fake_pg``, a private
+    module of torch (present in 2.11 and 2.13); it joins the default
+    process group, so a process holds one fake mesh at a time
+    (``torch.distributed.destroy_process_group`` leaves it)."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    n = 1
+    for k in shape:
+        n *= int(k)
+    if dist.is_initialized():
+        raise RuntimeError("fake_mesh: a process group is already initialised")
+    dist.init_process_group("fake", rank=0, world_size=n, store=FakeStore())
+    return make_mesh(shape, names, device_type)
+
+
 def backend_for(devices) -> str:
     """``"nccl"`` when every rank has a card of its own, else ``"gloo"``."""
     devs = [torch.device(d) for d in devices]

@@ -371,13 +371,13 @@ def decode_step(params, cache, token, cfg: ModelConfig, active=None, tp=None):
         k = L.apply_rope(k, positions, cfg.rope_theta)
         if li in glb_index:
             kc, vc = cache["k_glb"][glb_index[li]], cache["v_glb"][glb_index[li]]
-            T._write_kv([(kc, k[:, 0]), (vc, v[:, 0])], glb_slots, cfg)
+            T._write_kv([(kc, k[:, 0]), (vc, v[:, 0])], glb_slots, cfg, dense=True)
             att = L.decode_attention(q, kc, vc, pos + 1, cfg=cfg,
                                      kv_posit=cfg.kv_posit)
         else:
             # ring buffer: written at pos % T, rotation-aware masking
             kc, vc = cache["k_swa"][li], cache["v_swa"][li]
-            T._write_kv([(kc, k[:, 0]), (vc, v[:, 0])], ring_slots, cfg)
+            T._write_kv([(kc, k[:, 0]), (vc, v[:, 0])], ring_slots, cfg, dense=True)
             att = L.decode_attention(q, kc, vc, pos + 1, cfg=cfg,
                                      kv_posit=cfg.kv_posit, ring=True)
         att = L.rms_norm(lp["attn_norm"], att.reshape(b, 1, cfg.n_heads * hd), cfg, mix)

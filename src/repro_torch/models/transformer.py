@@ -463,19 +463,21 @@ def _maybe_quant_kv(x, cfg: ModelConfig):
     return x.to(L.cdtype(cfg))
 
 
-def _write_kv(jobs, slots, cfg: ModelConfig):
+def _write_kv(jobs, slots, cfg: ModelConfig, dense: bool = False):
     """Store KV rows into their arena slots, in place.  ``jobs`` is a
     list of ``(arena leaf of one layer, (R, *feat) rows)``; ``slots``
     the rows' dense flat slots (``layers.paged_write_slots`` or
-    ``layers.paged_pack_slots``, -1 drops).  Posit KV: one fused
-    quantize-and-write launch, drops skipped on the device; otherwise
-    the compute-dtype cast and the masked scatter."""
+    ``layers.paged_pack_slots``, -1 drops; ``dense``: every slot in
+    range, the linear writes' ``layers.linear_write_slots`` behind a
+    capacity check).  Posit KV: one fused quantize-and-write launch,
+    drops skipped on the device; otherwise the compute-dtype cast and
+    the scatter, masked unless ``dense`` (no host sync then)."""
     if cfg.kv_posit:
         posit_codec.paged_write([(a, x.contiguous()) for a, x in jobs], slots,
                                 L.pcfg(cfg.kv_posit))
     else:
         posit_codec.scatter_slots([(a, _maybe_quant_kv(x, cfg)) for a, x in jobs],
-                                  slots)
+                                  slots, dense)
 
 
 def paged_table_width(cfg: ModelConfig, block_size: int,
@@ -892,7 +894,7 @@ def _decode_step_paged(params, cache, token, cfg: ModelConfig, active, tp=None):
 
 
 def _decode_attn_dense(p, x, k_cache, v_cache, pos: int, lens, slots,
-                       cfg: ModelConfig, tp=None):
+                       cfg: ModelConfig, tp=None, dense: bool = True):
     """One layer of linear dense/GQA decode: write every row's new K/V
     at the shared frontier ``pos`` (``slots`` from
     ``layers.linear_write_slots``: ``pos % T`` on a ring), then attend
@@ -904,7 +906,7 @@ def _decode_attn_dense(p, x, k_cache, v_cache, pos: int, lens, slots,
     v = L.dense(p["wv"], x, cfg).reshape(b, 1, cfg.n_kv_heads, cfg.head_dim)
     q = L.apply_rope(q, lens[:, None], cfg.rope_theta)
     k = L.apply_rope(k, lens[:, None], cfg.rope_theta)
-    _write_kv([(k_cache, k[:, 0]), (v_cache, v[:, 0])], slots, cfg)
+    _write_kv([(k_cache, k[:, 0]), (v_cache, v[:, 0])], slots, cfg, dense)
     out = L.decode_attention(
         q, k_cache, v_cache, pos + 1, cfg=cfg, kv_posit=cfg.kv_posit,
         window=cfg.sliding_window or 0, start=pos - lens, ring=ring)
@@ -912,7 +914,7 @@ def _decode_attn_dense(p, x, k_cache, v_cache, pos: int, lens, slots,
 
 
 def _decode_attn_mla(p, x, c_cache, r_cache, pos: int, lens, slots,
-                     cfg: ModelConfig, tp=None):
+                     cfg: ModelConfig, tp=None, dense: bool = True):
     """One layer of linear absorbed-matrix MLA decode: write the new
     latent and RoPE key at ``pos``, dequantize the whole latent cache and
     attend in latent space with a plain softmax (the reference's own
@@ -928,7 +930,7 @@ def _decode_attn_mla(p, x, c_cache, r_cache, pos: int, lens, slots,
     c_new = L.rms_norm(p["kv_norm"], c_new, cfg)
     r_new = L.apply_rope(r_new[:, :, None, :], lens[:, None],
                          cfg.rope_theta)[:, :, 0, :]
-    _write_kv([(c_cache, c_new[:, 0]), (r_cache, r_new[:, 0])], slots, cfg)
+    _write_kv([(c_cache, c_new[:, 0]), (r_cache, r_new[:, 0])], slots, cfg, dense)
 
     c, r = c_cache, r_cache
     if cfg.kv_posit:                       # both leaves in one launch, f32
@@ -974,13 +976,14 @@ def _decode_step_linear(params, cache, token, cfg: ModelConfig, active, tp=None)
         else torch.as_tensor(active, device=dev).to(torch.int32)
     k1, k2 = arena_keys(cfg)
     cap = cache[k1].shape[2]
-    slots = L.linear_write_slots(b, cap, pos, ring=not cfg.mla and _is_ring(cfg, cap),
-                                 device=dev)
+    ring = not cfg.mla and _is_ring(cfg, cap)
+    slots = L.linear_write_slots(b, cap, pos, ring=ring, device=dev)
+    dense = ring or pos < cap              # else every slot is -1: the write drops
     attend = _decode_attn_mla if cfg.mla else _decode_attn_dense
     x = _embed(params, token[:, None], cfg, tp=tp)
     for li, lp in enumerate(params["layers"]):
         x = x + attend(lp["attn"], L.rms_norm(lp["ln1"], x, cfg),
-                       cache[k1][li], cache[k2][li], pos, lens, slots, cfg, tp)
+                       cache[k1][li], cache[k2][li], pos, lens, slots, cfg, tp, dense)
         x = _block_mlp(lp, x, cfg, tp)
     new_cache = dict(cache, len=pos + 1, lens=lens + adv)
     x = L.rms_norm(params["final_norm"], x, cfg)

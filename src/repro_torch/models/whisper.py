@@ -307,7 +307,7 @@ def decode_step(params, cache, token, cfg: ModelConfig, tp=None):
     for li, lp in enumerate(params["dec_layers"]):
         q, k, v = _qkv(lp["self"], L.layer_norm(lp["ln1"], x), cfg)
         kc, vc = cache["k"][li], cache["v"][li]
-        T._write_kv([(kc, k[:, 0]), (vc, v[:, 0])], slots, cfg)
+        T._write_kv([(kc, k[:, 0]), (vc, v[:, 0])], slots, cfg, dense=True)
         a = L.decode_attention(q, kc, vc, pos + 1, cfg=cfg, kv_posit=cfg.kv_posit)
         x = x + L.dense_row(lp["self"]["wo"], a.reshape(b, 1, -1), cfg, heads)
         xin = L.layer_norm(lp["ln_x"], x)

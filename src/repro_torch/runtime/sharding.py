@@ -645,6 +645,20 @@ class NamedSharding:
     mesh: object
     spec: tuple
 
+    def shard_shape(self, shape) -> tuple:
+        """The shape of this placement's piece of a whole leaf of
+        ``shape`` (the counterpart of ``jax.sharding.NamedSharding.
+        shard_shape``); a :class:`Segments` dim takes its local size."""
+        sizes = axis_sizes(self.mesh)
+        out = []
+        for n, axis in zip(shape, tuple(self.spec) + (None,) * (len(shape) - len(self.spec))):
+            if isinstance(axis, Segments):
+                n = axis.local_size(sizes[axis.axis])
+            elif axis is not None:
+                n = n // _entry_size(axis, sizes)
+            out.append(n)
+        return tuple(out)
+
     def shard(self, x: torch.Tensor) -> torch.Tensor:
         for dim, axis in enumerate(self.spec):
             if axis is None:
@@ -710,6 +724,25 @@ def _placer(mesh, cfg, fsdp: bool):
             spec = _add_fsdp_axis(spec, whole, n_data)
         return spec
     return place
+
+
+def ef_shardings(params, mesh, cfg: ModelConfig):
+    """The error feedback's placements in the pod-compressed step, the
+    counterpart of the reference dry run's ``_ef_shardings``: each
+    residual, viewed globally as ``(n_pods, *leaf)``, is placed as
+    ``("pod",) +`` its parameter's placement (:func:`param_shardings`
+    with ``fsdp=cfg.fsdp``), so that a rank's residual is shaped like
+    its parameter's piece (``gradient.init_error_state`` on the pieces).
+    The reference always adds the ZeRO axis here (``fsdp=True``); where
+    ``cfg.fsdp`` is off the port's rank holds the residual of its whole
+    parameter, whole over ``"data"`` (ROADMAP.md, deliberate
+    divergences).  No dim carries two axes."""
+    def one(sh):
+        if "pod" in sh.spec:
+            raise ValueError(f"a parameter placed over 'pod' already: {sh.spec}")
+        return NamedSharding(mesh, ("pod",) + tuple(sh.spec))
+    return _map_with_paths(lambda path, sh: one(sh),
+                           param_shardings(params, mesh, cfg=cfg, fsdp=cfg.fsdp))
 
 
 def fsdp_dims(params, mesh, cfg: ModelConfig) -> list:

@@ -52,7 +52,19 @@ rank), where the reference lets GSPMD place a jitted step:
   ``"pod"`` at their own two bytes an element (``collectives.
   gather_axis``), row 2 decodes the gathered ``(n_pods, ...)`` leaf in
   one launch, and the f32 mean over pods feeds AdamW.  ``ef_state`` is
-  this pod's residual, shaped like the rank's parameters.
+  this pod's residual, shaped like the rank's parameters
+  (``sharding.ef_shardings``).  Under ``cfg.fsdp`` (the reference's dry
+  run reaches this in its multi-pod train cells) the gradient arrives
+  as the rank's FSDP pieces, reduce-scattered over ``"data"`` within the
+  pod (``DataShards``); the residual, the patterns on the pod wire and
+  the update are then the pieces', each the slice of what the step
+  without FSDP computes, so the pod wire a rank carries falls to
+  1/``"data"`` of that step's.
+
+Serving: :func:`make_prefill_step` and :func:`make_serve_step` under a
+mesh run a rank's shard through ``sharding.tensor_parallel(serve=True)``
+as ``Engine(mesh=)`` does (context-parallel prefill where the plan takes
+it), on the rank-local config.
 """
 from __future__ import annotations
 
@@ -230,8 +242,6 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
         raise NotImplementedError(
             f"the pod-compressed train step needs a pod mesh: a rank mesh whose "
             f"'pod' axis has n_pods={n_pods} ranks (make_mesh)")
-    if pod_step and cfg.fsdp:
-        raise NotImplementedError("the pod-compressed train step under FSDP")
     tp = None if mesh is None else sharding.tensor_parallel(cfg, mesh)
     grads_of = make_grad_fn(cfg, mesh, axes=("data",), accum=1) if pod_step \
         else make_grad_fn(cfg, mesh)
@@ -277,23 +287,39 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
     return train_step
 
 
-def make_serve_step(cfg: ModelConfig):
-    """One decode step: ``(params, cache, token) -> (logits, cache)``."""
+def _serve_plan(cfg: ModelConfig, mesh):
+    """``(rank-local config, keywords)`` of a serving step on ``mesh``:
+    the plan ``Engine(mesh=)`` runs (``tensor_parallel(serve=True)``)."""
+    tp = sharding.tensor_parallel(cfg, mesh, serve=True)
+    return sharding.local_config(cfg, tp), ({} if tp is None else {"tp": tp})
+
+
+def make_serve_step(cfg: ModelConfig, mesh=None):
+    """One decode step: ``(params, cache, token) -> (logits, cache)``.
+    With ``mesh``, each rank passes its shard of the parameters
+    (``sharding.shard_params``) and its share of the cache (the family's
+    ``init_cache`` on the rank-local config)."""
     fam = get_family(cfg)
+    lcfg, kw = _serve_plan(cfg, mesh)
 
     def serve_step(params, cache, token):
-        return fam.decode_step(params, cache, token, cfg)
+        return fam.decode_step(params, cache, token, lcfg, **kw)
 
     return serve_step
 
 
-def make_prefill_step(cfg: ModelConfig):
-    """``(params, batch) -> (cache, logits)``, with whisper's ``frames``
-    and a visual prefix passed on from the batch."""
+def make_prefill_step(cfg: ModelConfig, mesh=None):
+    """``(params, batch, max_len=None) -> (cache, logits)``, with
+    whisper's ``frames`` and a visual prefix passed on from the batch
+    (``max_len``: the cache's capacity, the family's default by
+    default).  With ``mesh``, each rank passes its shard of the
+    parameters and its rows of the batch, and gets its share of the
+    cache."""
     fam = get_family(cfg)
+    lcfg, kw = _serve_plan(cfg, mesh)
 
-    def prefill_step(params, batch):
+    def prefill_step(params, batch, max_len=None):
         kwargs = {k: batch[k] for k in ("frames", "visual") if k in batch}
-        return fam.prefill(params, batch["tokens"], cfg, **kwargs)
+        return fam.prefill(params, batch["tokens"], lcfg, max_len=max_len, **kwargs, **kw)
 
     return prefill_step

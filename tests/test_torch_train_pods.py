@@ -21,6 +21,15 @@ step.  The wire is compared bit for bit on one process instead: from
 the reference's own per-pod gradients (its ``vmap`` of
 ``value_and_grad``), the port's compress -> gather -> decompress -> mean
 gives the reference's patterns, new residuals and mean gradient.
+
+The same ranks then take the step under FSDP (``fsdp=True``, the
+reference dry run's multi-pod train cells): held to the reference's step
+as above, and to the step without FSDP bit for bit on the rank's pieces
+(the pod wire's patterns, the error feedback, the updated parameters),
+the pod wire per rank half of that step's, and its save restored on one
+device.  The same ranks run the serving steps under the mesh against
+one device (``make_prefill_step``/``make_serve_step(mesh=)``, the dry
+run's prefill and decode steps).
 """
 import json
 import os
@@ -117,7 +126,9 @@ def runs(tmp_path_factory):
     proc = subprocess.Popen([sys.executable, "-c", _SCRIPT, str(out)], env=env,
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     try:
-        ranks = M.spawn(TL.rank_pods, ["cpu"] * 8, (np_params,), timeout=300, threads=1)
+        ckdir = tmp_path_factory.mktemp("pods_fsdp_ckpt")
+        ranks = M.spawn(TL.rank_pods, ["cpu"] * 8, (np_params, str(ckdir)), timeout=300,
+                        threads=1)
         stdout, stderr = proc.communicate(timeout=600)
     finally:
         if proc.poll() is None:
@@ -159,6 +170,64 @@ def test_only_posit16_patterns_cross_the_pod_axis(runs):
         assert nbytes == 2 * 2 * r["n_elems"]
         assert set(pod) - set(grads) == {"pod/all_reduce/loss/float32"}
         assert pod["pod/all_reduce/loss/float32"] == [1, 4]
+
+
+def test_fsdp_pod_step_matches_reference(runs):
+    """The same step under FSDP (``cfg.fsdp``: each rank holds its pieces
+    over ``"data"``, the gradient reduce-scattered within its pod) on the
+    same eight ranks: the reference's compressed step within 1e-4, as
+    the step without FSDP is held."""
+    ref, ranks = runs["ref"], runs["ranks"]
+    for r in ranks:
+        assert abs(r["fsdp"]["loss"] - ref["loss"]) < 1e-4, (r["fsdp"]["loss"], ref["loss"])
+    np.testing.assert_allclose(ranks[0]["fsdp"]["grad_norm"], ref["grad_norm"], rtol=1e-4)
+    got = dict(TT.leaves_with_paths(ranks[0]["fsdp"]["params"]))
+    assert sorted(got) == sorted(ref["params"])
+    for path, want in ref["params"].items():
+        assert got[path].shape == want.shape, path
+        assert float(np.abs(got[path] - want).max()) < 1e-4, path
+
+
+def test_fsdp_pod_step_is_the_sliced_step_bit_for_bit(runs):
+    """Each rank's FSDP pieces after the step, its patterns on the pod
+    wire and its new error feedback are the step's without FSDP, sliced
+    to the rank's pieces, bit for bit; its loss and gradient norm equal
+    that step's."""
+    for r in runs["ranks"]:
+        f = r["fsdp"]
+        assert f["sliced_equal"], f["differ"]
+        assert f["loss"] == r["loss"]
+        assert f["grad_norm"] == r["grad_norm"]
+
+
+def test_fsdp_pod_wire_is_half_and_posit16(runs):
+    """Under FSDP only posit16 patterns of the rank's pieces cross "pod"
+    (beside the loss's f32), and, every leaf of the reduced model
+    splitting over data 2, half the bytes of the step without FSDP."""
+    for r in runs["ranks"]:
+        f = r["fsdp"]
+        assert f["n_split"] == f["n_leaves"]
+        pod = {k: v for k, v in f["wire"].items() if k.startswith("pod/")}
+        assert set(pod) == {"pod/broadcast/grad/uint16", "pod/all_reduce/loss/float32"}, pod
+        assert pod["pod/broadcast/grad/uint16"][1] == 2 * 2 * f["n_elems"]
+        assert 2 * pod["pod/broadcast/grad/uint16"][1] == \
+            r["wire"]["pod/broadcast/grad/uint16"][1]
+
+
+def test_fsdp_pod_save_restores_on_one_device(runs):
+    """The FSDP pod step's pieces and optimizer state saved under the
+    mesh (each leaf gathered whole) and restored on one device: every
+    rank's pieces of the whole leaves are its own, bit for bit."""
+    assert all(r["fsdp"]["restored_equal"] for r in runs["ranks"])
+
+
+def test_serve_steps_under_the_mesh_match_one_device(runs):
+    """``make_prefill_step(mesh=)`` and ``make_serve_step(mesh=)`` on each
+    rank's shard (the KV heads split over "model" 2, the cache the
+    rank's share) give one device's logits within 1e-4 (f32)."""
+    for r in runs["ranks"]:
+        assert r["serve"]["kv_split"]
+        assert r["serve"]["prefill"] < 1e-4 and r["serve"]["decode"] < 1e-4, r["serve"]
 
 
 def test_the_wire_is_the_references_bit_for_bit():

@@ -240,43 +240,136 @@ def one_device_grads(np_params, arch: str, dtype: str):
     return params_to_jax(TT.tree_map(torch.clone, grads))
 
 
-def rank_pods(ref_params) -> dict:
-    """One gloo rank of the compressed gate: internvl2-1b at pod 2 x
-    data 2 x model 2, one pod-compressed step on the pod-tiled batch
-    (seed 9).  Returns the loss, whether this rank's error feedback is
-    non-zero and the collectives on the wire; rank 0 the whole
-    parameters after the step too."""
+def _pod_step(ref_params, cfg, mesh, batch):
+    """One pod-compressed step of ``cfg`` on ``mesh`` from the reference's
+    weights: ``(params, opt, ef, metrics, wire, sent)``, ``sent`` the
+    patterns this rank put on the pod wire, leaf by leaf (the gathered
+    ``(n_pods, ...)`` tensors)."""
     import torch
-    import torch.distributed as dist
 
-    from repro_torch import configs
-    from repro_torch import tree as TT
     from repro_torch.compress import gradient as gc
-    from repro_torch.data.pipeline import DataConfig, Pipeline
-    from repro_torch.launch.mesh import make_mesh
     from repro_torch.optim import adamw
     from repro_torch.runtime import collectives, train_loop
 
-    cfg = pod_config(configs)
-    mesh = make_mesh(POD_MESH, ("pod", "data", "model"))
     params = _rank_params(ref_params, cfg, mesh)
     opt_cfg = adamw.AdamWConfig(lr=LR)
     opt = adamw.init(params, opt_cfg)
     ef = gc.init_error_state(params)
-    batch = Pipeline(DataConfig(seed=POD_SEED), cfg, BATCH, SEQ, device="cpu").batch_at(0)
     n_pods = POD_MESH[0]
     tiled = {k: v.reshape((n_pods, BATCH // n_pods) + tuple(v.shape[1:]))
              for k, v in batch.items()}
     step = train_loop.make_train_step(cfg, opt_cfg, n_pods=n_pods, compressed=True,
                                       mesh=mesh)
+    sent, gather = [], collectives.gather_axis
+
+    def recording(t, mesh, axis, what="grad"):
+        out = gather(t, mesh, axis, what)
+        if axis == "pod":
+            sent.append(out.clone())
+        return out
     collectives.wire.clear()
-    params, opt, ef, m = step(params, opt, ef, tiled, 0)
+    train_loop.C.gather_axis = recording
+    try:
+        params, opt, ef, m = step(params, opt, ef, tiled, 0)
+    finally:
+        train_loop.C.gather_axis = gather
     wire = {"/".join(k): v for k, v in collectives.wire.items()}
+    return params, opt, ef, m, wire, [torch.clone(x) for x in sent]
+
+
+def rank_pods(ref_params, ckdir=None) -> dict:
+    """One gloo rank of the compressed gate: internvl2-1b at pod 2 x
+    data 2 x model 2, one pod-compressed step on the pod-tiled batch
+    (seed 9).  Returns the loss, whether this rank's error feedback is
+    non-zero and the collectives on the wire; rank 0 the whole
+    parameters after the step too.  Then the same step under FSDP
+    (``cfg.fsdp``, the same ranks): under ``"fsdp"`` its loss, norm,
+    wire, whole parameters (rank 0), whether its pod patterns, error
+    feedback and updated pieces are the step's without FSDP sliced to
+    this rank's pieces bit for bit (``sliced_equal``, with the paths
+    that differ), and, with ``ckdir``, whether its pieces saved under
+    the mesh and restored whole on one device give them back bit for
+    bit (``restored_equal``).  Under ``"serve"``, the serving steps on
+    the same mesh against one device (:func:`_serve_steps`)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch import tree as TT
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.data.pipeline import DataConfig, Pipeline
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import sharding
+    from repro_torch.weights import params_from_jax
+
+    cfg = pod_config(configs)
+    mesh = make_mesh(POD_MESH, ("pod", "data", "model"))
+    batch = Pipeline(DataConfig(seed=POD_SEED), cfg, BATCH, SEQ, device="cpu").batch_at(0)
+    params, opt, ef, m, wire, sent = _pod_step(ref_params, cfg, mesh, batch)
     n_elems = sum(p.numel() for p in TT.leaves(params))
     whole = _whole(params, mesh, cfg)           # every rank of "model" takes part
-    return dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]), wire=wire,
-                n_elems=n_elems, ef_nonzero=any(bool(torch.any(e != 0)) for e in TT.leaves(ef)),
-                params=None if dist.get_rank() else whole)
+    out = dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]), wire=wire,
+               n_elems=n_elems, ef_nonzero=any(bool(torch.any(e != 0)) for e in TT.leaves(ef)),
+               params=None if dist.get_rank() else whole)
+
+    fcfg = dataclasses.replace(cfg, fsdp=True)
+    fp, fopt, fef, fm, fwire, fsent = _pod_step(ref_params, fcfg, mesh, batch)
+    dims = sharding.fsdp_dims(fp, mesh, fcfg)
+    rank, n = mesh.get_local_rank("data"), sharding.axis_sizes(mesh)["data"]
+
+    def sliced(x, d, lead=0):
+        if d is None:
+            return x
+        k = x.shape[d + lead] // n
+        return x.narrow(d + lead, rank * k, k)
+    differ = []
+    for (path, p), d, w, q, fq, e, fe in zip(TT.leaves_with_paths(fp), dims, TT.leaves(params),
+                                             sent, fsent, TT.leaves(ef), TT.leaves(fef)):
+        for what, a, b in (("param", p, sliced(w, d)), ("patterns", fq, sliced(q, d, 1)),
+                           ("ef", fe, sliced(e, d))):
+            if a.shape != b.shape or not np.array_equal(bits(a), bits(b)):
+                differ.append(f"{what}:{path}")
+    fout = dict(loss=float(fm["loss"]), grad_norm=float(fm["grad_norm"]), wire=fwire,
+                n_elems=sum(p.numel() for p in TT.leaves(fp)),
+                n_split=sum(d is not None for d in dims), n_leaves=len(dims),
+                sliced_equal=not differ, differ=differ[:20],
+                params=_whole(fp, mesh, fcfg))
+    if ckdir is not None:
+        state = {"params": fp, "opt": fopt}
+        sh = state_shardings(state, mesh, fcfg)
+        Checkpointer(ckdir, keep=1, mesh=mesh).save(1, state, shardings=sh)
+        whole_p = params_from_jax(ref_params, fcfg, device="cpu")
+        template = {"params": whole_p, "opt": adamw.init(whole_p, adamw.AdamWConfig(lr=LR))}
+        restored, _ = Checkpointer(ckdir, keep=1).restore(1, template, device="cpu")
+        fout["restored_equal"] = all(
+            np.array_equal(bits(s.shard(r)), bits(x)) for r, s, x in
+            zip(TT.leaves(restored), TT.leaves(sh), TT.leaves(state)))
+    if dist.get_rank():
+        fout["params"] = None
+    out["fsdp"] = fout
+    out["serve"] = _serve_steps(ref_params, cfg, mesh, batch)
+    return out
+
+
+def _serve_steps(ref_params, cfg, mesh, batch) -> dict:
+    """``make_prefill_step`` and ``make_serve_step`` on this rank's shard
+    of ``mesh`` against one device's: the largest logit differences of
+    a 16-token prefill and of one greedy decode step."""
+    from repro_torch.runtime import sharding, train_loop
+    from repro_torch.weights import params_from_jax
+
+    whole = params_from_jax(ref_params, cfg, device="cpu")
+    local = sharding.shard_params(whole, mesh, cfg)
+    toks = {"tokens": batch["tokens"][:, :16]}
+    cache1, logits1 = train_loop.make_prefill_step(cfg)(whole, toks, max_len=24)
+    cache_m, logits_m = train_loop.make_prefill_step(cfg, mesh)(local, toks, max_len=24)
+    tok = logits1.argmax(-1)
+    step1, _ = train_loop.make_serve_step(cfg)(whole, cache1, tok)
+    step_m, _ = train_loop.make_serve_step(cfg, mesh)(local, cache_m, tok)
+    return dict(prefill=float((logits1 - logits_m).abs().max()),
+                decode=float((step1 - step_m).abs().max()),
+                kv_split=tuple(cache_m["k"].shape) != tuple(cache1["k"].shape))
 
 
 # ---------------------------------------------------------------------------

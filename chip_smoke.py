@@ -148,6 +148,13 @@ paths at full size and checks that every kernel of each path ran there:
   bytes and launches equal, the counted peak within ``P1_PEAK_RTOL`` of
   ``max_memory_allocated``; (p2) ``P2_CELLS`` traced on fake CUDA
   tensors at their production meshes (counted, not measured);
+- (q) the six examples (``repro_torch.examples``: quickstart,
+  posit_convolution, serve_posit_kv, gradient_compression, train_lm,
+  elastic_restart) at the reference's settings: train_lm in a process
+  of its own (``--phase examples-train``) beside (j), (T2), (l) and
+  (o), the other five in the main process beside (m) and (n)
+  (``--phase examples``: all six alone); each self-check held and each
+  example's kernels (``Q_KERNELS``) launched on the card;
 - the PVU ISA (``posit_ew.cu``, ``posit_dot.cu``, ``posit_qgemm.cu``,
   ``posit_gemm.cu``): the paper's verification workload
   (``configs/pvu_resnet_conv.py``, the ResNet-18 first conv on 8 images
@@ -167,6 +174,8 @@ paths at full size and checks that every kernel of each path ran there:
     python3 chip_smoke.py --phase cp               # (o1), (o2) alone
     python3 chip_smoke.py --phase pod-fsdp         # (o4) alone
     python3 chip_smoke.py --phase dryrun           # (p) alone
+    python3 chip_smoke.py --phase examples         # (q) alone
+    python3 chip_smoke.py --phase examples-train   # (q)'s train_lm alone
     python3 chip_smoke.py --ptxas  # only: -Xptxas -v (registers, shared
                                    # memory, spills) of paged_attn.cu,
                                    # paged_attn_mla.cu, posit_gemm.cu,
@@ -200,6 +209,7 @@ from __future__ import annotations
 
 import contextlib
 import gc
+import io
 import json
 import math
 import multiprocessing
@@ -208,6 +218,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -2652,14 +2663,18 @@ def start_phase_process(phase):
     out = tempfile.TemporaryFile(mode="w+")
     proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--phase", phase],
                             stdout=out, text=True)
-    return phase, proc, out, time.perf_counter()
+    # the child's exit time, for its wall when this process joins it later
+    ended = []
+    threading.Thread(target=lambda: ended.append((proc.wait(), time.perf_counter())[1]),
+                     daemon=True).start()
+    return phase, proc, out, time.perf_counter(), ended
 
 
 def finish_phase_process(handle, timeout=900):
     """Wait for a started phase: its lines echoed, its result (the line
     tagged ``PHASE_TAG``) returned; a non-zero exit or no result fails
     the smoke."""
-    phase, proc, out, t0 = handle
+    phase, proc, out, t0, ended = handle
     try:
         rc = proc.wait(timeout=max(1.0, timeout - (time.perf_counter() - t0)))
     except subprocess.TimeoutExpired:
@@ -2674,7 +2689,8 @@ def finish_phase_process(handle, timeout=900):
         else:
             print(line)
     out.close()
-    print(f"phase {phase}: its process took {time.perf_counter() - t0:.1f} s", flush=True)
+    took = (ended[0] if ended else time.perf_counter()) - t0
+    print(f"phase {phase}: its process took {took:.1f} s", flush=True)
     if rc != 0 or result is None:
         fail(f"the {phase} phase exited {rc}")
     return result
@@ -4164,10 +4180,72 @@ def dryrun_phase(dev):
     return dict(counts=p1.pop("counts"), p1=p1, cells=cells, wall=wall)
 
 
+# ---------------------------------------------------------------------------
+# (q) the six examples on the card (``--phase examples``; in the whole
+# smoke, in the main process beside (m) and (n))
+# ---------------------------------------------------------------------------
+
+Q_KERNELS = {   # example: the kernels its run launches on the card
+    "quickstart": ("posit_quantize", "posit_dequantize", "posit_ew"),
+    "posit_convolution": ("posit_quantize", "posit_dequantize", "posit_dot", "posit_ew"),
+    # the one-shot engine's posit16 cache: quantize at prefill, the fused
+    # write and the cache's dequantize at each decode step; the paged half
+    # takes the engine's default decode kernel, gather, as the reference's
+    "serve_posit_kv": ("posit_quantize", "posit_dequantize", "posit_paged_write"),
+    "gradient_compression": ("posit_quantize", "posit_dequantize"),
+    "train_lm": ("posit_quantize", "posit_dequantize"),
+    # f32 moments and checkpoint: no posit kernel, as in the reference
+    "elastic_restart": (),
+}
+
+
+# the whole smoke runs these in a process of their own (``--phase
+# examples-train``) beside (j), (T2), (l) and (o)
+Q_CHILD = ("train_lm",)
+
+
+def examples_phase(dev, names=None):
+    """(q): each example of ``names``, its ``run("cuda")`` at the
+    reference's settings, its self-check (``check``) held and its kernels
+    (``Q_KERNELS``) launched on the card; elastic_restart's two ranks are
+    this process's children (gloo, sharing the card).  ``names``: all six
+    by default.  Returns the launches and walls."""
+    import importlib
+
+    names = tuple(Q_KERNELS) if names is None else names
+    counts, walls = {}, {}
+    t_phase = time.perf_counter()
+    for name in names:
+        kernels = Q_KERNELS[name]
+        mod = importlib.import_module(f"repro_torch.examples.{name}")
+        reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            res = mod.run(str(dev))
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        got = read_counts()
+        try:
+            mod.check(res)
+        except AssertionError as e:
+            fail(f"(q) {name}: the example's self-check failed: {e}")
+        missing = [k for k in kernels if got[k] <= 0]
+        if missing:
+            fail(f"(q) {name}: {missing} not launched on the card ({got})")
+        counts[name] = got
+        print(f"(q) {name}: self-check held in {walls[name]:.1f} s; launches "
+              f"{ {k: v for k, v in got.items() if v} }; {CARD}", flush=True)
+    wall = time.perf_counter() - t_phase
+    print(f"(q) phase wall {wall:.1f} s ({', '.join(names)})")
+    total = {k: sum(c[k] for c in counts.values()) for k in read_counts()}
+    return dict(counts=total, by_example=counts, walls=walls, wall=wall)
+
+
 PHASES = {"train": train_phase, "train-families": train_families_phase, "tp": tp_phase,
           "tp-linear": tp_linear_phase, "train-ranks": train_ranks_phase,
           "train-model": train_model_phase, "train-seq": train_seq_phase, "cp": cp_phase,
-          "pod-fsdp": pod_fsdp_phase, "dryrun": dryrun_phase}
+          "pod-fsdp": pod_fsdp_phase, "dryrun": dryrun_phase, "examples": examples_phase,
+          "examples-train": lambda dev: examples_phase(dev, Q_CHILD)}
 
 
 def run_phase(name):
@@ -4856,6 +4934,9 @@ def run(pool):
     # its own as the training phases; beside it (T2) a step of each family
     # (two processes on the one card: their walls carry each other's load;
     # (k) would not fit beside (j), its (o3) holding some 44 GB)
+    # (q)'s train_lm (300 host-bound steps) in a process of its own beside
+    # (j), (T2), (l) and (o)
+    q_handle = start_phase_process("examples-train")
     families_handle = start_phase_process("train-families")
     by_path.update(run_phase_process("tp")["counts"])
     by_path["train_families"] = finish_phase_process(families_handle)["counts"]
@@ -4865,6 +4946,7 @@ def run(pool):
     cp_handle = start_phase_process("cp")
     by_path.update(run_phase_process("tp-linear")["counts"])
     by_path.update(finish_phase_process(cp_handle)["counts"])
+    q_counts = finish_phase_process(q_handle)["counts"]
     # training, each phase in its own process: (T) the main training
     # path alone; (k) training across ranks and (o3) FSDP on the same two
     # ranks (run above), held to (T)
@@ -4881,8 +4963,13 @@ def run(pool):
     # and (n) the sequence layout across ranks, side by side: two
     # processes on the one card, whose ranks already share it over gloo
     # (no wall of theirs is a speed); (n1) held to (T) as (k1) is
+    # (q)'s other five examples run in this process meanwhile (their walls
+    # carry the two phases' load)
     seq_handle = start_phase_process("train-seq")
-    modeled = run_phase_process("train-model")
+    model_handle = start_phase_process("train-model")
+    q_rest = examples_phase(dev, tuple(n for n in Q_KERNELS if n not in Q_CHILD))
+    by_path["examples"] = {k: v + q_rest["counts"][k] for k, v in q_counts.items()}
+    modeled = finish_phase_process(model_handle)
     by_path["train_model"] = modeled["counts"]
     seqd = finish_phase_process(seq_handle)
     n1 = seqd["archs"]["n1"]["ranks"]

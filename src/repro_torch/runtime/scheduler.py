@@ -517,7 +517,8 @@ class Scheduler:
             fresh = self._alloc(used)
             block_ids[:used] = fresh
         self._tables[row] = block_ids
-        self.cache["lens"][row] = suffix_start
+        # row is a free slot of _admit (an index into self._slots): in range
+        self.cache["lens"][row] = suffix_start  # positcheck: disable=PVU001
         self._set_device_tables()
         self._row_blocks[row] = list(fresh)
         self._row_borrowed[row] = borrowed

@@ -22,7 +22,10 @@ share of ``xs``, ``gate`` and ``dt``, the whole ``B`` and ``C``): the
 ranks' losses are one device's within 1e-5, the save restores whole on
 one device with each rank's leaves its cut bit for bit, segments
 included, and restores onto a ``(data 1, model 4)`` placement.  Weights
-come from the reference's ``init_params``.
+come from the reference's ``init_params``.  The same spawn runs the port's
+``examples/elastic_restart`` phase 1 (its own seed-0 weights, 20 steps at
+``(data 2, model 1)``); its checkpoint restores on one device and the
+next 10 steps start below the first loss (the example's self-check).
 """
 import dataclasses
 
@@ -62,7 +65,7 @@ def runs(tmp_path_factory):
     """An uninterrupted single-device run (its state saved after two
     steps to ``one``), then the ranks' moves."""
     base = tmp_path_factory.mktemp("elastic")
-    dirs = {k: str(base / k) for k in ("one", "dp", "tp", "fsdp", "segments")}
+    dirs = {k: str(base / k) for k in ("one", "dp", "tp", "fsdp", "segments", "example")}
     by_arch = {}
     for arch in (TL.ELASTIC_ARCH, TL.SEGMENTS_ARCH):
         rc = TL.lane_config(RCFG, arch)
@@ -305,3 +308,17 @@ def test_segments_checkpoint_restores_onto_another_mesh(runs):
             if path.endswith("in_proj/w"):
                 assert spec == (None, None)
         assert any("model" in spec for spec in specs)
+
+
+def test_elastic_restart_example_resumes_on_one_device(runs):
+    """The elastic_restart example: its two ranks' losses agree (data
+    parallel, the loss all-reduced); its checkpoint restores on one
+    device at step 20 and the resumed loss starts below the first."""
+    from repro_torch.examples import elastic_restart as EX
+
+    ranks = [r["example"] for r in runs["ranks"]]
+    assert len(ranks[0]) == EX.RANK_STEPS
+    np.testing.assert_allclose(ranks[1], ranks[0], rtol=1e-6)
+    res = EX.resume(runs["dirs"]["example"], "cpu")
+    assert res["step0"] == EX.RANK_STEPS and len(res["resumed"]) == EX.RESUME_STEPS
+    EX.check(dict(losses=ranks[0], **res))

@@ -417,11 +417,14 @@ def rank_elastic(np_params, dirs) -> dict:
     ``dirs["fsdp"]``; then restore ``dirs["one"]`` (a single device's
     checkpoint) at ``(data 1, model 2)`` and run the next step; then
     train hymba ``ELASTIC_STEPS`` steps at ``SEGMENTS_MESH`` and save to
-    ``dirs["segments"]``.  ``np_params``: the reference's weights by
+    ``dirs["segments"]``; then the elastic_restart example's two ranks
+    (``examples.elastic_restart.train_ranks``), saving to
+    ``dirs["example"]``.  ``np_params``: the reference's weights by
     architecture.  Each rank returns, for ``"dp"``, ``"tp"``, ``"fsdp"``
     and ``"segments"``, its losses and its state's leaves (bits) with their
-    specs at the save, and for ``"one"`` the restored leaves (bits),
-    their specs and the next step's loss."""
+    specs at the save, for ``"one"`` the restored leaves (bits), their
+    specs and the next step's loss, and for ``"example"`` the example's
+    losses."""
     from repro_torch import configs
     from repro_torch import tree as TT
     from repro_torch.checkpoint.checkpointer import Checkpointer
@@ -475,4 +478,9 @@ def rank_elastic(np_params, dirs) -> dict:
     Checkpointer(dirs["segments"], keep=1, mesh=mesh).save(ELASTIC_STEPS, state, shardings=sh)
     out["segments"] = dict(losses=losses, leaves=[bits(x) for x in TT.leaves(state)],
                            specs=[s.spec for s in TT.leaves(sh)])
+
+    # the elastic_restart example's phase 1: its own model and steps,
+    # saved to dirs["example"]
+    from repro_torch.examples import elastic_restart
+    out["example"] = elastic_restart.train_ranks(dirs["example"], ["cpu", "cpu"])
     return out
